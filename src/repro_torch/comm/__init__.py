@@ -1,0 +1,1 @@
+"""Comm of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""Configs of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""Core of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""Kernels of the PyTorch port (see the package docstring)."""

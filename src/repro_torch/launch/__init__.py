@@ -1,0 +1,1 @@
+"""Launch of the PyTorch port (see the package docstring)."""

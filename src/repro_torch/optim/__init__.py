@@ -1,0 +1,1 @@
+"""Optim of the PyTorch port (see the package docstring)."""
