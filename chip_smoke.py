@@ -5,8 +5,9 @@
 
 from the root of a checkout, on a machine with one CUDA device.  It
 
-1. builds the four hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
-2. holds each kernel against its plain PyTorch version on the card, at the
+1. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` per source, all started together;
+2. holds each gossip kernel against its plain PyTorch version on the card, at the
    bucket lengths of the full-width run and at an odd length: QSGD codes
    (int8 and int16), sign codes and dequantize bit-equal, the EF update
    within 0 ulp (kernel and plain version round every operation
@@ -21,15 +22,36 @@ from the root of a checkout, on a machine with one CUDA device.  It
    with QSGD (s=16) and 3 with SignNorm, checking finite losses and that
    each kernel launched steps x gossip_steps x buckets times on its path,
    then profiles one more step of each;
-4. runs the launcher (``repro_torch.launch.train.main``) for a --smoke run;
-5. holds a small float32 run on the card against the same run on the CPU
-   (the plain versions), step by step;
-6. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+4. runs the training launcher (``repro_torch.launch.train.main``) for a
+   --smoke run;
+5. holds a small float32 training run on the card against the same run on
+   the CPU (the plain versions), step by step;
+6. holds the flash-attention kernel against its plain version at the
+   full-width prefill layer shape (32768 tokens, 16/8 heads, bf16,
+   causal), at an odd length (1000) and in f32 with a softcap, and times
+   kernel, plain version, ``scaled_dot_product_attention`` (the library
+   yardstick) and the bounds;
+7. prefills qwen3-1.7b at full width and full depth (28 layers) through
+   ``Model.prefill`` with ``attn_impl="chunked"``: one prompt of 32768
+   tokens (the ``prefill_32k`` shape, its batch of 32 cut to 1 for one
+   card), twice, checking 28 flash launches per call, finite logits and
+   the cache shapes, then profiles one more call;
+8. holds the full-width prefill's last-token logits (prompt 256, batch 2)
+   against a decode loop over the same tokens (the JAX consistency
+   test's bound, and the same argmax), and times and profiles one
+   full-width decode step at batch 8;
+9. serves the full-width model through the serve launcher
+   (``repro_torch.launch.serve.main``, batch 8, prompt 32, 32 generated
+   tokens, 2 requests): TTFT and per-token latency, no flash launch; then
+   holds the f32 smoke model's prefill plus 8 decode steps on the card
+   against the same on the CPU;
+10. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the repository's ``src/`` beside it, it exits non-zero and prints no result.
 """
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -51,7 +73,19 @@ N_NODES = 4
 STEPS = 3
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 ODD_LENGTH = 1_000_003
+GOSSIP_KERNELS = ("qsgd_codes_kernel", "sign_codes_kernel",
+                  "dequantize_kernel", "ef_update_kernel")
+FLASH_KERNELS = ("flash_attention_kernel",)
+#: (label, N, S, H, KV, Dh, dtype, causal, softcap); the first is the
+#: full-width prefill layer, and the one that is timed
+FLASH_CASES = (
+    ("prefill layer", 1, 32768, 16, 8, 128, "bfloat16", True, None),
+    ("odd length", 2, 1000, 16, 8, 128, "bfloat16", True, None),
+    ("f32 softcap", 2, 512, 8, 8, 64, "float32", False, 50.0),
+)
+PREFILL_CALLS = 2
 
 
 def check(cond, msg):
@@ -74,12 +108,13 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(tensors_in, tensors_out, flops):
+def bound_ms(tensors_in, tensors_out, flops, flops_per_s=F32_FLOPS_PER_S):
     """Least time for the work: the larger of bytes / HBM rate (each input
-    read once, each output written once) and f32 flops / f32 peak."""
+    read once, each output written once) and flops / the card's peak rate
+    for the inputs' type (f32 outside the tensor cores by default)."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors_in + tensors_out)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    by_ops = flops / flops_per_s * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
@@ -185,9 +220,10 @@ def check_kernels(lengths, dev):
     return records, max_err
 
 
-def profile_step(tr, state, batch):
-    """One more step under torch.profiler: device time by kernel, grouped
-    into the port's kernels, matmuls and everything else."""
+def profile_call(label, fn, ours):
+    """One more call of ``fn`` under torch.profiler: device time by kernel,
+    grouped into the port's kernels (names in ``ours``), matmuls and
+    everything else."""
     import torch
     from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -195,7 +231,7 @@ def profile_step(tr, state, batch):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
-        tr.step(state, batch)
+        fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     dev_us = lambda e: (getattr(e, "self_device_time_total", 0)
@@ -205,8 +241,6 @@ def profile_step(tr, state, batch):
     if not kernels:
         print("[profile] the profiler recorded no device time", flush=True)
         return None
-    ours = ("qsgd_codes_kernel", "sign_codes_kernel", "dequantize_kernel",
-            "ef_update_kernel")
     groups = {"port kernels": 0.0, "matmul": 0.0, "other": 0.0}
     for ms, name in kernels:
         if any(k in name for k in ours):
@@ -217,12 +251,15 @@ def profile_step(tr, state, batch):
         else:
             groups["other"] += ms
     busy = sum(groups.values())
-    print(f"[profile] one step: wall {wall:.1f} ms (profiled), device busy "
-          f"{busy:.1f} ms; " + ", ".join(f"{k} {v:.1f} ms" for k, v in
-                                          groups.items()), flush=True)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0)
+    print(f"[profile] {label}: wall {wall:.1f} ms (profiled), device busy "
+          f"{busy:.1f} ms in {launches} kernel launches; " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in groups.items()), flush=True)
     for ms, name in sorted(kernels, reverse=True)[:12]:
         print(f"[profile] {ms:9.3f} ms  {name[:110]}", flush=True)
-    return {"wall_ms": wall, "device_busy_ms": busy, **groups}
+    return {"wall_ms": wall, "device_busy_ms": busy, "launches": launches,
+            **groups}
 
 
 def train_full_width(compressor, dev):
@@ -283,7 +320,9 @@ def train_full_width(compressor, dev):
     print(f"[train] {compressor}: losses {losses}; ms/step {step_ms} (first "
           f"step included); peak device memory {peak:.2f} GiB over the steps, "
           f"{init_peak:.2f} GiB at init", flush=True)
-    profile = profile_step(tr, state, tr.batch_to_device(batches()))
+    batch = tr.batch_to_device(batches())
+    profile = profile_call("one step", lambda: tr.step(state, batch),
+                           GOSSIP_KERNELS)
     del state, tr
     torch.cuda.empty_cache()
     return counts, {"losses": losses, "ms_per_step": step_ms,
@@ -353,6 +392,294 @@ def small_cuda_vs_cpu(dev):
     check(dx <= 1e-5, f"CUDA and CPU iterates differ by {dx}")
 
 
+def bf16_ulp(got, want):
+    """Per element, the bf16 ulp (2^(e - 7) for magnitudes in
+    [2^e, 2^(e+1))) at the larger magnitude of got and want, in f32."""
+    import torch
+    mag = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(
+        torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def flash_bounds(tensors_in, out, causal):
+    """(bound ms, bound_by, f32 CUDA-core bound ms) of one attention call:
+    q, k, v read once and out written once at the HBM rate, against 4 * Dh
+    flops per (query, key) pair that the mask keeps (S (S + 1) / 2 pairs
+    per head when causal, S^2 otherwise) at the card's peak rate for the
+    inputs' type (bf16 tensor cores for bf16, f32 outside the tensor cores
+    for f32); and the same flops at the f32 CUDA-core rate, the rate of
+    the arithmetic this kernel does."""
+    import torch
+    n, s, h, dh = out.shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * dh * n * h * pairs
+    rate = (BF16_TC_FLOPS_PER_S if out.dtype == torch.bfloat16
+            else F32_FLOPS_PER_S)
+    bms, by = bound_ms(list(tensors_in), [out], flops, rate)
+    return bms, by, flops / F32_FLOPS_PER_S * 1e3
+
+
+def check_flash(dev):
+    """The flash kernel against its plain version in FLASH_CASES.
+
+    f32: max abs error <= 1e-5 * max|out|.  bf16: every element within 1
+    bf16 ulp of the plain version's output.  Both compute in f32 and round
+    once, at the output; the f32 gap between them is measured too, by the
+    same kernel on the inputs upcast to f32 (the same arithmetic,
+    unrounded), and held to the f32 bound.  Returns the timing record of
+    the first case and the max abs error."""
+    import torch
+    from repro_torch.kernels import dispatch, ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+    record, max_err = None, 0.0
+    for label, n, s, h, kv, dh, dtype, causal, cap in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q = torch.randn((n, s, h, dh), generator=gen, device=dev).to(dt)
+        k = torch.randn((n, s, kv, dh), generator=gen, device=dev).to(dt)
+        v = torch.randn((n, s, kv, dh), generator=gen, device=dev).to(dt)
+        kw = dict(causal=causal, softcap=cap)
+        got = dispatch.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        top = float(want.float().abs().max())
+        max_err = max(max_err, err)
+        check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite")
+        what = f"max abs err {err:.3e}, max |out| {top:.3f}"
+        if dt == torch.float32:
+            check(err <= 1e-5 * top, f"flash {label}: {what} > 1e-5 max|out|")
+        else:
+            diff = (got.float() - want.float()).abs()
+            worst = float((diff / bf16_ulp(got, want)).max())
+            del diff
+            check(worst <= 1.0, f"flash {label}: an element is {worst:.2f} "
+                  f"bf16 ulp from the plain version's")
+            up = [t.float() for t in (q, k, v)]
+            got32 = dispatch.flash_attention(*up, **kw)
+            want32 = ref.flash_attention_ref(*up, **kw)
+            gap = float((got32 - want32).abs().max())
+            check(gap <= 1e-5 * float(want32.abs().max()),
+                  f"flash {label}: f32 gap {gap:.3e} > 1e-5 max|out|")
+            once = torch.equal(got, got32.to(dt))
+            what += (f"; every element within {worst:.2f} bf16 ulp of the "
+                     f"plain version; f32 gap on the same inputs {gap:.3e}; "
+                     f"the bf16 output is the f32 kernel's rounded: {once}")
+            del got32, want32, up
+        print(f"[kernel] flash_attention {label} q{tuple(q.shape)} "
+              f"k{tuple(k.shape)} {dtype} causal={causal} softcap={cap}: "
+              f"{what}", flush=True)
+        if record is None:
+            bms, by, f32_ms = flash_bounds((q, k, v), got, causal)
+            F = torch.nn.functional
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                 enable_gqa=True)
+            lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
+            del lib
+            record = dict(
+                ms=time_ms(lambda: dispatch.flash_attention(q, k, v, **kw), 3),
+                plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 1),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), 5),
+                bound_ms=bms, bound_by=by, bound_f32_cuda_core_ms=f32_ms,
+                shape=[list(q.shape), list(k.shape)], dtype=dtype)
+            print(f"[kernel] flash_attention {label}: {record['ms']:.3f} ms "
+                  f"(bound {bms:.3f} ms, {by}, at the {dtype} peak; "
+                  f"{f32_ms:.3f} ms at the 67 TFLOP/s f32 CUDA-core rate), "
+                  f"plain {record['plain_ms']:.3f} ms, "
+                  f"scaled_dot_product_attention {record['library_ms']:.3f} ms "
+                  f"(max abs diff to the plain version {lib_err:.3e})",
+                  flush=True)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    return record, max_err
+
+
+def full_width_serving_model(dev):
+    """qwen3-1.7b at full width and depth with the flash kernel, random
+    weights from seed 0 cast once to bf16."""
+    import torch
+    from repro_torch.configs.qwen3_1_7b import CONFIG
+    from repro_torch.models.transformer import Model
+    model = Model(dataclasses.replace(CONFIG, attn_impl="chunked"))
+    params = model.compute_params(model.init(
+        1, torch.Generator(device=dev).manual_seed(0), dev))
+    return model, params
+
+
+def prefill_full_width(model, params, dev):
+    """Model.prefill at 32768 tokens, PREFILL_CALLS times, then profiled."""
+    import torch
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.kernels import dispatch
+    cfg = model.cfg
+    shape = INPUT_SHAPES["prefill_32k"]
+    seq, batch = shape.seq_len, 1       # global batch 32 cut to 1: one card
+    toks = torch.randint(0, cfg.vocab_size, (1, batch, seq), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    ms = []
+    for _ in range(PREFILL_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, toks)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(tuple(logits.shape) == (1, batch, 1, cfg.vocab_size),
+              f"prefill logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), "prefill: non-finite logits")
+        want = (1, cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        for name in ("k", "v"):
+            check(tuple(caches[name].shape) == want and caches[name].dtype
+                  == torch.bfloat16, f"prefill cache {name}: "
+                  f"{tuple(caches[name].shape)} {caches[name].dtype}")
+        del logits, caches
+    counts = dispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want_launches = PREFILL_CALLS * cfg.n_layers
+    check(counts["flash_attention"] == want_launches,
+          f"prefill: {counts['flash_attention']} flash launches, expected "
+          f"{PREFILL_CALLS} calls x {cfg.n_layers} layers = {want_launches}")
+    check(sum(counts.values()) == want_launches, f"prefill counts {counts}")
+    print(f"[prefill] {cfg.name} layers={cfg.n_layers} tokens={seq} "
+          f"batch={batch} (prefill_32k, batch {shape.global_batch} cut to "
+          f"{batch}): ms per call {ms} (first call first); flash launches "
+          f"{counts['flash_attention']} = {PREFILL_CALLS} x {cfg.n_layers}; "
+          f"peak device memory {peak:.3f} GiB", flush=True)
+    profile = profile_call("one prefill call", lambda: model.prefill(params, toks),
+                           FLASH_KERNELS)
+    return counts, {"ms_per_call": ms, "peak_gib": peak, "tokens": seq,
+                    "batch": batch, "profile": profile}
+
+
+def serve_full_width():
+    """The serve launcher at full width: the JAX launcher's defaults with 2
+    requests, on the card."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import main
+    argv = ["--arch", "qwen3-1.7b", "--batch", "8", "--prompt-len", "32",
+            "--gen-len", "32", "--requests", "2", "--device", "cuda"]
+    dispatch.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    counts = dispatch.launch_counts()
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    check(rc == 0, f"serve launcher returned {rc}")
+    check(sum(counts.values()) == 0,
+          f"serve: launches {counts}; decode goes through no kernel")
+    line = [l for l in out.splitlines() if l.startswith("[serve] summary ")]
+    check(len(line) == 1, "serve: no summary line")
+    summary = json.loads(line[0][len("[serve] summary "):])
+    for key in ("ttft_p50_s", "ttft_p99_s", "tok_p50_s", "tok_p99_s",
+                "throughput_tok_s", "peak_gib"):
+        val = summary.get("serve/" + key)
+        check(val is not None and math.isfinite(val) and val > 0,
+              f"serve: {key} = {val}")
+    print(f"[serve] launches {counts}", flush=True)
+    return counts, summary
+
+
+def decode_over(model, params, toks, cache):
+    """Decode toks (1, B, S) one at a time from position 0 into ``cache``;
+    returns the last step's logits."""
+    import torch
+    B = toks.shape[1]
+    for t in range(toks.shape[2]):
+        pos = torch.full((B,), t, dtype=torch.long, device=toks.device)
+        logits, cache = model.decode_step(params, toks[:, :, t:t + 1], cache, pos)
+    return logits
+
+
+def profile_decode(model, params, dev):
+    """Wall time and device time of one full-width decode step at the serve
+    launcher's batch 8, unprofiled (host clock, synchronised) and then
+    under the profiler: the device's idle share says whether the host's
+    launches or the device's work set the per-token time."""
+    import torch
+    b, ctx = 8, 64
+    cache = model.init_cache(b, ctx, dev)
+    tok = torch.zeros((1, b, 1), dtype=torch.long, device=dev)
+    pos = torch.full((b,), 40, dtype=torch.long, device=dev)
+    step = lambda: model.decode_step(params, tok, cache, pos)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 10
+    profile = profile_call("one decode step, batch 8", step, FLASH_KERNELS)
+    print(f"[decode] one full-width decode step at batch 8: {wall:.3f} ms "
+          f"wall (mean of 10, synchronised)", flush=True)
+    return {"wall_ms": wall, "profile": profile}
+
+
+def consistency_full_width(model, params, dev):
+    """Prefill (through the kernel) against decode over the same 256 x 2
+    tokens: the JAX test's bound max|d| / max(max|logits|, 1) < 0.05, and
+    the same greedy token."""
+    import torch
+    from repro_torch.kernels import dispatch
+    s, b = 256, 2
+    toks = torch.randint(0, model.cfg.vocab_size, (1, b, s), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    dispatch.reset_launch_counts()
+    pre, _ = model.prefill(params, toks)
+    launches = dispatch.launch_counts()["flash_attention"]
+    dec = decode_over(model, params, toks, model.init_cache(b, s, dev))
+    a, w = dec.float(), pre.float()
+    rel = float((a - w).abs().max()) / max(float(w.abs().max()), 1.0)
+    same = torch.equal(a.argmax(-1), w.argmax(-1))
+    print(f"[consistency] full width, prompt {s} x batch {b}: prefill vs "
+          f"decode max|d| / max(max|logits|, 1) = {rel:.4e} (bound 0.05); "
+          f"argmax equal: {same}; flash launches in the prefill {launches}",
+          flush=True)
+    check(launches == model.cfg.n_layers, f"consistency: {launches} launches")
+    check(rel < 0.05, f"prefill and decode logits differ: {rel}")
+    check(same, "prefill and decode pick different greedy tokens")
+    return launches, {"rel": rel, "argmax_equal": same}
+
+
+def serve_small_cuda_vs_cpu(dev):
+    """The smoke decoder in float32 with the flash kernel: prefill of 200
+    tokens and 8 decode steps on the card against the same on the CPU
+    (the plain version), within 1e-5 of the largest logit."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                              dtype="float32", attn_impl="chunked")
+    model = Model(cfg)
+    params = model.init(1, torch.Generator().manual_seed(1), "cpu")
+    gen = torch.Generator().manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 2, 200), generator=gen)
+    follow = torch.randint(0, cfg.vocab_size, (1, 2, 8), generator=gen)
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        p = {k: v.to(device) for k, v in params.items()}
+        logits, pre = model.prefill(p, prompt.to(device))
+        cache = model.init_cache(2, 208, device)
+        for name in ("k", "v"):
+            cache[name][:, :, :, :200] = pre[name]
+        out = [logits]
+        for t in range(8):
+            pos = torch.full((2,), 200 + t, dtype=torch.long, device=device)
+            lg, cache = model.decode_step(p, follow[:, :, t:t + 1].to(device),
+                                          cache, pos)
+            out.append(lg)
+        runs[device.type] = torch.cat(out, dim=2).cpu()
+    d = float((runs["cuda"] - runs["cpu"]).abs().max())
+    top = max(float(runs["cpu"].abs().max()), 1.0)
+    print(f"[small] smoke f32 chunked: prefill 200 + 8 decode steps, CUDA vs "
+          f"CPU max|d| = {d:.3e} (max |logit| {top:.3f})", flush=True)
+    check(d <= 1e-5 * top, f"CUDA and CPU serving logits differ by {d}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -368,10 +695,16 @@ def main():
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.perf_counter()
-    path, log = build.build()
-    build.load_library()
-    print(f"[build] {path.name} in {time.perf_counter() - t0:.1f}s\n{log}",
+    with concurrent.futures.ThreadPoolExecutor(len(build.LIBRARIES)) as pool:
+        built = list(pool.map(build.build, build.LIBRARIES))
+    for name in build.LIBRARIES:
+        build.load_library(name)
+    print(f"[build] {', '.join(p.name for p, _ in built)} in "
+          f"{time.perf_counter() - t0:.1f}s (one nvcc per source, in parallel)",
           flush=True)
+    for _, log in built:
+        for line in log.splitlines():
+            print(f"[build] {line}", flush=True)
 
     from repro_torch.comm.packing import leaf_route, make_bucket_spec
     from repro_torch.configs.qwen3_1_7b import CONFIG
@@ -388,6 +721,17 @@ def main():
     launcher_counts = run_launcher()
     small_cuda_vs_cpu(dev)
 
+    flash_record, flash_err = check_flash(dev)
+    model, params = full_width_serving_model(dev)
+    prefill_counts, prefill = prefill_full_width(model, params, dev)
+    consistency_launches, consistency = consistency_full_width(model, params,
+                                                               dev)
+    decode = profile_decode(model, params, dev)
+    del model, params
+    torch.cuda.empty_cache()
+    serve_counts, serve = serve_full_width()
+    serve_small_cuda_vs_cpu(dev)
+
     sources = {"qsgd_codes": "src/repro/kernels/qsgd.py:64",
                "sign_codes": "src/repro/kernels/qsgd.py:86",
                "dequantize": "src/repro/kernels/qsgd.py:118",
@@ -401,16 +745,33 @@ def main():
             "replaces": replaces,
             "launches": sum(c[name] for c, _ in by_path.values()),
             "launches_by_path": {**{c: by_path[c][0][name] for c in by_path},
-                                 "launcher_smoke": launcher_counts[name]},
+                                 "launcher_smoke": launcher_counts[name],
+                                 "prefill": prefill_counts[name],
+                                 "serve": serve_counts[name]},
             "max_abs_err": max(v for k, v in max_err.items()
                                if k.startswith(name)),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"]})
         check(kernels[-1]["launches"] > 0, f"{name} never launched")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "launches": prefill_counts["flash_attention"],
+        "launches_by_path": {
+            **{c: by_path[c][0]["flash_attention"] for c in by_path},
+            "launcher_smoke": launcher_counts["flash_attention"],
+            "prefill": prefill_counts["flash_attention"],
+            "consistency": consistency_launches,
+            "serve": serve_counts["flash_attention"]},
+        "max_abs_err": flash_err, **flash_record})
+    check(kernels[-1]["launches"] > 0, "flash_attention never launched")
     extra = {k: records[k] for k in ("qsgd_codes_int16", "dequantize_int16")}
     train = {c: r for c, (_, r) in by_path.items()}
-    print(json.dumps({"int16": extra, "train": train}), flush=True)
+    print(json.dumps({"int16": extra, "train": train, "prefill": prefill,
+                      "serve": serve, "decode": decode,
+                      "consistency": consistency}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,9 +1,13 @@
 """Model and CHOCO configuration for the port.
 
 ``ModelConfig`` keeps the JAX package's field names and defaults for the
-dense decoder; the MoE / SSM / hybrid / frontend sub-configs, the input
-shapes, the other architectures, sliding windows, local / global layer
-patterns, chunked attention and ``remat`` are not ported.  ``ChocoConfig``
+dense decoder, ``attn_impl`` included (``"chunked"`` is the hand-written
+flash-attention kernel, forward only, which tiles K by 128 as the Pallas
+kernel does; the JAX jnp scan's ``attn_chunk`` has no counterpart); the
+MoE / SSM / hybrid / frontend sub-configs, the other architectures,
+sliding windows, local / global layer patterns and ``remat`` are not
+ported.  ``INPUT_SHAPES`` keeps the one JAX input shape the port serves,
+``prefill_32k``.  ``ChocoConfig``
 keeps only the settings of the static packed CHOCO path: the stochastic
 processes, staleness, pipelining, push-sum, bf16 EF state, the per-leaf
 engine, the kernel-backend switch, a fixed consensus gamma, the exact
@@ -38,11 +42,26 @@ class ModelConfig:
     dtype: str = "bfloat16"                 # compute dtype
     param_dtype: str = "float32"
     loss_chunk: int = 0                     # 0 = unchunked cross-entropy
+    attn_impl: str = "naive"                # naive | chunked (flash kernel,
+                                            # never materialises S x S)
     source: str = ""
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+}
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

@@ -1,10 +1,14 @@
-"""Carry parameters between the JAX package's tree and the port's dict.
+"""Carry parameters and KV caches between the JAX package's trees and the
+port's dicts.
 
 The JAX trainer holds node-stacked parameters as a nested dict of arrays
 (``{"embed": {"tok": (n, V, D), ...}, "stack": {"p0": {...}}, "tail": {}}``);
 the port holds ``"embed/tok" -> (n, V, D)`` tensors under the same paths
-and shapes.  Both directions go through numpy, so this module imports
-nothing of JAX.
+and shapes.  The JAX serving model's parameters and caches have no node
+dimension; the port's carry n = 1 first.  Everything goes through numpy,
+so this module imports nothing of JAX.  numpy has no bfloat16, so a
+bf16 array comes in by its bits and a bf16 tensor goes out as float32
+(exact).
 """
 from __future__ import annotations
 
@@ -12,6 +16,18 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+
+def _tensor(arr) -> torch.Tensor:
+    arr = np.array(arr, copy=True)
+    if arr.dtype.name == "bfloat16":           # ml_dtypes' bfloat16
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
@@ -26,7 +42,7 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
             if isinstance(val, dict):
                 walk(val, path + "/")
             else:
-                out[path] = torch.from_numpy(np.array(val, copy=True))
+                out[path] = _tensor(val)
     walk(tree, "")
     return out
 
@@ -40,5 +56,28 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> dict:
         node = tree
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = t.detach().cpu().numpy()
+        node[leaf] = _array(t)
     return tree
+
+
+def model_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """The JAX serving model's parameter tree (no node dimension) ->
+    ``path -> (1, *shape)`` tensors."""
+    return {k: v[None] for k, v in params_from_jax(tree).items()}
+
+
+def caches_from_jax(caches) -> Dict[str, torch.Tensor]:
+    """The JAX dense model's cache tree (``{"stack": {"c0": {"k": (L, B, C,
+    KV, Dh), "v": ...}}, "tail": {}}``) -> ``{"k": (1, L, B, C, KV, Dh),
+    "v": ...}``."""
+    c0 = caches["stack"]["c0"]
+    return {name: _tensor(c0[name])[None] for name in ("k", "v")}
+
+
+def caches_to_jax(caches: Dict[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`caches_from_jax` for a one-node cache."""
+    if caches["k"].shape[0] != 1:
+        raise ValueError("the JAX serving cache has no node dimension: "
+                         f"expected n = 1, got {caches['k'].shape[0]}")
+    return {"stack": {"c0": {name: _array(caches[name][0])
+                             for name in ("k", "v")}}, "tail": {}}

@@ -1,10 +1,19 @@
-"""Build and load the hand-written CUDA kernels (``csrc/gossip_kernels.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with ``ctypes``, at first use, into
-``_build/`` beside this file (listed in ``.gitignore``).  The library's
-name carries a hash of the source and the flags, so a changed source
-rebuilds and two processes building at once never load a half-written file.
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library of its own, with a plain C interface, and loaded with ``ctypes``
+at first use, into ``_build/`` beside this file (listed in
+``.gitignore``).  A library's name carries a hash of its source and
+flags, so a changed source rebuilds and two processes building at once
+never load a half-written file.
+
+* ``gossip`` (``csrc/gossip_kernels.cu``): the four gossip kernels, built
+  with ``--fmad=false``: the QSGD codes must be bit-equal to their plain
+  versions, and an FMA contraction moves a code by a whole level.
+* ``flash`` (``csrc/flash_attention.cu``): the flash-attention forward,
+  held to a tolerance, so FMA contraction stays on: its inner loops are
+  dot products, and ``--fmad=false`` would split every one of them into
+  a multiply and an add.
 
 Nothing here runs at import time, and nothing falls back: no ``nvcc``, a
 failed build or a failed launch raises.
@@ -12,6 +21,7 @@ failed build or a failed launch raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -20,19 +30,38 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCE = Path(__file__).parent / "csrc" / "gossip_kernels.cu"
+CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+_COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _F, _I64, _INT = ctypes.c_void_p, ctypes.c_float, ctypes.c_int64, ctypes.c_int
-_SIGNATURES = {
-    "qsgd_codes_i8": (_P, _P, _P, _F, _P, _I64, _I64, _P),
-    "qsgd_codes_i16": (_P, _P, _P, _F, _P, _I64, _I64, _P),
-    "sign_codes": (_P, _P, _I64, _P),
-    "dequantize_i8": (_P, _P, _P, _I64, _I64, _P),
-    "dequantize_i16": (_P, _P, _P, _I64, _I64, _P),
-    "ef_update": (_P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _P, _I64, _P),
+_FLASH = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _F, _F, _P)
+
+
+@dataclasses.dataclass(frozen=True)
+class Library:
+    source: Path
+    flags: tuple
+    signatures: dict
+
+
+LIBRARIES = {
+    "gossip": Library(
+        CSRC / "gossip_kernels.cu", _COMMON_FLAGS + ("--fmad=false",), {
+            "qsgd_codes_i8": (_P, _P, _P, _F, _P, _I64, _I64, _P),
+            "qsgd_codes_i16": (_P, _P, _P, _F, _P, _I64, _I64, _P),
+            "sign_codes": (_P, _P, _I64, _P),
+            "dequantize_i8": (_P, _P, _P, _I64, _I64, _P),
+            "dequantize_i16": (_P, _P, _P, _I64, _I64, _P),
+            "ef_update": (_P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _P, _I64,
+                          _P),
+        }),
+    "flash": Library(
+        CSRC / "flash_attention.cu", _COMMON_FLAGS, {
+            "flash_attention_f32": _FLASH,
+            "flash_attention_bf16": _FLASH,
+        }),
 }
 
 
@@ -47,43 +76,48 @@ def _nvcc() -> str:
                        "of repro_torch cannot be built on this machine")
 
 
-def library_path() -> Path:
-    """Where the built library for the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"gossip_kernels-{digest}.so"
+def library_path(name: str) -> Path:
+    """Where the built library ``name`` for its current source and flags
+    lives."""
+    lib = LIBRARIES[name]
+    digest = hashlib.sha256(lib.source.read_bytes()
+                            + " ".join(lib.flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{lib.source.stem}-{digest}.so"
 
 
-def build() -> tuple:
-    """Compile the kernels if their library is missing.  Returns
-    ``(path, compiler_log)``; the log is empty when nothing was compiled."""
-    out = library_path()
+def build(name: str) -> tuple:
+    """Compile library ``name`` if it is missing.  Returns
+    ``(path, compiler_log)``; the log is empty when nothing was compiled.
+    Safe to call for several libraries at once from threads."""
+    out = library_path(name)
     if out.exists():
         return out, ""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    lib = LIBRARIES[name]
+    cmd = [nvcc, *lib.flags, "-o", tmp, str(lib.source)]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+                               f"{' '.join(cmd)}\n{proc.stdout}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out, " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    return out, " ".join(cmd) + "\n" + proc.stdout
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, once per process."""
-    path, _ = build()
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load kernel library ``name``, once per process."""
+    path, _ = build(name)
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+    for fn_name, argtypes in LIBRARIES[name].signatures.items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = list(argtypes)
         fn.restype = _INT
     lib.error_string.argtypes = [_INT]

@@ -1,4 +1,5 @@
-"""Route each hot-path stage of the packed gossip exchange to its kernel.
+"""Route each kernel call of the port to its kernel: the four stages of
+the packed gossip exchange, and flash attention.
 
 The route follows the tensor's device and nothing else:
 
@@ -8,11 +9,12 @@ The route follows the tensor's device and nothing else:
   version never runs on the card.
 
 Each kernel wrapper counts its own launches; :func:`launch_counts` reads
-the four counts and :func:`reset_launch_counts` sets them to 0.
+the five counts and :func:`reset_launch_counts` sets them to 0.
 """
 from __future__ import annotations
 
 from . import ef_update as _ef
+from . import flash_attention as _flash
 from . import qsgd as _qsgd
 from . import ref
 
@@ -22,6 +24,7 @@ KERNELS = {
     "sign_codes": _qsgd.sign_codes,
     "dequantize": _qsgd.dequantize,
     "ef_update": _ef.ef_update,
+    "flash_attention": _flash.flash_attention,
 }
 
 
@@ -61,6 +64,14 @@ def ef_bucket_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma):
         return ref.ef_update_ref(x_half, x_hat, s, q_self, q_nbr,
                                  w_self, w_nbr, gamma)
     return _ef.ef_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, softcap=None):
+    """Attention forward, q (N, S, H, Dh), k and v (N, S, KV, Dh) ->
+    (N, S, H, Dh) in q's dtype, computed in f32."""
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
+    return _flash.flash_attention(q, k, v, causal=causal, softcap=softcap)
 
 
 def launch_counts() -> dict:

@@ -21,7 +21,7 @@ def ef_update(x_half, x_hat, s, q_self, q_nbr, w_self: float, w_nbr: float,
               gamma: float):
     """Five same-shape contiguous f32 CUDA tensors and three scalars ->
     new (x, x_hat, s), each allocated here."""
-    lib = build.load_library()
+    lib = build.load_library("gossip")
     shape = x_half.shape
     for name, t in (("x_half", x_half), ("x_hat", x_hat), ("s", s),
                     ("q_self", q_self), ("q_nbr", q_nbr)):

@@ -4,12 +4,15 @@ Each takes node-stacked flat buffers ``(n, L)`` and adds the reductions
 the kernels leave to the caller: the per-node norm and the payload scale.
 The reductions run on the whole row (padding is zero, so it adds
 nothing); the elementwise pass goes through ``kernels/dispatch.py``.
+``flash_attention`` is re-exported from there, as the JAX package's
+``kernels/ops.py`` re-exports its kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from . import dispatch
+from .dispatch import flash_attention  # noqa: F401  (public re-export)
 
 
 def qsgd_compress(x, xi, s: int, tau: float):

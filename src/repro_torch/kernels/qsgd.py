@@ -17,7 +17,7 @@ from . import build, ref
 def qsgd_codes(x, xi, inv_norm, s: int):
     """x, xi: (n, L) f32; inv_norm: (n,) f32 -> (n, L) int8 (s <= 127)
     or int16 codes  sign(x) * floor(|x| * inv_norm * s + xi)."""
-    lib = build.load_library()
+    lib = build.load_library("gossip")
     if x.dim() != 2:
         raise ValueError(f"x: expected (n, L), got {tuple(x.shape)}")
     n, length = x.shape
@@ -39,7 +39,7 @@ def qsgd_codes(x, xi, inv_norm, s: int):
 
 def sign_codes(x):
     """x: (n, L) f32 -> (n, L) int8 sign(x)."""
-    lib = build.load_library()
+    lib = build.load_library("gossip")
     build.require(x, "x", torch.float32)
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     build.check_launch(lib, lib.sign_codes(x.data_ptr(), out.data_ptr(),
@@ -51,7 +51,7 @@ def sign_codes(x):
 
 def dequantize(codes, scale):
     """codes: (n, L) int8/int16; scale: (n,) f32 -> (n, L) f32 codes * scale."""
-    lib = build.load_library()
+    lib = build.load_library("gossip")
     if codes.dim() != 2:
         raise ValueError(f"codes: expected (n, L), got {tuple(codes.shape)}")
     n, length = codes.shape

@@ -1,16 +1,25 @@
-"""Plain PyTorch versions of every kernel of the gossip hot path.
+"""Plain PyTorch versions of every kernel of the port.
 
-Each function computes exactly what its CUDA kernel computes, one
-PyTorch operation per arithmetic step (so no two steps fuse into an FMA),
-on node-stacked buffers: row i of an ``(n, L)`` tensor is gossip node
-i's bucket buffer, and per-node scalars are ``(n,)`` tensors.
+The gossip kernels' versions compute exactly what their CUDA kernels
+compute, one PyTorch operation per arithmetic step (so no two steps fuse
+into an FMA), on node-stacked buffers: row i of an ``(n, L)`` tensor is
+gossip node i's bucket buffer, and per-node scalars are ``(n,)`` tensors.
+:func:`flash_attention_ref` repeats the flash kernel's online softmax
+tile by tile; it is held to the kernel within a tolerance.
 
 ``dispatch.py`` routes CPU tensors here; on the card these are the
 versions ``chip_smoke.py`` holds the kernels against.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+#: the flash kernel's tile (query rows and key columns) and masked logit,
+#: those of the Pallas kernel (block_q = block_k = 128, NEG_INF = -1e30)
+FLASH_BLOCK = 128
+NEG_INF = -1e30
 
 
 def code_dtype(s: int) -> torch.dtype:
@@ -50,3 +59,51 @@ def ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self: float,
     s_n = s + (w_self * q_self + w_nbr * q_nbr)
     x_n = x_half + gamma * (s_n - x_hat_n)
     return x_n, x_hat_n, s_n
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None):
+    """Online-softmax attention, step for step as the flash kernel.
+
+    q: (N, S, H, Dh); k, v: (N, S, KV, Dh), H a multiple of KV: head h
+    reads KV head h // (H // KV).  Computed in f32 over 128-wide key
+    blocks: the scaled query ``q * (1/sqrt(Dh))``, optional
+    ``softcap * tanh(l / softcap)``, the causal mask by index (-1e30), a
+    running max, denominator and accumulator, and
+    ``acc / max(l, 1e-30)``.  A causal query tile stops at the diagonal
+    key block, so key block j updates only the query rows from ``j * 128``
+    on.  Any S: the last block is ragged.  Returns (N, S, H, Dh) in q's
+    dtype."""
+    N, S, H, Dh = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    f32 = torch.float32
+    # (N, KV, rep, S, Dh): the rep query heads that share one KV head
+    qf = (q.to(f32) * (1.0 / math.sqrt(Dh))).reshape(
+        N, S, KV, rep, Dh).permute(0, 2, 3, 1, 4)
+    kf = k.to(f32).permute(0, 2, 1, 3)[:, :, None]          # (N, KV, 1, S, Dh)
+    vf = v.to(f32).permute(0, 2, 1, 3)[:, :, None]
+    m = torch.full((N, KV, rep, S), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((N, KV, rep, S), dtype=f32, device=q.device)
+    acc = torch.zeros((N, KV, rep, S, Dh), dtype=f32, device=q.device)
+    for k0 in range(0, S, FLASH_BLOCK):
+        k1 = min(k0 + FLASH_BLOCK, S)
+        r0 = k0 if causal else 0
+        logits = qf[..., r0:, :] @ kf[..., k0:k1, :].transpose(-1, -2)
+        if softcap is not None:
+            logits = softcap * torch.tanh(logits / softcap)
+        if causal:
+            qpos = torch.arange(r0, S, device=q.device)[:, None]
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            logits = torch.where(kpos <= qpos, logits, NEG_INF)
+        m_old = m[..., r0:]
+        m_new = torch.maximum(m_old, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        alpha = torch.exp(m_old - m_new)
+        l_new = l[..., r0:] * alpha + p.sum(dim=-1)
+        acc_new = acc[..., r0:, :] * alpha[..., None] + p @ vf[..., k0:k1, :]
+        # rows before r0 (earlier query tiles) keep their state
+        m = torch.cat([m[..., :r0], m_new], dim=-1)
+        l = torch.cat([l[..., :r0], l_new], dim=-1)
+        acc = torch.cat([acc[..., :r0, :], acc_new], dim=-2)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(N, S, H, Dh).to(q.dtype)

@@ -4,7 +4,9 @@ Every activation carries the gossip-node dimension first, ``(n, B, S, ...)``,
 and every weight ``(n, *shape)``: the n nodes' models run as one batched
 computation (a batched matmul per projection).  Each function computes in
 the order and dtype of its JAX counterpart in ``src/repro/models/layers.py``.
-Not ported: decode attention, chunked attention, sliding windows.
+``attn_impl="chunked"`` attention goes through the flash kernel
+(``kernels/dispatch.py``).  Not ported: sliding windows, ring-buffer
+caches and extra attention masks.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import dispatch
 
 
 def per_node(w: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -70,9 +74,9 @@ def _repeat_kv(k, n_rep: int):
         n, b, s, kv * n_rep, dh)
 
 
-def attention(p, x, cfg, positions):
-    """Causal self-attention (GQA, optional qk-norm) for the training
-    forward.  x: (n, B, S, D); positions: (B, S)."""
+def _qkv(p, x, cfg, positions):
+    """Projections, optional qk-norm and RoPE: q (n, B, S, H, Dh), k and v
+    (n, B, S, KV, Dh)."""
     n, B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = _matmul(x, p["wq"]).reshape(n, B, S, H, Dh)
@@ -81,20 +85,72 @@ def attention(p, x, cfg, positions):
     if cfg.qk_norm:
         q = rms_norm(q, per_node(p["q_norm"], 5), cfg.norm_eps)
         k = rms_norm(k, per_node(p["k_norm"], 5), cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    k, v = _repeat_kv(k, H // KV), _repeat_kv(v, H // KV)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def attention(p, x, cfg, positions):
+    """Full-sequence causal self-attention (GQA, optional qk-norm), for
+    training and prefill.  x: (n, B, S, D); positions: (B, S), each row
+    0..S-1.  Returns ``(out, (k, v))``, k and v before the KV repeat, so
+    a prefill can fill its cache.
+
+    ``cfg.attn_impl == "chunked"`` runs the flash kernel, which masks by
+    index: the same as the JAX ``_chunked_attention``'s mask by position
+    for these positions."""
+    n, B, S, _ = x.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(p, x, cfg, positions)
+    if cfg.attn_impl == "chunked":
+        out = dispatch.flash_attention(
+            q.reshape(n * B, S, H, Dh), k.reshape(n * B, S, KV, Dh),
+            v.reshape(n * B, S, KV, Dh), causal=cfg.causal,
+            softcap=cfg.attn_logit_softcap)
+        return _matmul(out.reshape(n, B, S, H * Dh), p["wo"]), (k, v)
+    if cfg.attn_impl != "naive":
+        raise ValueError(f"attn_impl {cfg.attn_impl!r} is not ported")
+    kr, vr = _repeat_kv(k, H // KV), _repeat_kv(v, H // KV)
 
     qpos, kpos = positions[:, None, :, None], positions[:, None, None, :]
     if cfg.causal:
         mask = kpos <= qpos                                    # (B, 1, S, S)
     else:
         mask = torch.ones((B, 1, S, S), dtype=torch.bool, device=x.device)
-    logits = torch.einsum("nbqhd,nbkhd->nbhqk", q, k) * (1.0 / math.sqrt(Dh))
+    logits = torch.einsum("nbqhd,nbkhd->nbhqk", q, kr) * (1.0 / math.sqrt(Dh))
     logits = softcap(logits.to(torch.float32), cfg.attn_logit_softcap)
     logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("nbhqk,nbkhd->nbqhd", w, v).reshape(n, B, S, H * Dh)
+    out = torch.einsum("nbhqk,nbkhd->nbqhd", w, vr).reshape(n, B, S, H * Dh)
+    return _matmul(out, p["wo"]), (k, v)
+
+
+def decode_attention(p, x, cfg, cache_k, cache_v, pos):
+    """Single-token decode against a full KV cache.
+
+    x: (n, B, 1, D); cache_k, cache_v: (n, B, C, KV, Dh), written in place
+    at slot ``pos[0]`` (decode steps are batch-synchronous: every request
+    shares the position); pos: (B,) long tensor of absolute positions.
+    GQA-native: the query is grouped (n, B, 1, KV, rep, Dh) and contracts
+    the cache directly, with no repeated KV copy.  Returns the output
+    (n, B, 1, D)."""
+    n, B, _, _ = x.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    C = cache_k.shape[2]
+    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    slot = pos[:1]
+    cache_k.index_copy_(2, slot, k)
+    cache_v.index_copy_(2, slot, v)
+
+    qg = q.reshape(n, B, 1, KV, H // KV, Dh)
+    logits = torch.einsum("nbqkrd,nbckd->nbkrqc", qg, cache_k) * (
+        1.0 / math.sqrt(Dh))
+    logits = softcap(logits.to(torch.float32), cfg.attn_logit_softcap)
+    idx = torch.arange(C, device=x.device)[None, :]
+    mask = (idx <= pos[:, None])[None, :, None, None, None, :]  # (1,B,1,1,1,C)
+    logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("nbkrqc,nbckd->nbqkrd", w, cache_v).reshape(
+        n, B, 1, H * Dh)
     return _matmul(out, p["wo"])
 
 

@@ -14,7 +14,8 @@ back in bucket layout, the optimizer and the exchange run on whole
 buckets, and nothing is packed or unpacked per step.
 
 The slice: CHOCO mode, a static ring, f32 state, QSGD or SignNorm
-compression, the Theorem-2 gamma.  Other topologies and compressors
+compression, the Theorem-2 gamma, naive attention (the flash kernel has
+no backward).  Other topologies and compressors
 raise; the other modes, processes and a fixed gamma are not ported.
 """
 from __future__ import annotations
@@ -69,6 +70,10 @@ class DecentralizedTrainer:
     device: object = "cuda"
 
     def __post_init__(self):
+        if self.model.cfg.attn_impl != "naive":
+            raise ValueError(
+                f"attn_impl={self.model.cfg.attn_impl!r} cannot train: the "
+                f"flash-attention kernel has no backward yet; use \"naive\"")
         self.device = resolve_device(self.device)
         names = parse_topology(self.choco.topology)
         if len(names) != 1:

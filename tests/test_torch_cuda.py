@@ -1,5 +1,6 @@
 """The PyTorch port on the card: each CUDA kernel against its plain version,
-and the trainer through the kernels.
+the trainer through the gossip kernels and the prefill through the flash
+kernel.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so on a machine without JAX it
@@ -127,3 +128,73 @@ def test_trainer_qsgd_launches_per_bucket_per_round(cuda):
         "qsgd_codes": launches, "sign_codes": 0, "dequantize": launches,
         "ef_update": launches}
     assert all(np.isfinite(losses))
+
+
+def bf16_ulps(got, want):
+    """Largest distance between two bf16 tensors in units of the bf16 ulp
+    (2^(e - 7) for magnitudes in [2^e, 2^(e+1))) at the larger magnitude."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return float(((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def _attn_inputs(seed, n, s, h, kv, dh, dtype, device):
+    return [_normal(seed + i, (n, s, x, dh), device).to(dtype)
+            for i, x in enumerate((h, kv, kv))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,h,kv,dh,dtype,causal,softcap", [
+    (1, 2048, 16, 8, 128, torch.bfloat16, True, None),
+    (2, 1000, 16, 8, 128, torch.bfloat16, True, None),
+    (2, 512, 8, 8, 64, torch.float32, False, 50.0),
+])
+def test_flash_attention_kernel_matches_plain(cuda, n, s, h, kv, dh, dtype,
+                                              causal, softcap):
+    """bf16: every element within 1 bf16 ulp of the plain version (both
+    compute in f32 and round once); f32: within 1e-5 of max |out|."""
+    q, k, v = _attn_inputs(s, n, s, h, kv, dh, dtype, cuda)
+    got = _launched("flash_attention", lambda: dispatch.flash_attention(
+        q, k, v, causal=causal, softcap=softcap))
+    want = ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.bfloat16:
+        assert bf16_ulps(got, want) <= 1.0
+    else:
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _attn_inputs(0, 1, 128, 4, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        dispatch.flash_attention(q[..., :32].contiguous(),
+                                 k[..., :32].contiguous(),
+                                 v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        dispatch.flash_attention(q, k.transpose(0, 1), v)
+    with pytest.raises(ValueError, match="shape"):
+        dispatch.flash_attention(q, k[:, :64].contiguous(), v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        dispatch.flash_attention(q.requires_grad_(), k, v)
+
+
+@pytest.mark.cuda
+def test_prefill_goes_through_the_flash_kernel_and_agrees_with_cpu(cuda):
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                              dtype="float32", attn_impl="chunked")
+    model = Model(cfg)
+    params = model.init(1, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 2, 200)))
+    want, want_cache = model.prefill(params, toks)
+    dispatch.reset_launch_counts()
+    got, cache = model.prefill({k: v.to(cuda) for k, v in params.items()},
+                               toks.to(cuda))
+    assert dispatch.launch_counts()["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for name in ("k", "v"):
+        torch.testing.assert_close(cache[name].cpu(), want_cache[name],
+                                   rtol=1e-5, atol=1e-5)

@@ -12,6 +12,9 @@ to (R, 128) tiles and slices the tail), on the same numpy inputs:
   Pallas kernel: the reference EF kernel is not reliably bitwise even
   against its own oracle, so the port is held to a ulp bound there.
 
+The flash-attention plain version is held against the Pallas kernel in
+interpret mode and against the JAX oracle (see the section below).
+
 The routing tests show that a tensor off the CPU never reaches a plain
 version.  ``tests/test_torch_cuda.py`` holds each CUDA kernel against its
 plain version on the card.
@@ -152,7 +155,8 @@ def test_off_cpu_tensor_never_reaches_a_plain_version(entry, monkeypatch):
     def no_plain(*a, **k):
         raise AssertionError("a plain version ran for an off-CPU tensor")
 
-    def loader():
+    def loader(name):
+        assert name == "gossip"
         raise RuntimeError("kernel loader reached")
 
     for name in ("qsgd_codes_ref", "sign_codes_ref", "dequantize_ref",
@@ -168,5 +172,92 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.build()
+        build.build("gossip")
     assert not (tmp_path / "build").exists()
+
+
+# -- flash attention ---------------------------------------------------------------
+#
+# The plain version against the JAX Pallas kernel in interpret mode (which
+# needs S % 128 == 0) and against the JAX oracle ``flash_attention_ref``
+# (plain softmax over the KV-repeated heads, any S), float32, within 2e-6
+# absolute: outputs are convex combinations of N(0, 1) values, and the
+# online softmax sums in another order than one softmax.
+
+FLASH_TOL = 2e-6
+
+
+def _flash_inputs(seed, n, s, h, kv, dh):
+    rng = np.random.default_rng(seed)
+    q, k = (rng.standard_normal((n, s, x, dh)).astype(np.float32)
+            for x in (h, kv))
+    v = rng.standard_normal((n, s, kv, dh)).astype(np.float32)
+    return q, k, v
+
+
+def _plain_flash(q, k, v, **kw):
+    return ref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                   **kw).numpy()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_jax_pallas_kernel(causal):
+    from repro.kernels.flash_attention import flash_attention as jflash
+    q, k, v = _flash_inputs(0, 2, 256, 4, 2, 64)
+    want = jflash(*map(jnp.asarray, (q, k, v)), causal=causal, interpret=True)
+    got = _plain_flash(q, k, v, causal=causal)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("softcap", [None, 5.0])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [256, 200])
+def test_flash_plain_matches_jax_oracle(s, causal, softcap):
+    q, k, v = _flash_inputs(s, 2, s, 4, 2, 64)
+    rep = lambda a: jnp.repeat(jnp.asarray(a), 2, axis=2)
+    want = jref.flash_attention_ref(jnp.asarray(q), rep(k), rep(v),
+                                    causal=causal, softcap=softcap)
+    got = _plain_flash(q, k, v, causal=causal, softcap=softcap)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=FLASH_TOL)
+
+
+def test_flash_plain_bf16_is_the_f32_result_rounded():
+    """bf16 inputs are computed in f32 and rounded once, at the output."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _flash_inputs(7, 1, 300, 4, 1, 128))
+    got = dispatch.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=True).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def test_flash_off_cpu_tensor_never_reaches_the_plain_version(monkeypatch):
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran for an off-CPU tensor")
+
+    def loader(name):
+        assert name == "flash"
+        raise RuntimeError("kernel loader reached")
+
+    monkeypatch.setattr(ref, "flash_attention_ref", no_plain)
+    monkeypatch.setattr(build, "load_library", loader)
+    q = _meta((1, 128, 4, 64), torch.bfloat16)
+    kv = _meta((1, 128, 2, 64), torch.bfloat16)
+    with pytest.raises(RuntimeError, match="kernel loader reached"):
+        dispatch.flash_attention(q, kv, kv, causal=True)
+
+
+def test_flash_has_its_own_library_and_build_flags():
+    """The gossip library keeps --fmad=false (bit-equal codes); the flash
+    kernel, held to a tolerance, is built without it, and each library's
+    name hashes its own source and flags."""
+    libs = build.LIBRARIES
+    assert "--fmad=false" in libs["gossip"].flags
+    assert "--fmad=false" not in libs["flash"].flags
+    assert libs["flash"].source.name == "flash_attention.cu"
+    assert libs["flash"].source.exists() and libs["gossip"].source.exists()
+    paths = {build.library_path(name) for name in libs}
+    assert len(paths) == 2
+    assert set(dispatch.launch_counts()) == {
+        "qsgd_codes", "sign_codes", "dequantize", "ef_update",
+        "flash_attention"}
