@@ -6,8 +6,10 @@ nodes are stacked on a leading ``(n, ...)`` dimension, so a schedule
 round, a ``ppermute`` in the JAX engine, is an index gather over that
 dimension.  Per ``gossip_steps`` round t and per bucket:
 
-    q      = Q(x - x_hat)            quantize kernel -> wire payload
-    q_j    = dequantize(payload_j)   one decode kernel for all n payloads
+    q      = Q(x - x_hat)            compress -> wire payload
+    q_j    = dense(payload_j)        one decode for all n payloads: the
+                                     dequantize kernel for QSGD / sign
+                                     codes, a scatter for sparse payloads
     x_hat += q
     s     += w_self q + w_nbr sum_j q_j        (schedule rounds, gathered)
     x      = x + gamma_b (s - x_hat)           fused EF-update kernel
@@ -16,9 +18,10 @@ Each payload is decoded once: every receiver of node j's payload would
 decode the same bits, so the one decode serves node j's own update and
 every neighbour's gather.
 
-Not ported: the per-leaf engine, the plain / all-reduce / push-sum modes,
-stochastic topology processes, the pipelined engine, and schedules with
-per-node weights (the ring has uniform ones).
+Every compressor of the JAX package runs here, and exact buckets ship
+uncompressed.  Not ported: the per-leaf engine, the plain / all-reduce /
+push-sum modes, stochastic topology processes, the pipelined engine, and
+schedules with per-node weights (the ring has uniform ones).
 """
 from __future__ import annotations
 
@@ -30,8 +33,18 @@ from repro_torch.comm.packing import (BucketSpec, bucket_omegas,
                                       compress_bufs, fold_seed)
 from repro_torch.comm.schedule import GossipSchedule
 from repro_torch.core.choco_gossip import GammaSpec
-from repro_torch.core.compression import QSGD, SignNorm
+from repro_torch.core.compression import (BlockTopK, Identity, QSGD, RandK,
+                                          RandomizedGossip, SignNorm, TopK)
 from repro_torch.kernels import dispatch
+
+_PORTED = (Identity, RandK, TopK, BlockTopK, QSGD, SignNorm, RandomizedGossip)
+
+
+def _pack_align(compressor) -> int:
+    """Segment alignment of the packed buckets: the compressor's block
+    width for blockwise operators (so bucket compression commutes with
+    packing), the 128-lane unit otherwise."""
+    return getattr(compressor, "block", None) or 128
 
 
 def _resolve_bucket_gammas(gamma, spec: BucketSpec, compressor) -> List[float]:
@@ -91,7 +104,7 @@ def _neighbor_sum(q: torch.Tensor, groups) -> Tuple[torch.Tensor, float]:
 def make_choco_exchange(*, spec: BucketSpec,
                         schedules: Sequence[GossipSchedule], compressor,
                         gamma, gossip_steps: int = 1) -> Callable:
-    """Returns ``exchange(x, x_hat, s, *, seed=0, dither=None)``.
+    """Returns ``exchange(x, x_hat, s, *, seed=0, draws=None)``.
 
     ``x``, ``x_hat``, ``s`` are lists of node-stacked f32 bucket buffers
     (``x`` holds the optimizer half-step x^{t+1/2}).  The exchange runs
@@ -99,16 +112,17 @@ def make_choco_exchange(*, spec: BucketSpec,
     and replaces the lists' entries with the new buffers bucket by
     bucket, so each old buffer is freed as soon as its update lands.
 
-    ``seed`` salts QSGD's dither: round t uses ``fold_seed(seed, t)`` (t >
-    0) and bucket b ``fold_seed(round_seed, b)``.  ``dither(t, b)``, when
-    given, supplies the dither instead (the parity tests inject the JAX
-    package's draws this way).
+    ``seed`` salts the stochastic compressors' draws (QSGD's dither,
+    RandK's positions, RandomizedGossip's keep bits): round t uses
+    ``fold_seed(seed, t)`` (t > 0) and bucket b ``fold_seed(round_seed,
+    b)``.  ``draws(t, b)``, when given, supplies the draw instead (the
+    parity tests inject the JAX package's draws this way).
     """
     if gossip_steps < 1:
         raise ValueError("gossip_steps must be >= 1")
-    if not isinstance(compressor, (QSGD, SignNorm)):
+    if type(compressor) not in _PORTED:
         raise ValueError(f"compressor {compressor.name!r} is not ported to "
-                         f"the exchange; it takes qsgd or sign")
+                         f"the exchange")
     for b in spec.buckets:
         if b.dtype != torch.float32:
             raise ValueError("the fused bucket-space path needs f32 state; "
@@ -123,7 +137,7 @@ def make_choco_exchange(*, spec: BucketSpec,
     @torch.no_grad()
     def exchange(x: List[torch.Tensor], x_hat: List[torch.Tensor],
                  s: List[torch.Tensor], *, seed: int = 0,
-                 dither: Optional[Callable[[int, int], torch.Tensor]] = None):
+                 draws: Optional[Callable[[int, int], torch.Tensor]] = None):
         for t in range(gossip_steps):
             groups, w_self = compiled[t % len(compiled)]
             tseed = seed if t == 0 else fold_seed(seed, t)
@@ -131,9 +145,9 @@ def make_choco_exchange(*, spec: BucketSpec,
                 b = bucket.index
                 delta = x[b] - x_hat[b]
                 payloads, (q,) = compress_bufs(
-                    compressor, (bucket,), (delta,), seed=tseed,
-                    dither=None if dither is None
-                    else (lambda i, t=t: dither(t, i)))
+                    compressor, spec, (bucket,), (delta,), seed=tseed,
+                    draws=None if draws is None
+                    else (lambda i, t=t: draws(t, i)))
                 del delta, payloads
                 if groups:
                     nbr, w_nbr = _neighbor_sum(q, groups)

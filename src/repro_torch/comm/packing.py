@@ -3,22 +3,22 @@
 The parameter leaves are packed into a few dtype-homogeneous flat
 *buckets*; each bucket is compressed once and ships as one payload per
 neighbour.  Leaf segments inside compressed buckets start at
-``align``-element boundaries (a multiple of 128), and the padding is
-zero.  The spec depends only on the leaves' per-node shapes and dtypes,
-so it is computed once per trainer.
+``align``-element boundaries (a multiple of 128, the compressor's block
+width for blockwise top-k), and the padding is zero.  Tiny leaves can be
+routed to an *exact* bucket (``exact_small_leaves``): their segments are
+not aligned and the bucket ships uncompressed.  The spec depends only on
+the leaves' per-node shapes and dtypes, so it is computed once per trainer.
 
 Buffers are node-stacked: a bucket buffer is ``(n, bucket.size)``, row i
 being gossip node i's buffer.
 
 Layout rules (those of the JAX package, so both build the same buckets):
-buckets are keyed by (dtype, route) and split when they would
+buckets are keyed by (dtype, exact, route) and split when they would
 exceed ``max_bucket_elems``; a single leaf larger than the cap gets a
-dedicated bucket.  ``route`` is a leaf's sharding over the model axis
+dedicated bucket, and top-k on such a bucket falls back to row-blockwise
+selection.  ``route`` is a leaf's sharding over the model axis
 (:func:`leaf_route`): the JAX engine never mixes model-sharded and
 model-replicated leaves in one bucket, even at model extent 1.
-
-Only the QSGD and SignNorm payloads are ported; the exact small-leaf
-bucket and the uncompressed (Identity) payload are not.
 """
 from __future__ import annotations
 
@@ -27,8 +27,11 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.compression import (PackedQuantPayload, QSGD,
-                                          SignNorm, code_bits)
+from repro_torch.core.compression import (BlockTopK, Identity,
+                                          PackedQuantPayload,
+                                          PackedSparsePayload, QSGD, RandK,
+                                          RandomizedGossip, SignNorm, TopK,
+                                          _resolve_k, code_bits)
 from repro_torch.kernels import ops
 
 LANES = 128
@@ -57,6 +60,7 @@ class LeafSlot:
 class Bucket:
     index: int
     dtype: torch.dtype
+    exact: bool                # ships uncompressed (DensePayload)
     size: int                  # padded buffer length
     logical: int               # sum of leaf sizes (excludes padding)
 
@@ -71,6 +75,9 @@ class BucketSpec:
     def n_buckets(self) -> int:
         return len(self.buckets)
 
+    def bucket_slots(self, b: int) -> List[LeafSlot]:
+        return [s for s in self.slots if s.bucket == b]
+
 
 def leaf_route(path: str) -> Tuple[str, ...]:
     """Routing key of a dense-decoder leaf ("embed/tok", "stack/p0/attn/wq",
@@ -83,38 +90,43 @@ def _round_up(n: int, unit: int) -> int:
 
 
 def make_bucket_spec(leaves, *, align: int = LANES,
+                     exact_small_leaves: bool = False,
+                     small_leaf_threshold: int = 8_192,
                      max_bucket_elems: int = MAX_BUCKET_ELEMS,
                      routes: Optional[Sequence] = None) -> BucketSpec:
     """Build the packing spec from per-node leaves (anything with
-    ``.shape`` and ``.dtype``, e.g. meta tensors), in leaf order."""
+    ``.shape`` and ``.dtype``, e.g. meta tensors), in leaf order.  With
+    ``exact_small_leaves``, leaves of at most ``small_leaf_threshold``
+    elements go to exact buckets."""
     if align % LANES:
         raise ValueError("segment alignment must be a lane multiple")
     if routes is not None and len(routes) != len(leaves):
         raise ValueError(f"{len(routes)} routes for {len(leaves)} leaves")
     open_buckets = {}
     slots: List[LeafSlot] = []
-    buckets: List[List] = []   # [dtype, cursor (= padded size), logical]
+    buckets: List[List] = []   # [dtype, exact, cursor (= padded size), logical]
     for i, leaf in enumerate(leaves):
         size = 1
         for dim in leaf.shape:
             size *= int(dim)
-        seg = _round_up(size, align)
-        key = (leaf.dtype, None if routes is None else routes[i])
+        exact = bool(exact_small_leaves and size <= small_leaf_threshold)
+        seg = size if exact else _round_up(size, align)
+        key = (leaf.dtype, exact, None if routes is None else routes[i])
         b = open_buckets.get(key)
-        if b is None or (buckets[b][1] + seg > max_bucket_elems
-                         and buckets[b][1] > 0):
+        if b is None or (buckets[b][2] + seg > max_bucket_elems
+                         and buckets[b][2] > 0):
             b = len(buckets)
-            buckets.append([leaf.dtype, 0, 0])
+            buckets.append([leaf.dtype, exact, 0, 0])
             open_buckets[key] = b
-        slots.append(LeafSlot(leaf=i, bucket=b, offset=buckets[b][1],
+        slots.append(LeafSlot(leaf=i, bucket=b, offset=buckets[b][2],
                               size=size, shape=tuple(int(d) for d in leaf.shape),
                               dtype=leaf.dtype))
-        buckets[b][1] += seg
-        buckets[b][2] += size
+        buckets[b][2] += seg
+        buckets[b][3] += size
     return BucketSpec(
         slots=tuple(slots),
-        buckets=tuple(Bucket(index=i, dtype=d, size=c, logical=lg)
-                      for i, (d, c, lg) in enumerate(buckets)),
+        buckets=tuple(Bucket(index=i, dtype=d, exact=e, size=c, logical=lg)
+                      for i, (d, e, c, lg) in enumerate(buckets)),
         align=align)
 
 
@@ -161,27 +173,89 @@ def fold_seed(seed: int, data: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
-def draw_dither(buf: torch.Tensor, seed: int) -> torch.Tensor:
-    """QSGD's uniform dither on the buffer's device, from a generator
-    seeded with ``seed``."""
+def _slot_budget(compressor, slots, bucket: Bucket) -> int:
+    """Sparse coordinate budget, resolved per slot and summed (an absolute
+    k means k per leaf; fractions sum to the same total)."""
+    if slots:
+        k = sum(_resolve_k(s.size, compressor.k, compressor.fraction)
+                for s in slots)
+    else:
+        k = _resolve_k(bucket.logical, compressor.k, compressor.fraction)
+    return min(k, bucket.logical)
+
+
+def _logical_positions(slots, bucket: Bucket, device) -> torch.Tensor:
+    """Padded-buffer indices of the bucket's logical coordinates."""
+    if not slots:
+        return torch.arange(bucket.logical, device=device)
+    return torch.cat([s.offset + torch.arange(s.size, device=device)
+                      for s in slots])
+
+
+def draw(compressor, bucket: Bucket, slots, buf: torch.Tensor, seed: int):
+    """The random draw one bucket's compression needs, on the buffer's
+    device, from a generator seeded with ``seed``:
+
+    * QSGD: the uniform dither xi, ``(n, bucket.size)`` f32;
+    * RandK: per node the first k of a uniform permutation of the
+      bucket's logical coordinates, ``(n, k)`` int64;
+    * RandomizedGossip: one keep bit per node, ``(n,)`` bool."""
     gen = torch.Generator(device=buf.device).manual_seed(seed)
-    return torch.rand(buf.shape, generator=gen, dtype=torch.float32,
-                      device=buf.device)
+    n = buf.shape[0]
+    if isinstance(compressor, QSGD):
+        return torch.rand(buf.shape, generator=gen, dtype=torch.float32,
+                          device=buf.device)
+    if isinstance(compressor, RandK):
+        k = _slot_budget(compressor, slots, bucket)
+        return torch.stack([torch.randperm(bucket.logical, generator=gen,
+                                           device=buf.device)[:k]
+                            for _ in range(n)])
+    if isinstance(compressor, RandomizedGossip):
+        return torch.rand((n,), generator=gen, device=buf.device) < compressor.p
+    raise ValueError(f"compressor {compressor.name!r} draws nothing")
 
 
 def compress_bucket(compressor, buf: torch.Tensor, bucket: Bucket,
-                    xi: Optional[torch.Tensor] = None):
+                    slots: Optional[Sequence[LeafSlot]] = None, rand=None):
     """Compress one node-stacked bucket buffer into its wire payload.
 
+    ``slots`` (the bucket's leaves) give the sparse budgets per leaf and
+    the logical positions RandK samples from; ``rand`` is the bucket's
+    draw (:func:`draw`) for a stochastic compressor.
+
+    * exact buckets and Identity -> the buffer itself (DensePayload)
+    * BlockTopK -> its own blockwise payload (PackedSparsePayload)
+    * RandK -> k per slot, sampled over logical positions only
+    * TopK -> the bucket's k largest |x| (k from the slot budget); a
+      bucket over MAX_BUCKET_ELEMS is selected row-blockwise instead,
+      ceil(k / rows) per row of MAX_BUCKET_ELEMS
     * QSGD -> int8/int16 codes (quantize kernel) + a per-node scale using
-      the *logical* dimension's tau; ``xi`` is the uniform dither
+      the *logical* dimension's tau; ``rand`` is the uniform dither
     * SignNorm -> int8 sign codes (sign kernel) + logical-mean scale
+    * RandomizedGossip -> the buffer or zeros per node, by ``rand``
     """
+    if bucket.exact or isinstance(compressor, Identity):
+        return Identity.compress(buf)
+    if isinstance(compressor, BlockTopK):
+        return compressor.compress(buf)
+    if isinstance(compressor, RandK):
+        return compressor.compress(
+            buf, rand, k=_slot_budget(compressor, slots, bucket),
+            logical=_logical_positions(slots, bucket, buf.device))
+    if isinstance(compressor, TopK):
+        k = _slot_budget(compressor, slots, bucket)
+        size = buf.shape[1]
+        if size > MAX_BUCKET_ELEMS:
+            n_blocks = -(-size // MAX_BUCKET_ELEMS)
+            kb = max(1, -(-k // n_blocks))
+            vals, idx = ops.block_topk_select(buf, kb, block=MAX_BUCKET_ELEMS)
+            return PackedSparsePayload(vals, idx, size, MAX_BUCKET_ELEMS)
+        return compressor.compress(buf, k)
     x32 = buf.to(torch.float32)
     if isinstance(compressor, QSGD):
-        if xi is None:
+        if rand is None:
             raise ValueError("QSGD needs its dither xi")
-        codes, scale = ops.qsgd_compress(x32, xi, compressor.s,
+        codes, scale = ops.qsgd_compress(x32, rand.to(buf.device), compressor.s,
                                          compressor._tau(bucket.logical))
         return PackedQuantPayload(codes, scale, code_bits(compressor.s),
                                   dim=bucket.size, logical=bucket.logical)
@@ -189,51 +263,83 @@ def compress_bucket(compressor, buf: torch.Tensor, bucket: Bucket,
         codes, scale = ops.sign_compress(x32, bucket.logical)
         return PackedQuantPayload(codes, scale, 1, dim=bucket.size,
                                   logical=bucket.logical)
+    if isinstance(compressor, RandomizedGossip):
+        return compressor.compress(buf, rand)
     raise ValueError(f"compressor {compressor.name!r} is not ported")
 
 
 def bucket_dense(payload, bucket: Bucket) -> torch.Tensor:
-    """Dense q for one bucket, in the bucket's dtype."""
-    return payload.dense().to(bucket.dtype)
+    """Dense q for one bucket, ``(n, bucket.size)`` in the bucket's dtype."""
+    q = payload.dense()
+    if q.shape[1] < bucket.size:
+        q = torch.nn.functional.pad(q, (0, bucket.size - q.shape[1]))
+    return q[:, : bucket.size].to(bucket.dtype)
 
 
-def bucket_dither(compressor, bucket: Bucket, buf: torch.Tensor, seed: int,
-                  dither: Optional[Callable[[int], torch.Tensor]] = None):
-    """The dither one bucket's compression needs: None for deterministic
-    compressors, else ``dither(bucket.index)`` when injected, else a draw
-    salted per bucket (``fold_seed(seed, index)``)."""
-    if not compressor.stochastic:
+def bucket_rand(compressor, bucket: Bucket, slots, buf: torch.Tensor,
+                seed: int, draws: Optional[Callable[[int], torch.Tensor]] = None):
+    """The draw one bucket's compression needs: None for deterministic
+    compressors and exact buckets, else ``draws(bucket.index)`` when
+    injected, else a draw salted per bucket (``fold_seed(seed, index)``)."""
+    if not compressor.stochastic or bucket.exact:
         return None
-    if dither is not None:
-        return dither(bucket.index)
-    return draw_dither(buf, fold_seed(seed, bucket.index))
+    if draws is not None:
+        return draws(bucket.index)
+    return draw(compressor, bucket, slots, buf, fold_seed(seed, bucket.index))
 
 
-def compress_bufs(compressor, buckets: Sequence[Bucket],
+def compress_bufs(compressor, spec: BucketSpec, buckets: Sequence[Bucket],
                   bufs: Sequence[torch.Tensor], *, seed: int = 0,
-                  dither: Optional[Callable[[int], torch.Tensor]] = None):
+                  draws: Optional[Callable[[int], torch.Tensor]] = None):
     """Compress already-packed bucket buffers (``spec.buckets`` or any
     subset, with their buffers).  Returns (payloads, q_bufs): one wire
     payload per bucket plus its dense q.  The exchange calls it one bucket
     at a time."""
-    payloads = [compress_bucket(compressor, buf, bucket,
-                                bucket_dither(compressor, bucket, buf, seed,
-                                              dither))
-                for bucket, buf in zip(buckets, bufs)]
+    payloads = []
+    for bucket, buf in zip(buckets, bufs):
+        slots = spec.bucket_slots(bucket.index)
+        payloads.append(compress_bucket(
+            compressor, buf, bucket, slots,
+            bucket_rand(compressor, bucket, slots, buf, seed, draws)))
     q_bufs = [bucket_dense(p, b) for p, b in zip(payloads, buckets)]
     return payloads, q_bufs
 
 
 def bucket_omegas(spec: BucketSpec, compressor) -> List[float]:
-    """Per-bucket Assumption-1 omega, in bucket order."""
-    return [compressor.omega(b.logical) for b in spec.buckets]
+    """Per-bucket Assumption-1 omega, in bucket order.  Exact buckets ship
+    uncompressed (omega = 1); sparse budgets resolve per slot, as
+    :func:`compress_bucket` does."""
+    omegas = []
+    for b in spec.buckets:
+        if b.exact or isinstance(compressor, Identity):
+            omegas.append(1.0)
+        elif isinstance(compressor, (TopK, RandK)):
+            k = _slot_budget(compressor, spec.bucket_slots(b.index), b)
+            omegas.append(k / b.logical)
+        else:
+            omegas.append(compressor.omega(b.logical))
+    return omegas
 
 
 def bucket_omega_worst(spec: BucketSpec, compressor) -> float:
-    """Smallest omega over the buckets."""
-    return min(bucket_omegas(spec, compressor))
+    """Smallest omega over the compressed buckets; exact buckets never
+    bind, and a spec of exact buckets only has omega exactly 1."""
+    omegas = [w for b, w in zip(spec.buckets, bucket_omegas(spec, compressor))
+              if not (b.exact or isinstance(compressor, Identity))]
+    return min(omegas) if omegas else 1.0
 
 
 def bucket_wire_bits(spec: BucketSpec, compressor) -> List[int]:
     """Analytic bits on the wire per bucket, in bucket order."""
-    return [int(compressor.wire_bits(b.logical)) for b in spec.buckets]
+    bits = []
+    for b in spec.buckets:
+        if b.exact:
+            bits.append(b.logical * b.dtype.itemsize * 8)
+        elif isinstance(compressor, (TopK, RandK)):
+            bits.append(sum(compressor.wire_bits(s.size)
+                            for s in spec.bucket_slots(b.index)))
+        elif isinstance(compressor, (BlockTopK, QSGD, SignNorm)):
+            bits.append(compressor.wire_bits(b.logical))
+        else:
+            bits.append(compressor.wire_bits(b.size))
+    return [int(x) for x in bits]

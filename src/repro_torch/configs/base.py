@@ -8,10 +8,10 @@ MoE / SSM / hybrid / frontend sub-configs, the other architectures,
 sliding windows, local / global layer patterns and ``remat`` are not
 ported.  ``INPUT_SHAPES`` keeps the one JAX input shape the port serves,
 ``prefill_32k``.  ``ChocoConfig``
-keeps only the settings of the static packed CHOCO path: the stochastic
-processes, staleness, pipelining, push-sum, bf16 EF state, the per-leaf
-engine, the kernel-backend switch, a fixed consensus gamma, the exact
-small-leaf bucket and the packing knobs (alignment 128) are not ported.
+keeps only the settings of the static packed CHOCO path, with the JAX
+package's defaults: the stochastic processes, staleness, pipelining,
+push-sum, bf16 EF state, the per-leaf engine, the kernel-backend switch
+and a fixed consensus gamma are not ported.
 """
 from __future__ import annotations
 
@@ -79,10 +79,13 @@ def parse_topology(spec: str) -> Tuple[str, ...]:
 @dataclasses.dataclass(frozen=True)
 class ChocoConfig:
     """Settings of the static packed CHOCO path."""
-    compressor: str = "sign"        # qsgd | sign
-    comp_kwargs: tuple = ()
+    compressor: str = "top_k"       # compression.make_compressor name
+    comp_kwargs: tuple = (("fraction", 0.01),)
     topology: str = "ring"          # only "ring" is ported
     gossip_steps: int = 1
+    # leaves of at most 8192 elements gossip uncompressed, in exact
+    # buckets (off for paper-faithful runs)
+    exact_small_leaves: bool = False
 
     def comp_dict(self):
         return dict(self.comp_kwargs)

@@ -14,6 +14,9 @@ never load a half-written file.
   held to a tolerance, so FMA contraction stays on: its inner loops are
   dot products, and ``--fmad=false`` would split every one of them into
   a multiply and an add.
+* ``topk`` (``csrc/block_topk.cu``): the per-row top-k selection mask,
+  built with ``--fmad=false``: its mask and thresholds must be bit-equal
+  to the plain version.
 
 Nothing here runs at import time, and nothing falls back: no ``nvcc``, a
 failed build or a failed launch raises.
@@ -61,6 +64,10 @@ LIBRARIES = {
         CSRC / "flash_attention.cu", _COMMON_FLAGS, {
             "flash_attention_f32": _FLASH,
             "flash_attention_bf16": _FLASH,
+        }),
+    "topk": Library(
+        CSRC / "block_topk.cu", _COMMON_FLAGS + ("--fmad=false",), {
+            "block_topk_mask": (_P, _INT, _P, _P, _I64, _I64, _P),
         }),
 }
 

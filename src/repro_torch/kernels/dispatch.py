@@ -1,5 +1,6 @@
 """Route each kernel call of the port to its kernel: the four stages of
-the packed gossip exchange, and flash attention.
+the packed gossip exchange, the top-k selection mask, and flash
+attention.
 
 The route follows the tensor's device and nothing else:
 
@@ -9,7 +10,7 @@ The route follows the tensor's device and nothing else:
   version never runs on the card.
 
 Each kernel wrapper counts its own launches; :func:`launch_counts` reads
-the five counts and :func:`reset_launch_counts` sets them to 0.
+the six counts and :func:`reset_launch_counts` sets them to 0.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from . import ef_update as _ef
 from . import flash_attention as _flash
 from . import qsgd as _qsgd
 from . import ref
+from . import topk as _topk
 
 #: entry name -> kernel wrapper carrying the ``launches`` count
 KERNELS = {
@@ -25,6 +27,7 @@ KERNELS = {
     "dequantize": _qsgd.dequantize,
     "ef_update": _ef.ef_update,
     "flash_attention": _flash.flash_attention,
+    "block_topk_mask": _topk.block_topk_mask,
 }
 
 
@@ -64,6 +67,14 @@ def ef_bucket_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma):
         return ref.ef_update_ref(x_half, x_hat, s, q_self, q_nbr,
                                  w_self, w_nbr, gamma)
     return _ef.ef_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma)
+
+
+def block_topk_mask(x, k: int):
+    """Per-row top-k selection: x (R, C) f32, C a multiple of 128 ->
+    (mask (R, C) f32, thresholds (R,) f32)."""
+    if _on_cpu(x):
+        return ref.block_topk_mask_ref(x, k)
+    return _topk.block_topk_mask(x, k)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, softcap=None):

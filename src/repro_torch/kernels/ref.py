@@ -1,7 +1,7 @@
 """Plain PyTorch versions of every kernel of the port.
 
-The gossip kernels' versions compute exactly what their CUDA kernels
-compute, one PyTorch operation per arithmetic step (so no two steps fuse
+The gossip kernels' and the top-k mask kernel's versions compute exactly
+what their CUDA kernels compute, one PyTorch operation per arithmetic step (so no two steps fuse
 into an FMA), on node-stacked buffers: row i of an ``(n, L)`` tensor is
 gossip node i's bucket buffer, and per-node scalars are ``(n,)`` tensors.
 :func:`flash_attention_ref` repeats the flash kernel's online softmax
@@ -44,6 +44,21 @@ def sign_codes_ref(x):
 def dequantize_ref(codes, scale):
     """codes (n, L) int8/int16, scale (n,) f32 -> codes * scale in f32."""
     return codes.to(torch.float32) * scale[:, None]
+
+
+def block_topk_mask_ref(x, k: int, n_iter: int = 24):
+    """Per-row top-k selection mask by threshold bisection, line by line
+    the JAX package's oracle.  x: (R, C) f32.  Returns (mask (R, C) f32,
+    thresholds (R,) f32); a row keeps between k and k + ties elements."""
+    mag = x.abs()
+    lo = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+    hi = mag.amax(dim=1) + torch.tensor(1e-12, dtype=torch.float32)
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        cnt = (mag >= mid[:, None]).sum(dim=1)
+        ge = cnt >= k
+        lo, hi = torch.where(ge, mid, lo), torch.where(ge, hi, mid)
+    return (mag >= lo[:, None]).to(torch.float32), lo
 
 
 def ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self: float,

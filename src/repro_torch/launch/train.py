@@ -1,7 +1,7 @@
 """Training launcher of the port: CHOCO-SGD with all gossip nodes on one GPU.
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --smoke --mesh 4x1 \\
-        --compressor qsgd --qsgd-s 16 --steps 3
+        --compressor top_k --fraction 0.05 --steps 3
 
 Flag names are the JAX launcher's (``repro.launch.train``).  ``--mesh Nx1``
 gives the node count; the port stacks the N nodes on one device, so a
@@ -18,7 +18,10 @@ import time
 from repro_torch.configs.base import parse_topology
 
 ARCH_CHOICES = ("qwen3-1.7b",)
-COMPRESSOR_CHOICES = ("qsgd", "sign")
+#: the compressors the JAX launcher can run (randomized_gossip takes p, not
+#: --fraction: the JAX launcher fails on it, and this one refuses it)
+COMPRESSOR_CHOICES = ("identity", "rand_k", "top_k", "block_top_k", "qsgd",
+                      "sign")
 
 #: flags of the JAX launcher whose features the port does not have:
 #: given any value other than the default, the launcher refuses them
@@ -32,7 +35,6 @@ _REFUSED = {
     "pipeline_gossip": (False, "the pipelined gossip engine"),
     "state_dtype": ("float32", "bf16 / non-f32 error-feedback state"),
     "gossip_engine": ("packed", "the per-leaf gossip engine"),
-    "exact_small_leaves": (False, "the uncompressed small-leaf bucket"),
     "kernel_backend": (None, "a kernel-backend switch (the route follows "
                              "the tensor's device: --device)"),
     "optimizer": ("momentum", "optimizers other than momentum"),
@@ -75,7 +77,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--compressor", default="top_k",
                     help=f"one of {', '.join(COMPRESSOR_CHOICES)}")
     ap.add_argument("--fraction", type=float, default=0.01,
-                    help="coordinate fraction of the sparsifiers (not ported)")
+                    help="coordinate fraction of rand_k, top_k and block_top_k")
     ap.add_argument("--qsgd-s", type=int, default=None,
                     help="quantization levels (required with --compressor qsgd)")
     ap.add_argument("--state-dtype", default="float32")
@@ -121,6 +123,11 @@ def _validate(ap, args) -> int:
                  f"only a static ring")
     if args.gossip_steps < 1:
         ap.error("--gossip-steps must be >= 1")
+    if args.compressor == "randomized_gossip":
+        ap.error("--compressor randomized_gossip takes a keep probability p, "
+                 "not --fraction, so the launcher cannot run it (the JAX "
+                 "launcher fails on it too); use ChocoConfig(compressor="
+                 "\"randomized_gossip\", comp_kwargs=((\"p\", ...),))")
     if args.compressor not in COMPRESSOR_CHOICES:
         ap.error(f"--compressor {args.compressor} is not ported; choose from "
                  f"{', '.join(COMPRESSOR_CHOICES)}")
@@ -159,12 +166,18 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    comp_kwargs = (("s", args.qsgd_s),) if args.compressor == "qsgd" else ()
+    if args.compressor == "qsgd":
+        comp_kwargs = (("s", args.qsgd_s),)
+    elif args.compressor in ("sign", "identity"):
+        comp_kwargs = ()
+    else:
+        comp_kwargs = (("fraction", args.fraction),)
     trainer = DecentralizedTrainer(
         model=Model(cfg),
         choco=ChocoConfig(compressor=args.compressor, comp_kwargs=comp_kwargs,
                           topology=args.topology,
-                          gossip_steps=args.gossip_steps),
+                          gossip_steps=args.gossip_steps,
+                          exact_small_leaves=args.exact_small_leaves),
         n_nodes=n_nodes, optimizer=make_optimizer(args.optimizer),
         lr_fn=cosine_schedule(args.lr, warmup=min(100, args.steps // 10 + 1),
                               total=args.steps),
@@ -173,6 +186,7 @@ def main(argv=None):
           f"nodes={n_nodes} device={device} mode={args.mode} "
           f"topology={args.topology} gossip_steps={args.gossip_steps} "
           f"compressor={args.compressor} buckets={trainer.spec.n_buckets} "
+          f"exact_buckets={sum(b.exact for b in trainer.spec.buckets)} "
           f"gamma={trainer.gamma:.3e}", flush=True)
 
     state = trainer.init_state(seed=0)

@@ -13,9 +13,9 @@ reads its parameters as views into the x buffers.  So the gradient comes
 back in bucket layout, the optimizer and the exchange run on whole
 buckets, and nothing is packed or unpacked per step.
 
-The slice: CHOCO mode, a static ring, f32 state, QSGD or SignNorm
-compression, the Theorem-2 gamma, naive attention (the flash kernel has
-no backward).  Other topologies and compressors
+The slice: CHOCO mode, a static ring, f32 state, every compressor of the
+JAX package (with the exact small-leaf bucket), the Theorem-2 gamma,
+naive attention (the flash kernel has no backward).  Other topologies
 raise; the other modes, processes and a fixed gamma are not ported.
 """
 from __future__ import annotations
@@ -26,7 +26,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.comm.gossip import make_choco_exchange
+from repro_torch.comm.gossip import _pack_align, make_choco_exchange
 from repro_torch.comm.packing import (bucket_omega_worst, fold_seed,
                                       leaf_route, make_bucket_spec,
                                       pack_leaves, unpack_leaves)
@@ -57,7 +57,7 @@ class TrainState:
     s: List[torch.Tensor]        # weighted neighbour aggregates
     mu: List[torch.Tensor]       # momentum
     step: int = 0
-    seed: int = 0                # salts the QSGD dither of every step
+    seed: int = 0                # salts the compressors' draws every step
 
 
 @dataclasses.dataclass
@@ -87,6 +87,8 @@ class DecentralizedTrainer:
         self.spec = make_bucket_spec(
             [torch.empty(shapes[p], dtype=self.model.param_dtype,
                          device="meta") for p in self.paths],
+            align=_pack_align(self.compressor),
+            exact_small_leaves=self.choco.exact_small_leaves,
             routes=[leaf_route(p) for p in self.paths])
         # Theorem-2 consensus stepsize: the scalar worst case for logging,
         # and per-bucket values (each bucket at its own omega) for the engine
@@ -131,10 +133,11 @@ class DecentralizedTrainer:
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
 
     def step(self, state: TrainState, batch,
-             dither: Optional[Callable[[int, int], torch.Tensor]] = None
+             draws: Optional[Callable[[int, int], torch.Tensor]] = None
              ) -> Dict[str, float]:
-        """One CHOCO-SGD step, in place on ``state``.  ``dither(t, b)``
-        optionally injects QSGD's dither for gossip round t, bucket b."""
+        """One CHOCO-SGD step, in place on ``state``.  ``draws(t, b)``
+        optionally injects the compressor's draw for gossip round t,
+        bucket b (``comm/packing.py:draw`` says what each one draws)."""
         for b in state.x:
             b.requires_grad_(True)
         losses = self.model.loss(self.params(state), batch)     # (n,)
@@ -149,7 +152,7 @@ class DecentralizedTrainer:
             del grads                  # frees a state-sized copy for the exchange
             self.exchange(state.x, state.x_hat, state.s,
                           seed=fold_seed(state.seed, state.step),
-                          dither=dither)
+                          draws=draws)
         state.step += 1
         losses = losses.detach()
         return {"loss": float(losses.mean()), "lr": lr,

@@ -1,6 +1,6 @@
 """The PyTorch port on the card: each CUDA kernel against its plain version,
-the trainer through the gossip kernels and the prefill through the flash
-kernel.
+the trainer through the gossip kernels (with QSGD, sign and top-k gossip)
+and the prefill through the flash kernel.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so on a machine without JAX it
@@ -85,10 +85,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         dispatch.qsgd_codes(x, x[:, :32].contiguous(), x[:, 0].contiguous(), 16)
 
 
+def _counts(**launched):
+    """The six launch counts: those named, 0 for the rest."""
+    return {name: launched.get(name, 0) for name in dispatch.KERNELS}
+
+
 def _run(compressor, device, steps=2):
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
-    kw = (("s", 16),) if compressor == "qsgd" else ()
+    kw = {"qsgd": (("s", 16),), "sign": ()}.get(compressor,
+                                                 (("fraction", 0.05),))
     tr = DecentralizedTrainer(
         model=Model(cfg), choco=ChocoConfig(compressor=compressor,
                                             comp_kwargs=kw),
@@ -111,8 +117,8 @@ def test_trainer_goes_through_the_kernels_and_agrees_with_cpu(cuda):
     counts = dispatch.launch_counts()
     torch.cuda.synchronize()
     launches = 2 * tr.choco.gossip_steps * tr.spec.n_buckets
-    assert counts == {"qsgd_codes": 0, "sign_codes": launches,
-                      "dequantize": launches, "ef_update": launches}
+    assert counts == _counts(sign_codes=launches, dequantize=launches,
+                             ef_update=launches)
     _, cpu_state, cpu_losses = _run("sign", "cpu")
     np.testing.assert_allclose(losses, cpu_losses, rtol=1e-5)
     for a, b in zip(state.x, cpu_state.x):
@@ -124,10 +130,102 @@ def test_trainer_qsgd_launches_per_bucket_per_round(cuda):
     dispatch.reset_launch_counts()
     tr, _, losses = _run("qsgd", cuda)
     launches = 2 * tr.choco.gossip_steps * tr.spec.n_buckets
-    assert dispatch.launch_counts() == {
-        "qsgd_codes": launches, "sign_codes": 0, "dequantize": launches,
-        "ef_update": launches}
+    assert dispatch.launch_counts() == _counts(
+        qsgd_codes=launches, dequantize=launches, ef_update=launches)
     assert all(np.isfinite(losses))
+
+
+def moved_selections(tr, gpu_state, cpu_state):
+    """Card against CPU after sparse gossip.  A summation-order difference
+    in a gradient can move a selection at the k-th magnitude; that moves
+    x_hat there by a whole delta (> 1e-4), and x by gamma times at most
+    twice the largest |x_hat|.  Returns the count of such coordinates, and
+    holds x elsewhere to 1e-5 + 1e-5 max|x|."""
+    moved = 0
+    for xg, xc, hg, hc, g in zip(gpu_state.x, cpu_state.x, gpu_state.x_hat,
+                                 cpu_state.x_hat, tr.exchange.bucket_gammas):
+        xg, hg = xg.cpu(), hg.cpu()
+        at = (hg - hc).abs() > 1e-4
+        moved += int(at.sum())
+        dx = (xg - xc).abs()
+        if (~at).any():
+            assert float(dx[~at].max()) <= 1e-5 + 1e-5 * float(xc.abs().max())
+        if at.any():
+            assert float(dx[at].max()) <= 1e-5 + 2 * g * float(hc.abs().max())
+    return moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compressor", ["top_k", "block_top_k"])
+def test_trainer_sparse_gossip_agrees_with_cpu(cuda, compressor):
+    """Top-k gossip: one EF-update launch per bucket per round, no codes,
+    no decode kernel and no mask kernel (sparse payloads decode by
+    scatter); losses within 1e-5 relative of the CPU run's, iterates as
+    ``moved_selections`` says, with no coordinate moved: on an H100 none
+    has moved at these seeds, so one that does is a difference to look
+    into."""
+    dispatch.reset_launch_counts()
+    tr, state, losses = _run(compressor, cuda)
+    launches = 2 * tr.choco.gossip_steps * tr.spec.n_buckets
+    assert dispatch.launch_counts() == _counts(ef_update=launches)
+    _, cpu_state, cpu_losses = _run(compressor, "cpu")
+    np.testing.assert_allclose(losses, cpu_losses, rtol=1e-5)
+    assert moved_selections(tr, state, cpu_state) == 0
+
+
+def _ties(seed, shape, device):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-3, 4, shape).astype(np.float32)
+    x[::3] = 1.0
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("cols", [128, 256, 1024])
+@pytest.mark.parametrize("k", [1, 2, 13])
+def test_block_topk_mask_bit_equal_to_plain(cuda, k, cols, ties):
+    shape = (1000, cols)
+    x = _ties(cols, shape, cuda) if ties else _normal(cols, shape, cuda)
+    mask, thresh = _launched("block_topk_mask",
+                             lambda: dispatch.block_topk_mask(x, k))
+    want_mask, want_thresh = ref.block_topk_mask_ref(x, k)
+    assert torch.equal(mask, want_mask) and torch.equal(thresh, want_thresh)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_block_topk_compress_vector_through_the_kernel(cuda):
+    from repro_torch.kernels import ops
+    x = _normal(7, (1_000_003,), cuda)
+    got = _launched("block_topk_mask",
+                    lambda: ops.block_topk_compress_vector(x, 13))
+    assert torch.equal(got.cpu(), ops.block_topk_compress_vector(x.cpu(), 13))
+
+
+@pytest.mark.cuda
+def test_topk_selection_on_the_card_matches_the_cpu(cuda):
+    """The tie rule holds on the card: the same indices, in the same order,
+    as on the CPU (torch.topk alone would break ties differently)."""
+    from repro_torch.kernels import ops
+    x = _ties(3, (4, 70_001), cuda)
+    for k in (1, 700, 5000):
+        assert torch.equal(ops.topk_rows(x, k).cpu(),
+                           ops.topk_rows(x.cpu(), k))
+    v, i = ops.block_topk_select(x, 2)
+    cv, ci = ops.block_topk_select(x.cpu(), 2)
+    assert torch.equal(v.cpu(), cv) and torch.equal(i.cpu(), ci)
+
+
+@pytest.mark.cuda
+def test_topk_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = _normal(0, (8, 2048), cuda)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        dispatch.block_topk_mask(x, 2)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        dispatch.block_topk_mask(x[:, :100].contiguous(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        dispatch.block_topk_mask(x[:, :256], 2)
 
 
 def bf16_ulps(got, want):
@@ -174,7 +272,9 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                  k[..., :32].contiguous(),
                                  v[..., :32].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
-        dispatch.flash_attention(q, k.transpose(0, 1), v)
+        # the right shape, laid out (N, KV, S, Dh) underneath
+        dispatch.flash_attention(q, k.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), v)
     with pytest.raises(ValueError, match="shape"):
         dispatch.flash_attention(q, k[:, :64].contiguous(), v)
     with pytest.raises(RuntimeError, match="no backward"):

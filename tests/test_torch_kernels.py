@@ -13,7 +13,10 @@ to (R, 128) tiles and slices the tail), on the same numpy inputs:
   against its own oracle, so the port is held to a ulp bound there.
 
 The flash-attention plain version is held against the Pallas kernel in
-interpret mode and against the JAX oracle (see the section below).
+interpret mode and against the JAX oracle (see the section below).  The
+top-k mask's plain version is bit-equal to the JAX oracle and to the
+Pallas kernel in interpret mode, ties included, and
+``ops.block_topk_compress_vector`` to the JAX op at odd lengths.
 
 The routing tests show that a tensor off the CPU never reaches a plain
 version.  ``tests/test_torch_cuda.py`` holds each CUDA kernel against its
@@ -130,6 +133,10 @@ def test_cpu_tensors_take_the_plain_versions_without_launches():
     outs = dispatch.ef_bucket_update(x, x, x, x, x, 0.3, 0.3, 0.1)
     for a, b in zip(outs, ref.ef_update_ref(x, x, x, x, x, 0.3, 0.3, 0.1)):
         assert torch.equal(a, b)
+    tiles = x.reshape(-1, 125)[:, :1].repeat(1, 128)
+    for a, b in zip(dispatch.block_topk_mask(tiles, 3),
+                    ref.block_topk_mask_ref(tiles, 3)):
+        assert torch.equal(a, b)
     assert set(dispatch.launch_counts().values()) == {0}
 
 
@@ -145,7 +152,10 @@ _ENTRIES = {
                                               _meta((N,))),
     "ef_update": lambda: dispatch.ef_bucket_update(
         *[_meta((N, 8))] * 5, 0.3, 0.3, 0.1),
+    "block_topk_mask": lambda: dispatch.block_topk_mask(_meta((8, 128)), 2),
 }
+#: the library each entry's kernel is in
+_LIBRARY = {"block_topk_mask": "topk"}
 
 
 @pytest.mark.parametrize("entry", sorted(_ENTRIES))
@@ -156,11 +166,11 @@ def test_off_cpu_tensor_never_reaches_a_plain_version(entry, monkeypatch):
         raise AssertionError("a plain version ran for an off-CPU tensor")
 
     def loader(name):
-        assert name == "gossip"
+        assert name == _LIBRARY.get(entry, "gossip")
         raise RuntimeError("kernel loader reached")
 
     for name in ("qsgd_codes_ref", "sign_codes_ref", "dequantize_ref",
-                 "ef_update_ref"):
+                 "ef_update_ref", "block_topk_mask_ref"):
         monkeypatch.setattr(ref, name, no_plain)
     monkeypatch.setattr(build, "load_library", loader)
     with pytest.raises(RuntimeError, match="kernel loader reached"):
@@ -253,11 +263,59 @@ def test_flash_has_its_own_library_and_build_flags():
     name hashes its own source and flags."""
     libs = build.LIBRARIES
     assert "--fmad=false" in libs["gossip"].flags
+    assert "--fmad=false" in libs["topk"].flags
     assert "--fmad=false" not in libs["flash"].flags
     assert libs["flash"].source.name == "flash_attention.cu"
-    assert libs["flash"].source.exists() and libs["gossip"].source.exists()
+    assert libs["topk"].source.name == "block_topk.cu"
+    assert all(lib.source.exists() for lib in libs.values())
     paths = {build.library_path(name) for name in libs}
-    assert len(paths) == 2
+    assert len(paths) == 3
     assert set(dispatch.launch_counts()) == {
         "qsgd_codes", "sign_codes", "dequantize", "ef_update",
-        "flash_attention"}
+        "flash_attention", "block_topk_mask"}
+
+
+# -- block top-k mask ----------------------------------------------------------------
+#
+# The plain version against the JAX oracle ``block_topk_mask_ref`` and the
+# Pallas kernel in interpret mode (R % 8 == 0), bit for bit in mask and
+# thresholds: bisection does nothing but exact compares, a max and two
+# roundings that both sides do in f32.
+
+
+def _topk_tiles(seed, rows, cols, ties):
+    rng = np.random.default_rng(seed)
+    if ties:
+        x = rng.integers(-3, 4, (rows, cols)).astype(np.float32)
+        x[::3] = 1.0                               # whole rows of one magnitude
+        x[1::5, cols // 2:] = 0.0
+        return x
+    return rng.standard_normal((rows, cols)).astype(np.float32)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 13, 64])
+@pytest.mark.parametrize("cols", [128, 256])
+def test_block_topk_mask_plain_matches_jax(cols, k, ties):
+    from repro.kernels.topk import block_topk_mask as jmask
+    x = _topk_tiles(cols + k, 64, cols, ties)
+    mask, thresh = ref.block_topk_mask_ref(torch.from_numpy(x), k)
+    for want_mask, want_thresh in (jref.block_topk_mask_ref(jnp.asarray(x), k),
+                                   jmask(jnp.asarray(x), k, interpret=True)):
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(want_mask))
+        np.testing.assert_array_equal(thresh.numpy(), np.asarray(want_thresh))
+    kept = mask.sum(dim=1)
+    assert bool((kept >= min(k, cols)).all())
+    if not ties:
+        assert bool((kept == k).all())
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("d", [1000, 4097, 130_001])
+def test_block_topk_compress_vector_matches_jax(d, ties):
+    from repro_torch.kernels import ops
+    x = _topk_tiles(d, 1, d, ties)[0]
+    got = ops.block_topk_compress_vector(torch.from_numpy(x), 13)
+    want = jops.block_topk_compress_vector(jnp.asarray(x), 13, interpret=True)
+    assert got.shape == (d,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

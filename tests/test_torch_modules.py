@@ -70,8 +70,8 @@ def test_ring_schedule_matches_jax(n):
 def test_unported_topologies_raise():
     with pytest.raises(ValueError, match="not ported"):
         topology.make_topology("torus", 4)
-    with pytest.raises(ValueError, match="not ported"):
-        compression.make_compressor("top_k", fraction=0.01)
+    with pytest.raises(ValueError, match="unknown compressor"):
+        compression.make_compressor("top_q", fraction=0.01)
 
 
 @pytest.mark.parametrize("d", [1, 128, 1000, 1_441_792, 311_164_928])
@@ -133,7 +133,13 @@ _CFGS = {
     "full_width_2_layers": (dataclasses.replace(jqwen.CONFIG, n_layers=2),
                             dataclasses.replace(tqwen.CONFIG, n_layers=2)),
 }
-_LAYOUTS = {"default": {}, "small_cap": {"max_bucket_elems": 1 << 16}}
+_LAYOUTS = {"default": {}, "small_cap": {"max_bucket_elems": 1 << 16},
+            "exact_small_leaves": {"exact_small_leaves": True}}
+#: every compressor, at the launcher's settings (fraction 0.01)
+_COMPRESSORS = [("qsgd", {"s": 16}), ("sign", {}), ("identity", {}),
+                ("top_k", {"fraction": 0.01}), ("rand_k", {"fraction": 0.01}),
+                ("block_top_k", {"fraction": 0.01}),
+                ("randomized_gossip", {"p": 0.3})]
 
 
 @pytest.mark.parametrize("cfg", sorted(_CFGS))
@@ -145,7 +151,7 @@ def test_leaf_order_and_shapes_match_jax(cfg):
     assert param_shapes(tcfg) == want
 
 
-@pytest.mark.parametrize("name,kw", [("qsgd", {"s": 16}), ("sign", {})])
+@pytest.mark.parametrize("name,kw", _COMPRESSORS)
 @pytest.mark.parametrize("layout", sorted(_LAYOUTS))
 @pytest.mark.parametrize("cfg", sorted(_CFGS))
 def test_bucket_spec_matches_jax(cfg, layout, name, kw):
@@ -153,9 +159,9 @@ def test_bucket_spec_matches_jax(cfg, layout, name, kw):
     got, want = _port_spec(tcfg, **_LAYOUTS[layout]), _jax_spec(jcfg, **_LAYOUTS[layout])
     assert [(s.leaf, s.bucket, s.offset, s.size, s.shape) for s in got.slots] \
         == [(s.leaf, s.bucket, s.offset, s.size, s.shape) for s in want.slots]
-    assert [(b.index, b.size, b.logical) for b in got.buckets] \
-        == [(b.index, b.size, b.logical) for b in want.buckets]
-    assert not any(b.exact for b in want.buckets)
+    assert [(b.index, b.exact, b.size, b.logical) for b in got.buckets] \
+        == [(b.index, b.exact, b.size, b.logical) for b in want.buckets]
+    assert any(b.exact for b in got.buckets) == (layout == "exact_small_leaves")
     tc, jc = compression.make_compressor(name, **kw), jcomp.make_compressor(name, **kw)
     assert packing.bucket_omegas(got, tc) == jpacking.bucket_omegas(want, jc)
     assert packing.bucket_omega_worst(got, tc) == jpacking.bucket_omega_worst(want, jc)
@@ -166,30 +172,37 @@ def test_bucket_spec_matches_jax(cfg, layout, name, kw):
 
 
 def test_exchange_refuses_unported_compressors():
+    class Halve(compression.Compressor):
+        name = "halve"
+
     spec = _port_spec(tqwen.SMOKE_CONFIG)
     with pytest.raises(ValueError, match="not ported"):
         gossip.make_choco_exchange(
             spec=spec, schedules=(schedule.compile_schedule(topology.ring(N)),),
-            compressor=compression.Identity(), gamma=0.5)
+            compressor=Halve(), gamma=0.5)
 
 
-@pytest.mark.parametrize("name,kw", [("qsgd", {"s": 16}), ("sign", {})])
+@pytest.mark.parametrize("name,kw,exact", [
+    pytest.param(name, kw, exact, id=f"{name}-kw{i}" + ("-exact" if exact else ""))
+    for exact in (False, True) for i, (name, kw) in enumerate(_COMPRESSORS)])
 @pytest.mark.parametrize("cfg", sorted(_CFGS))
-def test_trainer_gamma_matches_jax_rule(cfg, name, kw):
+def test_trainer_gamma_matches_jax_rule(cfg, name, kw, exact):
     """The port trainer's Theorem-2 gamma (scalar worst case and per
     bucket) equals the JAX trainer's rule on the same bucket layout: about
     2e-5 for QSGD(16) and 7e-11 for SignNorm at full width, 4 nodes."""
+    from repro.comm.gossip import _pack_align as jalign
     from repro_torch.configs.base import ChocoConfig
     from repro_torch.models.transformer import Model
     from repro_torch.train.trainer import DecentralizedTrainer
     jcfg, tcfg = _CFGS[cfg]
     tr = DecentralizedTrainer(
         model=Model(tcfg), choco=ChocoConfig(compressor=name,
-                                             comp_kwargs=tuple(kw.items())),
+                                             comp_kwargs=tuple(kw.items()),
+                                             exact_small_leaves=exact),
         n_nodes=N, optimizer=MomentumSGD(), lr_fn=cosine_schedule(0.1, 1, 3),
         device="cpu")
     ring, jc = jtopo.ring(N), jcomp.make_compressor(name, **kw)
-    spec = _jax_spec(jcfg)
+    spec = _jax_spec(jcfg, align=jalign(jc, None), exact_small_leaves=exact)
     assert tr.gamma == jchoco.theorem2_stepsize(
         ring.delta, ring.beta, jpacking.bucket_omega_worst(spec, jc))
     assert tr.exchange.bucket_gammas == jgammas(
@@ -230,8 +243,8 @@ def test_compress_bufs_payloads_match_jax(name, kw):
               jax.random.fold_in(k, b.index), (b.size,))) for k in keys]))
           for b in want_spec.buckets}
     payloads, q_bufs = packing.compress_bufs(
-        compression.make_compressor(name, **kw), got_spec.buckets, bufs,
-        dither=xi.__getitem__)
+        compression.make_compressor(name, **kw), got_spec, got_spec.buckets,
+        bufs, draws=xi.__getitem__)
     for i in range(N):
         jbufs = [jnp.asarray(b[i].numpy()) for b in bufs]
         want_p, want_q = jpacking.compress_bufs(jc, keys[i], want_spec, jbufs)

@@ -55,17 +55,23 @@ _JAX_REFERENCE = textwrap.dedent("""
     from repro.optim import cosine_schedule, make_optimizer
     from repro.train.trainer import DecentralizedTrainer
 
-    comp, s, k, steps, seq, bpn, out = sys.argv[1:]
+    comp, arg, k, exact, steps, seq, bpn, out = sys.argv[1:]
     k, steps, seq, bpn = int(k), int(steps), int(seq), int(bpn)
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
     mesh = jax.make_mesh((4, 1), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
-    kw = (("s", int(s)),) if comp == "qsgd" else ()
+    if comp == "qsgd":
+        kw = (("s", int(arg)),)
+    elif comp in ("sign", "identity"):
+        kw = ()
+    else:
+        kw = (("fraction", float(arg)),)
     tr = DecentralizedTrainer(
         model=build_model(cfg),
         choco=ChocoConfig(compressor=comp, comp_kwargs=kw, gossip_axis="data",
-                          gossip_steps=k, kernel_backend="jnp"),
+                          gossip_steps=k, kernel_backend="jnp",
+                          exact_small_leaves=exact == "exact"),
         mesh=mesh, n_nodes=4, optimizer=make_optimizer("momentum"),
         lr_fn=cosine_schedule(0.1, warmup=steps // 10 + 1, total=steps),
         mode="choco")
@@ -113,13 +119,14 @@ _JAX_REFERENCE = textwrap.dedent("""
 """)
 
 
-def _jax_reference(tmp_path, comp, s, k):
+def _jax_reference(tmp_path, comp, arg, k, exact):
     out = tmp_path / f"jax_{comp}_{k}.npz"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    r = subprocess.run([sys.executable, "-c", _JAX_REFERENCE, comp, str(s),
-                        str(k), str(STEPS), str(SEQ), str(BPN), str(out)],
+    r = subprocess.run([sys.executable, "-c", _JAX_REFERENCE, comp, str(arg),
+                        str(k), "exact" if exact else "-", str(STEPS),
+                        str(SEQ), str(BPN), str(out)],
                        env=env, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
     return np.load(out)
@@ -137,13 +144,19 @@ def _tree(ref, tag):
     return tree
 
 
-def _port_trainer(comp, s, k):
+def _port_trainer(comp, arg, k, exact):
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
-    kw = (("s", s),) if comp == "qsgd" else ()
+    if comp == "qsgd":
+        kw = (("s", arg),)
+    elif comp in ("sign", "identity"):
+        kw = ()
+    else:
+        kw = (("fraction", arg),)
     return DecentralizedTrainer(
         model=Model(cfg), choco=ChocoConfig(compressor=comp, comp_kwargs=kw,
-                                            gossip_steps=k),
+                                            gossip_steps=k,
+                                            exact_small_leaves=exact),
         n_nodes=N, optimizer=MomentumSGD(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
         device="cpu")
@@ -151,20 +164,27 @@ def _port_trainer(comp, s, k):
 
 @pytest.mark.slow
 @pytest.mark.distributed
-@pytest.mark.parametrize("comp,s,k", [("sign", 0, 1), ("qsgd", 16, 1),
-                                      ("qsgd", 16, 2)])
-def test_slice_matches_jax_trainer(tmp_path, comp, s, k):
-    ref = _jax_reference(tmp_path, comp, s, k)
-    tr = _port_trainer(comp, s, k)
+@pytest.mark.parametrize("comp,arg,k,exact", [
+    pytest.param("sign", 0, 1, False, id="sign-0-1"),
+    pytest.param("qsgd", 16, 1, False, id="qsgd-16-1"),
+    pytest.param("qsgd", 16, 2, False, id="qsgd-16-2"),
+    pytest.param("top_k", 0.05, 1, False, id="top_k-0.05-1"),
+    pytest.param("block_top_k", 0.05, 1, False, id="block_top_k-0.05-1"),
+    pytest.param("identity", 0, 1, True, id="identity-exact-1"),
+])
+def test_slice_matches_jax_trainer(tmp_path, comp, arg, k, exact):
+    ref = _jax_reference(tmp_path, comp, arg, k, exact)
+    tr = _port_trainer(comp, arg, k, exact)
+    assert any(b.exact for b in tr.spec.buckets) == exact
     assert [tr.gamma] + tr.exchange.bucket_gammas == list(ref["gamma"])
     state = tr.state_from_params(params_from_jax(_tree(ref, "x0")))
     batches = make_lm_batch_fn(tr.model.cfg, SEQ, BPN, N, 1.0)
     mets = []
     for j in range(STEPS):
-        dither = None
+        draws = None
         if comp == "qsgd":
-            dither = lambda t, b, j=j: torch.from_numpy(ref[f"xi:{j}:{t}:{b}"])
-        m = tr.step(state, tr.batch_to_device(batches()), dither=dither)
+            draws = lambda t, b, j=j: torch.from_numpy(ref[f"xi:{j}:{t}:{b}"])
+        m = tr.step(state, tr.batch_to_device(batches()), draws=draws)
         mets.append([m["loss"], m["lr"], m["grad_norm"]])
     mets = np.array(mets)
     np.testing.assert_allclose(mets[:, 0], ref["metrics"][:, 0], rtol=1e-6)
@@ -225,10 +245,34 @@ def test_trainer_defaults_to_cuda(monkeypatch):
     assert trainer_mod.resolve_device("cpu").type == "cpu"
 
 
+@pytest.mark.parametrize("extra", [
+    ["--compressor", "top_k", "--fraction", "0.05"],
+    ["--compressor", "identity"],
+    ["--compressor", "sign", "--exact-small-leaves"],
+    ["--compressor", "block_top_k"],
+    ["--compressor", "rand_k", "--fraction", "0.02"],
+    ["--exact-small-leaves"],                     # the default, top_k 0.01
+])
+def test_launcher_runs_each_compressor_on_cpu(extra, capsys):
+    assert launcher.main(_SMOKE + extra + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    comp = extra[extra.index("--compressor") + 1] if "--compressor" in extra \
+        else "top_k"
+    assert f"compressor={comp} " in out
+    # the norm scales go to an exact bucket of their own
+    assert "buckets=2 " in out
+    assert f"exact_buckets={int('--exact-small-leaves' in extra)} " in out
+    losses = [float(line.split("loss ")[1].split()[0])
+              for line in out.splitlines() if line.startswith("[train] step")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
 @pytest.mark.parametrize("extra,message", [
-    (["--compressor", "top_k"], "--compressor top_k is not ported"),
-    (["--compressor", "identity"], "--compressor identity is not ported"),
-    (["--compressor", "sign", "--exact-small-leaves"], "--exact-small-leaves"),
+    (["--compressor", "randomized_gossip"],
+     "randomized_gossip takes a keep probability p"),
+    (["--compressor", "power_sgd"], "--compressor power_sgd is not ported"),
+    (["--compressor", "sign", "--gossip-steps", "0"],
+     "--gossip-steps must be >= 1"),
     (["--compressor", "sign", "--mode", "pushsum"], "--mode pushsum"),
     (["--compressor", "sign", "--pipeline-gossip"], "--pipeline-gossip"),
     (["--compressor", "sign", "--topology-process", "matching"],
@@ -252,8 +296,8 @@ def test_launcher_refuses_flags_outside_the_slice(extra, message, capsys):
 
 def test_launcher_refuses_before_importing_torch():
     code = ("import sys; from repro_torch.launch.train import main\n"
-            "try:\n    main(['--arch', 'qwen3-1.7b', '--compressor', 'top_k',"
-            " '--mesh', '4x1'])\n"
+            "try:\n    main(['--arch', 'qwen3-1.7b', '--compressor',"
+            " 'randomized_gossip', '--mesh', '4x1'])\n"
             "except SystemExit as e:\n"
             "    assert e.code == 2 and 'torch' not in sys.modules\n"
             "    print('refused')\n")
