@@ -11,11 +11,14 @@ from the root of a checkout, on a machine with one CUDA device.  It
    bucket lengths of the full-width run and at an odd length: QSGD codes
    (int8 and int16), sign codes and dequantize bit-equal, the EF update
    within 0 ulp (kernel and plain version round every operation
-   separately), and times kernel, plain version, the bytes bound and,
+   separately), into new buffers and in place, and times kernel, plain
+   version, the bytes bound and,
    for dequantize, the one PyTorch call that computes the same function.
    QSGD is checked twice at each length: with inv_norm = 1/||x|| per node
    row, as the trainer calls it (codes of -1, 0 or 1 at these lengths),
    and with inv_norm = 0.999/max|x|, which reaches every level up to s;
+   The collective-layer probe kernel is held bit-equal to its plain version
+   at the JAX probe's (8, 128) block and timed;
 3. holds the top-k mask kernel against its plain version, bit for bit in
    mask and thresholds: at the tile shape of one node's embedding bucket
    (2,430,976 x 128) with k = 2 and 13, at C = 1024, and with planted
@@ -36,6 +39,19 @@ from the root of a checkout, on a machine with one CUDA device.  It
    the CPU (the plain versions), step by step: SignNorm, top_k,
    block_top_k, identity with the exact small-leaf bucket, and rand_k and
    randomized gossip fed the same draws on both devices;
+   then the per-rank engine (``[dist]``), one process per gossip node, 4
+   ranks sharing the card: first two ranks try NCCL on the one card (the
+   reason the transport rule takes gloo there); the small phase holds the
+   per-rank exchange alone bit-equal to the stacked exchange on the card,
+   and 3 per-rank steps of the f32 smoke decoder to the ``[small]`` rules
+   against the stacked trainer on the card (top_k, QSGD with 2 gossip
+   rounds, sign); the full-width phase trains qwen3-1.7b widths (2
+   layers) with top_k 0.01 at sequence 512 x batch 4 per node for 3 steps,
+   checking finite losses, each rank's launches (the probe kernel once,
+   the EF update per bucket per round) and that each rank sent exactly
+   the spec's payload bytes, and prints ms/step beside the stacked
+   engine's, each rank's peak memory, the wire bytes, the transport and
+   the probe record;
 7. holds the flash-attention kernel against its plain version at the
    full-width prefill layer shape (32768 tokens, 16/8 heads, bf16,
    causal), at an odd length (1000) and in f32 with a softcap, and times
@@ -54,7 +70,10 @@ from the root of a checkout, on a machine with one CUDA device.  It
    (``repro_torch.launch.serve.main``, batch 8, prompt 32, 32 generated
    tokens, 2 requests): TTFT and per-token latency, no flash launch; then
    holds the f32 smoke model's prefill plus 8 decode steps on the card
-   against the same on the CPU;
+   against the same on the CPU, and measures where the card's f32
+   prefill differs from the CPU's (``prefill_budget``: the flash kernel
+   against its plain version, chunked and naive attention on the card
+   against the CPU);
 11. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -109,6 +128,9 @@ FLASH_CASES = (
     ("f32 softcap", 2, 512, 8, 8, 64, "float32", False, 50.0),
 )
 PREFILL_CALLS = 2
+#: the f32 prefill test's cache tolerance, atol (rtol 1e-5), from
+#: ``prefill_budget``'s measurements
+PREFILL_CACHE_ATOL = 4e-5
 
 
 def check(cond, msg):
@@ -233,6 +255,12 @@ def check_kernels(lengths, dev):
         compare("ef_update", [(o, plain_row(j)) for j, o in enumerate(outs)],
                 length)
         del outs
+        # in place, as the exchange calls it: outputs over x_half, x_hat, s
+        inplace = [t.clone() for t in ins[:3]]
+        dispatch.ef_bucket_update(*inplace, *ins[3:], *coef, out=inplace)
+        compare("ef_update", [(o, plain_row(j)) for j, o in enumerate(inplace)],
+                length)
+        del inplace
         report("ef_update", length,
                time_ms(lambda: dispatch.ef_bucket_update(*ins, *coef), reps),
                time_ms(lambda: ref.ef_update_ref(*ins, *coef), reps), None,
@@ -374,10 +402,10 @@ def topk_ops_path(dev):
     return counts
 
 
-def profile_call(label, fn, ours):
+def profile_call(label, fn, ours, show=True):
     """One more call of ``fn`` under torch.profiler: device time by kernel,
     grouped into the port's kernels (names in ``ours``), matmuls and
-    everything else."""
+    everything else; printed unless ``show`` is False."""
     import torch
     from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -393,7 +421,8 @@ def profile_call(label, fn, ours):
     kernels = [(dev_us(e) / 1e3, e.key) for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     if not kernels:
-        print("[profile] the profiler recorded no device time", flush=True)
+        print(f"[profile] {label}: the profiler recorded no device time",
+              flush=True)
         return None
     groups = {"port kernels": 0.0, "matmul": 0.0, "other": 0.0}
     for ms, name in kernels:
@@ -410,19 +439,21 @@ def profile_call(label, fn, ours):
     # busy and wall of the same profiled call; the profiler's own host
     # cost is in the wall time, so the share errs towards idle
     idle = 1.0 - busy / wall
-    print(f"[profile] {label}: wall {wall:.3f} ms (profiled), device busy "
-          f"{busy:.3f} ms in {launches} kernel launches, device idle share "
-          f"{idle:.4f}; " + ", ".join(
-              f"{k} {v:.3f} ms" for k, v in groups.items()), flush=True)
-    for ms, name in sorted(kernels, reverse=True)[:12]:
-        print(f"[profile] {ms:9.3f} ms  {name[:110]}", flush=True)
     # the host side: where the CPU spends the step (runtime calls such as
     # synchronisations and allocations show here, not on the device)
     host = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU), reverse=True)[:6]
-    for ms, name, count in host:
-        print(f"[profile] host {ms:9.3f} ms  {name[:80]} (x{count})", flush=True)
+    if show:
+        print(f"[profile] {label}: wall {wall:.3f} ms (profiled), device busy "
+              f"{busy:.3f} ms in {launches} kernel launches, device idle "
+              f"share {idle:.4f}; " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in groups.items()), flush=True)
+        for ms, name in sorted(kernels, reverse=True)[:12]:
+            print(f"[profile] {ms:9.3f} ms  {name[:110]}", flush=True)
+        for ms, name, count in host:
+            print(f"[profile] host {ms:9.3f} ms  {name[:80]} (x{count})",
+                  flush=True)
     return {"wall_ms": wall, "device_busy_ms": busy, "launches": launches,
             "device_idle_share": idle,
             "host_top": [[ms, name, count] for ms, name, count in host],
@@ -566,8 +597,6 @@ def small_cuda_vs_cpu(dev):
     SignNorm flips a code where x - x_hat lies within rounding of zero;
     every run on an H100 so far moved 2 such coordinates of x_hat, and the
     limit allows one per node per step, its x being held to 1e-5 anyway."""
-    import numpy as np
-    import torch
     from repro_torch.configs.base import ChocoConfig, get_config
     from repro_torch.data.synthetic import make_lm_batch_fn
     from repro_torch.kernels import dispatch
@@ -577,7 +606,7 @@ def small_cuda_vs_cpu(dev):
 
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
-    params = Model(cfg).init(N_NODES, torch.Generator().manual_seed(1), "cpu")
+    params = Model(cfg).init(N_NODES, 1, "cpu")
     report = {}
     for comp, kw, exact in SMALL_RUNS:
         runs = {}
@@ -601,38 +630,517 @@ def small_cuda_vs_cpu(dev):
               f"[small] {comp}: ef_update launches {counts}")
         check(any(b.exact for b in tr.spec.buckets) == exact,
               f"[small] {comp}: exact buckets")
-        moved, dx_rest, dx_moved = 0, 0.0, 0.0
-        for a, b, ha, hb, g in zip(xc, xp, hc, hp, tr.exchange.bucket_gammas):
-            at = (ha - hb).abs() > 1e-4
-            moved += int(at.sum())
-            d = (a - b).abs()
-            rest = float(d[~at].max()) if (~at).any() else 0.0
-            dx_rest = max(dx_rest, rest)
-            check(rest <= 1e-5 + 1e-5 * float(b.abs().max()),
-                  f"[small] {comp}: CUDA and CPU iterates differ by {rest} "
-                  f"off the moved selections")
-            if at.any():
-                dx_moved = max(dx_moved, float(d[at].max()))
-                check(dx_moved <= 1e-5 + 2 * g * float(hb.abs().max()),
-                      f"[small] {comp}: a moved selection shifted x by "
-                      f"{dx_moved}")
-        dx = max(float((a - b).abs().max()) for a, b in zip(xc, xp))
-        total = sum(b.numel() for b in xp)
+        moved, dx, dx_moved, total = hold_small(
+            "[small]", comp, tr.exchange.bucket_gammas, (lc, xc, hc),
+            (lp, xp, hp))
         print(f"[small] smoke f32 {comp}{' exact_small_leaves' if exact else ''}"
               f", {STEPS} steps: CUDA losses {lc} vs CPU {lp}; max |x_cuda - "
               f"x_cpu| = {dx:.3e}; moved selections {moved} of {total} "
               f"coordinates (max |dx| there {dx_moved:.3e}); launches "
               f"{ {k: v for k, v in counts.items() if v} }", flush=True)
-        check(np.allclose(lc, lp, rtol=1e-5, atol=0),
-              f"[small] {comp}: CUDA and CPU losses differ")
-        if comp == "sign":
-            check(dx <= 1e-5, f"CUDA and CPU iterates differ by {dx}")
-        limit = N_NODES * STEPS if comp == "sign" else 0
-        check(moved <= limit, f"[small] {comp}: {moved} coordinates moved "
-              f"(limit {limit})")
         report[comp] = {"losses_cuda": lc, "losses_cpu": lp, "max_dx": dx,
                         "moved": moved, "coordinates": total}
     return report
+
+
+def hold_small(label, comp, gammas, got, want):
+    """The ``[small]`` rules of ``small_cuda_vs_cpu`` for one run ``got`` =
+    (losses, x buffers, x_hat buffers) against ``want``, buffers on the
+    CPU.  Returns (moved coordinates, max |dx|, max |dx| at the moved ones,
+    coordinates)."""
+    import numpy as np
+    (lc, xc, hc), (lp, xp, hp) = got, want
+    moved, dx_moved = 0, 0.0
+    for a, b, ha, hb, g in zip(xc, xp, hc, hp, gammas):
+        at = (ha - hb).abs() > 1e-4
+        moved += int(at.sum())
+        d = (a - b).abs()
+        rest = float(d[~at].max()) if (~at).any() else 0.0
+        check(rest <= 1e-5 + 1e-5 * float(b.abs().max()),
+              f"{label} {comp}: iterates differ by {rest} off the moved "
+              f"selections")
+        if at.any():
+            dx_moved = max(dx_moved, float(d[at].max()))
+            check(dx_moved <= 1e-5 + 2 * g * float(hb.abs().max()),
+                  f"{label} {comp}: a moved selection shifted x by {dx_moved}")
+    dx = max(float((a - b).abs().max()) for a, b in zip(xc, xp))
+    check(np.allclose(lc, lp, rtol=1e-5, atol=0),
+          f"{label} {comp}: losses differ: {lc} against {lp}")
+    if comp == "sign":
+        check(dx <= 1e-5, f"{label} {comp}: iterates differ by {dx}")
+    limit = N_NODES * STEPS if comp == "sign" else 0
+    check(moved <= limit, f"{label} {comp}: {moved} coordinates moved "
+          f"(limit {limit})")
+    return moved, dx, dx_moved, sum(b.numel() for b in xp)
+
+
+#: (compressor, comp_kwargs, gossip_steps) of the [dist] small phase
+DIST_SMALL = (("top_k", (("fraction", 0.05),), 1), ("qsgd", (("s", 16),), 2),
+              ("sign", (), 1))
+#: the full-width [dist] phase's compressor and, per node, sequence and batch
+DIST_FULL = ("top_k", (("fraction", 0.01),), 1)
+DIST_SEQ, DIST_BATCH = 512, 4
+DIST_TIMEOUT_S = 300.0
+
+
+def _dist_trainer(comp, kw, steps_k, cfg, dev, group=None):
+    from repro_torch.configs.base import ChocoConfig
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.sgd import MomentumSGD, cosine_schedule
+    from repro_torch.train.trainer import DecentralizedTrainer
+    return DecentralizedTrainer(
+        model=Model(cfg), choco=ChocoConfig(compressor=comp, comp_kwargs=kw,
+                                            gossip_steps=steps_k),
+        n_nodes=N_NODES, optimizer=MomentumSGD(),
+        lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
+        device=dev, group=group)
+
+
+def _dist_group(rank, store):
+    from repro_torch.launch.env import file_rendezvous
+    from repro_torch.launch.mesh import make_node_group
+    return make_node_group(N_NODES, "cuda",
+                           file_rendezvous(store, rank, N_NODES),
+                           timeout_s=DIST_TIMEOUT_S)
+
+
+def _small_cfg():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                               dtype="float32")
+
+
+def _exchange_inputs(spec):
+    """Node-stacked (x_half, x_hat, s) for the exchange alone: normal draws
+    on the CPU from seed 17."""
+    import torch
+    gen = torch.Generator().manual_seed(17)
+    return [[torch.randn((N_NODES, b.size), generator=gen) * scale
+             for b in spec.buckets] for scale in (1.0, 0.5, 0.1)]
+
+
+def _dist_small_rank(rank, store, out_dir):
+    """One rank of the [dist] small phase: per DIST_SMALL run, the exchange
+    alone on its row of ``_exchange_inputs`` (seed 23), then STEPS steps of
+    the smoke decoder in f32 from node ``rank``'s weights."""
+    import torch
+    from repro_torch.data.synthetic import make_lm_batch_fn
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import close_node_group
+    from repro_torch.models.transformer import Model
+    group = _dist_group(rank, store)
+    cfg = _small_cfg()
+    params = Model(cfg).init(N_NODES, 1, "cpu", nodes=(rank,))
+    dispatch.reset_launch_counts()
+    out = {}
+    for comp, kw, steps_k in DIST_SMALL:
+        tr = _dist_trainer(comp, kw, steps_k, cfg, group.device, group)
+        bufs = [[b[rank:rank + 1].to(group.device) for b in part]
+                for part in _exchange_inputs(tr.spec)]
+        tr.exchange(*bufs, seed=23)
+        exchanged = [[b.cpu() for b in part] for part in bufs]
+        state = tr.state_from_params(params)
+        batches = make_lm_batch_fn(cfg, 128, 4, N_NODES, 1.0, node=rank)
+        losses = [tr.step(state, tr.batch_to_device(batches()))["loss"]
+                  for _ in range(STEPS)]
+        out[comp] = {"exchange": exchanged, "losses": losses,
+                     "x": [b.cpu() for b in state.x],
+                     "x_hat": [b.cpu() for b in state.x_hat]}
+    torch.cuda.synchronize()
+    out["launches"] = dispatch.launch_counts()
+    out["transport"] = group.describe()
+    torch.save(out, os.path.join(out_dir, f"small{rank}.pt"))
+    close_node_group()
+
+
+def dist_small(dev):
+    """The per-rank engine, 4 ranks on the one card, against the stacked
+    engine on the card, from the same weights and seeds (each node draws
+    its own dither in both): per DIST_SMALL run, the exchange alone on the
+    same inputs bit-equal, and STEPS trainer steps held to the [small]
+    rules (``hold_small``)."""
+    import tempfile
+    import torch
+    from repro_torch.data.synthetic import make_lm_batch_fn
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import Model
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks_of(_dist_small_rank, tmp, 600)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"small{r}.pt"),
+                            weights_only=False) for r in range(N_NODES)]
+    print(f"[dist] small phase: {N_NODES} ranks in {wall:.1f} s; "
+          f"transport {ranks[0]['transport']}; launches per rank "
+          f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}",
+          flush=True)
+    cfg = _small_cfg()
+    params = Model(cfg).init(N_NODES, 1, "cpu")
+    report = {"launches": [r["launches"] for r in ranks]}
+    for comp, kw, steps_k in DIST_SMALL:
+        tr = _dist_trainer(comp, kw, steps_k, cfg, dev)
+        bufs = [[b.to(dev) for b in part] for part in _exchange_inputs(tr.spec)]
+        tr.exchange(*bufs, seed=23)
+        same = all(torch.equal(r[comp]["exchange"][p][b][0], bufs[p][b][i].cpu())
+                   for i, r in enumerate(ranks) for p in range(3)
+                   for b in range(tr.spec.n_buckets))
+        print(f"[dist] small {comp} gossip_steps={steps_k}: the exchange alone, "
+              f"per rank against the stacked exchange on the card: x, x_hat "
+              f"and s bit-equal: {same}", flush=True)
+        check(same, f"[dist] {comp}: the per-rank exchange and the stacked "
+              f"exchange differ")
+        state = tr.state_from_params(params)
+        batches = make_lm_batch_fn(cfg, 128, 4, N_NODES, 1.0)
+        dispatch.reset_launch_counts()
+        losses = [tr.step(state, tr.batch_to_device(batches()))["loss"]
+                  for _ in range(STEPS)]
+        cat = lambda key: [torch.cat([r[comp][key][b] for r in ranks])
+                           for b in range(tr.spec.n_buckets)]
+        got = (ranks[0][comp]["losses"], cat("x"), cat("x_hat"))
+        moved, dx, dx_moved, total = hold_small(
+            "[dist]", comp, tr.exchange.bucket_gammas, got,
+            (losses, [b.cpu() for b in state.x],
+             [b.cpu() for b in state.x_hat]))
+        print(f"[dist] small {comp}, {STEPS} steps: per-rank losses {got[0]} "
+              f"vs stacked {losses}; max |dx| {dx:.3e}; moved {moved} of "
+              f"{total} coordinates (max |dx| there {dx_moved:.3e})",
+              flush=True)
+        report[comp] = {"exchange_bit_equal": same, "losses_dist": got[0],
+                        "losses_stacked": losses, "max_dx": dx,
+                        "moved": moved}
+    return report
+
+
+def _dist_full_rank(rank, store, out_dir, batch_per_node):
+    """One rank of the full-width [dist] phase: qwen3-1.7b widths, 2
+    layers, node ``rank`` of 4, DIST_FULL gossip, STEPS steps; counts
+    reset just before the trainer is built (its probe runs there).  Peak
+    memory is taken apart: up to the exchange (forward, backward,
+    optimizer) and in it."""
+    import json as _json
+    import torch
+    from repro_torch.comm.packing import bucket_wire_bits
+    from repro_torch.configs.qwen3_1_7b import CONFIG
+    from repro_torch.data.synthetic import make_lm_batch_fn
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import close_node_group
+    group = _dist_group(rank, store)
+    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    comp, kw, steps_k = DIST_FULL
+    tr = _dist_trainer(comp, kw, steps_k, cfg, group.device, group)
+    state = tr.init_state(seed=0)
+    batches = make_lm_batch_fn(cfg, DIST_SEQ, batch_per_node, N_NODES, 1.0,
+                               node=rank)
+    rec = {"losses": [], "ms": [], "wire_bytes": [], "staging_ms": [],
+           "init_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "peak_before_exchange_gib": 0.0, "peak_in_exchange_gib": 0.0,
+           "batch_per_node": batch_per_node}
+    exchange = tr.exchange
+
+    def exchange_with_peaks(*args, **kwargs):
+        gib = lambda: torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["peak_before_exchange_gib"] = max(rec["peak_before_exchange_gib"],
+                                              gib())
+        torch.cuda.reset_peak_memory_stats()
+        exchange(*args, **kwargs)
+        rec["peak_in_exchange_gib"] = max(rec["peak_in_exchange_gib"], gib())
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
+    tr.exchange = exchange_with_peaks
+    for _ in range(STEPS):
+        batch = tr.batch_to_device(batches())
+        torch.cuda.synchronize()
+        staged, t0 = group.staging_s, time.perf_counter()
+        mets = tr.step(state, batch)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["losses"].append(mets["loss"])
+        rec["wire_bytes"].append(mets["wire_bytes"])
+        rec["staging_ms"].append((group.staging_s - staged) * 1e3)
+    free, total = torch.cuda.mem_get_info()
+    rec.update(
+        launches=dispatch.launch_counts(),
+        peak_gib=max(rec["init_peak_gib"], rec["peak_before_exchange_gib"],
+                     rec["peak_in_exchange_gib"]),
+        card_used_gib=(total - free) / 2 ** 30,
+        payload_bytes=exchange.payload_bytes,
+        payload_bits_analytic=bucket_wire_bits(tr.spec, tr.compressor),
+        dense_bytes=[b.size * 4 for b in tr.spec.buckets],
+        gossip_steps=steps_k, rounds=steps_k * tr.schedules[0].n_rounds,
+        buckets=tr.spec.n_buckets, transport=group.describe(),
+        probe=dataclasses.asdict(exchange.probe))
+    # one more step under the profiler in every rank at once: each sees
+    # its own kernels only
+    tr.exchange = exchange
+    batch = tr.batch_to_device(batches())
+    rec["profile"] = profile_call(f"rank {rank}", lambda: tr.step(state, batch),
+                                  GOSSIP_KERNELS, show=False)
+    with open(os.path.join(out_dir, f"full{rank}.json"), "w") as f:
+        _json.dump(rec, f)
+    del state, tr
+    close_node_group()
+
+
+def dist_full_width(stacked, batch_per_node=DIST_BATCH):
+    """The per-rank engine at full width: 4 ranks on the one card, one
+    gossip node each, qwen3-1.7b widths (2 layers), DIST_FULL gossip at
+    sequence DIST_SEQ x batch DIST_BATCH per node, STEPS steps.  Checks
+    finite losses, the launches of each kernel per rank (the probe once,
+    one EF update per bucket per round, no decode kernel: sparse payloads
+    decode by scatter) and that each rank sent exactly the spec's payload
+    bytes per round; prints ms/step beside the stacked engine's
+    (``stacked``, measured earlier in this run), each rank's peak memory,
+    the wire bytes, the transport and the probe record."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks_of(_dist_full_rank, tmp, 900, batch_per_node)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(N_NODES):
+            with open(os.path.join(tmp, f"full{r}.json")) as f:
+                ranks.append(json.load(f))
+    comp = DIST_FULL[0]
+    print(f"[dist] full width {comp} 0.01, {N_NODES} ranks, "
+          f"sequence {DIST_SEQ} x batch {batch_per_node} per node: spawn to exit "
+          f"{wall:.1f} s; transport {ranks[0]['transport']}; probe "
+          f"{ranks[0]['probe']}", flush=True)
+    for r, rec in enumerate(ranks):
+        check(all(math.isfinite(v) for v in rec["losses"]),
+              f"[dist] rank {r}: non-finite losses {rec['losses']}")
+        per_step = rec["rounds"] * sum(rec["payload_bytes"])
+        check(all(b == per_step for b in rec["wire_bytes"]),
+              f"[dist] rank {r}: sent {rec['wire_bytes']} bytes per step, "
+              f"the spec says {per_step}")
+        want = STEPS * rec["gossip_steps"] * rec["buckets"]
+        counts = rec["launches"]
+        check(counts["ef_update"] == want and counts["probe_scale"] == 1
+              and sum(counts.values()) == want + 1,
+              f"[dist] rank {r}: launches {counts}, expected {want} ef_update "
+              f"and one probe_scale")
+        check(rec["probe"]["intact"], f"[dist] rank {r}: probe {rec['probe']}")
+        print(f"[dist] rank {r}: losses {rec['losses']}; ms/step {rec['ms']} "
+              f"(first step included); staging ms/step {rec['staging_ms']}; "
+              f"peak device memory {rec['peak_gib']:.3f} GiB (at init "
+              f"{rec['init_peak_gib']:.3f}, up to the exchange "
+              f"{rec['peak_before_exchange_gib']:.3f}, in it "
+              f"{rec['peak_in_exchange_gib']:.3f}; card in use "
+              f"{rec['card_used_gib']:.3f} GiB); wire bytes per step "
+              f"{rec['wire_bytes'][-1]} = {rec['rounds']} sends x "
+              f"{sum(rec['payload_bytes'])} payload bytes (the spec's), dense "
+              f"buckets {sum(rec['dense_bytes'])} bytes, analytic "
+              f"{sum(rec['payload_bits_analytic']) // 8} bytes; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    steady = [max(rec["ms"][i] for rec in ranks) for i in range(1, STEPS)]
+    print(f"[dist] full width: ms/step, steps 2-{STEPS}, slowest rank "
+          f"{steady} against the stacked engine's {stacked['ms_per_step'][1:]}"
+          f" in this run", flush=True)
+    profiles = [rec["profile"] for rec in ranks]
+    if all(profiles):
+        # a kernel's profiled span includes the time slices the other
+        # contexts hold the card, so the ranks' busy times overlap and
+        # their sum is no measure of the card's idle share
+        print(f"[dist] full width, one more step profiled in every rank: "
+              + ", ".join(
+                  f"rank {r}: wall {p['wall_ms']:.3f} ms, device busy "
+                  f"{p['device_busy_ms']:.3f} ms in {p['launches']} launches "
+                  f"(port kernels {p['port kernels']:.3f}, matmul "
+                  f"{p['matmul']:.3f}, other {p['other']:.3f})"
+                  for r, p in enumerate(profiles)), flush=True)
+    return {"ranks": ranks, "ms_per_step_slowest_rank": steady,
+            "stacked_ms_per_step": stacked["ms_per_step"]}
+
+
+def kernel_names():
+    """Every kernel's name in the launch counts."""
+    from repro_torch.kernels import dispatch
+    return tuple(dispatch.KERNELS)
+
+
+def spawn_ranks_of(fn, tmp, deadline_s, *extra):
+    """N_NODES ranks of ``fn(rank, store, tmp, *extra)``, meeting in a
+    FileStore in ``tmp``; any rank's failure raises."""
+    from repro_torch.launch.mesh import spawn_ranks
+    spawn_ranks(fn, N_NODES, (os.path.join(tmp, "store"), tmp, *extra),
+                deadline_s=deadline_s)
+
+
+def check_probe(dev):
+    """The collective-layer probe kernel against its plain version at the
+    JAX probe's (8, 128) f32 block: bit-equal.  Times kernel and plain
+    version; the bound is 8 KiB moved at the HBM rate, far below a
+    launch's latency."""
+    import torch
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels.probe import PROBE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(PROBE_SHAPE, generator=gen, device=dev)
+    got, want = dispatch.probe_scale(x), ref.probe_scale_ref(x)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"probe_scale: kernel and plain version "
+          f"differ (max abs {err})")
+    bms, by = bound_ms([x], [got], x.numel())
+    record = dict(ms=time_ms(lambda: dispatch.probe_scale(x), 200),
+                  plain_ms=time_ms(lambda: ref.probe_scale_ref(x), 200),
+                  library_ms=None, bound_ms=bms, bound_by=by,
+                  shape=list(PROBE_SHAPE), max_abs_err=err)
+    print(f"[kernel] probe_scale {PROBE_SHAPE}: bit-equal; {record['ms']:.4f} "
+          f"ms (bound {bms:.6f} ms, {by}: the launch latency sets it), plain "
+          f"{record['plain_ms']:.4f} ms", flush=True)
+    return record
+
+
+def _one_generator_init(model, seed):
+    """One node's weights by the same rules as ``Model.init`` but from one
+    CPU generator for every leaf in turn: the draw the prefill test's
+    weights once came from, on which its cache check failed on the card."""
+    import torch
+    from repro_torch.models.transformer import param_shapes
+    gen, params = torch.Generator().manual_seed(seed), {}
+    for path, shape in param_shapes(model.cfg):
+        name, full = path.rsplit("/", 1)[-1], (1,) + shape
+        if name == "tok":
+            p = torch.randn(full, generator=gen) * 0.02
+        elif len(shape) >= 2:
+            p = torch.randn(full, generator=gen) / math.sqrt(shape[-2])
+        else:
+            p = torch.zeros(full)
+        params[path] = p.to(model.param_dtype)
+    return params
+
+
+def prefill_budget(dev, seeds=(0, 1, 2, 3)):
+    """Where the card's f32 prefill differs from the CPU's, on the inputs
+    of ``tests/test_torch_cuda.py``'s prefill test (the smoke decoder in
+    f32, prompt 200 x batch 2; weights from ``_one_generator_init`` at seed
+    0 and from ``Model.init`` at each seed).  Layer 0's
+    attention output three ways: (1) the flash kernel against
+    ``ref.flash_attention_ref`` on the card, on the same q, k and v; (2)
+    ``attn_impl="chunked"`` on the card (the kernel) against the CPU (the
+    plain version); (3) ``attn_impl="naive"`` on the card against the
+    CPU.  Then the whole prefill, chunked and naive, card against CPU: the
+    logits and the k and v caches.  Each difference is printed as its max
+    |d| and as its share of the bound 1e-5 + 1e-5 |want| (the test's
+    logits bound).  The chunked caches are held to the test's cache bound,
+    PREFILL_CACHE_ATOL + 1e-5 |want|, set from these measurements: naive
+    attention on the card, with no kernel of the port, differs from the CPU
+    by more than 1e-5 in the caches too."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+
+    def diff(got, want, atol=1e-5):
+        got, want = got.cpu().double(), want.cpu().double()
+        d = (got - want).abs()
+        return float(d.max()), float((d / (atol + 1e-5 * want.abs())).max())
+
+    cpu, report = torch.device("cpu"), {}
+    draws = [("one generator, seed 0", 0, _one_generator_init)] + [
+        (f"Model.init seed {s}", s, lambda m, s: m.init(1, s, "cpu"))
+        for s in seeds]
+    for label, seed, init in draws:
+        row = {}
+        for impl in ("chunked", "naive"):
+            cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                                      dtype="float32", attn_impl=impl)
+            model = Model(cfg)
+            params = init(model, seed)
+            toks = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, cfg.vocab_size, (1, 2, 200)))
+            got = {}
+            for where, d in (("card", dev), ("cpu", cpu)):
+                p = {k: v.to(d) for k, v in params.items()}
+                t = toks.to(d)
+                x = model._embed_tokens(p, t)
+                layer0 = next(model._layers(p))[1]
+                xn = L.rms_norm(x, L.per_node(layer0["ln1"], x.dim()),
+                                cfg.norm_eps)
+                pos = torch.arange(200, device=d)[None].expand(2, 200)
+                attn = model._sub(layer0, "attn/")
+                h, _ = L.attention(attn, xn, cfg, pos)
+                logits, cache = model.prefill(p, t)
+                got[where] = dict(h=h, logits=logits, k=cache["k"],
+                                  v=cache["v"])
+                if where == "card" and impl == "chunked":
+                    q, k, v = L._qkv(attn, xn, cfg, pos)
+                    qkv = (q.reshape(2, 200, cfg.n_heads, -1),
+                           k.reshape(2, 200, cfg.n_kv_heads, -1),
+                           v.reshape(2, 200, cfg.n_kv_heads, -1))
+                    row["1_kernel_vs_plain_on_card"] = diff(
+                        dispatch.flash_attention(*qkv),
+                        ref.flash_attention_ref(*qkv))
+            tag = "2_kernel_on_card_vs_cpu" if impl == "chunked" \
+                else "3_naive_on_card_vs_cpu"
+            row[tag] = diff(got["card"]["h"], got["cpu"]["h"])
+            for name in ("logits", "k", "v"):
+                row[f"prefill_{impl}_{name}"] = diff(got["card"][name],
+                                                     got["cpu"][name])
+            if impl == "chunked":
+                for name in ("k", "v"):
+                    _, share = diff(got["card"][name], got["cpu"][name],
+                                    PREFILL_CACHE_ATOL)
+                    check(share <= 1.0, f"[prefill-budget] {label}: the "
+                          f"{name} cache is outside the test's bound "
+                          f"({share:.3f} of it)")
+        report[label] = row
+        print(f"[prefill-budget] weights {label}: " + "; ".join(
+            f"{k} max|d| {a:.4e} (bound share {b:.3f})"
+            for k, (a, b) in row.items()), flush=True)
+    return report
+
+
+def _nccl_rank(rank, store, out_dir):
+    """One of two ranks that try NCCL on the one card; writes what
+    happened to ``out_dir``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    msg = "no error"
+    try:
+        dist.init_process_group("nccl", init_method="file://" + store,
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=60))
+        t = torch.full((4,), float(rank), device="cuda")
+        if rank == 0:
+            dist.send(t, 1)
+        else:
+            dist.recv(t, 0)
+        torch.cuda.synchronize()
+        msg = f"point-to-point done, rank {rank} holds {t.tolist()}"
+    except Exception as e:      # what NCCL says is the finding
+        msg = f"{type(e).__name__}: {e}"
+    finally:
+        with open(os.path.join(out_dir, f"nccl{rank}.txt"), "w") as f:
+            f.write(msg)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def nccl_one_card():
+    """Two ranks with NCCL on the one card: what NCCL does there, the
+    reason for the transport rule (gloo, staged through pinned host
+    buffers, when ranks share a card).  Prints each rank's outcome."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            spawn_ranks(_nccl_rank, 2, (os.path.join(tmp, "store"), tmp),
+                        deadline_s=150)
+            ended = "both ranks exited 0"
+        except Exception as e:
+            ended = f"{type(e).__name__}: {str(e).strip().splitlines()[-1]}"
+        outcome = [open(os.path.join(tmp, f)).read()[-400:]
+                   for f in sorted(os.listdir(tmp)) if f.startswith("nccl")]
+    print(f"[dist] NCCL with two ranks on one card: {ended}; ranks said: "
+          f"{outcome}", flush=True)
+    return {"ended": ended, "ranks": outcome}
 
 
 def bf16_ulp(got, want):
@@ -741,12 +1249,10 @@ def check_flash(dev):
 def full_width_serving_model(dev):
     """qwen3-1.7b at full width and depth with the flash kernel, random
     weights from seed 0 cast once to bf16."""
-    import torch
     from repro_torch.configs.qwen3_1_7b import CONFIG
     from repro_torch.models.transformer import Model
     model = Model(dataclasses.replace(CONFIG, attn_impl="chunked"))
-    params = model.compute_params(model.init(
-        1, torch.Generator(device=dev).manual_seed(0), dev))
+    params = model.compute_params(model.init(1, 0, dev))
     return model, params
 
 
@@ -898,7 +1404,7 @@ def serve_small_cuda_vs_cpu(dev):
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32", attn_impl="chunked")
     model = Model(cfg)
-    params = model.init(1, torch.Generator().manual_seed(1), "cpu")
+    params = model.init(1, 1, "cpu")
     gen = torch.Generator().manual_seed(6)
     prompt = torch.randint(0, cfg.vocab_size, (1, 2, 200), generator=gen)
     follow = torch.randint(0, cfg.vocab_size, (1, 2, 8), generator=gen)
@@ -959,6 +1465,7 @@ def main():
     print(f"[kernel] checking the full-width bucket lengths and an odd one: "
           f"{lengths}", flush=True)
     records, max_err = check_kernels(lengths, dev)
+    probe_record = check_probe(dev)
 
     topk_record, topk_err = check_topk(dev)
     topk_selection_cuda_vs_cpu(dev)
@@ -966,6 +1473,11 @@ def main():
     by_path = {c: train_full_width(c, dev) for c in TRAIN_COMPRESSORS}
     launcher_counts = run_launcher()
     small = small_cuda_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    nccl = nccl_one_card()
+    dist_small_report = dist_small(dev)
+    torch.cuda.empty_cache()
+    dist_full = dist_full_width(by_path[DIST_FULL[0]][1])
 
     flash_record, flash_err = check_flash(dev)
     model, params = full_width_serving_model(dev)
@@ -977,6 +1489,15 @@ def main():
     torch.cuda.empty_cache()
     serve_counts, serve = serve_full_width()
     serve_small_cuda_vs_cpu(dev)
+    budget = prefill_budget(dev)
+
+    # launches of each kernel on the per-rank engine's two runs, summed
+    # over the ranks
+    dist_counts = {
+        "dist_small": {k: sum(c[k] for c in dist_small_report["launches"])
+                       for k in kernel_names()},
+        "dist_full_width": {k: sum(r["launches"][k] for r in dist_full["ranks"])
+                            for k in kernel_names()}}
 
     sources = {"qsgd_codes": "src/repro/kernels/qsgd.py:64",
                "sign_codes": "src/repro/kernels/qsgd.py:86",
@@ -994,7 +1515,8 @@ def main():
                                  "topk_ops": ops_counts[name],
                                  "launcher_smoke": launcher_counts[name],
                                  "prefill": prefill_counts[name],
-                                 "serve": serve_counts[name]},
+                                 "serve": serve_counts[name],
+                                 **{p: c[name] for p, c in dist_counts.items()}},
             "max_abs_err": max(v for k, v in max_err.items()
                                if k.startswith(name)),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -1012,7 +1534,8 @@ def main():
             "launcher_smoke": launcher_counts["flash_attention"],
             "prefill": prefill_counts["flash_attention"],
             "consistency": consistency_launches,
-            "serve": serve_counts["flash_attention"]},
+            "serve": serve_counts["flash_attention"],
+            **{p: c["flash_attention"] for p, c in dist_counts.items()}},
         "max_abs_err": flash_err, **flash_record})
     check(kernels[-1]["launches"] > 0, "flash_attention never launched")
     # its path is its public op, as in the JAX package; no trainer path
@@ -1027,14 +1550,36 @@ def main():
             **{c: by_path[c][0]["block_topk_mask"] for c in by_path},
             "launcher_smoke": launcher_counts["block_topk_mask"],
             "prefill": prefill_counts["block_topk_mask"],
-            "serve": serve_counts["block_topk_mask"]},
+            "serve": serve_counts["block_topk_mask"],
+            **{p: c["block_topk_mask"] for p, c in dist_counts.items()}},
         "max_abs_err": topk_err, **topk_record})
     check(kernels[-1]["launches"] > 0, "block_topk_mask never launched")
+    # its path is the per-rank engine's exchange build, once per rank
+    kernels.append({
+        "name": "probe_scale", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/probe.cu",
+        "replaces": "src/repro/kernels/dispatch.py:133",
+        "launches": dist_counts["dist_full_width"]["probe_scale"],
+        "launches_by_path": {
+            **{c: by_path[c][0]["probe_scale"] for c in by_path},
+            "topk_ops": ops_counts["probe_scale"],
+            "launcher_smoke": launcher_counts["probe_scale"],
+            "prefill": prefill_counts["probe_scale"],
+            "serve": serve_counts["probe_scale"],
+            **{p: c["probe_scale"] for p, c in dist_counts.items()}},
+        **probe_record})
+    check(kernels[-1]["launches"] == N_NODES,
+          f"probe_scale launched {kernels[-1]['launches']} times on the "
+          f"per-rank full-width run, expected once per rank")
     extra = {k: records[k] for k in ("qsgd_codes_int16", "dequantize_int16")}
     train = {c: r for c, (_, r) in by_path.items()}
     print(json.dumps({"int16": extra, "train": train, "small": small,
                       "prefill": prefill, "serve": serve, "decode": decode,
-                      "consistency": consistency}), flush=True)
+                      "consistency": consistency, "nccl_one_card": nccl,
+                      "dist_small": {k: v for k, v in dist_small_report.items()
+                                     if k != "launches"},
+                      "dist_full_width": dist_full,
+                      "prefill_budget": budget}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

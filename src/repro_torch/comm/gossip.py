@@ -1,22 +1,30 @@
-"""CHOCO gossip exchange on node-stacked bucket buffers, on one device.
+"""CHOCO gossip exchange on bucket buffers, in two engines.
 
 The port of the JAX package's packed static CHOCO engine on its fused
-bucket-space path (``src/repro/comm/gossip.py:510-548``).  The n gossip
-nodes are stacked on a leading ``(n, ...)`` dimension, so a schedule
-round, a ``ppermute`` in the JAX engine, is an index gather over that
-dimension.  Per ``gossip_steps`` round t and per bucket:
+bucket-space path (``src/repro/comm/gossip.py:510-548``).
+
+* :func:`make_choco_exchange`, the stacked engine: the n gossip nodes
+  are stacked on a leading ``(n, ...)`` dimension on one device, so a
+  schedule round, a ``ppermute`` in the JAX engine, is an index gather
+  over that dimension.
+* :func:`make_dist_choco_exchange`, the per-rank engine: one process per
+  node, as the JAX engine runs one device per node; a schedule round is
+  one send and one receive of the payload's wire bytes per rank.
+
+Per ``gossip_steps`` round t and per bucket:
 
     q      = Q(x - x_hat)            compress -> wire payload
-    q_j    = dense(payload_j)        one decode for all n payloads: the
-                                     dequantize kernel for QSGD / sign
-                                     codes, a scatter for sparse payloads
+    q_j    = dense(payload_j)        decode: the dequantize kernel for
+                                     QSGD / sign codes, a scatter for
+                                     sparse payloads
     x_hat += q
-    s     += w_self q + w_nbr sum_j q_j        (schedule rounds, gathered)
+    s     += w_self q + w_nbr sum_j q_j        (schedule rounds)
     x      = x + gamma_b (s - x_hat)           fused EF-update kernel
 
-Each payload is decoded once: every receiver of node j's payload would
-decode the same bits, so the one decode serves node j's own update and
-every neighbour's gather.
+The stacked engine decodes each payload once: every receiver of node j's
+payload would decode the same bits, so the one decode serves node j's own
+update and every neighbour's gather.  The per-rank engine decodes its own
+payload and each received one where it lands, as the JAX engine does.
 
 Every compressor of the JAX package runs here, and exact buckets ship
 uncompressed.  Not ported: the per-leaf engine, the plain / all-reduce /
@@ -29,8 +37,10 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.comm.packing import (BucketSpec, bucket_omegas,
-                                      compress_bufs, fold_seed)
+from repro_torch.comm.packing import (BucketSpec, bucket_dense,
+                                      bucket_omegas, bucket_wire_nbytes,
+                                      compress_bufs, fold_seed, from_wire,
+                                      to_wire)
 from repro_torch.comm.schedule import GossipSchedule
 from repro_torch.core.choco_gossip import GammaSpec
 from repro_torch.core.compression import (BlockTopK, Identity, QSGD, RandK,
@@ -58,7 +68,8 @@ def _resolve_bucket_gammas(gamma, spec: BucketSpec, compressor) -> List[float]:
 def _weight_groups(schedule: GossipSchedule):
     """Consecutive rounds sharing one receive weight merge into a group:
     their dense payloads accumulate unweighted and the weight applies once
-    (a uniform ring's +1/-1 shifts are one group)."""
+    (a uniform ring's +1/-1 shifts are one group).  Returns
+    ``[(weight, rounds), ...]``."""
     groups = []
     for rnd in schedule.rounds:
         if rnd.weight is None:
@@ -68,8 +79,7 @@ def _weight_groups(schedule: GossipSchedule):
             groups[-1][1].append(rnd)
         else:
             groups.append([rnd.weight, [rnd]])
-    return [(w, tuple(torch.tensor(r.sources(schedule.n)) for r in rnds))
-            for w, rnds in groups]
+    return [(w, tuple(rnds)) for w, rnds in groups]
 
 
 def _self_weight(schedule: GossipSchedule) -> float:
@@ -78,46 +88,33 @@ def _self_weight(schedule: GossipSchedule) -> float:
     return schedule.self_weight
 
 
-def _accumulate_rounds(q: torch.Tensor, sources) -> torch.Tensor:
-    """sum_r q[src_r]: node i receives row src_r[i] in round r."""
+def _accumulate_rounds(rounds, receive) -> torch.Tensor:
+    """sum_r receive(r): the dense payload each node receives in round r,
+    added in round order."""
     acc = None
-    for src in sources:
-        got = q.index_select(0, src.to(q.device))
+    for rnd in rounds:
+        got = receive(rnd)
         acc = got if acc is None else acc.add_(got)
     return acc
 
 
-def _neighbor_sum(q: torch.Tensor, groups) -> Tuple[torch.Tensor, float]:
+def _neighbor_sum(groups, receive) -> Tuple[torch.Tensor, float]:
     """Weighted neighbour aggregate  sum_j w_ij q_j  (j != i).  A single
     weight group defers its scalar to the EF update; several groups are
     weighted here and the caller applies w_nbr = 1."""
     if len(groups) == 1:
-        w, sources = groups[0]
-        return _accumulate_rounds(q, sources), w
+        w, rounds = groups[0]
+        return _accumulate_rounds(rounds, receive), w
     total = None
-    for w, sources in groups:
-        contrib = w * _accumulate_rounds(q, sources)
+    for w, rounds in groups:
+        contrib = w * _accumulate_rounds(rounds, receive)
         total = contrib if total is None else total.add_(contrib)
     return total, 1.0
 
 
-def make_choco_exchange(*, spec: BucketSpec,
-                        schedules: Sequence[GossipSchedule], compressor,
-                        gamma, gossip_steps: int = 1) -> Callable:
-    """Returns ``exchange(x, x_hat, s, *, seed=0, draws=None)``.
-
-    ``x``, ``x_hat``, ``s`` are lists of node-stacked f32 bucket buffers
-    (``x`` holds the optimizer half-step x^{t+1/2}).  The exchange runs
-    ``gossip_steps`` rounds (schedule ``t % len(schedules)`` in round t)
-    and replaces the lists' entries with the new buffers bucket by
-    bucket, so each old buffer is freed as soon as its update lands.
-
-    ``seed`` salts the stochastic compressors' draws (QSGD's dither,
-    RandK's positions, RandomizedGossip's keep bits): round t uses
-    ``fold_seed(seed, t)`` (t > 0) and bucket b ``fold_seed(round_seed,
-    b)``.  ``draws(t, b)``, when given, supplies the draw instead (the
-    parity tests inject the JAX package's draws this way).
-    """
+def _check_exchange(spec: BucketSpec, schedules: Sequence[GossipSchedule],
+                    compressor, gossip_steps: int) -> int:
+    """What both exchanges refuse; returns n."""
     if gossip_steps < 1:
         raise ValueError("gossip_steps must be >= 1")
     if type(compressor) not in _PORTED:
@@ -130,9 +127,15 @@ def make_choco_exchange(*, spec: BucketSpec,
     n = schedules[0].n
     if any(sch.n != n for sch in schedules):
         raise ValueError("time-varying schedules must share n")
-    compiled = [(_weight_groups(sch), _self_weight(sch))
-                for sch in schedules]
-    gammas = _resolve_bucket_gammas(gamma, spec, compressor)
+    return n
+
+
+def _exchange(spec: BucketSpec, compressor, gammas, gossip_steps: int,
+              compiled, nodes, receiver) -> Callable:
+    """The exchange loop both engines share.  ``compiled[t]`` is round t's
+    (weight groups, self weight); ``nodes`` are the gossip nodes of the
+    buffers' rows (None: all of them); ``receiver(payload, q, bucket)``
+    returns ``receive(round) -> the dense payload this row receives``."""
 
     @torch.no_grad()
     def exchange(x: List[torch.Tensor], x_hat: List[torch.Tensor],
@@ -144,18 +147,104 @@ def make_choco_exchange(*, spec: BucketSpec,
             for bucket in spec.buckets:
                 b = bucket.index
                 delta = x[b] - x_hat[b]
-                payloads, (q,) = compress_bufs(
+                (payload,), (q,) = compress_bufs(
                     compressor, spec, (bucket,), (delta,), seed=tseed,
                     draws=None if draws is None
-                    else (lambda i, t=t: draws(t, i)))
-                del delta, payloads
+                    else (lambda i, t=t: draws(t, i)), nodes=nodes)
+                receive = receiver(payload, q, bucket)
+                del delta, payload
                 if groups:
-                    nbr, w_nbr = _neighbor_sum(q, groups)
+                    nbr, w_nbr = _neighbor_sum(groups, receive)
                 else:                               # n == 1: no neighbours
                     nbr, w_nbr = q * 0.0, 0.0
-                x[b], x_hat[b], s[b] = dispatch.ef_bucket_update(
-                    x[b], x_hat[b], s[b], q, nbr, w_self, w_nbr, gammas[b])
+                del receive
+                dispatch.ef_bucket_update(
+                    x[b], x_hat[b], s[b], q, nbr, w_self, w_nbr, gammas[b],
+                    out=(x[b], x_hat[b], s[b]))
                 del q, nbr
 
     exchange.bucket_gammas = gammas
+    return exchange
+
+
+def make_choco_exchange(*, spec: BucketSpec,
+                        schedules: Sequence[GossipSchedule], compressor,
+                        gamma, gossip_steps: int = 1) -> Callable:
+    """Returns ``exchange(x, x_hat, s, *, seed=0, draws=None)``.
+
+    ``x``, ``x_hat``, ``s`` are lists of node-stacked f32 bucket buffers
+    (``x`` holds the optimizer half-step x^{t+1/2}).  The exchange runs
+    ``gossip_steps`` rounds (schedule ``t % len(schedules)`` in round t)
+    and updates the buffers in place, bucket by bucket.
+
+    ``seed`` salts the stochastic compressors' draws (QSGD's dither,
+    RandK's positions, RandomizedGossip's keep bits): round t uses
+    ``fold_seed(seed, t)`` (t > 0), bucket b ``fold_seed(round_seed, b)``
+    and node i ``fold_seed(bucket_seed, i)``.  ``draws(t, b)``, when
+    given, supplies the draw instead (the parity tests inject the JAX
+    package's draws this way).
+    """
+    n = _check_exchange(spec, schedules, compressor, gossip_steps)
+    compiled = [([(w, tuple(torch.tensor(r.sources(n)) for r in rounds))
+                  for w, rounds in _weight_groups(sch)], _self_weight(sch))
+                for sch in schedules]
+
+    def receiver(payload, q, bucket):
+        # node i receives row src[i] of the payloads' dense q
+        return lambda src: q.index_select(0, src.to(q.device))
+
+    return _exchange(spec, compressor,
+                     _resolve_bucket_gammas(gamma, spec, compressor),
+                     gossip_steps, compiled, None, receiver)
+
+
+def make_dist_choco_exchange(*, spec: BucketSpec,
+                             schedules: Sequence[GossipSchedule], compressor,
+                             gamma, gossip_steps: int = 1,
+                             group) -> Callable:
+    """The per-rank exchange: the port of the JAX engine's
+    ``packed_local_fn`` (``src/repro/comm/gossip.py:491-548``), one process
+    per gossip node.  ``group`` (``launch/mesh.py:NodeGroup``) is this
+    node's rank; its buffers are ``(1, bucket.size)``, node ``group.rank``'s
+    row of the stacked engine's.
+
+    Returns ``exchange(x, x_hat, s, *, seed=0, draws=None)`` with the
+    stacked exchange's contract, ``draws(t, b)`` giving this node's row.
+    Per round t and bucket, the node compresses its own row (its draws
+    are the stacked engine's row, see ``packing.draw``), then for each
+    schedule round sends its payload's wire bytes to the round's
+    destination and receives the source's in one ``batch_isend_irecv``
+    (``group.sendrecv``), decodes each received payload where it lands
+    (the dequantize kernel for QSGD / sign codes, a scatter for sparse
+    payloads), sums them in the stacked engine's round order, applies the
+    weight groups and finishes with the EF-update kernel: bit for bit the
+    stacked exchange's row.
+
+    The collective-layer probe (``dispatch.probe_collectives``) runs once
+    per process, here, before any payload moves.  ``exchange.payload_bytes``
+    lists the spec's bytes of one payload per bucket
+    (``packing.bucket_wire_nbytes``); ``group.bytes_sent`` counts what
+    this rank sent."""
+    n = _check_exchange(spec, schedules, compressor, gossip_steps)
+    if group.size != n:
+        raise ValueError(f"a group of {group.size} ranks for {n} nodes")
+    probe = dispatch.probe_collectives(group)
+    compiled = [([(w, tuple(r.peers(group.rank) for r in rounds))
+                  for w, rounds in _weight_groups(sch)], _self_weight(sch))
+                for sch in schedules]
+
+    def receiver(payload, q, bucket):
+        wire = to_wire(payload)
+
+        def receive(peers):
+            dst, src = peers
+            got = from_wire(group.sendrecv(wire, dst, src), payload)
+            return bucket_dense(got, bucket)
+        return receive
+
+    exchange = _exchange(spec, compressor,
+                         _resolve_bucket_gammas(gamma, spec, compressor),
+                         gossip_steps, compiled, (group.rank,), receiver)
+    exchange.probe = probe
+    exchange.payload_bytes = bucket_wire_nbytes(spec, compressor)
     return exchange

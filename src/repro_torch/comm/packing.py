@@ -31,7 +31,7 @@ from repro_torch.core.compression import (BlockTopK, Identity,
                                           PackedQuantPayload,
                                           PackedSparsePayload, QSGD, RandK,
                                           RandomizedGossip, SignNorm, TopK,
-                                          _resolve_k, code_bits)
+                                          _resolve_k, code_bits, code_dtype)
 from repro_torch.kernels import ops
 
 LANES = 128
@@ -192,26 +192,36 @@ def _logical_positions(slots, bucket: Bucket, device) -> torch.Tensor:
                       for s in slots])
 
 
-def draw(compressor, bucket: Bucket, slots, buf: torch.Tensor, seed: int):
+def draw(compressor, bucket: Bucket, slots, buf: torch.Tensor, seed: int,
+         nodes: Optional[Sequence[int]] = None):
     """The random draw one bucket's compression needs, on the buffer's
-    device, from a generator seeded with ``seed``:
+    device.  Row r belongs to gossip node ``nodes[r]`` (default: row r is
+    node r) and is drawn from its own generator, seeded with
+    ``fold_seed(seed, node)``, as the JAX engine folds each node's
+    ``axis_index`` into its key: so a node's row is the same whether it is
+    drawn with every other node's (the stacked engine) or alone (the
+    per-rank engine).
 
     * QSGD: the uniform dither xi, ``(n, bucket.size)`` f32;
     * RandK: per node the first k of a uniform permutation of the
       bucket's logical coordinates, ``(n, k)`` int64;
     * RandomizedGossip: one keep bit per node, ``(n,)`` bool."""
-    gen = torch.Generator(device=buf.device).manual_seed(seed)
-    n = buf.shape[0]
+    nodes = range(buf.shape[0]) if nodes is None else nodes
+    gens = [torch.Generator(device=buf.device).manual_seed(fold_seed(seed, i))
+            for i in nodes]
     if isinstance(compressor, QSGD):
-        return torch.rand(buf.shape, generator=gen, dtype=torch.float32,
-                          device=buf.device)
+        xi = torch.empty(buf.shape, dtype=torch.float32, device=buf.device)
+        for row, gen in zip(xi, gens):
+            row.uniform_(generator=gen)
+        return xi
     if isinstance(compressor, RandK):
         k = _slot_budget(compressor, slots, bucket)
         return torch.stack([torch.randperm(bucket.logical, generator=gen,
                                            device=buf.device)[:k]
-                            for _ in range(n)])
+                            for gen in gens])
     if isinstance(compressor, RandomizedGossip):
-        return torch.rand((n,), generator=gen, device=buf.device) < compressor.p
+        return torch.cat([torch.rand((1,), generator=gen, device=buf.device)
+                          for gen in gens]) < compressor.p
     raise ValueError(f"compressor {compressor.name!r} draws nothing")
 
 
@@ -277,32 +287,102 @@ def bucket_dense(payload, bucket: Bucket) -> torch.Tensor:
 
 
 def bucket_rand(compressor, bucket: Bucket, slots, buf: torch.Tensor,
-                seed: int, draws: Optional[Callable[[int], torch.Tensor]] = None):
+                seed: int, draws: Optional[Callable[[int], torch.Tensor]] = None,
+                nodes: Optional[Sequence[int]] = None):
     """The draw one bucket's compression needs: None for deterministic
     compressors and exact buckets, else ``draws(bucket.index)`` when
-    injected, else a draw salted per bucket (``fold_seed(seed, index)``)."""
+    injected, else a draw salted per bucket (``fold_seed(seed, index)``)
+    for the nodes ``nodes`` of the buffer's rows."""
     if not compressor.stochastic or bucket.exact:
         return None
     if draws is not None:
         return draws(bucket.index)
-    return draw(compressor, bucket, slots, buf, fold_seed(seed, bucket.index))
+    return draw(compressor, bucket, slots, buf, fold_seed(seed, bucket.index),
+                nodes)
 
 
 def compress_bufs(compressor, spec: BucketSpec, buckets: Sequence[Bucket],
                   bufs: Sequence[torch.Tensor], *, seed: int = 0,
-                  draws: Optional[Callable[[int], torch.Tensor]] = None):
+                  draws: Optional[Callable[[int], torch.Tensor]] = None,
+                  nodes: Optional[Sequence[int]] = None):
     """Compress already-packed bucket buffers (``spec.buckets`` or any
     subset, with their buffers).  Returns (payloads, q_bufs): one wire
-    payload per bucket plus its dense q.  The exchange calls it one bucket
-    at a time."""
+    payload per bucket plus its dense q.  Row r of each buffer is gossip
+    node ``nodes[r]`` (default r), whose draws it takes.  The exchanges
+    call it one bucket at a time."""
     payloads = []
     for bucket, buf in zip(buckets, bufs):
         slots = spec.bucket_slots(bucket.index)
         payloads.append(compress_bucket(
             compressor, buf, bucket, slots,
-            bucket_rand(compressor, bucket, slots, buf, seed, draws)))
+            bucket_rand(compressor, bucket, slots, buf, seed, draws, nodes)))
     q_bufs = [bucket_dense(p, b) for p, b in zip(payloads, buckets)]
     return payloads, q_bufs
+
+
+# ---------------------------------------------------------------------------
+# wire form of a payload (the per-rank engine's transport)
+# ---------------------------------------------------------------------------
+
+def _wire_fields(payload) -> List[str]:
+    """The payload's tensors, in field order: codes and scale; values and
+    indices; or the dense buffer.  The other fields are static."""
+    return [f.name for f in dataclasses.fields(payload)
+            if torch.is_tensor(getattr(payload, f.name))]
+
+
+def to_wire(payload) -> torch.Tensor:
+    """One payload's tensors flattened into one 1-D uint8 tensor, on the
+    payload's device, in :func:`_wire_fields` order."""
+    return torch.cat([getattr(payload, name).contiguous().reshape(-1)
+                      .view(torch.uint8) for name in _wire_fields(payload)])
+
+
+def from_wire(raw: torch.Tensor, like):
+    """The payload whose wire form is ``raw``, with the tensor shapes and
+    dtypes and the static fields of ``like``: a payload of the same bucket
+    made by this rank.  Every rank builds the same shapes from the same
+    ``BucketSpec`` and compressor, so no size travels with the bytes."""
+    fields, off = {}, 0
+    for name in _wire_fields(like):
+        t = getattr(like, name)
+        nbytes = t.numel() * t.element_size()
+        piece = raw[off:off + nbytes]
+        if off % t.element_size():
+            piece = piece.clone()              # realign for the dtype view
+        fields[name] = piece.view(t.dtype).view(t.shape)
+        off += nbytes
+    if off != raw.numel():
+        raise ValueError(f"{raw.numel()} wire bytes for a payload of {off}")
+    return dataclasses.replace(like, **fields)
+
+
+def bucket_wire_nbytes(spec: BucketSpec, compressor) -> List[int]:
+    """Bytes of one node's payload on the wire per bucket, in bucket order,
+    from the spec alone: what :func:`to_wire` makes of
+    :func:`compress_bucket`'s payload (padding and all; sparse values in
+    the bucket's dtype, indices int32)."""
+    out = []
+    for b in spec.buckets:
+        item = b.dtype.itemsize
+        if b.exact or isinstance(compressor, (Identity, RandomizedGossip)):
+            out.append(b.size * item)
+        elif isinstance(compressor, BlockTopK):
+            out.append(-(-b.size // compressor.block) * compressor._kb()
+                       * (item + 4))
+        elif isinstance(compressor, (TopK, RandK)):
+            k = _slot_budget(compressor, spec.bucket_slots(b.index), b)
+            if isinstance(compressor, TopK) and b.size > MAX_BUCKET_ELEMS:
+                n_blocks = -(-b.size // MAX_BUCKET_ELEMS)
+                k = n_blocks * max(1, -(-k // n_blocks))
+            out.append(k * (item + 4))
+        elif isinstance(compressor, QSGD):
+            out.append(b.size * code_dtype(compressor.s).itemsize + 4)
+        elif isinstance(compressor, SignNorm):
+            out.append(b.size + 4)
+        else:
+            raise ValueError(f"compressor {compressor.name!r} is not ported")
+    return out
 
 
 def bucket_omegas(spec: BucketSpec, compressor) -> List[float]:

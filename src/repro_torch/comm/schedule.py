@@ -7,7 +7,10 @@ A :class:`GossipSchedule` decomposes the mixing matrix as
 where every ``P_r`` is a permutation.  With the n gossip nodes stacked
 on a leading ``(n, ...)`` dimension on one device, a round is an index
 gather over that dimension: node ``dst`` reads row ``src`` for every
-``(src, dst)`` pair of the round.
+``(src, dst)`` pair of the round (:meth:`GossipRound.sources`).  With one
+process per node, a round is one send and one receive per rank
+(:meth:`GossipRound.peers`), the counterpart of the JAX engine's
+``ppermute`` over the round's ``perm``.
 
 Only the ring decomposition (2 shift rounds, 1 for n == 2) is ported.
 Pure Python + numpy: compiled once per trainer, never on the hot path.
@@ -46,6 +49,16 @@ class GossipRound:
         if min(src) < 0:
             raise ValueError("partial permutation rounds are not ported")
         return tuple(src)
+
+    def peers(self, rank: int) -> Tuple[int, int]:
+        """``(dst, src)`` of node ``rank`` in this round: the node it sends
+        its payload to and the node whose payload it receives.  Raises for
+        a partial permutation (a node that sends or receives nothing)."""
+        dst = [d for s, d in self.perm if s == rank]
+        src = [s for s, d in self.perm if d == rank]
+        if len(dst) != 1 or len(src) != 1:
+            raise ValueError("partial permutation rounds are not ported")
+        return dst[0], src[0]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,7 +12,7 @@ bf16 array comes in by its bits and a bf16 tensor goes out as float32
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -30,10 +30,14 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def params_from_jax(tree) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree, node: Optional[int] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Nested dict of node-stacked numpy arrays -> ``path -> tensor``.
-    Empty sub-dicts (the JAX stack's empty ``tail``) carry no leaves."""
+    Empty sub-dicts (the JAX stack's empty ``tail``) carry no leaves.
+    With ``node``, only that node's row, ``(1, *shape)``: what one rank of
+    the per-rank engine holds."""
     out: Dict[str, torch.Tensor] = {}
+    rows = slice(None) if node is None else slice(node, node + 1)
 
     def walk(node, prefix):
         for key in sorted(node):
@@ -42,7 +46,7 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
             if isinstance(val, dict):
                 walk(val, path + "/")
             else:
-                out[path] = _tensor(val)
+                out[path] = _tensor(np.asarray(val)[rows])
     walk(tree, "")
     return out
 

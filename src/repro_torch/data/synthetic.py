@@ -8,7 +8,7 @@ the audio / VLM batch makers and the logistic-regression datasets.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -59,10 +59,17 @@ class TokenStream:
 
 
 def make_lm_batch_fn(cfg, seq_len: int, batch_per_node: int, n_nodes: int,
-                     heterogeneity: float = 0.0, seed: int = 0):
-    """Returns next_batch() -> {"tokens", "labels"}: (n, B, S) int32 numpy."""
+                     heterogeneity: float = 0.0, seed: int = 0,
+                     node: Optional[int] = None):
+    """Returns next_batch() -> {"tokens", "labels"}: (n, B, S) int32 numpy.
+    With ``node``, only that node's row, (1, B, S): one rank's batch of
+    the per-rank engine.  All n rows are still drawn (token ids are
+    cheap), so the row is bit-equal to the stacked engine's."""
     if cfg.family != "dense":
         raise ValueError(f"batches for family {cfg.family!r} are not ported")
     stream = iter(TokenStream(cfg.vocab_size, seq_len, batch_per_node,
                               n_nodes, heterogeneity, seed))
-    return lambda: next(stream)
+    if node is None:
+        return lambda: next(stream)
+    rows = slice(node, node + 1)
+    return lambda: {k: v[rows] for k, v in next(stream).items()}

@@ -17,6 +17,8 @@ never load a half-written file.
 * ``topk`` (``csrc/block_topk.cu``): the per-row top-k selection mask,
   built with ``--fmad=false``: its mask and thresholds must be bit-equal
   to the plain version.
+* ``probe`` (``csrc/probe.cu``): the collective-layer probe's ``x * 2``,
+  built with ``--fmad=false`` like the other bit-equal kernels.
 
 Nothing here runs at import time, and nothing falls back: no ``nvcc``, a
 failed build or a failed launch raises.
@@ -68,6 +70,10 @@ LIBRARIES = {
     "topk": Library(
         CSRC / "block_topk.cu", _COMMON_FLAGS + ("--fmad=false",), {
             "block_topk_mask": (_P, _INT, _P, _P, _I64, _I64, _P),
+        }),
+    "probe": Library(
+        CSRC / "probe.cu", _COMMON_FLAGS + ("--fmad=false",), {
+            "probe_scale": (_P, _P, _I64, _P),
         }),
 }
 

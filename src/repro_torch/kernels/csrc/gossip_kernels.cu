@@ -24,7 +24,10 @@
 // __fadd_rn, __fsub_rn), so nothing contracts into an FMA and the results
 // are bit-equal to the plain PyTorch versions in kernels/ref.py, which run
 // one operation per step.  The ef_update keeps the contract's association
-// s' = s + (w_self q_self + w_nbr q_nbr).
+// s' = s + (w_self q_self + w_nbr q_nbr), and its outputs may be its
+// x_half, x_hat and s inputs (the exchange updates in place): each element
+// is read, then written, by the one thread that owns it, so those six
+// pointers carry no __restrict__.
 //
 // C interface for ctypes: each entry launches on the caller's stream and
 // returns cudaGetLastError() (0 on success).  Nothing synchronises and
@@ -81,15 +84,13 @@ __global__ void dequantize_kernel(const T* __restrict__ codes,
   }
 }
 
-__global__ void ef_update_kernel(const float* __restrict__ x_half,
-                                 const float* __restrict__ x_hat,
-                                 const float* __restrict__ s,
+__global__ void ef_update_kernel(const float* x_half, const float* x_hat,
+                                 const float* s,
                                  const float* __restrict__ q_self,
                                  const float* __restrict__ q_nbr, float w_self,
-                                 float w_nbr, float gamma,
-                                 float* __restrict__ x_out,
-                                 float* __restrict__ x_hat_out,
-                                 float* __restrict__ s_out, int64_t total) {
+                                 float w_nbr, float gamma, float* x_out,
+                                 float* x_hat_out, float* s_out,
+                                 int64_t total) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < total; i += stride) {

@@ -1,6 +1,6 @@
 """Route each kernel call of the port to its kernel: the four stages of
-the packed gossip exchange, the top-k selection mask, and flash
-attention.
+the packed gossip exchange, the top-k selection mask, flash attention,
+and the collective-layer probe.
 
 The route follows the tensor's device and nothing else:
 
@@ -10,12 +10,21 @@ The route follows the tensor's device and nothing else:
   version never runs on the card.
 
 Each kernel wrapper counts its own launches; :func:`launch_counts` reads
-the six counts and :func:`reset_launch_counts` sets them to 0.
+the seven counts and :func:`reset_launch_counts` sets them to 0.
+
+:func:`probe_collectives` is the port's counterpart of the JAX package's
+toolchain probe (``src/repro/kernels/dispatch.py:77-157``): it asks the
+per-rank engine's transport whether a tensor written by a kernel of the
+port crosses it intact.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 from . import ef_update as _ef
 from . import flash_attention as _flash
+from . import probe as _probe
 from . import qsgd as _qsgd
 from . import ref
 from . import topk as _topk
@@ -28,6 +37,7 @@ KERNELS = {
     "ef_update": _ef.ef_update,
     "flash_attention": _flash.flash_attention,
     "block_topk_mask": _topk.block_topk_mask,
+    "probe_scale": _probe.probe_scale,
 }
 
 
@@ -60,13 +70,21 @@ def dequantize(codes, scale):
     return _qsgd.dequantize(codes, scale)
 
 
-def ef_bucket_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma):
+def ef_bucket_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma,
+                     out=None):
     """Fused CHOCO EF integrate for one node-stacked f32 bucket (recv half).
-    Returns ``(x', x_hat', s')``."""
-    if _on_cpu(x_half):
-        return ref.ef_update_ref(x_half, x_hat, s, q_self, q_nbr,
-                                 w_self, w_nbr, gamma)
-    return _ef.ef_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma)
+    Returns ``(x', x_hat', s')``, new tensors or, with ``out``, those three
+    written in place (they may be ``x_half``, ``x_hat`` and ``s``)."""
+    if not _on_cpu(x_half):
+        return _ef.ef_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
+                             gamma, out)
+    new = ref.ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
+                            gamma)
+    if out is None:
+        return new
+    for o, n in zip(out, new):
+        o.copy_(n)
+    return tuple(out)
 
 
 def block_topk_mask(x, k: int):
@@ -83,6 +101,70 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap=None):
     if _on_cpu(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
     return _flash.flash_attention(q, k, v, causal=causal, softcap=softcap)
+
+
+def probe_scale(x):
+    """The collective-layer probe's body: x * 2 (f32)."""
+    if _on_cpu(x):
+        return ref.probe_scale_ref(x)
+    return _probe.probe_scale(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveProbe:
+    """What :func:`probe_collectives` found.  A probe that fails raises,
+    so a record always says the exchange carried the kernel's output
+    intact."""
+    torch_version: str
+    #: the process group's backend ("nccl" or "gloo")
+    backend: str
+    world_size: int
+    #: where the ranks' tensors live ("cuda" or "cpu")
+    device_type: str
+    #: payloads are staged through pinned host buffers
+    staged: bool
+    #: the kernel's output arrived one ring hop away bit for bit
+    intact: bool
+
+
+def _probe_block(rank: int):
+    """The probe's (8, 128) f32 input on rank ``rank``: normal draws from
+    a CPU generator seeded with the rank, so every rank can rebuild any
+    other rank's input."""
+    import torch
+    gen = torch.Generator().manual_seed(rank)
+    return torch.randn(_probe.PROBE_SHAPE, generator=gen)
+
+
+@functools.lru_cache(maxsize=None)
+def probe_collectives(group) -> CollectiveProbe:
+    """Probe, once per process and group, whether a tensor written by a
+    kernel of the port passes through the per-rank engine's exchange
+    intact.  Launches the probe kernel on an (8, 128) f32 block on the
+    rank's device (its plain version on the CPU), sends the output one hop
+    around the ring through ``group.sendrecv`` (the engine's own
+    transport), and checks bit for bit that what arrives is twice the
+    ring neighbour's input.  Raises if it is not; switches nothing."""
+    import torch
+    out = probe_scale(_probe_block(group.rank).to(group.device))
+    src = (group.rank - 1) % group.size
+    if group.size > 1:
+        raw = group.sendrecv(out.reshape(-1).view(torch.uint8),
+                             (group.rank + 1) % group.size, src)
+        got = raw.view(torch.float32).view(_probe.PROBE_SHAPE)
+    else:
+        got = out
+    want = ref.probe_scale_ref(_probe_block(src))
+    if not torch.equal(got.cpu(), want):
+        raise RuntimeError(
+            f"collective probe: rank {group.rank} received from rank {src} "
+            f"a block that is not twice that rank's input (backend "
+            f"{group.backend}, staged {group.staged}); the exchange does not "
+            f"carry kernel outputs intact")
+    return CollectiveProbe(torch_version=torch.__version__,
+                           backend=group.backend, world_size=group.size,
+                           device_type=group.device.type, staged=group.staged,
+                           intact=True)
 
 
 def launch_counts() -> dict:

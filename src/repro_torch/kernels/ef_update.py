@@ -7,7 +7,9 @@ Replaces the Pallas kernel ``src/repro/kernels/ef_update.py:ef_gossip_update``
     s'     = s + (w_self q_self + w_nbr q_nbr)
     x'     = x_half + gamma (s' - x_hat')
 
-with the s' association kept (it is part of the contract).  The kernel is
+with the s' association kept (it is part of the contract).  The outputs
+may be written over ``x_half``, ``x_hat`` and ``s`` themselves, which
+saves three bucket-sized buffers at the exchange's peak.  The kernel is
 in ``csrc/gossip_kernels.cu``.
 """
 from __future__ import annotations
@@ -18,16 +20,22 @@ from . import build
 
 
 def ef_update(x_half, x_hat, s, q_self, q_nbr, w_self: float, w_nbr: float,
-              gamma: float):
+              gamma: float, out=None):
     """Five same-shape contiguous f32 CUDA tensors and three scalars ->
-    new (x, x_hat, s), each allocated here."""
+    (x, x_hat, s): allocated here, or written into ``out``, three tensors
+    of the same shape that may be ``x_half``, ``x_hat`` and ``s``."""
     lib = build.load_library("gossip")
     shape = x_half.shape
     for name, t in (("x_half", x_half), ("x_hat", x_hat), ("s", s),
                     ("q_self", q_self), ("q_nbr", q_nbr)):
         build.require(t, name, torch.float32, shape)
-    outs = [torch.empty(shape, dtype=torch.float32, device=x_half.device)
-            for _ in range(3)]
+    if out is None:
+        outs = [torch.empty(shape, dtype=torch.float32, device=x_half.device)
+                for _ in range(3)]
+    else:
+        outs = list(out)
+        for name, t in zip(("x_out", "x_hat_out", "s_out"), outs):
+            build.require(t, name, torch.float32, shape)
     code = lib.ef_update(x_half.data_ptr(), x_hat.data_ptr(), s.data_ptr(),
                          q_self.data_ptr(), q_nbr.data_ptr(), float(w_self),
                          float(w_nbr), float(gamma), outs[0].data_ptr(),

@@ -3,7 +3,10 @@
 The QSGD and sign wrappers take node-stacked flat buffers ``(n, L)`` and
 add the reductions the kernels leave to the caller: the per-node norm
 and the payload scale.  The reductions run on the whole row (padding is
-zero, so it adds nothing); the elementwise pass goes through
+zero, so it adds nothing), one row at a time: a reduction over an
+``(n, L)`` tensor sums in another order than over one ``(1, L)`` row, so
+only row by row does node i get the same scale stacked with the other
+nodes as alone in its own process.  The elementwise pass goes through
 ``kernels/dispatch.py``.
 
 ``block_topk_compress_vector`` is the public op of the top-k mask kernel
@@ -29,17 +32,22 @@ _SORT_CHUNK = 1 << 24
 _ITERATIVE_K = 16
 
 
+def _row_sums(fn, x):
+    """(n, L) -> (n,) sums of ``fn`` of each row, one row at a time."""
+    return torch.cat([torch.sum(fn(row), dim=1) for row in x.split(1)])
+
+
 def qsgd_compress(x, xi, s: int, tau: float):
     """x, xi: (n, L) f32 -> (codes (n, L) int8/int16, scale (n,) f32),
     scale = ||x_i|| / (s * tau)."""
-    norm = torch.sqrt(torch.sum(torch.square(x), dim=1))
+    norm = torch.sqrt(_row_sums(torch.square, x))
     inv_norm = torch.where(norm == 0, torch.zeros_like(norm), 1.0 / norm)
     return dispatch.qsgd_codes(x, xi, inv_norm, s), norm / (s * tau)
 
 
 def sign_compress(x, logical: int):
     """x: (n, L) f32 -> (int8 sign codes, scale = ||x_i||_1 / logical)."""
-    scale = torch.sum(torch.abs(x), dim=1) / logical
+    scale = _row_sums(torch.abs, x) / logical
     return dispatch.sign_codes(x), scale
 
 

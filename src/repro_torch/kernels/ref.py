@@ -61,6 +61,12 @@ def block_topk_mask_ref(x, k: int, n_iter: int = 24):
     return (mag >= lo[:, None]).to(torch.float32), lo
 
 
+def probe_scale_ref(x):
+    """The collective-layer probe's body: x * 2 in f32 (the JAX probe's
+    ``o = x * 2.0``)."""
+    return x * 2.0
+
+
 def ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self: float,
                   w_nbr: float, gamma: float):
     """CHOCO error-feedback update (Algorithm 6 lines 8-10):

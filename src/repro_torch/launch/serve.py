@@ -127,8 +127,7 @@ def main(argv=None):
     B, P, G = args.batch, args.prompt_len, args.gen_len
     if on_cuda:
         torch.cuda.reset_peak_memory_stats()
-    params = model.compute_params(
-        model.init(1, torch.Generator(device=device).manual_seed(0), device))
+    params = model.compute_params(model.init(1, 0, device))
     gen = torch.Generator().manual_seed(args.seed)
 
     ttfts, tok_times = [], []

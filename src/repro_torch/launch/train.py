@@ -1,21 +1,32 @@
-"""Training launcher of the port: CHOCO-SGD with all gossip nodes on one GPU.
+"""Training launcher of the port: CHOCO-SGD on n gossip nodes.
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --smoke --mesh 4x1 \\
         --compressor top_k --fraction 0.05 --steps 3
 
 Flag names are the JAX launcher's (``repro.launch.train``).  ``--mesh Nx1``
-gives the node count; the port stacks the N nodes on one device, so a
-model extent above 1 is refused.  Every flag outside the ported slice is
-refused with a message, before torch is imported.  ``--device`` (default
-cuda) picks the device; without CUDA the launcher raises unless it is
-given ``--device cpu``.
+gives the node count N; a model extent above 1 is refused.  Two engines:
+
+* by default the N nodes are stacked on one device (the stacked engine);
+* with ``--simulate-devices N`` (the counterpart of the JAX launcher's
+  simulated host devices) the launcher spawns N processes, one gossip node
+  each, and under ``torchrun --nproc-per-node N`` each process is one node
+  (the per-rank engine, ``launch/mesh.py`` says which transport).
+
+The launcher prints which engine runs, and for the per-rank engine the
+transport and the collective-layer probe's record (rank 0 prints).  Every
+flag outside the ported slice is refused with a message, before torch is
+imported.  ``--device`` (default cuda) picks the device; without CUDA the
+launcher raises unless it is given ``--device cpu``.
 """
 import argparse
+import os
 import sys
+import tempfile
 import time
 
 # torch-free: argument validation runs before torch is imported
 from repro_torch.configs.base import parse_topology
+from repro_torch.launch.env import file_rendezvous, torchrun_rendezvous
 
 ARCH_CHOICES = ("qwen3-1.7b",)
 #: the compressors the JAX launcher can run (randomized_gossip takes p, not
@@ -44,8 +55,6 @@ _REFUSED = {
     "keep_checkpoints": (None, "checkpoints"),
     "resume": (None, "checkpoints"),
     "elastic_warmup_rounds": (None, "elastic restore"),
-    "simulate_devices": (0, "simulated host devices (the nodes are "
-                            "stacked on one device)"),
     "metrics_dir": (None, "the telemetry sinks"),
     "diag_every": (0, "the Lyapunov diagnostics"),
     "divergence_action": (None, "the Lyapunov diagnostics"),
@@ -93,7 +102,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--keep-checkpoints", type=int, default=None)
     ap.add_argument("--resume", default=None)
     ap.add_argument("--elastic-warmup-rounds", type=int, default=None)
-    ap.add_argument("--simulate-devices", type=int, default=0)
+    ap.add_argument("--simulate-devices", type=int, default=0,
+                    help="spawn N processes, one gossip node each (N must "
+                         "match --mesh Nx1)")
     ap.add_argument("--mesh", default=None,
                     help="Nx1: N gossip nodes, model extent 1 (required)")
     ap.add_argument("--metrics-dir", default=None)
@@ -148,15 +159,78 @@ def _validate(ap, args) -> int:
                  f"ported (tensor parallelism); use {n}x1")
     if n < 1:
         ap.error("--mesh: need at least one node")
+    rdv = torchrun_rendezvous()
+    if args.simulate_devices:
+        if rdv is not None:
+            ap.error("--simulate-devices spawns the ranks itself; under "
+                     "torchrun leave it out")
+        if args.simulate_devices != n:
+            ap.error(f"--simulate-devices {args.simulate_devices} must match "
+                     f"--mesh {args.mesh}: one process per gossip node")
+    if rdv is not None and rdv.world_size != n:
+        ap.error(f"torchrun started {rdv.world_size} ranks for --mesh "
+                 f"{args.mesh}: one rank per gossip node")
     return n
 
 
 def main(argv=None):
-    """Command-line entry point: validate the flags torch-free, then train."""
+    """Command-line entry point: validate the flags torch-free, then train
+    on the engine the flags and the environment ask for."""
     ap = _parser()
     args = ap.parse_args(argv)
     n_nodes = _validate(ap, args)
+    rdv = torchrun_rendezvous()
+    if args.simulate_devices:
+        return _spawn(args, n_nodes)
+    if rdv is not None:
+        from repro_torch.launch.mesh import close_node_group, make_node_group
+        group = make_node_group(n_nodes, args.device, rdv)
+        try:
+            return _train(args, n_nodes, group)
+        finally:
+            close_node_group()
+    return _train(args, n_nodes, None)
 
+
+#: how long the spawned ranks may run in all; a rank blocked on a peer
+#: that died raises sooner, after the process group's timeout
+SPAWN_DEADLINE_S = 24 * 3600.0
+
+
+def _spawn(args, n_nodes: int) -> int:
+    """Build the kernels once, then run one process per gossip node and
+    wait for all of them; a rank that fails fails the launcher."""
+    import concurrent.futures
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.train.trainer import resolve_device
+    if resolve_device(args.device).type == "cuda":
+        from repro_torch.kernels import build
+        with concurrent.futures.ThreadPoolExecutor(len(build.LIBRARIES)) as ex:
+            list(ex.map(build.build, build.LIBRARIES))
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+        spawn_ranks(_rank_main, n_nodes,
+                    (args, n_nodes, os.path.join(tmp, "store")),
+                    deadline_s=SPAWN_DEADLINE_S)
+    return 0
+
+
+def _rank_main(rank: int, args, n_nodes: int, store: str) -> None:
+    """One spawned rank: join the group in the FileStore ``store``, train."""
+    import torch
+    from repro_torch.launch.mesh import close_node_group, make_node_group
+    if args.device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_nodes))
+    group = make_node_group(n_nodes, args.device,
+                            file_rendezvous(store, rank, n_nodes))
+    try:
+        _train(args, n_nodes, group)
+    finally:
+        close_node_group()
+
+
+def _train(args, n_nodes: int, group) -> int:
+    """Train ``args.steps`` steps: all nodes here (``group`` None) or this
+    rank's node.  Only the stacked run or rank 0 prints."""
     import torch
     from repro_torch.configs.base import ChocoConfig, get_config
     from repro_torch.data.synthetic import make_lm_batch_fn
@@ -164,7 +238,8 @@ def main(argv=None):
     from repro_torch.optim.sgd import cosine_schedule, make_optimizer
     from repro_torch.train.trainer import DecentralizedTrainer, resolve_device
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if group is None else group.device
+    say = print if group is None or group.rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.compressor == "qsgd":
         comp_kwargs = (("s", args.qsgd_s),)
@@ -181,18 +256,27 @@ def main(argv=None):
         n_nodes=n_nodes, optimizer=make_optimizer(args.optimizer),
         lr_fn=cosine_schedule(args.lr, warmup=min(100, args.steps // 10 + 1),
                               total=args.steps),
-        device=device)
-    print(f"[train] arch={cfg.name} params={count_params(cfg) / 1e6:.1f}M "
-          f"nodes={n_nodes} device={device} mode={args.mode} "
-          f"topology={args.topology} gossip_steps={args.gossip_steps} "
-          f"compressor={args.compressor} buckets={trainer.spec.n_buckets} "
-          f"exact_buckets={sum(b.exact for b in trainer.spec.buckets)} "
-          f"gamma={trainer.gamma:.3e}", flush=True)
+        device=device, group=group)
+    engine = "stacked" if group is None else "per-rank"
+    say(f"[train] arch={cfg.name} params={count_params(cfg) / 1e6:.1f}M "
+        f"nodes={n_nodes} engine={engine} device={device} mode={args.mode} "
+        f"topology={args.topology} gossip_steps={args.gossip_steps} "
+        f"compressor={args.compressor} buckets={trainer.spec.n_buckets} "
+        f"exact_buckets={sum(b.exact for b in trainer.spec.buckets)} "
+        f"gamma={trainer.gamma:.3e}", flush=True)
+    if group is None:
+        say("[train] engine stacked: the nodes are stacked on one device, "
+            "a schedule round is an index gather", flush=True)
+    else:
+        say(f"[train] engine per-rank: one process per node; transport "
+            f"{group.describe()}", flush=True)
+        say(f"[train] probe {trainer.exchange.probe}", flush=True)
 
     state = trainer.init_state(seed=0)
     seq = args.seq_len or min(cfg.n_layers * 64, 512)
     bpn = args.batch_per_node or 4
-    next_batch = make_lm_batch_fn(cfg, seq, bpn, n_nodes, args.heterogeneity)
+    next_batch = make_lm_batch_fn(cfg, seq, bpn, n_nodes, args.heterogeneity,
+                                  node=None if group is None else group.rank)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     last_t, last_i = time.perf_counter(), 0
     for i in range(args.steps):
@@ -202,8 +286,10 @@ def main(argv=None):
             now = time.perf_counter()
             per = (now - last_t) / max(i + 1 - last_i, 1)
             tail = f"first step {per:.2f}s" if i == 0 else f"{per:.2f}s/step"
-            print(f"[train] step {state.step:5d} loss {mets['loss']:.4f} "
-                  f"lr {mets['lr']:.4f} ({tail})", flush=True)
+            wire = ("" if group is None else
+                    f" wire {mets['wire_bytes']} B sent by rank 0")
+            say(f"[train] step {state.step:5d} loss {mets['loss']:.4f} "
+                f"lr {mets['lr']:.4f} ({tail}){wire}", flush=True)
             last_t, last_i = now, i + 1
     return 0
 

@@ -23,9 +23,11 @@ activations are small next to the CHOCO state.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.comm.packing import fold_seed
 
 from . import layers as L
 
@@ -75,23 +77,30 @@ class Model:
         self.dtype = _DTYPES[cfg.dtype]
         self.param_dtype = _DTYPES[cfg.param_dtype]
 
-    def init(self, n_nodes: int, generator: torch.Generator,
-             device) -> Dict[str, torch.Tensor]:
+    def init(self, n_nodes: int, seed: int, device,
+             nodes: Optional[Sequence[int]] = None) -> Dict[str, torch.Tensor]:
         """Random node-stacked parameters: fan-in-scaled normal weights,
         0.02-scaled normal embeddings, zero norm gains (the JAX package's
-        rules, drawn from a torch Generator, so not its values)."""
+        rules, drawn from torch Generators, so not its values).
+
+        Node i draws from its own generator, seeded ``fold_seed(seed, i)``
+        (the JAX trainer folds the node index into its key), so a node's
+        weights are the same whether all ``n_nodes`` are drawn or, with
+        ``nodes``, only some: the per-rank engine draws its own row."""
+        nodes = range(n_nodes) if nodes is None else nodes
+        gens = [torch.Generator(device=device).manual_seed(fold_seed(seed, i))
+                for i in nodes]
         params = {}
         for path, shape in param_shapes(self.cfg):
             name = path.rsplit("/", 1)[-1]
-            full = (n_nodes,) + shape
-            if name == "tok":
-                p = torch.randn(full, generator=generator, device=device) * 0.02
-            elif len(shape) >= 2:
-                p = torch.randn(full, generator=generator, device=device)
-                p = p / math.sqrt(shape[-2])
-            else:
-                p = torch.zeros(full, device=device)
-            params[path] = p.to(self.param_dtype)
+            p = torch.zeros((len(gens),) + shape, dtype=self.param_dtype,
+                            device=device)
+            if name == "tok" or len(shape) >= 2:
+                scale = 0.02 if name == "tok" else 1.0 / math.sqrt(shape[-2])
+                for row, gen in zip(p, gens):
+                    row.copy_(torch.randn(shape, generator=gen,
+                                          device=device) * scale)
+            params[path] = p
         return params
 
     def compute_params(self, params) -> Dict[str, torch.Tensor]:

@@ -1,10 +1,18 @@
-"""Decentralized trainer: CHOCO-SGD with the n gossip nodes on one device.
+"""Decentralized trainer: CHOCO-SGD with the n gossip nodes on one device,
+or one node per process.
 
 One train step (Algorithm 2, the JAX package's serial ``train_step``):
 
-    per-node gradient   (one batched forward/backward over all n nodes)
+    per-node gradient   (one batched forward/backward over the nodes held)
  -> local optimizer half-step x^{t+1/2}
  -> CHOCO gossip exchange of the compressed deltas (comm/gossip.py)
+
+Without a ``group`` the trainer holds all n nodes, stacked, and runs the
+stacked exchange.  With a ``group`` (``launch/mesh.py:NodeGroup``) it is
+one rank of n, holds node ``group.rank`` only, as ``(1, size)`` buffers
+(so every bucket routine is the stacked engine's), and runs the per-rank
+exchange; the step's metrics cross the ranks in a small all-reduce of
+host floats.
 
 State lives in the gossip engine's bucket space: the parameters x, the
 public copies x_hat, the neighbour aggregates s and the momentum are
@@ -21,12 +29,15 @@ raise; the other modes, processes and a fixed gamma are not ported.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 
-from repro_torch.comm.gossip import _pack_align, make_choco_exchange
+from repro_torch.comm.gossip import (_pack_align, make_choco_exchange,
+                                     make_dist_choco_exchange)
 from repro_torch.comm.packing import (bucket_omega_worst, fold_seed,
                                       leaf_route, make_bucket_spec,
                                       pack_leaves, unpack_leaves)
@@ -68,13 +79,20 @@ class DecentralizedTrainer:
     optimizer: object
     lr_fn: Callable[[int], float]
     device: object = "cuda"
+    #: this process's rank in the per-rank engine; None: all nodes here
+    group: Optional[object] = None
 
     def __post_init__(self):
         if self.model.cfg.attn_impl != "naive":
             raise ValueError(
                 f"attn_impl={self.model.cfg.attn_impl!r} cannot train: the "
                 f"flash-attention kernel has no backward yet; use \"naive\"")
-        self.device = resolve_device(self.device)
+        if self.group is None:
+            self.device = resolve_device(self.device)
+            self.nodes = tuple(range(self.n_nodes))
+        else:                   # the exchange checks the group's size
+            self.device = self.group.device
+            self.nodes = (self.group.rank,)
         names = parse_topology(self.choco.topology)
         if len(names) != 1:
             raise ValueError("time-varying topology sequences are not ported")
@@ -95,22 +113,25 @@ class DecentralizedTrainer:
         delta, beta = self.topology.delta, self.topology.beta
         self.gamma = theorem2_stepsize(
             delta, beta, bucket_omega_worst(self.spec, self.compressor))
-        self.exchange = make_choco_exchange(
-            spec=self.spec, schedules=self.schedules,
-            compressor=self.compressor, gamma=GammaSpec(delta=delta, beta=beta),
-            gossip_steps=self.choco.gossip_steps)
+        kw = dict(spec=self.spec, schedules=self.schedules,
+                  compressor=self.compressor,
+                  gamma=GammaSpec(delta=delta, beta=beta),
+                  gossip_steps=self.choco.gossip_steps)
+        self.exchange = (make_choco_exchange(**kw) if self.group is None
+                         else make_dist_choco_exchange(**kw, group=self.group))
 
     # -- state ----------------------------------------------------------------
 
     def state_from_params(self, params: Dict[str, torch.Tensor],
                           seed: int = 0) -> TrainState:
         """Training state from node-stacked parameters ``path -> (n, ...)``
-        (e.g. ``repro_torch.convert.params_from_jax``): x packed into
-        buckets, x_hat, s and momentum zero."""
+        of the nodes this trainer holds (e.g.
+        ``repro_torch.convert.params_from_jax``; one rank holds one row):
+        x packed into buckets, x_hat, s and momentum zero."""
         leaves = [params[p].to(self.device) for p in self.paths]
-        if leaves[0].shape[0] != self.n_nodes:
+        if leaves[0].shape[0] != len(self.nodes):
             raise ValueError(f"params hold {leaves[0].shape[0]} nodes, the "
-                             f"trainer {self.n_nodes}")
+                             f"trainer {len(self.nodes)}")
         x = pack_leaves(self.spec, leaves)
         del leaves
         zeros = lambda: [torch.zeros_like(b) for b in x]
@@ -119,9 +140,9 @@ class DecentralizedTrainer:
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh state from the model's random init under ``seed``."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
         return self.state_from_params(
-            self.model.init(self.n_nodes, gen, self.device), seed=seed)
+            self.model.init(self.n_nodes, seed, self.device, self.nodes),
+            seed=seed)
 
     def params(self, state: TrainState) -> Dict[str, torch.Tensor]:
         """Node-stacked parameter views ``path -> (n, ...)`` into state.x."""
@@ -137,24 +158,35 @@ class DecentralizedTrainer:
              ) -> Dict[str, float]:
         """One CHOCO-SGD step, in place on ``state``.  ``draws(t, b)``
         optionally injects the compressor's draw for gossip round t,
-        bucket b (``comm/packing.py:draw`` says what each one draws)."""
+        bucket b (``comm/packing.py:draw`` says what each one draws) for
+        the nodes this trainer holds."""
         for b in state.x:
             b.requires_grad_(True)
         losses = self.model.loss(self.params(state), batch)     # (n,)
         grads = list(torch.autograd.grad(losses.sum(), state.x))
         with torch.no_grad():
-            grad_norm = torch.sqrt(sum(torch.sum(torch.square(g))
-                                       for g in grads))
+            grad_sq = sum(torch.sum(torch.square(g)) for g in grads)
             lr = self.lr_fn(state.step)
             for b in state.x:
                 b.requires_grad_(False)
             self.optimizer.update(state.x, grads, state.mu, lr)
             del grads                  # frees a state-sized copy for the exchange
+            sent = None if self.group is None else self.group.bytes_sent
             self.exchange(state.x, state.x_hat, state.s,
                           seed=fold_seed(state.seed, state.step),
                           draws=draws)
         state.step += 1
         losses = losses.detach()
-        return {"loss": float(losses.mean()), "lr": lr,
-                "grad_norm": float(grad_norm),
-                "node_loss_spread": float(losses.max() - losses.min())}
+        if self.group is None:
+            return {"loss": float(losses.mean()), "lr": lr,
+                    "grad_norm": float(torch.sqrt(grad_sq)),
+                    "node_loss_spread": float(losses.max() - losses.min())}
+        # the JAX trainer's global norm and loss spread, across the ranks
+        loss = float(losses[0])
+        total, sq = self.group.all_reduce_host(
+            [loss, float(grad_sq)], torch.distributed.ReduceOp.SUM)
+        top, neg_low = self.group.all_reduce_host(
+            [loss, -loss], torch.distributed.ReduceOp.MAX)
+        return {"loss": total / self.n_nodes, "lr": lr,
+                "grad_norm": math.sqrt(sq), "node_loss_spread": top + neg_low,
+                "wire_bytes": self.group.bytes_sent - sent}

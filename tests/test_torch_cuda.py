@@ -1,5 +1,6 @@
 """The PyTorch port on the card: each CUDA kernel against its plain version,
-the trainer through the gossip kernels (with QSGD, sign and top-k gossip)
+the trainer through the gossip kernels (with QSGD, sign and top-k gossip),
+the per-rank exchange (4 ranks sharing the card) against the stacked one,
 and the prefill through the flash kernel.
 
 Every test here needs a CUDA device and skips without one.  The file
@@ -9,6 +10,7 @@ runs on its own:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -69,8 +71,28 @@ def test_sign_and_ef_update_bit_equal_to_plain(cuda, length):
     assert torch.equal(codes, ref.sign_codes_ref(ins[0]))
     got = _launched("ef_update", lambda: dispatch.ef_bucket_update(
         *ins, 1 / 3, 1 / 3, 2.8e-4))
-    for g, w in zip(got, ref.ef_update_ref(*ins, 1 / 3, 1 / 3, 2.8e-4)):
+    want = ref.ef_update_ref(*ins, 1 / 3, 1 / 3, 2.8e-4)
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
+    # in place, as the exchange calls it
+    inplace = [t.clone() for t in ins[:3]]
+    _launched("ef_update", lambda: dispatch.ef_bucket_update(
+        *inplace, *ins[3:], 1 / 3, 1 / 3, 2.8e-4, out=inplace))
+    for g, w in zip(inplace, want):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_probe_kernel_bit_equal_to_plain(cuda):
+    """The collective-layer probe's x * 2 at the JAX probe's (8, 128) block
+    and at an odd length."""
+    for shape in [(8, 128), (1_000_003,)]:
+        x = _normal(3, shape, cuda)
+        got = _launched("probe_scale", lambda: dispatch.probe_scale(x))
+        assert torch.equal(got, ref.probe_scale_ref(x))
+    with pytest.raises(ValueError, match="float32"):
+        dispatch.probe_scale(x.double())
     torch.cuda.synchronize()
 
 
@@ -100,8 +122,7 @@ def _run(compressor, device, steps=2):
                                             comp_kwargs=kw),
         n_nodes=N, optimizer=MomentumSGD(),
         lr_fn=cosine_schedule(0.1, 1, steps), device=device)
-    gen = torch.Generator().manual_seed(0)
-    state = tr.state_from_params(tr.model.init(N, gen, "cpu"))
+    state = tr.state_from_params(tr.model.init(N, 0, "cpu"))
     batches = make_lm_batch_fn(cfg, 64, 2, N, 1.0)
     losses = [tr.step(state, tr.batch_to_device(batches()))["loss"]
               for _ in range(steps)]
@@ -171,6 +192,81 @@ def test_trainer_sparse_gossip_agrees_with_cpu(cuda, compressor):
     _, cpu_state, cpu_losses = _run(compressor, "cpu")
     np.testing.assert_allclose(losses, cpu_losses, rtol=1e-5)
     assert moved_selections(tr, state, cpu_state) == 0
+
+
+_CARD_EXCHANGES = (("qsgd", {"s": 16}), ("top_k", {"fraction": 0.05}),
+                   ("sign", {}))
+
+
+def _card_exchange_case(name, kw):
+    from repro_torch.comm import gossip, packing, schedule
+    from repro_torch.core import compression, topology
+    comp = compression.make_compressor(name, **kw)
+    shapes = ((300, 70), (5000,), (128, 33), (3, 1000))
+    spec = packing.make_bucket_spec(
+        [torch.empty(s, device="meta") for s in shapes],
+        align=gossip._pack_align(comp), max_bucket_elems=8192)
+    rng = np.random.default_rng(len(name))
+    bufs = [packing.pack_leaves(spec, [torch.from_numpy(
+        scale * rng.standard_normal((N,) + s).astype(np.float32))
+        for s in shapes]) for scale in (1.0, 0.5, 0.1)]
+    sched = schedule.compile_schedule(topology.make_topology("ring", N))
+    return comp, spec, (sched,), bufs
+
+
+def _card_exchange_rank(rank, store, out_dir):
+    from repro_torch.comm import gossip
+    from repro_torch.launch import env, mesh
+    group = mesh.make_node_group(N, "cuda", env.file_rendezvous(store, rank, N),
+                                 timeout_s=120)
+    dispatch.reset_launch_counts()
+    out = {"staged": group.staged, "backend": group.backend}
+    for name, kw in _CARD_EXCHANGES:
+        comp, spec, scheds, bufs = _card_exchange_case(name, kw)
+        ex = gossip.make_dist_choco_exchange(
+            spec=spec, schedules=scheds, compressor=comp, gamma=0.25,
+            gossip_steps=2, group=group)
+        parts = [[b[rank:rank + 1].to(group.device) for b in p] for p in bufs]
+        ex(*parts, seed=3)
+        out[name] = [[b.cpu() for b in p] for p in parts]
+    torch.cuda.synchronize()
+    out["launches"] = dispatch.launch_counts()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    mesh.close_node_group()
+
+
+@pytest.mark.cuda
+def test_dist_exchange_on_the_card_bit_equal_to_stacked(cuda, tmp_path):
+    """4 ranks run the per-rank exchange, 2 gossip rounds: x, x_hat and s
+    bit-equal to the stacked exchange on the card on the same inputs; each
+    rank ran the probe kernel once and decoded its own and both
+    neighbours' QSGD / sign payloads through the dequantize kernel.  On
+    one card the ranks share it over gloo, staged through pinned host
+    buffers; on four cards each rank has its own, over NCCL."""
+    from repro_torch.comm import gossip
+    from repro_torch.launch import mesh
+    mesh.spawn_ranks(_card_exchange_rank, N,
+                     (str(tmp_path / "store"), str(tmp_path)), deadline_s=300)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(N)]
+    for name, kw in _CARD_EXCHANGES:
+        comp, spec, scheds, bufs = _card_exchange_case(name, kw)
+        parts = [[b.to(cuda) for b in p] for p in bufs]
+        gossip.make_choco_exchange(spec=spec, schedules=scheds,
+                                   compressor=comp, gamma=0.25,
+                                   gossip_steps=2)(*parts, seed=3)
+        for r, res in enumerate(ranks):
+            for want, got in zip(parts, res[name]):
+                for w, g in zip(want, got):
+                    assert torch.equal(g[0], w[r].cpu()), (name, r)
+    # QSGD and sign: 2 rounds x buckets x (own payload + 2 neighbours')
+    decodes = sum(2 * _card_exchange_case(name, kw)[1].n_buckets * 3
+                  for name, kw in _CARD_EXCHANGES if name != "top_k")
+    backend, staged = mesh.transport_for("cuda", torch.cuda.device_count(), N)
+    for res in ranks:
+        assert (res["backend"], res["staged"]) == (backend, staged)
+        assert res["launches"]["probe_scale"] == 1
+        assert res["launches"]["dequantize"] == decodes
 
 
 def _ties(seed, shape, device):
@@ -283,10 +379,21 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_prefill_goes_through_the_flash_kernel_and_agrees_with_cpu(cuda):
+    """Logits within 1e-5 (+ 1e-5 relative) of the CPU's; the k and v
+    caches within 4e-5 (+ 1e-5 relative).  The cache bound comes from
+    ``chip_smoke.py:prefill_budget`` (NVIDIA H100 80GB HBM3, 700 W): on
+    five weight draws the flash kernel differs from its plain version on
+    the card by at most 4.8e-07 in layer 0's attention output, while the
+    card and the CPU differ there by 2.0e-06 to 3.0e-06 through the kernel
+    and 2.5e-06 to 2.9e-06 with naive attention (no kernel of the port):
+    matmul order, not the kernel.  qk-norm amplifies it in the caches,
+    where naive attention on the card differs from the CPU by up to
+    1.8358e-05 and the kernel path by up to 1.4782e-05, above the 1e-5 the
+    logits keep."""
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32", attn_impl="chunked")
     model = Model(cfg)
-    params = model.init(1, torch.Generator().manual_seed(0), "cpu")
+    params = model.init(1, 0, "cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, 2, 200)))
     want, want_cache = model.prefill(params, toks)
@@ -297,4 +404,4 @@ def test_prefill_goes_through_the_flash_kernel_and_agrees_with_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     for name in ("k", "v"):
         torch.testing.assert_close(cache[name].cpu(), want_cache[name],
-                                   rtol=1e-5, atol=1e-5)
+                                   rtol=1e-5, atol=4e-5)

@@ -133,10 +133,19 @@ def test_cpu_tensors_take_the_plain_versions_without_launches():
     outs = dispatch.ef_bucket_update(x, x, x, x, x, 0.3, 0.3, 0.1)
     for a, b in zip(outs, ref.ef_update_ref(x, x, x, x, x, 0.3, 0.3, 0.1)):
         assert torch.equal(a, b)
+    # in place, over its own x_half, x_hat and s, as the exchange calls it
+    ins = [x + i for i in range(5)]
+    inplace = [t.clone() for t in ins[:3]]
+    got = dispatch.ef_bucket_update(*inplace, *ins[3:], 0.3, 0.3, 0.1,
+                                    out=inplace)
+    assert all(g is t for g, t in zip(got, inplace))
+    for a, b in zip(inplace, ref.ef_update_ref(*ins, 0.3, 0.3, 0.1)):
+        assert torch.equal(a, b)
     tiles = x.reshape(-1, 125)[:, :1].repeat(1, 128)
     for a, b in zip(dispatch.block_topk_mask(tiles, 3),
                     ref.block_topk_mask_ref(tiles, 3)):
         assert torch.equal(a, b)
+    assert torch.equal(dispatch.probe_scale(x), ref.probe_scale_ref(x))
     assert set(dispatch.launch_counts().values()) == {0}
 
 
@@ -153,9 +162,10 @@ _ENTRIES = {
     "ef_update": lambda: dispatch.ef_bucket_update(
         *[_meta((N, 8))] * 5, 0.3, 0.3, 0.1),
     "block_topk_mask": lambda: dispatch.block_topk_mask(_meta((8, 128)), 2),
+    "probe_scale": lambda: dispatch.probe_scale(_meta((8, 128))),
 }
 #: the library each entry's kernel is in
-_LIBRARY = {"block_topk_mask": "topk"}
+_LIBRARY = {"block_topk_mask": "topk", "probe_scale": "probe"}
 
 
 @pytest.mark.parametrize("entry", sorted(_ENTRIES))
@@ -170,7 +180,7 @@ def test_off_cpu_tensor_never_reaches_a_plain_version(entry, monkeypatch):
         raise RuntimeError("kernel loader reached")
 
     for name in ("qsgd_codes_ref", "sign_codes_ref", "dequantize_ref",
-                 "ef_update_ref", "block_topk_mask_ref"):
+                 "ef_update_ref", "block_topk_mask_ref", "probe_scale_ref"):
         monkeypatch.setattr(ref, name, no_plain)
     monkeypatch.setattr(build, "load_library", loader)
     with pytest.raises(RuntimeError, match="kernel loader reached"):
@@ -258,21 +268,23 @@ def test_flash_off_cpu_tensor_never_reaches_the_plain_version(monkeypatch):
 
 
 def test_flash_has_its_own_library_and_build_flags():
-    """The gossip library keeps --fmad=false (bit-equal codes); the flash
-    kernel, held to a tolerance, is built without it, and each library's
-    name hashes its own source and flags."""
+    """The gossip, top-k and probe libraries keep --fmad=false (bit-equal
+    outputs); the flash kernel, held to a tolerance, is built without it,
+    and each library's name hashes its own source and flags."""
     libs = build.LIBRARIES
     assert "--fmad=false" in libs["gossip"].flags
     assert "--fmad=false" in libs["topk"].flags
+    assert "--fmad=false" in libs["probe"].flags
     assert "--fmad=false" not in libs["flash"].flags
     assert libs["flash"].source.name == "flash_attention.cu"
     assert libs["topk"].source.name == "block_topk.cu"
+    assert libs["probe"].source.name == "probe.cu"
     assert all(lib.source.exists() for lib in libs.values())
     paths = {build.library_path(name) for name in libs}
-    assert len(paths) == 3
+    assert len(paths) == 4
     assert set(dispatch.launch_counts()) == {
         "qsgd_codes", "sign_codes", "dequantize", "ef_update",
-        "flash_attention", "block_topk_mask"}
+        "flash_attention", "block_topk_mask", "probe_scale"}
 
 
 # -- block top-k mask ----------------------------------------------------------------

@@ -186,6 +186,12 @@ def test_slice_matches_jax_trainer(tmp_path, comp, arg, k, exact):
             draws = lambda t, b, j=j: torch.from_numpy(ref[f"xi:{j}:{t}:{b}"])
         m = tr.step(state, tr.batch_to_device(batches()), draws=draws)
         mets.append([m["loss"], m["lr"], m["grad_norm"]])
+    check_against_jax(tr, state, mets, ref, comp)
+
+
+def check_against_jax(tr, state, mets, ref, comp):
+    """Metrics and state after the steps against the JAX trainer's, with
+    the tolerances of this module's docstring."""
     mets = np.array(mets)
     np.testing.assert_allclose(mets[:, 0], ref["metrics"][:, 0], rtol=1e-6)
     np.testing.assert_array_equal(mets[:, 1], ref["metrics"][:, 1])
