@@ -10,8 +10,8 @@ from the root of a checkout, on a machine with one CUDA device.  It
 2. holds each gossip kernel against its plain PyTorch version on the card, at the
    bucket lengths of the full-width run and at an odd length: QSGD codes
    (int8 and int16), sign codes and dequantize bit-equal, the EF update
-   within 0 ulp (kernel and plain version round every operation
-   separately), into new buffers and in place, and times kernel, plain
+   (in place, as the exchange calls it) within 0 ulp (kernel and plain
+   version round every operation separately), and times kernel, plain
    version, the bytes bound and,
    for dequantize, the one PyTorch call that computes the same function.
    QSGD is checked twice at each length: with inv_norm = 1/||x|| per node
@@ -34,16 +34,17 @@ from the root of a checkout, on a machine with one CUDA device.  It
    gossip_steps x buckets times on its path and not at all off it, then
    profiles one more step of each;
 5. runs the training launcher (``repro_torch.launch.train.main``) for a
-   --smoke run with --compressor top_k --fraction 0.05;
+   --smoke run with --compressor top_k --fraction 0.05, then the same run
+   with --simulate-devices 4 (4 ranks on the card, the per-rank engine),
+   checking its engine line, its probe record and rank 0's launches;
 6. holds small float32 training runs on the card against the same runs on
    the CPU (the plain versions), step by step: SignNorm, top_k,
    block_top_k, identity with the exact small-leaf bucket, and rand_k and
    randomized gossip fed the same draws on both devices;
    then the per-rank engine (``[dist]``), one process per gossip node, 4
-   ranks sharing the card: first two ranks try NCCL on the one card (the
-   reason the transport rule takes gloo there); the small phase holds the
-   per-rank exchange alone bit-equal to the stacked exchange on the card,
-   and 3 per-rank steps of the f32 smoke decoder to the ``[small]`` rules
+   ranks sharing the card: the small phase holds the per-rank exchange
+   alone bit-equal to the stacked exchange on the card, and 3 per-rank
+   steps of the f32 smoke decoder to the ``[small]`` rules
    against the stacked trainer on the card (top_k, QSGD with 2 gossip
    rounds, sign); the full-width phase trains qwen3-1.7b widths (2
    layers) with top_k 0.01 at sequence 512 x batch 4 per node for 3 steps,
@@ -71,9 +72,10 @@ from the root of a checkout, on a machine with one CUDA device.  It
    tokens, 2 requests): TTFT and per-token latency, no flash launch; then
    holds the f32 smoke model's prefill plus 8 decode steps on the card
    against the same on the CPU, and measures where the card's f32
-   prefill differs from the CPU's (``prefill_budget``: the flash kernel
-   against its plain version, chunked and naive attention on the card
-   against the CPU);
+   prefill differs from the CPU's on the prefill test's inputs
+   (``prefill_budget``: the flash kernel against its plain version,
+   chunked and naive attention on the card against the CPU), holding the
+   test's bounds;
 11. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -247,25 +249,23 @@ def check_kernels(lengths, dev):
         ins = [x] + [torch.randn(shape, generator=gen, device=dev)
                      for _ in range(4)]
         coef = (1 / 3, 1 / 3, 1.956e-05)
-        outs = dispatch.ef_bucket_update(*ins, *coef)
-        bound = bound_ms(ins, list(outs), 8 * x.numel())
+        # the plain version first, so its temporaries are freed before the
+        # in-place copies below are made
+        plain_ms = time_ms(lambda: ref.ef_update_ref(*ins, *coef), reps)
+        # in place, as the exchange calls it: x_half, x_hat and s updated
+        inplace = [t.clone() for t in ins[:3]]
+        dispatch.ef_bucket_update(*inplace, *ins[3:], *coef)
         # the plain version row by row: elementwise, so the same numbers
         plain_row = lambda j: (lambda i: ref.ef_update_ref(
             *[t[i:i + 1] for t in ins], *coef)[j][0])
-        compare("ef_update", [(o, plain_row(j)) for j, o in enumerate(outs)],
-                length)
-        del outs
-        # in place, as the exchange calls it: outputs over x_half, x_hat, s
-        inplace = [t.clone() for t in ins[:3]]
-        dispatch.ef_bucket_update(*inplace, *ins[3:], *coef, out=inplace)
         compare("ef_update", [(o, plain_row(j)) for j, o in enumerate(inplace)],
                 length)
-        del inplace
+        # timed on the same buffers, which each call updates again
         report("ef_update", length,
-               time_ms(lambda: dispatch.ef_bucket_update(*ins, *coef), reps),
-               time_ms(lambda: ref.ef_update_ref(*ins, *coef), reps), None,
-               bound)
-        del ins, x
+               time_ms(lambda: dispatch.ef_bucket_update(*inplace, *ins[3:],
+                                                         *coef), reps),
+               plain_ms, None, bound_ms(ins, inplace, 8 * x.numel()))
+        del ins, inplace, x
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     return records, max_err
@@ -558,6 +558,46 @@ def run_launcher():
           f"launcher launch counts {counts}, expected {want} ef_update "
           f"launches and no other")
     print(f"[launcher] launches {counts}", flush=True)
+    return counts
+
+
+def run_launcher_per_rank():
+    """The user's entry point with --simulate-devices: the launcher builds
+    the kernels, spawns N_NODES ranks on the card and rank 0 prints.
+    Checks the engine line, the probe record, finite losses and rank 0's
+    launches: the probe kernel once, the EF update per bucket per step."""
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "qwen3-1.7b", "--smoke", "--mesh", f"{N_NODES}x1",
+            "--simulate-devices", str(N_NODES), "--compressor", "top_k",
+            "--fraction", "0.05", "--steps", str(STEPS)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, env=env, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    out = r.stdout
+    print(out, end="", flush=True)
+    check(r.returncode == 0, f"per-rank launcher exited {r.returncode}:\n"
+          f"{r.stderr[-4000:]}")
+    check("engine=per-rank" in out and f"nodes={N_NODES}" in out,
+          "per-rank launcher: no engine=per-rank line")
+    check("probe CollectiveProbe(" in out and "intact=True" in out,
+          "per-rank launcher: no intact probe record")
+    losses = [float(line.split("loss ")[1].split()[0])
+              for line in out.splitlines() if line.startswith("[train] step")]
+    check(losses and all(math.isfinite(v) for v in losses),
+          f"per-rank launcher losses {losses}")
+    line = [s for s in out.splitlines()
+            if s.startswith("[train] kernel launches on rank 0 ")]
+    check(len(line) == 1, "per-rank launcher: no launches line")
+    counts = json.loads(line[0].split(" rank 0 ")[1])
+    want = STEPS * int(out.split("buckets=")[1].split()[0])
+    check(counts["ef_update"] == want and counts["probe_scale"] == 1
+          and sum(counts.values()) == want + 1,
+          f"per-rank launcher: rank 0 launches {counts}, expected {want} "
+          f"ef_update and one probe_scale")
+    print(f"[launcher] per-rank, {N_NODES} ranks on the card: {wall:.1f} s "
+          f"from start to exit; rank 0 launches {counts}", flush=True)
     return counts
 
 
@@ -993,30 +1033,10 @@ def check_probe(dev):
     return record
 
 
-def _one_generator_init(model, seed):
-    """One node's weights by the same rules as ``Model.init`` but from one
-    CPU generator for every leaf in turn: the draw the prefill test's
-    weights once came from, on which its cache check failed on the card."""
-    import torch
-    from repro_torch.models.transformer import param_shapes
-    gen, params = torch.Generator().manual_seed(seed), {}
-    for path, shape in param_shapes(model.cfg):
-        name, full = path.rsplit("/", 1)[-1], (1,) + shape
-        if name == "tok":
-            p = torch.randn(full, generator=gen) * 0.02
-        elif len(shape) >= 2:
-            p = torch.randn(full, generator=gen) / math.sqrt(shape[-2])
-        else:
-            p = torch.zeros(full)
-        params[path] = p.to(model.param_dtype)
-    return params
-
-
-def prefill_budget(dev, seeds=(0, 1, 2, 3)):
+def prefill_budget(dev):
     """Where the card's f32 prefill differs from the CPU's, on the inputs
     of ``tests/test_torch_cuda.py``'s prefill test (the smoke decoder in
-    f32, prompt 200 x batch 2; weights from ``_one_generator_init`` at seed
-    0 and from ``Model.init`` at each seed).  Layer 0's
+    f32, ``Model.init`` seed 0, prompt 200 x batch 2).  Layer 0's
     attention output three ways: (1) the flash kernel against
     ``ref.flash_attention_ref`` on the card, on the same q, k and v; (2)
     ``attn_impl="chunked"`` on the card (the kernel) against the CPU (the
@@ -1024,10 +1044,8 @@ def prefill_budget(dev, seeds=(0, 1, 2, 3)):
     CPU.  Then the whole prefill, chunked and naive, card against CPU: the
     logits and the k and v caches.  Each difference is printed as its max
     |d| and as its share of the bound 1e-5 + 1e-5 |want| (the test's
-    logits bound).  The chunked caches are held to the test's cache bound,
-    PREFILL_CACHE_ATOL + 1e-5 |want|, set from these measurements: naive
-    attention on the card, with no kernel of the port, differs from the CPU
-    by more than 1e-5 in the caches too."""
+    logits bound).  The chunked run is held to the test's bounds: logits
+    within that one, the caches within PREFILL_CACHE_ATOL + 1e-5 |want|."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -1040,107 +1058,53 @@ def prefill_budget(dev, seeds=(0, 1, 2, 3)):
         d = (got - want).abs()
         return float(d.max()), float((d / (atol + 1e-5 * want.abs())).max())
 
-    cpu, report = torch.device("cpu"), {}
-    draws = [("one generator, seed 0", 0, _one_generator_init)] + [
-        (f"Model.init seed {s}", s, lambda m, s: m.init(1, s, "cpu"))
-        for s in seeds]
-    for label, seed, init in draws:
-        row = {}
-        for impl in ("chunked", "naive"):
-            cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
-                                      dtype="float32", attn_impl=impl)
-            model = Model(cfg)
-            params = init(model, seed)
-            toks = torch.from_numpy(np.random.default_rng(seed).integers(
-                0, cfg.vocab_size, (1, 2, 200)))
-            got = {}
-            for where, d in (("card", dev), ("cpu", cpu)):
-                p = {k: v.to(d) for k, v in params.items()}
-                t = toks.to(d)
-                x = model._embed_tokens(p, t)
-                layer0 = next(model._layers(p))[1]
-                xn = L.rms_norm(x, L.per_node(layer0["ln1"], x.dim()),
-                                cfg.norm_eps)
-                pos = torch.arange(200, device=d)[None].expand(2, 200)
-                attn = model._sub(layer0, "attn/")
-                h, _ = L.attention(attn, xn, cfg, pos)
-                logits, cache = model.prefill(p, t)
-                got[where] = dict(h=h, logits=logits, k=cache["k"],
-                                  v=cache["v"])
-                if where == "card" and impl == "chunked":
-                    q, k, v = L._qkv(attn, xn, cfg, pos)
-                    qkv = (q.reshape(2, 200, cfg.n_heads, -1),
-                           k.reshape(2, 200, cfg.n_kv_heads, -1),
-                           v.reshape(2, 200, cfg.n_kv_heads, -1))
-                    row["1_kernel_vs_plain_on_card"] = diff(
-                        dispatch.flash_attention(*qkv),
-                        ref.flash_attention_ref(*qkv))
-            tag = "2_kernel_on_card_vs_cpu" if impl == "chunked" \
-                else "3_naive_on_card_vs_cpu"
-            row[tag] = diff(got["card"]["h"], got["cpu"]["h"])
-            for name in ("logits", "k", "v"):
-                row[f"prefill_{impl}_{name}"] = diff(got["card"][name],
-                                                     got["cpu"][name])
-            if impl == "chunked":
-                for name in ("k", "v"):
-                    _, share = diff(got["card"][name], got["cpu"][name],
-                                    PREFILL_CACHE_ATOL)
-                    check(share <= 1.0, f"[prefill-budget] {label}: the "
-                          f"{name} cache is outside the test's bound "
-                          f"({share:.3f} of it)")
-        report[label] = row
-        print(f"[prefill-budget] weights {label}: " + "; ".join(
-            f"{k} max|d| {a:.4e} (bound share {b:.3f})"
-            for k, (a, b) in row.items()), flush=True)
-    return report
-
-
-def _nccl_rank(rank, store, out_dir):
-    """One of two ranks that try NCCL on the one card; writes what
-    happened to ``out_dir``."""
-    import datetime
-    import torch
-    import torch.distributed as dist
-    torch.cuda.set_device(0)
-    msg = "no error"
-    try:
-        dist.init_process_group("nccl", init_method="file://" + store,
-                                rank=rank, world_size=2,
-                                timeout=datetime.timedelta(seconds=60))
-        t = torch.full((4,), float(rank), device="cuda")
-        if rank == 0:
-            dist.send(t, 1)
-        else:
-            dist.recv(t, 0)
-        torch.cuda.synchronize()
-        msg = f"point-to-point done, rank {rank} holds {t.tolist()}"
-    except Exception as e:      # what NCCL says is the finding
-        msg = f"{type(e).__name__}: {e}"
-    finally:
-        with open(os.path.join(out_dir, f"nccl{rank}.txt"), "w") as f:
-            f.write(msg)
-        if dist.is_initialized():
-            dist.destroy_process_group()
-
-
-def nccl_one_card():
-    """Two ranks with NCCL on the one card: what NCCL does there, the
-    reason for the transport rule (gloo, staged through pinned host
-    buffers, when ranks share a card).  Prints each rank's outcome."""
-    import tempfile
-    from repro_torch.launch.mesh import spawn_ranks
-    with tempfile.TemporaryDirectory() as tmp:
-        try:
-            spawn_ranks(_nccl_rank, 2, (os.path.join(tmp, "store"), tmp),
-                        deadline_s=150)
-            ended = "both ranks exited 0"
-        except Exception as e:
-            ended = f"{type(e).__name__}: {str(e).strip().splitlines()[-1]}"
-        outcome = [open(os.path.join(tmp, f)).read()[-400:]
-                   for f in sorted(os.listdir(tmp)) if f.startswith("nccl")]
-    print(f"[dist] NCCL with two ranks on one card: {ended}; ranks said: "
-          f"{outcome}", flush=True)
-    return {"ended": ended, "ranks": outcome}
+    cpu, row = torch.device("cpu"), {}
+    for impl in ("chunked", "naive"):
+        cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                                  dtype="float32", attn_impl=impl)
+        model = Model(cfg)
+        params = model.init(1, 0, "cpu")
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (1, 2, 200)))
+        got = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            p = {k: v.to(d) for k, v in params.items()}
+            t = toks.to(d)
+            x = model._embed_tokens(p, t)
+            layer0 = next(model._layers(p))[1]
+            xn = L.rms_norm(x, L.per_node(layer0["ln1"], x.dim()), cfg.norm_eps)
+            pos = torch.arange(200, device=d)[None].expand(2, 200)
+            attn = model._sub(layer0, "attn/")
+            h, _ = L.attention(attn, xn, cfg, pos)
+            logits, cache = model.prefill(p, t)
+            got[where] = dict(h=h, logits=logits, k=cache["k"], v=cache["v"])
+            if where == "card" and impl == "chunked":
+                q, k, v = L._qkv(attn, xn, cfg, pos)
+                qkv = (q.reshape(2, 200, cfg.n_heads, -1),
+                       k.reshape(2, 200, cfg.n_kv_heads, -1),
+                       v.reshape(2, 200, cfg.n_kv_heads, -1))
+                row["1_kernel_vs_plain_on_card"] = diff(
+                    dispatch.flash_attention(*qkv),
+                    ref.flash_attention_ref(*qkv))
+        tag = "2_kernel_on_card_vs_cpu" if impl == "chunked" \
+            else "3_naive_on_card_vs_cpu"
+        row[tag] = diff(got["card"]["h"], got["cpu"]["h"])
+        for name in ("logits", "k", "v"):
+            row[f"prefill_{impl}_{name}"] = diff(got["card"][name],
+                                                 got["cpu"][name])
+        if impl == "chunked":
+            check(row["prefill_chunked_logits"][1] <= 1.0,
+                  f"[prefill-budget] the logits are outside the test's bound "
+                  f"({row['prefill_chunked_logits'][1]:.3f} of it)")
+            for name in ("k", "v"):
+                _, share = diff(got["card"][name], got["cpu"][name],
+                                PREFILL_CACHE_ATOL)
+                check(share <= 1.0, f"[prefill-budget] the {name} cache is "
+                      f"outside the test's bound ({share:.3f} of it)")
+    print("[prefill-budget] " + "; ".join(
+        f"{k} max|d| {a:.4e} (bound share {b:.3f})"
+        for k, (a, b) in row.items()), flush=True)
+    return row
 
 
 def bf16_ulp(got, want):
@@ -1472,9 +1436,9 @@ def main():
     ops_counts = topk_ops_path(dev)
     by_path = {c: train_full_width(c, dev) for c in TRAIN_COMPRESSORS}
     launcher_counts = run_launcher()
+    per_rank_launcher_counts = run_launcher_per_rank()
     small = small_cuda_vs_cpu(dev)
     torch.cuda.empty_cache()
-    nccl = nccl_one_card()
     dist_small_report = dist_small(dev)
     torch.cuda.empty_cache()
     dist_full = dist_full_width(by_path[DIST_FULL[0]][1])
@@ -1514,6 +1478,8 @@ def main():
             "launches_by_path": {**{c: by_path[c][0][name] for c in by_path},
                                  "topk_ops": ops_counts[name],
                                  "launcher_smoke": launcher_counts[name],
+                                 "launcher_per_rank_rank0":
+                                     per_rank_launcher_counts[name],
                                  "prefill": prefill_counts[name],
                                  "serve": serve_counts[name],
                                  **{p: c[name] for p, c in dist_counts.items()}},
@@ -1532,6 +1498,8 @@ def main():
             **{c: by_path[c][0]["flash_attention"] for c in by_path},
             "topk_ops": ops_counts["flash_attention"],
             "launcher_smoke": launcher_counts["flash_attention"],
+            "launcher_per_rank_rank0":
+                per_rank_launcher_counts["flash_attention"],
             "prefill": prefill_counts["flash_attention"],
             "consistency": consistency_launches,
             "serve": serve_counts["flash_attention"],
@@ -1549,6 +1517,8 @@ def main():
             "topk_ops": ops_counts["block_topk_mask"],
             **{c: by_path[c][0]["block_topk_mask"] for c in by_path},
             "launcher_smoke": launcher_counts["block_topk_mask"],
+            "launcher_per_rank_rank0":
+                per_rank_launcher_counts["block_topk_mask"],
             "prefill": prefill_counts["block_topk_mask"],
             "serve": serve_counts["block_topk_mask"],
             **{p: c["block_topk_mask"] for p, c in dist_counts.items()}},
@@ -1564,6 +1534,8 @@ def main():
             **{c: by_path[c][0]["probe_scale"] for c in by_path},
             "topk_ops": ops_counts["probe_scale"],
             "launcher_smoke": launcher_counts["probe_scale"],
+            "launcher_per_rank_rank0":
+                per_rank_launcher_counts["probe_scale"],
             "prefill": prefill_counts["probe_scale"],
             "serve": serve_counts["probe_scale"],
             **{p: c["probe_scale"] for p, c in dist_counts.items()}},
@@ -1575,7 +1547,7 @@ def main():
     train = {c: r for c, (_, r) in by_path.items()}
     print(json.dumps({"int16": extra, "train": train, "small": small,
                       "prefill": prefill, "serve": serve, "decode": decode,
-                      "consistency": consistency, "nccl_one_card": nccl,
+                      "consistency": consistency,
                       "dist_small": {k: v for k, v in dist_small_report.items()
                                      if k != "launches"},
                       "dist_full_width": dist_full,

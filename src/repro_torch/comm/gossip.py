@@ -158,9 +158,8 @@ def _exchange(spec: BucketSpec, compressor, gammas, gossip_steps: int,
                 else:                               # n == 1: no neighbours
                     nbr, w_nbr = q * 0.0, 0.0
                 del receive
-                dispatch.ef_bucket_update(
-                    x[b], x_hat[b], s[b], q, nbr, w_self, w_nbr, gammas[b],
-                    out=(x[b], x_hat[b], s[b]))
+                dispatch.ef_bucket_update(x[b], x_hat[b], s[b], q, nbr,
+                                          w_self, w_nbr, gammas[b])
                 del q, nbr
 
     exchange.bucket_gammas = gammas

@@ -24,10 +24,9 @@
 // __fadd_rn, __fsub_rn), so nothing contracts into an FMA and the results
 // are bit-equal to the plain PyTorch versions in kernels/ref.py, which run
 // one operation per step.  The ef_update keeps the contract's association
-// s' = s + (w_self q_self + w_nbr q_nbr), and its outputs may be its
-// x_half, x_hat and s inputs (the exchange updates in place): each element
-// is read, then written, by the one thread that owns it, so those six
-// pointers carry no __restrict__.
+// s' = s + (w_self q_self + w_nbr q_nbr), and updates x, x_hat and s in
+// place (x holds x_half on entry): each element is read, then written, by
+// the one thread that owns it.
 //
 // C interface for ctypes: each entry launches on the caller's stream and
 // returns cudaGetLastError() (0 on success).  Nothing synchronises and
@@ -84,13 +83,12 @@ __global__ void dequantize_kernel(const T* __restrict__ codes,
   }
 }
 
-__global__ void ef_update_kernel(const float* x_half, const float* x_hat,
-                                 const float* s,
+__global__ void ef_update_kernel(float* __restrict__ x,
+                                 float* __restrict__ x_hat,
+                                 float* __restrict__ s,
                                  const float* __restrict__ q_self,
                                  const float* __restrict__ q_nbr, float w_self,
-                                 float w_nbr, float gamma, float* x_out,
-                                 float* x_hat_out, float* s_out,
-                                 int64_t total) {
+                                 float w_nbr, float gamma, int64_t total) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < total; i += stride) {
@@ -98,9 +96,9 @@ __global__ void ef_update_kernel(const float* x_half, const float* x_hat,
     const float xhat_n = __fadd_rn(x_hat[i], qs);
     const float mix = __fadd_rn(__fmul_rn(w_self, qs), __fmul_rn(w_nbr, q_nbr[i]));
     const float s_n = __fadd_rn(s[i], mix);
-    x_out[i] = __fadd_rn(x_half[i], __fmul_rn(gamma, __fsub_rn(s_n, xhat_n)));
-    x_hat_out[i] = xhat_n;
-    s_out[i] = s_n;
+    x[i] = __fadd_rn(x[i], __fmul_rn(gamma, __fsub_rn(s_n, xhat_n)));
+    x_hat[i] = xhat_n;
+    s[i] = s_n;
   }
 }
 
@@ -157,13 +155,11 @@ int dequantize_i16(const int16_t* codes, const float* scale, float* out,
   return launch_dequantize<int16_t>(codes, scale, out, n, len, stream);
 }
 
-int ef_update(const float* x_half, const float* x_hat, const float* s,
-              const float* q_self, const float* q_nbr, float w_self,
-              float w_nbr, float gamma, float* x_out, float* x_hat_out,
-              float* s_out, int64_t total, cudaStream_t stream) {
+int ef_update(float* x, float* x_hat, float* s, const float* q_self,
+              const float* q_nbr, float w_self, float w_nbr, float gamma,
+              int64_t total, cudaStream_t stream) {
   ef_update_kernel<<<blocks_for(total), kThreads, 0, stream>>>(
-      x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, x_out, x_hat_out,
-      s_out, total);
+      x, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, total);
   return static_cast<int>(cudaGetLastError());
 }
 

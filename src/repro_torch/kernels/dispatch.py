@@ -70,21 +70,18 @@ def dequantize(codes, scale):
     return _qsgd.dequantize(codes, scale)
 
 
-def ef_bucket_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma,
-                     out=None):
-    """Fused CHOCO EF integrate for one node-stacked f32 bucket (recv half).
-    Returns ``(x', x_hat', s')``, new tensors or, with ``out``, those three
-    written in place (they may be ``x_half``, ``x_hat`` and ``s``)."""
+def ef_bucket_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma):
+    """Fused CHOCO EF integrate for one node-stacked f32 bucket (recv half),
+    in place: ``x_half`` becomes x', ``x_hat`` and ``s`` their updates.
+    Returns those three tensors."""
     if not _on_cpu(x_half):
         return _ef.ef_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
-                             gamma, out)
+                             gamma)
     new = ref.ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
                             gamma)
-    if out is None:
-        return new
-    for o, n in zip(out, new):
-        o.copy_(n)
-    return tuple(out)
+    for old, n in zip((x_half, x_hat, s), new):
+        old.copy_(n)
+    return x_half, x_hat, s
 
 
 def block_topk_mask(x, k: int):

@@ -19,6 +19,7 @@ imported.  ``--device`` (default cuda) picks the device; without CUDA the
 launcher raises unless it is given ``--device cpu``.
 """
 import argparse
+import json
 import os
 import sys
 import tempfile
@@ -192,9 +193,13 @@ def main(argv=None):
     return _train(args, n_nodes, None)
 
 
-#: how long the spawned ranks may run in all; a rank blocked on a peer
-#: that died raises sooner, after the process group's timeout
-SPAWN_DEADLINE_S = 24 * 3600.0
+def spawn_deadline_s(steps: int) -> float:
+    """How long the spawned ranks may run in all: one process-group
+    timeout for set-up and one for each step.  A rank that dies stops the
+    others at once; a rank blocked on a peer raises after one timeout, so
+    a step that ran past a whole timeout has hung."""
+    from repro_torch.launch.mesh import DEFAULT_TIMEOUT_S
+    return DEFAULT_TIMEOUT_S * (steps + 1)
 
 
 def _spawn(args, n_nodes: int) -> int:
@@ -210,7 +215,7 @@ def _spawn(args, n_nodes: int) -> int:
     with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
         spawn_ranks(_rank_main, n_nodes,
                     (args, n_nodes, os.path.join(tmp, "store")),
-                    deadline_s=SPAWN_DEADLINE_S)
+                    deadline_s=spawn_deadline_s(args.steps))
     return 0
 
 
@@ -234,6 +239,7 @@ def _train(args, n_nodes: int, group) -> int:
     import torch
     from repro_torch.configs.base import ChocoConfig, get_config
     from repro_torch.data.synthetic import make_lm_batch_fn
+    from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model, count_params
     from repro_torch.optim.sgd import cosine_schedule, make_optimizer
     from repro_torch.train.trainer import DecentralizedTrainer, resolve_device
@@ -241,6 +247,7 @@ def _train(args, n_nodes: int, group) -> int:
     device = resolve_device(args.device) if group is None else group.device
     say = print if group is None or group.rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch, smoke=args.smoke)
+    launched = dispatch.launch_counts()
     if args.compressor == "qsgd":
         comp_kwargs = (("s", args.qsgd_s),)
     elif args.compressor in ("sign", "identity"):
@@ -291,6 +298,9 @@ def _train(args, n_nodes: int, group) -> int:
             say(f"[train] step {state.step:5d} loss {mets['loss']:.4f} "
                 f"lr {mets['lr']:.4f} ({tail}){wire}", flush=True)
             last_t, last_i = now, i + 1
+    launched = {k: v - launched[k] for k, v in dispatch.launch_counts().items()}
+    say(f"[train] kernel launches{'' if group is None else ' on rank 0'} "
+        f"{json.dumps(launched)}", flush=True)
     return 0
 
 

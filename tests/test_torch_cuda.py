@@ -69,15 +69,12 @@ def test_sign_and_ef_update_bit_equal_to_plain(cuda, length):
     ins[0][:, ::5] = 0.0
     codes = _launched("sign_codes", lambda: dispatch.sign_codes(ins[0]))
     assert torch.equal(codes, ref.sign_codes_ref(ins[0]))
-    got = _launched("ef_update", lambda: dispatch.ef_bucket_update(
-        *ins, 1 / 3, 1 / 3, 2.8e-4))
     want = ref.ef_update_ref(*ins, 1 / 3, 1 / 3, 2.8e-4)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    # in place, as the exchange calls it
+    # in place, over its own x_half, x_hat and s
     inplace = [t.clone() for t in ins[:3]]
-    _launched("ef_update", lambda: dispatch.ef_bucket_update(
-        *inplace, *ins[3:], 1 / 3, 1 / 3, 2.8e-4, out=inplace))
+    got = _launched("ef_update", lambda: dispatch.ef_bucket_update(
+        *inplace, *ins[3:], 1 / 3, 1 / 3, 2.8e-4))
+    assert all(g is t for g, t in zip(got, inplace))
     for g, w in zip(inplace, want):
         assert torch.equal(g, w)
     torch.cuda.synchronize()
@@ -381,15 +378,18 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 def test_prefill_goes_through_the_flash_kernel_and_agrees_with_cpu(cuda):
     """Logits within 1e-5 (+ 1e-5 relative) of the CPU's; the k and v
     caches within 4e-5 (+ 1e-5 relative).  The cache bound comes from
-    ``chip_smoke.py:prefill_budget`` (NVIDIA H100 80GB HBM3, 700 W): on
-    five weight draws the flash kernel differs from its plain version on
-    the card by at most 4.8e-07 in layer 0's attention output, while the
-    card and the CPU differ there by 2.0e-06 to 3.0e-06 through the kernel
+    ``chip_smoke.py:prefill_budget``, which then looped over five weight
+    draws (NVIDIA H100 80GB HBM3, 700 W): the flash kernel differs from
+    its plain version on the card by at most 4.8e-07 in layer 0's
+    attention output, while the card and the CPU differ there by 2.0e-06
+    to 3.0e-06 through the kernel
     and 2.5e-06 to 2.9e-06 with naive attention (no kernel of the port):
     matmul order, not the kernel.  qk-norm amplifies it in the caches,
     where naive attention on the card differs from the CPU by up to
     1.8358e-05 and the kernel path by up to 1.4782e-05, above the 1e-5 the
-    logits keep."""
+    logits keep.  The script now measures this test's own draw and holds
+    it to these bounds: its k cache differs by 1.4782e-05, 0.904 of the
+    bound."""
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32", attn_impl="chunked")
     model = Model(cfg)

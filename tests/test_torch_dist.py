@@ -25,6 +25,7 @@ and has a deadline; the CPU reductions of the exchange run on
 in another order.
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -285,15 +286,16 @@ def _trainer_rank(rank, store, out_dir, ref_path):
     mesh.close_node_group()
 
 
-def test_dist_trainer_matches_stacked_and_jax(tmp_path):
+def test_dist_trainer_matches_stacked_and_jax(tmp_path, tmp_path_factory):
     """3 steps of QSGD(16) gossip, 2 rounds per step, on 4 ranks: against
-    the JAX trainer with ``test_torch_slice.py``'s tolerances, and against
-    the stacked trainer (losses 1e-6 relative, x 1e-6)."""
+    the JAX trainer with ``test_torch_slice.py``'s tolerances (the same
+    reference run as its qsgd-16-2 case, made once per pytest run), and
+    against the stacked trainer (losses 1e-6 relative, x 1e-6)."""
     from repro_torch.convert import params_from_jax
-    from test_torch_slice import (BPN, SEQ, STEPS, _jax_reference,
-                                  _port_trainer, _tree, check_against_jax)
-    ref = _jax_reference(tmp_path, "qsgd", 16, 2, False)
-    ref_path = str(tmp_path / "jax_qsgd_2.npz")
+    from test_torch_slice import (BPN, SEQ, STEPS, _port_trainer, _tree,
+                                  check_against_jax, jax_reference_path)
+    ref_path = str(jax_reference_path(tmp_path_factory, "qsgd", 16, 2, False))
+    ref = np.load(ref_path)
     ranks = _spawn(_trainer_rank, tmp_path, str(tmp_path), ref_path)
     tr = _port_trainer("qsgd", 16, 2, False)
     cat = lambda tag: [torch.cat([r[tag][b] for r in ranks])
@@ -345,13 +347,19 @@ def test_launcher_runs_the_per_rank_engine_on_cpu():
     losses = [float(line.split("loss ")[1].split()[0]) for line in steps]
     assert all(np.isfinite(losses))
     assert all(" B sent by rank 0" in line for line in steps)
+    # rank 0's launches: none on the CPU, where the plain versions run
+    launched = [line for line in out.splitlines()
+                if line.startswith("[train] kernel launches on rank 0 ")]
+    assert len(launched) == 1
+    assert set(json.loads(launched[0].split(" rank 0 ")[1]).values()) == {0}
 
 
 def test_launcher_prints_the_stacked_engine_by_default():
     r = _launch("--mesh", "2x1", "--device", "cpu", "--steps", "1",
                 "--seq-len", "16", "--batch-per-node", "1")
     assert r.returncode == 0, r.stderr
-    assert "engine=stacked" in r.stdout and "probe" not in r.stdout
+    assert "engine=stacked" in r.stdout and "[train] probe" not in r.stdout
+    assert "[train] kernel launches {" in r.stdout
 
 
 @pytest.mark.parametrize("args,environ,message", [
@@ -384,6 +392,12 @@ def test_a_rank_that_raises_fails_the_run_within_its_deadline(tmp_path):
         mesh.spawn_ranks(_raising_rank, N, (str(tmp_path / "store"),),
                          deadline_s=DEADLINE_S)
     assert time.monotonic() - t0 < DEADLINE_S
+
+
+def test_launcher_spawn_deadline_grows_with_the_steps():
+    from repro_torch.launch import train
+    assert train.spawn_deadline_s(1) == 2 * mesh.DEFAULT_TIMEOUT_S
+    assert train.spawn_deadline_s(100) == 101 * mesh.DEFAULT_TIMEOUT_S
 
 
 def test_spawn_deadline_kills_every_rank(tmp_path):

@@ -130,14 +130,10 @@ def test_cpu_tensors_take_the_plain_versions_without_launches():
     scale = torch.full((N,), 0.5)
     assert torch.equal(dispatch.dequantize(codes, scale),
                        ref.dequantize_ref(codes, scale))
-    outs = dispatch.ef_bucket_update(x, x, x, x, x, 0.3, 0.3, 0.1)
-    for a, b in zip(outs, ref.ef_update_ref(x, x, x, x, x, 0.3, 0.3, 0.1)):
-        assert torch.equal(a, b)
-    # in place, over its own x_half, x_hat and s, as the exchange calls it
+    # in place, over its own x_half, x_hat and s
     ins = [x + i for i in range(5)]
     inplace = [t.clone() for t in ins[:3]]
-    got = dispatch.ef_bucket_update(*inplace, *ins[3:], 0.3, 0.3, 0.1,
-                                    out=inplace)
+    got = dispatch.ef_bucket_update(*inplace, *ins[3:], 0.3, 0.3, 0.1)
     assert all(g is t for g, t in zip(got, inplace))
     for a, b in zip(inplace, ref.ef_update_ref(*ins, 0.3, 0.3, 0.1)):
         assert torch.equal(a, b)
@@ -160,7 +156,7 @@ _ENTRIES = {
     "dequantize": lambda: dispatch.dequantize(_meta((N, 8), torch.int8),
                                               _meta((N,))),
     "ef_update": lambda: dispatch.ef_bucket_update(
-        *[_meta((N, 8))] * 5, 0.3, 0.3, 0.1),
+        *[_meta((N, 8)) for _ in range(5)], 0.3, 0.3, 0.1),
     "block_topk_mask": lambda: dispatch.block_topk_mask(_meta((8, 128)), 2),
     "probe_scale": lambda: dispatch.probe_scale(_meta((8, 128))),
 }
@@ -185,6 +181,17 @@ def test_off_cpu_tensor_never_reaches_a_plain_version(entry, monkeypatch):
     monkeypatch.setattr(build, "load_library", loader)
     with pytest.raises(RuntimeError, match="kernel loader reached"):
         _ENTRIES[entry]()
+
+
+def test_ef_kernel_refuses_aliased_buffers(monkeypatch):
+    """The EF kernel updates x_half, x_hat and s in place with no aliasing
+    among its five buffers; the wrapper raises before it launches."""
+    from repro_torch.kernels import ef_update
+    monkeypatch.setattr(build, "load_library", lambda name: None)
+    monkeypatch.setattr(build, "require", lambda *a, **k: None)
+    x, q = torch.zeros(N, 8), torch.ones(N, 8)
+    with pytest.raises(ValueError, match="five distinct buffers"):
+        ef_update.ef_update(x, x.clone(), x.clone(), q, q, 0.3, 0.3, 0.1)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -21,6 +21,7 @@ Tolerances:
   bounded by 8x the largest mean |x| of an initial leaf.
 """
 import dataclasses
+import fcntl
 import os
 import subprocess
 import sys
@@ -119,17 +120,33 @@ _JAX_REFERENCE = textwrap.dedent("""
 """)
 
 
-def _jax_reference(tmp_path, comp, arg, k, exact):
-    out = tmp_path / f"jax_{comp}_{k}.npz"
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               JAX_PLATFORMS="cpu")
-    env.pop("XLA_FLAGS", None)
-    r = subprocess.run([sys.executable, "-c", _JAX_REFERENCE, comp, str(arg),
-                        str(k), "exact" if exact else "-", str(STEPS),
-                        str(SEQ), str(BPN), str(out)],
-                       env=env, capture_output=True, text=True, timeout=600)
-    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
-    return np.load(out)
+def jax_reference_path(tmp_path_factory, comp, arg, k, exact):
+    """The path of the JAX reference run of one case, made once per pytest
+    run: tests that need the same case share it, across xdist workers too
+    (they meet in the run's common temporary directory and take turns
+    under a file lock)."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    root = root / "jax_reference"
+    root.mkdir(exist_ok=True)
+    out = root / f"jax_{comp}_{arg}_{k}_{'exact' if exact else '-'}.npz"
+    with open(str(out) + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            part = out.with_suffix(".part.npz")
+            env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                       JAX_PLATFORMS="cpu")
+            env.pop("XLA_FLAGS", None)
+            r = subprocess.run(
+                [sys.executable, "-c", _JAX_REFERENCE, comp, str(arg), str(k),
+                 "exact" if exact else "-", str(STEPS), str(SEQ), str(BPN),
+                 str(part)],
+                env=env, capture_output=True, text=True, timeout=600)
+            assert r.returncode == 0, \
+                f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
+            os.replace(part, out)
+    return out
 
 
 def _tree(ref, tag):
@@ -172,8 +189,8 @@ def _port_trainer(comp, arg, k, exact):
     pytest.param("block_top_k", 0.05, 1, False, id="block_top_k-0.05-1"),
     pytest.param("identity", 0, 1, True, id="identity-exact-1"),
 ])
-def test_slice_matches_jax_trainer(tmp_path, comp, arg, k, exact):
-    ref = _jax_reference(tmp_path, comp, arg, k, exact)
+def test_slice_matches_jax_trainer(tmp_path_factory, comp, arg, k, exact):
+    ref = np.load(jax_reference_path(tmp_path_factory, comp, arg, k, exact))
     tr = _port_trainer(comp, arg, k, exact)
     assert any(b.exact for b in tr.spec.buckets) == exact
     assert [tr.gamma] + tr.exchange.bucket_gammas == list(ref["gamma"])
