@@ -10,7 +10,8 @@ from the root of a checkout, on a machine with one CUDA device.  It
 2. holds each gossip kernel against its plain PyTorch version on the card, at the
    bucket lengths of the full-width run and at an odd length: QSGD codes
    (int8 and int16), sign codes and dequantize bit-equal, the EF update
-   (in place, as the exchange calls it) within 0 ulp (kernel and plain
+   (in place, as the exchange calls it, with the ring's and star's
+   per-node weight vectors) within 0 ulp (kernel and plain
    version round every operation separately), and times kernel, plain
    version, the bytes bound and,
    for dequantize, the one PyTorch call that computes the same function.
@@ -32,7 +33,9 @@ from the root of a checkout, on a machine with one CUDA device.  It
    each with QSGD (s=16), SignNorm, top_k and block_top_k (fraction
    0.01), checking finite losses and that each kernel launched steps x
    gossip_steps x buckets times on its path and not at all off it, then
-   profiles one more step of each;
+   profiles one more step of each; then ``[topology]``: the top_k run
+   again on a star (per-node self weights, partial rounds), printed
+   beside the ring's ms/step and peak memory;
 5. runs the training launcher (``repro_torch.launch.train.main``) for a
    --smoke run with --compressor top_k --fraction 0.05, then the same run
    with --simulate-devices 4 (4 ranks on the card, the per-rank engine),
@@ -40,7 +43,8 @@ from the root of a checkout, on a machine with one CUDA device.  It
 6. holds small float32 training runs on the card against the same runs on
    the CPU (the plain versions), step by step: SignNorm, top_k,
    block_top_k, identity with the exact small-leaf bucket, and rand_k and
-   randomized gossip fed the same draws on both devices;
+   randomized gossip fed the same draws on both devices, on the ring;
+   top_k on torus, chain, star and the time-varying pair "ring,star";
    then the per-rank engine (``[dist]``), one process per gossip node, 4
    ranks sharing the card: the small phase holds the per-rank exchange
    alone bit-equal to the stacked exchange on the card, and 3 per-rank
@@ -52,7 +56,13 @@ from the root of a checkout, on a machine with one CUDA device.  It
    the EF update per bucket per round) and that each rank sent exactly
    the spec's payload bytes, and prints ms/step beside the stacked
    engine's, each rank's peak memory, the wire bytes, the transport and
-   the probe record;
+   the probe record; on star and chain the small phase holds the
+   per-rank exchange bit-equal to the stacked one and each rank's bytes
+   sent to its own sends times the payload bytes;
+   then ``[sim]``, the paper's algorithms as matrix simulators on the card
+   against the CPU: CHOCO-Gossip at the quickstart's sizes (ring 25, d
+   2000: exact, QSGD(127), top 1%) and CHOCO-SGD (QSGD(16), top 1%) with
+   exact D-SGD on the epsilon stand-in at m = 400,000, d = 2,000, ring 9;
 7. holds the flash-attention kernel against its plain version at the
    full-width prefill layer shape (32768 tokens, 16/8 heads, bf16,
    causal), at an odd length (1000) and in f32 with a softcap, and times
@@ -248,23 +258,35 @@ def check_kernels(lengths, dev):
         del signs, xi
         ins = [x] + [torch.randn(shape, generator=gen, device=dev)
                      for _ in range(4)]
-        coef = (1 / 3, 1 / 3, 1.956e-05)
+        gamma = 1.956e-05
+        # per-node weights: star's at n = 4 (self 0.25 at the hub, 0.75 at
+        # a leaf; receive 0.25), and the ring's uniform 1/3 as a filled
+        # vector
+        node = lambda w: torch.tensor(w, dtype=torch.float32, device=dev)
+        w_star = (node((0.25, 0.75, 0.75, 0.75)), node((0.25,) * N_NODES))
+        w_ring = (node((1 / 3,) * N_NODES), node((1 / 3,) * N_NODES))
         # the plain version first, so its temporaries are freed before the
         # in-place copies below are made
-        plain_ms = time_ms(lambda: ref.ef_update_ref(*ins, *coef), reps)
-        # in place, as the exchange calls it: x_half, x_hat and s updated
-        inplace = [t.clone() for t in ins[:3]]
-        dispatch.ef_bucket_update(*inplace, *ins[3:], *coef)
-        # the plain version row by row: elementwise, so the same numbers
-        plain_row = lambda j: (lambda i: ref.ef_update_ref(
-            *[t[i:i + 1] for t in ins], *coef)[j][0])
-        compare("ef_update", [(o, plain_row(j)) for j, o in enumerate(inplace)],
-                length)
-        # timed on the same buffers, which each call updates again
+        plain_ms = time_ms(lambda: ref.ef_update_ref(*ins, *w_star, gamma),
+                           reps)
+        for w in (w_ring, w_star):
+            # in place, as the exchange calls it: x_half, x_hat and s
+            # updated; the plain version row by row (elementwise, so the
+            # same numbers)
+            inplace = [t.clone() for t in ins[:3]]
+            dispatch.ef_bucket_update(*inplace, *ins[3:], *w, gamma)
+            plain_row = lambda j, w=w: (lambda i: ref.ef_update_ref(
+                *[t[i:i + 1] for t in ins], *[v[i:i + 1] for v in w],
+                gamma)[j][0])
+            compare("ef_update", [(o, plain_row(j))
+                                  for j, o in enumerate(inplace)], length)
+        # timed with star's weights on the same buffers, which each call
+        # updates again
         report("ef_update", length,
                time_ms(lambda: dispatch.ef_bucket_update(*inplace, *ins[3:],
-                                                         *coef), reps),
-               plain_ms, None, bound_ms(ins, inplace, 8 * x.numel()))
+                                                         *w_star, gamma), reps),
+               plain_ms, None, bound_ms(ins + list(w_star), inplace,
+                                        8 * x.numel()))
         del ins, inplace, x
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -460,8 +482,9 @@ def profile_call(label, fn, ours, show=True):
             **groups}
 
 
-def train_full_width(compressor, dev):
-    """Full-width qwen3-1.7b (2 layers), 4 nodes, ring: STEPS steps."""
+def train_full_width(compressor, dev, topology="ring"):
+    """Full-width qwen3-1.7b (2 layers), 4 nodes, on ``topology`` (1
+    gossip round per step): STEPS steps."""
     import torch
     from repro_torch.configs.base import ChocoConfig
     from repro_torch.configs.qwen3_1_7b import CONFIG
@@ -476,7 +499,8 @@ def train_full_width(compressor, dev):
                                                  (("fraction", 0.01),))
     torch.cuda.reset_peak_memory_stats()
     tr = DecentralizedTrainer(
-        model=Model(cfg), choco=ChocoConfig(compressor=compressor, comp_kwargs=kw),
+        model=Model(cfg), choco=ChocoConfig(compressor=compressor, comp_kwargs=kw,
+                                            topology=topology),
         n_nodes=N_NODES, optimizer=MomentumSGD(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
         device=dev)
@@ -488,6 +512,7 @@ def train_full_width(compressor, dev):
     batches = make_lm_batch_fn(cfg, seq, 4, N_NODES, 1.0)
     print(f"[train] arch={cfg.name} layers={cfg.n_layers} seq={seq} batch=4 "
           f"params={count_params(cfg) / 1e6:.1f}M nodes={N_NODES} "
+          f"topology={topology} rounds={tr.schedules[0].n_rounds} "
           f"compressor={compressor} buckets={tr.spec.n_buckets} "
           f"gamma={tr.gamma:.3e}", flush=True)
     dispatch.reset_launch_counts()
@@ -524,12 +549,12 @@ def train_full_width(compressor, dev):
           f"{init_peak:.2f} GiB at init; allocator retries (cache flushed to "
           f"fit an allocation) so far {retries}", flush=True)
     batch = tr.batch_to_device(batches())
-    profile = profile_call(f"one {compressor} step",
+    profile = profile_call(f"one {compressor} step on the {topology}",
                            lambda: tr.step(state, batch), GOSSIP_KERNELS)
     del state, tr
     torch.cuda.empty_cache()
-    return counts, {"losses": losses, "ms_per_step": step_ms,
-                    "peak_gib": peak, "init_peak_gib": init_peak,
+    return counts, {"topology": topology, "losses": losses,
+                    "ms_per_step": step_ms, "peak_gib": peak, "init_peak_gib": init_peak,
                     "alloc_retries": retries, "profile": profile}
 
 
@@ -601,11 +626,20 @@ def run_launcher_per_rank():
     return counts
 
 
-#: (compressor, comp_kwargs, exact_small_leaves) of the [small] runs
-SMALL_RUNS = (("sign", (), False), ("top_k", (("fraction", 0.05),), False),
-              ("block_top_k", (("fraction", 0.05),), False),
-              ("identity", (), True), ("rand_k", (("fraction", 0.05),), False),
-              ("randomized_gossip", (("p", 0.5),), False))
+#: (compressor, comp_kwargs, exact_small_leaves, topology, gossip_steps) of
+#: the [small] runs: every compressor on the ring, then top_k on the other
+#: graphs (per-node self weights and partial rounds on chain and star) and
+#: on a time-varying pair whose two W differ
+SMALL_RUNS = (("sign", (), False, "ring", 1),
+              ("top_k", (("fraction", 0.05),), False, "ring", 1),
+              ("block_top_k", (("fraction", 0.05),), False, "ring", 1),
+              ("identity", (), True, "ring", 1),
+              ("rand_k", (("fraction", 0.05),), False, "ring", 1),
+              ("randomized_gossip", (("p", 0.5),), False, "ring", 1),
+              ("top_k", (("fraction", 0.05),), False, "torus", 1),
+              ("top_k", (("fraction", 0.05),), False, "chain", 1),
+              ("top_k", (("fraction", 0.05),), False, "star", 1),
+              ("top_k", (("fraction", 0.05),), False, "ring,star", 2))
 
 
 def small_draws(tr, step):
@@ -626,7 +660,9 @@ def small_draws(tr, step):
 
 def small_cuda_vs_cpu(dev):
     """The smoke decoder in float32, 3 steps on the card and on the CPU from
-    the same weights, per SMALL_RUNS: losses within 1e-5 relative.  SignNorm
+    the same weights, per SMALL_RUNS (every compressor on the ring; top_k
+    on torus, chain, star and the pair "ring,star" with 2 gossip rounds):
+    losses within 1e-5 relative.  SignNorm
     keeps its x within 1e-5.  The others: x within 1e-5 + 1e-5 max|x|.  A
     summation-order difference in a gradient could move a top-k selection
     at the k-th magnitude, which would move x_hat there by a whole delta
@@ -648,12 +684,13 @@ def small_cuda_vs_cpu(dev):
                               dtype="float32")
     params = Model(cfg).init(N_NODES, 1, "cpu")
     report = {}
-    for comp, kw, exact in SMALL_RUNS:
+    for comp, kw, exact, topology, steps_k in SMALL_RUNS:
         runs = {}
         for device in (dev, "cpu"):
             tr = DecentralizedTrainer(
                 model=Model(cfg), choco=ChocoConfig(
-                    compressor=comp, comp_kwargs=kw, exact_small_leaves=exact),
+                    compressor=comp, comp_kwargs=kw, exact_small_leaves=exact,
+                    topology=topology, gossip_steps=steps_k),
                 n_nodes=N_NODES, optimizer=MomentumSGD(),
                 lr_fn=cosine_schedule(0.1, 1, STEPS), device=device)
             state = tr.state_from_params(params)
@@ -666,20 +703,22 @@ def small_cuda_vs_cpu(dev):
             runs[str(device)] = (losses, [b.cpu() for b in state.x],
                                  [b.cpu() for b in state.x_hat], counts)
         (lc, xc, hc, counts), (lp, xp, hp, _) = runs[str(dev)], runs["cpu"]
-        check(counts["ef_update"] == STEPS * tr.spec.n_buckets,
-              f"[small] {comp}: ef_update launches {counts}")
+        check(counts["ef_update"] == STEPS * steps_k * tr.spec.n_buckets,
+              f"[small] {comp} {topology}: ef_update launches {counts}")
         check(any(b.exact for b in tr.spec.buckets) == exact,
               f"[small] {comp}: exact buckets")
         moved, dx, dx_moved, total = hold_small(
             "[small]", comp, tr.exchange.bucket_gammas, (lc, xc, hc),
             (lp, xp, hp))
         print(f"[small] smoke f32 {comp}{' exact_small_leaves' if exact else ''}"
-              f", {STEPS} steps: CUDA losses {lc} vs CPU {lp}; max |x_cuda - "
+              f" on {topology}, gossip_steps {steps_k}, {STEPS} steps: CUDA "
+              f"losses {lc} vs CPU {lp}; max |x_cuda - "
               f"x_cpu| = {dx:.3e}; moved selections {moved} of {total} "
               f"coordinates (max |dx| there {dx_moved:.3e}); launches "
               f"{ {k: v for k, v in counts.items() if v} }", flush=True)
-        report[comp] = {"losses_cuda": lc, "losses_cpu": lp, "max_dx": dx,
-                        "moved": moved, "coordinates": total}
+        key = comp if topology == "ring" else f"{comp}@{topology}"
+        report[key] = {"losses_cuda": lc, "losses_cpu": lp, "max_dx": dx,
+                       "moved": moved, "coordinates": total}
     return report
 
 
@@ -717,19 +756,27 @@ def hold_small(label, comp, gammas, got, want):
 #: (compressor, comp_kwargs, gossip_steps) of the [dist] small phase
 DIST_SMALL = (("top_k", (("fraction", 0.05),), 1), ("qsgd", (("s", 16),), 2),
               ("sign", (), 1))
+#: the graphs with partial rounds and per-node self weights in the [dist]
+#: small phase, the (compressor, comp_kwargs, gossip_steps) run on them,
+#: and each node's sends per gossip round there
+DIST_TOPOLOGIES = ("star", "chain")
+DIST_TOPOLOGY_RUNS = (("top_k", (("fraction", 0.05),), 1),
+                      ("qsgd", (("s", 16),), 2))
+SENDS_PER_ROUND = {"star": (3, 1, 1, 1), "chain": (1, 2, 2, 1)}
 #: the full-width [dist] phase's compressor and, per node, sequence and batch
 DIST_FULL = ("top_k", (("fraction", 0.01),), 1)
 DIST_SEQ, DIST_BATCH = 512, 4
 DIST_TIMEOUT_S = 300.0
 
 
-def _dist_trainer(comp, kw, steps_k, cfg, dev, group=None):
+def _dist_trainer(comp, kw, steps_k, cfg, dev, group=None, topology="ring"):
     from repro_torch.configs.base import ChocoConfig
     from repro_torch.models.transformer import Model
     from repro_torch.optim.sgd import MomentumSGD, cosine_schedule
     from repro_torch.train.trainer import DecentralizedTrainer
     return DecentralizedTrainer(
         model=Model(cfg), choco=ChocoConfig(compressor=comp, comp_kwargs=kw,
+                                            topology=topology,
                                             gossip_steps=steps_k),
         n_nodes=N_NODES, optimizer=MomentumSGD(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
@@ -786,6 +833,18 @@ def _dist_small_rank(rank, store, out_dir):
         out[comp] = {"exchange": exchanged, "losses": losses,
                      "x": [b.cpu() for b in state.x],
                      "x_hat": [b.cpu() for b in state.x_hat]}
+    for topology in DIST_TOPOLOGIES:
+        for comp, kw, steps_k in DIST_TOPOLOGY_RUNS:
+            tr = _dist_trainer(comp, kw, steps_k, cfg, group.device, group,
+                               topology)
+            bufs = [[b[rank:rank + 1].to(group.device) for b in part]
+                    for part in _exchange_inputs(tr.spec)]
+            before = group.bytes_sent
+            tr.exchange(*bufs, seed=29)
+            out[(topology, comp)] = {
+                "exchange": [[b.cpu() for b in part] for part in bufs],
+                "sent": group.bytes_sent - before, "sends": tr.exchange.sends,
+                "payload_bytes": tr.exchange.payload_bytes}
     torch.cuda.synchronize()
     out["launches"] = dispatch.launch_counts()
     out["transport"] = group.describe()
@@ -798,7 +857,9 @@ def dist_small(dev):
     engine on the card, from the same weights and seeds (each node draws
     its own dither in both): per DIST_SMALL run, the exchange alone on the
     same inputs bit-equal, and STEPS trainer steps held to the [small]
-    rules (``hold_small``)."""
+    rules (``hold_small``); on star and chain (DIST_TOPOLOGY_RUNS), the
+    exchange alone bit-equal and each rank's bytes sent equal to its own
+    sends times one payload's bytes."""
     import tempfile
     import torch
     from repro_torch.data.synthetic import make_lm_batch_fn
@@ -848,6 +909,35 @@ def dist_small(dev):
         report[comp] = {"exchange_bit_equal": same, "losses_dist": got[0],
                         "losses_stacked": losses, "max_dx": dx,
                         "moved": moved}
+    for topology in DIST_TOPOLOGIES:
+        for comp, kw, steps_k in DIST_TOPOLOGY_RUNS:
+            tr = _dist_trainer(comp, kw, steps_k, cfg, dev, topology=topology)
+            bufs = [[b.to(dev) for b in part]
+                    for part in _exchange_inputs(tr.spec)]
+            tr.exchange(*bufs, seed=29)
+            recs = [r[(topology, comp)] for r in ranks]
+            same = all(torch.equal(rec["exchange"][p][b][0],
+                                   bufs[p][b][i].cpu())
+                       for i, rec in enumerate(recs) for p in range(3)
+                       for b in range(tr.spec.n_buckets))
+            payload = sum(recs[0]["payload_bytes"])
+            sends = [rec["sends"] for rec in recs]
+            sent = [rec["sent"] for rec in recs]
+            want_sends = [steps_k * k for k in SENDS_PER_ROUND[topology]]
+            print(f"[dist] small {comp} on {topology}, gossip_steps={steps_k}: "
+                  f"the exchange alone, per rank against the stacked exchange "
+                  f"on the card: x, x_hat and s bit-equal: {same}; bytes sent "
+                  f"per rank {sent} = sends {sends} x {payload} payload "
+                  f"bytes", flush=True)
+            check(same, f"[dist] {comp} on {topology}: the per-rank exchange "
+                  f"and the stacked exchange differ")
+            check(sends == want_sends and sent == [k * payload for k in sends],
+                  f"[dist] {comp} on {topology}: sends {sends} (expected "
+                  f"{want_sends}), bytes {sent}")
+            report[f"{comp}@{topology}"] = {"exchange_bit_equal": same,
+                                            "bytes_sent": sent,
+                                            "sends": sends,
+                                            "payload_bytes": payload}
     return report
 
 
@@ -908,7 +998,7 @@ def _dist_full_rank(rank, store, out_dir, batch_per_node):
         payload_bytes=exchange.payload_bytes,
         payload_bits_analytic=bucket_wire_bits(tr.spec, tr.compressor),
         dense_bytes=[b.size * 4 for b in tr.spec.buckets],
-        gossip_steps=steps_k, rounds=steps_k * tr.schedules[0].n_rounds,
+        gossip_steps=steps_k, sends=exchange.sends,
         buckets=tr.spec.n_buckets, transport=group.describe(),
         probe=dataclasses.asdict(exchange.probe))
     # one more step under the profiler in every rank at once: each sees
@@ -950,7 +1040,7 @@ def dist_full_width(stacked, batch_per_node=DIST_BATCH):
     for r, rec in enumerate(ranks):
         check(all(math.isfinite(v) for v in rec["losses"]),
               f"[dist] rank {r}: non-finite losses {rec['losses']}")
-        per_step = rec["rounds"] * sum(rec["payload_bytes"])
+        per_step = rec["sends"] * sum(rec["payload_bytes"])
         check(all(b == per_step for b in rec["wire_bytes"]),
               f"[dist] rank {r}: sent {rec['wire_bytes']} bytes per step, "
               f"the spec says {per_step}")
@@ -968,7 +1058,7 @@ def dist_full_width(stacked, batch_per_node=DIST_BATCH):
               f"{rec['peak_before_exchange_gib']:.3f}, in it "
               f"{rec['peak_in_exchange_gib']:.3f}; card in use "
               f"{rec['card_used_gib']:.3f} GiB); wire bytes per step "
-              f"{rec['wire_bytes'][-1]} = {rec['rounds']} sends x "
+              f"{rec['wire_bytes'][-1]} = {rec['sends']} sends x "
               f"{sum(rec['payload_bytes'])} payload bytes (the spec's), dense "
               f"buckets {sum(rec['dense_bytes'])} bytes, analytic "
               f"{sum(rec['payload_bits_analytic']) // 8} bytes; launches "
@@ -991,6 +1081,196 @@ def dist_full_width(stacked, batch_per_node=DIST_BATCH):
                   for r, p in enumerate(profiles)), flush=True)
     return {"ranks": ranks, "ms_per_step_slowest_rank": steady,
             "stacked_ms_per_step": stacked["ms_per_step"]}
+
+
+#: [sim]: CHOCO-Gossip as examples/quickstart.py runs it, (label,
+#: compressor, gamma, rounds), ring of SIM_GOSSIP_N nodes, d = SIM_GOSSIP_D
+SIM_GOSSIP_N, SIM_GOSSIP_D = 25, 2000
+SIM_GOSSIP_RUNS = (("exact", None, 1.0, 300), ("qsgd127", ("qsgd", 127), 1.0,
+                                                300),
+                   ("top_1pct", ("top_k", 0.01), 0.046, 3000))
+#: [sim]: CHOCO-SGD on the epsilon stand-in at the paper's full size
+#: (benchmarks/bench_sgd.py: ring n = 9, sorted data, batch 4, eta_t =
+#: 300 / (t + 300), top 1% at gamma 0.04, qsgd_16 at 0.2); its 1200 steps
+#: cut to SIM_SGD_STEPS to keep the script's time
+SIM_SGD_N, SIM_SGD_M, SIM_SGD_D, SIM_SGD_STEPS, SIM_SGD_BATCH = (
+    9, 400_000, 2_000, 300, 4)
+SIM_SGD_RUNS = (("choco_qsgd16", ("qsgd", 16), 0.2),
+                ("choco_top1pct", ("top_k", 0.01), 0.04),
+                ("dsgd_exact", None, None))
+#: card against CPU in [sim]: the mixing products and reductions sum in
+#: another order (ulp level); the quickstart's curves agree with the JAX
+#: package's within the same bound (tests/test_torch_sim.py)
+SIM_RTOL = 1e-4
+
+
+def _sim_compressor(spec):
+    from repro_torch.core.compression import QSGD, TopK
+    if spec is None:
+        return None
+    name, arg = spec
+    return QSGD(arg) if name == "qsgd" else TopK(fraction=arg)
+
+
+def _timed(fn, dev):
+    """(result, ms) of ``fn()`` on ``dev``, synchronised; launch counts
+    reset just before it and returned (on the CPU, ms is None)."""
+    import torch
+    from repro_torch.kernels import dispatch
+    if dev.type != "cuda":
+        return fn(), None, None
+    dispatch.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, dispatch.launch_counts()
+
+
+def _hold_sim_launches(label, comp, rounds, counts):
+    """A QSGD run launches the codes and dequantize kernels once per
+    round, and no other kernel; the others launch none."""
+    want = rounds if comp is not None and comp.name == "qsgd" else 0
+    check(counts["qsgd_codes"] == want and counts["dequantize"] == want
+          and sum(counts.values()) == 2 * want,
+          f"[sim] {label}: launches {counts}, expected {want} qsgd_codes and "
+          f"dequantize and no other")
+
+
+def sim_gossip(dev):
+    """CHOCO-Gossip (Algorithm 1) and exact gossip at the quickstart's
+    sizes on the card and on the CPU, from the same x0 and the same QSGD
+    dither (CPU generators, moved to the card): error curves within
+    SIM_RTOL; first and last error, bits per coordinate and ms per round."""
+    import numpy as np
+    import torch
+    from repro_torch.core.baselines import run_gossip_baseline
+    from repro_torch.core.choco_gossip import run_choco_gossip
+    from repro_torch.core.topology import ring
+    n, d = SIM_GOSSIP_N, SIM_GOSSIP_D
+    W = ring(n).W
+    x0 = torch.randn((n, d), generator=torch.Generator().manual_seed(0))
+    report = {}
+    for label, spec, gamma, rounds in SIM_GOSSIP_RUNS:
+        comp = _sim_compressor(spec)
+        rand = None
+        if comp is not None and comp.stochastic:
+            gen = torch.Generator().manual_seed(1)
+            rand = [comp.draw(x0, gen) for _ in range(rounds)]
+        curves, timing = {}, None
+        for which, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            x = x0.to(device)
+            draws = (None if rand is None else
+                     (lambda t, r=[a.to(device) for a in rand]: r[t]))
+            if comp is None:
+                go = lambda: run_gossip_baseline("exact", x, W, None, rounds)[1]
+            else:
+                go = lambda: run_choco_gossip(x, W, gamma, comp, rounds,
+                                              draws=draws)[1]
+            err, ms, counts = _timed(go, device)
+            curves[which] = err.cpu().numpy()
+            if which == "card":
+                timing = (ms / rounds, counts)
+        card, cpu = curves["card"], curves["cpu"]
+        rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        bits = 32.0 if comp is None else comp.wire_bits(d) / d
+        print(f"[sim] choco-gossip ring n={n} d={d} {label}, {rounds} rounds: "
+              f"error {card[0]:.4e} -> {card[-1]:.4e} on the card, "
+              f"{cpu[0]:.4e} -> {cpu[-1]:.4e} on the CPU (max relative "
+              f"difference {rel:.3e}); {bits:.1f} bits/coordinate; "
+              f"{timing[0]:.4f} ms/round on the card; launches "
+              f"{ {k: v for k, v in timing[1].items() if v} }", flush=True)
+        check(np.all(np.isfinite(card)) and rel <= SIM_RTOL,
+              f"[sim] {label}: card and CPU error curves differ by {rel}")
+        check(card[-1] < 1e-3 * card[0], f"[sim] {label}: no consensus "
+              f"({card[0]} -> {card[-1]})")
+        _hold_sim_launches(label, comp, rounds, timing[1])
+        report[label] = {"rounds": rounds, "err_first": float(card[0]),
+                         "err_last": float(card[-1]),
+                         "err_last_cpu": float(cpu[-1]), "max_rel_diff": rel,
+                         "bits_per_coord": bits, "ms_per_round": timing[0],
+                         "launches": timing[1]}
+    return report
+
+
+def sim_sgd(dev):
+    """CHOCO-SGD (Algorithm 6) with QSGD(16) and top 1%, and exact D-SGD
+    (Algorithm 3), on the epsilon stand-in at m = 400,000, d = 2,000
+    (A: 3.2 GB f32 on the card, made by numpy from the float64 draw of
+    ``make_logreg``), ring n = 9, sorted data: SIM_SGD_STEPS steps each on
+    the card and on the CPU with the same minibatches and dither (CPU
+    generators); f(x_bar) at the start and the end within SIM_RTOL, wire
+    bits per node, ms per step."""
+    import torch
+    from repro_torch.core.baselines import plain_dsgd_step
+    from repro_torch.core.choco_gossip import mixing
+    from repro_torch.core.choco_sgd import experiment_lr_schedule, run_choco_sgd
+    from repro_torch.core.topology import ring
+    from repro_torch.data.synthetic import make_logreg
+    n, d, steps = SIM_SGD_N, SIM_SGD_D, SIM_SGD_STEPS
+    t0 = time.perf_counter()
+    cpu = make_logreg("epsilon", n, sorted_assignment=True, m=SIM_SGD_M, d=d,
+                      seed=0, device="cpu")
+    built = time.perf_counter() - t0
+    card = dataclasses.replace(cpu, A=cpu.A.to(dev), b=cpu.b.to(dev),
+                               node_index=cpu.node_index.to(dev))
+    print(f"[sim] epsilon stand-in m={SIM_SGD_M} d={d}, {n} nodes sorted: "
+          f"built on the host in {built:.1f} s; A on the card "
+          f"{card.A.numel() * 4 / 1e9:.2f} GB", flush=True)
+    W = ring(n).W
+    lr = experiment_lr_schedule(1, 300.0, 300.0)
+    report = {"build_s": built}
+    for label, spec, gamma in SIM_SGD_RUNS:
+        comp = _sim_compressor(spec)
+        gen = torch.Generator().manual_seed(2)
+        like = torch.zeros((n, d))
+        draw_batch = cpu.make_grad_fn(SIM_SGD_BATCH).draw
+        draws = [(draw_batch(n, gen),
+                  comp.draw(like, gen) if comp is not None and comp.stochastic
+                  else None) for _ in range(steps)]
+        res = {}
+        for which, prob, device in (("card", card, dev),
+                                    ("cpu", cpu, torch.device("cpu"))):
+            on = [(b.to(device), None if r is None else r.to(device))
+                  for b, r in draws]
+            grad_fn = prob.make_grad_fn(SIM_SGD_BATCH)
+            x0 = torch.zeros((n, d), device=device)
+            f0 = float(prob.full_loss(x0.mean(dim=0)))
+            if comp is None:
+                Wt = mixing(W, x0)
+
+                def go():
+                    X = x0
+                    for t in range(steps):
+                        X = plain_dsgd_step(X, Wt, grad_fn, lr(t), on[t][0])
+                    return X
+            else:
+                go = lambda: run_choco_sgd(x0, W, grad_fn, comp, lr, gamma,
+                                           steps, draws=lambda t: on[t])[0].x
+            X, ms, counts = _timed(go, device)
+            res[which] = (f0, float(prob.full_loss(X.mean(dim=0))), ms,
+                          counts)
+        (f0, f1, ms, counts), (g0, g1, _, _) = res["card"], res["cpu"]
+        rel = abs(f1 - g1) / abs(g1)
+        bits = (32 * d if comp is None else comp.wire_bits(d)) * 2 * steps
+        print(f"[sim] {label}, {steps} steps: f(x_bar) {f0:.6f} -> {f1:.6f} "
+              f"on the card, {g0:.6f} -> {g1:.6f} on the CPU (relative "
+              f"difference {rel:.3e}); wire {bits / 1e6:.3f} Mbit per node "
+              f"(2 neighbours); {ms / steps:.4f} ms/step on the card; "
+              f"launches { {k: v for k, v in counts.items() if v} }",
+              flush=True)
+        check(math.isfinite(f1) and f1 < f0 and rel <= SIM_RTOL
+              and abs(f0 - g0) <= SIM_RTOL * abs(g0),
+              f"[sim] {label}: f(x_bar) {f0} -> {f1} on the card, {g0} -> "
+              f"{g1} on the CPU")
+        _hold_sim_launches(label, comp, steps, counts)
+        report[label] = {"steps": steps, "f_start": f0, "f_end": f1,
+                         "f_end_cpu": g1, "rel_diff": rel,
+                         "wire_mbit_per_node": bits / 1e6,
+                         "ms_per_step": ms / steps, "launches": counts}
+    del card
+    torch.cuda.empty_cache()
+    return report
 
 
 def kernel_names():
@@ -1435,6 +1715,13 @@ def main():
     topk_selection_cuda_vs_cpu(dev)
     ops_counts = topk_ops_path(dev)
     by_path = {c: train_full_width(c, dev) for c in TRAIN_COMPRESSORS}
+    # the slice's own path: the top_k cell with only the graph changed
+    star_counts, star = train_full_width("top_k", dev, topology="star")
+    ring_run = by_path["top_k"][1]
+    print(f"[topology] star against the ring, top_k 0.01, full width: "
+          f"ms/step {star['ms_per_step']} against {ring_run['ms_per_step']} "
+          f"(first step included); peak device memory {star['peak_gib']:.3f} "
+          f"against {ring_run['peak_gib']:.3f} GiB", flush=True)
     launcher_counts = run_launcher()
     per_rank_launcher_counts = run_launcher_per_rank()
     small = small_cuda_vs_cpu(dev)
@@ -1442,6 +1729,11 @@ def main():
     dist_small_report = dist_small(dev)
     torch.cuda.empty_cache()
     dist_full = dist_full_width(by_path[DIST_FULL[0]][1])
+    torch.cuda.empty_cache()
+    sim = {"gossip": sim_gossip(dev), "sgd": sim_sgd(dev)}
+    sim_counts = {k: sum(r["launches"][k] for part in sim.values()
+                         for r in part.values() if isinstance(r, dict))
+                  for k in kernel_names()}
 
     flash_record, flash_err = check_flash(dev)
     model, params = full_width_serving_model(dev)
@@ -1474,8 +1766,11 @@ def main():
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gossip_kernels.cu",
             "replaces": replaces,
-            "launches": sum(c[name] for c, _ in by_path.values()),
+            "launches": sum(c[name] for c, _ in by_path.values())
+            + star_counts[name],
             "launches_by_path": {**{c: by_path[c][0][name] for c in by_path},
+                                 "topology_star": star_counts[name],
+                                 "sim": sim_counts[name],
                                  "topk_ops": ops_counts[name],
                                  "launcher_smoke": launcher_counts[name],
                                  "launcher_per_rank_rank0":
@@ -1545,7 +1840,8 @@ def main():
           f"per-rank full-width run, expected once per rank")
     extra = {k: records[k] for k in ("qsgd_codes_int16", "dequantize_int16")}
     train = {c: r for c, (_, r) in by_path.items()}
-    print(json.dumps({"int16": extra, "train": train, "small": small,
+    print(json.dumps({"int16": extra, "train": train, "topology_star": star,
+                      "sim": sim, "small": small,
                       "prefill": prefill, "serve": serve, "decode": decode,
                       "consistency": consistency,
                       "dist_small": {k: v for k, v in dist_small_report.items()

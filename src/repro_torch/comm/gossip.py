@@ -27,13 +27,16 @@ update and every neighbour's gather.  The per-rank engine decodes its own
 payload and each received one where it lands, as the JAX engine does.
 
 Every compressor of the JAX package runs here, and exact buckets ship
-uncompressed.  Not ported: the per-leaf engine, the plain / all-reduce /
-push-sum modes, stochastic topology processes, the pipelined engine, and
-schedules with per-node weights (the ring has uniform ones).
+uncompressed.  Every symmetric schedule runs, time-varying sequences
+included: per-node self and receive weights (star, chain) reach the EF
+update as ``(rows,)`` vectors, and a node that a partial round skips adds
+a zero row, as ``ppermute`` hands it zeros.  Not ported: the per-leaf
+engine, the plain / all-reduce / push-sum modes, stochastic topology
+processes and the pipelined engine.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -68,29 +71,30 @@ def _resolve_bucket_gammas(gamma, spec: BucketSpec, compressor) -> List[float]:
 def _weight_groups(schedule: GossipSchedule):
     """Consecutive rounds sharing one receive weight merge into a group:
     their dense payloads accumulate unweighted and the weight applies once
-    (a uniform ring's +1/-1 shifts are one group).  Returns
-    ``[(weight, rounds), ...]``."""
+    (a uniform ring's +1/-1 shifts are one group).  A group's weight is a
+    float, or the per-node tuple of a round with per-node receive weights.
+    Returns ``[(weight, rounds), ...]``."""
     groups = []
     for rnd in schedule.rounds:
-        if rnd.weight is None:
-            raise ValueError("schedules with per-node receive weights are "
-                             "not ported")
-        if groups and groups[-1][0] == rnd.weight:
+        wkey = rnd.weight if rnd.weight is not None else rnd.weights
+        if groups and groups[-1][0] == wkey:
             groups[-1][1].append(rnd)
         else:
-            groups.append([rnd.weight, [rnd]])
+            groups.append([wkey, [rnd]])
     return [(w, tuple(rnds)) for w, rnds in groups]
 
 
-def _self_weight(schedule: GossipSchedule) -> float:
-    if schedule.self_weight is None:
-        raise ValueError("schedules with per-node self weights are not ported")
-    return schedule.self_weight
+def _node_weights(w, nodes: Sequence[int]) -> torch.Tensor:
+    """A schedule weight for the buffers' rows, ``(len(nodes),)`` f32 on
+    the CPU: a float fills it, a per-node tuple gives the rows' nodes'
+    entries (the same f32 values the JAX engine gathers by node index)."""
+    vals = [w] * len(nodes) if isinstance(w, float) else [w[i] for i in nodes]
+    return torch.tensor(vals, dtype=torch.float32)
 
 
 def _accumulate_rounds(rounds, receive) -> torch.Tensor:
-    """sum_r receive(r): the dense payload each node receives in round r,
-    added in round order."""
+    """sum_r receive(r): the dense payload each node receives in round r
+    (a zero row where the round gives it none), added in round order."""
     acc = None
     for rnd in rounds:
         got = receive(rnd)
@@ -98,18 +102,19 @@ def _accumulate_rounds(rounds, receive) -> torch.Tensor:
     return acc
 
 
-def _neighbor_sum(groups, receive) -> Tuple[torch.Tensor, float]:
-    """Weighted neighbour aggregate  sum_j w_ij q_j  (j != i).  A single
-    weight group defers its scalar to the EF update; several groups are
-    weighted here and the caller applies w_nbr = 1."""
+def _neighbor_sum(groups, receive) -> torch.Tensor:
+    """Neighbour aggregate of the rounds, the JAX engine's ``_neighbor_sum``:
+    a single weight group is returned unweighted (its weight goes to the
+    EF update as w_nbr); several groups are weighted here (w_nbr = 1).
+    ``groups`` hold each weight as a float or the rows' ``(rows, 1)`` f32
+    column."""
     if len(groups) == 1:
-        w, rounds = groups[0]
-        return _accumulate_rounds(rounds, receive), w
+        return _accumulate_rounds(groups[0][1], receive)
     total = None
     for w, rounds in groups:
         contrib = w * _accumulate_rounds(rounds, receive)
         total = contrib if total is None else total.add_(contrib)
-    return total, 1.0
+    return total
 
 
 def _check_exchange(spec: BucketSpec, schedules: Sequence[GossipSchedule],
@@ -130,10 +135,34 @@ def _check_exchange(spec: BucketSpec, schedules: Sequence[GossipSchedule],
     return n
 
 
+def _compile(schedules: Sequence[GossipSchedule], nodes: Sequence[int],
+             round_data: Callable) -> list:
+    """Per schedule: (weight groups, w_self, w_nbr) for the buffers' rows,
+    the nodes ``nodes``.  A group holds its weight as a float or a
+    ``(rows, 1)`` f32 column and ``round_data(round)`` per round;
+    ``w_self`` and ``w_nbr`` are the EF update's ``(rows,)`` f32 vectors
+    (w_nbr the single group's weight, else 1, or 0 without neighbours)."""
+    compiled = []
+    for sch in schedules:
+        groups = _weight_groups(sch)
+        resolved = [(w if isinstance(w, float)
+                     else _node_weights(w, nodes)[:, None],
+                     tuple(round_data(r) for r in rounds))
+                    for w, rounds in groups]
+        w_nbr = (groups[0][0] if len(groups) == 1
+                 else 1.0 if groups else 0.0)
+        # a uniform diagonal, or per node (star, chain)
+        w_self = (sch.self_weight if sch.self_weight is not None
+                  else sch.self_weights)
+        compiled.append((resolved, _node_weights(w_self, nodes),
+                         _node_weights(w_nbr, nodes)))
+    return compiled
+
+
 def _exchange(spec: BucketSpec, compressor, gammas, gossip_steps: int,
               compiled, nodes, receiver) -> Callable:
     """The exchange loop both engines share.  ``compiled[t]`` is round t's
-    (weight groups, self weight); ``nodes`` are the gossip nodes of the
+    entry of :func:`_compile`; ``nodes`` are the gossip nodes of the
     buffers' rows (None: all of them); ``receiver(payload, q, bucket)``
     returns ``receive(round) -> the dense payload this row receives``."""
 
@@ -141,8 +170,12 @@ def _exchange(spec: BucketSpec, compressor, gammas, gossip_steps: int,
     def exchange(x: List[torch.Tensor], x_hat: List[torch.Tensor],
                  s: List[torch.Tensor], *, seed: int = 0,
                  draws: Optional[Callable[[int, int], torch.Tensor]] = None):
+        dev = x[0].device
+        on_dev = [([(w if isinstance(w, float) else w.to(dev), rounds)
+                    for w, rounds in groups], w_self.to(dev), w_nbr.to(dev))
+                  for groups, w_self, w_nbr in compiled]
         for t in range(gossip_steps):
-            groups, w_self = compiled[t % len(compiled)]
+            groups, w_self, w_nbr = on_dev[t % len(on_dev)]
             tseed = seed if t == 0 else fold_seed(seed, t)
             for bucket in spec.buckets:
                 b = bucket.index
@@ -154,9 +187,9 @@ def _exchange(spec: BucketSpec, compressor, gammas, gossip_steps: int,
                 receive = receiver(payload, q, bucket)
                 del delta, payload
                 if groups:
-                    nbr, w_nbr = _neighbor_sum(groups, receive)
+                    nbr = _neighbor_sum(groups, receive)
                 else:                               # n == 1: no neighbours
-                    nbr, w_nbr = q * 0.0, 0.0
+                    nbr = q * 0.0
                 del receive
                 dispatch.ef_bucket_update(x[b], x_hat[b], s[b], q, nbr,
                                           w_self, w_nbr, gammas[b])
@@ -184,13 +217,26 @@ def make_choco_exchange(*, spec: BucketSpec,
     package's draws this way).
     """
     n = _check_exchange(spec, schedules, compressor, gossip_steps)
-    compiled = [([(w, tuple(torch.tensor(r.sources(n)) for r in rounds))
-                  for w, rounds in _weight_groups(sch)], _self_weight(sch))
-                for sch in schedules]
+
+    def gather_index(rnd):
+        # (sources, with 0 standing in for -1; the rows that receive
+        # nothing, or None)
+        src = torch.tensor(rnd.sources(n))
+        missing = torch.nonzero(src < 0).flatten()
+        return src.clamp(min=0), (missing if missing.numel() else None)
+
+    compiled = _compile(schedules, range(n), gather_index)
 
     def receiver(payload, q, bucket):
-        # node i receives row src[i] of the payloads' dense q
-        return lambda src: q.index_select(0, src.to(q.device))
+        # node i receives row src[i] of the payloads' dense q, or a zero
+        # row (written over the rows that receive nothing, and only those)
+        def receive(index):
+            src, missing = index
+            got = q.index_select(0, src.to(q.device))
+            if missing is not None:
+                got.index_fill_(0, missing.to(q.device), 0.0)
+            return got
+        return receive
 
     return _exchange(spec, compressor,
                      _resolve_bucket_gammas(gamma, spec, compressor),
@@ -213,32 +259,36 @@ def make_dist_choco_exchange(*, spec: BucketSpec,
     are the stacked engine's row, see ``packing.draw``), then for each
     schedule round sends its payload's wire bytes to the round's
     destination and receives the source's in one ``batch_isend_irecv``
-    (``group.sendrecv``), decodes each received payload where it lands
-    (the dequantize kernel for QSGD / sign codes, a scatter for sparse
-    payloads), sums them in the stacked engine's round order, applies the
+    (``group.sendrecv``; where a partial round skips the rank, it sends
+    or receives nothing and adds a zero row), decodes each received
+    payload where it lands (the dequantize kernel for QSGD / sign codes, a
+    scatter for sparse payloads), sums them in the stacked engine's round order, applies the
     weight groups and finishes with the EF-update kernel: bit for bit the
     stacked exchange's row.
 
     The collective-layer probe (``dispatch.probe_collectives``) runs once
     per process, here, before any payload moves.  ``exchange.payload_bytes``
     lists the spec's bytes of one payload per bucket
-    (``packing.bucket_wire_nbytes``); ``group.bytes_sent`` counts what
-    this rank sent."""
+    (``packing.bucket_wire_nbytes``), ``exchange.sends`` how many payloads
+    of each bucket this rank sends per call (on star, node 0 sends n - 1
+    per gossip round, a leaf one); ``group.bytes_sent`` counts what this
+    rank sent."""
     n = _check_exchange(spec, schedules, compressor, gossip_steps)
     if group.size != n:
         raise ValueError(f"a group of {group.size} ranks for {n} nodes")
     probe = dispatch.probe_collectives(group)
-    compiled = [([(w, tuple(r.peers(group.rank) for r in rounds))
-                  for w, rounds in _weight_groups(sch)], _self_weight(sch))
-                for sch in schedules]
+    compiled = _compile(schedules, (group.rank,),
+                        lambda rnd: rnd.peers(group.rank))
 
     def receiver(payload, q, bucket):
         wire = to_wire(payload)
 
         def receive(peers):
             dst, src = peers
-            got = from_wire(group.sendrecv(wire, dst, src), payload)
-            return bucket_dense(got, bucket)
+            got = group.sendrecv(wire, dst, src)
+            if src is None:                   # the round gives this node none
+                return torch.zeros_like(q)
+            return bucket_dense(from_wire(got, payload), bucket)
         return receive
 
     exchange = _exchange(spec, compressor,
@@ -246,4 +296,8 @@ def make_dist_choco_exchange(*, spec: BucketSpec,
                          gossip_steps, compiled, (group.rank,), receiver)
     exchange.probe = probe
     exchange.payload_bytes = bucket_wire_nbytes(spec, compressor)
+    exchange.sends = sum(
+        sum(rnd.peers(group.rank)[0] is not None for rnd in
+            schedules[t % len(schedules)].rounds)
+        for t in range(gossip_steps))
     return exchange

@@ -265,8 +265,9 @@ def compress_bucket(compressor, buf: torch.Tensor, bucket: Bucket,
     if isinstance(compressor, QSGD):
         if rand is None:
             raise ValueError("QSGD needs its dither xi")
-        codes, scale = ops.qsgd_compress(x32, rand.to(buf.device), compressor.s,
-                                         compressor._tau(bucket.logical))
+        tau = compressor._tau(bucket.logical) if compressor.rescale else 1.0
+        codes, scale = ops.qsgd_compress(x32, rand.to(buf.device),
+                                         compressor.s, tau)
         return PackedQuantPayload(codes, scale, code_bits(compressor.s),
                                   dim=bucket.size, logical=bucket.logical)
     if isinstance(compressor, SignNorm):

@@ -10,8 +10,8 @@ ported.  ``INPUT_SHAPES`` keeps the one JAX input shape the port serves,
 ``prefill_32k``.  ``ChocoConfig``
 keeps only the settings of the static packed CHOCO path, with the JAX
 package's defaults: the stochastic processes, staleness, pipelining,
-push-sum, bf16 EF state, the per-leaf engine, the kernel-backend switch
-and a fixed consensus gamma are not ported.
+push-sum, bf16 EF state, the per-leaf engine and the kernel-backend
+switch are not ported.
 """
 from __future__ import annotations
 
@@ -81,8 +81,13 @@ class ChocoConfig:
     """Settings of the static packed CHOCO path."""
     compressor: str = "top_k"       # compression.make_compressor name
     comp_kwargs: tuple = (("fraction", 0.01),)
-    topology: str = "ring"          # only "ring" is ported
+    # a symmetric registry name (ring, torus, fully_connected, chain, star,
+    # hypercube) or a comma-separated time-varying sequence of them
+    # ("ring,hypercube"); the directed graphs need push-sum (not ported)
+    topology: str = "ring"
     gossip_steps: int = 1
+    # fixed consensus stepsize; None = Theorem 2's gamma per bucket
+    consensus_gamma: Optional[float] = None
     # leaves of at most 8192 elements gossip uncompressed, in exact
     # buckets (off for paper-faithful runs)
     exact_small_leaves: bool = False

@@ -17,6 +17,14 @@ Random draws are injected, not drawn here: ``RandK.compress`` takes the
 sampled positions and ``RandomizedGossip.compress`` the per-node keep
 bits (``comm/packing.py`` draws them, or a test hands in the JAX
 package's).
+
+``apply(X, rand)`` is the matrix simulators' view (the JAX package's
+``_rowwise_compress``): Q applied to each row of an ``(n, d)`` matrix,
+dense.  A stochastic operator takes its draw for the whole matrix as
+``rand`` (``draw(X, generator)`` makes one from an explicit
+``torch.Generator``).  QSGD's and SignNorm's rows go through the port's
+codes and dequantize kernels on the card (``kernels/dispatch.py``); top_k
+selects through ``ops.topk_rows``, which keeps ``lax.top_k``'s tie rule.
 """
 from __future__ import annotations
 
@@ -120,11 +128,29 @@ class PackedQuantPayload:
 # ---------------------------------------------------------------------------
 
 class Compressor:
-    """Base class: ``omega`` (Assumption 1) and ``wire_bits`` per vector."""
+    """Base class: ``omega`` (Assumption 1) and ``wire_bits`` per vector,
+    and the row-wise dense ``apply`` of the matrix simulators."""
 
     name: str = "base"
     #: True if the operator uses randomness (needs an injected draw)
     stochastic: bool = True
+
+    def draw(self, X: torch.Tensor, generator: torch.Generator):
+        """The draw ``apply`` needs for the (n, d) matrix ``X``, made by
+        ``generator`` on the generator's device."""
+        raise NotImplementedError
+
+    def apply(self, X: torch.Tensor, rand=None) -> torch.Tensor:
+        """Q applied to each row of ``X`` (n, d), dense.  ``rand`` is the
+        draw of a stochastic operator (:meth:`draw`), moved to X's
+        device."""
+        if self.stochastic and rand is None:
+            raise ValueError(f"{self.name}: a stochastic compressor needs "
+                             f"its draw (see draw())")
+        return self._apply(X, None if rand is None else rand.to(X.device))
+
+    def _apply(self, X, rand):
+        raise NotImplementedError
 
     def omega(self, d: int) -> float:
         raise NotImplementedError
@@ -142,6 +168,9 @@ class Identity(Compressor):
     @staticmethod
     def compress(x):
         return DensePayload(x)
+
+    def _apply(self, X, rand):
+        return X
 
     def omega(self, d):
         return 1.0
@@ -186,6 +215,17 @@ class RandK(Compressor):
             vals = vals * (d / k)
         return SparsePayload(vals, idx.to(torch.int32), x.shape[-1])
 
+    def draw(self, X, generator):
+        """Per row the first k of a uniform permutation of range(d)."""
+        n, d = X.shape
+        k = _resolve_k(d, self.k, self.fraction)
+        return torch.stack([torch.randperm(d, generator=generator,
+                                           device=generator.device)[:k]
+                            for _ in range(n)])
+
+    def _apply(self, X, rand):
+        return self.compress(X, rand).dense()
+
     def omega(self, d):
         return _resolve_k(d, self.k, self.fraction) / d
 
@@ -211,6 +251,9 @@ class TopK(Compressor):
         d = x.shape[-1]
         idx = topk_rows(x, _resolve_k(d, self.k, self.fraction) if k is None else k)
         return SparsePayload(x.gather(1, idx), idx.to(torch.int32), d)
+
+    def _apply(self, X, rand):
+        return self.compress(X).dense()
 
     def omega(self, d):
         return _resolve_k(d, self.k, self.fraction) / d
@@ -245,6 +288,9 @@ class BlockTopK(Compressor):
         vals, idx = block_topk_select(x, self._kb(), block=self.block)
         return PackedSparsePayload(vals, idx, x.shape[-1], self.block)
 
+    def _apply(self, X, rand):
+        return self.compress(X).dense()
+
     def omega(self, d):
         return min(1.0, self._kb() / self.block)
 
@@ -259,20 +305,35 @@ def code_bits(s: int) -> int:
 
 
 class QSGD(Compressor):
-    """qsgd_s random quantization, rescaled by 1/tau so that (7) holds with
-    omega = 1/tau, tau = 1 + min(d/s^2, sqrt(d)/s) (the unrescaled variant
-    is not ported).
+    """qsgd_s random quantization (Alistarh et al. 2017), by default
+    rescaled by 1/tau so that (7) holds with omega = 1/tau,
+    tau = 1 + min(d/s^2, sqrt(d)/s); ``rescale=False`` is the unbiased
+    operator of the Q1 and Q2 baselines (tau = 1 in the scale).
 
         qsgd_s(x) = sign(x) * ||x|| / (s*tau) * floor(s |x| / ||x|| + xi)
     """
     name = "qsgd"
 
-    def __init__(self, s: int):
+    def __init__(self, s: int, rescale: bool = True):
         self.s = int(s)
+        self.rescale = rescale
 
     def _tau(self, d):
         s = self.s
         return 1.0 + min(d / (s * s), math.sqrt(d) / s)
+
+    def draw(self, X, generator):
+        """The uniform dither xi, (n, d) f32."""
+        return torch.rand(X.shape, generator=generator,
+                          device=generator.device)
+
+    def _apply(self, X, rand):
+        from repro_torch.kernels import ops
+        d = X.shape[-1]
+        codes, scale = ops.qsgd_compress(
+            X.to(torch.float32), rand, self.s,
+            self._tau(d) if self.rescale else 1.0)
+        return dispatch.dequantize(codes, scale)
 
     def omega(self, d):
         return 1.0 / self._tau(d)
@@ -285,6 +346,11 @@ class SignNorm(Compressor):
     """Scaled sign: Q(x) = ||x||_1 / d * sign(x).  Biased; omega >= 1/d."""
     name = "sign"
     stochastic = False
+
+    def _apply(self, X, rand):
+        from repro_torch.kernels import ops
+        codes, scale = ops.sign_compress(X.to(torch.float32), X.shape[-1])
+        return dispatch.dequantize(codes, scale)
 
     def omega(self, d):
         return 1.0 / d
@@ -304,6 +370,14 @@ class RandomizedGossip(Compressor):
         """x: (n, d); keep: (n,) bool, one coin per node."""
         keep = keep.to(x.device)[:, None]
         return DensePayload(torch.where(keep, x, torch.zeros_like(x)))
+
+    def draw(self, X, generator):
+        """One keep coin per row, (n,) bool."""
+        return torch.rand((X.shape[0],), generator=generator,
+                          device=generator.device) < self.p
+
+    def _apply(self, X, rand):
+        return self.compress(X, rand).dense()
 
     def omega(self, d):
         return self.p

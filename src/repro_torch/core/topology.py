@@ -5,7 +5,10 @@ delta = 1 - |lambda_2(W)| in (0, 1].  The port builds the ring with the
 paper's uniform weights (w_ij = 1/(deg+1), Metropolis-Hastings in
 general) and exposes delta, rho = 1 - delta and beta = ||I - W||_2.
 
-Only the ring is ported; ``make_topology`` refuses every other name.
+Every symmetric graph of the JAX package's registry is ported: ring,
+torus, fully_connected, chain, star and hypercube.  The directed graphs
+(``directed_ring``, ``random_digraph``) need the push-sum engine, which
+is not ported; ``make_topology`` refuses them.
 """
 from __future__ import annotations
 
@@ -92,9 +95,108 @@ def ring(n: int) -> Topology:
     return _from_adjacency("ring", adj)
 
 
+def torus2d(rows: int, cols: int) -> Topology:
+    """2-d torus; uniform averaging 1/5.  delta = O(1/n)."""
+    n = rows * cols
+    adj = np.zeros((n, n), dtype=int)
+
+    def nid(r, c):
+        return (r % rows) * cols + (c % cols)
+
+    for r in range(rows):
+        for c in range(cols):
+            i = nid(r, c)
+            for (dr, dc) in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+                adj[i, nid(r + dr, c + dc)] = 1
+    np.fill_diagonal(adj, 0)
+    return _from_adjacency("torus2d", adj)
+
+
+def fully_connected(n: int) -> Topology:
+    """Complete graph, W = (1/n) 11^T.  delta = 1."""
+    W = np.full((n, n), 1.0 / n)
+    nbrs = tuple(tuple(range(n)) for _ in range(n))
+    return Topology("fully_connected", W, nbrs).validate()
+
+
+def chain(n: int) -> Topology:
+    """Path graph 0-1-...-(n-1): delta = O(1/n^2) like the ring, without
+    the wraparound edge."""
+    adj = np.zeros((n, n), dtype=int)
+    for i in range(n - 1):
+        adj[i, i + 1] = adj[i + 1, i] = 1
+    return _from_adjacency("chain", adj)
+
+
+def star(n: int) -> Topology:
+    """Hub and spokes: node 0 connects to all others (constant diameter,
+    a congested hub)."""
+    adj = np.zeros((n, n), dtype=int)
+    adj[0, 1:] = adj[1:, 0] = 1
+    return _from_adjacency("star", adj)
+
+
+def hypercube(n: int) -> Topology:
+    """m-dimensional hypercube on n = 2^m nodes: log-degree, log-diameter,
+    delta = O(1/log n)."""
+    m = int(np.log2(n))
+    if 2 ** m != n:
+        raise ValueError(f"hypercube topology needs n = 2^m nodes, got n={n}; "
+                         f"use n={2 ** m} or n={2 ** (m + 1)}, or another "
+                         f"topology")
+    adj = np.zeros((n, n), dtype=int)
+    for i in range(n):
+        for b in range(m):
+            adj[i, i ^ (1 << b)] = 1
+    return _from_adjacency("hypercube", adj)
+
+
+def _square_factors(n: int) -> Tuple[int, int]:
+    r = int(np.sqrt(n))
+    while n % r:
+        r -= 1
+    return r, n // r
+
+
+def _torus_factors(n: int) -> Tuple[int, int]:
+    """Most-square rows x cols factorization, refusing the degenerate 1 x n
+    strip: a "torus" on prime n is a ring with doubled edges, whose
+    spectral gap is the ring's O(1/n^2), not the torus's O(1/n), so the
+    Theorem-2 stepsize would be computed for the wrong graph."""
+    rows, cols = _square_factors(n)
+    if rows == 1 and n > 1:
+        raise ValueError(
+            f"torus topology needs a non-trivial rows x cols factorization, "
+            f"but n={n} only factors as 1x{n} — a degenerate strip with "
+            f"ring-grade spectral gap O(1/n^2), not the torus O(1/n). "
+            f"Use a composite node count (e.g. n={n - 1} or n={n + 1}) or "
+            f"topology='ring'.")
+    return rows, cols
+
+
+_TOPOLOGIES = {
+    "ring": ring,
+    "torus": lambda n: torus2d(*_torus_factors(n)),
+    "fully_connected": fully_connected,
+    "chain": chain,
+    "star": star,
+    "hypercube": hypercube,
+}
+
+#: the registry's names (the launcher's ``--topology`` choices)
+SYMMETRIC_TOPOLOGIES = tuple(_TOPOLOGIES)
+#: the JAX registry's directed (column-stochastic) graphs: they need the
+#: push-sum engine, which the port does not have
+DIRECTED_TOPOLOGIES = ("directed_ring", "random_digraph")
+
+
 def make_topology(name: str, n: int) -> Topology:
-    """Build a topology by name at n nodes (only ``ring`` is ported)."""
-    if name != "ring":
-        raise ValueError(f"topology {name!r} is not ported; the port has "
-                         f"only 'ring'")
-    return ring(n)
+    """Build a registered symmetric topology by name at n nodes (the JAX
+    registry's names: ``torus`` builds ``torus2d``)."""
+    if name in DIRECTED_TOPOLOGIES:
+        raise ValueError(f"topology {name!r} is directed and needs the "
+                         f"push-sum engine, which is not ported")
+    if name not in _TOPOLOGIES:
+        raise ValueError(f"unknown topology {name!r}; have "
+                         f"{sorted(_TOPOLOGIES)}")
+    return _TOPOLOGIES[name](n)

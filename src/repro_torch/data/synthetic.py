@@ -1,9 +1,11 @@
-"""Synthetic LM token streams, sharded across gossip nodes.
+"""Synthetic data, sharded across gossip nodes: LM token streams and the
+logistic-regression problems of the paper's §5.3.
 
 The generator is numpy's ``default_rng`` with the same draws in the same
-order as the JAX package's ``TokenStream``, so the two give identical
-batches bit for bit.  Not ported: the Dirichlet skew (``skew_alpha``),
-the audio / VLM batch makers and the logistic-regression datasets.
+order as the JAX package's ``TokenStream`` and ``make_logreg``, so the two
+give identical batches, features, labels and shards bit for bit.  Not
+ported: the Dirichlet skew (``skew_alpha``, it needs
+``data/partition.py``) and the audio / VLM batch makers.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import dataclasses
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -73,3 +76,90 @@ def make_lm_batch_fn(cfg, seq_len: int, batch_per_node: int, n_nodes: int,
         return lambda: next(stream)
     rows = slice(node, node + 1)
     return lambda: {k: v[rows] for k, v in next(stream).items()}
+
+
+# ---------------------------------------------------------------------------
+# logistic regression (paper §5.3)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LogRegProblem:
+    A: torch.Tensor           # (m, d) f32 features, rows of unit norm
+    b: torch.Tensor           # (m,) f32 labels in {-1, +1}
+    node_index: torch.Tensor  # (n_nodes, m_per_node) int64 sample ids
+    reg: float
+
+    @property
+    def d(self) -> int:
+        return self.A.shape[1]
+
+    def full_loss(self, x: torch.Tensor) -> torch.Tensor:
+        """f(x) = mean log(1 + exp(-b a.x)) + reg/2 ||x||^2 over all m."""
+        z = self.b * (self.A @ x)
+        return (torch.mean(torch.log1p(torch.exp(-z)))
+                + 0.5 * self.reg * torch.sum(x * x))
+
+    def make_grad_fn(self, batch_size: int = 1):
+        """``grad_fn(X (n, d), batch (n, bs)) -> (n, d)``: node i's
+        minibatch gradient at its own x_i, the minibatch being positions
+        ``batch[i]`` in node i's shard (Algorithm 2 line 2).
+        ``grad_fn.draw(n, generator)`` draws the positions uniformly."""
+        A, b, idx, reg = self.A, self.b, self.node_index, self.reg
+        m_per = idx.shape[1]
+
+        def grad_fn(X, batch):
+            rows = idx.gather(1, batch)                        # (n, bs)
+            a = A[rows]                                        # (n, bs, d)
+            bb = b[rows]
+            z = bb * torch.bmm(a, X[:, :, None])[..., 0]
+            g = -(bb * torch.sigmoid(-z))[..., None] * a
+            return torch.mean(g, dim=1) + reg * X
+
+        def draw(n, generator):
+            return torch.randint(0, m_per, (n, batch_size),
+                                 generator=generator, device=generator.device)
+
+        grad_fn.draw = draw
+        return grad_fn
+
+
+def make_logreg(name: str, n_nodes: int, *, sorted_assignment: bool = False,
+                seed: int = 0, m: Optional[int] = None,
+                d: Optional[int] = None, skew_alpha: Optional[float] = None,
+                device="cuda") -> LogRegProblem:
+    """Synthetic stand-ins matched to the paper's dataset statistics, the
+    JAX package's draws in its order:
+    epsilon: m=400k (reduced default 8k), d=2000, dense;
+    rcv1:    m=20242 (reduced default 8k), d=47236 (reduced 4724), 0.15%
+    dense.  ``sorted_assignment`` shards by label (the paper's sorted
+    setting), else a random permutation.  The tensors go to ``device``."""
+    if skew_alpha is not None:
+        raise ValueError("skew_alpha (Dirichlet shards) is not ported: it "
+                         "needs data/partition.py")
+    rng = np.random.default_rng(seed)
+    if name == "epsilon":
+        m = m or 8_000
+        d = d or 2_000
+        density = 1.0
+    elif name == "rcv1":
+        m = m or 8_000
+        d = d or 4_724
+        density = 0.0015 * 10       # keep ~7 nnz/row at reduced d
+    else:
+        raise ValueError(name)
+    # w_true scaled so margins a_i . w are O(3) after row normalisation
+    w_true = rng.standard_normal(d) * 3.0
+    A = rng.standard_normal((m, d)).astype(np.float32)
+    if density < 1.0:
+        A *= (rng.random((m, d)) < density)
+        A *= 1.0 / np.sqrt(max(density, 1e-6))
+    A /= np.maximum(np.linalg.norm(A, axis=1, keepdims=True), 1e-8)
+    logits = A @ w_true + 0.3 * rng.standard_normal(m)
+    b = np.where(logits > 0, 1.0, -1.0).astype(np.float32)
+    m_per = m // n_nodes
+    order = np.argsort(b) if sorted_assignment else rng.permutation(m)
+    node_index = order[: m_per * n_nodes].reshape(n_nodes, m_per)
+    return LogRegProblem(A=torch.from_numpy(A).to(device),
+                         b=torch.from_numpy(b).to(device),
+                         node_index=torch.from_numpy(node_index).to(device),
+                         reg=1.0 / m)

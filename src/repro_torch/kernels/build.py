@@ -59,7 +59,7 @@ LIBRARIES = {
             "sign_codes": (_P, _P, _I64, _P),
             "dequantize_i8": (_P, _P, _P, _I64, _I64, _P),
             "dequantize_i16": (_P, _P, _P, _I64, _I64, _P),
-            "ef_update": (_P, _P, _P, _P, _P, _F, _F, _F, _I64, _P),
+            "ef_update": (_P, _P, _P, _P, _P, _P, _P, _F, _I64, _I64, _P),
         }),
     "flash": Library(
         CSRC / "flash_attention.cu", _COMMON_FLAGS, {

@@ -17,8 +17,10 @@
 // node-stacked embedding bucket holds 4 x 311,164,928 elements.
 //
 // Buffers are node-stacked: row r of an (n, len) buffer is gossip node r's
-// bucket.  Per-node scalars (QSGD's 1/||x||, the dequantize scale) are read
-// once per block from an (n,) array: the grid's y dimension is the node.
+// bucket.  Per-node scalars (QSGD's 1/||x||, the dequantize scale, the EF
+// update's self and neighbour weights) are read once per block from an (n,)
+// array: the grid's y dimension is the node, so no element pays for a
+// division by the row length to find its node.
 //
 // Every arithmetic step uses an explicitly rounded intrinsic (__fmul_rn,
 // __fadd_rn, __fsub_rn), so nothing contracts into an FMA and the results
@@ -87,14 +89,19 @@ __global__ void ef_update_kernel(float* __restrict__ x,
                                  float* __restrict__ x_hat,
                                  float* __restrict__ s,
                                  const float* __restrict__ q_self,
-                                 const float* __restrict__ q_nbr, float w_self,
-                                 float w_nbr, float gamma, int64_t total) {
+                                 const float* __restrict__ q_nbr,
+                                 const float* __restrict__ w_self,
+                                 const float* __restrict__ w_nbr, float gamma,
+                                 int64_t len) {
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * len;
+  const float ws = w_self[blockIdx.y];
+  const float wn = w_nbr[blockIdx.y];
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
+  for (int64_t i = base + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < base + len; i += stride) {
     const float qs = q_self[i];
     const float xhat_n = __fadd_rn(x_hat[i], qs);
-    const float mix = __fadd_rn(__fmul_rn(w_self, qs), __fmul_rn(w_nbr, q_nbr[i]));
+    const float mix = __fadd_rn(__fmul_rn(ws, qs), __fmul_rn(wn, q_nbr[i]));
     const float s_n = __fadd_rn(s[i], mix);
     x[i] = __fadd_rn(x[i], __fmul_rn(gamma, __fsub_rn(s_n, xhat_n)));
     x_hat[i] = xhat_n;
@@ -156,10 +163,11 @@ int dequantize_i16(const int16_t* codes, const float* scale, float* out,
 }
 
 int ef_update(float* x, float* x_hat, float* s, const float* q_self,
-              const float* q_nbr, float w_self, float w_nbr, float gamma,
-              int64_t total, cudaStream_t stream) {
-  ef_update_kernel<<<blocks_for(total), kThreads, 0, stream>>>(
-      x, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, total);
+              const float* q_nbr, const float* w_self, const float* w_nbr,
+              float gamma, int64_t n, int64_t len, cudaStream_t stream) {
+  const dim3 grid(blocks_for(len), static_cast<unsigned int>(n));
+  ef_update_kernel<<<grid, kThreads, 0, stream>>>(
+      x, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, len);
   return static_cast<int>(cudaGetLastError());
 }
 

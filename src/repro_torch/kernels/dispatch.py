@@ -73,7 +73,8 @@ def dequantize(codes, scale):
 def ef_bucket_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma):
     """Fused CHOCO EF integrate for one node-stacked f32 bucket (recv half),
     in place: ``x_half`` becomes x', ``x_hat`` and ``s`` their updates.
-    Returns those three tensors."""
+    ``w_self`` and ``w_nbr`` are (n,) f32 on the buffers' device, one
+    weight per node row.  Returns those three tensors."""
     if not _on_cpu(x_half):
         return _ef.ef_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
                              gamma)

@@ -67,17 +67,18 @@ def probe_scale_ref(x):
     return x * 2.0
 
 
-def ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self: float,
-                  w_nbr: float, gamma: float):
-    """CHOCO error-feedback update (Algorithm 6 lines 8-10):
+def ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
+                  gamma: float):
+    """CHOCO error-feedback update (Algorithm 6 lines 8-10), per node row:
 
         x_hat' = x_hat + q_self
         s'     = s + (w_self * q_self + w_nbr * q_nbr)
         x'     = x_half + gamma * (s' - x_hat')
 
+    Buffers (n, L) f32; ``w_self``, ``w_nbr``: (n,) f32, node i's weights.
     The s' association is part of the contract.  Returns (x', x_hat', s')."""
     x_hat_n = x_hat + q_self
-    s_n = s + (w_self * q_self + w_nbr * q_nbr)
+    s_n = s + (w_self[:, None] * q_self + w_nbr[:, None] * q_nbr)
     x_n = x_half + gamma * (s_n - x_hat_n)
     return x_n, x_hat_n, s_n
 

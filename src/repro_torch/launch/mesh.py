@@ -63,27 +63,35 @@ class NodeGroup:
     bytes_sent: int = 0
     staging_s: float = 0.0
 
-    def sendrecv(self, send: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+    def sendrecv(self, send: torch.Tensor, dst, src):
         """Send the 1-D uint8 tensor ``send`` to rank ``dst`` and receive
         as many bytes from rank ``src``, in one ``batch_isend_irecv``.
-        Returns the received bytes on this rank's device."""
+        ``dst`` or ``src`` None: no send, or no receive (a partial schedule
+        round).  Returns the received bytes on this rank's device, or None
+        without a receive."""
         if send.dtype != torch.uint8 or send.dim() != 1:
             raise ValueError("sendrecv moves 1-D uint8 tensors")
         nbytes = send.numel()
+        out = inbox = None
+        t0 = time.perf_counter()
+        if dst is not None:
+            out = send
+            if self.staged:
+                out = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                out.copy_(send)                # waits for the kernels
+        if src is not None:
+            inbox = (torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                     if self.staged else torch.empty_like(send))
         if self.staged:
-            t0 = time.perf_counter()
-            out = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-            out.copy_(send)                    # waits for the kernels
-            inbox = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
             self.staging_s += time.perf_counter() - t0
-        else:
-            out, inbox = send, torch.empty_like(send)
-        works = dist.batch_isend_irecv([dist.P2POp(dist.isend, out, dst),
-                                        dist.P2POp(dist.irecv, inbox, src)])
-        for w in works:
-            w.wait()
-        self.bytes_sent += nbytes
-        if not self.staged:
+        ops = ([dist.P2POp(dist.isend, out, dst)] if dst is not None else []) \
+            + ([dist.P2POp(dist.irecv, inbox, src)] if src is not None else [])
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+        if dst is not None:
+            self.bytes_sent += nbytes
+        if inbox is None or not self.staged:
             return inbox
         t0 = time.perf_counter()
         got = inbox.to(self.device)

@@ -27,6 +27,7 @@ import time
 
 # torch-free: argument validation runs before torch is imported
 from repro_torch.configs.base import parse_topology
+from repro_torch.core.topology import DIRECTED_TOPOLOGIES, SYMMETRIC_TOPOLOGIES
 from repro_torch.launch.env import file_rendezvous, torchrun_rendezvous
 
 ARCH_CHOICES = ("qwen3-1.7b",)
@@ -130,11 +131,23 @@ def _validate(ap, args) -> int:
                      f"ported")
     if args.mode != "choco":
         ap.error(f"--mode {args.mode} is not ported; the port runs --mode choco")
-    if parse_topology(args.topology) != ("ring",):
-        ap.error(f"--topology {args.topology!r} is not ported; the port has "
-                 f"only a static ring")
+    names = parse_topology(args.topology)
+    if not names:
+        ap.error("--topology: name at least one graph")
+    for name in names:
+        if name in DIRECTED_TOPOLOGIES:
+            ap.error(f"--topology {name} is directed and needs --mode "
+                     f"pushsum, which is not ported")
+        if name not in SYMMETRIC_TOPOLOGIES:
+            ap.error(f"--topology {name!r}: choose from "
+                     f"{', '.join(SYMMETRIC_TOPOLOGIES)}, or a comma-separated "
+                     f"sequence of them")
     if args.gossip_steps < 1:
         ap.error("--gossip-steps must be >= 1")
+    if args.gossip_steps % len(names):
+        ap.error(f"--topology {args.topology} is a sequence of {len(names)} "
+                 f"graphs: --gossip-steps must be a multiple of "
+                 f"{len(names)}, so every graph runs each step")
     if args.compressor == "randomized_gossip":
         ap.error("--compressor randomized_gossip takes a keep probability p, "
                  "not --fraction, so the launcher cannot run it (the JAX "

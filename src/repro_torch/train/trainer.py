@@ -21,10 +21,11 @@ reads its parameters as views into the x buffers.  So the gradient comes
 back in bucket layout, the optimizer and the exchange run on whole
 buckets, and nothing is packed or unpacked per step.
 
-The slice: CHOCO mode, a static ring, f32 state, every compressor of the
-JAX package (with the exact small-leaf bucket), the Theorem-2 gamma,
-naive attention (the flash kernel has no backward).  Other topologies
-raise; the other modes, processes and a fixed gamma are not ported.
+The slice: CHOCO mode, every symmetric topology of the JAX registry and
+time-varying sequences of them, f32 state, every compressor of the JAX
+package (with the exact small-leaf bucket), the Theorem-2 gamma or a
+fixed one, naive attention (the flash kernel has no backward).  The
+directed topologies, the other modes and the processes are not ported.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from repro_torch.comm.gossip import (_pack_align, make_choco_exchange,
 from repro_torch.comm.packing import (bucket_omega_worst, fold_seed,
                                       leaf_route, make_bucket_spec,
                                       pack_leaves, unpack_leaves)
-from repro_torch.comm.schedule import compile_schedule
+from repro_torch.comm.schedule import compile_schedules
 from repro_torch.configs.base import ChocoConfig, parse_topology
 from repro_torch.core.choco_gossip import GammaSpec, theorem2_stepsize
 from repro_torch.core.compression import make_compressor
@@ -94,12 +95,19 @@ class DecentralizedTrainer:
             self.device = self.group.device
             self.nodes = (self.group.rank,)
         names = parse_topology(self.choco.topology)
-        if len(names) != 1:
-            raise ValueError("time-varying topology sequences are not ported")
         self.compressor = make_compressor(self.choco.compressor,
                                           **self.choco.comp_dict())
-        self.topology = make_topology(names[0], self.n_nodes)
-        self.schedules = (compile_schedule(self.topology),)
+        # as on a JAX mesh without a pod axis (the port's is always Nx1)
+        self.topologies = tuple(make_topology(name, self.n_nodes)
+                                for name in names)
+        self.schedules = compile_schedules(self.topologies)
+        if (len(self.schedules) > 1
+                and self.choco.gossip_steps % len(self.schedules) != 0):
+            raise ValueError(
+                f"topology={self.choco.topology!r} is a time-varying "
+                f"sequence of {len(self.schedules)} graphs: gossip_steps "
+                f"must be a multiple of the sequence length so every graph "
+                f"runs each SGD step (got {self.choco.gossip_steps})")
         self.paths = [p for p, _ in param_shapes(self.model.cfg)]
         shapes = dict(param_shapes(self.model.cfg))
         self.spec = make_bucket_spec(
@@ -109,13 +117,19 @@ class DecentralizedTrainer:
             exact_small_leaves=self.choco.exact_small_leaves,
             routes=[leaf_route(p) for p in self.paths])
         # Theorem-2 consensus stepsize: the scalar worst case for logging,
-        # and per-bucket values (each bucket at its own omega) for the engine
-        delta, beta = self.topology.delta, self.topology.beta
-        self.gamma = theorem2_stepsize(
-            delta, beta, bucket_omega_worst(self.spec, self.compressor))
+        # and per-bucket values (each bucket at its own omega) for the
+        # engine; a time-varying sequence takes the worst (delta, beta).
+        # A fixed consensus_gamma replaces both.
+        if self.choco.consensus_gamma is not None:
+            self.gamma = gamma = self.choco.consensus_gamma
+        else:
+            delta = min(t.delta for t in self.topologies)
+            beta = max(t.beta for t in self.topologies)
+            self.gamma = theorem2_stepsize(
+                delta, beta, bucket_omega_worst(self.spec, self.compressor))
+            gamma = GammaSpec(delta=delta, beta=beta)
         kw = dict(spec=self.spec, schedules=self.schedules,
-                  compressor=self.compressor,
-                  gamma=GammaSpec(delta=delta, beta=beta),
+                  compressor=self.compressor, gamma=gamma,
                   gossip_steps=self.choco.gossip_steps)
         self.exchange = (make_choco_exchange(**kw) if self.group is None
                          else make_dist_choco_exchange(**kw, group=self.group))

@@ -69,14 +69,20 @@ def test_sign_and_ef_update_bit_equal_to_plain(cuda, length):
     ins[0][:, ::5] = 0.0
     codes = _launched("sign_codes", lambda: dispatch.sign_codes(ins[0]))
     assert torch.equal(codes, ref.sign_codes_ref(ins[0]))
-    want = ref.ef_update_ref(*ins, 1 / 3, 1 / 3, 2.8e-4)
-    # in place, over its own x_half, x_hat and s
-    inplace = [t.clone() for t in ins[:3]]
-    got = _launched("ef_update", lambda: dispatch.ef_bucket_update(
-        *inplace, *ins[3:], 1 / 3, 1 / 3, 2.8e-4))
-    assert all(g is t for g, t in zip(got, inplace))
-    for g, w in zip(inplace, want):
-        assert torch.equal(g, w)
+    # per-node weights (star's self weights at n = 4; one neighbour
+    # weight), and the ring's uniform ones
+    for w_self, w_nbr in (((0.25, 0.75, 0.75, 0.75), (0.25,) * 4),
+                          ((1 / 3,) * 4, (1 / 3,) * 4)):
+        ws, wn = (torch.tensor(w, dtype=torch.float32, device=cuda)
+                  for w in (w_self, w_nbr))
+        want = ref.ef_update_ref(*ins, ws, wn, 2.8e-4)
+        # in place, over its own x_half, x_hat and s
+        inplace = [t.clone() for t in ins[:3]]
+        got = _launched("ef_update", lambda: dispatch.ef_bucket_update(
+            *inplace, *ins[3:], ws, wn, 2.8e-4))
+        assert all(g is t for g, t in zip(got, inplace))
+        for g, w in zip(inplace, want):
+            assert torch.equal(g, w)
     torch.cuda.synchronize()
 
 

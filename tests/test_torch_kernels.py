@@ -90,22 +90,41 @@ def test_dequantize_plain_matches_jax_kernel(s, length):
         np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
 
 
+def _node_weights(w):
+    """A weight as the EF update takes it: (N,) f32, one entry per node
+    (a float fills the vector)."""
+    return torch.tensor(w if isinstance(w, tuple) else (w,) * N,
+                        dtype=torch.float32)
+
+
 @pytest.mark.parametrize("length", LENGTHS)
-@pytest.mark.parametrize("coef", [(1 / 3, 1 / 3, 2.8e-4), (0.5, 0.5, 0.046),
-                                  (1.0, 0.0, 1.0)])
+@pytest.mark.parametrize("coef", [
+    (1 / 3, 1 / 3, 2.8e-4), (0.5, 0.5, 0.046), (1.0, 0.0, 1.0),
+    # per-node weights: star's self weights at n = 4, and chain's
+    ((0.25, 0.75, 0.75, 0.75), 0.25, 0.1),
+    ((2 / 3, 1 / 3, 1 / 3, 2 / 3), (1 / 3, 0.5, 0.25, 1.0), 0.046)])
 def test_ef_update_plain_matches_jax(coef, length):
-    """Bit-equal to the JAX package's jnp oracle; within 2 ulp of the
-    Pallas kernel, counted at the scale of each output's largest operand
-    (the interpreted kernel rounds s + (w_self q_self + w_nbr q_nbr)
-    differently from its own oracle, by up to 2 ulp)."""
+    """Bit-equal to the JAX package's jnp oracle, node row i with node i's
+    weights: a uniform weight as the python float the JAX engine keeps
+    (so the ring's numbers do not move by a bit with the vector form),
+    per-node weights as the f32 scalar it gathers by node index.  Within
+    2 ulp of the Pallas kernel, counted at the scale of each output's
+    largest operand (the interpreted kernel rounds s + (w_self q_self +
+    w_nbr q_nbr) differently from its own oracle, by up to 2 ulp)."""
     ins = [_normal(10 * length + i, (N, length)) for i in range(5)]
-    got = ref.ef_update_ref(*map(torch.from_numpy, ins), *coef)
+    w_self, w_nbr = _node_weights(coef[0]), _node_weights(coef[1])
+    got = ref.ef_update_ref(*map(torch.from_numpy, ins), w_self, w_nbr,
+                            coef[2])
     x_half, x_hat, s, q_self, q_nbr = ins
-    mix = np.abs(coef[0] * q_self) + np.abs(coef[1] * q_nbr)
+    ws, wn = w_self.numpy()[:, None], w_nbr.numpy()[:, None]
+    mix = np.abs(ws * q_self) + np.abs(wn * q_nbr)
     for i in range(N):
         row = [jnp.asarray(a[i]) for a in ins]
-        oracle = jref.ef_gossip_update_ref(*row, *coef)
-        kernel = jops.ef_gossip_update_vector(*row, *coef, interpret=True)
+        w = [c if isinstance(c, float) else np.float32(c[i])
+             for c in coef[:2]]
+        oracle = jref.ef_gossip_update_ref(*row, *w, coef[2])
+        kernel = jops.ef_gossip_update_vector(*row, *w, coef[2],
+                                              interpret=True)
         for g, o in zip(got, oracle):
             np.testing.assert_array_equal(g[i].numpy(), np.asarray(o))
         g = [t[i].numpy() for t in got]
@@ -133,9 +152,10 @@ def test_cpu_tensors_take_the_plain_versions_without_launches():
     # in place, over its own x_half, x_hat and s
     ins = [x + i for i in range(5)]
     inplace = [t.clone() for t in ins[:3]]
-    got = dispatch.ef_bucket_update(*inplace, *ins[3:], 0.3, 0.3, 0.1)
+    w = _node_weights(0.3)
+    got = dispatch.ef_bucket_update(*inplace, *ins[3:], w, w, 0.1)
     assert all(g is t for g, t in zip(got, inplace))
-    for a, b in zip(inplace, ref.ef_update_ref(*ins, 0.3, 0.3, 0.1)):
+    for a, b in zip(inplace, ref.ef_update_ref(*ins, w, w, 0.1)):
         assert torch.equal(a, b)
     tiles = x.reshape(-1, 125)[:, :1].repeat(1, 128)
     for a, b in zip(dispatch.block_topk_mask(tiles, 3),
@@ -156,7 +176,7 @@ _ENTRIES = {
     "dequantize": lambda: dispatch.dequantize(_meta((N, 8), torch.int8),
                                               _meta((N,))),
     "ef_update": lambda: dispatch.ef_bucket_update(
-        *[_meta((N, 8)) for _ in range(5)], 0.3, 0.3, 0.1),
+        *[_meta((N, 8)) for _ in range(5)], _meta((N,)), _meta((N,)), 0.1),
     "block_topk_mask": lambda: dispatch.block_topk_mask(_meta((8, 128)), 2),
     "probe_scale": lambda: dispatch.probe_scale(_meta((8, 128))),
 }
@@ -189,9 +209,9 @@ def test_ef_kernel_refuses_aliased_buffers(monkeypatch):
     from repro_torch.kernels import ef_update
     monkeypatch.setattr(build, "load_library", lambda name: None)
     monkeypatch.setattr(build, "require", lambda *a, **k: None)
-    x, q = torch.zeros(N, 8), torch.ones(N, 8)
+    x, q, w = torch.zeros(N, 8), torch.ones(N, 8), _node_weights(0.3)
     with pytest.raises(ValueError, match="five distinct buffers"):
-        ef_update.ef_update(x, x.clone(), x.clone(), q, q, 0.3, 0.3, 0.1)
+        ef_update.ef_update(x, x.clone(), x.clone(), q, q, w, w, 0.1)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -69,7 +69,7 @@ def test_ring_schedule_matches_jax(n):
 
 def test_unported_topologies_raise():
     with pytest.raises(ValueError, match="not ported"):
-        topology.make_topology("torus", 4)
+        topology.make_topology("directed_ring", 4)
     with pytest.raises(ValueError, match="unknown compressor"):
         compression.make_compressor("top_q", fraction=0.01)
 

@@ -56,7 +56,7 @@ _JAX_REFERENCE = textwrap.dedent("""
     from repro.optim import cosine_schedule, make_optimizer
     from repro.train.trainer import DecentralizedTrainer
 
-    comp, arg, k, exact, steps, seq, bpn, out = sys.argv[1:]
+    comp, arg, k, exact, steps, seq, bpn, out, topology = sys.argv[1:]
     k, steps, seq, bpn = int(k), int(steps), int(seq), int(bpn)
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
@@ -71,7 +71,8 @@ _JAX_REFERENCE = textwrap.dedent("""
     tr = DecentralizedTrainer(
         model=build_model(cfg),
         choco=ChocoConfig(compressor=comp, comp_kwargs=kw, gossip_axis="data",
-                          gossip_steps=k, kernel_backend="jnp",
+                          topology=topology, gossip_steps=k,
+                          kernel_backend="jnp",
                           exact_small_leaves=exact == "exact"),
         mesh=mesh, n_nodes=4, optimizer=make_optimizer("momentum"),
         lr_fn=cosine_schedule(0.1, warmup=steps // 10 + 1, total=steps),
@@ -120,17 +121,20 @@ _JAX_REFERENCE = textwrap.dedent("""
 """)
 
 
-def jax_reference_path(tmp_path_factory, comp, arg, k, exact):
-    """The path of the JAX reference run of one case, made once per pytest
-    run: tests that need the same case share it, across xdist workers too
-    (they meet in the run's common temporary directory and take turns
-    under a file lock)."""
+def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
+                       topology="ring"):
+    """The path of the JAX reference run of one case (on the ring unless
+    ``topology`` names another graph or a comma-separated sequence), made
+    once per pytest run: tests that need the same case share it, across
+    xdist workers too (they meet in the run's common temporary directory
+    and take turns under a file lock)."""
     root = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         root = root.parent
     root = root / "jax_reference"
     root.mkdir(exist_ok=True)
-    out = root / f"jax_{comp}_{arg}_{k}_{'exact' if exact else '-'}.npz"
+    tag = "" if topology == "ring" else "_" + topology.replace(",", "+")
+    out = root / f"jax_{comp}_{arg}_{k}_{'exact' if exact else '-'}{tag}.npz"
     with open(str(out) + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not out.exists():
@@ -141,7 +145,7 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact):
             r = subprocess.run(
                 [sys.executable, "-c", _JAX_REFERENCE, comp, str(arg), str(k),
                  "exact" if exact else "-", str(STEPS), str(SEQ), str(BPN),
-                 str(part)],
+                 str(part), topology],
                 env=env, capture_output=True, text=True, timeout=600)
             assert r.returncode == 0, \
                 f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
@@ -161,7 +165,7 @@ def _tree(ref, tag):
     return tree
 
 
-def _port_trainer(comp, arg, k, exact):
+def _port_trainer(comp, arg, k, exact, topology="ring"):
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
     if comp == "qsgd":
@@ -172,7 +176,7 @@ def _port_trainer(comp, arg, k, exact):
         kw = (("fraction", arg),)
     return DecentralizedTrainer(
         model=Model(cfg), choco=ChocoConfig(compressor=comp, comp_kwargs=kw,
-                                            gossip_steps=k,
+                                            topology=topology, gossip_steps=k,
                                             exact_small_leaves=exact),
         n_nodes=N, optimizer=MomentumSGD(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
@@ -305,7 +309,7 @@ def test_launcher_runs_each_compressor_on_cpu(extra, capsys):
     (["--compressor", "sign", "--state-dtype", "bfloat16"], "--state-dtype"),
     (["--compressor", "sign", "--kernel-backend", "pallas"],
      "--kernel-backend"),
-    (["--compressor", "sign", "--topology", "torus"], "--topology"),
+    (["--compressor", "sign", "--topology", "directed_ring"], "--topology"),
     (["--compressor", "sign", "--mesh", "4x2"], "model extent 2"),
     (["--compressor", "sign", "--resume", "ckpt"], "--resume"),
     (["--compressor", "qsgd"], "requires --qsgd-s"),
