@@ -159,21 +159,35 @@ def _compile(schedules: Sequence[GossipSchedule], nodes: Sequence[int],
     return compiled
 
 
+def _to_device(obj, dev):
+    """``obj`` with every tensor in it (through tuples and lists) on
+    ``dev``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_to_device(o, dev) for o in obj)
+    return obj
+
+
 def _exchange(spec: BucketSpec, compressor, gammas, gossip_steps: int,
               compiled, nodes, receiver) -> Callable:
     """The exchange loop both engines share.  ``compiled[t]`` is round t's
     entry of :func:`_compile`; ``nodes`` are the gossip nodes of the
     buffers' rows (None: all of them); ``receiver(payload, q, bucket)``
-    returns ``receive(round) -> the dense payload this row receives``."""
+    returns ``receive(round) -> the dense payload this row receives``,
+    ``round`` being the round's entry in ``compiled``, its tensors on the
+    buffers' device.  ``compiled`` moves to a device once, at the first
+    call with buffers there."""
+    on_device = {}
 
     @torch.no_grad()
     def exchange(x: List[torch.Tensor], x_hat: List[torch.Tensor],
                  s: List[torch.Tensor], *, seed: int = 0,
                  draws: Optional[Callable[[int, int], torch.Tensor]] = None):
         dev = x[0].device
-        on_dev = [([(w if isinstance(w, float) else w.to(dev), rounds)
-                    for w, rounds in groups], w_self.to(dev), w_nbr.to(dev))
-                  for groups, w_self, w_nbr in compiled]
+        if dev not in on_device:
+            on_device[dev] = _to_device(compiled, dev)
+        on_dev = on_device[dev]
         for t in range(gossip_steps):
             groups, w_self, w_nbr = on_dev[t % len(on_dev)]
             tseed = seed if t == 0 else fold_seed(seed, t)
@@ -232,9 +246,9 @@ def make_choco_exchange(*, spec: BucketSpec,
         # row (written over the rows that receive nothing, and only those)
         def receive(index):
             src, missing = index
-            got = q.index_select(0, src.to(q.device))
+            got = q.index_select(0, src)
             if missing is not None:
-                got.index_fill_(0, missing.to(q.device), 0.0)
+                got.index_fill_(0, missing, 0.0)
             return got
         return receive
 

@@ -86,8 +86,6 @@ class ChocoConfig:
     # ("ring,hypercube"); the directed graphs need push-sum (not ported)
     topology: str = "ring"
     gossip_steps: int = 1
-    # fixed consensus stepsize; None = Theorem 2's gamma per bucket
-    consensus_gamma: Optional[float] = None
     # leaves of at most 8192 elements gossip uncompressed, in exact
     # buckets (off for paper-faithful runs)
     exact_small_leaves: bool = False

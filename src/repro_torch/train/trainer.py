@@ -23,9 +23,10 @@ buckets, and nothing is packed or unpacked per step.
 
 The slice: CHOCO mode, every symmetric topology of the JAX registry and
 time-varying sequences of them, f32 state, every compressor of the JAX
-package (with the exact small-leaf bucket), the Theorem-2 gamma or a
-fixed one, naive attention (the flash kernel has no backward).  The
-directed topologies, the other modes and the processes are not ported.
+package (with the exact small-leaf bucket), the Theorem-2 gamma,
+naive attention (the flash kernel has no backward).  The directed
+topologies, the other modes, the processes and a fixed gamma are not
+ported.
 """
 from __future__ import annotations
 
@@ -119,15 +120,11 @@ class DecentralizedTrainer:
         # Theorem-2 consensus stepsize: the scalar worst case for logging,
         # and per-bucket values (each bucket at its own omega) for the
         # engine; a time-varying sequence takes the worst (delta, beta).
-        # A fixed consensus_gamma replaces both.
-        if self.choco.consensus_gamma is not None:
-            self.gamma = gamma = self.choco.consensus_gamma
-        else:
-            delta = min(t.delta for t in self.topologies)
-            beta = max(t.beta for t in self.topologies)
-            self.gamma = theorem2_stepsize(
-                delta, beta, bucket_omega_worst(self.spec, self.compressor))
-            gamma = GammaSpec(delta=delta, beta=beta)
+        delta = min(t.delta for t in self.topologies)
+        beta = max(t.beta for t in self.topologies)
+        self.gamma = theorem2_stepsize(
+            delta, beta, bucket_omega_worst(self.spec, self.compressor))
+        gamma = GammaSpec(delta=delta, beta=beta)
         kw = dict(spec=self.spec, schedules=self.schedules,
                   compressor=self.compressor, gamma=gamma,
                   gossip_steps=self.choco.gossip_steps)

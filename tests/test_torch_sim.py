@@ -43,21 +43,9 @@ from repro_torch.core import baselines, choco_gossip, choco_sgd, consensus
 from repro_torch.core import compression, topology
 from repro_torch.data import synthetic
 from repro_torch.kernels import ops
+from test_torch_slice import one_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-5
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The simulators' tensors are small (n <= 25 rows): one torch thread
-    each, so that pytest-xdist's workers do not oversubscribe the cores
-    with thousands of tiny parallel regions."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def _close(got, want):

@@ -44,6 +44,21 @@ from repro_torch.train.trainer import DecentralizedTrainer
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 N, STEPS, SEQ, BPN = 4, 3, 128, 4
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread per test (the files that import this fixture use
+    it too): the tensors are small, and pytest-xdist's workers share the
+    cores, which thousands of small parallel regions in every worker
+    would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 _JAX_REFERENCE = textwrap.dedent("""
     import os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"

@@ -26,6 +26,7 @@ from repro_torch.core import topology
 from repro_torch.core.choco_gossip import theorem2_stepsize
 from repro_torch.launch import train as launcher
 from test_torch_slice import _SMOKE, N, ROOT, _port_trainer
+from test_torch_slice import one_thread  # noqa: F401  (autouse)
 from test_torch_topology import run_against_jax
 
 

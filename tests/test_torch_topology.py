@@ -15,10 +15,8 @@ the JAX package on the CPU.
   reference script and tolerances) on torus (1 gossip round per step)
   and star (2), with top_k and QSGD (the JAX dither injected); the
   time-varying pair is in ``test_torch_time_varying.py``;
-* a fixed consensus_gamma replaces Theorem 2's.
+* the exchange moves its compiled weights to the buffers' device once.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -27,13 +25,13 @@ from repro.comm import schedule as jschedule
 from repro.core import topology as jtopo
 from repro_torch.comm import gossip, schedule
 from repro_torch.comm.packing import make_bucket_spec, pack_leaves
-from repro_torch.configs.base import ChocoConfig
 from repro_torch.core import topology
 from repro_torch.core.compression import make_compressor
 from repro_torch.data.synthetic import make_lm_batch_fn
 from repro_torch.convert import params_from_jax
 from test_torch_slice import (BPN, N, SEQ, STEPS, _port_trainer, _tree,
                               check_against_jax, jax_reference_path)
+from test_torch_slice import one_thread  # noqa: F401  (autouse)
 
 SYMMETRIC = ("ring", "torus", "fully_connected", "chain", "star",
              "hypercube")
@@ -206,11 +204,34 @@ def run_against_jax(tmp_path_factory, topo, k, comp, arg):
     check_against_jax(tr, state, mets, ref, comp)
 
 
-def test_consensus_gamma_replaces_theorem2():
-    tr = _port_trainer("top_k", 0.05, 1, False, topology="star")
-    fixed = dataclasses.replace(
-        tr, choco=dataclasses.replace(tr.choco, consensus_gamma=0.125))
-    assert fixed.gamma == 0.125
-    assert fixed.exchange.bucket_gammas == [0.125] * fixed.spec.n_buckets
-    assert tr.exchange.bucket_gammas != fixed.exchange.bucket_gammas
-    assert ChocoConfig().consensus_gamma is None
+def test_exchange_moves_its_weights_to_the_device_once(monkeypatch):
+    """The compiled weights and gather indices reach the buffers' device
+    at the first call only; later calls reuse them and give the same
+    result from the same buffers."""
+    moves = []
+    to_device = gossip._to_device
+    monkeypatch.setattr(gossip, "_to_device",
+                        lambda obj, dev: moves.append(dev) or to_device(obj,
+                                                                        dev))
+    n = 4
+    spec = make_bucket_spec([torch.empty((n, 300), device="meta")[0]],
+                            align=128)
+    ex = gossip.make_choco_exchange(
+        spec=spec, schedules=schedule.compile_schedules(
+            [topology.make_topology(name, n) for name in ("ring", "star")]),
+        compressor=make_compressor("top_k", fraction=0.1), gamma=0.2,
+        gossip_steps=2)
+    rng = np.random.default_rng(0)
+    start = [rng.standard_normal((n, 300)).astype(np.float32)
+             for _ in range(3)]
+    outs, moved = [], []
+    for _ in range(3):
+        bufs = [pack_leaves(spec, [torch.from_numpy(a)]) for a in start]
+        ex(*bufs)
+        outs.append(bufs)
+        moved.append(len(moves))
+    assert moved[0] > 0 and moved == moved[:1] * 3
+    assert set(moves) == {torch.device("cpu")}
+    for bufs in outs[1:]:
+        for got, want in zip(bufs, outs[0]):
+            assert torch.equal(got[0], want[0])
