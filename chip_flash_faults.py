@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Shows that the bf16 flash-attention parity contract catches a faulted
+kernel: run with
+
+    python3 chip_flash_faults.py
+
+from the root of a checkout, on a machine with one CUDA device.  It
+builds the tensor-core kernel (``csrc/flash_attention_sm90.cu``) as it is
+and three more times with one fault each, written at run time from the
+source into the build directory (no faulted source is kept):
+
+* ``trunc_p``: P truncated to bf16 instead of rounded to nearest even;
+* ``skip_alpha``: the running output not rescaled by alpha on key block 1;
+* ``stale_last``: the last key block's K and V read from the previous
+  block's stage of the ring;
+
+and makes the plain version once with a fault, for contract (b):
+
+* ``plain_skip_alpha``: the plain version's running output not rescaled
+  by alpha on key block 1.
+
+On each of ``chip_smoke.py``'s bf16 flash cases (the same inputs) it
+prints contract (a)'s readings of every kernel against the sound plain
+version (max|d| / max|want|, share of elements more than one bf16 ulp
+apart) and contract (b)'s reading of both plain versions against the
+f32-P result, with the bounds of ``kernels/flash_attention.py``.  The last
+line is a JSON summary; it exits 0 only if the sound kernel and plain
+version meet the contract in every case and every fault breaks it in at
+least one.
+"""
+import concurrent.futures
+import inspect
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+#: fault -> (text of the sound source, its replacement)
+KERNEL_FAULTS = {
+    "trunc_p": [(
+        "      p[i / 2] = pack_bf16(e0, e1);",
+        "      p[i / 2] = (__float_as_uint(e0) >> 16) |\n"
+        "                 (__float_as_uint(e1) & 0xffff0000u);")],
+    "skip_alpha": [(
+        "      o[i] = __fadd_rn(__fmul_rn(o[i], alpha[(i >> 1) & 1]), pv[i]);",
+        "      o[i] = __fadd_rn(kb == 1 ? o[i] : __fmul_rn(o[i], alpha[(i >> 1) "
+        "& 1]), pv[i]);")],
+    "stale_last": [(
+        "    const int s = kb % kStages;\n"
+        "    mbar_wait(full(s), (kb / kStages) & 1);\n",
+        "    const int s0 = kb % kStages;\n"
+        "    mbar_wait(full(s0), (kb / kStages) & 1);\n"
+        "    const int s = (kb == n_k - 1 && kb > 0) ? (kb - 1) % kStages : s0;\n"),
+        ("    mbar_arrive(empty(s));", "    mbar_arrive(empty(s0));")],
+}
+PLAIN_FAULT = (
+    "        acc_new = acc[..., r0:, :] * alpha[..., None] + pv",
+    "        acc_new = (acc[..., r0:, :] if k0 == FLASH_BLOCK\n"
+    "                   else acc[..., r0:, :] * alpha[..., None]) + pv")
+
+
+def edited(text, pairs):
+    for old, new in pairs:
+        if text.count(old) != 1:
+            raise RuntimeError(f"the fault's anchor is not in the source once: "
+                               f"{old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def faulted_plain():
+    """The plain version with PLAIN_FAULT, made from its source."""
+    from repro_torch.kernels import ref
+    text = edited(inspect.getsource(ref.flash_attention_ref), [PLAIN_FAULT])
+    scope = dict(vars(ref))
+    exec(compile(text, "<plain_skip_alpha>", "exec"), scope)
+    return scope["flash_attention_ref"]
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_flash_faults: no CUDA device; nothing was run",
+              file=sys.stderr)
+        return 2
+    import chip_smoke
+    from repro_torch.kernels import build, dispatch, ref
+    from repro_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    sound = build.LIBRARIES["flash_tc"]
+    fault_dir = build.BUILD_DIR / "faults"
+    fault_dir.mkdir(parents=True, exist_ok=True)
+    libs = {"sound": "flash_tc"}
+    for name, pairs in KERNEL_FAULTS.items():
+        path = fault_dir / f"flash_attention_sm90_{name}.cu"
+        path.write_text(edited(sound.source.read_text(), pairs))
+        libs[name] = f"flash_tc_{name}"
+        build.LIBRARIES[libs[name]] = build.Library(path, sound.flags,
+                                                    sound.signatures)
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(build.build, libs.values()))
+    chip_smoke.check_flash_sass(build.library_path("flash_tc"))
+    plain_fault = faulted_plain()
+
+    bounds = {"a_rel": fa.FLASH_BF16_RTOL, "a_ulp_share": fa.FLASH_BF16_ULP_SHARE,
+              "b_rel": fa.FLASH_BF16_F32P_RTOL}
+    readings = {name: {} for name in [*libs, "plain_skip_alpha"]}
+    entry = fa._ENTRY[torch.bfloat16]
+    for label, q, k, v, kw in chip_smoke.flash_cases(dev):
+        if q.dtype != torch.bfloat16:
+            continue
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        f32p = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                       **kw).to(q.dtype)
+        for name, lib in libs.items():
+            fa._ENTRY[torch.bfloat16] = (lib, entry[1])
+            try:
+                got = dispatch.flash_attention(q, k, v, **kw)
+            finally:
+                fa._ENTRY[torch.bfloat16] = entry
+            torch.cuda.synchronize()
+            rel, share = fa.bf16_gap(got, want)
+            readings[name][label] = {"a_rel": rel, "a_ulp_share": share}
+            if name == "sound":
+                readings[name][label]["b_rel"], readings[name][label][
+                    "b_ulp_share"] = fa.bf16_gap(want, f32p)
+            del got
+        rel_b, share_b = fa.bf16_gap(plain_fault(q, k, v, **kw), f32p)
+        readings["plain_skip_alpha"][label] = {"b_rel": rel_b,
+                                               "b_ulp_share": share_b}
+        for name, by_case in readings.items():
+            r = by_case[label]
+            print(f"[faults] {name:16s} {label:14s} " + ", ".join(
+                f"{key} {val:.4e}" for key, val in r.items()), flush=True)
+        del q, k, v, want, f32p
+        torch.cuda.empty_cache()
+
+    def broken(r):
+        return any(r.get(key, 0.0) > bound for key, bound in bounds.items())
+
+    verdict = {name: [label for label, r in by_case.items() if broken(r)]
+               for name, by_case in readings.items()}
+    ok = not verdict["sound"] and all(verdict[name] for name in verdict
+                                      if name != "sound")
+    for name, cases in verdict.items():
+        print(f"[faults] {name}: contract broken in {len(cases)} of "
+              f"{len(readings[name])} cases {cases}", flush=True)
+    print(json.dumps({"ok": ok, "bounds": bounds, "readings": readings,
+                      "broken_in": verdict}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

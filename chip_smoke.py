@@ -66,16 +66,23 @@ from the root of a checkout, on a machine with one CUDA device.  It
    each run free on both devices and again round by round, the CPU
    making each round from the card's state (x, x_hat and s held; QSGD
    levels and top-k selections counted where they move);
-7. holds the flash-attention kernel against its plain version at the
-   full-width prefill layer shape (32768 tokens, 16/8 heads, bf16,
-   causal), at an odd length (1000) and in f32 with a softcap, and times
-   kernel, plain version, ``scaled_dot_product_attention`` (the library
-   yardstick) and the bounds;
+7. holds the flash-attention kernels against their plain version: the
+   bf16 tensor-core kernel (``csrc/flash_attention_sm90.cu``; the build
+   phase checks that its SASS holds wgmma and TMA loads) at the
+   full-width prefill layer shape (32768 tokens, 16/8 heads, causal), at
+   an odd length (1000), at 2048, at Dh 64 with a softcap and non-causal,
+   each to contract (a) (``FLASH_BF16_RTOL``, ``FLASH_BF16_ULP_SHARE``)
+   and its plain version to contract (b) against the f32-P result; the
+   f32 CUDA-core kernel with a softcap within 1e-5 of max|out|; and times
+   the bf16 kernel at the prefill layer, its plain version,
+   ``scaled_dot_product_attention`` (the library yardstick, which the
+   port never calls) and the bounds;
 8. prefills qwen3-1.7b at full width and full depth (28 layers) through
    ``Model.prefill`` with ``attn_impl="chunked"``: one prompt of 32768
    tokens (the ``prefill_32k`` shape, its batch of 32 cut to 1 for one
    card), twice, checking 28 flash launches per call, finite logits and
-   the cache shapes, then profiles one more call;
+   the cache shapes, then profiles one more call, which must attribute
+   28 launches and their device time to the tensor-core kernel;
 9. holds the full-width prefill's last-token logits (prompt 256, batch 2)
    against a decode loop over the same tokens (the JAX consistency
    test's bound, and the same argmax), and times and profiles one
@@ -102,6 +109,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -121,7 +129,8 @@ BF16_TC_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 ODD_LENGTH = 1_000_003
 GOSSIP_KERNELS = ("qsgd_codes_kernel", "sign_codes_kernel",
                   "dequantize_kernel", "ef_update_kernel")
-FLASH_KERNELS = ("flash_attention_kernel",)
+#: the bf16 tensor-core flash kernel (the prefill's) and the f32 one
+FLASH_KERNELS = ("flash_tc_kernel", "flash_attention_kernel")
 #: one node's embedding bucket, 311,164,928 elements, as (R, 128) tiles
 EMBED_TILES = (2_430_976, 128)
 #: (label, shape, k, ties): the top-k mask kernel's cases; the first is
@@ -136,11 +145,15 @@ TOPK_CASES = (
 )
 TRAIN_COMPRESSORS = ("qsgd", "sign", "top_k", "block_top_k")
 #: (label, N, S, H, KV, Dh, dtype, causal, softcap); the first is the
-#: full-width prefill layer, and the one that is timed
+#: full-width prefill layer, and the one that is timed.  Drawn in this
+#: order from one generator, so each case keeps its inputs from run to run.
 FLASH_CASES = (
     ("prefill layer", 1, 32768, 16, 8, 128, "bfloat16", True, None),
     ("odd length", 2, 1000, 16, 8, 128, "bfloat16", True, None),
     ("f32 softcap", 2, 512, 8, 8, 64, "float32", False, 50.0),
+    ("S 2048", 1, 2048, 16, 8, 128, "bfloat16", True, None),
+    ("Dh 64 softcap", 2, 512, 8, 8, 64, "bfloat16", False, 50.0),
+    ("non-causal", 2, 1000, 16, 8, 128, "bfloat16", False, None),
 )
 PREFILL_CALLS = 2
 #: the f32 prefill test's cache tolerance, atol (rtol 1e-5), from
@@ -450,6 +463,13 @@ def profile_call(label, fn, ours, show=True):
               flush=True)
         return None
     groups = {"port kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    # device ms and launches of each of ours, by the name it is matched on
+    by_kernel = {k: [0.0, 0] for k in ours}
+    for e in prof.key_averages():
+        for k in ours:
+            if e.device_type == DeviceType.CUDA and k in e.key:
+                by_kernel[k][0] += dev_us(e) / 1e3
+                by_kernel[k][1] += e.count
     for ms, name in kernels:
         if any(k in name for k in ours):
             groups["port kernels"] += ms
@@ -480,7 +500,7 @@ def profile_call(label, fn, ours, show=True):
             print(f"[profile] host {ms:9.3f} ms  {name[:80]} (x{count})",
                   flush=True)
     return {"wall_ms": wall, "device_busy_ms": busy, "launches": launches,
-            "device_idle_share": idle,
+            "device_idle_share": idle, "by_kernel": by_kernel,
             "host_top": [[ms, name, count] for ms, name, count in host],
             **groups}
 
@@ -1441,11 +1461,13 @@ def check_probe(dev):
     bms, by = bound_ms([x], [got], x.numel())
     record = dict(ms=time_ms(lambda: dispatch.probe_scale(x), 200),
                   plain_ms=time_ms(lambda: ref.probe_scale_ref(x), 200),
-                  library_ms=None, bound_ms=bms, bound_by=by,
+                  library_ms=time_ms(lambda: torch.mul(x, 2), 200),
+                  bound_ms=bms, bound_by=by,
                   shape=list(PROBE_SHAPE), max_abs_err=err)
     print(f"[kernel] probe_scale {PROBE_SHAPE}: bit-equal; {record['ms']:.4f} "
           f"ms (bound {bms:.6f} ms, {by}: the launch latency sets it), plain "
-          f"{record['plain_ms']:.4f} ms", flush=True)
+          f"{record['plain_ms']:.4f} ms, torch.mul(x, 2) "
+          f"{record['library_ms']:.4f} ms", flush=True)
     return record
 
 
@@ -1523,23 +1545,14 @@ def prefill_budget(dev):
     return row
 
 
-def bf16_ulp(got, want):
-    """Per element, the bf16 ulp (2^(e - 7) for magnitudes in
-    [2^e, 2^(e+1))) at the larger magnitude of got and want, in f32."""
-    import torch
-    mag = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(
-        torch.finfo(torch.bfloat16).tiny)
-    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
-
-
 def flash_bounds(tensors_in, out, causal):
-    """(bound ms, bound_by, f32 CUDA-core bound ms) of one attention call:
-    q, k, v read once and out written once at the HBM rate, against 4 * Dh
-    flops per (query, key) pair that the mask keeps (S (S + 1) / 2 pairs
-    per head when causal, S^2 otherwise) at the card's peak rate for the
-    inputs' type (bf16 tensor cores for bf16, f32 outside the tensor cores
-    for f32); and the same flops at the f32 CUDA-core rate, the rate of
-    the arithmetic this kernel does."""
+    """(bound ms, bound_by, f32 CUDA-core bound ms, flops) of one attention
+    call: q, k, v read once and out written once at the HBM rate, against
+    4 * Dh flops per (query, key) pair that the mask keeps (S (S + 1) / 2
+    pairs per head when causal, S^2 otherwise) at the card's peak rate for
+    the inputs' type (bf16 tensor cores for bf16, f32 outside the tensor
+    cores for f32); and the same flops at the f32 CUDA-core rate, the rate
+    of the f32 kernel's arithmetic."""
     import torch
     n, s, h, dh = out.shape
     pairs = s * (s + 1) // 2 if causal else s * s
@@ -1547,28 +1560,37 @@ def flash_bounds(tensors_in, out, causal):
     rate = (BF16_TC_FLOPS_PER_S if out.dtype == torch.bfloat16
             else F32_FLOPS_PER_S)
     bms, by = bound_ms(list(tensors_in), [out], flops, rate)
-    return bms, by, flops / F32_FLOPS_PER_S * 1e3
+    return bms, by, flops / F32_FLOPS_PER_S * 1e3, flops
 
 
-def check_flash(dev):
-    """The flash kernel against its plain version in FLASH_CASES.
-
-    f32: max abs error <= 1e-5 * max|out|.  bf16: every element within 1
-    bf16 ulp of the plain version's output.  Both compute in f32 and round
-    once, at the output; the f32 gap between them is measured too, by the
-    same kernel on the inputs upcast to f32 (the same arithmetic,
-    unrounded), and held to the f32 bound.  Returns the timing record of
-    the first case and the max abs error."""
+def flash_cases(dev):
+    """(label, q, k, v, kwargs) of each of FLASH_CASES in order, normal
+    draws from one generator seeded 3."""
     import torch
-    from repro_torch.kernels import dispatch, ref
     gen = torch.Generator(device=dev).manual_seed(3)
-    record, max_err = None, 0.0
     for label, n, s, h, kv, dh, dtype, causal, cap in FLASH_CASES:
         dt = getattr(torch, dtype)
         q = torch.randn((n, s, h, dh), generator=gen, device=dev).to(dt)
         k = torch.randn((n, s, kv, dh), generator=gen, device=dev).to(dt)
         v = torch.randn((n, s, kv, dh), generator=gen, device=dev).to(dt)
-        kw = dict(causal=causal, softcap=cap)
+        yield label, q, k, v, dict(causal=causal, softcap=cap)
+
+
+def check_flash(dev):
+    """The flash kernels against their plain version in FLASH_CASES.
+
+    f32 (the CUDA-core kernel): max abs error <= 1e-5 * max|out|.  bf16
+    (the tensor-core kernel, P rounded to bf16 as the plain version rounds
+    it): contract (a), max|d| / max|want| <= FLASH_BF16_RTOL and at most
+    FLASH_BF16_ULP_SHARE of the elements more than one bf16 ulp apart; and
+    contract (b), the plain version within FLASH_BF16_F32P_RTOL of the
+    f32-P result.  Returns the timing record of the first case, with every
+    bf16 case's readings, and the max abs error."""
+    import torch
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import flash_attention as fa
+    record, max_err, readings = None, 0.0, {}
+    for label, q, k, v, kw in flash_cases(dev):
         got = dispatch.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -1577,53 +1599,95 @@ def check_flash(dev):
         max_err = max(max_err, err)
         check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite")
         what = f"max abs err {err:.3e}, max |out| {top:.3f}"
-        if dt == torch.float32:
+        if q.dtype == torch.float32:
             check(err <= 1e-5 * top, f"flash {label}: {what} > 1e-5 max|out|")
         else:
-            diff = (got.float() - want.float()).abs()
-            worst = float((diff / bf16_ulp(got, want)).max())
-            del diff
-            check(worst <= 1.0, f"flash {label}: an element is {worst:.2f} "
-                  f"bf16 ulp from the plain version's")
-            up = [t.float() for t in (q, k, v)]
-            got32 = dispatch.flash_attention(*up, **kw)
-            want32 = ref.flash_attention_ref(*up, **kw)
-            gap = float((got32 - want32).abs().max())
-            check(gap <= 1e-5 * float(want32.abs().max()),
-                  f"flash {label}: f32 gap {gap:.3e} > 1e-5 max|out|")
-            once = torch.equal(got, got32.to(dt))
-            what += (f"; every element within {worst:.2f} bf16 ulp of the "
-                     f"plain version; f32 gap on the same inputs {gap:.3e}; "
-                     f"the bf16 output is the f32 kernel's rounded: {once}")
-            del got32, want32, up
+            # (a) the kernel against the plain version; (b) the plain
+            # version against the f32-P result (the f32 path on the upcast
+            # inputs, rounded once at the output)
+            rel, share = fa.bf16_gap(got, want)
+            f32p = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           **kw).to(q.dtype)
+            rel_b, share_b = fa.bf16_gap(want, f32p)
+            del f32p
+            readings[label] = {"a_rel": rel, "a_ulp_share": share,
+                               "b_rel": rel_b, "b_ulp_share": share_b}
+            what += (f"; (a) kernel vs plain max|d|/max|want| {rel:.4e} "
+                     f"(bound {fa.FLASH_BF16_RTOL:.0e}), share > 1 ulp "
+                     f"{share:.4e} (bound {fa.FLASH_BF16_ULP_SHARE:.0e}); "
+                     f"(b) plain vs f32-P {rel_b:.4e} (bound "
+                     f"{fa.FLASH_BF16_F32P_RTOL:.0e}), share > 1 ulp "
+                     f"{share_b:.4e}")
+            check(rel <= fa.FLASH_BF16_RTOL and share <= fa.FLASH_BF16_ULP_SHARE,
+                  f"flash {label}: contract (a) broken: {what}")
+            check(rel_b <= fa.FLASH_BF16_F32P_RTOL,
+                  f"flash {label}: contract (b) broken: {what}")
         print(f"[kernel] flash_attention {label} q{tuple(q.shape)} "
-              f"k{tuple(k.shape)} {dtype} causal={causal} softcap={cap}: "
-              f"{what}", flush=True)
+              f"k{tuple(k.shape)} {str(q.dtype)[6:]} causal={kw['causal']} "
+              f"softcap={kw['softcap']}: {what}", flush=True)
         if record is None:
-            bms, by, f32_ms = flash_bounds((q, k, v), got, causal)
+            causal = kw["causal"]
+            bms, by, f32_ms, flops = flash_bounds((q, k, v), got, causal)
             F = torch.nn.functional
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            plain = ref.flash_attention_ref(q, k, v, **kw)
             lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                  enable_gqa=True)
-            lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
-            del lib
+            lib_err = float((lib.transpose(1, 2).float() - plain.float()).abs().max())
+            del lib, plain
+            ms = time_ms(lambda: dispatch.flash_attention(q, k, v, **kw), 10)
             record = dict(
-                ms=time_ms(lambda: dispatch.flash_attention(q, k, v, **kw), 3),
+                ms=ms,
                 plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 1),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True), 5),
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), 10),
                 bound_ms=bms, bound_by=by, bound_f32_cuda_core_ms=f32_ms,
-                shape=[list(q.shape), list(k.shape)], dtype=dtype)
-            print(f"[kernel] flash_attention {label}: {record['ms']:.3f} ms "
-                  f"(bound {bms:.3f} ms, {by}, at the {dtype} peak; "
-                  f"{f32_ms:.3f} ms at the 67 TFLOP/s f32 CUDA-core rate), "
-                  f"plain {record['plain_ms']:.3f} ms, "
-                  f"scaled_dot_product_attention {record['library_ms']:.3f} ms "
-                  f"(max abs diff to the plain version {lib_err:.3e})",
+                tflop_per_s=flops / ms / 1e9, bound_share=bms / ms,
+                shape=[list(q.shape), list(k.shape)], dtype=str(q.dtype)[6:])
+            print(f"[kernel] flash_attention {label}: {ms:.3f} ms "
+                  f"({record['tflop_per_s']:.1f} TFLOP/s, "
+                  f"{100 * record['bound_share']:.1f}% of the bound {bms:.3f} "
+                  f"ms, {by}, at the bf16 tensor-core peak; {f32_ms:.3f} ms at "
+                  f"the 67 TFLOP/s f32 CUDA-core rate), plain "
+                  f"{record['plain_ms']:.3f} ms, scaled_dot_product_attention "
+                  f"{record['library_ms']:.3f} ms ({ms / record['library_ms']:.2f}x"
+                  f"; max abs diff to the plain version {lib_err:.3e})",
                   flush=True)
         del q, k, v, got, want
         torch.cuda.empty_cache()
+    record["contract"] = readings
+    record["contract_bounds"] = {"a_rel": fa.FLASH_BF16_RTOL,
+                                 "a_ulp_share": fa.FLASH_BF16_ULP_SHARE,
+                                 "b_rel": fa.FLASH_BF16_F32P_RTOL}
     return record, max_err
+
+
+def check_flash_sass(path):
+    """The bf16 flash kernel was compiled to tensor-core code: every
+    ``flash_tc_kernel`` instantiation in the library's SASS
+    (``cuobjdump -sass``) holds wgmma (``HGMMA``) and TMA loads
+    (``UTMALDG``), so a CUDA-core kernel cannot pass for it.  A missing
+    ``cuobjdump`` is a failure."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    check(os.path.exists(tool), f"cuobjdump not found ({tool}): the flash_tc "
+          f"library's SASS cannot be checked")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if "flash_tc_kernel" in name:
+            found[name] = (section.count("HGMMA"), section.count("UTMALDG"))
+    check(len(found) == 2, f"flash_tc SASS: {len(found)} flash_tc_kernel "
+          f"functions, expected 2 (Dh 64 and 128)")
+    for name, (hgmma, utmaldg) in found.items():
+        check(hgmma > 0 and utmaldg > 0, f"flash_tc SASS: {name} has {hgmma} "
+              f"HGMMA and {utmaldg} UTMALDG instructions")
+    print("[build] flash_tc SASS: " + "; ".join(
+        f"{name[-60:]}: {h} HGMMA, {u} UTMALDG"
+        for name, (h, u) in found.items()), flush=True)
+    return found
 
 
 def full_width_serving_model(dev):
@@ -1679,6 +1743,17 @@ def prefill_full_width(model, params, dev):
           f"peak device memory {peak:.3f} GiB", flush=True)
     profile = profile_call("one prefill call", lambda: model.prefill(params, toks),
                            FLASH_KERNELS)
+    check(profile is not None, "prefill: the profiler recorded no device time")
+    tc_ms, tc_launches = profile["by_kernel"]["flash_tc_kernel"]
+    check(tc_launches == cfg.n_layers and tc_ms > 0
+          and profile["by_kernel"]["flash_attention_kernel"][1] == 0,
+          f"prefill: the profiled call's flash kernels {profile['by_kernel']}; "
+          f"expected {cfg.n_layers} launches of flash_tc_kernel and none of "
+          f"the f32 kernel")
+    print(f"[prefill] the profiled call: flash_tc_kernel {tc_launches} "
+          f"launches, {tc_ms:.3f} ms of device time "
+          f"({100 * tc_ms / profile['device_busy_ms']:.1f}% of busy)",
+          flush=True)
     return counts, {"ms_per_call": ms, "peak_gib": peak, "tokens": seq,
                     "batch": batch, "profile": profile}
 
@@ -1834,6 +1909,7 @@ def main():
     for _, log in built:
         for line in log.splitlines():
             print(f"[build] {line}", flush=True)
+    check_flash_sass(build.library_path("flash_tc"))
 
     from repro_torch.comm.packing import leaf_route, make_bucket_spec
     from repro_torch.configs.qwen3_1_7b import CONFIG
@@ -1922,7 +1998,9 @@ def main():
         check(kernels[-1]["launches"] > 0, f"{name} never launched")
     kernels.append({
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        # the bf16 tensor-core kernel, the main path's; f32 inputs take the
+        # CUDA-core kernel of csrc/flash_attention.cu
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": prefill_counts["flash_attention"],
         "launches_by_path": {

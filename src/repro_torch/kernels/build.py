@@ -10,10 +10,15 @@ never load a half-written file.
 * ``gossip`` (``csrc/gossip_kernels.cu``): the four gossip kernels, built
   with ``--fmad=false``: the QSGD codes must be bit-equal to their plain
   versions, and an FMA contraction moves a code by a whole level.
-* ``flash`` (``csrc/flash_attention.cu``): the flash-attention forward,
-  held to a tolerance, so FMA contraction stays on: its inner loops are
-  dot products, and ``--fmad=false`` would split every one of them into
-  a multiply and an add.
+* ``flash`` (``csrc/flash_attention.cu``): the f32 flash-attention
+  forward on the CUDA cores, held to a tolerance, so FMA contraction
+  stays on: its inner loops are dot products, and ``--fmad=false`` would
+  split every one of them into a multiply and an add.
+* ``flash_tc`` (``csrc/flash_attention_sm90.cu``): the bf16
+  flash-attention forward on the tensor cores (wgmma, TMA), held to a
+  tolerance, FMA contraction on like ``flash``; the steps whose rounding
+  the plain version fixes use the rounded intrinsics.  It includes no
+  CUTLASS header and links no ``-lcuda``.
 * ``topk`` (``csrc/block_topk.cu``): the per-row top-k selection mask,
   built with ``--fmad=false``: its mask and thresholds must be bit-equal
   to the plain version.
@@ -64,7 +69,10 @@ LIBRARIES = {
     "flash": Library(
         CSRC / "flash_attention.cu", _COMMON_FLAGS, {
             "flash_attention_f32": _FLASH,
-            "flash_attention_bf16": _FLASH,
+        }),
+    "flash_tc": Library(
+        CSRC / "flash_attention_sm90.cu", _COMMON_FLAGS, {
+            "flash_attention_bf16_tc": _FLASH,
         }),
     "topk": Library(
         CSRC / "block_topk.cu", _COMMON_FLAGS + ("--fmad=false",), {

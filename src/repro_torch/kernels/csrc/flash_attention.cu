@@ -44,12 +44,14 @@
 //
 // Shared memory per CTA: 198 KB at Dh = 128 (one CTA per SM).
 //
+// Its one entry takes f32 inputs; bf16 inputs go to the tensor-core kernel
+// of csrc/flash_attention_sm90.cu.
+//
 // C interface for ctypes: each entry launches on the caller's stream and
 // returns cudaGetLastError() (0 on success).  Nothing synchronises and
 // nothing allocates; the Python wrapper allocates the output.
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -62,18 +64,11 @@ constexpr int kPitch = kBlock + 4;      // row pitch of transposed tiles
 constexpr float kNegInf = -1e30f;       // the Pallas kernel's NEG_INF
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
@@ -286,14 +281,6 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
                         cudaStream_t stream) {
   return dispatch_dh<float>(q, k, v, out, n, s, h, kv, dh, causal, softcap,
                             scale, stream);
-}
-
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                         int64_t n, int64_t s, int64_t h, int64_t kv, int64_t dh,
-                         int causal, float softcap, float scale,
-                         cudaStream_t stream) {
-  return dispatch_dh<__nv_bfloat16>(q, k, v, out, n, s, h, kv, dh, causal,
-                                    softcap, scale, stream);
 }
 
 const char* error_string(int code) {

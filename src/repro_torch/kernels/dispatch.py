@@ -95,7 +95,8 @@ def block_topk_mask(x, k: int):
 
 def flash_attention(q, k, v, *, causal: bool = True, softcap=None):
     """Attention forward, q (N, S, H, Dh), k and v (N, S, KV, Dh) ->
-    (N, S, H, Dh) in q's dtype, computed in f32."""
+    (N, S, H, Dh) in q's dtype: f32 inputs computed in f32, bf16 inputs
+    with P rounded to bf16 before P V (``ref.flash_attention_ref``)."""
     if _on_cpu(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
     return _flash.flash_attention(q, k, v, causal=causal, softcap=softcap)

@@ -1,13 +1,21 @@
-"""CUDA wrapper for the flash-attention forward kernel.
+"""CUDA wrappers for the flash-attention forward kernels.
 
-Replaces the Pallas kernel ``src/repro/kernels/flash_attention.py``:
+Replace the Pallas kernel ``src/repro/kernels/flash_attention.py``:
 ``flash_attention_single`` (:77, body ``_flash_kernel``) and its GQA
-wrapper ``flash_attention`` (:93).  The kernel
-(``csrc/flash_attention.cu``) reads q ``(N, S, H, Dh)`` and k, v
-``(N, S, KV, Dh)`` in place, with no transpose and no repeated KV copy,
-computes in f32 and writes the output in q's dtype.  Any S; Dh 64 or 128;
-bf16 or f32.  It has no backward: the wrapper refuses inputs that need a
-gradient.
+wrapper ``flash_attention`` (:93).  Both kernels read q ``(N, S, H, Dh)``
+and k, v ``(N, S, KV, Dh)`` in place, with no transpose and no repeated
+KV copy, and write the output in q's dtype.  Any S; Dh 64 or 128.  The
+entry follows the dtype, and nothing else:
+
+* float32: ``csrc/flash_attention.cu`` (library ``flash``), on the CUDA
+  cores in f32, within 1e-5 of max|out| of the plain version;
+* bfloat16: ``csrc/flash_attention_sm90.cu`` (library ``flash_tc``), on
+  the tensor cores (wgmma, TMA loads), with P rounded to bf16 before P V,
+  held to the plain version (``ref.flash_attention_ref``, which rounds at
+  the same points) by :data:`FLASH_BF16_RTOL` and
+  :data:`FLASH_BF16_ULP_SHARE` through :func:`bf16_gap`.
+
+Neither has a backward: the wrapper refuses inputs that need a gradient.
 """
 from __future__ import annotations
 
@@ -18,14 +26,45 @@ import torch
 from . import build
 
 HEAD_DIMS = (64, 128)
-_ENTRY = {torch.float32: "flash_attention_f32",
-          torch.bfloat16: "flash_attention_bf16"}
+#: dtype -> (library, entry)
+_ENTRY = {torch.float32: ("flash", "flash_attention_f32"),
+          torch.bfloat16: ("flash_tc", "flash_attention_bf16_tc")}
+#: the bf16 kernel's TMA loads need 16-byte aligned base addresses
+TMA_ALIGN = 16
+
+#: Contract (a), bf16: the kernel against its plain version on the same
+#: inputs, max|d| / max|want| and the share of elements more than one bf16
+#: ulp apart.  On an H100 the sound kernel read at most 2.6e-3 and 2.0e-3
+#: (``chip_smoke.py``'s bf16 cases, S up to 32768); kernels with one
+#: deliberate fault (``chip_flash_faults.py``) read 0.17 or more (the alpha
+#: rescale skipped on one block; the last K/V block read one stage stale)
+#: and a share of 0.22 or more (P truncated, not rounded).
+FLASH_BF16_RTOL = 8e-3
+FLASH_BF16_ULP_SHARE = 1e-2
+#: Contract (b), bf16: the plain version (P rounded to bf16) against the
+#: f32-P result on the same inputs, a loose sanity bound on max|d| /
+#: max|want|: it read 1.9e-3 to 6.0e-3 (on the card and in the CPU tests),
+#: and 0.35 or more with the alpha rescale skipped on one block.
+FLASH_BF16_F32P_RTOL = 2e-2
 
 
-def flash_attention(q, k, v, *, causal: bool = True, softcap=None):
-    """q: (N, S, H, Dh); k, v: (N, S, KV, Dh) -> (N, S, H, Dh), launched
-    on the current stream."""
-    lib = build.load_library("flash")
+def bf16_gap(got, want):
+    """How far a bf16 attention output is from another: ``(max|got - want|
+    / max|want|, share of elements more than one bf16 ulp apart)``, the ulp
+    (2^(e - 7) for magnitudes in [2^e, 2^(e+1))) taken at the larger
+    magnitude of the two."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    rel = float(d.max()) / max(float(w.abs().max()), 1e-30)
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(
+        torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return rel, float((d > ulp).float().mean())
+
+
+def _check(q, k, v) -> None:
+    """Everything the kernels assume that a tensor's metadata shows; raises
+    before any library is loaded."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"expected q (N, S, H, Dh) and k, v (N, S, KV, Dh), "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")
@@ -33,9 +72,17 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap=None):
     KV = k.shape[2]
     if q.dtype not in _ENTRY:
         raise ValueError(f"q: expected float32 or bfloat16, got {q.dtype}")
-    build.require(q, "q", q.dtype)
-    build.require(k, "k", q.dtype, (N, S, KV, Dh))
-    build.require(v, "v", q.dtype, (N, S, KV, Dh))
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name}: expected {q.dtype}, got {t.dtype}")
+        if name != "q" and tuple(t.shape) != (N, S, KV, Dh):
+            raise ValueError(f"{name}: expected shape {(N, S, KV, Dh)}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name}: the bf16 kernel's TMA loads need a "
+                             f"{TMA_ALIGN}-byte aligned base address")
     if KV < 1 or H % KV:
         raise ValueError(f"{H} query heads are not a multiple of {KV} KV heads")
     if Dh not in HEAD_DIMS:
@@ -45,11 +92,24 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap=None):
                          f"(the kernel grid's y dimension)")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("the flash-attention kernel has no backward")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, softcap=None):
+    """q: (N, S, H, Dh); k, v: (N, S, KV, Dh) -> (N, S, H, Dh), launched
+    on the current stream."""
+    _check(q, k, v)
+    library, entry = _ENTRY[q.dtype]
+    lib = build.load_library(library)
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name}: expected a CUDA tensor on q's device, "
+                             f"got {t.device}")
+    N, S, H, Dh = q.shape
     out = torch.empty_like(q)
-    code = getattr(lib, _ENTRY[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), N, S, H, KV,
-        Dh, int(bool(causal)), float(softcap or 0.0), 1.0 / math.sqrt(Dh),
-        build.stream_of(q))
+    code = getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), N, S, H,
+        k.shape[2], Dh, int(bool(causal)), float(softcap or 0.0),
+        1.0 / math.sqrt(Dh), build.stream_of(q))
     build.check_launch(lib, code, "flash_attention")
     flash_attention.launches += 1
     return out

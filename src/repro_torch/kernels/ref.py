@@ -84,7 +84,7 @@ def ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None):
-    """Online-softmax attention, step for step as the flash kernel.
+    """Online-softmax attention, step for step as the flash kernels.
 
     q: (N, S, H, Dh); k, v: (N, S, KV, Dh), H a multiple of KV: head h
     reads KV head h // (H // KV).  Computed in f32 over 128-wide key
@@ -94,13 +94,19 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None):
     ``acc / max(l, 1e-30)``.  A causal query tile stops at the diagonal
     key block, so key block j updates only the query rows from ``j * 128``
     on.  Any S: the last block is ragged.  Returns (N, S, H, Dh) in q's
-    dtype."""
+    dtype.
+
+    bf16 inputs take the tensor-core kernel's rounding points instead:
+    the logits are the product of the f32 upcasts, scaled after it,
+    ``(q k^T) * (1/sqrt(Dh))``; the row sum runs over the f32 p; and p is
+    rounded to bf16 (nearest even) before ``p @ v``, which sums in f32."""
     N, S, H, Dh = q.shape
     KV = k.shape[2]
     rep = H // KV
     f32 = torch.float32
+    bf16 = q.dtype == torch.bfloat16
     # (N, KV, rep, S, Dh): the rep query heads that share one KV head
-    qf = (q.to(f32) * (1.0 / math.sqrt(Dh))).reshape(
+    qf = (q.to(f32) if bf16 else q.to(f32) * (1.0 / math.sqrt(Dh))).reshape(
         N, S, KV, rep, Dh).permute(0, 2, 3, 1, 4)
     kf = k.to(f32).permute(0, 2, 1, 3)[:, :, None]          # (N, KV, 1, S, Dh)
     vf = v.to(f32).permute(0, 2, 1, 3)[:, :, None]
@@ -111,6 +117,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None):
         k1 = min(k0 + FLASH_BLOCK, S)
         r0 = k0 if causal else 0
         logits = qf[..., r0:, :] @ kf[..., k0:k1, :].transpose(-1, -2)
+        if bf16:
+            logits = logits * (1.0 / math.sqrt(Dh))
         if softcap is not None:
             logits = softcap * torch.tanh(logits / softcap)
         if causal:
@@ -122,7 +130,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None):
         p = torch.exp(logits - m_new[..., None])
         alpha = torch.exp(m_old - m_new)
         l_new = l[..., r0:] * alpha + p.sum(dim=-1)
-        acc_new = acc[..., r0:, :] * alpha[..., None] + p @ vf[..., k0:k1, :]
+        pv = (p.to(torch.bfloat16).to(f32) if bf16 else p) @ vf[..., k0:k1, :]
+        acc_new = acc[..., r0:, :] * alpha[..., None] + pv
         # rows before r0 (earlier query tiles) keep their state
         m = torch.cat([m[..., :r0], m_new], dim=-1)
         l = torch.cat([l[..., :r0], l_new], dim=-1)

@@ -19,6 +19,7 @@ import torch
 from repro_torch.configs.base import ChocoConfig, get_config
 from repro_torch.data.synthetic import make_lm_batch_fn
 from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.models.transformer import Model
 from repro_torch.optim.sgd import MomentumSGD, cosine_schedule
 from repro_torch.train.trainer import DecentralizedTrainer
@@ -327,14 +328,6 @@ def test_topk_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         dispatch.block_topk_mask(x[:, :256], 2)
 
 
-def bf16_ulps(got, want):
-    """Largest distance between two bf16 tensors in units of the bf16 ulp
-    (2^(e - 7) for magnitudes in [2^e, 2^(e+1))) at the larger magnitude."""
-    g, w = got.float(), want.float()
-    mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
-    return float(((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
-
-
 def _attn_inputs(seed, n, s, h, kv, dh, dtype, device):
     return [_normal(seed + i, (n, s, x, dh), device).to(dtype)
             for i, x in enumerate((h, kv, kv))]
@@ -344,12 +337,16 @@ def _attn_inputs(seed, n, s, h, kv, dh, dtype, device):
 @pytest.mark.parametrize("n,s,h,kv,dh,dtype,causal,softcap", [
     (1, 2048, 16, 8, 128, torch.bfloat16, True, None),
     (2, 1000, 16, 8, 128, torch.bfloat16, True, None),
+    (2, 512, 8, 8, 64, torch.bfloat16, False, 50.0),
+    (2, 1000, 16, 8, 128, torch.bfloat16, False, None),
     (2, 512, 8, 8, 64, torch.float32, False, 50.0),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, n, s, h, kv, dh, dtype,
                                               causal, softcap):
-    """bf16: every element within 1 bf16 ulp of the plain version (both
-    compute in f32 and round once); f32: within 1e-5 of max |out|."""
+    """bf16 (the tensor-core kernel, P rounded to bf16 as the plain version
+    rounds it): contract (a), max|d| / max|want| within FLASH_BF16_RTOL and
+    at most FLASH_BF16_ULP_SHARE of the elements more than one bf16 ulp
+    apart; f32 (the CUDA-core kernel): within 1e-5 of max |out|."""
     q, k, v = _attn_inputs(s, n, s, h, kv, dh, dtype, cuda)
     got = _launched("flash_attention", lambda: dispatch.flash_attention(
         q, k, v, causal=causal, softcap=softcap))
@@ -357,7 +354,9 @@ def test_flash_attention_kernel_matches_plain(cuda, n, s, h, kv, dh, dtype,
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     if dtype == torch.bfloat16:
-        assert bf16_ulps(got, want) <= 1.0
+        rel, share = flash_kernel.bf16_gap(got, want)
+        assert rel <= flash_kernel.FLASH_BF16_RTOL
+        assert share <= flash_kernel.FLASH_BF16_ULP_SHARE
     else:
         err = float((got - want).abs().max())
         assert err <= 1e-5 * float(want.abs().max())
@@ -378,6 +377,12 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         dispatch.flash_attention(q, k[:, :64].contiguous(), v)
     with pytest.raises(RuntimeError, match="no backward"):
         dispatch.flash_attention(q.requires_grad_(), k, v)
+    # the bf16 kernel loads by TMA: a base 2 bytes off 16-byte alignment
+    qb, kb, vb = (t.detach().to(torch.bfloat16) for t in (q, k, v))
+    flat = torch.empty(1 + vb.numel(), dtype=torch.bfloat16, device=cuda)
+    off = flat[1:].view(vb.shape).copy_(vb)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dispatch.flash_attention(qb, kb, off)
 
 
 @pytest.mark.cuda

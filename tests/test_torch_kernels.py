@@ -22,6 +22,8 @@ The routing tests show that a tensor off the CPU never reaches a plain
 version.  ``tests/test_torch_cuda.py`` holds each CUDA kernel against its
 plain version on the card.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +33,7 @@ from repro.kernels import dispatch as jdispatch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, dispatch, ref
+from repro_torch.kernels import flash_attention as flash_kernel
 
 N = 4
 LENGTHS = [2048, 1000, 4097]          # tile-aligned, odd, one-past-a-tile
@@ -268,14 +271,67 @@ def test_flash_plain_matches_jax_oracle(s, causal, softcap):
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=FLASH_TOL)
 
 
-def test_flash_plain_bf16_is_the_f32_result_rounded():
-    """bf16 inputs are computed in f32 and rounded once, at the output."""
-    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
-               for a in _flash_inputs(7, 1, 300, 4, 1, 128))
+# bf16 inputs: the plain version rounds where the tensor-core kernel does
+# (logits scaled after the product, row sums over the f32 p, p rounded to
+# bf16 before p @ v), so it is no longer the f32 result rounded once.
+
+
+def _bf16_flash_inputs(seed, n, s, h, kv, dh):
+    return [torch.from_numpy(a).to(torch.bfloat16)
+            for a in _flash_inputs(seed, n, s, h, kv, dh)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_plain_bf16_one_block_is_the_rounded_p_formula(dh, causal):
+    """At S = 128 (one key block) the bf16 plain version is, bit for bit,
+    ``(bf16(exp(l - max)) @ v) / sum(exp(l - max))`` with
+    ``l = (q k^T) * (1/sqrt(Dh))`` on the f32 upcasts."""
+    q, k, v = _bf16_flash_inputs(dh, 1, 128, 1, 1, dh)
+    got = ref.flash_attention_ref(q, k, v, causal=causal)
+    q2, k2, v2 = (t[0, :, 0].float() for t in (q, k, v))
+    logits = (q2 @ k2.T) * (1.0 / math.sqrt(dh))
+    if causal:
+        keep = torch.ones(128, 128, dtype=torch.bool).tril()
+        logits = torch.where(keep, logits, ref.NEG_INF)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    want = (e.to(torch.bfloat16).float() @ v2) / e.sum(-1, keepdim=True)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got[0, :, 0], want.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_plain_bf16_rounds_p(dh):
+    """The rounding of P is really there: the bf16 plain version differs
+    from the f32-P result (the f32 path on the upcast inputs, rounded once)
+    in about a tenth of its elements by more than one bf16 ulp (measured
+    0.10-0.12 at S = 300), within the contract's sanity bound."""
+    q, k, v = _bf16_flash_inputs(7, 1, 300, 4, 1, dh)
     got = dispatch.flash_attention(q, k, v, causal=True)
-    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+    f32p = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                    causal=True).to(torch.bfloat16)
-    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    rel, share = flash_kernel.bf16_gap(got, f32p)
+    assert not torch.equal(got, f32p)
+    assert share > 0.01
+    assert rel <= flash_kernel.FLASH_BF16_F32P_RTOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("s", [256, 384])
+def test_flash_plain_bf16_matches_jax_pallas_kernel(s, dh, causal):
+    """The bf16 plain version against the JAX Pallas kernel in interpret
+    mode on the same bf16 inputs.  The Pallas kernel keeps P in f32, so
+    the two differ by P's rounding: max|d| / max|want| measured 2.5e-3 to
+    6.0e-3 in these cases, held to FLASH_BF16_F32P_RTOL (1e-2)."""
+    from repro.kernels.flash_attention import flash_attention as jflash
+    q, k, v = _bf16_flash_inputs(s + dh, 2, s, 4, 2, dh)
+    want = jflash(*(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                    for t in (q, k, v)), causal=causal, interpret=True)
+    got = ref.flash_attention_ref(q, k, v, causal=causal)
+    rel, _ = flash_kernel.bf16_gap(
+        got, torch.from_numpy(np.array(want.astype(jnp.float32))))
+    assert rel <= flash_kernel.FLASH_BF16_F32P_RTOL
 
 
 def test_flash_off_cpu_tensor_never_reaches_the_plain_version(monkeypatch):
@@ -283,7 +339,7 @@ def test_flash_off_cpu_tensor_never_reaches_the_plain_version(monkeypatch):
         raise AssertionError("a plain version ran for an off-CPU tensor")
 
     def loader(name):
-        assert name == "flash"
+        assert name == "flash_tc"
         raise RuntimeError("kernel loader reached")
 
     monkeypatch.setattr(ref, "flash_attention_ref", no_plain)
@@ -294,21 +350,55 @@ def test_flash_off_cpu_tensor_never_reaches_the_plain_version(monkeypatch):
         dispatch.flash_attention(q, kv, kv, causal=True)
 
 
+@pytest.mark.parametrize("view", ["misaligned", "strided"])
+def test_flash_bf16_entry_refuses_what_tma_cannot_load(view, monkeypatch):
+    """The bf16 kernel loads q, k and v by TMA: a base address that is not
+    16-byte aligned, or a view that is not contiguous, is refused before
+    any library is loaded."""
+    def loader(name):
+        raise AssertionError(f"library {name} loaded for a refused view")
+
+    monkeypatch.setattr(build, "load_library", loader)
+    q = _meta((1, 128, 4, 64), torch.bfloat16)
+    kv = _meta((1, 128, 2, 64), torch.bfloat16)
+    if view == "misaligned":
+        # one bf16 element past an aligned base: 2 bytes off
+        flat = _meta((1 + kv.numel(),), torch.bfloat16)
+        bad = flat[1:].view(kv.shape)
+        assert bad.is_contiguous() and bad.data_ptr() % 16 == 2
+        match = "16-byte aligned"
+    else:
+        bad = _meta((1, 2, 128, 64), torch.bfloat16).transpose(1, 2)
+        match = "contiguous"
+    with pytest.raises(ValueError, match=match):
+        dispatch.flash_attention(q, kv, bad, causal=True)
+
+
 def test_flash_has_its_own_library_and_build_flags():
     """The gossip, top-k and probe libraries keep --fmad=false (bit-equal
-    outputs); the flash kernel, held to a tolerance, is built without it,
-    and each library's name hashes its own source and flags."""
+    outputs); both flash kernels, held to a tolerance, are built without
+    it: the f32 one (``flash``) with the common flags alone, the bf16
+    tensor-core one (``flash_tc``) in its own library with the same flags
+    and no CUTLASS include.  Each library's name hashes its own source and
+    flags, and each entry sits in the library its dtype picks."""
     libs = build.LIBRARIES
     assert "--fmad=false" in libs["gossip"].flags
     assert "--fmad=false" in libs["topk"].flags
     assert "--fmad=false" in libs["probe"].flags
-    assert "--fmad=false" not in libs["flash"].flags
+    assert libs["flash"].flags == build._COMMON_FLAGS
+    assert libs["flash_tc"].flags == build._COMMON_FLAGS
     assert libs["flash"].source.name == "flash_attention.cu"
+    assert libs["flash_tc"].source.name == "flash_attention_sm90.cu"
+    assert set(libs["flash"].signatures) == {"flash_attention_f32"}
+    assert set(libs["flash_tc"].signatures) == {"flash_attention_bf16_tc"}
+    assert flash_kernel._ENTRY == {
+        torch.float32: ("flash", "flash_attention_f32"),
+        torch.bfloat16: ("flash_tc", "flash_attention_bf16_tc")}
     assert libs["topk"].source.name == "block_topk.cu"
     assert libs["probe"].source.name == "probe.cu"
     assert all(lib.source.exists() for lib in libs.values())
     paths = {build.library_path(name) for name in libs}
-    assert len(paths) == 4
+    assert len(paths) == 5
     assert set(dispatch.launch_counts()) == {
         "qsgd_codes", "sign_codes", "dequantize", "ef_update",
         "flash_attention", "block_topk_mask", "probe_scale"}

@@ -12,7 +12,9 @@ tokens:
   paths tile K by 1024 (JAX) and 128 (the port).  bfloat16 within 3e-2:
   bf16 keeps 8 bits (2^-8 = 3.9e-3 relative), and a product rounded the
   other way at one place moves later layers by a few ulp; the measured
-  gap is 1.2e-2.
+  gap is 1.0e-2 naive and 1.7e-2 chunked (the port's flash plain version
+  rounds P to bf16 before P V, as its tensor-core kernel does; JAX's
+  chunked scan keeps P in f32).
 * ``Model.decode_step``, step by step over 12 tokens: logits and caches,
   float32, within 1e-5.
 * the serve launcher's loop (``launch.serve.run_request``): its greedy
