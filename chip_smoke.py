@@ -19,7 +19,8 @@ from the root of a checkout, on a machine with one CUDA device.  It
    row, as the trainer calls it (codes of -1, 0 or 1 at these lengths),
    and with inv_norm = 0.999/max|x|, which reaches every level up to s;
    The collective-layer probe kernel is held bit-equal to its plain version
-   at the JAX probe's (8, 128) block and timed;
+   at the JAX probe's (8, 128) block and timed in turns with its plain
+   version and ``torch.mul(x, 2)`` in one loop;
 3. holds the top-k mask kernel against its plain version, bit for bit in
    mask and thresholds: at the tile shape of one node's embedding bucket
    (2,430,976 x 128) with k = 2 and 13, at C = 1024, and with planted
@@ -35,9 +36,16 @@ from the root of a checkout, on a machine with one CUDA device.  It
    gossip_steps x buckets times on its path and not at all off it, then
    profiles one more step of each; then ``[topology]``: the top_k run
    again on a star (per-node self weights, partial rounds), printed
-   beside the ring's ms/step and peak memory;
+   beside the ring's ms/step and peak memory; then ``[modes]``, the same
+   cell through the same code in the paper's three modes: CHOCO-SGD top_k
+   with plain SGD on Dirichlet(0.1) token shards, exact D-SGD (plain) with
+   momentum and the all-reduce baseline with AdamW, checking finite
+   losses and the launches (the EF update per bucket per step under
+   choco, no kernel in the exact modes), and that the card's f32 sqrt is
+   correctly rounded (AdamW's square root relies on it);
 5. runs the training launcher (``repro_torch.launch.train.main``) for a
-   --smoke run with --compressor top_k --fraction 0.05, then the same run
+   --smoke run with --compressor top_k --fraction 0.05 and one with
+   --mode plain --optimizer adamw --data-skew-alpha 0.5, then the first
    with --simulate-devices 4 (4 ranks on the card, the per-rank engine),
    checking its engine line, its probe record and rank 0's launches;
 6. holds small float32 training runs on the card against the same runs on
@@ -45,6 +53,7 @@ from the root of a checkout, on a machine with one CUDA device.  It
    block_top_k, identity with the exact small-leaf bucket, and rand_k and
    randomized gossip fed the same draws on both devices, on the ring;
    top_k on torus, chain, star and the time-varying pair "ring,star";
+   plain on star, allreduce with plain SGD and QSGD under AdamW;
    then the per-rank engine (``[dist]``), one process per gossip node, 4
    ranks sharing the card: the small phase holds the per-rank exchange
    alone bit-equal to the stacked exchange on the card, and 3 per-rank
@@ -58,7 +67,11 @@ from the root of a checkout, on a machine with one CUDA device.  It
    engine's, each rank's peak memory, the wire bytes, the transport and
    the probe record; on star and chain the small phase holds the
    per-rank exchange bit-equal to the stacked one and each rank's bytes
-   sent to its own sends times the payload bytes;
+   sent to its own sends times the payload bytes; plain (ring; star, 2
+   rounds) and allreduce hold the exchange alone bit-equal (allreduce:
+   within 1e-6, its sum runs in gloo's order), 3 steps to the ``[small]``
+   rules, each rank's bytes by formula and no launch, the probe included;
+   the full-width plain mode's bytes are printed as computed;
    then ``[sim]``, the paper's algorithms as matrix simulators on the card
    against the CPU: CHOCO-Gossip at the quickstart's sizes (ring 25, d
    2000: exact, QSGD(127), top 1%) and CHOCO-SGD (QSGD(16), top 1%) with
@@ -76,7 +89,8 @@ from the root of a checkout, on a machine with one CUDA device.  It
    f32 CUDA-core kernel with a softcap within 1e-5 of max|out|; and times
    the bf16 kernel at the prefill layer, its plain version,
    ``scaled_dot_product_attention`` (the library yardstick, which the
-   port never calls) and the bounds;
+   port never calls) and the bounds, and the f32 kernel at the same
+   shape beside SDPA on the same f32 inputs;
 8. prefills qwen3-1.7b at full width and full depth (28 layers) through
    ``Model.prefill`` with ``attn_impl="chunked"``: one prompt of 32768
    tokens (the ``prefill_32k`` shape, its batch of 32 cut to 1 for one
@@ -179,6 +193,35 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_interleaved_ms(fns, rounds, per_round):
+    """Mean device ms per call of each of ``fns``, timed in turns in one
+    loop: each round times ``per_round`` calls of each between CUDA
+    events, the order reversed every other round, so what drifts over the
+    loop falls on all of them alike.  Returns (the means, each one's share
+    of the rounds in which it was the fastest)."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    total = [0.0] * len(fns)
+    wins = [0] * len(fns)
+    for r in range(rounds):
+        order = list(range(len(fns)))[::(-1 if r % 2 else 1)]
+        ms = [0.0] * len(fns)
+        for i in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(per_round):
+                fns[i]()
+            end.record()
+            end.synchronize()
+            ms[i] = start.elapsed_time(end) / per_round
+            total[i] += ms[i]
+        wins[ms.index(min(ms))] += 1
+    return [t / rounds for t in total], [w / rounds for w in wins]
 
 
 def bound_ms(tensors_in, tensors_out, flops, flops_per_s=F32_FLOPS_PER_S):
@@ -505,16 +548,19 @@ def profile_call(label, fn, ours, show=True):
             **groups}
 
 
-def train_full_width(compressor, dev, topology="ring"):
+def train_full_width(compressor, dev, topology="ring", mode="choco",
+                     optimizer="momentum", lr=0.1, skew=None):
     """Full-width qwen3-1.7b (2 layers), 4 nodes, on ``topology`` (1
-    gossip round per step): STEPS steps."""
+    gossip round per step), in ``mode`` with the ``optimizer`` local step
+    at ``lr``, on Dirichlet(``skew``) token shards where given: STEPS
+    steps, then one profiled step."""
     import torch
     from repro_torch.configs.base import ChocoConfig
     from repro_torch.configs.qwen3_1_7b import CONFIG
     from repro_torch.data.synthetic import make_lm_batch_fn
     from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model, count_params
-    from repro_torch.optim.sgd import MomentumSGD, cosine_schedule
+    from repro_torch.optim.sgd import cosine_schedule, make_optimizer
     from repro_torch.train.trainer import DecentralizedTrainer
 
     cfg = dataclasses.replace(CONFIG, n_layers=2)
@@ -523,21 +569,27 @@ def train_full_width(compressor, dev, topology="ring"):
     torch.cuda.reset_peak_memory_stats()
     tr = DecentralizedTrainer(
         model=Model(cfg), choco=ChocoConfig(compressor=compressor, comp_kwargs=kw,
-                                            topology=topology),
-        n_nodes=N_NODES, optimizer=MomentumSGD(),
-        lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
-        device=dev)
+                                            topology=topology,
+                                            data_skew_alpha=skew),
+        n_nodes=N_NODES, optimizer=make_optimizer(optimizer),
+        lr_fn=cosine_schedule(lr, warmup=STEPS // 10 + 1, total=STEPS),
+        device=dev, mode=mode)
     state = tr.init_state(seed=0)
     init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     # the launcher's default sequence for the uncut 28-layer model
     seq = min(CONFIG.n_layers * 64, 512)
-    batches = make_lm_batch_fn(cfg, seq, 4, N_NODES, 1.0)
+    batches = make_lm_batch_fn(cfg, seq, 4, N_NODES, 1.0, skew_alpha=skew)
+    label = compressor if mode == "choco" else "none"
+    skew_tv = None if skew is None else batches.skew_tv
     print(f"[train] arch={cfg.name} layers={cfg.n_layers} seq={seq} batch=4 "
           f"params={count_params(cfg) / 1e6:.1f}M nodes={N_NODES} "
+          f"mode={mode} optimizer={optimizer} lr={lr} "
           f"topology={topology} rounds={tr.schedules[0].n_rounds} "
-          f"compressor={compressor} buckets={tr.spec.n_buckets} "
-          f"gamma={tr.gamma:.3e}", flush=True)
+          f"compressor={label} buckets={tr.spec.n_buckets} "
+          f"gamma={tr.gamma:.3e}"
+          + ("" if skew is None else
+             f" data_skew_alpha={skew} skew_tv={skew_tv:.6f}"), flush=True)
     dispatch.reset_launch_counts()
     losses, step_ms = [], []
     for _ in range(STEPS):
@@ -555,39 +607,100 @@ def train_full_width(compressor, dev, topology="ring"):
     retries = torch.cuda.memory_stats()["num_alloc_retries"]
     check(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
     expected = STEPS * tr.choco.gossip_steps * tr.spec.n_buckets
-    # sparse payloads decode by scatter: no dequantize launch on their path
-    on_path = {"qsgd_codes": compressor == "qsgd",
-               "sign_codes": compressor == "sign",
-               "dequantize": compressor in ("qsgd", "sign"), "ef_update": True,
-               "flash_attention": False, "block_topk_mask": False}
+    # sparse payloads decode by scatter: no dequantize launch on their path;
+    # the exact modes launch no kernel
+    choco = mode == "choco"
+    on_path = {"qsgd_codes": choco and compressor == "qsgd",
+               "sign_codes": choco and compressor == "sign",
+               "dequantize": choco and compressor in ("qsgd", "sign"),
+               "ef_update": choco, "flash_attention": False,
+               "block_topk_mask": False, "probe_scale": False}
     for name, used in on_path.items():
         want = expected if used else 0
-        print(f"[train] {compressor}: {name} launches {counts[name]} "
-              f"(expected {STEPS} steps x {tr.choco.gossip_steps} gossip_steps "
-              f"x {tr.spec.n_buckets} buckets = {want})", flush=True)
+        print(f"[train] {mode} {label}: {name} launches {counts[name]} "
+              f"(expected {want}: {STEPS} steps x {tr.choco.gossip_steps} "
+              f"gossip_steps x {tr.spec.n_buckets} buckets on its path, "
+              f"else 0)", flush=True)
         check(counts[name] == want, f"{name}: {counts[name]} launches, "
               f"expected {want}")
-    print(f"[train] {compressor}: losses {losses}; ms/step {step_ms} (first "
-          f"step included); peak device memory {peak:.2f} GiB over the steps, "
-          f"{init_peak:.2f} GiB at init; allocator retries (cache flushed to "
-          f"fit an allocation) so far {retries}", flush=True)
+    print(f"[train] {mode} {label} {optimizer}: losses {losses}; ms/step "
+          f"{step_ms} (first step included); peak device memory {peak:.2f} "
+          f"GiB over the steps, {init_peak:.2f} GiB at init; allocator "
+          f"retries (cache flushed to fit an allocation) so far {retries}",
+          flush=True)
     batch = tr.batch_to_device(batches())
-    profile = profile_call(f"one {compressor} step on the {topology}",
-                           lambda: tr.step(state, batch), GOSSIP_KERNELS)
+    profile = profile_call(f"one {mode} {label} {optimizer} step on the "
+                           f"{topology}", lambda: tr.step(state, batch),
+                           GOSSIP_KERNELS)
     del state, tr
     torch.cuda.empty_cache()
-    return counts, {"topology": topology, "losses": losses,
-                    "ms_per_step": step_ms, "peak_gib": peak, "init_peak_gib": init_peak,
-                    "alloc_retries": retries, "profile": profile}
+    return counts, {"topology": topology, "mode": mode,
+                    "optimizer": optimizer, "lr": lr, "skew_alpha": skew,
+                    "skew_tv": skew_tv, "losses": losses,
+                    "ms_per_step": step_ms, "peak_gib": peak,
+                    "init_peak_gib": init_peak, "alloc_retries": retries,
+                    "profile": profile}
 
 
-def run_launcher():
-    """The user's entry point, --smoke, on the card, with top_k gossip."""
+def check_card_sqrt(dev):
+    """AdamW's square root is ``sqrt_`` on the card (``optim/sgd.py:
+    _sqrt_``), which assumes CUDA's f32 sqrt is correctly rounded: held
+    here against the float64 root rounded to f32 on 2^24 values spread
+    over 2^-40 .. 2^40."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.exp2(torch.rand(1 << 24, generator=gen, device=dev) * 80 - 40)
+    got, want = x.sqrt(), x.double().sqrt().float()
+    moved = int((got != want).sum())
+    print(f"[modes] torch.sqrt on the card against the float64 root rounded "
+          f"to f32: {moved} of {x.numel()} values differ", flush=True)
+    check(moved == 0, f"the card's f32 sqrt is not correctly rounded "
+          f"({moved} values)")
+
+
+#: [modes]: (label, mode, compressor, optimizer, lr, data skew alpha) of the
+#: full-width runs: CHOCO-SGD top_k 0.01 with Algorithm 2's own local step
+#: on skewed data, exact D-SGD with the launcher's default local step, and
+#: the all-reduce baseline with AdamW
+MODES_RUNS = (("choco_top_k_sgd_skew", "choco", "top_k", "sgd", 0.1, 0.1),
+              ("plain_momentum", "plain", "top_k", "momentum", 0.1, None),
+              ("allreduce_adamw", "allreduce", "top_k", "adamw", 1e-3, None))
+
+
+def modes_full_width(dev):
+    """[modes]: MODES_RUNS at full width through ``train_full_width``,
+    each printed beside the others: ms/step, peak memory, allocator
+    retries, skew_tv; the launch counts are checked there."""
+    check_card_sqrt(dev)
+    runs = {}
+    for label, mode, comp, opt, lr, skew in MODES_RUNS:
+        runs[label] = train_full_width(comp, dev, mode=mode, optimizer=opt,
+                                       lr=lr, skew=skew)
+    for label, (counts, rec) in runs.items():
+        print(f"[modes] {label}: ms/step {rec['ms_per_step']} (first step "
+              f"included); peak {rec['peak_gib']:.3f} GiB; allocator retries "
+              f"{rec['alloc_retries']}; skew_tv {rec['skew_tv']}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return runs
+
+
+#: the launcher's --smoke runs on the card: (label, extra flags); the
+#: first is the choco path, the second the exact mode with the new flags
+LAUNCHER_RUNS = (("launcher_smoke", ["--compressor", "top_k", "--fraction",
+                                     "0.05"]),
+                 ("launcher_plain_adamw_skew", ["--mode", "plain",
+                                                "--optimizer", "adamw",
+                                                "--data-skew-alpha", "0.5"]))
+
+
+def run_launcher(extra):
+    """The user's entry point, --smoke, on the card, with ``extra`` flags:
+    finite losses, and the EF update per bucket per step under choco and
+    no kernel in the exact modes."""
     from repro_torch.kernels import dispatch
     from repro_torch.launch.train import main
     argv = ["--arch", "qwen3-1.7b", "--smoke", "--mesh", f"{N_NODES}x1",
-            "--compressor", "top_k", "--fraction", "0.05", "--steps",
-            str(STEPS), "--device", "cuda"]
+            "--steps", str(STEPS), "--device", "cuda", *extra]
     dispatch.reset_launch_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -601,11 +714,13 @@ def run_launcher():
     check(losses and all(math.isfinite(v) for v in losses),
           f"launcher losses {losses}")
     buckets = int(out.split("buckets=")[1].split()[0])
-    want = STEPS * buckets
+    want = STEPS * buckets if "mode=choco" in out else 0
     check(counts["ef_update"] == want and sum(counts.values()) == want,
           f"launcher launch counts {counts}, expected {want} ef_update "
           f"launches and no other")
-    print(f"[launcher] launches {counts}", flush=True)
+    if "--data-skew-alpha" in extra:
+        check("skew_tv=" in out, "launcher: no skew_tv in the header")
+    print(f"[launcher] {' '.join(extra)}: launches {counts}", flush=True)
     return counts
 
 
@@ -649,20 +764,34 @@ def run_launcher_per_rank():
     return counts
 
 
-#: (compressor, comp_kwargs, exact_small_leaves, topology, gossip_steps) of
-#: the [small] runs: every compressor on the ring, then top_k on the other
-#: graphs (per-node self weights and partial rounds on chain and star) and
-#: on a time-varying pair whose two W differ
-SMALL_RUNS = (("sign", (), False, "ring", 1),
-              ("top_k", (("fraction", 0.05),), False, "ring", 1),
-              ("block_top_k", (("fraction", 0.05),), False, "ring", 1),
-              ("identity", (), True, "ring", 1),
-              ("rand_k", (("fraction", 0.05),), False, "ring", 1),
-              ("randomized_gossip", (("p", 0.5),), False, "ring", 1),
-              ("top_k", (("fraction", 0.05),), False, "torus", 1),
-              ("top_k", (("fraction", 0.05),), False, "chain", 1),
-              ("top_k", (("fraction", 0.05),), False, "star", 1),
-              ("top_k", (("fraction", 0.05),), False, "ring,star", 2))
+#: (compressor, comp_kwargs, exact_small_leaves, topology, gossip_steps,
+#: mode, optimizer, lr) of the [small] runs: every compressor on the ring,
+#: then top_k on the other graphs (per-node self weights and partial rounds
+#: on chain and star) and on a time-varying pair whose two W differ; then
+#: the exact modes (plain on star, 2 rounds; allreduce with plain SGD) and
+#: the kernels' path under AdamW (QSGD, at AdamW's lr)
+SMALL_RUNS = (("sign", (), False, "ring", 1, "choco", "momentum", 0.1),
+              ("top_k", (("fraction", 0.05),), False, "ring", 1, "choco",
+               "momentum", 0.1),
+              ("block_top_k", (("fraction", 0.05),), False, "ring", 1,
+               "choco", "momentum", 0.1),
+              ("identity", (), True, "ring", 1, "choco", "momentum", 0.1),
+              ("rand_k", (("fraction", 0.05),), False, "ring", 1, "choco",
+               "momentum", 0.1),
+              ("randomized_gossip", (("p", 0.5),), False, "ring", 1, "choco",
+               "momentum", 0.1),
+              ("top_k", (("fraction", 0.05),), False, "torus", 1, "choco",
+               "momentum", 0.1),
+              ("top_k", (("fraction", 0.05),), False, "chain", 1, "choco",
+               "momentum", 0.1),
+              ("top_k", (("fraction", 0.05),), False, "star", 1, "choco",
+               "momentum", 0.1),
+              ("top_k", (("fraction", 0.05),), False, "ring,star", 2, "choco",
+               "momentum", 0.1),
+              ("none", (), False, "star", 2, "plain", "momentum", 0.1),
+              ("none", (), False, "ring", 1, "allreduce", "sgd", 0.1),
+              ("qsgd", (("s", 16),), False, "ring", 1, "choco", "adamw",
+               1e-3))
 
 
 def small_draws(tr, step):
@@ -670,7 +799,7 @@ def small_draws(tr, step):
     from a seed, so the card and the CPU run get the same ones."""
     import torch
     from repro_torch.comm import packing
-    if not tr.compressor.stochastic:
+    if tr.compressor is None or not tr.compressor.stochastic:
         return None
 
     def draws(t, b):
@@ -684,9 +813,10 @@ def small_draws(tr, step):
 def small_cuda_vs_cpu(dev):
     """The smoke decoder in float32, 3 steps on the card and on the CPU from
     the same weights, per SMALL_RUNS (every compressor on the ring; top_k
-    on torus, chain, star and the pair "ring,star" with 2 gossip rounds):
-    losses within 1e-5 relative.  SignNorm
-    keeps its x within 1e-5.  The others: x within 1e-5 + 1e-5 max|x|.  A
+    on torus, chain, star and the pair "ring,star" with 2 gossip rounds;
+    plain on star, allreduce, QSGD under AdamW): losses within 1e-5
+    relative.  SignNorm keeps its x within 1e-5.  The others: x within
+    1e-5 + 1e-5 max|x|.  A
     summation-order difference in a gradient could move a top-k selection
     at the k-th magnitude, which would move x_hat there by a whole delta
     (> 1e-4) and x by gamma times at most twice the largest |x_hat|.  Such
@@ -695,27 +825,32 @@ def small_cuda_vs_cpu(dev):
     an H100 has moved one, so one that moves is a difference to look into.
     SignNorm flips a code where x - x_hat lies within rounding of zero;
     every run on an H100 so far moved 2 such coordinates of x_hat, and the
-    limit allows one per node per step, its x being held to 1e-5 anyway."""
+    limit allows one per node per step, its x being held to 1e-5 anyway.
+    QSGD may move a level where a value lies within rounding of a level
+    boundary (its norm sums in another order), under the same limit.  The
+    exact modes have no x_hat: every coordinate of x is held.  Launches:
+    per step, bucket and round one EF update, and the codes and dequantize
+    kernels of QSGD and sign, under choco; none in the exact modes."""
     from repro_torch.configs.base import ChocoConfig, get_config
     from repro_torch.data.synthetic import make_lm_batch_fn
     from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model
-    from repro_torch.optim.sgd import MomentumSGD, cosine_schedule
+    from repro_torch.optim.sgd import cosine_schedule, make_optimizer
     from repro_torch.train.trainer import DecentralizedTrainer
 
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
     params = Model(cfg).init(N_NODES, 1, "cpu")
-    report = {}
-    for comp, kw, exact, topology, steps_k in SMALL_RUNS:
+    report, launches = {}, {k: 0 for k in kernel_names()}
+    for comp, kw, exact, topology, steps_k, mode, opt, lr in SMALL_RUNS:
         runs = {}
         for device in (dev, "cpu"):
             tr = DecentralizedTrainer(
                 model=Model(cfg), choco=ChocoConfig(
                     compressor=comp, comp_kwargs=kw, exact_small_leaves=exact,
                     topology=topology, gossip_steps=steps_k),
-                n_nodes=N_NODES, optimizer=MomentumSGD(),
-                lr_fn=cosine_schedule(0.1, 1, STEPS), device=device)
+                n_nodes=N_NODES, optimizer=make_optimizer(opt),
+                lr_fn=cosine_schedule(lr, 1, STEPS), device=device, mode=mode)
             state = tr.state_from_params(params)
             batches = make_lm_batch_fn(cfg, 128, 4, N_NODES, 1.0)
             dispatch.reset_launch_counts()
@@ -724,39 +859,60 @@ def small_cuda_vs_cpu(dev):
                       for j in range(STEPS)]
             counts = dispatch.launch_counts()
             runs[str(device)] = (losses, [b.cpu() for b in state.x],
-                                 [b.cpu() for b in state.x_hat], counts)
+                                 None if state.x_hat is None
+                                 else [b.cpu() for b in state.x_hat], counts)
         (lc, xc, hc, counts), (lp, xp, hp, _) = runs[str(dev)], runs["cpu"]
-        check(counts["ef_update"] == STEPS * steps_k * tr.spec.n_buckets,
-              f"[small] {comp} {topology}: ef_update launches {counts}")
+        per_kernel = STEPS * steps_k * tr.spec.n_buckets
+        choco = mode == "choco"
+        want = {k: 0 for k in counts}
+        want["ef_update"] = per_kernel if choco else 0
+        if choco and comp in ("qsgd", "sign"):
+            want[f"{comp}_codes"] = want["dequantize"] = per_kernel
+        check(counts == want, f"[small] {mode} {comp} {topology}: launches "
+              f"{counts}, expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
         check(any(b.exact for b in tr.spec.buckets) == exact,
               f"[small] {comp}: exact buckets")
+        gammas = (tr.exchange.bucket_gammas if choco
+                  else [0.0] * tr.spec.n_buckets)
         moved, dx, dx_moved, total = hold_small(
-            "[small]", comp, tr.exchange.bucket_gammas, (lc, xc, hc),
-            (lp, xp, hp))
-        print(f"[small] smoke f32 {comp}{' exact_small_leaves' if exact else ''}"
-              f" on {topology}, gossip_steps {steps_k}, {STEPS} steps: CUDA "
-              f"losses {lc} vs CPU {lp}; max |x_cuda - "
+            "[small]", comp, gammas, (lc, xc, hc), (lp, xp, hp),
+            level_flips=comp == "qsgd")
+        what = comp if choco else mode
+        print(f"[small] smoke f32 {what}{' exact_small_leaves' if exact else ''}"
+              f" {opt} lr {lr} on {topology}, gossip_steps {steps_k}, {STEPS} "
+              f"steps: CUDA losses {lc} vs CPU {lp}; max |x_cuda - "
               f"x_cpu| = {dx:.3e}; moved selections {moved} of {total} "
               f"coordinates (max |dx| there {dx_moved:.3e}); launches "
               f"{ {k: v for k, v in counts.items() if v} }", flush=True)
-        key = comp if topology == "ring" else f"{comp}@{topology}"
+        key = what if topology == "ring" else f"{what}@{topology}"
+        if opt != "momentum":
+            key += f"+{opt}"
         report[key] = {"losses_cuda": lc, "losses_cpu": lp, "max_dx": dx,
                        "moved": moved, "coordinates": total}
+    report["launches"] = launches
     return report
 
 
-def hold_small(label, comp, gammas, got, want):
+def hold_small(label, comp, gammas, got, want, level_flips=False):
     """The ``[small]`` rules of ``small_cuda_vs_cpu`` for one run ``got`` =
-    (losses, x buffers, x_hat buffers) against ``want``, buffers on the
-    CPU.  Returns (moved coordinates, max |dx|, max |dx| at the moved ones,
-    coordinates)."""
+    (losses, x buffers, x_hat buffers or None in the exact modes) against
+    ``want``, buffers on the CPU; ``level_flips`` allows QSGD's moved
+    levels (card against CPU).  Returns (moved coordinates, max |dx|, max
+    |dx| at the moved ones, coordinates)."""
     import numpy as np
+    import torch
     (lc, xc, hc), (lp, xp, hp) = got, want
+    if hc is None:
+        hc = hp = [None] * len(xc)
     moved, dx_moved = 0, 0.0
     for a, b, ha, hb, g in zip(xc, xp, hc, hp, gammas):
-        at = (ha - hb).abs() > 1e-4
-        moved += int(at.sum())
         d = (a - b).abs()
+        # the moved selections: none without x_hat (the exact modes)
+        at = ((ha - hb).abs() > 1e-4 if ha is not None
+              else torch.zeros_like(d, dtype=torch.bool))
+        moved += int(at.sum())
         rest = float(d[~at].max()) if (~at).any() else 0.0
         check(rest <= 1e-5 + 1e-5 * float(b.abs().max()),
               f"{label} {comp}: iterates differ by {rest} off the moved "
@@ -770,7 +926,7 @@ def hold_small(label, comp, gammas, got, want):
           f"{label} {comp}: losses differ: {lc} against {lp}")
     if comp == "sign":
         check(dx <= 1e-5, f"{label} {comp}: iterates differ by {dx}")
-    limit = N_NODES * STEPS if comp == "sign" else 0
+    limit = N_NODES * STEPS if comp == "sign" or level_flips else 0
     check(moved <= limit, f"{label} {comp}: {moved} coordinates moved "
           f"(limit {limit})")
     return moved, dx, dx_moved, sum(b.numel() for b in xp)
@@ -785,25 +941,41 @@ DIST_SMALL = (("top_k", (("fraction", 0.05),), 1), ("qsgd", (("s", 16),), 2),
 DIST_TOPOLOGIES = ("star", "chain")
 DIST_TOPOLOGY_RUNS = (("top_k", (("fraction", 0.05),), 1),
                       ("qsgd", (("s", 16),), 2))
-SENDS_PER_ROUND = {"star": (3, 1, 1, 1), "chain": (1, 2, 2, 1)}
+SENDS_PER_ROUND = {"ring": (2, 2, 2, 2), "star": (3, 1, 1, 1),
+                   "chain": (1, 2, 2, 1)}
+#: the exact modes of the [dist] small phase: (mode, topology, gossip_steps)
+DIST_MODE_RUNS = (("plain", "ring", 1), ("plain", "star", 2),
+                  ("allreduce", "ring", 1))
 #: the full-width [dist] phase's compressor and, per node, sequence and batch
 DIST_FULL = ("top_k", (("fraction", 0.01),), 1)
 DIST_SEQ, DIST_BATCH = 512, 4
 DIST_TIMEOUT_S = 300.0
 
 
-def _dist_trainer(comp, kw, steps_k, cfg, dev, group=None, topology="ring"):
+def _dist_trainer(comp, kw, steps_k, cfg, dev, group=None, topology="ring",
+                  mode="choco"):
     from repro_torch.configs.base import ChocoConfig
     from repro_torch.models.transformer import Model
-    from repro_torch.optim.sgd import MomentumSGD, cosine_schedule
+    from repro_torch.optim.sgd import cosine_schedule, momentum_sgd
     from repro_torch.train.trainer import DecentralizedTrainer
     return DecentralizedTrainer(
         model=Model(cfg), choco=ChocoConfig(compressor=comp, comp_kwargs=kw,
                                             topology=topology,
                                             gossip_steps=steps_k),
-        n_nodes=N_NODES, optimizer=MomentumSGD(),
+        n_nodes=N_NODES, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
-        device=dev, group=group)
+        device=dev, group=group, mode=mode)
+
+
+def exact_wire_bytes(mode, topology, steps_k, rank, spec):
+    """The bytes node ``rank`` sends per exchange call in an exact mode:
+    its sends per call x the f32 buckets' bytes (4 per padded element)
+    under plain; 2 (n - 1) / n of those bytes under allreduce (a ring
+    all-reduce: a reduce-scatter, then an all-gather)."""
+    nbytes = sum(4 * b.size for b in spec.buckets)
+    if mode == "allreduce":
+        return 2 * (N_NODES - 1) * nbytes // N_NODES
+    return steps_k * SENDS_PER_ROUND[topology][rank] * nbytes
 
 
 def _dist_group(rank, store):
@@ -830,9 +1002,10 @@ def _exchange_inputs(spec):
 
 
 def _dist_small_rank(rank, store, out_dir):
-    """One rank of the [dist] small phase: per DIST_SMALL run, the exchange
-    alone on its row of ``_exchange_inputs`` (seed 23), then STEPS steps of
-    the smoke decoder in f32 from node ``rank``'s weights."""
+    """One rank of the [dist] small phase: per DIST_MODE_RUNS and
+    DIST_SMALL run, the exchange alone on its row of ``_exchange_inputs``
+    (seed 23), then STEPS steps of the smoke decoder in f32 from node
+    ``rank``'s weights; the exact modes' launches are counted apart."""
     import torch
     from repro_torch.data.synthetic import make_lm_batch_fn
     from repro_torch.kernels import dispatch
@@ -843,6 +1016,26 @@ def _dist_small_rank(rank, store, out_dir):
     params = Model(cfg).init(N_NODES, 1, "cpu", nodes=(rank,))
     dispatch.reset_launch_counts()
     out = {}
+    # the exact modes first, so their builds would be the first to probe
+    for mode, topology, steps_k in DIST_MODE_RUNS:
+        tr = _dist_trainer("top_k", (), steps_k, cfg, group.device, group,
+                           topology, mode)
+        bufs = [[b[rank:rank + 1].to(group.device) for b in part]
+                for part in _exchange_inputs(tr.spec)]
+        before = group.bytes_sent
+        tr.exchange(*bufs, seed=23)
+        sent = group.bytes_sent - before
+        state = tr.state_from_params(params)
+        batches = make_lm_batch_fn(cfg, 128, 4, N_NODES, 1.0, node=rank)
+        mets = [tr.step(state, tr.batch_to_device(batches()))
+                for _ in range(STEPS)]
+        out[(mode, topology)] = {
+            "exchange": [b.cpu() for b in bufs[0]], "sent": sent,
+            "losses": [m["loss"] for m in mets],
+            "wire_bytes": [m["wire_bytes"] for m in mets],
+            "x": [b.cpu() for b in state.x]}
+    torch.cuda.synchronize()
+    out["exact_launches"] = dispatch.launch_counts()
     for comp, kw, steps_k in DIST_SMALL:
         tr = _dist_trainer(comp, kw, steps_k, cfg, group.device, group)
         bufs = [[b[rank:rank + 1].to(group.device) for b in part]
@@ -882,7 +1075,11 @@ def dist_small(dev):
     same inputs bit-equal, and STEPS trainer steps held to the [small]
     rules (``hold_small``); on star and chain (DIST_TOPOLOGY_RUNS), the
     exchange alone bit-equal and each rank's bytes sent equal to its own
-    sends times one payload's bytes."""
+    sends times one payload's bytes.  The exact modes (DIST_MODE_RUNS):
+    the exchange alone bit-equal under plain and within 1e-6 under
+    allreduce (the sum runs in another order), STEPS steps to the [small]
+    rules, each rank's bytes per call and per step by
+    ``exact_wire_bytes``, and no kernel launched, the probe included."""
     import tempfile
     import torch
     from repro_torch.data.synthetic import make_lm_batch_fn
@@ -900,7 +1097,57 @@ def dist_small(dev):
           flush=True)
     cfg = _small_cfg()
     params = Model(cfg).init(N_NODES, 1, "cpu")
-    report = {"launches": [r["launches"] for r in ranks]}
+    report = {"launches": [r["launches"] for r in ranks],
+              "exact_launches": [r["exact_launches"] for r in ranks]}
+    check(not any(any(r["exact_launches"].values()) for r in ranks),
+          f"[dist] the exact modes launched kernels (the probe included): "
+          f"{report['exact_launches']}")
+    for mode, topology, steps_k in DIST_MODE_RUNS:
+        tr = _dist_trainer("top_k", (), steps_k, cfg, dev, topology=topology,
+                           mode=mode)
+        recs = [r[(mode, topology)] for r in ranks]
+        bufs = [[b.to(dev) for b in part] for part in _exchange_inputs(tr.spec)]
+        tr.exchange(*bufs, seed=23)
+        diff = max(float((rec["exchange"][b][0] - bufs[0][b][i].cpu())
+                         .abs().max())
+                   for i, rec in enumerate(recs)
+                   for b in range(tr.spec.n_buckets))
+        want = [exact_wire_bytes(mode, topology, steps_k, r, tr.spec)
+                for r in range(N_NODES)]
+        sent = [rec["sent"] for rec in recs]
+        wire = [rec["wire_bytes"] for rec in recs]
+        order = ("" if mode == "plain" else
+                 "; the ranks sum in gloo's ring order on host buffers, the "
+                 "stacked engine in node order 0..3 on the card")
+        print(f"[dist] small {mode} on {topology}, gossip_steps={steps_k}: the "
+              f"exchange alone, per rank against the stacked exchange on the "
+              f"card: max |dx| {diff:.3e} (bit-equal: {diff == 0.0}){order}; "
+              f"bytes sent per rank {sent}, per step {wire}, formula {want}",
+              flush=True)
+        check(diff == 0.0 if mode == "plain" else diff <= 1e-6,
+              f"[dist] {mode} on {topology}: the per-rank exchange differs "
+              f"from the stacked one by {diff}")
+        check(sent == want and all(w == [v] * STEPS
+                                   for w, v in zip(wire, want)),
+              f"[dist] {mode} on {topology}: bytes sent {sent}, per step "
+              f"{wire}, the formula says {want}")
+        state = tr.state_from_params(params)
+        batches = make_lm_batch_fn(cfg, 128, 4, N_NODES, 1.0)
+        losses = [tr.step(state, tr.batch_to_device(batches()))["loss"]
+                  for _ in range(STEPS)]
+        x = [torch.cat([rec["x"][b] for rec in recs])
+             for b in range(tr.spec.n_buckets)]
+        moved, dx, _, total = hold_small(
+            "[dist]", mode, [0.0] * tr.spec.n_buckets,
+            (recs[0]["losses"], x, None),
+            (losses, [b.cpu() for b in state.x], None))
+        print(f"[dist] small {mode} on {topology}, {STEPS} steps: per-rank "
+              f"losses {recs[0]['losses']} vs stacked {losses}; max |dx| "
+              f"{dx:.3e} of {total} coordinates", flush=True)
+        report[f"{mode}@{topology}"] = {
+            "exchange_max_dx": diff, "bytes_sent": sent, "wire_bytes": wire,
+            "wire_formula": want, "losses_dist": recs[0]["losses"],
+            "losses_stacked": losses, "max_dx": dx}
     for comp, kw, steps_k in DIST_SMALL:
         tr = _dist_trainer(comp, kw, steps_k, cfg, dev)
         bufs = [[b.to(dev) for b in part] for part in _exchange_inputs(tr.spec)]
@@ -1459,15 +1706,20 @@ def check_probe(dev):
     check(torch.equal(got, want), f"probe_scale: kernel and plain version "
           f"differ (max abs {err})")
     bms, by = bound_ms([x], [got], x.numel())
-    record = dict(ms=time_ms(lambda: dispatch.probe_scale(x), 200),
-                  plain_ms=time_ms(lambda: ref.probe_scale_ref(x), 200),
-                  library_ms=time_ms(lambda: torch.mul(x, 2), 200),
-                  bound_ms=bms, bound_by=by,
+    (ms, plain_ms, lib_ms), wins = time_interleaved_ms(
+        [lambda: dispatch.probe_scale(x), lambda: ref.probe_scale_ref(x),
+         lambda: torch.mul(x, 2)], rounds=40, per_round=50)
+    record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                  bound_ms=bms, bound_by=by, timed="interleaved",
+                  fastest_share=dict(zip(("kernel", "plain", "library"),
+                                         wins)),
                   shape=list(PROBE_SHAPE), max_abs_err=err)
-    print(f"[kernel] probe_scale {PROBE_SHAPE}: bit-equal; {record['ms']:.4f} "
-          f"ms (bound {bms:.6f} ms, {by}: the launch latency sets it), plain "
-          f"{record['plain_ms']:.4f} ms, torch.mul(x, 2) "
-          f"{record['library_ms']:.4f} ms", flush=True)
+    print(f"[kernel] probe_scale {PROBE_SHAPE}: bit-equal; timed in turns "
+          f"with its plain version and torch.mul(x, 2) in one loop (40 "
+          f"rounds of 50 calls each): {ms:.4f} ms (bound {bms:.6f} ms, {by}: "
+          f"the launch latency sets it), plain {plain_ms:.4f} ms, "
+          f"torch.mul(x, 2) {lib_ms:.4f} ms; fastest in "
+          f"{record['fastest_share']} of the rounds", flush=True)
     return record
 
 
@@ -1655,11 +1907,56 @@ def check_flash(dev):
                   flush=True)
         del q, k, v, got, want
         torch.cuda.empty_cache()
+    record["f32"] = time_flash_f32(dev)
     record["contract"] = readings
     record["contract_bounds"] = {"a_rel": fa.FLASH_BF16_RTOL,
                                  "a_ulp_share": fa.FLASH_BF16_ULP_SHARE,
                                  "b_rel": fa.FLASH_BF16_F32P_RTOL}
     return record, max_err
+
+
+def time_flash_f32(dev):
+    """The f32 entry (the CUDA-core kernel) at the prefill layer's shape,
+    q (1, 32768, 16, 128), k and v 8 heads, causal: kernel, plain version
+    and ``scaled_dot_product_attention`` on the same f32 inputs (its
+    memory-efficient backend, the one that takes f32; k and v are repeated
+    to 16 heads before the timed calls, as that backend takes no grouped
+    heads), and the bounds."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import dispatch, ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((1, 32768, 16, 128), generator=gen, device=dev)
+    k, v = (torch.randn((1, 32768, 8, 128), generator=gen, device=dev)
+            for _ in range(2))
+    got = dispatch.flash_attention(q, k, v, causal=True)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(2, dim=2).transpose(1, 2) for t in (k, v))
+    F = torch.nn.functional
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_err = float((lib.transpose(1, 2) - got).abs().max())
+        del lib
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 3)
+    bms, by, _, flops = flash_bounds((q, k, v), got, True)
+    ms = time_ms(lambda: dispatch.flash_attention(q, k, v, causal=True), 2)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                       1)
+    rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+               bound_by=by, tflop_per_s=flops / ms / 1e9,
+               bound_share=bms / ms, library_max_abs_diff=lib_err,
+               shape=[list(q.shape), list(k.shape)], dtype="float32")
+    print(f"[kernel] flash_attention f32 prefill layer q{tuple(q.shape)} "
+          f"k{tuple(k.shape)} causal: {ms:.3f} ms ({rec['tflop_per_s']:.1f} "
+          f"TFLOP/s, {100 * rec['bound_share']:.1f}% of the bound {bms:.3f} "
+          f"ms, {by}, at the f32 CUDA-core rate), plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention (memory-efficient backend, f32) "
+          f"{lib_ms:.3f} ms ({ms / lib_ms:.2f}x; max abs diff to the kernel "
+          f"{lib_err:.3e})", flush=True)
+    del q, k, v, qt, kt, vt, got
+    torch.cuda.empty_cache()
+    return rec
 
 
 def check_flash_sass(path):
@@ -1934,7 +2231,9 @@ def main():
           f"ms/step {star['ms_per_step']} against {ring_run['ms_per_step']} "
           f"(first step included); peak device memory {star['peak_gib']:.3f} "
           f"against {ring_run['peak_gib']:.3f} GiB", flush=True)
-    launcher_counts = run_launcher()
+    modes = modes_full_width(dev)
+    launcher_counts = {label: run_launcher(extra)
+                       for label, extra in LAUNCHER_RUNS}
     per_rank_launcher_counts = run_launcher_per_rank()
     small = small_cuda_vs_cpu(dev)
     torch.cuda.empty_cache()
@@ -1942,6 +2241,14 @@ def main():
     torch.cuda.empty_cache()
     dist_full = dist_full_width(by_path[DIST_FULL[0]][1])
     torch.cuda.empty_cache()
+    plain_bytes = exact_wire_bytes("plain", "ring", 1, 0, spec)
+    top_k_bytes = dist_full["ranks"][0]["wire_bytes"][-1]
+    print(f"[dist] computed, not measured: the per-rank plain mode (exact "
+          f"D-SGD) at full width on the ring would send {plain_bytes} bytes "
+          f"per rank per step (2 sends x 4 B x "
+          f"{sum(b.size for b in spec.buckets)} padded elements), "
+          f"{plain_bytes / top_k_bytes:.1f}x the {top_k_bytes} that top_k "
+          f"0.01 sent per rank per step above", flush=True)
     sim = {"gossip": sim_gossip(dev), "sgd": sim_sgd(dev)}
     sim_counts = {k: sum(r["launches"][k] for part in sim.values()
                          for r in part.values() if isinstance(r, dict))
@@ -1959,13 +2266,32 @@ def main():
     serve_small_cuda_vs_cpu(dev)
     budget = prefill_budget(dev)
 
-    # launches of each kernel on the per-rank engine's two runs, summed
-    # over the ranks
-    dist_counts = {
+    # launches of each kernel on every path this script drives (the counts
+    # set to 0 just before each path and read just after); the per-rank
+    # engine's runs summed over the ranks
+    paths = {
+        **{c: counts for c, (counts, _) in by_path.items()},
+        "topology_star": star_counts,
+        **{f"modes_{label}": counts for label, (counts, _) in modes.items()},
+        **launcher_counts,
+        "launcher_per_rank_rank0": per_rank_launcher_counts,
+        "small": small["launches"],
         "dist_small": {k: sum(c[k] for c in dist_small_report["launches"])
                        for k in kernel_names()},
+        "dist_small_exact_modes": {
+            k: sum(c[k] for c in dist_small_report["exact_launches"])
+            for k in kernel_names()},
         "dist_full_width": {k: sum(r["launches"][k] for r in dist_full["ranks"])
-                            for k in kernel_names()}}
+                            for k in kernel_names()},
+        "sim": sim_counts, "topk_ops": ops_counts, "prefill": prefill_counts,
+        "consistency": {**{k: 0 for k in kernel_names()},
+                        "flash_attention": consistency_launches},
+        "serve": serve_counts}
+    by_kernel = lambda name: {p: c[name] for p, c in paths.items()}
+    # the training paths whose launches count as the gossip kernels' main
+    # path: the four compressors, star and the [modes] runs
+    train_paths = (list(by_path) + ["topology_star"]
+                   + [f"modes_{label}" for label in modes])
 
     sources = {"qsgd_codes": "src/repro/kernels/qsgd.py:64",
                "sign_codes": "src/repro/kernels/qsgd.py:86",
@@ -1978,18 +2304,8 @@ def main():
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gossip_kernels.cu",
             "replaces": replaces,
-            "launches": sum(c[name] for c, _ in by_path.values())
-            + star_counts[name],
-            "launches_by_path": {**{c: by_path[c][0][name] for c in by_path},
-                                 "topology_star": star_counts[name],
-                                 "sim": sim_counts[name],
-                                 "topk_ops": ops_counts[name],
-                                 "launcher_smoke": launcher_counts[name],
-                                 "launcher_per_rank_rank0":
-                                     per_rank_launcher_counts[name],
-                                 "prefill": prefill_counts[name],
-                                 "serve": serve_counts[name],
-                                 **{p: c[name] for p, c in dist_counts.items()}},
+            "launches": sum(paths[p][name] for p in train_paths),
+            "launches_by_path": by_kernel(name),
             "max_abs_err": max(v for k, v in max_err.items()
                                if k.startswith(name)),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -1999,20 +2315,11 @@ def main():
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         # the bf16 tensor-core kernel, the main path's; f32 inputs take the
-        # CUDA-core kernel of csrc/flash_attention.cu
+        # CUDA-core kernel of csrc/flash_attention.cu (its record: "f32")
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": prefill_counts["flash_attention"],
-        "launches_by_path": {
-            **{c: by_path[c][0]["flash_attention"] for c in by_path},
-            "topk_ops": ops_counts["flash_attention"],
-            "launcher_smoke": launcher_counts["flash_attention"],
-            "launcher_per_rank_rank0":
-                per_rank_launcher_counts["flash_attention"],
-            "prefill": prefill_counts["flash_attention"],
-            "consistency": consistency_launches,
-            "serve": serve_counts["flash_attention"],
-            **{p: c["flash_attention"] for p, c in dist_counts.items()}},
+        "launches_by_path": by_kernel("flash_attention"),
         "max_abs_err": flash_err, **flash_record})
     check(kernels[-1]["launches"] > 0, "flash_attention never launched")
     # its path is its public op, as in the JAX package; no trainer path
@@ -2022,32 +2329,16 @@ def main():
         "source": "src/repro_torch/kernels/csrc/block_topk.cu",
         "replaces": "src/repro/kernels/topk.py:50",
         "launches": ops_counts["block_topk_mask"],
-        "launches_by_path": {
-            "topk_ops": ops_counts["block_topk_mask"],
-            **{c: by_path[c][0]["block_topk_mask"] for c in by_path},
-            "launcher_smoke": launcher_counts["block_topk_mask"],
-            "launcher_per_rank_rank0":
-                per_rank_launcher_counts["block_topk_mask"],
-            "prefill": prefill_counts["block_topk_mask"],
-            "serve": serve_counts["block_topk_mask"],
-            **{p: c["block_topk_mask"] for p, c in dist_counts.items()}},
+        "launches_by_path": by_kernel("block_topk_mask"),
         "max_abs_err": topk_err, **topk_record})
     check(kernels[-1]["launches"] > 0, "block_topk_mask never launched")
-    # its path is the per-rank engine's exchange build, once per rank
+    # its path is the per-rank engine's choco exchange build, once per rank
     kernels.append({
         "name": "probe_scale", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/probe.cu",
         "replaces": "src/repro/kernels/dispatch.py:133",
-        "launches": dist_counts["dist_full_width"]["probe_scale"],
-        "launches_by_path": {
-            **{c: by_path[c][0]["probe_scale"] for c in by_path},
-            "topk_ops": ops_counts["probe_scale"],
-            "launcher_smoke": launcher_counts["probe_scale"],
-            "launcher_per_rank_rank0":
-                per_rank_launcher_counts["probe_scale"],
-            "prefill": prefill_counts["probe_scale"],
-            "serve": serve_counts["probe_scale"],
-            **{p: c["probe_scale"] for p, c in dist_counts.items()}},
+        "launches": paths["dist_full_width"]["probe_scale"],
+        "launches_by_path": by_kernel("probe_scale"),
         **probe_record})
     check(kernels[-1]["launches"] == N_NODES,
           f"probe_scale launched {kernels[-1]['launches']} times on the "
@@ -2055,6 +2346,7 @@ def main():
     extra = {k: records[k] for k in ("qsgd_codes_int16", "dequantize_int16")}
     train = {c: r for c, (_, r) in by_path.items()}
     print(json.dumps({"int16": extra, "train": train, "topology_star": star,
+                      "modes": {k: r for k, (_, r) in modes.items()},
                       "sim": sim, "small": small,
                       "prefill": prefill, "serve": serve, "decode": decode,
                       "consistency": consistency,

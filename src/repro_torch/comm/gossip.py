@@ -1,7 +1,9 @@
-"""CHOCO gossip exchange on bucket buffers, in two engines.
+"""Gossip exchanges on bucket buffers, in two engines.
 
 The port of the JAX package's packed static CHOCO engine on its fused
-bucket-space path (``src/repro/comm/gossip.py:510-548``).
+bucket-space path (``src/repro/comm/gossip.py:510-548``), and of its two
+exact baselines: plain neighbour averaging (``make_plain_schedule_fn``)
+and the all-reduce average (``make_allreduce_fn``).
 
 * :func:`make_choco_exchange`, the stacked engine: the n gossip nodes
   are stacked on a leading ``(n, ...)`` dimension on one device, so a
@@ -30,8 +32,19 @@ Every compressor of the JAX package runs here, and exact buckets ship
 uncompressed.  Every symmetric schedule runs, time-varying sequences
 included: per-node self and receive weights (star, chain) reach the EF
 update as ``(rows,)`` vectors, and a node that a partial round skips adds
-a zero row, as ``ppermute`` hands it zeros.  Not ported: the per-leaf
-engine, the plain / all-reduce / push-sum modes, stochastic topology
+a zero row, as ``ppermute`` hands it zeros.
+
+The exact modes ship the f32 iterate itself and launch no kernel, as in
+the JAX package, whose fused kernels serve the choco mode only:
+
+* plain (exact D-SGD, Algorithm 3): per gossip round,
+  ``x = w_self x + w_nbr sum_j x_j`` over the same weight groups and
+  partial rounds as the choco exchange (:func:`make_plain_exchange`,
+  :func:`make_dist_plain_exchange`);
+* all-reduce (the centralized baseline): ``x = sum_i x_i / n``
+  (:func:`make_allreduce_exchange`, :func:`make_dist_allreduce_exchange`).
+
+Not ported: the per-leaf engine, the push-sum mode, stochastic topology
 processes and the pipelined engine.
 """
 from __future__ import annotations
@@ -117,18 +130,24 @@ def _neighbor_sum(groups, receive) -> torch.Tensor:
     return total
 
 
-def _check_exchange(spec: BucketSpec, schedules: Sequence[GossipSchedule],
-                    compressor, gossip_steps: int) -> int:
-    """What both exchanges refuse; returns n."""
-    if gossip_steps < 1:
-        raise ValueError("gossip_steps must be >= 1")
-    if type(compressor) not in _PORTED:
-        raise ValueError(f"compressor {compressor.name!r} is not ported to "
-                         f"the exchange")
+def _check_f32(spec: BucketSpec) -> None:
+    """Every exchange runs on f32 bucket buffers."""
     for b in spec.buckets:
         if b.dtype != torch.float32:
             raise ValueError("the fused bucket-space path needs f32 state; "
                              "bf16 EF state is not ported")
+
+
+def _check_exchange(spec: BucketSpec, schedules: Sequence[GossipSchedule],
+                    compressor, gossip_steps: int) -> int:
+    """What every gossip exchange refuses (the plain mode passes no
+    ``compressor``); returns n."""
+    if gossip_steps < 1:
+        raise ValueError("gossip_steps must be >= 1")
+    if compressor is not None and type(compressor) not in _PORTED:
+        raise ValueError(f"compressor {compressor.name!r} is not ported to "
+                         f"the exchange")
+    _check_f32(spec)
     n = schedules[0].n
     if any(sch.n != n for sch in schedules):
         raise ValueError("time-varying schedules must share n")
@@ -157,6 +176,14 @@ def _compile(schedules: Sequence[GossipSchedule], nodes: Sequence[int],
         compiled.append((resolved, _node_weights(w_self, nodes),
                          _node_weights(w_nbr, nodes)))
     return compiled
+
+
+def _sends(schedules: Sequence[GossipSchedule], gossip_steps: int,
+           rank: int) -> int:
+    """The payloads of each bucket node ``rank`` sends per exchange call."""
+    return sum(sum(rnd.peers(rank)[0] is not None
+                   for rnd in schedules[t % len(schedules)].rounds)
+               for t in range(gossip_steps))
 
 
 def _to_device(obj, dev):
@@ -213,6 +240,29 @@ def _exchange(spec: BucketSpec, compressor, gammas, gossip_steps: int,
     return exchange
 
 
+def _gather_index(n: int):
+    """``round -> (sources, rows that receive nothing or None)`` of the
+    stacked engine, -1 sources standing in as 0."""
+    def index(rnd):
+        src = torch.tensor(rnd.sources(n))
+        missing = torch.nonzero(src < 0).flatten()
+        return src.clamp(min=0), (missing if missing.numel() else None)
+    return index
+
+
+def _gather_rows(q: torch.Tensor):
+    """``receive(index)`` of the stacked engine: node i receives row
+    src[i] of ``q``, or a zero row (written over the rows that receive
+    nothing, and only those)."""
+    def receive(index):
+        src, missing = index
+        got = q.index_select(0, src)
+        if missing is not None:
+            got.index_fill_(0, missing, 0.0)
+        return got
+    return receive
+
+
 def make_choco_exchange(*, spec: BucketSpec,
                         schedules: Sequence[GossipSchedule], compressor,
                         gamma, gossip_steps: int = 1) -> Callable:
@@ -231,26 +281,10 @@ def make_choco_exchange(*, spec: BucketSpec,
     package's draws this way).
     """
     n = _check_exchange(spec, schedules, compressor, gossip_steps)
-
-    def gather_index(rnd):
-        # (sources, with 0 standing in for -1; the rows that receive
-        # nothing, or None)
-        src = torch.tensor(rnd.sources(n))
-        missing = torch.nonzero(src < 0).flatten()
-        return src.clamp(min=0), (missing if missing.numel() else None)
-
-    compiled = _compile(schedules, range(n), gather_index)
+    compiled = _compile(schedules, range(n), _gather_index(n))
 
     def receiver(payload, q, bucket):
-        # node i receives row src[i] of the payloads' dense q, or a zero
-        # row (written over the rows that receive nothing, and only those)
-        def receive(index):
-            src, missing = index
-            got = q.index_select(0, src)
-            if missing is not None:
-                got.index_fill_(0, missing, 0.0)
-            return got
-        return receive
+        return _gather_rows(q)
 
     return _exchange(spec, compressor,
                      _resolve_bucket_gammas(gamma, spec, compressor),
@@ -310,8 +344,139 @@ def make_dist_choco_exchange(*, spec: BucketSpec,
                          gossip_steps, compiled, (group.rank,), receiver)
     exchange.probe = probe
     exchange.payload_bytes = bucket_wire_nbytes(spec, compressor)
-    exchange.sends = sum(
-        sum(rnd.peers(group.rank)[0] is not None for rnd in
-            schedules[t % len(schedules)].rounds)
-        for t in range(gossip_steps))
+    exchange.sends = _sends(schedules, gossip_steps, group.rank)
+    return exchange
+
+
+# ---------------------------------------------------------------------------
+# exact baselines
+# ---------------------------------------------------------------------------
+
+def _plain(gossip_steps: int, compiled, receiver) -> Callable:
+    """The plain exchange loop both engines share: per round t and bucket,
+    ``x = w_self x + w_nbr nbr`` with ``nbr = _neighbor_sum`` of what
+    ``receiver(buf)`` returns per round (``compiled`` as in
+    :func:`_exchange`), in place; a schedule without rounds leaves x as
+    it is.  The arithmetic is the JAX engine's as XLA compiles it: the
+    sum contracts into one fused multiply-add,
+    ``fma(w_self, x, round(w_nbr nbr))`` (``torch.add`` with ``alpha``
+    fuses the same way on the CPU and on the card).  Each row takes its
+    weights as host floats, so every pass is a vectorized one over a row
+    and the result lands in x without a copy."""
+    on_device = {}
+    rows = [(w_self.tolist(), w_nbr.tolist()) for _, w_self, w_nbr in compiled]
+
+    @torch.no_grad()
+    def exchange(x: List[torch.Tensor], x_hat=None, s=None, *, seed: int = 0,
+                 draws=None):
+        dev = x[0].device
+        if dev not in on_device:
+            on_device[dev] = _to_device(compiled, dev)
+        on_dev = on_device[dev]
+        for t in range(gossip_steps):
+            groups = on_dev[t % len(on_dev)][0]
+            if not groups:
+                continue
+            for buf in x:
+                nbr = _neighbor_sum(groups, receiver(buf))
+                for i, (ws, wn) in enumerate(zip(*rows[t % len(on_dev)])):
+                    torch.add(nbr[i].mul_(wn), buf[i], alpha=ws, out=buf[i])
+                del nbr
+
+    return exchange
+
+
+def make_plain_exchange(*, spec: BucketSpec,
+                        schedules: Sequence[GossipSchedule],
+                        gossip_steps: int = 1) -> Callable:
+    """Exact neighbour averaging (D-SGD, Algorithm 3), the port of
+    ``make_plain_schedule_fn`` (``src/repro/comm/gossip.py:823-857``):
+    returns ``exchange(x, x_hat=None, s=None, *, seed=0, draws=None)``,
+    the choco exchange's call, which averages the node-stacked f32 bucket
+    buffers ``x`` in place, ``gossip_steps`` rounds of schedule
+    ``t % len(schedules)``.  ``x_hat``, ``s``, ``seed`` and ``draws`` are
+    not read: the payload is the iterate itself."""
+    n = _check_exchange(spec, schedules, None, gossip_steps)
+    return _plain(gossip_steps,
+                  _compile(schedules, range(n), _gather_index(n)),
+                  _gather_rows)
+
+
+def make_allreduce_exchange(*, spec: BucketSpec, n: int) -> Callable:
+    """The centralized baseline, the port of ``make_allreduce_fn``
+    (``src/repro/comm/gossip.py:860-869``): every node's x becomes the
+    average ``(x_0 + x_1 + ... + x_{n-1}) / n``, summed in node order and
+    divided as ``pmean`` does.  The call is the choco exchange's; only
+    ``x`` is read."""
+    _check_f32(spec)
+
+    @torch.no_grad()
+    def exchange(x: List[torch.Tensor], x_hat=None, s=None, *, seed: int = 0,
+                 draws=None):
+        for buf in x:
+            if buf.shape[0] != n:
+                raise ValueError(f"{buf.shape[0]} node rows, expected {n}")
+            total = buf[0].clone()
+            for i in range(1, n):
+                total.add_(buf[i])
+            buf.copy_(total.div_(n).expand_as(buf))
+            del total
+
+    return exchange
+
+
+def make_dist_plain_exchange(*, spec: BucketSpec,
+                             schedules: Sequence[GossipSchedule],
+                             gossip_steps: int = 1, group) -> Callable:
+    """The per-rank plain exchange: this rank's ``(1, size)`` f32 bucket
+    goes, as its bytes, to each schedule round's destination through
+    ``group.sendrecv``, and the source's arrives (a zero row where a
+    partial round gives this node none); the weighting is the stacked
+    form's, so each rank computes its row of :func:`make_plain_exchange`
+    bit for bit.  No probe runs (the JAX package probes only on its
+    kernel path).  ``exchange.payload_bytes`` lists each bucket's bytes
+    (4 per padded element) and ``exchange.sends`` the payloads of each
+    bucket this rank sends per call."""
+    n = _check_exchange(spec, schedules, None, gossip_steps)
+    if group.size != n:
+        raise ValueError(f"a group of {group.size} ranks for {n} nodes")
+    compiled = _compile(schedules, (group.rank,),
+                        lambda rnd: rnd.peers(group.rank))
+
+    def receiver(buf):
+        wire = buf.reshape(-1).view(torch.uint8)
+
+        def receive(peers):
+            dst, src = peers
+            got = group.sendrecv(wire, dst, src)
+            if src is None:
+                return torch.zeros_like(buf)
+            return got.view(buf.dtype).view(buf.shape)
+        return receive
+
+    exchange = _plain(gossip_steps, compiled, receiver)
+    exchange.payload_bytes = [4 * b.size for b in spec.buckets]
+    exchange.sends = _sends(schedules, gossip_steps, group.rank)
+    return exchange
+
+
+def make_dist_allreduce_exchange(*, spec: BucketSpec, n: int,
+                                 group) -> Callable:
+    """The per-rank all-reduce average: each bucket summed over the ranks
+    by ``group.all_reduce`` (the transport's own reduction order, which
+    may differ from the stacked node order by an ulp) and divided by n.
+    No probe runs.  ``exchange.payload_bytes`` lists each bucket's bytes
+    (4 per padded element)."""
+    _check_f32(spec)
+    if group.size != n:
+        raise ValueError(f"a group of {group.size} ranks for {n} nodes")
+
+    @torch.no_grad()
+    def exchange(x: List[torch.Tensor], x_hat=None, s=None, *, seed: int = 0,
+                 draws=None):
+        for buf in x:
+            group.all_reduce(buf)
+            buf.div_(group.size)
+
+    exchange.payload_bytes = [4 * b.size for b in spec.buckets]
     return exchange

@@ -8,10 +8,11 @@ MoE / SSM / hybrid / frontend sub-configs, the other architectures,
 sliding windows, local / global layer patterns and ``remat`` are not
 ported.  ``INPUT_SHAPES`` keeps the one JAX input shape the port serves,
 ``prefill_32k``.  ``ChocoConfig``
-keeps only the settings of the static packed CHOCO path, with the JAX
-package's defaults: the stochastic processes, staleness, pipelining,
-push-sum, bf16 EF state, the per-leaf engine and the kernel-backend
-switch are not ported.
+keeps the settings of the static packed engine (its choco, plain and
+all-reduce modes) and the data skew, with the JAX package's defaults:
+the stochastic processes, staleness, pipelining, push-sum, bf16 EF
+state, the per-leaf engine and the kernel-backend switch are not
+ported.
 """
 from __future__ import annotations
 
@@ -89,6 +90,10 @@ class ChocoConfig:
     # leaves of at most 8192 elements gossip uncompressed, in exact
     # buckets (off for paper-faithful runs)
     exact_small_leaves: bool = False
+    # Dirichlet(alpha) non-IID data shards (data/partition.py); None: the
+    # launcher's --heterogeneity slices.  A data knob: the trainer's state
+    # and exchange do not read it
+    data_skew_alpha: Optional[float] = None
 
     def comp_dict(self):
         return dict(self.comp_kwargs)

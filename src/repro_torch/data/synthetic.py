@@ -3,9 +3,9 @@ logistic-regression problems of the paper's §5.3.
 
 The generator is numpy's ``default_rng`` with the same draws in the same
 order as the JAX package's ``TokenStream`` and ``make_logreg``, so the two
-give identical batches, features, labels and shards bit for bit.  Not
-ported: the Dirichlet skew (``skew_alpha``, it needs
-``data/partition.py``) and the audio / VLM batch makers.
+give identical batches, features, labels and shards bit for bit, the
+Dirichlet skew (``skew_alpha``, ``data/partition.py``) included.  Not
+ported: the audio / VLM batch makers.
 """
 from __future__ import annotations
 
@@ -15,6 +15,9 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.data.partition import (dirichlet_class_shares,
+                                        dirichlet_shards, mean_tv_distance)
+
 
 @dataclasses.dataclass
 class TokenStream:
@@ -22,6 +25,11 @@ class TokenStream:
 
     ``heterogeneity``: 0.0 = iid across nodes; 1.0 = fully sorted (each
     node samples its own vocabulary slice), the paper's ``sorted`` setting.
+
+    ``skew_alpha``: when set, per-node vocabulary ownership is drawn from a
+    seeded Dirichlet(alpha) over the vocabulary instead of the slice mask
+    (alpha -> inf: IID; alpha -> 0: near-disjoint slices).  It takes
+    precedence over ``heterogeneity``.
     """
     vocab_size: int
     seq_len: int
@@ -29,13 +37,21 @@ class TokenStream:
     n_nodes: int
     heterogeneity: float = 0.0
     seed: int = 0
+    skew_alpha: Optional[float] = None
 
     def node_probs(self) -> np.ndarray:
-        """Per-node token sampling distributions, ``(n_nodes, vocab_size)``."""
+        """Per-node token sampling distributions, ``(n_nodes, vocab_size)``;
+        the Dirichlet draw takes its own ``default_rng(seed)`` stream, apart
+        from the token stream's."""
         V = self.vocab_size
         base_p = 1.0 / np.arange(1, V + 1)
         probs = np.tile(base_p, (self.n_nodes, 1))
-        if self.heterogeneity > 0:
+        if self.skew_alpha is not None:
+            shares = dirichlet_class_shares(
+                V, self.n_nodes, self.skew_alpha,
+                np.random.default_rng(self.seed))
+            probs = probs * (shares.T * self.n_nodes)
+        elif self.heterogeneity > 0:
             h = self.heterogeneity
             slice_size = V // self.n_nodes
             for i in range(self.n_nodes):
@@ -46,6 +62,11 @@ class TokenStream:
                 mask[lo:hi] = 1.0
                 probs[i] = base_p * ((1 - h) + h * V * mask)
         return probs / probs.sum(axis=1, keepdims=True)
+
+    def skew_tv(self) -> float:
+        """Mean TV distance of the per-node token distributions from their
+        average (0: IID)."""
+        return mean_tv_distance(self.node_probs())
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         rng = np.random.default_rng(self.seed)
@@ -63,19 +84,28 @@ class TokenStream:
 
 def make_lm_batch_fn(cfg, seq_len: int, batch_per_node: int, n_nodes: int,
                      heterogeneity: float = 0.0, seed: int = 0,
+                     skew_alpha: Optional[float] = None,
                      node: Optional[int] = None):
-    """Returns next_batch() -> {"tokens", "labels"}: (n, B, S) int32 numpy.
-    With ``node``, only that node's row, (1, B, S): one rank's batch of
-    the per-rank engine.  All n rows are still drawn (token ids are
-    cheap), so the row is bit-equal to the stacked engine's."""
+    """Returns next_batch() -> {"tokens", "labels"}: (n, B, S) int32 numpy,
+    with a ``skew_tv`` attribute (``TokenStream.skew_tv``).  With ``node``,
+    only that node's row, (1, B, S): one rank's batch of the per-rank
+    engine.  All n rows are still drawn (token ids are cheap), so the row
+    is bit-equal to the stacked engine's."""
     if cfg.family != "dense":
         raise ValueError(f"batches for family {cfg.family!r} are not ported")
-    stream = iter(TokenStream(cfg.vocab_size, seq_len, batch_per_node,
-                              n_nodes, heterogeneity, seed))
+    ts = TokenStream(cfg.vocab_size, seq_len, batch_per_node, n_nodes,
+                     heterogeneity, seed, skew_alpha)
+    stream = iter(ts)
     if node is None:
-        return lambda: next(stream)
-    rows = slice(node, node + 1)
-    return lambda: {k: v[rows] for k, v in next(stream).items()}
+        def next_batch():
+            return next(stream)
+    else:
+        rows = slice(node, node + 1)
+
+        def next_batch():
+            return {k: v[rows] for k, v in next(stream).items()}
+    next_batch.skew_tv = ts.skew_tv()
+    return next_batch
 
 
 # ---------------------------------------------------------------------------
@@ -132,10 +162,9 @@ def make_logreg(name: str, n_nodes: int, *, sorted_assignment: bool = False,
     epsilon: m=400k (reduced default 8k), d=2000, dense;
     rcv1:    m=20242 (reduced default 8k), d=47236 (reduced 4724), 0.15%
     dense.  ``sorted_assignment`` shards by label (the paper's sorted
-    setting), else a random permutation.  The tensors go to ``device``."""
-    if skew_alpha is not None:
-        raise ValueError("skew_alpha (Dirichlet shards) is not ported: it "
-                         "needs data/partition.py")
+    setting), ``skew_alpha`` by a Dirichlet(alpha) over the binary labels
+    (``data/partition.py``; the two are mutually exclusive), else a random
+    permutation.  The tensors go to ``device``."""
     rng = np.random.default_rng(seed)
     if name == "epsilon":
         m = m or 8_000
@@ -157,8 +186,15 @@ def make_logreg(name: str, n_nodes: int, *, sorted_assignment: bool = False,
     logits = A @ w_true + 0.3 * rng.standard_normal(m)
     b = np.where(logits > 0, 1.0, -1.0).astype(np.float32)
     m_per = m // n_nodes
-    order = np.argsort(b) if sorted_assignment else rng.permutation(m)
-    node_index = order[: m_per * n_nodes].reshape(n_nodes, m_per)
+    if skew_alpha is not None:
+        if sorted_assignment:
+            raise ValueError("skew_alpha and sorted_assignment are "
+                             "mutually exclusive")
+        node_index = dirichlet_shards(b.astype(np.int64), n_nodes,
+                                      skew_alpha, seed=seed)
+    else:
+        order = np.argsort(b) if sorted_assignment else rng.permutation(m)
+        node_index = order[: m_per * n_nodes].reshape(n_nodes, m_per)
     return LogRegProblem(A=torch.from_numpy(A).to(device),
                          b=torch.from_numpy(b).to(device),
                          node_index=torch.from_numpy(node_index).to(device),

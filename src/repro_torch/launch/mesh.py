@@ -13,9 +13,10 @@ The transport rule (:func:`transport_for`):
   -> gloo (loopback TCP) -> pinned host -> device.  gloo's point-to-point
   takes CPU tensors only, so no device pointer is ever handed to it.
 
-:meth:`NodeGroup.sendrecv` is the one transport every payload and the
-collective-layer probe go through; it counts the bytes this rank sent and
-the host time spent staging.
+:meth:`NodeGroup.sendrecv` is the transport every gossip payload and the
+collective-layer probe go through, :meth:`NodeGroup.all_reduce` the
+all-reduce mode's; both count the bytes this rank sent and the host time
+spent staging.
 """
 from __future__ import annotations
 
@@ -97,6 +98,27 @@ class NodeGroup:
         got = inbox.to(self.device)
         self.staging_s += time.perf_counter() - t0
         return got
+
+    def all_reduce(self, tensor: torch.Tensor) -> None:
+        """Sum ``tensor`` over the group, in place (on the card it is
+        staged through a pinned host buffer when the group is).  Counts
+        the bytes a ring all-reduce sends per rank, ``2 (n - 1) / n`` of
+        the tensor's (a reduce-scatter, then an all-gather: gloo's and
+        NCCL's ring algorithm)."""
+        nbytes = tensor.numel() * tensor.element_size()
+        buf = tensor
+        if self.staged:
+            t0 = time.perf_counter()
+            buf = torch.empty(tensor.shape, dtype=tensor.dtype,
+                              pin_memory=True)
+            buf.copy_(tensor)                  # waits for the kernels
+            self.staging_s += time.perf_counter() - t0
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+        self.bytes_sent += 2 * (self.size - 1) * nbytes // self.size
+        if self.staged:
+            t0 = time.perf_counter()
+            tensor.copy_(buf)
+            self.staging_s += time.perf_counter() - t0
 
     def all_reduce_host(self, values: Sequence[float], op) -> List[float]:
         """All-reduce a few host floats (float64) over the group."""

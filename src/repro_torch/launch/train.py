@@ -1,4 +1,5 @@
-"""Training launcher of the port: CHOCO-SGD on n gossip nodes.
+"""Training launcher of the port: CHOCO-SGD and its exact baselines
+(``--mode plain``, D-SGD; ``--mode allreduce``) on n gossip nodes.
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --smoke --mesh 4x1 \\
         --compressor top_k --fraction 0.05 --steps 3
@@ -12,11 +13,13 @@ gives the node count N; a model extent above 1 is refused.  Two engines:
   each, and under ``torchrun --nproc-per-node N`` each process is one node
   (the per-rank engine, ``launch/mesh.py`` says which transport).
 
-The launcher prints which engine runs, and for the per-rank engine the
-transport and the collective-layer probe's record (rank 0 prints).  Every
-flag outside the ported slice is refused with a message, before torch is
-imported.  ``--device`` (default cuda) picks the device; without CUDA the
-launcher raises unless it is given ``--device cpu``.
+``--optimizer sgd|momentum|adamw`` picks the local step and
+``--data-skew-alpha`` Dirichlet(alpha) non-IID token shards.  The
+launcher prints which engine runs, and for the per-rank engine the
+transport and, under choco, the collective-layer probe's record (rank 0
+prints).  Every flag outside the ported slice is refused with a message,
+before torch is imported.  ``--device`` (default cuda) picks the device;
+without CUDA the launcher raises unless it is given ``--device cpu``.
 """
 import argparse
 import json
@@ -35,6 +38,8 @@ ARCH_CHOICES = ("qwen3-1.7b",)
 #: --fraction: the JAX launcher fails on it, and this one refuses it)
 COMPRESSOR_CHOICES = ("identity", "rand_k", "top_k", "block_top_k", "qsgd",
                       "sign")
+#: ``optim/sgd.py:make_optimizer``'s names, checked before torch is imported
+OPTIMIZER_CHOICES = ("sgd", "momentum", "adamw")
 
 #: flags of the JAX launcher whose features the port does not have:
 #: given any value other than the default, the launcher refuses them
@@ -50,8 +55,6 @@ _REFUSED = {
     "gossip_engine": ("packed", "the per-leaf gossip engine"),
     "kernel_backend": (None, "a kernel-backend switch (the route follows "
                              "the tensor's device: --device)"),
-    "optimizer": ("momentum", "optimizers other than momentum"),
-    "data_skew_alpha": (None, "Dirichlet data skew"),
     "checkpoint_dir": (None, "checkpoints"),
     "checkpoint_every": (0, "checkpoints"),
     "keep_checkpoints": (None, "checkpoints"),
@@ -129,8 +132,15 @@ def _validate(ap, args) -> int:
             flag = "--" + dest.replace("_", "-")
             ap.error(f"{flag} is not supported by the port: {what} is not "
                      f"ported")
-    if args.mode != "choco":
-        ap.error(f"--mode {args.mode} is not ported; the port runs --mode choco")
+    if args.mode == "pushsum":
+        ap.error("--mode pushsum is not ported; the port runs --mode choco, "
+                 "plain or allreduce")
+    if args.optimizer not in OPTIMIZER_CHOICES:
+        ap.error(f"--optimizer {args.optimizer!r}: choose from "
+                 f"{', '.join(OPTIMIZER_CHOICES)}")
+    if args.data_skew_alpha is not None and not args.data_skew_alpha > 0:
+        ap.error(f"--data-skew-alpha must be > 0 (Dirichlet concentration), "
+                 f"got {args.data_skew_alpha}")
     names = parse_topology(args.topology)
     if not names:
         ap.error("--topology: name at least one graph")
@@ -272,31 +282,39 @@ def _train(args, n_nodes: int, group) -> int:
         choco=ChocoConfig(compressor=args.compressor, comp_kwargs=comp_kwargs,
                           topology=args.topology,
                           gossip_steps=args.gossip_steps,
-                          exact_small_leaves=args.exact_small_leaves),
+                          exact_small_leaves=args.exact_small_leaves,
+                          data_skew_alpha=args.data_skew_alpha),
         n_nodes=n_nodes, optimizer=make_optimizer(args.optimizer),
         lr_fn=cosine_schedule(args.lr, warmup=min(100, args.steps // 10 + 1),
                               total=args.steps),
-        device=device, group=group)
+        device=device, group=group, mode=args.mode)
+    seq = args.seq_len or min(cfg.n_layers * 64, 512)
+    bpn = args.batch_per_node or 4
+    next_batch = make_lm_batch_fn(cfg, seq, bpn, n_nodes, args.heterogeneity,
+                                  skew_alpha=args.data_skew_alpha,
+                                  node=None if group is None else group.rank)
     engine = "stacked" if group is None else "per-rank"
+    compressor = args.compressor if args.mode == "choco" else "none"
+    skew = ("" if args.data_skew_alpha is None else
+            f" data_skew_alpha={args.data_skew_alpha} "
+            f"skew_tv={next_batch.skew_tv:.4f}")
     say(f"[train] arch={cfg.name} params={count_params(cfg) / 1e6:.1f}M "
         f"nodes={n_nodes} engine={engine} device={device} mode={args.mode} "
+        f"optimizer={args.optimizer} "
         f"topology={args.topology} gossip_steps={args.gossip_steps} "
-        f"compressor={args.compressor} buckets={trainer.spec.n_buckets} "
+        f"compressor={compressor} buckets={trainer.spec.n_buckets} "
         f"exact_buckets={sum(b.exact for b in trainer.spec.buckets)} "
-        f"gamma={trainer.gamma:.3e}", flush=True)
+        f"gamma={trainer.gamma:.3e}{skew}", flush=True)
     if group is None:
         say("[train] engine stacked: the nodes are stacked on one device, "
             "a schedule round is an index gather", flush=True)
     else:
         say(f"[train] engine per-rank: one process per node; transport "
             f"{group.describe()}", flush=True)
-        say(f"[train] probe {trainer.exchange.probe}", flush=True)
+        if args.mode == "choco":
+            say(f"[train] probe {trainer.exchange.probe}", flush=True)
 
     state = trainer.init_state(seed=0)
-    seq = args.seq_len or min(cfg.n_layers * 64, 512)
-    bpn = args.batch_per_node or 4
-    next_batch = make_lm_batch_fn(cfg, seq, bpn, n_nodes, args.heterogeneity,
-                                  node=None if group is None else group.rank)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     last_t, last_i = time.perf_counter(), 0
     for i in range(args.steps):

@@ -1,11 +1,13 @@
-"""Decentralized trainer: CHOCO-SGD with the n gossip nodes on one device,
-or one node per process.
+"""Decentralized trainer: CHOCO-SGD and its exact baselines with the n
+gossip nodes on one device, or one node per process.
 
 One train step (Algorithm 2, the JAX package's serial ``train_step``):
 
     per-node gradient   (one batched forward/backward over the nodes held)
  -> local optimizer half-step x^{t+1/2}
- -> CHOCO gossip exchange of the compressed deltas (comm/gossip.py)
+ -> exchange (comm/gossip.py), by ``mode``: ``choco``, the CHOCO gossip
+    of the compressed deltas; ``plain``, exact neighbour averaging (D-SGD);
+    ``allreduce``, the exact average over all nodes
 
 Without a ``group`` the trainer holds all n nodes, stacked, and runs the
 stacked exchange.  With a ``group`` (``launch/mesh.py:NodeGroup``) it is
@@ -15,18 +17,22 @@ exchange; the step's metrics cross the ranks in a small all-reduce of
 host floats.
 
 State lives in the gossip engine's bucket space: the parameters x, the
-public copies x_hat, the neighbour aggregates s and the momentum are
-lists of node-stacked ``(n, bucket.size)`` f32 buffers, and the model
-reads its parameters as views into the x buffers.  So the gradient comes
-back in bucket layout, the optimizer and the exchange run on whole
-buckets, and nothing is packed or unpacked per step.
+public copies x_hat, the neighbour aggregates s and the optimizer's
+moments are lists of node-stacked ``(n, bucket.size)`` f32 buffers, and
+the model reads its parameters as views into the x buffers.  So the
+gradient comes back in bucket layout, the optimizer and the exchange run
+on whole buckets, and nothing is packed or unpacked per step.  The exact
+modes never read x_hat and s: where the JAX state keeps them as zeros,
+this one leaves them unallocated (None), which saves two copies of the
+parameters.
 
-The slice: CHOCO mode, every symmetric topology of the JAX registry and
-time-varying sequences of them, f32 state, every compressor of the JAX
-package (with the exact small-leaf bucket), the Theorem-2 gamma,
-naive attention (the flash kernel has no backward).  The directed
-topologies, the other modes, the processes and a fixed gamma are not
-ported.
+The slice: the choco, plain and allreduce modes, every symmetric
+topology of the JAX registry and time-varying sequences of them, f32
+state, every compressor of the JAX package (with the exact small-leaf
+bucket) and the Theorem-2 gamma under choco, the sgd, momentum and
+AdamW local steps, naive attention (the flash kernel has no backward).
+The push-sum mode with the directed topologies, the processes and a
+fixed gamma are not ported.
 """
 from __future__ import annotations
 
@@ -38,8 +44,12 @@ import numpy as np
 import torch
 import torch.distributed
 
-from repro_torch.comm.gossip import (_pack_align, make_choco_exchange,
-                                     make_dist_choco_exchange)
+from repro_torch.comm.gossip import (_pack_align, make_allreduce_exchange,
+                                     make_choco_exchange,
+                                     make_dist_allreduce_exchange,
+                                     make_dist_choco_exchange,
+                                     make_dist_plain_exchange,
+                                     make_plain_exchange)
 from repro_torch.comm.packing import (bucket_omega_worst, fold_seed,
                                       leaf_route, make_bucket_spec,
                                       pack_leaves, unpack_leaves)
@@ -49,6 +59,10 @@ from repro_torch.core.choco_gossip import GammaSpec, theorem2_stepsize
 from repro_torch.core.compression import make_compressor
 from repro_torch.core.topology import make_topology
 from repro_torch.models.transformer import Model, param_shapes
+from repro_torch.optim.sgd import OptState
+
+#: the exchange modes of the JAX trainer that the port runs
+MODES = ("choco", "plain", "allreduce")
 
 
 def resolve_device(device) -> torch.device:
@@ -65,10 +79,11 @@ def resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass
 class TrainState:
-    x: List[torch.Tensor]        # parameters x_i, in bucket space
-    x_hat: List[torch.Tensor]    # public copies
-    s: List[torch.Tensor]        # weighted neighbour aggregates
-    mu: List[torch.Tensor]       # momentum
+    x: List[torch.Tensor]                 # parameters x_i, in bucket space
+    x_hat: Optional[List[torch.Tensor]]   # public copies (None off choco)
+    s: Optional[List[torch.Tensor]]       # weighted neighbour aggregates
+                                          #   (None off choco)
+    opt: OptState                         # the optimizer's moments
     step: int = 0
     seed: int = 0                # salts the compressors' draws every step
 
@@ -83,8 +98,12 @@ class DecentralizedTrainer:
     device: object = "cuda"
     #: this process's rank in the per-rank engine; None: all nodes here
     group: Optional[object] = None
+    mode: str = "choco"          # choco | plain | allreduce
 
     def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"mode={self.mode!r} is not ported; choose from "
+                             f"{', '.join(MODES)} (push-sum is not ported)")
         if self.model.cfg.attn_impl != "naive":
             raise ValueError(
                 f"attn_impl={self.model.cfg.attn_impl!r} cannot train: the "
@@ -96,8 +115,10 @@ class DecentralizedTrainer:
             self.device = self.group.device
             self.nodes = (self.group.rank,)
         names = parse_topology(self.choco.topology)
-        self.compressor = make_compressor(self.choco.compressor,
-                                          **self.choco.comp_dict())
+        # as in the JAX trainer: only choco compresses
+        self.compressor = (make_compressor(self.choco.compressor,
+                                           **self.choco.comp_dict())
+                           if self.mode == "choco" else None)
         # as on a JAX mesh without a pod axis (the port's is always Nx1)
         self.topologies = tuple(make_topology(name, self.n_nodes)
                                 for name in names)
@@ -117,19 +138,33 @@ class DecentralizedTrainer:
             align=_pack_align(self.compressor),
             exact_small_leaves=self.choco.exact_small_leaves,
             routes=[leaf_route(p) for p in self.paths])
-        # Theorem-2 consensus stepsize: the scalar worst case for logging,
-        # and per-bucket values (each bucket at its own omega) for the
-        # engine; a time-varying sequence takes the worst (delta, beta).
-        delta = min(t.delta for t in self.topologies)
-        beta = max(t.beta for t in self.topologies)
-        self.gamma = theorem2_stepsize(
-            delta, beta, bucket_omega_worst(self.spec, self.compressor))
-        gamma = GammaSpec(delta=delta, beta=beta)
+        dist = self.group is not None
         kw = dict(spec=self.spec, schedules=self.schedules,
-                  compressor=self.compressor, gamma=gamma,
                   gossip_steps=self.choco.gossip_steps)
-        self.exchange = (make_choco_exchange(**kw) if self.group is None
-                         else make_dist_choco_exchange(**kw, group=self.group))
+        if self.mode == "allreduce":
+            self.gamma = 1.0             # the JAX trainer's, off choco
+            self.exchange = (
+                make_dist_allreduce_exchange(spec=self.spec, n=self.n_nodes,
+                                             group=self.group)
+                if dist else make_allreduce_exchange(spec=self.spec,
+                                                     n=self.n_nodes))
+        elif self.mode == "plain":
+            self.gamma = 1.0
+            self.exchange = (make_dist_plain_exchange(**kw, group=self.group)
+                             if dist else make_plain_exchange(**kw))
+        else:
+            # Theorem-2 consensus stepsize: the scalar worst case for
+            # logging, and per-bucket values (each bucket at its own omega)
+            # for the engine; a time-varying sequence takes the worst
+            # (delta, beta).
+            delta = min(t.delta for t in self.topologies)
+            beta = max(t.beta for t in self.topologies)
+            self.gamma = theorem2_stepsize(
+                delta, beta, bucket_omega_worst(self.spec, self.compressor))
+            kw.update(compressor=self.compressor,
+                      gamma=GammaSpec(delta=delta, beta=beta))
+            self.exchange = (make_dist_choco_exchange(**kw, group=self.group)
+                             if dist else make_choco_exchange(**kw))
 
     # -- state ----------------------------------------------------------------
 
@@ -138,16 +173,18 @@ class DecentralizedTrainer:
         """Training state from node-stacked parameters ``path -> (n, ...)``
         of the nodes this trainer holds (e.g.
         ``repro_torch.convert.params_from_jax``; one rank holds one row):
-        x packed into buckets, x_hat, s and momentum zero."""
+        x packed into buckets, the optimizer's moments zero, and under
+        choco x_hat and s zero (None in the exact modes)."""
         leaves = [params[p].to(self.device) for p in self.paths]
         if leaves[0].shape[0] != len(self.nodes):
             raise ValueError(f"params hold {leaves[0].shape[0]} nodes, the "
                              f"trainer {len(self.nodes)}")
         x = pack_leaves(self.spec, leaves)
         del leaves
-        zeros = lambda: [torch.zeros_like(b) for b in x]
+        zeros = lambda: ([torch.zeros_like(b) for b in x]
+                         if self.mode == "choco" else None)
         return TrainState(x=x, x_hat=zeros(), s=zeros(),
-                          mu=self.optimizer.init(x), seed=seed)
+                          opt=self.optimizer.init(x), seed=seed)
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh state from the model's random init under ``seed``."""
@@ -167,8 +204,8 @@ class DecentralizedTrainer:
     def step(self, state: TrainState, batch,
              draws: Optional[Callable[[int, int], torch.Tensor]] = None
              ) -> Dict[str, float]:
-        """One CHOCO-SGD step, in place on ``state``.  ``draws(t, b)``
-        optionally injects the compressor's draw for gossip round t,
+        """One training step, in place on ``state``.  ``draws(t, b)``
+        optionally injects the choco compressor's draw for gossip round t,
         bucket b (``comm/packing.py:draw`` says what each one draws) for
         the nodes this trainer holds."""
         for b in state.x:
@@ -180,7 +217,7 @@ class DecentralizedTrainer:
             lr = self.lr_fn(state.step)
             for b in state.x:
                 b.requires_grad_(False)
-            self.optimizer.update(state.x, grads, state.mu, lr)
+            state.opt = self.optimizer.update(state.x, grads, state.opt, lr)
             del grads                  # frees a state-sized copy for the exchange
             sent = None if self.group is None else self.group.bytes_sent
             self.exchange(state.x, state.x_hat, state.s,

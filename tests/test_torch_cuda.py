@@ -21,7 +21,7 @@ from repro_torch.data.synthetic import make_lm_batch_fn
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.models.transformer import Model
-from repro_torch.optim.sgd import MomentumSGD, cosine_schedule
+from repro_torch.optim.sgd import cosine_schedule, momentum_sgd
 from repro_torch.train.trainer import DecentralizedTrainer
 
 N = 4
@@ -124,7 +124,7 @@ def _run(compressor, device, steps=2):
     tr = DecentralizedTrainer(
         model=Model(cfg), choco=ChocoConfig(compressor=compressor,
                                             comp_kwargs=kw),
-        n_nodes=N, optimizer=MomentumSGD(),
+        n_nodes=N, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, 1, steps), device=device)
     state = tr.state_from_params(tr.model.init(N, 0, "cpu"))
     batches = make_lm_batch_fn(cfg, 64, 2, N, 1.0)

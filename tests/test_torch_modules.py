@@ -39,7 +39,8 @@ from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.core import choco_gossip, compression, topology
 from repro_torch.data.synthetic import make_lm_batch_fn
 from repro_torch.models.transformer import param_shapes
-from repro_torch.optim.sgd import MomentumSGD, cosine_schedule
+from repro_torch.optim.sgd import OptState as TOptState, cosine_schedule
+from repro_torch.optim.sgd import momentum_sgd as tmomentum
 
 N = 4
 
@@ -199,7 +200,7 @@ def test_trainer_gamma_matches_jax_rule(cfg, name, kw, exact):
         model=Model(tcfg), choco=ChocoConfig(compressor=name,
                                              comp_kwargs=tuple(kw.items()),
                                              exact_small_leaves=exact),
-        n_nodes=N, optimizer=MomentumSGD(), lr_fn=cosine_schedule(0.1, 1, 3),
+        n_nodes=N, optimizer=tmomentum(), lr_fn=cosine_schedule(0.1, 1, 3),
         device="cpu")
     ring, jc = jtopo.ring(N), jcomp.make_compressor(name, **kw)
     spec = _jax_spec(jcfg, align=jalign(jc, None), exact_small_leaves=exact)
@@ -264,7 +265,9 @@ def test_momentum_update_matches_jax():
     p, g, m = (rng.standard_normal((N, 4096)).astype(np.float32) for _ in range(3))
     tp, tg, tm = (torch.from_numpy(a.copy()) for a in (p, g, m))
     lr = cosine_schedule(0.1, 1, 3)(2)
-    MomentumSGD(beta=0.9).update([tp], [tg], [tm], lr)
+    got = tmomentum(beta=0.9).update(
+        [tp], [tg], TOptState(mu=[tm], nu=None, count=0), lr)
+    assert got.count == 1 and got.mu[0] is tm
     opt = momentum_sgd(0.9)
     jstate = OptState(mu=jnp.asarray(m), nu=None, count=jnp.zeros((), jnp.int32))
     want_p, want_state = opt.update(jnp.asarray(p), jnp.asarray(g), jstate,

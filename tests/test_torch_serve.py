@@ -49,7 +49,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch import serve
 from repro_torch.models.transformer import Model
 from repro_torch.obs.timers import percentile
-from repro_torch.optim.sgd import MomentumSGD, cosine_schedule
+from repro_torch.optim.sgd import cosine_schedule, momentum_sgd
 from repro_torch.train.trainer import DecentralizedTrainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -257,7 +257,7 @@ def test_trainer_refuses_chunked_attention():
     cfg = dataclasses.replace(tqwen.SMOKE_CONFIG, attn_impl="chunked")
     with pytest.raises(ValueError, match="no backward"):
         DecentralizedTrainer(model=Model(cfg), choco=ChocoConfig(), n_nodes=2,
-                             optimizer=MomentumSGD(),
+                             optimizer=momentum_sgd(),
                              lr_fn=cosine_schedule(0.1, 1, 3), device="cpu")
 
 

@@ -282,8 +282,15 @@ def test_make_logreg_equals_jax_bit_for_bit(name, sort):
     np.testing.assert_allclose(float(got.full_loss(torch.from_numpy(x))),
                                float(want.full_loss(jnp.asarray(x))),
                                rtol=RTOL)
-    with pytest.raises(ValueError, match="not ported"):
-        synthetic.make_logreg(name, 4, skew_alpha=0.5, device="cpu")
+    # the Dirichlet shards over the labels, bit for bit too
+    kw = dict(kw, sorted_assignment=False, skew_alpha=0.5)
+    got = synthetic.make_logreg(name, 4, device="cpu", **kw)
+    want = jsyn.make_logreg(name, 4, **kw)
+    np.testing.assert_array_equal(got.A.numpy(), _np(want.A))
+    np.testing.assert_array_equal(got.node_index.numpy(), _np(want.node_index))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        synthetic.make_logreg(name, 4, device="cpu",
+                              **dict(kw, sorted_assignment=True))
 
 
 N_SGD, BS, SGD_STEPS = 4, 3, 8

@@ -37,7 +37,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.data.synthetic import make_lm_batch_fn
 from repro_torch.launch import train as launcher
 from repro_torch.models.transformer import Model
-from repro_torch.optim.sgd import MomentumSGD, cosine_schedule
+from repro_torch.optim.sgd import cosine_schedule, momentum_sgd
 from repro_torch.train import trainer as trainer_mod
 from repro_torch.train.trainer import DecentralizedTrainer
 
@@ -193,7 +193,7 @@ def _port_trainer(comp, arg, k, exact, topology="ring"):
         model=Model(cfg), choco=ChocoConfig(compressor=comp, comp_kwargs=kw,
                                             topology=topology, gossip_steps=k,
                                             exact_small_leaves=exact),
-        n_nodes=N, optimizer=MomentumSGD(),
+        n_nodes=N, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
         device="cpu")
 
@@ -225,9 +225,10 @@ def test_slice_matches_jax_trainer(tmp_path_factory, comp, arg, k, exact):
     check_against_jax(tr, state, mets, ref, comp)
 
 
-def check_against_jax(tr, state, mets, ref, comp):
+def check_against_jax(tr, state, mets, ref, comp, x_atol=1e-6):
     """Metrics and state after the steps against the JAX trainer's, with
-    the tolerances of this module's docstring."""
+    the tolerances of this module's docstring (x_hat and s where the
+    state has them; x within ``x_atol``)."""
     mets = np.array(mets)
     np.testing.assert_allclose(mets[:, 0], ref["metrics"][:, 0], rtol=1e-6)
     np.testing.assert_array_equal(mets[:, 1], ref["metrics"][:, 1])
@@ -239,6 +240,8 @@ def check_against_jax(tr, state, mets, ref, comp):
         flip_bound = 8 * max(float(v.abs().mean()) for v in x0.values())
     total = sum(b.numel() for b in state.x)
     for tag, bufs in (("x", state.x), ("x_hat", state.x_hat), ("s", state.s)):
+        if bufs is None:                 # not allocated in the exact modes
+            continue
         got = dict(zip(tr.paths, unpack_leaves(tr.spec, bufs)))
         want = params_from_jax(_tree(ref, tag))
         outliers = 0
@@ -246,7 +249,7 @@ def check_against_jax(tr, state, mets, ref, comp):
             a, b = got[path].numpy(), want[path].numpy()
             diff = np.abs(a - b)
             if tag == "x":
-                assert diff.max() <= 1e-6, path
+                assert diff.max() <= x_atol, path
                 continue
             bad = diff > 1e-6 + 1e-5 * np.abs(b)
             outliers += int(bad.sum())
@@ -282,7 +285,7 @@ def test_trainer_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DecentralizedTrainer(model=Model(get_config("qwen3-1.7b", smoke=True)),
                              choco=ChocoConfig(), n_nodes=N,
-                             optimizer=MomentumSGD(),
+                             optimizer=momentum_sgd(),
                              lr_fn=cosine_schedule(0.1, 1, 3))
     assert trainer_mod.resolve_device("cpu").type == "cpu"
 
