@@ -41,8 +41,7 @@ from the root of a checkout, on a machine with one CUDA device.  It
    with plain SGD on Dirichlet(0.1) token shards, exact D-SGD (plain) with
    momentum and the all-reduce baseline with AdamW, checking finite
    losses and the launches (the EF update per bucket per step under
-   choco, no kernel in the exact modes), and that the card's f32 sqrt is
-   correctly rounded (AdamW's square root relies on it);
+   choco, no kernel in the exact modes);
 5. runs the training launcher (``repro_torch.launch.train.main``) for a
    --smoke run with --compressor top_k --fraction 0.05 and one with
    --mode plain --optimizer adamw --data-skew-alpha 0.5, then the first
@@ -70,7 +69,8 @@ from the root of a checkout, on a machine with one CUDA device.  It
    sent to its own sends times the payload bytes; plain (ring; star, 2
    rounds) and allreduce hold the exchange alone bit-equal (allreduce:
    within 1e-6, its sum runs in gloo's order), 3 steps to the ``[small]``
-   rules, each rank's bytes by formula and no launch, the probe included;
+   rules, each rank's bytes by formula (plain's counted; allreduce's a
+   ring model, none counted) and no launch, the probe included;
    the full-width plain mode's bytes are printed as computed;
    then ``[sim]``, the paper's algorithms as matrix simulators on the card
    against the CPU: CHOCO-Gossip at the quickstart's sizes (ring 25, d
@@ -579,7 +579,8 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     torch.cuda.reset_peak_memory_stats()
     # the launcher's default sequence for the uncut 28-layer model
     seq = min(CONFIG.n_layers * 64, 512)
-    batches = make_lm_batch_fn(cfg, seq, 4, N_NODES, 1.0, skew_alpha=skew)
+    batches = make_lm_batch_fn(cfg, seq, 4, N_NODES, 1.0,
+                               skew_alpha=tr.choco.data_skew_alpha)
     label = compressor if mode == "choco" else "none"
     skew_tv = None if skew is None else batches.skew_tv
     print(f"[train] arch={cfg.name} layers={cfg.n_layers} seq={seq} batch=4 "
@@ -642,22 +643,6 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
                     "profile": profile}
 
 
-def check_card_sqrt(dev):
-    """AdamW's square root is ``sqrt_`` on the card (``optim/sgd.py:
-    _sqrt_``), which assumes CUDA's f32 sqrt is correctly rounded: held
-    here against the float64 root rounded to f32 on 2^24 values spread
-    over 2^-40 .. 2^40."""
-    import torch
-    gen = torch.Generator(device=dev).manual_seed(13)
-    x = torch.exp2(torch.rand(1 << 24, generator=gen, device=dev) * 80 - 40)
-    got, want = x.sqrt(), x.double().sqrt().float()
-    moved = int((got != want).sum())
-    print(f"[modes] torch.sqrt on the card against the float64 root rounded "
-          f"to f32: {moved} of {x.numel()} values differ", flush=True)
-    check(moved == 0, f"the card's f32 sqrt is not correctly rounded "
-          f"({moved} values)")
-
-
 #: [modes]: (label, mode, compressor, optimizer, lr, data skew alpha) of the
 #: full-width runs: CHOCO-SGD top_k 0.01 with Algorithm 2's own local step
 #: on skewed data, exact D-SGD with the launcher's default local step, and
@@ -671,7 +656,6 @@ def modes_full_width(dev):
     """[modes]: MODES_RUNS at full width through ``train_full_width``,
     each printed beside the others: ms/step, peak memory, allocator
     retries, skew_tv; the launch counts are checked there."""
-    check_card_sqrt(dev)
     runs = {}
     for label, mode, comp, opt, lr, skew in MODES_RUNS:
         runs[label] = train_full_width(comp, dev, mode=mode, optimizer=opt,
@@ -821,14 +805,13 @@ def small_cuda_vs_cpu(dev):
     at the k-th magnitude, which would move x_hat there by a whole delta
     (> 1e-4) and x by gamma times at most twice the largest |x_hat|.  Such
     coordinates are counted and reported.  None may move for the
-    sparsifiers, identity and randomized gossip: at these seeds no run on
-    an H100 has moved one, so one that moves is a difference to look into.
+    sparsifiers, QSGD, identity and randomized gossip: at these seeds no
+    run on an H100 has moved one, so one that moves is a difference to
+    look into.
     SignNorm flips a code where x - x_hat lies within rounding of zero;
     every run on an H100 so far moved 2 such coordinates of x_hat, and the
     limit allows one per node per step, its x being held to 1e-5 anyway.
-    QSGD may move a level where a value lies within rounding of a level
-    boundary (its norm sums in another order), under the same limit.  The
-    exact modes have no x_hat: every coordinate of x is held.  Launches:
+    The exact modes have no x_hat: every coordinate of x is held.  Launches:
     per step, bucket and round one EF update, and the codes and dequantize
     kernels of QSGD and sign, under choco; none in the exact modes."""
     from repro_torch.configs.base import ChocoConfig, get_config
@@ -877,8 +860,7 @@ def small_cuda_vs_cpu(dev):
         gammas = (tr.exchange.bucket_gammas if choco
                   else [0.0] * tr.spec.n_buckets)
         moved, dx, dx_moved, total = hold_small(
-            "[small]", comp, gammas, (lc, xc, hc), (lp, xp, hp),
-            level_flips=comp == "qsgd")
+            "[small]", comp, gammas, (lc, xc, hc), (lp, xp, hp))
         what = comp if choco else mode
         print(f"[small] smoke f32 {what}{' exact_small_leaves' if exact else ''}"
               f" {opt} lr {lr} on {topology}, gossip_steps {steps_k}, {STEPS} "
@@ -895,11 +877,10 @@ def small_cuda_vs_cpu(dev):
     return report
 
 
-def hold_small(label, comp, gammas, got, want, level_flips=False):
+def hold_small(label, comp, gammas, got, want):
     """The ``[small]`` rules of ``small_cuda_vs_cpu`` for one run ``got`` =
     (losses, x buffers, x_hat buffers or None in the exact modes) against
-    ``want``, buffers on the CPU; ``level_flips`` allows QSGD's moved
-    levels (card against CPU).  Returns (moved coordinates, max |dx|, max
+    ``want``, buffers on the CPU.  Returns (moved coordinates, max |dx|, max
     |dx| at the moved ones, coordinates)."""
     import numpy as np
     import torch
@@ -926,7 +907,7 @@ def hold_small(label, comp, gammas, got, want, level_flips=False):
           f"{label} {comp}: losses differ: {lc} against {lp}")
     if comp == "sign":
         check(dx <= 1e-5, f"{label} {comp}: iterates differ by {dx}")
-    limit = N_NODES * STEPS if comp == "sign" or level_flips else 0
+    limit = N_NODES * STEPS if comp == "sign" else 0
     check(moved <= limit, f"{label} {comp}: {moved} coordinates moved "
           f"(limit {limit})")
     return moved, dx, dx_moved, sum(b.numel() for b in xp)
@@ -968,14 +949,16 @@ def _dist_trainer(comp, kw, steps_k, cfg, dev, group=None, topology="ring",
 
 
 def exact_wire_bytes(mode, topology, steps_k, rank, spec):
-    """The bytes node ``rank`` sends per exchange call in an exact mode:
-    its sends per call x the f32 buckets' bytes (4 per padded element)
-    under plain; 2 (n - 1) / n of those bytes under allreduce (a ring
-    all-reduce: a reduce-scatter, then an all-gather)."""
+    """(counted, modelled) bytes of node ``rank`` per exchange call in an
+    exact mode: under plain, its sends per call x the f32 buckets' bytes
+    (4 per padded element), counted by ``NodeGroup.sendrecv``; under
+    allreduce nothing through ``sendrecv``, and 2 (n - 1) / n of those
+    bytes by the ring model of ``NodeGroup.all_reduce`` (a reduce-scatter,
+    then an all-gather; what the transport sends is not observed)."""
     nbytes = sum(4 * b.size for b in spec.buckets)
     if mode == "allreduce":
-        return 2 * (N_NODES - 1) * nbytes // N_NODES
-    return steps_k * SENDS_PER_ROUND[topology][rank] * nbytes
+        return 0, 2 * (N_NODES - 1) * nbytes // N_NODES
+    return steps_k * SENDS_PER_ROUND[topology][rank] * nbytes, 0
 
 
 def _dist_group(rank, store):
@@ -1022,9 +1005,10 @@ def _dist_small_rank(rank, store, out_dir):
                            topology, mode)
         bufs = [[b[rank:rank + 1].to(group.device) for b in part]
                 for part in _exchange_inputs(tr.spec)]
-        before = group.bytes_sent
+        before = (group.bytes_sent, group.bytes_modelled)
         tr.exchange(*bufs, seed=23)
-        sent = group.bytes_sent - before
+        sent = (group.bytes_sent - before[0],
+                group.bytes_modelled - before[1])
         state = tr.state_from_params(params)
         batches = make_lm_batch_fn(cfg, 128, 4, N_NODES, 1.0, node=rank)
         mets = [tr.step(state, tr.batch_to_device(batches()))
@@ -1032,7 +1016,8 @@ def _dist_small_rank(rank, store, out_dir):
         out[(mode, topology)] = {
             "exchange": [b.cpu() for b in bufs[0]], "sent": sent,
             "losses": [m["loss"] for m in mets],
-            "wire_bytes": [m["wire_bytes"] for m in mets],
+            "wire_bytes": [(m["wire_bytes"], m["wire_bytes_modelled"])
+                           for m in mets],
             "x": [b.cpu() for b in state.x]}
     torch.cuda.synchronize()
     out["exact_launches"] = dispatch.launch_counts()
@@ -1079,7 +1064,8 @@ def dist_small(dev):
     the exchange alone bit-equal under plain and within 1e-6 under
     allreduce (the sum runs in another order), STEPS steps to the [small]
     rules, each rank's bytes per call and per step by
-    ``exact_wire_bytes``, and no kernel launched, the probe included."""
+    ``exact_wire_bytes`` (plain's counted; allreduce's modelled, and none
+    counted), and no kernel launched, the probe included."""
     import tempfile
     import torch
     from repro_torch.data.synthetic import make_lm_batch_fn
@@ -1122,8 +1108,9 @@ def dist_small(dev):
         print(f"[dist] small {mode} on {topology}, gossip_steps={steps_k}: the "
               f"exchange alone, per rank against the stacked exchange on the "
               f"card: max |dx| {diff:.3e} (bit-equal: {diff == 0.0}){order}; "
-              f"bytes sent per rank {sent}, per step {wire}, formula {want}",
-              flush=True)
+              f"bytes per rank (counted by sendrecv, modelled as a ring "
+              f"all-reduce) per exchange {sent}, per step {wire}, formula "
+              f"{want}", flush=True)
         check(diff == 0.0 if mode == "plain" else diff <= 1e-6,
               f"[dist] {mode} on {topology}: the per-rank exchange differs "
               f"from the stacked one by {diff}")
@@ -1145,7 +1132,8 @@ def dist_small(dev):
               f"losses {recs[0]['losses']} vs stacked {losses}; max |dx| "
               f"{dx:.3e} of {total} coordinates", flush=True)
         report[f"{mode}@{topology}"] = {
-            "exchange_max_dx": diff, "bytes_sent": sent, "wire_bytes": wire,
+            "exchange_max_dx": diff, "bytes_counted_modelled": sent,
+            "wire_bytes_counted_modelled": wire,
             "wire_formula": want, "losses_dist": recs[0]["losses"],
             "losses_stacked": losses, "max_dx": dx}
     for comp, kw, steps_k in DIST_SMALL:
@@ -2123,7 +2111,8 @@ def profile_decode(model, params, dev):
 def consistency_full_width(model, params, dev):
     """Prefill (through the kernel) against decode over the same 256 x 2
     tokens: the JAX test's bound max|d| / max(max|logits|, 1) < 0.05, and
-    the same greedy token."""
+    the same greedy token.  Returns (the prefill's launch counts, the
+    record)."""
     import torch
     from repro_torch.kernels import dispatch
     s, b = 256, 2
@@ -2131,7 +2120,8 @@ def consistency_full_width(model, params, dev):
                          generator=torch.Generator(device=dev).manual_seed(5))
     dispatch.reset_launch_counts()
     pre, _ = model.prefill(params, toks)
-    launches = dispatch.launch_counts()["flash_attention"]
+    counts = dispatch.launch_counts()
+    launches = counts["flash_attention"]
     dec = decode_over(model, params, toks, model.init_cache(b, s, dev))
     a, w = dec.float(), pre.float()
     rel = float((a - w).abs().max()) / max(float(w.abs().max()), 1.0)
@@ -2143,7 +2133,7 @@ def consistency_full_width(model, params, dev):
     check(launches == model.cfg.n_layers, f"consistency: {launches} launches")
     check(rel < 0.05, f"prefill and decode logits differ: {rel}")
     check(same, "prefill and decode pick different greedy tokens")
-    return launches, {"rel": rel, "argmax_equal": same}
+    return counts, {"rel": rel, "argmax_equal": same}
 
 
 def serve_small_cuda_vs_cpu(dev):
@@ -2241,7 +2231,7 @@ def main():
     torch.cuda.empty_cache()
     dist_full = dist_full_width(by_path[DIST_FULL[0]][1])
     torch.cuda.empty_cache()
-    plain_bytes = exact_wire_bytes("plain", "ring", 1, 0, spec)
+    plain_bytes = exact_wire_bytes("plain", "ring", 1, 0, spec)[0]
     top_k_bytes = dist_full["ranks"][0]["wire_bytes"][-1]
     print(f"[dist] computed, not measured: the per-rank plain mode (exact "
           f"D-SGD) at full width on the ring would send {plain_bytes} bytes "
@@ -2257,8 +2247,8 @@ def main():
     flash_record, flash_err = check_flash(dev)
     model, params = full_width_serving_model(dev)
     prefill_counts, prefill = prefill_full_width(model, params, dev)
-    consistency_launches, consistency = consistency_full_width(model, params,
-                                                               dev)
+    consistency_counts, consistency = consistency_full_width(model, params,
+                                                             dev)
     decode = profile_decode(model, params, dev)
     del model, params
     torch.cuda.empty_cache()
@@ -2284,8 +2274,7 @@ def main():
         "dist_full_width": {k: sum(r["launches"][k] for r in dist_full["ranks"])
                             for k in kernel_names()},
         "sim": sim_counts, "topk_ops": ops_counts, "prefill": prefill_counts,
-        "consistency": {**{k: 0 for k in kernel_names()},
-                        "flash_attention": consistency_launches},
+        "consistency": consistency_counts,
         "serve": serve_counts}
     by_kernel = lambda name: {p: c[name] for p, c in paths.items()}
     # the training paths whose launches count as the gossip kernels' main

@@ -466,7 +466,8 @@ def make_dist_allreduce_exchange(*, spec: BucketSpec, n: int,
     by ``group.all_reduce`` (the transport's own reduction order, which
     may differ from the stacked node order by an ulp) and divided by n.
     No probe runs.  ``exchange.payload_bytes`` lists each bucket's bytes
-    (4 per padded element)."""
+    (4 per padded element); ``group.bytes_modelled`` (not ``bytes_sent``)
+    takes what a ring all-reduce of them would send."""
     _check_f32(spec)
     if group.size != n:
         raise ValueError(f"a group of {group.size} ranks for {n} nodes")

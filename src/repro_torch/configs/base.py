@@ -92,7 +92,9 @@ class ChocoConfig:
     exact_small_leaves: bool = False
     # Dirichlet(alpha) non-IID data shards (data/partition.py); None: the
     # launcher's --heterogeneity slices.  A data knob: the trainer's state
-    # and exchange do not read it
+    # and exchange do not read it; it takes effect where the batches are
+    # made, by passing it to make_lm_batch_fn(skew_alpha=), as the
+    # launcher does
     data_skew_alpha: Optional[float] = None
 
     def comp_dict(self):

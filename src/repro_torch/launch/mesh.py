@@ -59,10 +59,15 @@ class NodeGroup:
     #: a gloo group for the host-side metric reductions (the default group
     #: itself when the backend is gloo)
     host_group: object = None
-    #: payload bytes this rank has sent, and host seconds spent copying
-    #: payloads between the device and pinned host buffers
+    #: payload bytes this rank has handed to ``sendrecv`` to send, and host
+    #: seconds spent copying payloads between the device and pinned host
+    #: buffers
     bytes_sent: int = 0
     staging_s: float = 0.0
+    #: bytes a ring all-reduce would send per rank for the tensors given
+    #: to ``all_reduce``: a model, not a count (the transport picks its own
+    #: algorithm, and no hook reports what it sent)
+    bytes_modelled: int = 0
 
     def sendrecv(self, send: torch.Tensor, dst, src):
         """Send the 1-D uint8 tensor ``send`` to rank ``dst`` and receive
@@ -101,10 +106,10 @@ class NodeGroup:
 
     def all_reduce(self, tensor: torch.Tensor) -> None:
         """Sum ``tensor`` over the group, in place (on the card it is
-        staged through a pinned host buffer when the group is).  Counts
-        the bytes a ring all-reduce sends per rank, ``2 (n - 1) / n`` of
-        the tensor's (a reduce-scatter, then an all-gather: gloo's and
-        NCCL's ring algorithm)."""
+        staged through a pinned host buffer when the group is).  Adds to
+        ``bytes_modelled`` what a ring all-reduce sends per rank,
+        ``2 (n - 1) / n`` of the tensor's bytes (a reduce-scatter, then an
+        all-gather); gloo and NCCL may take another algorithm."""
         nbytes = tensor.numel() * tensor.element_size()
         buf = tensor
         if self.staged:
@@ -114,7 +119,7 @@ class NodeGroup:
             buf.copy_(tensor)                  # waits for the kernels
             self.staging_s += time.perf_counter() - t0
         dist.all_reduce(buf, op=dist.ReduceOp.SUM)
-        self.bytes_sent += 2 * (self.size - 1) * nbytes // self.size
+        self.bytes_modelled += 2 * (self.size - 1) * nbytes // self.size
         if self.staged:
             t0 = time.perf_counter()
             tensor.copy_(buf)

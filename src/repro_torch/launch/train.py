@@ -291,7 +291,7 @@ def _train(args, n_nodes: int, group) -> int:
     seq = args.seq_len or min(cfg.n_layers * 64, 512)
     bpn = args.batch_per_node or 4
     next_batch = make_lm_batch_fn(cfg, seq, bpn, n_nodes, args.heterogeneity,
-                                  skew_alpha=args.data_skew_alpha,
+                                  skew_alpha=trainer.choco.data_skew_alpha,
                                   node=None if group is None else group.rank)
     engine = "stacked" if group is None else "per-rank"
     compressor = args.compressor if args.mode == "choco" else "none"
@@ -325,7 +325,10 @@ def _train(args, n_nodes: int, group) -> int:
             per = (now - last_t) / max(i + 1 - last_i, 1)
             tail = f"first step {per:.2f}s" if i == 0 else f"{per:.2f}s/step"
             wire = ("" if group is None else
-                    f" wire {mets['wire_bytes']} B sent by rank 0")
+                    f" wire {mets['wire_bytes']} B sent by rank 0"
+                    if args.mode != "allreduce" else
+                    f" wire {mets['wire_bytes_modelled']} B modelled for "
+                    f"rank 0 (a ring all-reduce; not counted)")
             say(f"[train] step {state.step:5d} loss {mets['loss']:.4f} "
                 f"lr {mets['lr']:.4f} ({tail}){wire}", flush=True)
             last_t, last_i = now, i + 1

@@ -15,8 +15,7 @@ Every scalar is a float32 value, as in the JAX package: Python floats
 multiply f32 tensors in f32, and AdamW's bias corrections
 ``1 - b ** count`` are computed on f32 scalar tensors (bc2 divides on the
 buffers' device: a CPU scalar divisor would become a reciprocal multiply
-on the card).  AdamW's square root is correctly rounded, as XLA's and
-CUDA's are (:func:`_sqrt_`).
+on the card).
 """
 from __future__ import annotations
 
@@ -41,25 +40,6 @@ class Optimizer:
     #: moments) are updated in place to the half-step, and each ``grads``
     #: entry is used as scratch and released (set to None)
     update: Callable[..., OptState]
-
-
-#: elements per float64 chunk of the CPU square root (64 MiB)
-_SQRT_CHUNK = 1 << 23
-
-
-def _sqrt_(t: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded f32 square root, in place.  On the card this
-    is ``sqrt_`` (CUDA's sqrtf is IEEE-rounded; ``chip_smoke.py`` checks
-    it); torch's CPU kernel is an ulp off for about 0.6% of values, so on
-    the CPU the root goes through float64, a chunk at a time (rounding the
-    float64 root of an f32 to f32 is the correctly rounded f32 root)."""
-    if t.device.type != "cpu":
-        return t.sqrt_()
-    flat = t.view(-1)
-    for i in range(0, flat.numel(), _SQRT_CHUNK):
-        chunk = flat[i:i + _SQRT_CHUNK]
-        chunk.copy_(chunk.double().sqrt_())
-    return t
 
 
 def _decayed(d: torch.Tensor, p: torch.Tensor,
@@ -140,7 +120,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             g, grads[i] = grads[i], None
             m.lerp_(g, 1 - b1)
             v.mul_(b2).addcmul_(g, g, value=1 - b2)
-            den = _sqrt_(torch.div(v, bc2, out=g)).add_(eps)
+            den = torch.div(v, bc2, out=g).sqrt_().add_(eps)
             if weight_decay:
                 p.mul_(1 - lr * weight_decay)
             p.addcdiv_(m, den, value=-step)

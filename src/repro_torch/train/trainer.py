@@ -207,7 +207,10 @@ class DecentralizedTrainer:
         """One training step, in place on ``state``.  ``draws(t, b)``
         optionally injects the choco compressor's draw for gossip round t,
         bucket b (``comm/packing.py:draw`` says what each one draws) for
-        the nodes this trainer holds."""
+        the nodes this trainer holds.  On the per-rank engine the metrics
+        add this rank's ``wire_bytes`` (counted: the payloads it sent) and
+        ``wire_bytes_modelled`` (the ring all-reduce's bytes, a model, in
+        allreduce mode)."""
         for b in state.x:
             b.requires_grad_(True)
         losses = self.model.loss(self.params(state), batch)     # (n,)
@@ -219,7 +222,8 @@ class DecentralizedTrainer:
                 b.requires_grad_(False)
             state.opt = self.optimizer.update(state.x, grads, state.opt, lr)
             del grads                  # frees a state-sized copy for the exchange
-            sent = None if self.group is None else self.group.bytes_sent
+            sent = (None if self.group is None else
+                    (self.group.bytes_sent, self.group.bytes_modelled))
             self.exchange(state.x, state.x_hat, state.s,
                           seed=fold_seed(state.seed, state.step),
                           draws=draws)
@@ -237,4 +241,5 @@ class DecentralizedTrainer:
             [loss, -loss], torch.distributed.ReduceOp.MAX)
         return {"loss": total / self.n_nodes, "lr": lr,
                 "grad_norm": math.sqrt(sq), "node_loss_spread": top + neg_low,
-                "wire_bytes": self.group.bytes_sent - sent}
+                "wire_bytes": self.group.bytes_sent - sent[0],
+                "wire_bytes_modelled": self.group.bytes_modelled - sent[1]}

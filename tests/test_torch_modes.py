@@ -230,7 +230,8 @@ def run_port_case(case, ref, optimizer=None, node=None, group=None):
         tr.optimizer = optimizer
     state = tr.state_from_params(params_from_jax(_tree(ref, "x0"), node=node))
     batches = make_lm_batch_fn(tr.model.cfg, SEQ, BPN, N, 1.0,
-                               skew_alpha=case["skew"], node=node)
+                               skew_alpha=tr.choco.data_skew_alpha,
+                               node=node)
     rows = slice(None) if node is None else slice(node, node + 1)
     mets = []
     for j in range(STEPS):
@@ -240,7 +241,7 @@ def run_port_case(case, ref, optimizer=None, node=None, group=None):
                      torch.from_numpy(ref[f"xi:{j}:{t}:{b}"][rows]))
         m = tr.step(state, tr.batch_to_device(batches()), draws=draws)
         mets.append([m["loss"], m["lr"], m["grad_norm"],
-                     m.get("wire_bytes", 0)])
+                     m.get("wire_bytes", 0), m.get("wire_bytes_modelled", 0)])
     return tr, state, mets
 
 
@@ -365,9 +366,10 @@ def _modes_rank(rank, store, out_dir, paths):
         ex = _make_exchange(case, spec, group)
         x = [b[rank:rank + 1].clone()
              for b in _exchange_inputs(refs[case["tag"]], spec)]
-        before = group.bytes_sent
+        before = (group.bytes_sent, group.bytes_modelled)
         ex(x, None, None)
-        out[case["tag"]] = (x, group.bytes_sent - before,
+        out[case["tag"]] = (x, (group.bytes_sent - before[0],
+                                group.bytes_modelled - before[1]),
                             getattr(ex, "sends", None), ex.payload_bytes)
     for case in MODE_CASES:
         _, state, mets = run_port_case(case, refs[case["tag"]], node=rank,
@@ -382,15 +384,16 @@ SENDS_PER_ROUND = {"ring": (2, 2, 2, 2), "star": (3, 1, 1, 1)}
 
 
 def _wire_bytes(case, rank, nbytes):
-    """The bytes node ``rank`` sends per exchange call of ``case``, with
-    ``nbytes`` bytes in its buckets: a ring all-reduce sends 2 (n - 1) / n
-    of them; plain sends them once per send of each gossip round."""
+    """(counted, modelled) bytes of node ``rank`` per exchange call of
+    ``case``, with ``nbytes`` bytes in its buckets: plain sends them once
+    per send of each gossip round, counted; allreduce sends nothing
+    through ``sendrecv``, and its ring model says 2 (n - 1) / n of them."""
     if case["mode"] == "allreduce":
-        return 2 * (N - 1) * nbytes // N
+        return 0, 2 * (N - 1) * nbytes // N
     per_round = [SENDS_PER_ROUND[t][rank]
                  for t in case["topology"].split(",")]
     return nbytes * sum(per_round[t % len(per_round)]
-                        for t in range(case["k"]))
+                        for t in range(case["k"])), 0
 
 
 def test_dist_exact_modes_match_stacked(refs, ref_paths, tmp_path):
@@ -417,7 +420,7 @@ def test_dist_exact_modes_match_stacked(refs, ref_paths, tmp_path):
                         assert float((g[0] - w[r]).abs().max()) <= 1e-6
                 assert sent == _wire_bytes(case, r, sum(nbytes))
                 if case["mode"] == "plain":
-                    assert sent == sends * sum(nbytes)
+                    assert sent[0] == sends * sum(nbytes)
         for case in MODE_CASES:
             ref = refs[case["tag"]]
             tr, stacked, mets = run_port_case(case, ref)
@@ -429,7 +432,7 @@ def test_dist_exact_modes_match_stacked(refs, ref_paths, tmp_path):
                 # the all-reduced metrics agree; the wire bytes are the rank's
                 assert [m[:3] for m in rank[case["tag"]][1]] == \
                     [m[:3] for m in got]
-                assert all(m[3] == _wire_bytes(case, r, nbytes)
+                assert all(tuple(m[3:]) == _wire_bytes(case, r, nbytes)
                            for m in rank[case["tag"]][1])
             np.testing.assert_allclose([m[0] for m in got],
                                        [m[0] for m in mets], rtol=1e-6)
