@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Shows that the bf16 flash-attention parity contract catches a faulted
-kernel: run with
+"""Shows that the flash-attention contracts catch a faulted kernel: run
+with
 
     python3 chip_flash_faults.py
 
@@ -14,6 +14,14 @@ source into the build directory (no faulted source is kept):
 * ``stale_last``: the last key block's K and V read from the previous
   block's stage of the ring;
 
+builds the f32 3xTF32 kernel (``csrc/flash_attention.cu``) as it is and
+three more times, the same way:
+
+* ``one_term``: each product takes its big.big term only (1xTF32);
+* ``two_term``: each product drops its small.big term (2xTF32);
+* ``f32_skip_alpha``: the running output not rescaled by alpha on key
+  block 1;
+
 and makes the plain version once with a fault, for contract (b):
 
 * ``plain_skip_alpha``: the plain version's running output not rescaled
@@ -23,10 +31,11 @@ On each of ``chip_smoke.py``'s bf16 flash cases (the same inputs) it
 prints contract (a)'s readings of every kernel against the sound plain
 version (max|d| / max|want|, share of elements more than one bf16 ulp
 apart) and contract (b)'s reading of both plain versions against the
-f32-P result, with the bounds of ``kernels/flash_attention.py``.  The last
-line is a JSON summary; it exits 0 only if the sound kernel and plain
-version meet the contract in every case and every fault breaks it in at
-least one.
+f32-P result, with the bounds of ``kernels/flash_attention.py``; on each
+f32 case, max|d| / max|out| of every f32 kernel against the plain version
+(bound 1e-5).  The last line is a JSON summary; it exits 0 only if the
+sound kernels and plain version meet their contracts in every case and
+every fault breaks its contract in at least one.
 """
 import concurrent.futures
 import inspect
@@ -56,6 +65,18 @@ KERNEL_FAULTS = {
         "    const int s = (kb == n_k - 1 && kb > 0) ? (kb - 1) % kStages : s0;\n"),
         ("    mbar_arrive(empty(s));", "    mbar_arrive(empty(s0));")],
 }
+#: the same for the f32 kernel
+F32_BIG_SMALL = ("      wgmma_ss(s, dqb + qo, dks + ko);          // big . small\n",
+                 "      wgmma_rs(pv, pb, dvs + vo);               // big . small\n")
+F32_SMALL_BIG = ("      wgmma_ss(s, dqs + qo, dkb + ko);          // small . big\n",
+                 "      wgmma_rs(pv, pl, dvb + vo);               // small . big\n")
+F32_FAULTS = {
+    "one_term": [(line, "") for line in F32_BIG_SMALL + F32_SMALL_BIG],
+    "two_term": [(line, "") for line in F32_SMALL_BIG],
+    "f32_skip_alpha": KERNEL_FAULTS["skip_alpha"],
+}
+#: the f32 contract: max|d| / max|out| against the plain version
+F32_RTOL = 1e-5
 PLAIN_FAULT = (
     "        acc_new = acc[..., r0:, :] * alpha[..., None] + pv",
     "        acc_new = (acc[..., r0:, :] if k0 == FLASH_BLOCK\n"
@@ -92,27 +113,55 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    sound = build.LIBRARIES["flash_tc"]
     fault_dir = build.BUILD_DIR / "faults"
     fault_dir.mkdir(parents=True, exist_ok=True)
-    libs = {"sound": "flash_tc"}
-    for name, pairs in KERNEL_FAULTS.items():
-        path = fault_dir / f"flash_attention_sm90_{name}.cu"
-        path.write_text(edited(sound.source.read_text(), pairs))
-        libs[name] = f"flash_tc_{name}"
-        build.LIBRARIES[libs[name]] = build.Library(path, sound.flags,
-                                                    sound.signatures)
-    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(build.build, libs.values()))
-    chip_smoke.check_flash_sass(build.library_path("flash_tc"))
+
+    def faulted(library, faults):
+        """{name: library} of the sound library and one faulted copy per
+        fault, registered with ``build``."""
+        sound = build.LIBRARIES[library]
+        libs = {"sound": library}
+        for name, pairs in faults.items():
+            path = fault_dir / f"{sound.source.stem}_{name}.cu"
+            path.write_text(edited(sound.source.read_text(), pairs))
+            libs[name] = f"{library}_{name}"
+            build.LIBRARIES[libs[name]] = build.Library(path, sound.flags,
+                                                        sound.signatures)
+        return libs
+
+    libs = faulted("flash_tc", KERNEL_FAULTS)
+    f32_libs = faulted("flash", F32_FAULTS)
+    every = list(libs.values()) + list(f32_libs.values())
+    with concurrent.futures.ThreadPoolExecutor(len(every)) as pool:
+        list(pool.map(build.build, every))
+    chip_smoke.check_flash_sass(build.library_path("flash_tc"),
+                                build.library_path("flash"))
     plain_fault = faulted_plain()
 
     bounds = {"a_rel": fa.FLASH_BF16_RTOL, "a_ulp_share": fa.FLASH_BF16_ULP_SHARE,
               "b_rel": fa.FLASH_BF16_F32P_RTOL}
     readings = {name: {} for name in [*libs, "plain_skip_alpha"]}
+    f32_readings = {name: {} for name in f32_libs}
     entry = fa._ENTRY[torch.bfloat16]
+    f32_entry = fa._ENTRY[torch.float32]
     for label, q, k, v, kw in chip_smoke.flash_cases(dev):
-        if q.dtype != torch.bfloat16:
+        if q.dtype == torch.float32:
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            top = float(want.abs().max())
+            for name, lib in f32_libs.items():
+                fa._ENTRY[torch.float32] = (lib, f32_entry[1])
+                try:
+                    got = dispatch.flash_attention(q, k, v, **kw)
+                finally:
+                    fa._ENTRY[torch.float32] = f32_entry
+                torch.cuda.synchronize()
+                f32_readings[name][label] = {
+                    "rel": float((got - want).abs().max()) / top}
+                print(f"[faults] {name:16s} {label:24s} max|d| / max|out| "
+                      f"{f32_readings[name][label]['rel']:.4e}", flush=True)
+                del got
+            del q, k, v, want
+            torch.cuda.empty_cache()
             continue
         want = ref.flash_attention_ref(q, k, v, **kw)
         f32p = ref.flash_attention_ref(q.float(), k.float(), v.float(),
@@ -145,13 +194,20 @@ def main():
 
     verdict = {name: [label for label, r in by_case.items() if broken(r)]
                for name, by_case in readings.items()}
-    ok = not verdict["sound"] and all(verdict[name] for name in verdict
-                                      if name != "sound")
-    for name, cases in verdict.items():
-        print(f"[faults] {name}: contract broken in {len(cases)} of "
-              f"{len(readings[name])} cases {cases}", flush=True)
-    print(json.dumps({"ok": ok, "bounds": bounds, "readings": readings,
-                      "broken_in": verdict}), flush=True)
+    f32_verdict = {name: [label for label, r in by_case.items()
+                          if r["rel"] > F32_RTOL]
+                   for name, by_case in f32_readings.items()}
+    ok = all(not v["sound"] and all(v[name] for name in v if name != "sound")
+             for v in (verdict, f32_verdict))
+    for family, found in (("bf16", verdict), ("f32", f32_verdict)):
+        for name, cases in found.items():
+            total = len((readings if family == "bf16" else f32_readings)[name])
+            print(f"[faults] {family} {name}: contract broken in {len(cases)} "
+                  f"of {total} cases {cases}", flush=True)
+    print(json.dumps({"ok": ok, "bounds": dict(bounds, f32_rel=F32_RTOL),
+                      "readings": readings, "f32_readings": f32_readings,
+                      "broken_in": verdict, "f32_broken_in": f32_verdict}),
+          flush=True)
     return 0 if ok else 1
 
 

@@ -19,8 +19,9 @@ from the root of a checkout, on a machine with one CUDA device.  It
    row, as the trainer calls it (codes of -1, 0 or 1 at these lengths),
    and with inv_norm = 0.999/max|x|, which reaches every level up to s;
    The collective-layer probe kernel is held bit-equal to its plain version
-   at the JAX probe's (8, 128) block and timed in turns with its plain
-   version and ``torch.mul(x, 2)`` in one loop;
+   at the JAX probe's (8, 128) block, its wrapper's host path is split
+   step by step, and it is timed in turns with its plain version and
+   ``torch.mul(x, 2)`` in one loop;
 3. holds the top-k mask kernel against its plain version, bit for bit in
    mask and thresholds: at the tile shape of one node's embedding bucket
    (2,430,976 x 128) with k = 2 and 13, at C = 1024, and with planted
@@ -86,11 +87,14 @@ from the root of a checkout, on a machine with one CUDA device.  It
    an odd length (1000), at 2048, at Dh 64 with a softcap and non-causal,
    each to contract (a) (``FLASH_BF16_RTOL``, ``FLASH_BF16_ULP_SHARE``)
    and its plain version to contract (b) against the f32-P result; the
-   f32 CUDA-core kernel with a softcap within 1e-5 of max|out|; and times
-   the bf16 kernel at the prefill layer, its plain version,
-   ``scaled_dot_product_attention`` (the library yardstick, which the
-   port never calls) and the bounds, and the f32 kernel at the same
-   shape beside SDPA on the same f32 inputs;
+   f32 3xTF32 tensor-core kernel (``csrc/flash_attention.cu``; the build
+   phase checks that its SASS holds wgmma) within 1e-5 of max|out| at Dh
+   64 with a softcap (non-causal and causal), at 2048 and at an odd
+   length (1000); and times the bf16 kernel at the prefill layer, its
+   plain version, ``scaled_dot_product_attention`` (the library
+   yardstick, which the port never calls) and the bounds, and the f32
+   kernel at the same shape, held within 1e-5 there too, beside SDPA on
+   the same f32 inputs and SDPA's own distance to the plain version;
 8. prefills qwen3-1.7b at full width and full depth (28 layers) through
    ``Model.prefill`` with ``attn_impl="chunked"``: one prompt of 32768
    tokens (the ``prefill_32k`` shape, its batch of 32 cut to 1 for one
@@ -140,6 +144,9 @@ STEPS = 3
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_TC_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+TF32_TC_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
+#: TF32 products per f32 product in the f32 flash kernel (3xTF32)
+TF32_TERMS = 3
 ODD_LENGTH = 1_000_003
 GOSSIP_KERNELS = ("qsgd_codes_kernel", "sign_codes_kernel",
                   "dequantize_kernel", "ef_update_kernel")
@@ -168,6 +175,9 @@ FLASH_CASES = (
     ("S 2048", 1, 2048, 16, 8, 128, "bfloat16", True, None),
     ("Dh 64 softcap", 2, 512, 8, 8, 64, "bfloat16", False, 50.0),
     ("non-causal", 2, 1000, 16, 8, 128, "bfloat16", False, None),
+    ("f32 S 2048", 1, 2048, 16, 8, 128, "float32", True, None),
+    ("f32 odd length", 2, 1000, 16, 8, 128, "float32", True, None),
+    ("f32 Dh 64 softcap causal", 2, 512, 8, 8, 64, "float32", True, 50.0),
 )
 PREFILL_CALLS = 2
 #: the f32 prefill test's cache tolerance, atol (rtol 1e-5), from
@@ -1678,11 +1688,56 @@ def spawn_ranks_of(fn, tmp, deadline_s, *extra):
                 deadline_s=deadline_s)
 
 
+def probe_host_path(x, calls=10_000):
+    """Host microseconds per call of each step of the probe wrapper
+    (``kernels/probe.py:probe_scale``), each step run ``calls`` times
+    alone between two ``time.perf_counter_ns`` reads, beside the whole
+    wrapper and ``torch.mul(x, 2)``, and the two lookups the wrapper made
+    before they were cut (a ``torch.cuda.Stream`` object for the stream, a
+    device object for the dispatch's device check).  The launch step
+    enqueues the kernel on the current stream; the device is synchronised
+    before each step."""
+    import torch
+    from repro_torch.kernels import build, dispatch
+    lib = build.load_library("probe")
+    out = torch.empty_like(x)
+    stream = build.stream_of(x)
+    steps = {
+        "load_library": lambda: build.load_library("probe"),
+        "require": lambda: build.require(x, "x", torch.float32),
+        "empty_like": lambda: torch.empty_like(x),
+        "stream_of": lambda: build.stream_of(x),
+        # the lookups the wrapper made before: a Stream object, a device
+        "stream_object (before)": lambda: torch.cuda.current_stream(
+            x.device).cuda_stream,
+        "device_type (before)": lambda: x.device.type == "cpu",
+        "data_ptr": lambda: (x.data_ptr(), out.data_ptr(), x.numel()),
+        "launch": lambda: lib.probe_scale(x.data_ptr(), out.data_ptr(),
+                                          x.numel(), stream),
+        "check_launch": lambda: build.check_launch(lib, 0, "probe_scale"),
+        "wrapper": lambda: dispatch.probe_scale(x),
+        "torch.mul": lambda: torch.mul(x, 2),
+    }
+    us = {}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        us[name] = (time.perf_counter_ns() - t0) / calls / 1e3
+        torch.cuda.synchronize()
+    print(f"[kernel] probe_scale host path, us per call over {calls} calls: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in us.items()), flush=True)
+    return us
+
+
 def check_probe(dev):
     """The collective-layer probe kernel against its plain version at the
-    JAX probe's (8, 128) f32 block: bit-equal.  Times kernel and plain
-    version; the bound is 8 KiB moved at the HBM rate, far below a
-    launch's latency."""
+    JAX probe's (8, 128) f32 block: bit-equal.  Splits the wrapper's host
+    path, then times kernel, plain version and ``torch.mul(x, 2)`` in
+    turns; the bound is 8 KiB moved at the HBM rate, far below a launch's
+    latency."""
     import torch
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels.probe import PROBE_SHAPE
@@ -1693,6 +1748,7 @@ def check_probe(dev):
     err = float((got - want).abs().max())
     check(torch.equal(got, want), f"probe_scale: kernel and plain version "
           f"differ (max abs {err})")
+    host_us = probe_host_path(x)
     bms, by = bound_ms([x], [got], x.numel())
     (ms, plain_ms, lib_ms), wins = time_interleaved_ms(
         [lambda: dispatch.probe_scale(x), lambda: ref.probe_scale_ref(x),
@@ -1701,13 +1757,13 @@ def check_probe(dev):
                   bound_ms=bms, bound_by=by, timed="interleaved",
                   fastest_share=dict(zip(("kernel", "plain", "library"),
                                          wins)),
-                  shape=list(PROBE_SHAPE), max_abs_err=err)
+                  host_us=host_us, shape=list(PROBE_SHAPE), max_abs_err=err)
     print(f"[kernel] probe_scale {PROBE_SHAPE}: bit-equal; timed in turns "
           f"with its plain version and torch.mul(x, 2) in one loop (40 "
           f"rounds of 50 calls each): {ms:.4f} ms (bound {bms:.6f} ms, {by}: "
           f"the launch latency sets it), plain {plain_ms:.4f} ms, "
-          f"torch.mul(x, 2) {lib_ms:.4f} ms; fastest in "
-          f"{record['fastest_share']} of the rounds", flush=True)
+          f"torch.mul(x, 2) {lib_ms:.4f} ms (the kernel {ms / lib_ms:.2f}x); "
+          f"fastest in {record['fastest_share']} of the rounds", flush=True)
     return record
 
 
@@ -1790,15 +1846,16 @@ def flash_bounds(tensors_in, out, causal):
     call: q, k, v read once and out written once at the HBM rate, against
     4 * Dh flops per (query, key) pair that the mask keeps (S (S + 1) / 2
     pairs per head when causal, S^2 otherwise) at the card's peak rate for
-    the inputs' type (bf16 tensor cores for bf16, f32 outside the tensor
-    cores for f32); and the same flops at the f32 CUDA-core rate, the rate
-    of the f32 kernel's arithmetic."""
+    the work: bf16 inputs at the bf16 tensor cores' rate; f32 inputs, whose
+    f32-accurate products take three TF32 products each (3xTF32), at a
+    third of the TF32 tensor cores' rate.  The f32 CUDA-core bound (the
+    same flops at 67 TFLOP/s, the bound of earlier rows) stands beside it."""
     import torch
     n, s, h, dh = out.shape
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * dh * n * h * pairs
     rate = (BF16_TC_FLOPS_PER_S if out.dtype == torch.bfloat16
-            else F32_FLOPS_PER_S)
+            else TF32_TC_FLOPS_PER_S / TF32_TERMS)
     bms, by = bound_ms(list(tensors_in), [out], flops, rate)
     return bms, by, flops / F32_FLOPS_PER_S * 1e3, flops
 
@@ -1819,16 +1876,20 @@ def flash_cases(dev):
 def check_flash(dev):
     """The flash kernels against their plain version in FLASH_CASES.
 
-    f32 (the CUDA-core kernel): max abs error <= 1e-5 * max|out|.  bf16
+    f32 (the 3xTF32 tensor-core kernel): max abs error <= 1e-5 *
+    max|out|; the plain version's matmuls run in full f32
+    (``torch.backends.cuda.matmul.allow_tf32`` is False).  bf16
     (the tensor-core kernel, P rounded to bf16 as the plain version rounds
     it): contract (a), max|d| / max|want| <= FLASH_BF16_RTOL and at most
     FLASH_BF16_ULP_SHARE of the elements more than one bf16 ulp apart; and
     contract (b), the plain version within FLASH_BF16_F32P_RTOL of the
     f32-P result.  Returns the timing record of the first case, with every
-    bf16 case's readings, and the max abs error."""
+    case's readings, and the max abs error."""
     import torch
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import flash_attention as fa
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the f32 plain version must run full-f32 matmuls (allow_tf32 is on)")
     record, max_err, readings = None, 0.0, {}
     for label, q, k, v, kw in flash_cases(dev):
         got = dispatch.flash_attention(q, k, v, **kw)
@@ -1840,6 +1901,8 @@ def check_flash(dev):
         check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite")
         what = f"max abs err {err:.3e}, max |out| {top:.3f}"
         if q.dtype == torch.float32:
+            readings[label] = {"rel": err / top}
+            what += f", max|d| / max|out| {err / top:.4e} (bound 1e-05)"
             check(err <= 1e-5 * top, f"flash {label}: {what} > 1e-5 max|out|")
         else:
             # (a) the kernel against the plain version; (b) the plain
@@ -1899,17 +1962,21 @@ def check_flash(dev):
     record["contract"] = readings
     record["contract_bounds"] = {"a_rel": fa.FLASH_BF16_RTOL,
                                  "a_ulp_share": fa.FLASH_BF16_ULP_SHARE,
-                                 "b_rel": fa.FLASH_BF16_F32P_RTOL}
+                                 "b_rel": fa.FLASH_BF16_F32P_RTOL,
+                                 "f32_rel": 1e-5}
     return record, max_err
 
 
 def time_flash_f32(dev):
-    """The f32 entry (the CUDA-core kernel) at the prefill layer's shape,
-    q (1, 32768, 16, 128), k and v 8 heads, causal: kernel, plain version
-    and ``scaled_dot_product_attention`` on the same f32 inputs (its
-    memory-efficient backend, the one that takes f32; k and v are repeated
-    to 16 heads before the timed calls, as that backend takes no grouped
-    heads), and the bounds."""
+    """The f32 entry (the 3xTF32 tensor-core kernel) at the prefill
+    layer's shape, q (1, 32768, 16, 128), k and v 8 heads, causal: held
+    within 1e-5 of max|out| of the plain version, then timed beside the
+    plain version and ``scaled_dot_product_attention`` on the same f32
+    inputs (its memory-efficient backend, the one that takes f32; k and v
+    are repeated to 16 heads before the timed calls, as that backend takes
+    no grouped heads), whose own distance to the plain version is printed
+    beside the kernel's; and the bounds (3xTF32 and the f32 CUDA-core
+    rate)."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import dispatch, ref
@@ -1918,60 +1985,84 @@ def time_flash_f32(dev):
     k, v = (torch.randn((1, 32768, 8, 128), generator=gen, device=dev)
             for _ in range(2))
     got = dispatch.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    top = float(want.abs().max())
+    rel = float((got - want).abs().max()) / top
+    check(bool(torch.isfinite(got).all()) and rel <= 1e-5,
+          f"flash f32 prefill layer: max|d| / max|out| {rel:.4e} > 1e-5")
     qt = q.transpose(1, 2)
     kt, vt = (t.repeat_interleave(2, dim=2).transpose(1, 2) for t in (k, v))
     F = torch.nn.functional
     with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
         lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        lib_err = float((lib.transpose(1, 2) - got).abs().max())
+        lib_rel = float((lib.transpose(1, 2) - want).abs().max()) / top
         del lib
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), 3)
-    bms, by, _, flops = flash_bounds((q, k, v), got, True)
-    ms = time_ms(lambda: dispatch.flash_attention(q, k, v, causal=True), 2)
+    del want
+    bms, by, f32_ms, flops = flash_bounds((q, k, v), got, True)
+    ms = time_ms(lambda: dispatch.flash_attention(q, k, v, causal=True), 3)
     plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
                        1)
     rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-               bound_by=by, tflop_per_s=flops / ms / 1e9,
-               bound_share=bms / ms, library_max_abs_diff=lib_err,
+               bound_by=by, bound_f32_cuda_core_ms=f32_ms,
+               tflop_per_s=flops / ms / 1e9, bound_share=bms / ms,
+               max_rel_err=rel, library_max_rel_err=lib_rel,
                shape=[list(q.shape), list(k.shape)], dtype="float32")
     print(f"[kernel] flash_attention f32 prefill layer q{tuple(q.shape)} "
-          f"k{tuple(k.shape)} causal: {ms:.3f} ms ({rec['tflop_per_s']:.1f} "
-          f"TFLOP/s, {100 * rec['bound_share']:.1f}% of the bound {bms:.3f} "
-          f"ms, {by}, at the f32 CUDA-core rate), plain {plain_ms:.3f} ms, "
+          f"k{tuple(k.shape)} causal: max|d| / max|out| against the plain "
+          f"version {rel:.4e} (bound 1e-05; SDPA's {lib_rel:.4e}); "
+          f"{ms:.3f} ms ({rec['tflop_per_s']:.1f} TFLOP/s, "
+          f"{100 * rec['bound_share']:.1f}% of the bound {bms:.3f} ms, {by}, "
+          f"at the 3xTF32 tensor-core rate; {f32_ms:.3f} ms at the 67 TFLOP/s "
+          f"f32 CUDA-core rate), plain {plain_ms:.3f} ms, "
           f"scaled_dot_product_attention (memory-efficient backend, f32) "
-          f"{lib_ms:.3f} ms ({ms / lib_ms:.2f}x; max abs diff to the kernel "
-          f"{lib_err:.3e})", flush=True)
+          f"{lib_ms:.3f} ms ({ms / lib_ms:.2f}x)", flush=True)
     del q, k, v, qt, kt, vt, got
     torch.cuda.empty_cache()
     return rec
 
 
-def check_flash_sass(path):
-    """The bf16 flash kernel was compiled to tensor-core code: every
-    ``flash_tc_kernel`` instantiation in the library's SASS
+def check_flash_sass(path, f32_path=None):
+    """The flash kernels were compiled to tensor-core code: every
+    ``flash_tc_kernel`` instantiation in the bf16 library's SASS
     (``cuobjdump -sass``) holds wgmma (``HGMMA``) and TMA loads
-    (``UTMALDG``), so a CUDA-core kernel cannot pass for it.  A missing
-    ``cuobjdump`` is a failure."""
+    (``UTMALDG``), and, given the f32 library, every
+    ``flash_attention_kernel`` instantiation there holds ``HGMMA``: a
+    CUDA-core kernel cannot pass for either.  A missing ``cuobjdump`` is a
+    failure."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    check(os.path.exists(tool), f"cuobjdump not found ({tool}): the flash_tc "
-          f"library's SASS cannot be checked")
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    found = {}
-    for section in sass.split("Function : ")[1:]:
-        name = section.split(None, 1)[0]
-        if "flash_tc_kernel" in name:
-            found[name] = (section.count("HGMMA"), section.count("UTMALDG"))
-    check(len(found) == 2, f"flash_tc SASS: {len(found)} flash_tc_kernel "
-          f"functions, expected 2 (Dh 64 and 128)")
+    check(os.path.exists(tool), f"cuobjdump not found ({tool}): the flash "
+          f"libraries' SASS cannot be checked")
+
+    def functions(lib, kernel):
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        found = {}
+        for section in sass.split("Function : ")[1:]:
+            name = section.split(None, 1)[0]
+            if kernel in name:
+                found[name] = (section.count("HGMMA"), section.count("UTMALDG"))
+        check(len(found) == 2, f"{lib.name} SASS: {len(found)} {kernel} "
+              f"functions, expected 2 (Dh 64 and 128)")
+        return found
+
+    found = functions(path, "flash_tc_kernel")
     for name, (hgmma, utmaldg) in found.items():
         check(hgmma > 0 and utmaldg > 0, f"flash_tc SASS: {name} has {hgmma} "
               f"HGMMA and {utmaldg} UTMALDG instructions")
     print("[build] flash_tc SASS: " + "; ".join(
         f"{name[-60:]}: {h} HGMMA, {u} UTMALDG"
         for name, (h, u) in found.items()), flush=True)
+    if f32_path is not None:
+        f32 = functions(f32_path, "flash_attention_kernel")
+        for name, (hgmma, _) in f32.items():
+            check(hgmma > 0, f"flash (f32) SASS: {name} has no HGMMA")
+        print("[build] flash (f32) SASS: " + "; ".join(
+            f"{name[-60:]}: {h} HGMMA" for name, (h, _) in f32.items()),
+              flush=True)
+        found.update(f32)
     return found
 
 
@@ -2196,7 +2287,7 @@ def main():
     for _, log in built:
         for line in log.splitlines():
             print(f"[build] {line}", flush=True)
-    check_flash_sass(build.library_path("flash_tc"))
+    check_flash_sass(build.library_path("flash_tc"), build.library_path("flash"))
 
     from repro_torch.comm.packing import leaf_route, make_bucket_spec
     from repro_torch.configs.qwen3_1_7b import CONFIG

@@ -154,18 +154,22 @@ def check_launch(lib, code: int, kernel: str) -> None:
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream on the tensor's device, as a pointer int."""
+    """The current CUDA stream on the tensor's device, as a pointer int.
+    It builds no Python ``torch.cuda.Stream`` object, the largest step of
+    a probe launch's host path when it did (``chip_smoke.py`` prints both
+    lookups on its ``[kernel] probe_scale host path`` line)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require(t, name: str, dtype, shape=None) -> None:
     """Check that a kernel argument is a contiguous CUDA tensor of the
-    expected dtype (and shape)."""
-    if t.device.type != "cuda":
+    expected dtype (and shape), reading each attribute once."""
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    got = t.dtype
+    if got != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {got}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -9,8 +9,9 @@
 // the per-rank engine's transport (kernels/dispatch.py:probe_collectives).
 //
 // What bounds it: 4 KiB in and 4 KiB out at the probe's shape, so the
-// launch latency, far above both the bytes bound and the one multiply per
-// element.  The design is the simplest that is right: a grid-stride loop,
+// launch latency and the wrapper's host path (kernels/probe.py), far
+// above both the bytes bound and the one multiply per element.  One block
+// of 256 threads at that shape, no shared memory, a few registers.  The design is the simplest that is right: a grid-stride loop,
 // one element per thread per step, the multiply rounded explicitly
 // (__fmul_rn), so the output is bit-equal to the plain version in
 // kernels/ref.py (a product by 2 is exact anyway).

@@ -42,7 +42,8 @@ KERNELS = {
 
 
 def _on_cpu(t) -> bool:
-    return t.device.type == "cpu"
+    # an attribute read: ``t.device.type`` builds a device object per call
+    return t.is_cpu
 
 
 def qsgd_codes(x, xi, inv_norm, s: int):

@@ -7,8 +7,17 @@ and k, v ``(N, S, KV, Dh)`` in place, with no transpose and no repeated
 KV copy, and write the output in q's dtype.  Any S; Dh 64 or 128.  The
 entry follows the dtype, and nothing else:
 
-* float32: ``csrc/flash_attention.cu`` (library ``flash``), on the CUDA
-  cores in f32, within 1e-5 of max|out| of the plain version;
+* float32: ``csrc/flash_attention.cu`` (library ``flash``), on the
+  tensor cores in 3xTF32 (each operand split into two TF32 parts, three
+  wgmma products per product; the softmax in f32 on the CUDA cores),
+  within 1e-5 of max|out| of the plain version, which runs full-f32
+  matmuls.  It is bound by operations at a third of the TF32 rate (26.7
+  ms for a causal 32768-token qwen3-1.7b layer at an H100 SXM's 495
+  TFLOP/s, its 700 W rate; 64.8 ms measured on an NVIDIA H100 80GB HBM3
+  at 700.00 W, ``chip_smoke.py``); one
+  consumer and one producer warpgroup per 64 query rows, 193 KB of
+  shared memory and up to 255 registers a thread at Dh 128 (the budget
+  is in the source's note);
 * bfloat16: ``csrc/flash_attention_sm90.cu`` (library ``flash_tc``), on
   the tensor cores (wgmma, TMA loads), with P rounded to bf16 before P V,
   held to the plain version (``ref.flash_attention_ref``, which rounds at
@@ -29,8 +38,9 @@ HEAD_DIMS = (64, 128)
 #: dtype -> (library, entry)
 _ENTRY = {torch.float32: ("flash", "flash_attention_f32"),
           torch.bfloat16: ("flash_tc", "flash_attention_bf16_tc")}
-#: the bf16 kernel's TMA loads need 16-byte aligned base addresses
-TMA_ALIGN = 16
+#: both kernels load 16 bytes at a time (the bf16 one by TMA), so every
+#: base address is 16-byte aligned
+LOAD_ALIGN = 16
 
 #: Contract (a), bf16: the kernel against its plain version on the same
 #: inputs, max|d| / max|want| and the share of elements more than one bf16
@@ -80,9 +90,9 @@ def _check(q, k, v) -> None:
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
-        if q.dtype == torch.bfloat16 and t.data_ptr() % TMA_ALIGN:
-            raise ValueError(f"{name}: the bf16 kernel's TMA loads need a "
-                             f"{TMA_ALIGN}-byte aligned base address")
+        if t.data_ptr() % LOAD_ALIGN:
+            raise ValueError(f"{name}: the kernels' loads need a "
+                             f"{LOAD_ALIGN}-byte aligned base address")
     if KV < 1 or H % KV:
         raise ValueError(f"{H} query heads are not a multiple of {KV} KV heads")
     if Dh not in HEAD_DIMS:

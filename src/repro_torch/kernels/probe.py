@@ -6,6 +6,17 @@ Replaces the Pallas kernel of the JAX toolchain probe,
 block.  ``dispatch.probe_collectives`` launches it and sends its output
 through the per-rank gossip engine's transport.  The kernel is in
 ``csrc/probe.cu``.
+
+What bounds a call is the host, not the card: the kernel moves 8 KiB, and
+back-to-back calls run as fast as the host issues them.  The host path is
+this function's five steps (library, checks, output, launch, its error
+check); ``chip_smoke.py`` prints their split beside ``torch.mul(x, 2)``
+(``[kernel] probe_scale host path``).  Its largest step was the stream
+lookup, which built a ``torch.cuda.Stream`` per call: ``build.stream_of``
+now reads the raw stream, ``dispatch``'s device check reads
+``Tensor.is_cpu`` (``.device`` built a device object per call), and
+``build.require`` reads each attribute once.  The ctypes function is
+resolved once, at its first call (``ctypes.CDLL`` keeps it).
 """
 from __future__ import annotations
 

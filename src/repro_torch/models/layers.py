@@ -167,9 +167,21 @@ def mlp(p, x, cfg):
 
 
 def embed_tokens(p, tokens, cfg):
-    """Token lookup per node: tok (n, V, D), tokens (n, B, S) -> (n, B, S, D)."""
+    """Token lookup per node: tok (n, V, D), tokens (n, B, S) -> (n, B, S, D).
+
+    Its backward adds a token's gradient rows in position order, as the
+    JAX package's scatter-add does, so a step's gradient is the same in
+    every run.  On the CPU that takes ``F.embedding`` over the (n V, D)
+    table, whose backward sums serially: advanced indexing's backward
+    there (``index_put_`` with accumulate) adds across threads in an order
+    that changes from run to run.  On CUDA advanced indexing's backward
+    sorts the indices stably and sums each token's rows in order."""
+    tok = p["tok"]
     node = torch.arange(tokens.shape[0], device=tokens.device)[:, None, None]
-    x = p["tok"][node, tokens]
+    if tokens.device.type == "cpu":
+        x = F.embedding(tokens + node * tok.shape[1], tok.flatten(0, 1))
+    else:
+        x = tok[node, tokens]
     if cfg.tie_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x

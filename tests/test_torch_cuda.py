@@ -340,13 +340,18 @@ def _attn_inputs(seed, n, s, h, kv, dh, dtype, device):
     (2, 512, 8, 8, 64, torch.bfloat16, False, 50.0),
     (2, 1000, 16, 8, 128, torch.bfloat16, False, None),
     (2, 512, 8, 8, 64, torch.float32, False, 50.0),
+    (1, 2048, 16, 8, 128, torch.float32, True, None),
+    (2, 1000, 16, 8, 128, torch.float32, True, None),
+    (2, 512, 8, 8, 64, torch.float32, True, 50.0),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, n, s, h, kv, dh, dtype,
                                               causal, softcap):
     """bf16 (the tensor-core kernel, P rounded to bf16 as the plain version
     rounds it): contract (a), max|d| / max|want| within FLASH_BF16_RTOL and
     at most FLASH_BF16_ULP_SHARE of the elements more than one bf16 ulp
-    apart; f32 (the CUDA-core kernel): within 1e-5 of max |out|."""
+    apart; f32 (the 3xTF32 tensor-core kernel): within 1e-5 of max |out|
+    of the plain version, whose matmuls run in full f32."""
+    assert not torch.backends.cuda.matmul.allow_tf32
     q, k, v = _attn_inputs(s, n, s, h, kv, dh, dtype, cuda)
     got = _launched("flash_attention", lambda: dispatch.flash_attention(
         q, k, v, causal=causal, softcap=softcap))
@@ -383,6 +388,11 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     off = flat[1:].view(vb.shape).copy_(vb)
     with pytest.raises(ValueError, match="16-byte aligned"):
         dispatch.flash_attention(qb, kb, off)
+    # the f32 kernel loads K and V 16 bytes at a time: a base 4 bytes off
+    flat = torch.empty(1 + v.numel(), device=cuda)
+    off = flat[1:].view(v.shape).copy_(v.detach())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dispatch.flash_attention(q.detach(), k, off)
 
 
 @pytest.mark.cuda

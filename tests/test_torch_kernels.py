@@ -374,6 +374,21 @@ def test_flash_bf16_entry_refuses_what_tma_cannot_load(view, monkeypatch):
         dispatch.flash_attention(q, kv, bad, causal=True)
 
 
+def test_flash_f32_entry_refuses_a_misaligned_base(monkeypatch):
+    """The f32 kernel loads K and V 16 bytes at a time: a base address 4
+    bytes off 16-byte alignment is refused before any library is loaded."""
+    def loader(name):
+        raise AssertionError(f"library {name} loaded for a refused view")
+
+    monkeypatch.setattr(build, "load_library", loader)
+    q = _meta((1, 128, 4, 64))
+    kv = _meta((1, 128, 2, 64))
+    bad = _meta((1 + kv.numel(),))[1:].view(kv.shape)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dispatch.flash_attention(q, kv, bad, causal=True)
+
+
 def test_flash_has_its_own_library_and_build_flags():
     """The gossip, top-k and probe libraries keep --fmad=false (bit-equal
     outputs); both flash kernels, held to a tolerance, are built without
