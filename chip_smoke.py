@@ -12,7 +12,9 @@ from the root of a checkout, on a machine with one CUDA device.  It
    (int8 and int16), sign codes and dequantize bit-equal, the EF update
    (in place, as the exchange calls it, with the ring's and star's
    per-node weight vectors) within 0 ulp (kernel and plain
-   version round every operation separately), and times kernel, plain
+   version round every operation separately), the bf16-state EF update
+   (x f32, x_hat, s and the payloads bf16; the ring's uniform weights
+   and chain's per-node ones) bit-equal too, and times kernel, plain
    version, the bytes bound and,
    for dequantize, the one PyTorch call that computes the same function.
    QSGD is checked twice at each length: with inv_norm = 1/||x|| per node
@@ -37,15 +39,19 @@ from the root of a checkout, on a machine with one CUDA device.  It
    gossip_steps x buckets times on its path and not at all off it, then
    profiles one more step of each; then ``[topology]``: the top_k run
    again on a star (per-node self weights, partial rounds), printed
-   beside the ring's ms/step and peak memory; then ``[modes]``, the same
+   beside the ring's ms/step and peak memory; then ``[state-bf16]``, the
+   top_k and QSGD runs again with bf16 EF state (x_hat and s), printed
+   beside the f32 state's ms/step and peak memory and the predicted
+   peak; then ``[modes]``, the same
    cell through the same code in the paper's three modes: CHOCO-SGD top_k
    with plain SGD on Dirichlet(0.1) token shards, exact D-SGD (plain) with
    momentum and the all-reduce baseline with AdamW, checking finite
    losses and the launches (the EF update per bucket per step under
    choco, no kernel in the exact modes);
 5. runs the training launcher (``repro_torch.launch.train.main``) for a
-   --smoke run with --compressor top_k --fraction 0.05 and one with
-   --mode plain --optimizer adamw --data-skew-alpha 0.5, then the first
+   --smoke run with --compressor top_k --fraction 0.05, one with
+   --mode plain --optimizer adamw --data-skew-alpha 0.5 and the first
+   with --state-dtype bfloat16, then the first
    with --simulate-devices 4 (4 ranks on the card, the per-rank engine),
    checking its engine line, its probe record and rank 0's launches;
 6. holds small float32 training runs on the card against the same runs on
@@ -53,7 +59,8 @@ from the root of a checkout, on a machine with one CUDA device.  It
    block_top_k, identity with the exact small-leaf bucket, and rand_k and
    randomized gossip fed the same draws on both devices, on the ring;
    top_k on torus, chain, star and the time-varying pair "ring,star";
-   plain on star, allreduce with plain SGD and QSGD under AdamW;
+   plain on star, allreduce with plain SGD and QSGD under AdamW; top_k on
+   the ring and QSGD on chain with bf16 EF state;
    then the per-rank engine (``[dist]``), one process per gossip node, 4
    ranks sharing the card: the small phase holds the per-rank exchange
    alone bit-equal to the stacked exchange on the card, and 3 per-rank
@@ -67,7 +74,8 @@ from the root of a checkout, on a machine with one CUDA device.  It
    engine's, each rank's peak memory, the wire bytes, the transport and
    the probe record; on star and chain the small phase holds the
    per-rank exchange bit-equal to the stacked one and each rank's bytes
-   sent to its own sends times the payload bytes; plain (ring; star, 2
+   sent to its own sends times the payload bytes, and so with bf16 EF
+   state (top_k on the ring, QSGD on chain); plain (ring; star, 2
    rounds) and allreduce hold the exchange alone bit-equal (allreduce:
    within 1e-6, its sum runs in gloo's order), 3 steps to the ``[small]``
    rules, each rank's bytes by formula (plain's counted; allreduce's a
@@ -149,7 +157,13 @@ TF32_TC_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 TF32_TERMS = 3
 ODD_LENGTH = 1_000_003
 GOSSIP_KERNELS = ("qsgd_codes_kernel", "sign_codes_kernel",
-                  "dequantize_kernel", "ef_update_kernel")
+                  "dequantize_kernel", "ef_update_kernel",
+                  "ef_update_bf16_kernel")
+#: [state-bf16]: the compressors of the full-width runs with bf16 EF state
+STATE_BF16_COMPRESSORS = ("top_k", "qsgd")
+#: columns of the bf16 EF update's plain version per call, when it is held
+#: and timed over a whole buffer (its exact FMA runs in f64)
+EF_BF16_PLAIN_CHUNK = 1 << 25
 #: the bf16 tensor-core flash kernel (the prefill's) and the f32 one
 FLASH_KERNELS = ("flash_tc_kernel", "flash_attention_kernel")
 #: one node's embedding bucket, 311,164,928 elements, as (R, 128) tiles
@@ -356,10 +370,65 @@ def check_kernels(lengths, dev):
                                                          *w_star, gamma), reps),
                plain_ms, None, bound_ms(ins + list(w_star), inplace,
                                         8 * x.numel()))
-        del ins, inplace, x
+        del inplace
+        check_ef_bf16(ins, gamma, length, reps, compare, report)
+        del ins, x
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     return records, max_err
+
+
+def check_ef_bf16(ins, gamma, length, reps, compare, report):
+    """The bf16-state EF update (``ef_update_bf16``) at one length: x f32
+    and x_hat, s, q_self, q_nbr made bf16 from ``ins``; the ring's uniform
+    weights (bf16-valued, the weighted sum in bf16) and chain's per-node
+    self weights (2/3 and 1/3: the sum in f32, and its FMA recomputation
+    for x differs from s' in some elements), in place, bit for bit against
+    ``ref.ef_update_bf16_ref`` (row by row, in column chunks: its exact
+    FMA runs in f64).  Timed with chain's weights; the plain version is
+    timed over the whole buffers in column chunks of EF_BF16_PLAIN_CHUNK."""
+    import torch
+    from repro_torch.kernels import dispatch, ref
+    dev = ins[0].device
+    bf = torch.bfloat16
+    x = ins[0]
+    rest = [t.to(bf) for t in ins[1:]]
+    node = lambda w: torch.tensor(w, dtype=torch.float32, device=dev)
+    third = node((1 / 3,) * N_NODES).to(bf).float()
+    w_ring = (third, third, True)
+    w_chain = (node((2 / 3, 1 / 3, 1 / 3, 2 / 3)), third, False)
+    cols = range(0, length, EF_BF16_PLAIN_CHUNK)
+
+    def plain(w):
+        for c in cols:
+            part = slice(c, c + EF_BF16_PLAIN_CHUNK)
+            ref.ef_update_bf16_ref(x[:, part], *[t[:, part] for t in rest],
+                                   w[0], w[1], gamma, w[2])
+    plain_ms = time_ms(lambda: plain(w_chain), max(2, reps // 4))
+    for w in (w_ring, w_chain):
+        inplace = [x.clone(), rest[0].clone(), rest[1].clone()]
+        dispatch.ef_bucket_update(*inplace, *rest[2:], *w[:2], gamma, w[2])
+        for j, out in enumerate(inplace):
+            pairs = []
+            for c in cols:
+                part = slice(c, c + EF_BF16_PLAIN_CHUNK)
+                pairs.append((out[:, part], lambda i, j=j, part=part, w=w:
+                              ref.ef_update_bf16_ref(
+                                  x[i:i + 1, part],
+                                  *[t[i:i + 1, part] for t in rest],
+                                  w[0][i:i + 1], w[1][i:i + 1], gamma,
+                                  w[2])[j][0]))
+            compare("ef_update_bf16", pairs, length)
+        if w is w_ring:
+            del inplace
+    report("ef_update_bf16", length,
+           time_ms(lambda: dispatch.ef_bucket_update(
+               *inplace, *rest[2:], *w_chain[:2], gamma, False), reps),
+           plain_ms, None, bound_ms([x] + rest + list(w_chain[:2]), inplace,
+                                    10 * x.numel()))
+    del inplace, rest
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def topk_input(shape, ties, gen, dev):
@@ -559,11 +628,13 @@ def profile_call(label, fn, ours, show=True):
 
 
 def train_full_width(compressor, dev, topology="ring", mode="choco",
-                     optimizer="momentum", lr=0.1, skew=None):
+                     optimizer="momentum", lr=0.1, skew=None,
+                     state_dtype="float32"):
     """Full-width qwen3-1.7b (2 layers), 4 nodes, on ``topology`` (1
     gossip round per step), in ``mode`` with the ``optimizer`` local step
-    at ``lr``, on Dirichlet(``skew``) token shards where given: STEPS
-    steps, then one profiled step."""
+    at ``lr``, on Dirichlet(``skew``) token shards where given, with the
+    EF state x_hat and s in ``state_dtype``: STEPS steps, then one
+    profiled step."""
     import torch
     from repro_torch.configs.base import ChocoConfig
     from repro_torch.configs.qwen3_1_7b import CONFIG
@@ -580,11 +651,16 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     tr = DecentralizedTrainer(
         model=Model(cfg), choco=ChocoConfig(compressor=compressor, comp_kwargs=kw,
                                             topology=topology,
-                                            data_skew_alpha=skew),
+                                            data_skew_alpha=skew,
+                                            state_dtype=state_dtype),
         n_nodes=N_NODES, optimizer=make_optimizer(optimizer),
         lr_fn=cosine_schedule(lr, warmup=STEPS // 10 + 1, total=STEPS),
         device=dev, mode=mode)
     state = tr.init_state(seed=0)
+    if mode == "choco":
+        check({b.dtype for b in state.x_hat + state.s}
+              == {getattr(torch, state_dtype)},
+              f"[train] the EF state is not {state_dtype}")
     init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     # the launcher's default sequence for the uncut 28-layer model
@@ -597,8 +673,8 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
           f"params={count_params(cfg) / 1e6:.1f}M nodes={N_NODES} "
           f"mode={mode} optimizer={optimizer} lr={lr} "
           f"topology={topology} rounds={tr.schedules[0].n_rounds} "
-          f"compressor={label} buckets={tr.spec.n_buckets} "
-          f"gamma={tr.gamma:.3e}"
+          f"compressor={label} state_dtype={state_dtype} "
+          f"buckets={tr.spec.n_buckets} gamma={tr.gamma:.3e}"
           + ("" if skew is None else
              f" data_skew_alpha={skew} skew_tv={skew_tv:.6f}"), flush=True)
     dispatch.reset_launch_counts()
@@ -621,10 +697,12 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     # sparse payloads decode by scatter: no dequantize launch on their path;
     # the exact modes launch no kernel
     choco = mode == "choco"
+    bf16 = state_dtype == "bfloat16"
     on_path = {"qsgd_codes": choco and compressor == "qsgd",
                "sign_codes": choco and compressor == "sign",
                "dequantize": choco and compressor in ("qsgd", "sign"),
-               "ef_update": choco, "flash_attention": False,
+               "ef_update": choco and not bf16,
+               "ef_update_bf16": choco and bf16, "flash_attention": False,
                "block_topk_mask": False, "probe_scale": False}
     for name, used in on_path.items():
         want = expected if used else 0
@@ -634,7 +712,8 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
               f"else 0)", flush=True)
         check(counts[name] == want, f"{name}: {counts[name]} launches, "
               f"expected {want}")
-    print(f"[train] {mode} {label} {optimizer}: losses {losses}; ms/step "
+    print(f"[train] {mode} {label} {optimizer} {state_dtype} state: losses "
+          f"{losses}; ms/step "
           f"{step_ms} (first step included); peak device memory {peak:.2f} "
           f"GiB over the steps, {init_peak:.2f} GiB at init; allocator "
           f"retries (cache flushed to fit an allocation) so far {retries}",
@@ -646,11 +725,35 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     del state, tr
     torch.cuda.empty_cache()
     return counts, {"topology": topology, "mode": mode,
+                    "state_dtype": state_dtype,
                     "optimizer": optimizer, "lr": lr, "skew_alpha": skew,
                     "skew_tv": skew_tv, "losses": losses,
                     "ms_per_step": step_ms, "peak_gib": peak,
                     "init_peak_gib": init_peak, "alloc_retries": retries,
                     "profile": profile}
+
+
+def state_bf16_full_width(dev, f32_runs):
+    """[state-bf16]: the training cell (2 layers, ring, 4 nodes) with bf16
+    EF state under top_k 0.01 and QSGD s=16, each printed beside the f32
+    state's run of this call (``f32_runs``): ms/step, and the peak beside
+    the prediction, 4 bytes less per parameter per node (x_hat and s at 2
+    bytes each instead of 4)."""
+    from repro_torch.configs.qwen3_1_7b import CONFIG
+    from repro_torch.models.transformer import count_params
+    saved = N_NODES * count_params(dataclasses.replace(CONFIG, n_layers=2)) * 4
+    runs = {}
+    for comp in STATE_BF16_COMPRESSORS:
+        runs[comp] = train_full_width(comp, dev, state_dtype="bfloat16")
+        rec, f32 = runs[comp][1], f32_runs[comp][1]
+        rec["predicted_peak_gib"] = f32["peak_gib"] - saved / 2 ** 30
+        print(f"[state-bf16] {comp}: ms/step {rec['ms_per_step']} against "
+              f"the f32 state's {f32['ms_per_step']} (first step included); "
+              f"peak {rec['peak_gib']:.3f} GiB against {f32['peak_gib']:.3f} "
+              f"GiB, predicted {rec['predicted_peak_gib']:.3f} GiB (x_hat "
+              f"and s save {saved} bytes = {saved / 2 ** 30:.3f} GiB); "
+              f"allocator retries {rec['alloc_retries']}", flush=True)
+    return runs
 
 
 #: [modes]: (label, mode, compressor, optimizer, lr, data skew alpha) of the
@@ -679,12 +782,16 @@ def modes_full_width(dev):
 
 
 #: the launcher's --smoke runs on the card: (label, extra flags); the
-#: first is the choco path, the second the exact mode with the new flags
+#: first is the choco path, the second the exact mode with the new flags,
+#: the third the choco path with bf16 EF state
 LAUNCHER_RUNS = (("launcher_smoke", ["--compressor", "top_k", "--fraction",
                                      "0.05"]),
                  ("launcher_plain_adamw_skew", ["--mode", "plain",
                                                 "--optimizer", "adamw",
-                                                "--data-skew-alpha", "0.5"]))
+                                                "--data-skew-alpha", "0.5"]),
+                 ("launcher_state_bf16", ["--compressor", "top_k",
+                                          "--fraction", "0.05",
+                                          "--state-dtype", "bfloat16"]))
 
 
 def run_launcher(extra):
@@ -709,8 +816,9 @@ def run_launcher(extra):
           f"launcher losses {losses}")
     buckets = int(out.split("buckets=")[1].split()[0])
     want = STEPS * buckets if "mode=choco" in out else 0
-    check(counts["ef_update"] == want and sum(counts.values()) == want,
-          f"launcher launch counts {counts}, expected {want} ef_update "
+    ef = "ef_update_bf16" if "state_dtype=bfloat16" in out else "ef_update"
+    check(counts[ef] == want and sum(counts.values()) == want,
+          f"launcher launch counts {counts}, expected {want} {ef} "
           f"launches and no other")
     if "--data-skew-alpha" in extra:
         check("skew_tv=" in out, "launcher: no skew_tv in the header")
@@ -785,7 +893,13 @@ SMALL_RUNS = (("sign", (), False, "ring", 1, "choco", "momentum", 0.1),
               ("none", (), False, "star", 2, "plain", "momentum", 0.1),
               ("none", (), False, "ring", 1, "allreduce", "sgd", 0.1),
               ("qsgd", (("s", 16),), False, "ring", 1, "choco", "adamw",
-               1e-3))
+               1e-3),
+              # bf16 EF state: uniform weights on the ring, per-node self
+              # weights (the weighted sum in f32) on chain
+              ("top_k", (("fraction", 0.05),), False, "ring", 1, "choco",
+               "momentum", 0.1, "bfloat16"),
+              ("qsgd", (("s", 16),), False, "chain", 2, "choco", "momentum",
+               0.1, "bfloat16"))
 
 
 def small_draws(tr, step):
@@ -821,8 +935,12 @@ def small_cuda_vs_cpu(dev):
     SignNorm flips a code where x - x_hat lies within rounding of zero;
     every run on an H100 so far moved 2 such coordinates of x_hat, and the
     limit allows one per node per step, its x being held to 1e-5 anyway.
-    The exact modes have no x_hat: every coordinate of x is held.  Launches:
-    per step, bucket and round one EF update, and the codes and dequantize
+    The exact modes have no x_hat: every coordinate of x is held.  Runs
+    with bf16 EF state round the delta x - x_hat to bf16, where a
+    summation-order difference may flip a rounding and move x_hat by one
+    bf16 step: they may move 1 in 10^5 coordinates, under the same bound
+    on x.  Launches: per step, bucket and round one EF update (the
+    bf16-state one with bf16 state), and the codes and dequantize
     kernels of QSGD and sign, under choco; none in the exact modes."""
     from repro_torch.configs.base import ChocoConfig, get_config
     from repro_torch.data.synthetic import make_lm_batch_fn
@@ -835,13 +953,15 @@ def small_cuda_vs_cpu(dev):
                               dtype="float32")
     params = Model(cfg).init(N_NODES, 1, "cpu")
     report, launches = {}, {k: 0 for k in kernel_names()}
-    for comp, kw, exact, topology, steps_k, mode, opt, lr in SMALL_RUNS:
+    for comp, kw, exact, topology, steps_k, mode, opt, lr, *sdt in SMALL_RUNS:
+        sdt = sdt[0] if sdt else "float32"
         runs = {}
         for device in (dev, "cpu"):
             tr = DecentralizedTrainer(
                 model=Model(cfg), choco=ChocoConfig(
                     compressor=comp, comp_kwargs=kw, exact_small_leaves=exact,
-                    topology=topology, gossip_steps=steps_k),
+                    topology=topology, gossip_steps=steps_k,
+                    state_dtype=sdt),
                 n_nodes=N_NODES, optimizer=make_optimizer(opt),
                 lr_fn=cosine_schedule(lr, 1, STEPS), device=device, mode=mode)
             state = tr.state_from_params(params)
@@ -858,7 +978,8 @@ def small_cuda_vs_cpu(dev):
         per_kernel = STEPS * steps_k * tr.spec.n_buckets
         choco = mode == "choco"
         want = {k: 0 for k in counts}
-        want["ef_update"] = per_kernel if choco else 0
+        want["ef_update" if sdt == "float32" else "ef_update_bf16"] = (
+            per_kernel if choco else 0)
         if choco and comp in ("qsgd", "sign"):
             want[f"{comp}_codes"] = want["dequantize"] = per_kernel
         check(counts == want, f"[small] {mode} {comp} {topology}: launches "
@@ -870,8 +991,11 @@ def small_cuda_vs_cpu(dev):
         gammas = (tr.exchange.bucket_gammas if choco
                   else [0.0] * tr.spec.n_buckets)
         moved, dx, dx_moved, total = hold_small(
-            "[small]", comp, gammas, (lc, xc, hc), (lp, xp, hp))
+            "[small]", comp, gammas, (lc, xc, hc), (lp, xp, hp),
+            bf16=sdt == "bfloat16")
         what = comp if choco else mode
+        if sdt != "float32":
+            what += f" {sdt}-state"
         print(f"[small] smoke f32 {what}{' exact_small_leaves' if exact else ''}"
               f" {opt} lr {lr} on {topology}, gossip_steps {steps_k}, {STEPS} "
               f"steps: CUDA losses {lc} vs CPU {lp}; max |x_cuda - "
@@ -887,11 +1011,12 @@ def small_cuda_vs_cpu(dev):
     return report
 
 
-def hold_small(label, comp, gammas, got, want):
+def hold_small(label, comp, gammas, got, want, bf16=False):
     """The ``[small]`` rules of ``small_cuda_vs_cpu`` for one run ``got`` =
     (losses, x buffers, x_hat buffers or None in the exact modes) against
-    ``want``, buffers on the CPU.  Returns (moved coordinates, max |dx|, max
-    |dx| at the moved ones, coordinates)."""
+    ``want``, buffers on the CPU (``bf16``: the EF state is bf16).
+    Returns (moved coordinates, max |dx|, max |dx| at the moved ones,
+    coordinates)."""
     import numpy as np
     import torch
     (lc, xc, hc), (lp, xp, hp) = got, want
@@ -901,7 +1026,7 @@ def hold_small(label, comp, gammas, got, want):
     for a, b, ha, hb, g in zip(xc, xp, hc, hp, gammas):
         d = (a - b).abs()
         # the moved selections: none without x_hat (the exact modes)
-        at = ((ha - hb).abs() > 1e-4 if ha is not None
+        at = ((ha.float() - hb.float()).abs() > 1e-4 if ha is not None
               else torch.zeros_like(d, dtype=torch.bool))
         moved += int(at.sum())
         rest = float(d[~at].max()) if (~at).any() else 0.0
@@ -910,14 +1035,15 @@ def hold_small(label, comp, gammas, got, want):
               f"selections")
         if at.any():
             dx_moved = max(dx_moved, float(d[at].max()))
-            check(dx_moved <= 1e-5 + 2 * g * float(hb.abs().max()),
+            check(dx_moved <= 1e-5 + 2 * g * float(hb.float().abs().max()),
                   f"{label} {comp}: a moved selection shifted x by {dx_moved}")
     dx = max(float((a - b).abs().max()) for a, b in zip(xc, xp))
     check(np.allclose(lc, lp, rtol=1e-5, atol=0),
           f"{label} {comp}: losses differ: {lc} against {lp}")
     if comp == "sign":
         check(dx <= 1e-5, f"{label} {comp}: iterates differ by {dx}")
-    limit = N_NODES * STEPS if comp == "sign" else 0
+    limit = (N_NODES * STEPS if comp == "sign" else
+             sum(b.numel() for b in xp) // 100_000 if bf16 else 0)
     check(moved <= limit, f"{label} {comp}: {moved} coordinates moved "
           f"(limit {limit})")
     return moved, dx, dx_moved, sum(b.numel() for b in xp)
@@ -937,6 +1063,10 @@ SENDS_PER_ROUND = {"ring": (2, 2, 2, 2), "star": (3, 1, 1, 1),
 #: the exact modes of the [dist] small phase: (mode, topology, gossip_steps)
 DIST_MODE_RUNS = (("plain", "ring", 1), ("plain", "star", 2),
                   ("allreduce", "ring", 1))
+#: the bf16-state exchanges of the [dist] small phase: (compressor,
+#: comp_kwargs, gossip_steps, topology)
+DIST_BF16_RUNS = (("top_k", (("fraction", 0.05),), 1, "ring"),
+                  ("qsgd", (("s", 16),), 2, "chain"))
 #: the full-width [dist] phase's compressor and, per node, sequence and batch
 DIST_FULL = ("top_k", (("fraction", 0.01),), 1)
 DIST_SEQ, DIST_BATCH = 512, 4
@@ -944,7 +1074,7 @@ DIST_TIMEOUT_S = 300.0
 
 
 def _dist_trainer(comp, kw, steps_k, cfg, dev, group=None, topology="ring",
-                  mode="choco"):
+                  mode="choco", state_dtype="float32"):
     from repro_torch.configs.base import ChocoConfig
     from repro_torch.models.transformer import Model
     from repro_torch.optim.sgd import cosine_schedule, momentum_sgd
@@ -952,7 +1082,8 @@ def _dist_trainer(comp, kw, steps_k, cfg, dev, group=None, topology="ring",
     return DecentralizedTrainer(
         model=Model(cfg), choco=ChocoConfig(compressor=comp, comp_kwargs=kw,
                                             topology=topology,
-                                            gossip_steps=steps_k),
+                                            gossip_steps=steps_k,
+                                            state_dtype=state_dtype),
         n_nodes=N_NODES, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
         device=dev, group=group, mode=mode)
@@ -987,11 +1118,12 @@ def _small_cfg():
 
 def _exchange_inputs(spec):
     """Node-stacked (x_half, x_hat, s) for the exchange alone: normal draws
-    on the CPU from seed 17."""
+    on the CPU from seed 17, x_hat and s in the buckets' dtype (x f32)."""
     import torch
     gen = torch.Generator().manual_seed(17)
-    return [[torch.randn((N_NODES, b.size), generator=gen) * scale
-             for b in spec.buckets] for scale in (1.0, 0.5, 0.1)]
+    return [[(torch.randn((N_NODES, b.size), generator=gen) * scale).to(
+        torch.float32 if part == 0 else b.dtype) for b in spec.buckets]
+        for part, scale in enumerate((1.0, 0.5, 0.1))]
 
 
 def _dist_small_rank(rank, store, out_dir):
@@ -1056,6 +1188,17 @@ def _dist_small_rank(rank, store, out_dir):
                 "exchange": [[b.cpu() for b in part] for part in bufs],
                 "sent": group.bytes_sent - before, "sends": tr.exchange.sends,
                 "payload_bytes": tr.exchange.payload_bytes}
+    for comp, kw, steps_k, topology in DIST_BF16_RUNS:
+        tr = _dist_trainer(comp, kw, steps_k, cfg, group.device, group,
+                           topology, state_dtype="bfloat16")
+        bufs = [[b[rank:rank + 1].to(group.device) for b in part]
+                for part in _exchange_inputs(tr.spec)]
+        before = group.bytes_sent
+        tr.exchange(*bufs, seed=31)
+        out[("bf16", topology, comp)] = {
+            "exchange": [[b.cpu() for b in part] for part in bufs],
+            "sent": group.bytes_sent - before, "sends": tr.exchange.sends,
+            "payload_bytes": tr.exchange.payload_bytes}
     torch.cuda.synchronize()
     out["launches"] = dispatch.launch_counts()
     out["transport"] = group.describe()
@@ -1206,6 +1349,35 @@ def dist_small(dev):
                                             "bytes_sent": sent,
                                             "sends": sends,
                                             "payload_bytes": payload}
+    for comp, kw, steps_k, topology in DIST_BF16_RUNS:
+        from repro_torch.comm.packing import bucket_wire_nbytes
+        tr = _dist_trainer(comp, kw, steps_k, cfg, dev, topology=topology,
+                           state_dtype="bfloat16")
+        bufs = [[b.to(dev) for b in part] for part in _exchange_inputs(tr.spec)]
+        tr.exchange(*bufs, seed=31)
+        recs = [r[("bf16", topology, comp)] for r in ranks]
+        same = all(torch.equal(rec["exchange"][p][b][0], bufs[p][b][i].cpu())
+                   for i, rec in enumerate(recs) for p in range(3)
+                   for b in range(tr.spec.n_buckets))
+        payload = sum(bucket_wire_nbytes(tr.spec, tr.compressor))
+        sends = [rec["sends"] for rec in recs]
+        sent = [rec["sent"] for rec in recs]
+        want_sends = [steps_k * k for k in SENDS_PER_ROUND[topology]]
+        print(f"[dist] small bf16-state {comp} on {topology}, gossip_steps="
+              f"{steps_k}: the exchange alone, per rank against the stacked "
+              f"exchange on the card: x (f32), x_hat and s (bf16) bit-equal: "
+              f"{same}; bytes sent per rank {sent} = sends {sends} x "
+              f"{payload} payload bytes (bf16 values)", flush=True)
+        check(same, f"[dist] bf16-state {comp} on {topology}: the per-rank "
+              f"exchange and the stacked exchange differ")
+        check(sends == want_sends and sent == [k * payload for k in sends]
+              and all(rec["payload_bytes"] == bucket_wire_nbytes(
+                  tr.spec, tr.compressor) for rec in recs),
+              f"[dist] bf16-state {comp} on {topology}: sends {sends} "
+              f"(expected {want_sends}), bytes {sent}")
+        report[f"bf16-state {comp}@{topology}"] = {
+            "exchange_bit_equal": same, "bytes_sent": sent, "sends": sends,
+            "payload_bytes": payload}
     return report
 
 
@@ -2312,6 +2484,7 @@ def main():
           f"ms/step {star['ms_per_step']} against {ring_run['ms_per_step']} "
           f"(first step included); peak device memory {star['peak_gib']:.3f} "
           f"against {ring_run['peak_gib']:.3f} GiB", flush=True)
+    state_bf16 = state_bf16_full_width(dev, by_path)
     modes = modes_full_width(dev)
     launcher_counts = {label: run_launcher(extra)
                        for label, extra in LAUNCHER_RUNS}
@@ -2353,6 +2526,7 @@ def main():
     paths = {
         **{c: counts for c, (counts, _) in by_path.items()},
         "topology_star": star_counts,
+        **{f"state_bf16_{c}": counts for c, (counts, _) in state_bf16.items()},
         **{f"modes_{label}": counts for label, (counts, _) in modes.items()},
         **launcher_counts,
         "launcher_per_rank_rank0": per_rank_launcher_counts,
@@ -2369,14 +2543,19 @@ def main():
         "serve": serve_counts}
     by_kernel = lambda name: {p: c[name] for p, c in paths.items()}
     # the training paths whose launches count as the gossip kernels' main
-    # path: the four compressors, star and the [modes] runs
+    # path: the four compressors, star, the bf16-state runs and the [modes]
+    # runs
     train_paths = (list(by_path) + ["topology_star"]
+                   + [f"state_bf16_{c}" for c in state_bf16]
                    + [f"modes_{label}" for label in modes])
 
+    # ef_update_bf16 has no pallas_call counterpart: it replaces the leaf
+    # update the JAX engine runs as fused jnp on bf16 EF state
     sources = {"qsgd_codes": "src/repro/kernels/qsgd.py:64",
                "sign_codes": "src/repro/kernels/qsgd.py:86",
                "dequantize": "src/repro/kernels/qsgd.py:118",
-               "ef_update": "src/repro/kernels/ef_update.py:52"}
+               "ef_update": "src/repro/kernels/ef_update.py:52",
+               "ef_update_bf16": "src/repro/comm/gossip.py:195"}
     kernels = []
     for name, replaces in sources.items():
         rec = records[name]
@@ -2387,7 +2566,7 @@ def main():
             "launches": sum(paths[p][name] for p in train_paths),
             "launches_by_path": by_kernel(name),
             "max_abs_err": max(v for k, v in max_err.items()
-                               if k.startswith(name)),
+                               if k in (name, name + "_int16")),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"]})
@@ -2426,6 +2605,7 @@ def main():
     extra = {k: records[k] for k in ("qsgd_codes_int16", "dequantize_int16")}
     train = {c: r for c, (_, r) in by_path.items()}
     print(json.dumps({"int16": extra, "train": train, "topology_star": star,
+                      "state_bf16": {c: r for c, (_, r) in state_bf16.items()},
                       "modes": {k: r for k, (_, r) in modes.items()},
                       "sim": sim, "small": small,
                       "prefill": prefill, "serve": serve, "decode": decode,

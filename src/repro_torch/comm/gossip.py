@@ -5,6 +5,18 @@ bucket-space path (``src/repro/comm/gossip.py:510-548``), and of its two
 exact baselines: plain neighbour averaging (``make_plain_schedule_fn``)
 and the all-reduce average (``make_allreduce_fn``).
 
+The EF state x_hat and s is f32 or bf16, x always f32, and the bucket
+spec is built from the EF-state leaves, so its buckets have the state's
+dtype and the x buffers the same layout in f32.  With bf16 state the
+JAX engine takes its leaf path (``:550-568``; ``_fused_update_ok``
+fails), whose algebra is elementwise, so it runs here in bucket space
+too: the delta is rounded to bf16 (``lh.astype(bf16) - lhat``), every
+payload carries bf16 values (QSGD and sign quantize its f32 upcast), the
+received dense payloads are summed in bf16 in round order, and the EF
+update is the bf16-state kernel, which rounds where the JAX engine does
+(``kernels/ref.py:ef_update_bf16_ref``).  bf16 state takes schedules with
+one uniform receive weight (every registry graph).
+
 * :func:`make_choco_exchange`, the stacked engine: the n gossip nodes
   are stacked on a leading ``(n, ...)`` dimension on one device, so a
   schedule round, a ``ppermute`` in the JAX engine, is an index gather
@@ -131,11 +143,34 @@ def _neighbor_sum(groups, receive) -> torch.Tensor:
 
 
 def _check_f32(spec: BucketSpec) -> None:
-    """Every exchange runs on f32 bucket buffers."""
+    """The exact modes run on f32 bucket buffers (the iterate itself)."""
     for b in spec.buckets:
         if b.dtype != torch.float32:
-            raise ValueError("the fused bucket-space path needs f32 state; "
-                             "bf16 EF state is not ported")
+            raise ValueError("the exact modes exchange the f32 iterate; "
+                             "build their spec from f32 leaves")
+
+
+def _state_dtype(spec: BucketSpec) -> torch.dtype:
+    """The choco exchange's EF-state dtype: its buckets' one dtype, f32 or
+    bf16 (the x buffers stay f32, in the same layout)."""
+    dtypes = {b.dtype for b in spec.buckets}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
+        raise ValueError(f"EF state of dtypes {sorted(map(str, dtypes))}: "
+                         f"the exchange takes f32 or bf16 buckets, one dtype")
+    return dtypes.pop()
+
+
+def _check_bf16_schedules(schedules: Sequence[GossipSchedule]) -> None:
+    """bf16 EF state takes schedules whose rounds share one uniform receive
+    weight (every registry graph): the JAX engine's bf16 rounding with
+    several weight groups, or per-node receive weights, is not ported."""
+    for sch in schedules:
+        groups = _weight_groups(sch)
+        if len(groups) > 1 or (groups and not isinstance(groups[0][0],
+                                                         float)):
+            raise ValueError("bf16 EF state needs schedules with one uniform "
+                             "receive weight; this one has per-node or "
+                             "several receive weights")
 
 
 def _check_exchange(spec: BucketSpec, schedules: Sequence[GossipSchedule],
@@ -144,10 +179,14 @@ def _check_exchange(spec: BucketSpec, schedules: Sequence[GossipSchedule],
     ``compressor``); returns n."""
     if gossip_steps < 1:
         raise ValueError("gossip_steps must be >= 1")
-    if compressor is not None and type(compressor) not in _PORTED:
-        raise ValueError(f"compressor {compressor.name!r} is not ported to "
-                         f"the exchange")
-    _check_f32(spec)
+    if compressor is None:
+        _check_f32(spec)
+    else:
+        if type(compressor) not in _PORTED:
+            raise ValueError(f"compressor {compressor.name!r} is not ported "
+                             f"to the exchange")
+        if _state_dtype(spec) == torch.bfloat16:
+            _check_bf16_schedules(schedules)
     n = schedules[0].n
     if any(sch.n != n for sch in schedules):
         raise ValueError("time-varying schedules must share n")
@@ -155,12 +194,18 @@ def _check_exchange(spec: BucketSpec, schedules: Sequence[GossipSchedule],
 
 
 def _compile(schedules: Sequence[GossipSchedule], nodes: Sequence[int],
-             round_data: Callable) -> list:
-    """Per schedule: (weight groups, w_self, w_nbr) for the buffers' rows,
-    the nodes ``nodes``.  A group holds its weight as a float or a
-    ``(rows, 1)`` f32 column and ``round_data(round)`` per round;
-    ``w_self`` and ``w_nbr`` are the EF update's ``(rows,)`` f32 vectors
-    (w_nbr the single group's weight, else 1, or 0 without neighbours)."""
+             round_data: Callable, state_dtype=torch.float32) -> list:
+    """Per schedule: (weight groups, w_self, w_nbr, mix_in_bf16) for the
+    buffers' rows, the nodes ``nodes``.  A group holds its weight as a
+    float or a ``(rows, 1)`` f32 column and ``round_data(round)`` per
+    round; ``w_self`` and ``w_nbr`` are the EF update's ``(rows,)`` f32
+    vectors (w_nbr the single group's weight, else 1, or 0 without
+    neighbours).  With bf16 EF state the uniform weights are rounded to
+    bf16, as JAX rounds a Python float weight multiplying a bf16 array;
+    ``mix_in_bf16`` says that the self weight is uniform too, so that the
+    EF update's weighted sum runs in bf16 (per-node self weights are f32
+    arrays in JAX and promote it to f32)."""
+    bf16 = state_dtype == torch.bfloat16
     compiled = []
     for sch in schedules:
         groups = _weight_groups(sch)
@@ -171,10 +216,15 @@ def _compile(schedules: Sequence[GossipSchedule], nodes: Sequence[int],
         w_nbr = (groups[0][0] if len(groups) == 1
                  else 1.0 if groups else 0.0)
         # a uniform diagonal, or per node (star, chain)
-        w_self = (sch.self_weight if sch.self_weight is not None
-                  else sch.self_weights)
-        compiled.append((resolved, _node_weights(w_self, nodes),
-                         _node_weights(w_nbr, nodes)))
+        uniform = sch.self_weight is not None
+        w_self = _node_weights(sch.self_weight if uniform
+                               else sch.self_weights, nodes)
+        w_nbr = _node_weights(w_nbr, nodes)
+        if bf16:
+            w_nbr = w_nbr.to(state_dtype).to(torch.float32)
+            if uniform:
+                w_self = w_self.to(state_dtype).to(torch.float32)
+        compiled.append((resolved, w_self, w_nbr, bf16 and uniform))
     return compiled
 
 
@@ -216,11 +266,13 @@ def _exchange(spec: BucketSpec, compressor, gammas, gossip_steps: int,
             on_device[dev] = _to_device(compiled, dev)
         on_dev = on_device[dev]
         for t in range(gossip_steps):
-            groups, w_self, w_nbr = on_dev[t % len(on_dev)]
+            groups, w_self, w_nbr, mix_in_bf16 = on_dev[t % len(on_dev)]
             tseed = seed if t == 0 else fold_seed(seed, t)
             for bucket in spec.buckets:
                 b = bucket.index
-                delta = x[b] - x_hat[b]
+                # in the EF state's dtype, as the JAX engine's
+                # ``lh.astype(lhat.dtype) - lhat``
+                delta = x[b].to(bucket.dtype) - x_hat[b]
                 (payload,), (q,) = compress_bufs(
                     compressor, spec, (bucket,), (delta,), seed=tseed,
                     draws=None if draws is None
@@ -233,7 +285,8 @@ def _exchange(spec: BucketSpec, compressor, gammas, gossip_steps: int,
                     nbr = q * 0.0
                 del receive
                 dispatch.ef_bucket_update(x[b], x_hat[b], s[b], q, nbr,
-                                          w_self, w_nbr, gammas[b])
+                                          w_self, w_nbr, gammas[b],
+                                          mix_in_bf16)
                 del q, nbr
 
     exchange.bucket_gammas = gammas
@@ -268,8 +321,9 @@ def make_choco_exchange(*, spec: BucketSpec,
                         gamma, gossip_steps: int = 1) -> Callable:
     """Returns ``exchange(x, x_hat, s, *, seed=0, draws=None)``.
 
-    ``x``, ``x_hat``, ``s`` are lists of node-stacked f32 bucket buffers
-    (``x`` holds the optimizer half-step x^{t+1/2}).  The exchange runs
+    ``x``, ``x_hat``, ``s`` are lists of node-stacked bucket buffers:
+    ``x`` f32 (it holds the optimizer half-step x^{t+1/2}), ``x_hat`` and
+    ``s`` in the spec's buckets' dtype, f32 or bf16.  The exchange runs
     ``gossip_steps`` rounds (schedule ``t % len(schedules)`` in round t)
     and updates the buffers in place, bucket by bucket.
 
@@ -281,7 +335,8 @@ def make_choco_exchange(*, spec: BucketSpec,
     package's draws this way).
     """
     n = _check_exchange(spec, schedules, compressor, gossip_steps)
-    compiled = _compile(schedules, range(n), _gather_index(n))
+    compiled = _compile(schedules, range(n), _gather_index(n),
+                        _state_dtype(spec))
 
     def receiver(payload, q, bucket):
         return _gather_rows(q)
@@ -326,7 +381,7 @@ def make_dist_choco_exchange(*, spec: BucketSpec,
         raise ValueError(f"a group of {group.size} ranks for {n} nodes")
     probe = dispatch.probe_collectives(group)
     compiled = _compile(schedules, (group.rank,),
-                        lambda rnd: rnd.peers(group.rank))
+                        lambda rnd: rnd.peers(group.rank), _state_dtype(spec))
 
     def receiver(payload, q, bucket):
         wire = to_wire(payload)
@@ -364,7 +419,8 @@ def _plain(gossip_steps: int, compiled, receiver) -> Callable:
     weights as host floats, so every pass is a vectorized one over a row
     and the result lands in x without a copy."""
     on_device = {}
-    rows = [(w_self.tolist(), w_nbr.tolist()) for _, w_self, w_nbr in compiled]
+    rows = [(w_self.tolist(), w_nbr.tolist())
+            for _, w_self, w_nbr, _ in compiled]
 
     @torch.no_grad()
     def exchange(x: List[torch.Tensor], x_hat=None, s=None, *, seed: int = 0,

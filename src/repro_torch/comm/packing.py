@@ -134,13 +134,15 @@ def make_bucket_spec(leaves, *, align: int = LANES,
 # pack / unpack (node-stacked)
 # ---------------------------------------------------------------------------
 
-def pack_leaves(spec: BucketSpec, leaves: Sequence[torch.Tensor]
-                ) -> List[torch.Tensor]:
+def pack_leaves(spec: BucketSpec, leaves: Sequence[torch.Tensor],
+                dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
     """Node-stacked leaves ``(n, *shape)`` -> one ``(n, bucket.size)``
-    buffer per bucket, zero between and after the segments."""
+    buffer per bucket, zero between and after the segments, in each
+    bucket's dtype or in ``dtype`` (the f32 x buffers of a spec built
+    from bf16 EF-state leaves)."""
     n = leaves[0].shape[0]
     device = leaves[0].device
-    bufs = [torch.zeros((n, b.size), dtype=b.dtype, device=device)
+    bufs = [torch.zeros((n, b.size), dtype=dtype or b.dtype, device=device)
             for b in spec.buckets]
     for slot in spec.slots:
         bufs[slot.bucket][:, slot.offset:slot.offset + slot.size] = \

@@ -9,10 +9,10 @@ sliding windows, local / global layer patterns and ``remat`` are not
 ported.  ``INPUT_SHAPES`` keeps the one JAX input shape the port serves,
 ``prefill_32k``.  ``ChocoConfig``
 keeps the settings of the static packed engine (its choco, plain and
-all-reduce modes) and the data skew, with the JAX package's defaults:
-the stochastic processes, staleness, pipelining, push-sum, bf16 EF
-state, the per-leaf engine and the kernel-backend switch are not
-ported.
+all-reduce modes), the EF-state dtype (f32 or bf16) and the data skew,
+with the JAX package's defaults: the stochastic processes, staleness,
+pipelining, push-sum, the per-leaf engine and the kernel-backend switch
+are not ported.
 """
 from __future__ import annotations
 
@@ -72,6 +72,10 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
 
 
+#: the error-feedback state dtypes the port runs (``ChocoConfig.state_dtype``)
+STATE_DTYPES = ("float32", "bfloat16")
+
+
 def parse_topology(spec: str) -> Tuple[str, ...]:
     """Comma-separated topology spec -> name tuple."""
     return tuple(t.strip() for t in spec.split(",") if t.strip())
@@ -90,6 +94,10 @@ class ChocoConfig:
     # leaves of at most 8192 elements gossip uncompressed, in exact
     # buckets (off for paper-faithful runs)
     exact_small_leaves: bool = False
+    # dtype of the error-feedback states x_hat and s, one of STATE_DTYPES
+    # (bf16 halves their memory and the sparse and dense payloads; x stays
+    # f32)
+    state_dtype: str = "float32"
     # Dirichlet(alpha) non-IID data shards (data/partition.py); None: the
     # launcher's --heterogeneity slices.  A data knob: the trainer's state
     # and exchange do not read it; it takes effect where the batches are

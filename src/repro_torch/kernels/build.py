@@ -7,7 +7,7 @@ at first use, into ``_build/`` beside this file (listed in
 flags, so a changed source rebuilds and two processes building at once
 never load a half-written file.
 
-* ``gossip`` (``csrc/gossip_kernels.cu``): the four gossip kernels, built
+* ``gossip`` (``csrc/gossip_kernels.cu``): the five gossip kernels, built
   with ``--fmad=false``: the QSGD codes must be bit-equal to their plain
   versions, and an FMA contraction moves a code by a whole level.
 * ``flash`` (``csrc/flash_attention.cu``): the f32 flash-attention
@@ -65,6 +65,8 @@ LIBRARIES = {
             "dequantize_i8": (_P, _P, _P, _I64, _I64, _P),
             "dequantize_i16": (_P, _P, _P, _I64, _I64, _P),
             "ef_update": (_P, _P, _P, _P, _P, _P, _P, _F, _I64, _I64, _P),
+            "ef_update_bf16": (_P, _P, _P, _P, _P, _P, _P, _F, _INT, _I64,
+                               _I64, _P),
         }),
     "flash": Library(
         CSRC / "flash_attention.cu", _COMMON_FLAGS, {

@@ -7,7 +7,13 @@
 //   dequantize_*   <- src/repro/kernels/qsgd.py:qsgd_dequantize     (_dequant_kernel)
 //   ef_update      <- src/repro/kernels/ef_update.py:ef_gossip_update (_ef_kernel)
 //
-// What bounds them: all four are elementwise, a handful of flops per
+// and a fifth with no Pallas counterpart:
+//
+//   ef_update_bf16 <- the leaf update the JAX package's packed engine runs
+//                     as fused jnp on bf16 EF state
+//                     (src/repro/comm/gossip.py:_choco_leaf_updates)
+//
+// What bounds them: all five are elementwise, a handful of flops per
 // element against 5-36 bytes moved, so device-memory bandwidth bounds every
 // one of them by two orders of magnitude over the f32 rate.  The design
 // answers that by reading each input once and writing each output once, in
@@ -30,11 +36,28 @@
 // place (x holds x_half on entry): each element is read, then written, by
 // the one thread that owns it.
 //
+// ef_update_bf16 takes x in f32 and x_hat, s, q_self, q_nbr in bf16 (20
+// bytes per element against the f32 kernel's 32).  It reproduces the
+// rounding of the JAX engine's leaf update on bf16 leaves as XLA compiles
+// it (kernels/ref.py:ef_update_bf16_ref): x_hat + q_self, s + the weighted
+// sum and the weighted sum round to bf16 (nearest even), and so does each
+// of its two products when the weights are uniform (Python floats, which
+// JAX multiplies in bf16: mix_in_bf16); per-node self weights are f32 in
+// JAX and the sum is then taken in f32.  x' is one FMA,
+// fma(gamma, s'' - x_hat', x), over an unrounded difference; s'' is s',
+// except that with per-node weights it is recomputed from
+// fma(w_self, q_self, w_nbr q_nbr), as XLA's fusion for x recomputes it.
+// These FMAs are explicit (__fmaf_rn); nothing else contracts.  Where the
+// row length is a multiple of 4 (every compressed bucket: they are
+// multiples of 128), each thread moves 4 elements per load: x as one
+// 16-byte word, each bf16 buffer as one 8-byte word.
+//
 // C interface for ctypes: each entry launches on the caller's stream and
 // returns cudaGetLastError() (0 on success).  Nothing synchronises and
 // nothing allocates; the Python wrappers allocate the outputs.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -109,6 +132,78 @@ __global__ void ef_update_kernel(float* __restrict__ x,
   }
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// One element of the bf16-state EF update; x, x_hat and s are updated in
+// place through the references.
+__device__ __forceinline__ void ef_bf16_one(float& x, __nv_bfloat16& x_hat,
+                                            __nv_bfloat16& s,
+                                            __nv_bfloat16 q_self,
+                                            __nv_bfloat16 q_nbr, float ws,
+                                            float wn, float gamma,
+                                            bool mix_in_bf16) {
+  const float qs = __bfloat162float(q_self);
+  const float xhat_n = round_bf16(__fadd_rn(__bfloat162float(x_hat), qs));
+  const float s_old = __bfloat162float(s);
+  const float nbr = __fmul_rn(wn, __bfloat162float(q_nbr));
+  float s_n, s_x;
+  if (mix_in_bf16) {
+    const float mix = round_bf16(
+        __fadd_rn(round_bf16(__fmul_rn(ws, qs)), round_bf16(nbr)));
+    s_n = s_x = round_bf16(__fadd_rn(s_old, mix));
+  } else {
+    const float mix = round_bf16(__fadd_rn(__fmul_rn(ws, qs), nbr));
+    s_n = round_bf16(__fadd_rn(s_old, mix));
+    s_x = round_bf16(__fadd_rn(s_old, round_bf16(__fmaf_rn(ws, qs, nbr))));
+  }
+  x = __fmaf_rn(gamma, __fsub_rn(s_x, xhat_n), x);
+  x_hat = __float2bfloat16_rn(xhat_n);
+  s = __float2bfloat16_rn(s_n);
+}
+
+// VEC consecutive elements per thread and iteration: 4 when the row length
+// is a multiple of 4 and the buffers are aligned for it (x read as float4,
+// the bf16 buffers as 8-byte words), else 1.
+template <int VEC>
+__global__ void ef_update_bf16_kernel(float* __restrict__ x,
+                                      __nv_bfloat16* __restrict__ x_hat,
+                                      __nv_bfloat16* __restrict__ s,
+                                      const __nv_bfloat16* __restrict__ q_self,
+                                      const __nv_bfloat16* __restrict__ q_nbr,
+                                      const float* __restrict__ w_self,
+                                      const float* __restrict__ w_nbr,
+                                      float gamma, int mix_in_bf16,
+                                      int64_t len) {
+  struct alignas(2 * VEC) Bf { __nv_bfloat16 v[VEC]; };
+  struct alignas(4 * VEC) Fl { float v[VEC]; };
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * (len / VEC);
+  const float ws = w_self[blockIdx.y];
+  const float wn = w_nbr[blockIdx.y];
+  const bool in_bf16 = mix_in_bf16 != 0;
+  Fl* xv = reinterpret_cast<Fl*>(x);
+  Bf* hv = reinterpret_cast<Bf*>(x_hat);
+  Bf* sv = reinterpret_cast<Bf*>(s);
+  const Bf* qv = reinterpret_cast<const Bf*>(q_self);
+  const Bf* nv = reinterpret_cast<const Bf*>(q_nbr);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = base + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < base + len / VEC; i += stride) {
+    Fl xs = xv[i];
+    Bf hs = hv[i], ss = sv[i];
+    const Bf qs = qv[i], ns = nv[i];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      ef_bf16_one(xs.v[j], hs.v[j], ss.v[j], qs.v[j], ns.v[j], ws, wn, gamma,
+                  in_bf16);
+    }
+    xv[i] = xs;
+    hv[i] = hs;
+    sv[i] = ss;
+  }
+}
+
 unsigned int blocks_for(int64_t work) {
   int64_t b = (work + kThreads - 1) / kThreads;
   if (b > kMaxBlocks) b = kMaxBlocks;
@@ -168,6 +263,27 @@ int ef_update(float* x, float* x_hat, float* s, const float* q_self,
   const dim3 grid(blocks_for(len), static_cast<unsigned int>(n));
   ef_update_kernel<<<grid, kThreads, 0, stream>>>(
       x, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ef_update_bf16(float* x, __nv_bfloat16* x_hat, __nv_bfloat16* s,
+                   const __nv_bfloat16* q_self, const __nv_bfloat16* q_nbr,
+                   const float* w_self, const float* w_nbr, float gamma,
+                   int mix_in_bf16, int64_t n, int64_t len,
+                   cudaStream_t stream) {
+  const auto aligned = [](const void* p, uintptr_t bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  if (len % 4 == 0 && aligned(x, 16) && aligned(x_hat, 8) && aligned(s, 8) &&
+      aligned(q_self, 8) && aligned(q_nbr, 8)) {
+    const dim3 grid(blocks_for(len / 4), static_cast<unsigned int>(n));
+    ef_update_bf16_kernel<4><<<grid, kThreads, 0, stream>>>(
+        x, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, mix_in_bf16, len);
+  } else {
+    const dim3 grid(blocks_for(len), static_cast<unsigned int>(n));
+    ef_update_bf16_kernel<1><<<grid, kThreads, 0, stream>>>(
+        x, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, mix_in_bf16, len);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

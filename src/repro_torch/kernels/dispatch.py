@@ -1,6 +1,7 @@
 """Route each kernel call of the port to its kernel: the four stages of
-the packed gossip exchange, the top-k selection mask, flash attention,
-and the collective-layer probe.
+the packed gossip exchange (the EF update in an f32 and a bf16-state
+entry), the top-k selection mask, flash attention, and the
+collective-layer probe.
 
 The route follows the tensor's device and nothing else:
 
@@ -10,7 +11,7 @@ The route follows the tensor's device and nothing else:
   version never runs on the card.
 
 Each kernel wrapper counts its own launches; :func:`launch_counts` reads
-the seven counts and :func:`reset_launch_counts` sets them to 0.
+the eight counts and :func:`reset_launch_counts` sets them to 0.
 
 :func:`probe_collectives` is the port's counterpart of the JAX package's
 toolchain probe (``src/repro/kernels/dispatch.py:77-157``): it asks the
@@ -21,6 +22,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+
+import torch
 
 from . import ef_update as _ef
 from . import flash_attention as _flash
@@ -35,6 +38,7 @@ KERNELS = {
     "sign_codes": _qsgd.sign_codes,
     "dequantize": _qsgd.dequantize,
     "ef_update": _ef.ef_update,
+    "ef_update_bf16": _ef.ef_update_bf16,
     "flash_attention": _flash.flash_attention,
     "block_topk_mask": _topk.block_topk_mask,
     "probe_scale": _probe.probe_scale,
@@ -71,16 +75,26 @@ def dequantize(codes, scale):
     return _qsgd.dequantize(codes, scale)
 
 
-def ef_bucket_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma):
-    """Fused CHOCO EF integrate for one node-stacked f32 bucket (recv half),
-    in place: ``x_half`` becomes x', ``x_hat`` and ``s`` their updates.
-    ``w_self`` and ``w_nbr`` are (n,) f32 on the buffers' device, one
-    weight per node row.  Returns those three tensors."""
+def ef_bucket_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma,
+                     mix_in_bf16: bool = False):
+    """Fused CHOCO EF integrate for one node-stacked bucket (recv half),
+    in place: ``x_half`` (f32) becomes x', ``x_hat`` and ``s`` their
+    updates.  ``w_self`` and ``w_nbr`` are (n,) f32 on the buffers'
+    device, one weight per node row.  The EF state's dtype picks the
+    entry: f32, or bf16 (``x_hat``, ``s``, ``q_self``, ``q_nbr``), where
+    ``mix_in_bf16`` says whether the weighted sum runs in bf16
+    (``ref.ef_update_bf16_ref``).  Returns those three tensors."""
+    bf16 = x_hat.dtype == torch.bfloat16
     if not _on_cpu(x_half):
+        if bf16:
+            return _ef.ef_update_bf16(x_half, x_hat, s, q_self, q_nbr, w_self,
+                                      w_nbr, gamma, mix_in_bf16)
         return _ef.ef_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
                              gamma)
-    new = ref.ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
-                            gamma)
+    new = (ref.ef_update_bf16_ref(x_half, x_hat, s, q_self, q_nbr, w_self,
+                                  w_nbr, gamma, mix_in_bf16) if bf16 else
+           ref.ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
+                             gamma))
     for old, n in zip((x_half, x_hat, s), new):
         old.copy_(n)
     return x_half, x_hat, s
@@ -131,7 +145,6 @@ def _probe_block(rank: int):
     """The probe's (8, 128) f32 input on rank ``rank``: normal draws from
     a CPU generator seeded with the rank, so every rank can rebuild any
     other rank's input."""
-    import torch
     gen = torch.Generator().manual_seed(rank)
     return torch.randn(_probe.PROBE_SHAPE, generator=gen)
 
@@ -145,7 +158,6 @@ def probe_collectives(group) -> CollectiveProbe:
     around the ring through ``group.sendrecv`` (the engine's own
     transport), and checks bit for bit that what arrives is twice the
     ring neighbour's input.  Raises if it is not; switches nothing."""
-    import torch
     out = probe_scale(_probe_block(group.rank).to(group.device))
     src = (group.rank - 1) % group.size
     if group.size > 1:

@@ -14,12 +14,43 @@ i's weights (the JAX engine gathers node i's scalar by its index inside
 per-rank engine a vector of length 1.  The outputs are written over
 ``x_half``, ``x_hat`` and ``s``, which saves three bucket-sized buffers
 at the exchange's peak.  The kernel is in ``csrc/gossip_kernels.cu``.
+
+:func:`ef_update_bf16` is the same update on bf16 EF state (x stays
+f32, x_hat, s, q_self and q_nbr are bf16), rounded to bf16 where the
+JAX package's packed engine rounds it (``ref.ef_update_bf16_ref`` says
+where).  It has no Pallas counterpart: JAX runs that update as fused jnp
+(``src/repro/comm/gossip.py:_choco_leaf_updates``), and the port runs no
+plain version on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
+
+
+def _check(kernel, state_dtype, x_half, x_hat, s, q_self, q_nbr, w_self,
+           w_nbr):
+    """The arguments' checks both entries share: (n, L) contiguous CUDA
+    buffers, x_half f32 and the other four ``state_dtype``, no two the
+    same memory, and (n,) f32 weights on their device."""
+    shape = x_half.shape
+    if x_half.dim() != 2:
+        raise ValueError(f"{kernel}: expected (n, L) buffers, got "
+                         f"{tuple(shape)}")
+    ins = (("x_half", x_half), ("x_hat", x_hat), ("s", s),
+           ("q_self", q_self), ("q_nbr", q_nbr))
+    for name, t in ins:
+        build.require(t, name, torch.float32 if name == "x_half"
+                      else state_dtype, shape)
+    for name, t in (("w_self", w_self), ("w_nbr", w_nbr)):
+        build.require(t, name, torch.float32, shape[:1])
+        if t.device != x_half.device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, the "
+                             f"buffers on {x_half.device}")
+    if len({t.data_ptr() for _, t in ins}) < len(ins):
+        raise ValueError(f"{kernel}: x_half, x_hat, s, q_self and q_nbr "
+                         f"must be five distinct buffers")
 
 
 def ef_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
@@ -29,25 +60,12 @@ def ef_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
     scalar gamma; updates ``x_half`` (to x'), ``x_hat`` and ``s`` in place
     and returns them."""
     lib = build.load_library("gossip")
-    shape = x_half.shape
-    if x_half.dim() != 2:
-        raise ValueError(f"ef_update: expected (n, L) buffers, got "
-                         f"{tuple(shape)}")
-    ins = (("x_half", x_half), ("x_hat", x_hat), ("s", s),
-           ("q_self", q_self), ("q_nbr", q_nbr))
-    for name, t in ins:
-        build.require(t, name, torch.float32, shape)
-    for name, t in (("w_self", w_self), ("w_nbr", w_nbr)):
-        build.require(t, name, torch.float32, shape[:1])
-        if t.device != x_half.device:
-            raise ValueError(f"ef_update: {name} is on {t.device}, the "
-                             f"buffers on {x_half.device}")
-    if len({t.data_ptr() for _, t in ins}) < len(ins):
-        raise ValueError("ef_update: x_half, x_hat, s, q_self and q_nbr must "
-                         "be five distinct buffers")
+    _check("ef_update", torch.float32, x_half, x_hat, s, q_self, q_nbr,
+           w_self, w_nbr)
+    n, L = x_half.shape
     code = lib.ef_update(x_half.data_ptr(), x_hat.data_ptr(), s.data_ptr(),
                          q_self.data_ptr(), q_nbr.data_ptr(), w_self.data_ptr(),
-                         w_nbr.data_ptr(), float(gamma), shape[0], shape[1],
+                         w_nbr.data_ptr(), float(gamma), n, L,
                          build.stream_of(x_half))
     build.check_launch(lib, code, "ef_update")
     ef_update.launches += 1
@@ -55,3 +73,27 @@ def ef_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
 
 
 ef_update.launches = 0
+
+
+def ef_update_bf16(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
+                   gamma: float, mix_in_bf16: bool):
+    """``x_half`` an ``(n, L)`` contiguous f32 CUDA tensor, ``x_hat``,
+    ``s``, ``q_self`` and ``q_nbr`` bf16 of its shape, no two of the five
+    the same memory, two ``(n,)`` f32 weight vectors on the same device,
+    the scalar gamma, and whether the weighted sum runs in bf16 (uniform,
+    bf16-valued weights) or in f32 (per-node self weights); updates
+    ``x_half`` (to x'), ``x_hat`` and ``s`` in place and returns them."""
+    lib = build.load_library("gossip")
+    _check("ef_update_bf16", torch.bfloat16, x_half, x_hat, s, q_self, q_nbr,
+           w_self, w_nbr)
+    n, L = x_half.shape
+    code = lib.ef_update_bf16(
+        x_half.data_ptr(), x_hat.data_ptr(), s.data_ptr(), q_self.data_ptr(),
+        q_nbr.data_ptr(), w_self.data_ptr(), w_nbr.data_ptr(), float(gamma),
+        int(bool(mix_in_bf16)), n, L, build.stream_of(x_half))
+    build.check_launch(lib, code, "ef_update_bf16")
+    ef_update_bf16.launches += 1
+    return x_half, x_hat, s
+
+
+ef_update_bf16.launches = 0

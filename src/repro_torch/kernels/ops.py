@@ -26,8 +26,9 @@ from . import dispatch
 from .dispatch import flash_attention  # noqa: F401  (public re-export)
 
 LANES = 128
-#: elements per chunk of the stable sort that settles rows with surplus ties
-_SORT_CHUNK = 1 << 24
+#: elements of the rows with surplus ties settled per pass (bounds the
+#: pass's int32 running count, 512 MiB, and its temporaries)
+_TIE_CHUNK = 1 << 27
 #: the largest k selected by k argmax passes rather than by a threshold
 _ITERATIVE_K = 16
 
@@ -63,10 +64,9 @@ def _topk_of_magnitudes(mag, k: int):
     ``lax.top_k``) and marks it -1.  Above it, ``torch.topk`` (which breaks
     ties its own way, and differently on the CPU and the card) only fixes
     the k-th largest value t: a row with exactly k entries >= t keeps those;
-    a row with more (ties at t) is settled by a stable sort, a few rows at
-    a time; then the k are stable-sorted by magnitude.  No pass runs over
-    every full row but a compare and a count, so no row-wide cumsum is
-    needed."""
+    a row with more (ties at t, common in bf16) keeps every entry > t and
+    the first of those equal to t, by a running count over its ties; then
+    the k are stable-sorted by magnitude."""
     rows, L = mag.shape
     if k <= _ITERATIVE_K:
         idx = torch.empty((rows, k), dtype=torch.long, device=mag.device)
@@ -79,16 +79,21 @@ def _topk_of_magnitudes(mag, k: int):
                                                             keepdim=True)
     sel = mag >= t
     surplus = sel.sum(dim=1) > k
-    tied = surplus.nonzero().squeeze(1)
-    if tied.numel():
-        idx = torch.empty((rows, k), dtype=torch.long, device=mag.device)
-        sel[tied] = False
-        for part in tied.split(max(1, _SORT_CHUNK // L)):
-            idx[part] = torch.sort(mag[part], dim=1, descending=True,
-                                   stable=True).indices[:, :k]
-        idx[~surplus] = sel.nonzero()[:, 1].view(-1, k)
-    else:
-        idx = sel.nonzero()[:, 1].view(rows, k)
+    tied = surplus.nonzero().flatten()
+    for part in tied.split(max(1, _TIE_CHUNK // L)):
+        m, tp = mag[part], t[part]
+        keep = m > tp
+        eq = m == tp
+        # the rank of each tie in its row: one running count over the
+        # flattened rows (a single device-wide scan; a row-wise scan runs
+        # each long row in one block), less the count before the row
+        flat = torch.cumsum(eq.view(-1).to(torch.int32), dim=0,
+                            dtype=torch.int32).view(eq.shape)
+        before = torch.cat([flat.new_zeros(1), flat[:-1, -1]])
+        need = k - keep.sum(dim=1, dtype=torch.int32)
+        sel[part] = keep | (eq & (flat - before[:, None] <= need[:, None]))
+        del m, keep, eq, flat
+    idx = sel.nonzero()[:, 1].view(rows, k)
     del sel
     order = torch.sort(mag.gather(1, idx), dim=1, descending=True,
                        stable=True).indices

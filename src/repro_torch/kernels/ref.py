@@ -83,6 +83,81 @@ def ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
     return x_n, x_hat_n, s_n
 
 
+def fma_f32(a, b, c):
+    """fma(a, b, c) on f32 tensors: a * b + c rounded once to f32 (round
+    to nearest even), as the card's ``__fmaf_rn`` and an FMA instruction
+    of the CPU compute it.  The product of two f32 values is exact in
+    f64; the f64 sum and its exact error (TwoSum) settle the one case in
+    which rounding the f64 sum to f32 would round twice: a sum that lands
+    on the midpoint of two f32 values while the exact value does not."""
+    f64 = torch.float64
+    p = a.to(f64) * b.to(f64)
+    c = c.to(f64)
+    s = p + c
+    bp = s - c
+    err = (p - bp) + (c - (s - bp))
+    r = s.to(torch.float32)
+    r64 = r.to(f64)
+    half = (torch.nextafter(r, torch.full_like(r, math.inf)).to(f64)
+            - r64) * 0.5
+    half_below = (r64 - torch.nextafter(
+        r, torch.full_like(r, -math.inf)).to(f64)) * 0.5
+    up = (s - r64 == half) & (err > 0)           # tie rounded down
+    down = (r64 - s == half_below) & (err < 0)   # tie rounded up
+    r = torch.where(up, torch.nextafter(r, torch.full_like(r, math.inf)), r)
+    return torch.where(down, torch.nextafter(
+        r, torch.full_like(r, -math.inf)), r)
+
+
+def ef_update_bf16_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
+                       gamma: float, mix_in_bf16: bool):
+    """The CHOCO error-feedback update on bf16 EF state, per node row, with
+    the rounding of the JAX package's packed engine on bf16 leaves
+    (``_choco_leaf_updates`` as XLA compiles it on the CPU by default):
+
+        x_hat' = bf16(x_hat + q_self)
+        mix    = bf16(bf16(w_self q_self) + bf16(w_nbr q_nbr))  mix_in_bf16
+                 bf16(w_self q_self + w_nbr q_nbr)              otherwise
+        s'     = bf16(s + mix)
+        x'     = fma(gamma, f32(s'') - f32(x_hat'), x_half)
+
+    ``x_half`` (n, L) f32; ``x_hat``, ``s``, ``q_self``, ``q_nbr`` (n, L)
+    bf16; ``w_self``, ``w_nbr`` (n,) f32.  Uniform weights are Python
+    floats in JAX, weak types that take the bf16 arrays' dtype, so the
+    weighted sum runs in bf16 (``mix_in_bf16``; the caller rounds the
+    weights to bf16).  Per-node self weights are an f32 array there: the
+    self term promotes to f32 and so does the sum, and XLA does not round
+    the bf16 neighbour term before that upcast, so only the sum rounds
+    (w_nbr, a Python float, is still bf16-valued).
+
+    XLA computes x' in a fusion of its own: it contracts the last
+    multiply-add into one FMA, leaves ``s'' - x_hat'`` unrounded before
+    the upcast (its default excess precision drops a bf16 rounding that
+    is only widened), and recomputes s'' there: with per-node weights,
+    with the weighted sum contracted into ``fma(w_self, q_self, w_nbr
+    q_nbr)``, so s'' may differ from the s' it stores by one bf16 step;
+    with uniform weights s'' is s'.  Each step is one f32 operation,
+    rounded to bf16 where shown.  Returns (x', x_hat', s')."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    qs = q_self.to(f32)
+    x_hat_n = (x_hat.to(f32) + qs).to(bf16)
+    ws = w_self[:, None].expand_as(qs)
+    own = ws * qs
+    nbr = w_nbr[:, None] * q_nbr.to(f32)
+    if mix_in_bf16:
+        own = own.to(bf16).to(f32)
+        nbr = nbr.to(bf16).to(f32)
+    mix = (own + nbr).to(bf16).to(f32)
+    s_n = (s.to(f32) + mix).to(bf16)
+    s_x = s_n
+    if not mix_in_bf16:
+        mix_x = fma_f32(ws, qs, nbr).to(bf16).to(f32)
+        s_x = (s.to(f32) + mix_x).to(bf16)
+    d = s_x.to(f32) - x_hat_n.to(f32)
+    x_n = fma_f32(torch.full_like(d, gamma), d, x_half)
+    return x_n, x_hat_n, s_n
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None):
     """Online-softmax attention, step for step as the flash kernels.
 

@@ -29,7 +29,7 @@ import tempfile
 import time
 
 # torch-free: argument validation runs before torch is imported
-from repro_torch.configs.base import parse_topology
+from repro_torch.configs.base import STATE_DTYPES, parse_topology
 from repro_torch.core.topology import DIRECTED_TOPOLOGIES, SYMMETRIC_TOPOLOGIES
 from repro_torch.launch.env import file_rendezvous, torchrun_rendezvous
 
@@ -51,7 +51,6 @@ _REFUSED = {
     "straggler_edges": (None, "straggler links"),
     "straggler_delay_probs": (None, "straggler links"),
     "pipeline_gossip": (False, "the pipelined gossip engine"),
-    "state_dtype": ("float32", "bf16 / non-f32 error-feedback state"),
     "gossip_engine": ("packed", "the per-leaf gossip engine"),
     "kernel_backend": (None, "a kernel-backend switch (the route follows "
                              "the tensor's device: --device)"),
@@ -94,7 +93,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="coordinate fraction of rand_k, top_k and block_top_k")
     ap.add_argument("--qsgd-s", type=int, default=None,
                     help="quantization levels (required with --compressor qsgd)")
-    ap.add_argument("--state-dtype", default="float32")
+    ap.add_argument("--state-dtype", default="float32",
+                    help=f"dtype of the EF states x_hat and s: "
+                         f"{' or '.join(STATE_DTYPES)} (choco; the exact "
+                         f"modes hold none)")
     ap.add_argument("--gossip-engine", default="packed")
     ap.add_argument("--kernel-backend", default=None)
     ap.add_argument("--exact-small-leaves", action="store_true")
@@ -132,6 +134,9 @@ def _validate(ap, args) -> int:
             flag = "--" + dest.replace("_", "-")
             ap.error(f"{flag} is not supported by the port: {what} is not "
                      f"ported")
+    if args.state_dtype not in STATE_DTYPES:
+        ap.error(f"--state-dtype {args.state_dtype} is not supported by the "
+                 f"port: the EF state is {' or '.join(STATE_DTYPES)}")
     if args.mode == "pushsum":
         ap.error("--mode pushsum is not ported; the port runs --mode choco, "
                  "plain or allreduce")
@@ -283,6 +288,7 @@ def _train(args, n_nodes: int, group) -> int:
                           topology=args.topology,
                           gossip_steps=args.gossip_steps,
                           exact_small_leaves=args.exact_small_leaves,
+                          state_dtype=args.state_dtype,
                           data_skew_alpha=args.data_skew_alpha),
         n_nodes=n_nodes, optimizer=make_optimizer(args.optimizer),
         lr_fn=cosine_schedule(args.lr, warmup=min(100, args.steps // 10 + 1),
@@ -299,7 +305,8 @@ def _train(args, n_nodes: int, group) -> int:
             f" data_skew_alpha={args.data_skew_alpha} "
             f"skew_tv={next_batch.skew_tv:.4f}")
     say(f"[train] arch={cfg.name} params={count_params(cfg) / 1e6:.1f}M "
-        f"nodes={n_nodes} engine={engine} device={device} mode={args.mode} "
+        f"nodes={n_nodes} engine={engine} state_dtype={args.state_dtype} "
+        f"device={device} mode={args.mode} "
         f"optimizer={args.optimizer} "
         f"topology={args.topology} gossip_steps={args.gossip_steps} "
         f"compressor={compressor} buckets={trainer.spec.n_buckets} "
@@ -309,8 +316,8 @@ def _train(args, n_nodes: int, group) -> int:
         say("[train] engine stacked: the nodes are stacked on one device, "
             "a schedule round is an index gather", flush=True)
     else:
-        say(f"[train] engine per-rank: one process per node; transport "
-            f"{group.describe()}", flush=True)
+        say(f"[train] engine per-rank state_dtype={args.state_dtype}: one "
+            f"process per node; transport {group.describe()}", flush=True)
         if args.mode == "choco":
             say(f"[train] probe {trainer.exchange.probe}", flush=True)
 

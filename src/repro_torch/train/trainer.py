@@ -18,19 +18,23 @@ host floats.
 
 State lives in the gossip engine's bucket space: the parameters x, the
 public copies x_hat, the neighbour aggregates s and the optimizer's
-moments are lists of node-stacked ``(n, bucket.size)`` f32 buffers, and
-the model reads its parameters as views into the x buffers.  So the
-gradient comes back in bucket layout, the optimizer and the exchange run
-on whole buckets, and nothing is packed or unpacked per step.  The exact
-modes never read x_hat and s: where the JAX state keeps them as zeros,
-this one leaves them unallocated (None), which saves two copies of the
-parameters.
+moments are lists of node-stacked ``(n, bucket.size)`` buffers, and the
+model reads its parameters as views into the x buffers.  So the gradient
+comes back in bucket layout, the optimizer and the exchange run on whole
+buckets, and nothing is packed or unpacked per step.  x and the moments
+are f32; x_hat and s are in ``ChocoConfig.state_dtype`` (f32 or bf16).
+Under choco the bucket spec is built from leaves of that dtype, as the
+JAX engine builds it from the x_hat leaves, and x keeps its layout in
+f32.  The exact modes never read x_hat and s: where the JAX state keeps
+them as zeros, this one leaves them unallocated (None), which saves two
+copies of the parameters.
 
 The slice: the choco, plain and allreduce modes, every symmetric
 topology of the JAX registry and time-varying sequences of them, f32
-state, every compressor of the JAX package (with the exact small-leaf
-bucket) and the Theorem-2 gamma under choco, the sgd, momentum and
-AdamW local steps, naive attention (the flash kernel has no backward).
+or bf16 EF state, every compressor of the JAX package (with the exact
+small-leaf bucket) and the Theorem-2 gamma under choco, the sgd,
+momentum and AdamW local steps, naive attention (the flash kernel has no
+backward).
 The push-sum mode with the directed topologies, the processes and a
 fixed gamma are not ported.
 """
@@ -54,7 +58,7 @@ from repro_torch.comm.packing import (bucket_omega_worst, fold_seed,
                                       leaf_route, make_bucket_spec,
                                       pack_leaves, unpack_leaves)
 from repro_torch.comm.schedule import compile_schedules
-from repro_torch.configs.base import ChocoConfig, parse_topology
+from repro_torch.configs.base import STATE_DTYPES, ChocoConfig, parse_topology
 from repro_torch.core.choco_gossip import GammaSpec, theorem2_stepsize
 from repro_torch.core.compression import make_compressor
 from repro_torch.core.topology import make_topology
@@ -130,11 +134,19 @@ class DecentralizedTrainer:
                 f"sequence of {len(self.schedules)} graphs: gossip_steps "
                 f"must be a multiple of the sequence length so every graph "
                 f"runs each SGD step (got {self.choco.gossip_steps})")
+        if self.choco.state_dtype not in STATE_DTYPES:
+            raise ValueError(f"state_dtype={self.choco.state_dtype!r} is not "
+                             f"ported; choose from {', '.join(STATE_DTYPES)}")
+        # the EF state's dtype under choco; the exact modes allocate no EF
+        # state and pack the parameters' own dtype
+        self.state_dtype = (getattr(torch, self.choco.state_dtype)
+                            if self.mode == "choco"
+                            else self.model.param_dtype)
         self.paths = [p for p, _ in param_shapes(self.model.cfg)]
         shapes = dict(param_shapes(self.model.cfg))
         self.spec = make_bucket_spec(
-            [torch.empty(shapes[p], dtype=self.model.param_dtype,
-                         device="meta") for p in self.paths],
+            [torch.empty(shapes[p], dtype=self.state_dtype, device="meta")
+             for p in self.paths],
             align=_pack_align(self.compressor),
             exact_small_leaves=self.choco.exact_small_leaves,
             routes=[leaf_route(p) for p in self.paths])
@@ -179,10 +191,10 @@ class DecentralizedTrainer:
         if leaves[0].shape[0] != len(self.nodes):
             raise ValueError(f"params hold {leaves[0].shape[0]} nodes, the "
                              f"trainer {len(self.nodes)}")
-        x = pack_leaves(self.spec, leaves)
+        x = pack_leaves(self.spec, leaves, dtype=self.model.param_dtype)
         del leaves
-        zeros = lambda: ([torch.zeros_like(b) for b in x]
-                         if self.mode == "choco" else None)
+        zeros = lambda: ([torch.zeros_like(b, dtype=self.state_dtype)
+                          for b in x] if self.mode == "choco" else None)
         return TrainState(x=x, x_hat=zeros(), s=zeros(),
                           opt=self.optimizer.init(x), seed=seed)
 

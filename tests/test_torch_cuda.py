@@ -88,6 +88,51 @@ def test_sign_and_ef_update_bit_equal_to_plain(cuda, length):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("length", LENGTHS)
+def test_ef_update_bf16_bit_equal_to_plain(cuda, length):
+    """The bf16-state EF update against ``ref.ef_update_bf16_ref``, in place:
+    the ring's uniform weights (bf16-valued, the sum in bf16), star's and
+    chain's per-node self weights (f32, the sum in f32; chain's 2/3 and
+    1/3 make the FMA recomputation for x differ from s' in some
+    elements), bit for bit; at 4096 the 4-wide loads, at the odd length
+    and on misaligned buffers one element at a time."""
+    x = _normal(length, (N, length), cuda)
+    x_hat, s, q_self, q_nbr = (
+        (_normal(length + i, (N, length), cuda) * sc).to(torch.bfloat16)
+        for i, sc in ((1, 0.5), (2, 0.1), (3, 0.3), (4, 0.6)))
+    q_self[:, ::7] = 0
+    bf = lambda w: torch.tensor(w, dtype=torch.float32).to(
+        torch.bfloat16).float().to(cuda)
+    for w_self, w_nbr, in_bf16 in (
+            (bf((1 / 3,) * N), bf((1 / 3,) * N), True),
+            (torch.tensor((0.25, 0.75, 0.75, 0.75), device=cuda),
+             bf((0.25,) * N), False),
+            (torch.tensor((2 / 3, 1 / 3, 1 / 3, 2 / 3), device=cuda),
+             bf((1 / 3,) * N), False)):
+        want = ref.ef_update_bf16_ref(x, x_hat, s, q_self, q_nbr, w_self,
+                                      w_nbr, 2.8e-4, in_bf16)
+        inplace = [t.clone() for t in (x, x_hat, s)]
+        got = _launched("ef_update_bf16", lambda: dispatch.ef_bucket_update(
+            *inplace, q_self, q_nbr, w_self, w_nbr, 2.8e-4, in_bf16))
+        assert all(g is t for g, t in zip(got, inplace))
+        for g, w in zip(inplace, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    # buffers one element off 16-byte alignment take the one-element loop
+    shifted = lambda t: torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(
+        t.shape)
+    ins = [shifted(t) for t in (x, x_hat, s, q_self, q_nbr)]
+    assert ins[0].data_ptr() % 16 and ins[1].data_ptr() % 8
+    want = ref.ef_update_bf16_ref(*ins, w_self, w_nbr, 2.8e-4, False)
+    dispatch.ef_bucket_update(*ins, w_self, w_nbr, 2.8e-4, False)
+    for g, w in zip(ins, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="bfloat16"):
+        dispatch.ef_bucket_update(x.clone(), x_hat.clone(), s.clone(),
+                                  q_self.float(), q_nbr, w_self, w_nbr, 0.1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_probe_kernel_bit_equal_to_plain(cuda):
     """The collective-layer probe's x * 2 at the JAX probe's (8, 128) block
     and at an odd length."""
@@ -116,14 +161,15 @@ def _counts(**launched):
     return {name: launched.get(name, 0) for name in dispatch.KERNELS}
 
 
-def _run(compressor, device, steps=2):
+def _run(compressor, device, steps=2, state_dtype="float32"):
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
     kw = {"qsgd": (("s", 16),), "sign": ()}.get(compressor,
                                                  (("fraction", 0.05),))
     tr = DecentralizedTrainer(
         model=Model(cfg), choco=ChocoConfig(compressor=compressor,
-                                            comp_kwargs=kw),
+                                            comp_kwargs=kw,
+                                            state_dtype=state_dtype),
         n_nodes=N, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, 1, steps), device=device)
     state = tr.state_from_params(tr.model.init(N, 0, "cpu"))
@@ -158,6 +204,28 @@ def test_trainer_qsgd_launches_per_bucket_per_round(cuda):
     assert dispatch.launch_counts() == _counts(
         qsgd_codes=launches, dequantize=launches, ef_update=launches)
     assert all(np.isfinite(losses))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compressor", ["qsgd", "top_k"])
+def test_trainer_bf16_state_launches_per_bucket_per_round(cuda, compressor):
+    """bf16 EF state: one bf16-state EF launch per bucket per round (and no
+    f32 one), the codes and decode launches as with f32 state; x_hat and
+    s bf16 on the card; losses finite and within 1e-4 of the CPU run's
+    (the first step's within 1e-5)."""
+    dispatch.reset_launch_counts()
+    tr, state, losses = _run(compressor, cuda, state_dtype="bfloat16")
+    launches = 2 * tr.choco.gossip_steps * tr.spec.n_buckets
+    codes = ({"qsgd_codes": launches, "dequantize": launches}
+             if compressor == "qsgd" else {})
+    assert dispatch.launch_counts() == _counts(ef_update_bf16=launches,
+                                               **codes)
+    assert {b.dtype for b in state.x_hat + state.s} == {torch.bfloat16}
+    assert {b.dtype for b in state.x} == {torch.float32}
+    _, _, cpu_losses = _run(compressor, "cpu", state_dtype="bfloat16")
+    assert all(np.isfinite(losses))
+    np.testing.assert_allclose(losses[0], cpu_losses[0], rtol=1e-5)
+    np.testing.assert_allclose(losses, cpu_losses, rtol=1e-4)
 
 
 def moved_selections(tr, gpu_state, cpu_state):

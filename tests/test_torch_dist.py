@@ -20,9 +20,14 @@ gloo, held against the stacked engine and the JAX package.
 * a rank that raises fails the run within its deadline.
 
 Every spawn meets in a ``FileStore`` under ``tmp_path`` (no fixed port)
-and has a deadline; the CPU reductions of the exchange run on
-``THREADS`` threads in every process, since a sum over more threads adds
-in another order.
+and has a deadline.  Every rank, and every stacked run compared with the
+ranks, runs on ``THREADS`` = 1 torch thread, and the ranks start with
+``RANK_ENV`` (one OpenMP and one MKL thread, set before their interpreter
+starts): a sum over more threads adds in another order, and with two
+threads MKL's vector math (``torch.sin`` of the rotary angles) now and
+then computed the second thread's chunk of its first call less
+accurately, about 1e-4 off, in a rank under load, which moved that
+rank's first loss.
 """
 import dataclasses
 import json
@@ -49,7 +54,10 @@ from repro_torch.models.transformer import Model
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 N = 4
-THREADS = 2
+THREADS = 1
+#: the ranks' environment, set before their interpreter starts
+RANK_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
+            "MKL_DYNAMIC": "FALSE", "OMP_DYNAMIC": "FALSE"}
 DEADLINE_S = 120.0
 GROUP_TIMEOUT_S = 60.0
 
@@ -136,8 +144,20 @@ def _sleeping_rank(rank, seconds):
 
 
 def _spawn(fn, tmp_path, *extra):
+    """Run ``fn(rank, store, *extra)`` on N spawned ranks, started with
+    ``RANK_ENV``; returns each rank's saved results when ``extra`` names
+    their directory."""
     store = str(tmp_path / "store")
-    mesh.spawn_ranks(fn, N, (store, *extra), deadline_s=DEADLINE_S)
+    saved = {k: os.environ.get(k) for k in RANK_ENV}
+    os.environ.update(RANK_ENV)
+    try:
+        mesh.spawn_ranks(fn, N, (store, *extra), deadline_s=DEADLINE_S)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
             for r in range(N)] if extra else None
 

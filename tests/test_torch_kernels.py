@@ -416,7 +416,8 @@ def test_flash_has_its_own_library_and_build_flags():
     assert len(paths) == 5
     assert set(dispatch.launch_counts()) == {
         "qsgd_codes", "sign_codes", "dequantize", "ef_update",
-        "flash_attention", "block_topk_mask", "probe_scale"}
+        "ef_update_bf16", "flash_attention", "block_topk_mask", "probe_scale"}
+    assert set(libs["gossip"].signatures) >= {"ef_update", "ef_update_bf16"}
 
 
 # -- block top-k mask ----------------------------------------------------------------

@@ -19,6 +19,17 @@ Tolerances:
   so.  A flip moves x_hat by two payload scales (the bucket's mean
   |x - x_hat|) and s by at most as much, so each such difference is
   bounded by 8x the largest mean |x| of an initial leaf.
+* bf16 EF state (``test_torch_state_bf16.py``): the delta x - x_hat is
+  rounded to bf16 before it is compressed, and where it lies within the
+  ulp-level gradient difference of a bf16 rounding boundary, its rounding
+  flips.  That q, and so x_hat, moves by one bf16 step of the delta and
+  the s of the node and its neighbours by at most as much, and x by gamma
+  times that.  At most 1 in 10^5 elements of x, x_hat and s each may do
+  so; each such difference is bounded by two bf16 steps of the leaf's
+  largest initial |x| (2^-6 of it), times the largest bucket gamma for x
+  (above the 1e-6).  Measured on 5,773,312 elements per state: top_k
+  0.05 on the ring, 2 x_hat and 6 s elements (at most 9.8e-4) and 2 x
+  elements (1.07e-6); on star, 1 and 3 (x within 1e-6); QSGD, none.
 """
 import dataclasses
 import fcntl
@@ -71,7 +82,7 @@ _JAX_REFERENCE = textwrap.dedent("""
     from repro.optim import cosine_schedule, make_optimizer
     from repro.train.trainer import DecentralizedTrainer
 
-    comp, arg, k, exact, steps, seq, bpn, out, topology = sys.argv[1:]
+    comp, arg, k, exact, steps, seq, bpn, out, topology, sdt = sys.argv[1:]
     k, steps, seq, bpn = int(k), int(steps), int(seq), int(bpn)
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
@@ -87,7 +98,7 @@ _JAX_REFERENCE = textwrap.dedent("""
         model=build_model(cfg),
         choco=ChocoConfig(compressor=comp, comp_kwargs=kw, gossip_axis="data",
                           topology=topology, gossip_steps=k,
-                          kernel_backend="jnp",
+                          kernel_backend="jnp", state_dtype=sdt,
                           exact_small_leaves=exact == "exact"),
         mesh=mesh, n_nodes=4, optimizer=make_optimizer("momentum"),
         lr_fn=cosine_schedule(0.1, warmup=steps // 10 + 1, total=steps),
@@ -97,8 +108,10 @@ _JAX_REFERENCE = textwrap.dedent("""
         tr.gamma_spec, tr._bucket_spec(), tr.compressor))}
 
     def save(tag, tree):
+        # bf16 state is saved as the f32 values it holds (exact)
         for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-            res[tag + ":" + "/".join(k.key for k in path)] = np.asarray(leaf)
+            res[tag + ":" + "/".join(k.key for k in path)] = np.asarray(
+                leaf.astype(jnp.float32))
 
     key = jax.random.PRNGKey(0)
     state = tr.init_state(key)
@@ -137,9 +150,10 @@ _JAX_REFERENCE = textwrap.dedent("""
 
 
 def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
-                       topology="ring"):
+                       topology="ring", state_dtype="float32"):
     """The path of the JAX reference run of one case (on the ring unless
-    ``topology`` names another graph or a comma-separated sequence), made
+    ``topology`` names another graph or a comma-separated sequence; f32
+    EF state unless ``state_dtype`` says "bfloat16"), made
     once per pytest run: tests that need the same case share it, across
     xdist workers too (they meet in the run's common temporary directory
     and take turns under a file lock)."""
@@ -149,6 +163,8 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
     root = root / "jax_reference"
     root.mkdir(exist_ok=True)
     tag = "" if topology == "ring" else "_" + topology.replace(",", "+")
+    if state_dtype != "float32":
+        tag += "_" + state_dtype
     out = root / f"jax_{comp}_{arg}_{k}_{'exact' if exact else '-'}{tag}.npz"
     with open(str(out) + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -160,7 +176,7 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
             r = subprocess.run(
                 [sys.executable, "-c", _JAX_REFERENCE, comp, str(arg), str(k),
                  "exact" if exact else "-", str(STEPS), str(SEQ), str(BPN),
-                 str(part), topology],
+                 str(part), topology, state_dtype],
                 env=env, capture_output=True, text=True, timeout=600)
             assert r.returncode == 0, \
                 f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
@@ -180,7 +196,8 @@ def _tree(ref, tag):
     return tree
 
 
-def _port_trainer(comp, arg, k, exact, topology="ring"):
+def _port_trainer(comp, arg, k, exact, topology="ring",
+                  state_dtype="float32"):
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
     if comp == "qsgd":
@@ -192,7 +209,8 @@ def _port_trainer(comp, arg, k, exact, topology="ring"):
     return DecentralizedTrainer(
         model=Model(cfg), choco=ChocoConfig(compressor=comp, comp_kwargs=kw,
                                             topology=topology, gossip_steps=k,
-                                            exact_small_leaves=exact),
+                                            exact_small_leaves=exact,
+                                            state_dtype=state_dtype),
         n_nodes=N, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
         device="cpu")
@@ -235,9 +253,12 @@ def check_against_jax(tr, state, mets, ref, comp, x_atol=1e-6):
     np.testing.assert_allclose(mets[:, 2], ref["metrics"][:, 2], rtol=1e-5)
 
     flip_bound = 0.0
+    bf16 = state.x_hat is not None and state.x_hat[0].dtype == torch.bfloat16
+    x0 = (params_from_jax(_tree(ref, "x0")) if comp == "sign" or bf16
+          else None)
     if comp == "sign":
-        x0 = params_from_jax(_tree(ref, "x0"))
         flip_bound = 8 * max(float(v.abs().mean()) for v in x0.values())
+    gamma = max(tr.exchange.bucket_gammas) if bf16 else 0.0
     total = sum(b.numel() for b in state.x)
     for tag, bufs in (("x", state.x), ("x_hat", state.x_hat), ("s", state.s)):
         if bufs is None:                 # not allocated in the exact modes
@@ -246,15 +267,21 @@ def check_against_jax(tr, state, mets, ref, comp, x_atol=1e-6):
         want = params_from_jax(_tree(ref, tag))
         outliers = 0
         for path in tr.paths:
-            a, b = got[path].numpy(), want[path].numpy()
+            a, b = got[path].float().numpy(), want[path].numpy()
             diff = np.abs(a - b)
+            bf16_step = 2.0 ** -6 * float(x0[path].abs().max()) if bf16 else 0
             if tag == "x":
-                assert diff.max() <= x_atol, path
-                continue
-            bad = diff > 1e-6 + 1e-5 * np.abs(b)
+                if not bf16:
+                    assert diff.max() <= x_atol, path
+                    continue
+                bad = diff > x_atol
+                bound = x_atol + gamma * bf16_step
+            else:
+                bad = diff > 1e-6 + 1e-5 * np.abs(b)
+                bound = max(flip_bound, bf16_step)
             outliers += int(bad.sum())
             if bad.any():
-                assert diff[bad].max() <= flip_bound, (tag, path, diff.max())
+                assert diff[bad].max() <= bound, (tag, path, diff.max())
         assert outliers <= total // 100_000, (tag, outliers)
 
 
@@ -324,7 +351,7 @@ def test_launcher_runs_each_compressor_on_cpu(extra, capsys):
      "--topology-process"),
     (["--compressor", "sign", "--gossip-engine", "per-leaf"],
      "--gossip-engine"),
-    (["--compressor", "sign", "--state-dtype", "bfloat16"], "--state-dtype"),
+    (["--compressor", "sign", "--state-dtype", "float16"], "--state-dtype"),
     (["--compressor", "sign", "--kernel-backend", "pallas"],
      "--kernel-backend"),
     (["--compressor", "sign", "--topology", "directed_ring"], "--topology"),
