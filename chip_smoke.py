@@ -47,7 +47,15 @@ from the root of a checkout, on a machine with one CUDA device.  It
    with plain SGD on Dirichlet(0.1) token shards, exact D-SGD (plain) with
    momentum and the all-reduce baseline with AdamW, checking finite
    losses and the launches (the EF update per bucket per step under
-   choco, no kernel in the exact modes);
+   choco, no kernel in the exact modes); then ``[checkpoint]``: the same
+   cell with top_k 0.01, bf16 EF state and plain SGD, 3 steps
+   uninterrupted against 1 step, a save (``checkpoint/``, the JAX
+   package's sharded format), a restore into a fresh trainer and 2 steps,
+   every buffer of x, x_hat and s, the step and the seed bit-equal; it
+   prints the disk's free space first (and halves the node count, never
+   the width, if two checkpoints would not fit), the save and restore
+   seconds and GB/s, the bytes on disk beside the reckoned 4 x params x
+   (4 + 2 + 2), and the first step after the restore;
 5. runs the training launcher (``repro_torch.launch.train.main``) for a
    --smoke run with --compressor top_k --fraction 0.05, one with
    --mode plain --optimizer adamw --data-skew-alpha 0.5 and the first
@@ -60,7 +68,13 @@ from the root of a checkout, on a machine with one CUDA device.  It
    randomized gossip fed the same draws on both devices, on the ring;
    top_k on torus, chain, star and the time-varying pair "ring,star";
    plain on star, allreduce with plain SGD and QSGD under AdamW; top_k on
-   the ring and QSGD on chain with bf16 EF state;
+   the ring and QSGD on chain with bf16 EF state; then ``[checkpoint]``
+   at that size, QSGD s=16 and top_k, f32 and bf16 EF state: a card
+   checkpoint restored on the CPU and a CPU checkpoint on the card, bit
+   for bit, and elastic restores 4 -> 8 and 4 -> 2 nodes on the card,
+   with the consensus distance and ||x - x_hat|| before and after the
+   warmup and its launches (codes, dequantize and the EF update per
+   bucket per round for QSGD; the EF update for top_k);
    then the per-rank engine (``[dist]``), one process per gossip node, 4
    ranks sharing the card: the small phase holds the per-rank exchange
    alone bit-equal to the stacked exchange on the card, and 3 per-rank
@@ -80,7 +94,9 @@ from the root of a checkout, on a machine with one CUDA device.  It
    within 1e-6, its sum runs in gloo's order), 3 steps to the ``[small]``
    rules, each rank's bytes by formula (plain's counted; allreduce's a
    ring model, none counted) and no launch, the probe included;
-   the full-width plain mode's bytes are printed as computed;
+   the full-width plain mode's bytes are printed as computed; each rank
+   restores its row of a stacked checkpoint and the stacked engine
+   restores the 4 ranks' checkpoint, bit for bit (bf16 EF state, top_k);
    then ``[sim]``, the paper's algorithms as matrix simulators on the card
    against the CPU: CHOCO-Gossip at the quickstart's sizes (ring 25, d
    2000: exact, QSGD(127), top 1%) and CHOCO-SGD (QSGD(16), top 1%) with
@@ -1067,6 +1083,10 @@ DIST_MODE_RUNS = (("plain", "ring", 1), ("plain", "star", 2),
 #: comp_kwargs, gossip_steps, topology)
 DIST_BF16_RUNS = (("top_k", (("fraction", 0.05),), 1, "ring"),
                   ("qsgd", (("s", 16),), 2, "chain"))
+#: the [dist] small phase's checkpoint exchange between the per-rank and
+#: the stacked engine: (compressor, comp_kwargs, gossip_steps, topology),
+#: with bf16 EF state
+DIST_CKPT = DIST_BF16_RUNS[0]
 #: the full-width [dist] phase's compressor and, per node, sequence and batch
 DIST_FULL = ("top_k", (("fraction", 0.01),), 1)
 DIST_SEQ, DIST_BATCH = 512, 4
@@ -1074,7 +1094,7 @@ DIST_TIMEOUT_S = 300.0
 
 
 def _dist_trainer(comp, kw, steps_k, cfg, dev, group=None, topology="ring",
-                  mode="choco", state_dtype="float32"):
+                  mode="choco", state_dtype="float32", n_nodes=N_NODES):
     from repro_torch.configs.base import ChocoConfig
     from repro_torch.models.transformer import Model
     from repro_torch.optim.sgd import cosine_schedule, momentum_sgd
@@ -1084,7 +1104,7 @@ def _dist_trainer(comp, kw, steps_k, cfg, dev, group=None, topology="ring",
                                             topology=topology,
                                             gossip_steps=steps_k,
                                             state_dtype=state_dtype),
-        n_nodes=N_NODES, optimizer=momentum_sgd(),
+        n_nodes=n_nodes, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
         device=dev, group=group, mode=mode)
 
@@ -1202,6 +1222,20 @@ def _dist_small_rank(rank, store, out_dir):
     torch.cuda.synchronize()
     out["launches"] = dispatch.launch_counts()
     out["transport"] = group.describe()
+    # [checkpoint]: this rank's row of the stacked engine's checkpoint, and
+    # the ranks' own checkpoint, for the stacked engine to restore
+    comp, kw, steps_k, topology = DIST_CKPT
+    tr = _dist_trainer(comp, kw, steps_k, cfg, group.device, group, topology,
+                       state_dtype="bfloat16")
+    got, _, warmup = tr.restore_checkpoint(os.path.join(out_dir,
+                                                        "ckpt_stacked"))
+    state = tr.state_from_params(params)
+    batches = make_lm_batch_fn(cfg, 128, 4, N_NODES, 1.0, node=rank)
+    for _ in range(2):
+        tr.step(state, tr.batch_to_device(batches()))
+    tr.save_checkpoint(os.path.join(out_dir, "ckpt_ranks"), state)
+    out["checkpoint"] = {"restored": _host_state(got), "warmup": warmup,
+                         "saved": _host_state(state)}
     torch.save(out, os.path.join(out_dir, f"small{rank}.pt"))
     close_node_group()
 
@@ -1225,11 +1259,14 @@ def dist_small(dev):
     from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model
     with tempfile.TemporaryDirectory() as tmp:
+        stacked = _stacked_checkpoint(dev, os.path.join(tmp, "ckpt_stacked"))
         t0 = time.perf_counter()
         spawn_ranks_of(_dist_small_rank, tmp, 600)
         wall = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(tmp, f"small{r}.pt"),
                             weights_only=False) for r in range(N_NODES)]
+        crossed = dist_checkpoints(dev, os.path.join(tmp, "ckpt_ranks"),
+                                   stacked, [r["checkpoint"] for r in ranks])
     print(f"[dist] small phase: {N_NODES} ranks in {wall:.1f} s; "
           f"transport {ranks[0]['transport']}; launches per rank "
           f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}",
@@ -1237,7 +1274,8 @@ def dist_small(dev):
     cfg = _small_cfg()
     params = Model(cfg).init(N_NODES, 1, "cpu")
     report = {"launches": [r["launches"] for r in ranks],
-              "exact_launches": [r["exact_launches"] for r in ranks]}
+              "exact_launches": [r["exact_launches"] for r in ranks],
+              "checkpoint": crossed}
     check(not any(any(r["exact_launches"].values()) for r in ranks),
           f"[dist] the exact modes launched kernels (the probe included): "
           f"{report['exact_launches']}")
@@ -1381,6 +1419,61 @@ def dist_small(dev):
     return report
 
 
+def _stacked_checkpoint(dev, path):
+    """The stacked engine's checkpoint of DIST_CKPT at ``path``: 2 steps of
+    the f32 smoke decoder with bf16 EF state from seed 1's weights.
+    Returns the state saved, on the host."""
+    from repro_torch.data.synthetic import make_lm_batch_fn
+    from repro_torch.models.transformer import Model
+    cfg = _small_cfg()
+    comp, kw, steps_k, topology = DIST_CKPT
+    tr = _dist_trainer(comp, kw, steps_k, cfg, dev, topology=topology,
+                       state_dtype="bfloat16")
+    state = tr.state_from_params(Model(cfg).init(N_NODES, 1, "cpu"))
+    batches = make_lm_batch_fn(cfg, 128, 4, N_NODES, 1.0)
+    for _ in range(2):
+        tr.step(state, tr.batch_to_device(batches()))
+    tr.save_checkpoint(path, state)
+    return _host_state(state)
+
+
+def dist_checkpoints(dev, ranks_path, stacked, recs):
+    """[dist]'s checkpoints: each rank restored its row of the stacked
+    engine's checkpoint (``stacked``: the state saved) bit for bit, and the
+    stacked engine restores the 4 ranks' checkpoint (``ranks_path``; each
+    rank's state in ``recs``) bit for bit."""
+    import torch
+    from repro_torch.checkpoint.manifest import read_manifest
+    row = lambda st, r: {k: (v if v is None or not isinstance(v, list)
+                             else [b[r:r + 1] for b in v])
+                         for k, v in st.items()}
+    cat = lambda key: (None if recs[0]["saved"][key] is None else
+                       [torch.cat([rec["saved"][key][b] for rec in recs])
+                        for b in range(len(recs[0]["saved"][key]))])
+    bad_rows = [(r, _same_state(rec["restored"], row(stacked, r)))
+                for r, rec in enumerate(recs)]
+    comp, kw, steps_k, topology = DIST_CKPT
+    tr = _dist_trainer(comp, kw, steps_k, _small_cfg(), dev,
+                       topology=topology, state_dtype="bfloat16")
+    back, man, warmup = tr.restore_checkpoint(ranks_path)
+    want = dict(recs[0]["saved"], **{k: cat(k) for k in
+                                     ("x", "x_hat", "s", "mu", "nu")})
+    bad_back = _same_state(_host_state(back), want)
+    print(f"[checkpoint] [dist] bf16-state {comp} on {topology}: {N_NODES} "
+          f"ranks restored their rows of the stacked engine's checkpoint, "
+          f"bit-equal: {[not b for _, b in bad_rows]} (warmup "
+          f"{[rec['warmup'] for rec in recs]}); the stacked engine restored "
+          f"the ranks' checkpoint ({man.process_count} shard files), "
+          f"bit-equal: {not bad_back} (warmup {warmup})", flush=True)
+    check(not any(b for _, b in bad_rows) and not bad_back and warmup == 0
+          and all(rec["warmup"] == 0 for rec in recs)
+          and man.process_count == N_NODES
+          and read_manifest(ranks_path).step == 2,
+          f"[checkpoint] [dist]: rows {bad_rows}, stacked {bad_back}")
+    return {"ranks_restore_stacked_bit_equal": [not b for _, b in bad_rows],
+            "stacked_restores_ranks_bit_equal": not bad_back}
+
+
 def _dist_full_rank(rank, store, out_dir, batch_per_node):
     """One rank of the full-width [dist] phase: qwen3-1.7b widths, 2
     layers, node ``rank`` of 4, DIST_FULL gossip, STEPS steps; counts
@@ -1521,6 +1614,275 @@ def dist_full_width(stacked, batch_per_node=DIST_BATCH):
                   for r, p in enumerate(profiles)), flush=True)
     return {"ranks": ranks, "ms_per_step_slowest_rank": steady,
             "stacked_ms_per_step": stacked["ms_per_step"]}
+
+
+#: [checkpoint]: the full-width cell (compressor and fraction, EF state
+#: dtype, local step) and the parameters per node it reckons with
+CKPT_FULL = ("top_k", (("fraction", 0.01),), "bfloat16", "sgd")
+#: [checkpoint] small: (compressor, comp_kwargs) x EF state dtype
+CKPT_SMALL = ((("qsgd", (("s", 16),)), ("top_k", (("fraction", 0.05),))),
+              ("float32", "bfloat16"))
+CKPT_ELASTIC_NODES = (8, 2)
+
+
+def _bits(t):
+    import torch
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _host_state(state):
+    """A copy of a trainer state's buffers on the host."""
+    cpu = lambda bufs: None if bufs is None else [b.cpu() for b in bufs]
+    return {"x": cpu(state.x), "x_hat": cpu(state.x_hat), "s": cpu(state.s),
+            "mu": cpu(state.opt.mu), "nu": cpu(state.opt.nu),
+            "count": state.opt.count, "step": state.step, "seed": state.seed}
+
+
+def _same_state(a, b):
+    """Every buffer of two host states bit-equal, and count, step, seed
+    equal; returns the names of what differs."""
+    import torch
+    bad = [k for k in ("count", "step", "seed") if a[k] != b[k]]
+    for k in ("x", "x_hat", "s", "mu", "nu"):
+        if (a[k] is None) != (b[k] is None):
+            bad.append(k)
+            continue
+        for i, (u, v) in enumerate(zip(a[k] or (), b[k] or ())):
+            if u.dtype != v.dtype or not torch.equal(_bits(u), _bits(v)):
+                bad.append(f"{k}[{i}]")
+    return bad
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def checkpoint_full_width(dev):
+    """[checkpoint] at full width: qwen3-1.7b widths, 2 layers, 4 nodes on a
+    ring, CKPT_FULL, sequence 512 x batch 4 per node.  STEPS steps
+    uninterrupted; then, from the same seed and batches, 1 step, a save, a
+    restore into a fresh trainer and STEPS - 1 steps.  x, x_hat, s, the
+    step and the seed must be bit-equal between the two runs (every
+    buffer's bits compared).  Prints the disk's free space first, the save
+    and restore seconds and GB/s, the bytes on disk beside the reckoned
+    nodes x parameters x (4 + 2 + 2) bytes, and the first step after the
+    restore beside the uninterrupted run's steps.  If the disk cannot hold
+    two such checkpoints the node count is halved (never the width), and
+    the cut is printed."""
+    import tempfile
+    import torch
+    from repro_torch.configs.base import ChocoConfig
+    from repro_torch.configs.qwen3_1_7b import CONFIG
+    from repro_torch.data.synthetic import make_lm_batch_fn
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import Model, count_params
+    from repro_torch.optim.sgd import cosine_schedule, make_optimizer
+    from repro_torch.train.trainer import DecentralizedTrainer
+
+    comp, kw, sdt, opt = CKPT_FULL
+    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    params = count_params(cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        nodes = N_NODES
+        reckoned = lambda n: n * params * (4 + 2 + 2)
+        print(f"[checkpoint] full width: {tmp} has {free} bytes free "
+              f"({free / 2 ** 30:.2f} GiB); one checkpoint of {nodes} nodes is "
+              f"reckoned at {reckoned(nodes)} bytes ({nodes} x {params} "
+              f"parameters x (4 + 2 + 2) bytes)", flush=True)
+        while nodes > 1 and 2 * reckoned(nodes) > free:
+            nodes //= 2
+            print(f"[checkpoint] CUT: the disk cannot hold two checkpoints; "
+                  f"node count cut to {nodes}", flush=True)
+
+        def trainer():
+            return DecentralizedTrainer(
+                model=Model(cfg), choco=ChocoConfig(
+                    compressor=comp, comp_kwargs=kw, state_dtype=sdt),
+                n_nodes=nodes, optimizer=make_optimizer(opt),
+                lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1,
+                                      total=STEPS), device=dev)
+
+        make = make_lm_batch_fn(cfg, DIST_SEQ, 4, nodes, 1.0)
+        batches = [make() for _ in range(STEPS)]
+
+        def steps(tr, state, todo):
+            ms = []
+            for b in todo:
+                batch = tr.batch_to_device(b)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mets = tr.step(state, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                check(math.isfinite(mets["loss"]),
+                      f"[checkpoint] loss {mets['loss']}")
+            return ms
+
+        dispatch.reset_launch_counts()
+        tr = trainer()
+        state = tr.init_state(seed=0)
+        whole_ms = steps(tr, state, batches)
+        whole = _host_state(state)
+        del tr, state
+        torch.cuda.empty_cache()
+
+        tr = trainer()
+        state = tr.init_state(seed=0)
+        steps(tr, state, batches[:1])
+        path = os.path.join(tmp, "step1")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.save_checkpoint(path, state)
+        save_s = time.perf_counter() - t0
+        del tr, state
+        torch.cuda.empty_cache()
+        on_disk = _dir_bytes(path)
+        tr = trainer()
+        t0 = time.perf_counter()
+        state, man, warmup = tr.restore_checkpoint(path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(warmup == 0 and man.step == 1 and state.step == 1,
+              f"[checkpoint] restore: warmup {warmup}, step {man.step}")
+        resumed_ms = steps(tr, state, batches[1:])
+        counts = dispatch.launch_counts()
+        bad = _same_state(_host_state(state), whole)
+        del tr, state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gb = on_disk / 1e9
+    print(f"[checkpoint] full width {comp} 0.01, {sdt} state, {opt}, {nodes} "
+          f"nodes: save {save_s:.3f} s ({gb / save_s:.3f} GB/s), restore "
+          f"{restore_s:.3f} s ({gb / restore_s:.3f} GB/s; the file just "
+          f"written, so from the page cache where it holds); {on_disk} bytes "
+          f"on disk ({on_disk / 2 ** 30:.3f} GiB) against {reckoned(nodes)} "
+          f"reckoned ({reckoned(nodes) / 1e9:.2f} GB, "
+          f"{reckoned(nodes) / 2 ** 30:.2f} GiB); first step after the "
+          f"restore {resumed_ms[0]:.1f} ms (then {resumed_ms[1:]}) against "
+          f"the uninterrupted run's {whole_ms} ms (first step included); "
+          f"x, x_hat, s, step and seed bit-equal to the uninterrupted run: "
+          f"{not bad}", flush=True)
+    check(not bad, f"[checkpoint] the resumed run differs from the "
+          f"uninterrupted one in {bad}")
+    return counts, {"nodes": nodes, "save_s": save_s, "restore_s": restore_s,
+                    "bytes_on_disk": on_disk, "bytes_reckoned": reckoned(nodes),
+                    "disk_free_bytes": free, "save_gb_per_s": gb / save_s,
+                    "restore_gb_per_s": gb / restore_s,
+                    "uninterrupted_ms": whole_ms, "resumed_ms": resumed_ms}
+
+
+def consensus_distance(x):
+    """sum_i ||x_i - mean_j x_j||^2 / n over the node-stacked buffers."""
+    n = x[0].shape[0]
+    return sum(float(((b.double() - b.double().mean(0)) ** 2).sum())
+               for b in x) / n
+
+
+def checkpoint_small(dev):
+    """[checkpoint] at smoke size, f32 decoder, 4 nodes on a ring, momentum,
+    for QSGD s=16 and top_k 0.05 with f32 and bf16 EF state: 2 steps on
+    the card and a save; its elastic restores on 8 and on 2 nodes on the
+    card (x_hat and s zero, then the warmup: its rounds, its launches, one
+    codes, one dequantize and one EF update per bucket per round for QSGD,
+    one EF update for top_k, and the consensus distance and ||x - x_hat||
+    before and after); that checkpoint restored on the CPU, and 2 CPU
+    steps from the same weights saved and restored on the card, each
+    bit-equal to the state saved."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.elastic import consensus_warmup_rounds
+    from repro_torch.data.synthetic import make_lm_batch_fn
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import Model
+    cfg = _small_cfg()
+    params = Model(cfg).init(N_NODES, 1, "cpu")
+    launches = {k: 0 for k in kernel_names()}
+    report = {}
+    comps, dtypes = CKPT_SMALL
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_small_") as tmp:
+        for comp, kw in comps:
+            for sdt in dtypes:
+                tag = f"{comp}-{sdt}"
+                saved = {}
+                for role, device in (("card", dev), ("cpu", "cpu")):
+                    tr = _dist_trainer(comp, kw, 1, cfg, device,
+                                       state_dtype=sdt)
+                    state = tr.state_from_params(params)
+                    batches = make_lm_batch_fn(cfg, 128, 4, N_NODES, 1.0)
+                    for _ in range(2):
+                        tr.step(state, tr.batch_to_device(batches()))
+                    path = os.path.join(tmp, f"{tag}-{role}")
+                    tr.save_checkpoint(path, state)
+                    saved[role] = (path, _host_state(state))
+                # the card's checkpoint on the CPU, the CPU's on the card
+                crossed = {}
+                for src, dst, device in (("card", "cpu", "cpu"),
+                                         ("cpu", "card", dev)):
+                    path, want = saved[src]
+                    tr = _dist_trainer(comp, kw, 1, cfg, device,
+                                       state_dtype=sdt)
+                    got, _, warmup = tr.restore_checkpoint(path)
+                    bad = _same_state(_host_state(got), want)
+                    check(warmup == 0 and not bad,
+                          f"[checkpoint] {tag}: the {src} checkpoint restored "
+                          f"on the {dst}: warmup {warmup}, differs in {bad}")
+                    crossed[f"{src}->{dst}"] = not bad
+                rec = {"card_cpu_bit_equal": crossed}
+                path = saved["card"][0]
+                for n in CKPT_ELASTIC_NODES:
+                    tr = _dist_trainer(comp, kw, 1, cfg, dev, state_dtype=sdt,
+                                       n_nodes=n)
+                    state, man, warmup = tr.restore_checkpoint(path)
+                    want = consensus_warmup_rounds(
+                        min(t.delta for t in tr.topologies))
+                    check(warmup == want and man.n_nodes == N_NODES and
+                          not any(bool(b.any()) for b in state.x_hat + state.s),
+                          f"[checkpoint] {tag} 4 -> {n}: warmup {warmup} "
+                          f"(expected {want}), x_hat and s not zero")
+                    ef_err = lambda: math.sqrt(sum(
+                        float(((x.double() - h.double()) ** 2).sum())
+                        for x, h in zip(state.x, state.x_hat)))
+                    before = (consensus_distance(state.x), ef_err())
+                    torch.cuda.synchronize()
+                    dispatch.reset_launch_counts()
+                    tr.consensus_warmup(state, warmup)
+                    torch.cuda.synchronize()
+                    counts = dispatch.launch_counts()
+                    after = (consensus_distance(state.x), ef_err())
+                    per = warmup * tr.choco.gossip_steps * tr.spec.n_buckets
+                    expect = {k: 0 for k in counts}
+                    expect["ef_update_bf16" if sdt == "bfloat16"
+                           else "ef_update"] = per
+                    if comp == "qsgd":
+                        expect["qsgd_codes"] = expect["dequantize"] = per
+                    check(counts == expect,
+                          f"[checkpoint] {tag} 4 -> {n} warmup launches "
+                          f"{counts}, expected {expect}")
+                    check(all(math.isfinite(v) for v in before + after),
+                          f"[checkpoint] {tag} 4 -> {n}: {before} {after}")
+                    for k, v in counts.items():
+                        launches[k] += v
+                    print(f"[checkpoint] small {tag}: elastic 4 -> {n} nodes, "
+                          f"warmup {warmup} rounds (the new graph's); "
+                          f"consensus distance {before[0]:.6e} -> "
+                          f"{after[0]:.6e}, ||x - x_hat|| {before[1]:.6e} -> "
+                          f"{after[1]:.6e}; launches "
+                          f"{ {k: v for k, v in counts.items() if v} } "
+                          f"({warmup} rounds x {tr.choco.gossip_steps} "
+                          f"gossip_steps x {tr.spec.n_buckets} buckets); card "
+                          f"checkpoint on the CPU and CPU checkpoint on the "
+                          f"card bit-equal: {crossed}", flush=True)
+                    rec[f"elastic_4_to_{n}"] = {
+                        "warmup": warmup, "consensus_before": before[0],
+                        "consensus_after": after[0],
+                        "ef_error_before": before[1],
+                        "ef_error_after": after[1], "launches": counts}
+                report[tag] = rec
+    report["launches"] = launches
+    return report
 
 
 #: [sim]: CHOCO-Gossip as examples/quickstart.py runs it, (label,
@@ -2486,10 +2848,12 @@ def main():
           f"against {ring_run['peak_gib']:.3f} GiB", flush=True)
     state_bf16 = state_bf16_full_width(dev, by_path)
     modes = modes_full_width(dev)
+    ckpt_full_counts, ckpt_full = checkpoint_full_width(dev)
     launcher_counts = {label: run_launcher(extra)
                        for label, extra in LAUNCHER_RUNS}
     per_rank_launcher_counts = run_launcher_per_rank()
     small = small_cuda_vs_cpu(dev)
+    ckpt_small = checkpoint_small(dev)
     torch.cuda.empty_cache()
     dist_small_report = dist_small(dev)
     torch.cuda.empty_cache()
@@ -2531,6 +2895,8 @@ def main():
         **launcher_counts,
         "launcher_per_rank_rank0": per_rank_launcher_counts,
         "small": small["launches"],
+        "checkpoint_full_width": ckpt_full_counts,
+        "checkpoint_warmup": ckpt_small["launches"],
         "dist_small": {k: sum(c[k] for c in dist_small_report["launches"])
                        for k in kernel_names()},
         "dist_small_exact_modes": {
@@ -2543,11 +2909,12 @@ def main():
         "serve": serve_counts}
     by_kernel = lambda name: {p: c[name] for p, c in paths.items()}
     # the training paths whose launches count as the gossip kernels' main
-    # path: the four compressors, star, the bf16-state runs and the [modes]
-    # runs
+    # path: the four compressors, star, the bf16-state runs, the [modes]
+    # runs, the [checkpoint] runs and its elastic warmups
     train_paths = (list(by_path) + ["topology_star"]
                    + [f"state_bf16_{c}" for c in state_bf16]
-                   + [f"modes_{label}" for label in modes])
+                   + [f"modes_{label}" for label in modes]
+                   + ["checkpoint_full_width", "checkpoint_warmup"])
 
     # ef_update_bf16 has no pallas_call counterpart: it replaces the leaf
     # update the JAX engine runs as fused jnp on bf16 EF state
@@ -2607,6 +2974,8 @@ def main():
     print(json.dumps({"int16": extra, "train": train, "topology_star": star,
                       "state_bf16": {c: r for c, (_, r) in state_bf16.items()},
                       "modes": {k: r for k, (_, r) in modes.items()},
+                      "checkpoint": {"full_width": ckpt_full,
+                                     "small": ckpt_small},
                       "sim": sim, "small": small,
                       "prefill": prefill, "serve": serve, "decode": decode,
                       "consistency": consistency,

@@ -131,6 +131,10 @@ class NodeGroup:
         dist.all_reduce(t, op=op, group=self.host_group)
         return t.tolist()
 
+    def barrier(self) -> None:
+        """Wait until every rank of the group has reached this call."""
+        dist.barrier(group=self.host_group)
+
     def describe(self) -> str:
         where = ("pinned host buffers" if self.staged else
                  "device memory" if self.device.type == "cuda" else

@@ -14,7 +14,19 @@ gives the node count N; a model extent above 1 is refused.  Two engines:
   (the per-rank engine, ``launch/mesh.py`` says which transport).
 
 ``--optimizer sgd|momentum|adamw`` picks the local step and
-``--data-skew-alpha`` Dirichlet(alpha) non-IID token shards.  The
+``--data-skew-alpha`` Dirichlet(alpha) non-IID token shards.
+
+Checkpoints are the JAX launcher's: ``--checkpoint-dir D
+--checkpoint-every K`` saves a sharded checkpoint (``checkpoint/``) to
+``D/step<N>`` every K steps, ``--keep-checkpoints M`` keeps the newest M,
+and ``--resume`` takes a checkpoint directory (the port's or the JAX
+package's) or a legacy flat ``.npz``.  ``--steps`` is the total budget:
+resuming a step-60 checkpoint with ``--steps 100`` trains 40 steps more,
+the learning-rate schedule anchored at step 0, and the data stream starts
+anew.  A checkpoint of another node count restores elastically (rows
+tiled or averaged, x_hat and s zeroed, then a consensus warmup of
+``--elastic-warmup-rounds`` rounds, by default the new graph's count).
+The
 launcher prints which engine runs, and for the per-rank engine the
 transport and, under choco, the collective-layer probe's record (rank 0
 prints).  Every flag outside the ported slice is refused with a message,
@@ -31,6 +43,7 @@ import time
 # torch-free: argument validation runs before torch is imported
 from repro_torch.configs.base import STATE_DTYPES, parse_topology
 from repro_torch.core.topology import DIRECTED_TOPOLOGIES, SYMMETRIC_TOPOLOGIES
+from repro_torch.checkpoint.manifest import read_manifest
 from repro_torch.launch.env import file_rendezvous, torchrun_rendezvous
 
 ARCH_CHOICES = ("qwen3-1.7b",)
@@ -54,11 +67,6 @@ _REFUSED = {
     "gossip_engine": ("packed", "the per-leaf gossip engine"),
     "kernel_backend": (None, "a kernel-backend switch (the route follows "
                              "the tensor's device: --device)"),
-    "checkpoint_dir": (None, "checkpoints"),
-    "checkpoint_every": (0, "checkpoints"),
-    "keep_checkpoints": (None, "checkpoints"),
-    "resume": (None, "checkpoints"),
-    "elastic_warmup_rounds": (None, "elastic restore"),
     "metrics_dir": (None, "the telemetry sinks"),
     "diag_every": (0, "the Lyapunov diagnostics"),
     "divergence_action": (None, "the Lyapunov diagnostics"),
@@ -106,9 +114,17 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--data-skew-alpha", type=float, default=None)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=0)
-    ap.add_argument("--keep-checkpoints", type=int, default=None)
-    ap.add_argument("--resume", default=None)
-    ap.add_argument("--elastic-warmup-rounds", type=int, default=None)
+    ap.add_argument("--keep-checkpoints", type=int, default=None,
+                    help="retain only the newest K checkpoint dirs under "
+                         "--checkpoint-dir (after each successful save; "
+                         "never the step just saved)")
+    ap.add_argument("--resume", default=None,
+                    help="sharded checkpoint dir (manifest.json) or a legacy "
+                         "flat .npz; --steps stays the TOTAL budget")
+    ap.add_argument("--elastic-warmup-rounds", type=int, default=None,
+                    help="CHOCO-GOSSIP warmup rounds after an elastic "
+                         "restore (default: from the new graph's spectral "
+                         "gap)")
     ap.add_argument("--simulate-devices", type=int, default=0,
                     help="spawn N processes, one gossip node each (N must "
                          "match --mesh Nx1)")
@@ -175,6 +191,12 @@ def _validate(ap, args) -> int:
         ap.error("--compressor qsgd requires --qsgd-s (quantization levels)")
     if args.steps < 1:
         ap.error("--steps must be >= 1")
+    if args.keep_checkpoints is not None:
+        if args.keep_checkpoints < 1:
+            ap.error(f"--keep-checkpoints must be >= 1, got "
+                     f"{args.keep_checkpoints}")
+        if not args.checkpoint_dir:
+            ap.error("--keep-checkpoints requires --checkpoint-dir")
     if args.mesh is None:
         ap.error("--mesh Nx1 is required: the N gossip nodes are stacked on "
                  "one device")
@@ -208,6 +230,9 @@ def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
     n_nodes = _validate(ap, args)
+    if args.resume:
+        # before a restore, a warmup or a spawn: an exhausted budget exits
+        _budget_check(args, _resume_step(args.resume))
     rdv = torchrun_rendezvous()
     if args.simulate_devices:
         return _spawn(args, n_nodes)
@@ -219,6 +244,31 @@ def main(argv=None):
         finally:
             close_node_group()
     return _train(args, n_nodes, None)
+
+
+def _is_sharded(path: str) -> bool:
+    """A directory is always the sharded format (a torn save, without its
+    manifest, fails as such, never as a missing .npz)."""
+    return os.path.isdir(path)
+
+
+def _resume_step(path: str) -> int:
+    """The step of checkpoint ``path``: its manifest's, or the legacy
+    npz's ``step`` leaf."""
+    if _is_sharded(path):
+        return read_manifest(path).step
+    import numpy as np
+    with np.load(path if path.endswith(".npz") else path + ".npz") as z:
+        return int(z["step"])
+
+
+def _budget_check(args, resumed: int) -> None:
+    if resumed >= args.steps:
+        raise SystemExit(
+            f"[train] --steps {args.steps} is the TOTAL step budget, but "
+            f"{args.resume} is already at step {resumed}: nothing to do "
+            f"(raise --steps; the LR schedule stays anchored at step 0 "
+            f"over the full budget)")
 
 
 def spawn_deadline_s(steps: int) -> float:
@@ -321,12 +371,13 @@ def _train(args, n_nodes: int, group) -> int:
         if args.mode == "choco":
             say(f"[train] probe {trainer.exchange.probe}", flush=True)
 
-    state = trainer.init_state(seed=0)
+    state, resumed = _initial_state(args, trainer, n_nodes, say)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     last_t, last_i = time.perf_counter(), 0
-    for i in range(args.steps):
+    remaining = args.steps - resumed       # --steps is the total budget
+    for i in range(remaining):
         mets = trainer.step(state, trainer.batch_to_device(next_batch()))
-        if i == 0 or i % 10 == 0 or i == args.steps - 1:
+        if i == 0 or i % 10 == 0 or i == remaining - 1:
             sync()
             now = time.perf_counter()
             per = (now - last_t) / max(i + 1 - last_i, 1)
@@ -339,10 +390,41 @@ def _train(args, n_nodes: int, group) -> int:
             say(f"[train] step {state.step:5d} loss {mets['loss']:.4f} "
                 f"lr {mets['lr']:.4f} ({tail}){wire}", flush=True)
             last_t, last_i = now, i + 1
+        if (args.checkpoint_dir and args.checkpoint_every
+                and (i + 1) % args.checkpoint_every == 0):
+            path = os.path.join(args.checkpoint_dir, f"step{state.step}")
+            trainer.save_checkpoint(path, state, metadata={"arch": cfg.name},
+                                    keep_last=args.keep_checkpoints)
+            say(f"[train] checkpointed {path}", flush=True)
     launched = {k: v - launched[k] for k, v in dispatch.launch_counts().items()}
     say(f"[train] kernel launches{'' if group is None else ' on rank 0'} "
         f"{json.dumps(launched)}", flush=True)
     return 0
+
+
+def _initial_state(args, trainer, n_nodes: int, say):
+    """(state, its step): a fresh state under seed 0, or ``--resume``'s,
+    after the elastic warmup where the restore asks for one."""
+    if not args.resume:
+        return trainer.init_state(seed=0), 0
+    if _is_sharded(args.resume):
+        state, man, warmup = trainer.restore_checkpoint(args.resume)
+        rounds = (args.elastic_warmup_rounds
+                  if args.elastic_warmup_rounds is not None else warmup)
+        if warmup and rounds:
+            say(f"[train] elastic restore: checkpoint n_nodes={man.n_nodes} "
+                f"topology={man.fingerprint.get('topology')} -> "
+                f"n_nodes={n_nodes} topology={args.topology}; x_hat/s "
+                f"re-zeroed, consensus warmup {rounds} CHOCO-GOSSIP rounds "
+                f"(re-derived Theorem-2 gamma={trainer.gamma:.3e})",
+                flush=True)
+            trainer.consensus_warmup(state, rounds)
+        resumed = man.step
+    else:                                              # legacy flat npz
+        state = trainer.restore_legacy(args.resume)
+        resumed = state.step
+    say(f"[train] resumed from {args.resume} at step {resumed}", flush=True)
+    return state, resumed
 
 
 if __name__ == "__main__":

@@ -34,15 +34,29 @@ topology of the JAX registry and time-varying sequences of them, f32
 or bf16 EF state, every compressor of the JAX package (with the exact
 small-leaf bucket) and the Theorem-2 gamma under choco, the sgd,
 momentum and AdamW local steps, naive attention (the flash kernel has no
-backward).
+backward), and checkpoints in the JAX package's sharded format
+(``save_checkpoint``, ``restore_checkpoint`` with its elastic restore,
+``consensus_warmup``).
 The push-sum mode with the directed topologies, the processes and a
 fixed gamma are not ported.
+
+Checkpoints hold the JAX ``TrainState``'s leaves under its flat keys
+(``params__embed__tok``, ``x_hat__...``, ``s__...``, ``opt__mu__...``,
+``opt__nu__...``, ``opt__count``, ``step``, ``key``), node-stacked with
+the JAX shapes and dtypes, so each package restores the other's: a save
+unpacks each leaf from the buckets and streams it to disk node row by
+node row; a restore packs the leaves into zeroed buckets, so the padding
+stays zero.  The exact modes write the zero x_hat and s leaves the JAX
+state holds (from the host) and drop them on restore.  The JAX ``key``
+(threefry, two uint32 words) and the port's ``TrainState.seed`` are one
+number: the port writes ``[seed >> 32, seed & 0xffffffff]``, what
+``jax.random.PRNGKey(seed)`` holds, and reads a key back as that seed.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +71,15 @@ from repro_torch.comm.gossip import (_pack_align, make_allreduce_exchange,
 from repro_torch.comm.packing import (bucket_omega_worst, fold_seed,
                                       leaf_route, make_bucket_spec,
                                       pack_leaves, unpack_leaves)
+from repro_torch.checkpoint.checkpointing import (LegacyStore, Leaf, Part,
+                                                  ShardStore, flat_key,
+                                                  save_sharded, storage_tensor)
+from repro_torch.checkpoint.elastic import (consensus_warmup_rounds,
+                                            elastic_ratio, mean_rows,
+                                            source_rows)
+from repro_torch.checkpoint.manifest import (LeafSpec, Manifest,
+                                             read_manifest, storage_dtype,
+                                             validate_tree)
 from repro_torch.comm.schedule import compile_schedules
 from repro_torch.configs.base import STATE_DTYPES, ChocoConfig, parse_topology
 from repro_torch.core.choco_gossip import GammaSpec, theorem2_stepsize
@@ -67,6 +90,40 @@ from repro_torch.optim.sgd import OptState
 
 #: the exchange modes of the JAX trainer that the port runs
 MODES = ("choco", "plain", "allreduce")
+
+#: fingerprint entries of JAX ``ChocoConfig`` settings the port does not
+#: have, at the JAX defaults a port run stands for
+_UNPORTED_FINGERPRINT = {
+    "packed_gossip": True, "pack_align": None, "small_leaf_threshold": 8192,
+    "pipeline_gossip": False, "topology_process": None,
+    "edge_drop_prob": 0.1, "matching_sampler": "uniform", "max_staleness": 0,
+    "straggler_edges": None, "straggler_delay_probs": None}
+#: the fingerprint entries whose change re-mixes the EF state (the JAX
+#: restore's compression and packing fingerprint)
+_COMPRESSION_KEYS = ("compressor", "compressor_config", "packed_gossip",
+                     "pack_align", "pipeline_gossip", "exact_small_leaves",
+                     "small_leaf_threshold")
+#: salts the warmup's draws apart from every training step's, as the JAX
+#: trainer folds 0x5EED into its key
+WARMUP_SALT = 0x5EED
+_WORD = (1 << 32) - 1
+
+
+def key_words(seed: int) -> Tuple[int, int]:
+    """The JAX key of ``seed``: ``jax.random.PRNGKey(seed)``'s two words."""
+    if not 0 <= seed < 1 << 64:
+        raise ValueError(f"seed {seed} is not a 64-bit JAX key")
+    return (seed >> 32) & _WORD, seed & _WORD
+
+
+def seed_of_key(words) -> int:
+    """The seed whose JAX key is ``words`` (the inverse of key_words)."""
+    hi, lo = (int(w) for w in words)
+    return (hi << 32) | lo
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
 
 
 def resolve_device(device) -> torch.device:
@@ -89,7 +146,8 @@ class TrainState:
                                           #   (None off choco)
     opt: OptState                         # the optimizer's moments
     step: int = 0
-    seed: int = 0                # salts the compressors' draws every step
+    seed: int = 0                # salts the compressors' draws every step;
+                                 #   the checkpoint's JAX key (key_words)
 
 
 @dataclasses.dataclass
@@ -255,3 +313,227 @@ class DecentralizedTrainer:
                 "grad_norm": math.sqrt(sq), "node_loss_spread": top + neg_low,
                 "wire_bytes": self.group.bytes_sent - sent[0],
                 "wire_bytes_modelled": self.group.bytes_modelled - sent[1]}
+
+    # -- checkpoints ------------------------------------------------------------
+
+    def fingerprint(self) -> dict:
+        """The manifest's fingerprint, with the JAX trainer's keys (a mesh
+        of ``n x 1`` with the gossip on "data"; the features the port lacks
+        at their JAX defaults), so each package tells a resume from an
+        elastic restore in the other's checkpoints as in its own."""
+        c = self.choco
+        return {"mesh": {"data": self.n_nodes, "model": 1},
+                "gossip_axes": ["data"], "n_nodes": self.n_nodes,
+                "topology": c.topology, "gossip_steps": int(c.gossip_steps),
+                "mode": self.mode, "compressor": c.compressor,
+                "compressor_config": c.comp_dict(),
+                "exact_small_leaves": bool(c.exact_small_leaves),
+                "state_dtype": c.state_dtype, **_UNPORTED_FINGERPRINT}
+
+    def _moments(self) -> Tuple[bool, bool]:
+        """Whether the optimizer keeps a first and a second moment."""
+        probe = self.optimizer.init([])
+        return probe.mu is not None, probe.nu is not None
+
+    def _groups(self, state: Optional[TrainState] = None
+                ) -> List[Tuple[str, str, Optional[List[torch.Tensor]]]]:
+        """(key prefix, dtype name, the state's buffers or None) of each
+        node-stacked leaf group, in the JAX tree's order."""
+        has_mu, has_nu = self._moments()
+        x_dt = _dtype_name(self.model.param_dtype)
+        get = lambda name: None if state is None else getattr(state, name)
+        groups = [("params", x_dt, get("x")),
+                  ("x_hat", self.choco.state_dtype, get("x_hat")),
+                  ("s", self.choco.state_dtype, get("s"))]
+        if has_mu:
+            groups.append(("opt__mu", x_dt, None if state is None
+                           else state.opt.mu))
+        if has_nu:
+            groups.append(("opt__nu", x_dt, None if state is None
+                           else state.opt.nu))
+        return groups
+
+    def _leaf_order(self) -> List[Tuple[str, object]]:
+        """(path, slot) of each parameter in the JAX tree's (sorted) order."""
+        slots = dict(zip(self.paths, self.spec.slots))
+        return [(p, slots[p]) for p in
+                sorted(self.paths, key=lambda p: tuple(p.split("/")))]
+
+    def state_leaf_specs(self) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+        """``{flat key: (global shape, dtype)}`` of the JAX TrainState this
+        trainer's state stands for (the JAX ``tree_leaf_specs`` of its
+        ``state_shape()``): the restore's target."""
+        specs = {}
+        for prefix, dtype, _ in self._groups():
+            for path, slot in self._leaf_order():
+                specs[flat_key(prefix, path)] = ((self.n_nodes,) + slot.shape,
+                                                 dtype)
+        specs.update({"opt__count": ((), "int32"), "step": ((), "int32"),
+                      "key": ((2,), "uint32")})
+        return specs
+
+    def _leaves(self, state: TrainState) -> Iterator[Leaf]:
+        """The state's leaves with the node rows this trainer holds, each
+        row a view into its bucket (zeros made on the host for the exact
+        modes' x_hat and s); the scalars on the stacked engine and rank 0."""
+        def rows(bufs, slot, dtype):
+            for r, node in enumerate(self.nodes):
+                data = (np.zeros((1,) + slot.shape,
+                                 np.dtype(storage_dtype(dtype)))
+                        if bufs is None else bufs[slot.bucket][
+                            r:r + 1, slot.offset:slot.offset + slot.size
+                        ].view((1,) + slot.shape))
+                yield Part([node] + [0] * len(slot.shape),
+                           [node + 1] + list(slot.shape), data)
+
+        for prefix, dtype, bufs in self._groups(state):
+            for path, slot in self._leaf_order():
+                yield Leaf(flat_key(prefix, path), (self.n_nodes,) + slot.shape,
+                           dtype, rows(bufs, slot, dtype))
+        first = self.group is None or self.group.rank == 0
+        for key, dtype, value in (
+                ("opt__count", "int32", state.opt.count),
+                ("step", "int32", state.step),
+                ("key", "uint32", key_words(state.seed))):
+            arr = np.asarray(value, dtype=np.dtype(dtype))
+            yield Leaf(key, arr.shape, dtype,
+                       [Part([0] * arr.ndim, list(arr.shape), arr)]
+                       if first else [])
+
+    def save_checkpoint(self, path: str, state: TrainState,
+                        metadata: Optional[dict] = None,
+                        keep_last: Optional[int] = None) -> str:
+        """Save the whole state (x, x_hat and s, which Theorem 2 needs
+        across restarts, and the optimizer's moments) as a sharded
+        checkpoint in the JAX format.  On the per-rank engine every rank
+        writes its own row, then, after a barrier, rank 0 the manifest.
+        ``keep_last``: then delete all but the newest ``keep_last``
+        checkpoints beside ``path``, never ``path``."""
+        dist = self.group is not None
+        return save_sharded(
+            path, self._leaves(state), step=state.step,
+            fingerprint=self.fingerprint(), metadata=metadata or {},
+            keep_last=keep_last,
+            process_index=self.group.rank if dist else 0,
+            process_count=self.group.size if dist else 1,
+            barrier=self.group.barrier if dist else None)
+
+    def restore_checkpoint(self, path: str
+                           ) -> Tuple[TrainState, Manifest, int]:
+        """Restore a sharded checkpoint (the port's or the JAX package's),
+        reading only the node rows this trainer holds.  Returns (state,
+        manifest, warmup rounds), deciding as the JAX trainer does:
+
+        * same node count, and under choco the same graph and compression
+          fingerprint: resume-exact, 0 rounds;
+        * another node count: rows remapped by the elastic policy (a
+          resize it cannot map fails first), x_hat and s zero, and the
+          warmup rounds of the new graph's spectral gap;
+        * same count, another graph or compression: x_hat and s zero, and
+          the warmup rounds;
+        * the exact modes: 0 rounds."""
+        man = read_manifest(path)
+        fp, mine = man.fingerprint, self.fingerprint()
+        n_old = man.n_nodes
+        same_nodes = n_old is None or n_old == self.n_nodes
+        same = (fp.get("topology", mine["topology"]) == mine["topology"]
+                and fp.get("topology_process") is None
+                and fp.get("max_staleness", 0) == 0
+                and all(fp.get(k, mine[k]) == mine[k]
+                        for k in _COMPRESSION_KEYS))
+        exact = same_nodes and (self.mode != "choco" or same)
+        remap = None
+        if not same_nodes:
+            elastic_ratio(n_old, self.n_nodes)     # fail fast on a bad resize
+            remap = (n_old, self.n_nodes)
+        reset = () if exact else ("x_hat", "s")
+        expected = self.state_leaf_specs()
+        validate_tree(man.leaves, expected, node_remap=remap,
+                      reset_prefixes=reset)
+        with ShardStore(path) as store:
+            state = self._read_state(store, man.leaves, remap, reset)
+        if exact or self.mode != "choco":
+            return state, man, 0
+        delta = min(t.delta for t in self.topologies)
+        return state, man, consensus_warmup_rounds(delta)
+
+    def restore_legacy(self, path: str) -> TrainState:
+        """Restore a legacy flat npz (the JAX ``save_pytree`` format: whole
+        leaves, bf16 widened to f32) with this trainer's node count,
+        reading only the node rows this trainer holds."""
+        expected = self.state_leaf_specs()
+        leaves = {k: LeafSpec(tuple(shape), dtype, storage_dtype(dtype))
+                  for k, (shape, dtype) in expected.items()}
+        with LegacyStore(path, expected) as store:
+            return self._read_state(store, leaves, None, ())
+
+    def _read_state(self, store, leaves: Dict[str, LeafSpec], remap, reset
+                    ) -> TrainState:
+        """The state read from ``store`` (``read_region`` of a
+        ``ShardStore``; ``leaves``: the saved leaf specs, validated) into
+        zeroed buckets on this trainer's device: node rows remapped by
+        ``remap`` = (n_old, n_new), the groups in ``reset`` left zero."""
+        def row(key, slot, node):
+            leaf = leaves[key]
+            rows = [store.read_region(key, [i] + [0] * len(slot.shape),
+                                      [i + 1] + list(slot.shape),
+                                      leaf.storage)
+                    for i in ((node,) if remap is None
+                              else source_rows(node, *remap))]
+            if len(rows) == 1:
+                return storage_tensor(rows[0], leaf.dtype)
+            # the shrink's strided mean, in f32
+            mean = mean_rows([storage_tensor(a, leaf.dtype).float().numpy()
+                              for a in rows])
+            return torch.from_numpy(mean).to(getattr(torch, leaf.dtype))
+
+        def read(prefix, dtype):
+            bufs = [torch.zeros((len(self.nodes), b.size), dtype=dtype,
+                                device=self.device)
+                    for b in self.spec.buckets]
+            if prefix in reset:
+                return bufs
+            for path, slot in self._leaf_order():
+                key = flat_key(prefix, path)
+                for r, node in enumerate(self.nodes):
+                    bufs[slot.bucket][r, slot.offset:slot.offset + slot.size] \
+                        = row(key, slot, node).reshape(-1)
+            return bufs
+
+        def scalar(key):
+            return store.read_region(key, [0] * len(leaves[key].shape),
+                                     list(leaves[key].shape),
+                                     leaves[key].storage)
+
+        has_mu, has_nu = self._moments()
+        f32 = self.model.param_dtype
+        choco = self.mode == "choco"
+        state_dt = getattr(torch, self.choco.state_dtype)
+        return TrainState(
+            x=read("params", f32),
+            x_hat=read("x_hat", state_dt) if choco else None,
+            s=read("s", state_dt) if choco else None,
+            opt=OptState(mu=read("opt__mu", f32) if has_mu else None,
+                         nu=read("opt__nu", f32) if has_nu else None,
+                         count=int(scalar("opt__count"))),
+            step=int(scalar("step")), seed=seed_of_key(scalar("key")))
+
+    def consensus_warmup(self, state: TrainState, rounds: int,
+                         draws: Optional[Callable[[int, int, int],
+                                                  torch.Tensor]] = None
+                         ) -> TrainState:
+        """``rounds`` calls of the choco exchange on the current x with no
+        gradient step, in place: they rebuild x_hat and s under the current
+        mixing matrix and gamma after an elastic restore.  The draws are
+        salted with WARMUP_SALT apart from every training step's, as the
+        JAX trainer salts its warmup; ``draws(r, t, b)`` injects round r's
+        draw for gossip round t, bucket b."""
+        if rounds <= 0 or self.mode != "choco":
+            return state
+        base = fold_seed(state.seed, WARMUP_SALT)
+        for r in range(rounds):
+            self.exchange(state.x, state.x_hat, state.s,
+                          seed=fold_seed(base, r),
+                          draws=None if draws is None
+                          else (lambda t, b, r=r: draws(r, t, b)))
+        return state

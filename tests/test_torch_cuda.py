@@ -228,6 +228,52 @@ def test_trainer_bf16_state_launches_per_bucket_per_round(cuda, compressor):
     np.testing.assert_allclose(losses, cpu_losses, rtol=1e-4)
 
 
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compressor", ["qsgd", "top_k"])
+def test_checkpoint_on_the_card_bit_equal_and_warmup_launches(
+        cuda, compressor, tmp_path):
+    """bf16 EF state on the card: a save and a restore into a fresh
+    trainer give back x, x_hat, s, the moments, the step and the seed bit
+    for bit; the CPU restores the card's checkpoint bit for bit too; an
+    elastic restore on 8 nodes zeroes x_hat and s and its warmup launches,
+    per round and bucket, one EF update (bf16) and for QSGD one codes and
+    one dequantize."""
+    tr, state, _ = _run(compressor, cuda, state_dtype="bfloat16")
+    tr.save_checkpoint(str(tmp_path / "ck"), state)
+    kw = tr.choco.comp_kwargs
+    for device in (cuda, "cpu"):
+        fresh = dataclasses.replace(tr, device=device)
+        got, man, warmup = fresh.restore_checkpoint(str(tmp_path / "ck"))
+        assert warmup == 0 and man.step == got.step == state.step == 2
+        assert got.seed == state.seed and got.opt.count == state.opt.count
+        for group in ("x", "x_hat", "s"):
+            for a, b in zip(getattr(got, group), getattr(state, group)):
+                assert a.dtype == b.dtype
+                assert torch.equal(_bits(a).cpu(), _bits(b).cpu()), group
+        for a, b in zip(got.opt.mu, state.opt.mu):
+            assert torch.equal(a.cpu(), b.cpu())
+    grown = DecentralizedTrainer(
+        model=tr.model, choco=ChocoConfig(compressor=compressor,
+                                          comp_kwargs=kw,
+                                          state_dtype="bfloat16"),
+        n_nodes=8, optimizer=momentum_sgd(),
+        lr_fn=cosine_schedule(0.1, 1, 2), device=cuda)
+    big, _, rounds = grown.restore_checkpoint(str(tmp_path / "ck"))
+    assert rounds == 7 and not any(b.any() for b in big.x_hat + big.s)
+    dispatch.reset_launch_counts()
+    grown.consensus_warmup(big, rounds)
+    torch.cuda.synchronize()
+    per = rounds * grown.choco.gossip_steps * grown.spec.n_buckets
+    codes = ({"qsgd_codes": per, "dequantize": per}
+             if compressor == "qsgd" else {})
+    assert dispatch.launch_counts() == _counts(ef_update_bf16=per, **codes)
+    assert all(b.any() for b in big.x_hat)
+
+
 def moved_selections(tr, gpu_state, cpu_state):
     """Card against CPU after sparse gossip.  A summation-order difference
     in a gradient can move a selection at the k-th magnitude; that moves

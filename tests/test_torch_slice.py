@@ -356,7 +356,8 @@ def test_launcher_runs_each_compressor_on_cpu(extra, capsys):
      "--kernel-backend"),
     (["--compressor", "sign", "--topology", "directed_ring"], "--topology"),
     (["--compressor", "sign", "--mesh", "4x2"], "model extent 2"),
-    (["--compressor", "sign", "--resume", "ckpt"], "--resume"),
+    (["--compressor", "sign", "--keep-checkpoints", "2"],
+     "--keep-checkpoints requires --checkpoint-dir"),
     (["--compressor", "qsgd"], "requires --qsgd-s"),
 ])
 def test_launcher_refuses_flags_outside_the_slice(extra, message, capsys):
