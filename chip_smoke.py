@@ -23,7 +23,10 @@ from the root of a checkout, on a machine with one CUDA device.  It
    The collective-layer probe kernel is held bit-equal to its plain version
    at the JAX probe's (8, 128) block, its wrapper's host path is split
    step by step, and it is timed in turns with its plain version and
-   ``torch.mul(x, 2)`` in one loop;
+   ``torch.mul(x, 2)`` in one loop; the per-leaf engine's QSGD codes
+   (f32 and bf16 rows) at one node's embedding leaf as it compresses,
+   75 x 4 rows of 4,194,304, and the pipelined order of both EF updates at
+   (4, 311,164,928), bit-equal and timed beside their bounds;
 3. holds the top-k mask kernel against its plain version, bit for bit in
    mask and thresholds: at the tile shape of one node's embedding bucket
    (2,430,976 x 128) with k = 2 and 13, at C = 1024, and with planted
@@ -42,7 +45,13 @@ from the root of a checkout, on a machine with one CUDA device.  It
    beside the ring's ms/step and peak memory; then ``[state-bf16]``, the
    top_k and QSGD runs again with bf16 EF state (x_hat and s), printed
    beside the f32 state's ms/step and peak memory and the predicted
-   peak; then ``[modes]``, the same
+   peak; then ``[per-leaf]``, the top_k and QSGD runs through the per-leaf
+   engine (one payload and one EF launch per leaf), beside the packed
+   runs, and ``[pipelined]``, the same two through the pipelined engine
+   with bf16 EF state (f32 state runs out of memory beside the step's
+   copy of x), beside the bf16 serial runs, with the side stream's busy
+   time, the share of it beside the main stream's and the device's idle
+   share from the profiled step's trace; then ``[modes]``, the same
    cell through the same code in the paper's three modes: CHOCO-SGD top_k
    with plain SGD on Dirichlet(0.1) token shards, exact D-SGD (plain) with
    momentum and the all-reduce baseline with AdamW, checking finite
@@ -58,8 +67,9 @@ from the root of a checkout, on a machine with one CUDA device.  It
    (4 + 2 + 2), and the first step after the restore;
 5. runs the training launcher (``repro_torch.launch.train.main``) for a
    --smoke run with --compressor top_k --fraction 0.05, one with
-   --mode plain --optimizer adamw --data-skew-alpha 0.5 and the first
-   with --state-dtype bfloat16, then the first
+   --mode plain --optimizer adamw --data-skew-alpha 0.5, the first
+   with --state-dtype bfloat16 and a QSGD run with --gossip-engine
+   per-leaf --pipeline-gossip, then the first
    with --simulate-devices 4 (4 ranks on the card, the per-rank engine),
    checking its engine line, its probe record and rank 0's launches;
 6. holds small float32 training runs on the card against the same runs on
@@ -68,7 +78,13 @@ from the root of a checkout, on a machine with one CUDA device.  It
    randomized gossip fed the same draws on both devices, on the ring;
    top_k on torus, chain, star and the time-varying pair "ring,star";
    plain on star, allreduce with plain SGD and QSGD under AdamW; top_k on
-   the ring and QSGD on chain with bf16 EF state; then ``[checkpoint]``
+   the ring and QSGD on chain with bf16 EF state; QSGD per leaf, top_k
+   per leaf on star with bf16 state, sign pipelined and QSGD per leaf
+   pipelined with bf16 state; ``[per-leaf] small``, the per-leaf exchange
+   alone (serial and pipelined, f32 and bf16 state, a leaf of two block
+   rows) on the card against the CPU, every payload bit-equal, x_hat
+   bit-equal where the scales are, one codes, dequantize and EF launch
+   per leaf; then ``[checkpoint]``
    at that size, QSGD s=16 and top_k, f32 and bf16 EF state: a card
    checkpoint restored on the CPU and a CPU checkpoint on the card, bit
    for bit, and elastic restores 4 -> 8 and 4 -> 2 nodes on the card,
@@ -94,7 +110,10 @@ from the root of a checkout, on a machine with one CUDA device.  It
    within 1e-6, its sum runs in gloo's order), 3 steps to the ``[small]``
    rules, each rank's bytes by formula (plain's counted; allreduce's a
    ring model, none counted) and no launch, the probe included;
-   the full-width plain mode's bytes are printed as computed; each rank
+   the full-width plain mode's bytes are printed as computed; the
+   per-leaf and pipelined exchanges (ring, star, chain; f32 and bf16
+   state) bit-equal per rank and stacked, each rank's bytes its sends
+   times the per-leaf (or per-bucket) payload bytes; each rank
    restores its row of a stacked checkpoint and the stacked engine
    restores the 4 ranks' checkpoint, bit for bit (bf16 EF state, top_k);
    then ``[sim]``, the paper's algorithms as matrix simulators on the card
@@ -103,7 +122,9 @@ from the root of a checkout, on a machine with one CUDA device.  It
    exact D-SGD on the epsilon stand-in at m = 400,000, d = 2,000, ring 9,
    each run free on both devices and again round by round, the CPU
    making each round from the card's state (x, x_hat and s held; QSGD
-   levels and top-k selections counted where they move);
+   levels and top-k selections counted where they move); and pipelined
+   CHOCO-Gossip at ring 25, d 2000 (exact and QSGD(127)), card against
+   CPU;
 7. holds the flash-attention kernels against their plain version: the
    bf16 tensor-core kernel (``csrc/flash_attention_sm90.cu``; the build
    phase checks that its SASS holds wgmma and TMA loads) at the
@@ -172,8 +193,8 @@ TF32_TC_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 #: TF32 products per f32 product in the f32 flash kernel (3xTF32)
 TF32_TERMS = 3
 ODD_LENGTH = 1_000_003
-GOSSIP_KERNELS = ("qsgd_codes_kernel", "sign_codes_kernel",
-                  "dequantize_kernel", "ef_update_kernel",
+GOSSIP_KERNELS = ("qsgd_codes_kernel", "qsgd_leaf_codes_kernel",
+                  "sign_codes_kernel", "dequantize_kernel", "ef_update_kernel",
                   "ef_update_bf16_kernel")
 #: [state-bf16]: the compressors of the full-width runs with bf16 EF state
 STATE_BF16_COMPRESSORS = ("top_k", "qsgd")
@@ -195,6 +216,17 @@ TOPK_CASES = (
     ("planted ties", (50_000, 256), 2, True),
 )
 TRAIN_COMPRESSORS = ("qsgd", "sign", "top_k", "block_top_k")
+#: [per-leaf] and [pipelined]: the compressors of their full-width runs
+ENGINE_COMPRESSORS = ("top_k", "qsgd")
+#: [pipelined]: the EF state of its full-width runs.  With f32 state the
+#: pipelined step's copy of x and the exchange's temporaries, beside the
+#: activations and gradients, overflow the 80 GB card (QSGD: out of memory
+#: asking 4.64 GiB with 73.98 GiB allocated, in its first step), so the
+#: full-width phase runs with bf16 state; the width is not cut
+PIPELINED_STATE = "bfloat16"
+#: one node's embedding leaf as the per-leaf engine compresses it: 75 rows
+#: of BLOCK_COMPRESS_SIZE (311,164,928 elements, zero-padded)
+EMBED_LEAF_ROWS = 75
 #: (label, N, S, H, KV, Dh, dtype, causal, softcap); the first is the
 #: full-width prefill layer, and the one that is timed.  Drawn in this
 #: order from one generator, so each case keeps its inputs from run to run.
@@ -578,10 +610,85 @@ def topk_ops_path(dev):
     return counts
 
 
-def profile_call(label, fn, ours, show=True):
+def stream_busy(prof):
+    """Per CUDA stream of a profiled window: the union of its kernels',
+    copies' and fills' intervals, in us, from the profiler's trace."""
+    import tempfile
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as fh:
+            trace = json.load(fh)
+    spans = {}
+    for e in trace.get("traceEvents", []):
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                    "gpu_memset"):
+            stream = (e.get("args") or {}).get("stream")
+            spans.setdefault(stream, []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                 e.get("name", "")))
+    return {k: (_merge([(a, b) for a, b, _ in v]), [n for _, _, n in v])
+            for k, v in spans.items()}
+
+
+def _merge(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _length(intervals):
+    return sum(b - a for a, b in intervals)
+
+
+def _intersect(u, v):
+    out, i, j = [], 0, 0
+    while i < len(u) and j < len(v):
+        a, b = max(u[i][0], v[j][0]), min(u[i][1], v[j][1])
+        if a < b:
+            out.append([a, b])
+        if u[i][1] < v[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
+def overlap_report(prof, wall_ms):
+    """The side stream (the one that ran the EF update) against the
+    other streams of a profiled pipelined step: each one's busy ms, the
+    ms both were busy at once, the side stream's share of its busy time
+    hidden under the others', and the device's busy ms and idle share
+    from the union of all streams."""
+    busy = stream_busy(prof)
+    side = [k for k, (_, names) in busy.items()
+            if any("ef_update" in n for n in names)]
+    check(len(side) == 1, f"[pipelined] the EF update ran on streams {side}, "
+          f"expected one side stream")
+    side = side[0]
+    others = _merge([iv for k, (ivs, _) in busy.items() if k != side
+                     for iv in ivs])
+    both = _intersect(busy[side][0], others)
+    union = _merge([iv for ivs, _ in busy.values() for iv in ivs])
+    side_ms, main_ms = _length(busy[side][0]) / 1e3, _length(others) / 1e3
+    both_ms = _length(both) / 1e3
+    return {"side_stream": side, "streams": sorted(map(str, busy)),
+            "side_busy_ms": side_ms, "main_busy_ms": main_ms,
+            "overlap_ms": both_ms,
+            "side_hidden_share": both_ms / side_ms if side_ms else 0.0,
+            "device_busy_ms": _length(union) / 1e3,
+            "device_idle_share": 1.0 - _length(union) / 1e3 / wall_ms}
+
+
+def profile_call(label, fn, ours, show=True, streams=False):
     """One more call of ``fn`` under torch.profiler: device time by kernel,
     grouped into the port's kernels (names in ``ours``), matmuls and
-    everything else; printed unless ``show`` is False."""
+    everything else; printed unless ``show`` is False.  ``streams``: also
+    read the trace for the pipelined step's side stream
+    (:func:`overlap_report`)."""
     import torch
     from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -637,20 +744,34 @@ def profile_call(label, fn, ours, show=True):
         for ms, name, count in host:
             print(f"[profile] host {ms:9.3f} ms  {name[:80]} (x{count})",
                   flush=True)
-    return {"wall_ms": wall, "device_busy_ms": busy, "launches": launches,
-            "device_idle_share": idle, "by_kernel": by_kernel,
-            "host_top": [[ms, name, count] for ms, name, count in host],
-            **groups}
+    out = {"wall_ms": wall, "device_busy_ms": busy, "launches": launches,
+           "device_idle_share": idle, "by_kernel": by_kernel,
+           "host_top": [[ms, name, count] for ms, name, count in host],
+           **groups}
+    if streams:
+        ov = overlap_report(prof, wall)
+        out["streams"] = ov
+        print(f"[profile] {label}: side stream {ov['side_stream']} busy "
+              f"{ov['side_busy_ms']:.3f} ms, the other streams "
+              f"{ov['main_busy_ms']:.3f} ms, both at once "
+              f"{ov['overlap_ms']:.3f} ms ({ov['side_hidden_share']:.4f} of "
+              f"the side stream's); device busy (union) "
+              f"{ov['device_busy_ms']:.3f} ms of {wall:.3f}, idle share "
+              f"{ov['device_idle_share']:.4f} (streams {ov['streams']})",
+              flush=True)
+    return out
 
 
 def train_full_width(compressor, dev, topology="ring", mode="choco",
                      optimizer="momentum", lr=0.1, skew=None,
-                     state_dtype="float32"):
+                     state_dtype="float32", packed=True, pipelined=False):
     """Full-width qwen3-1.7b (2 layers), 4 nodes, on ``topology`` (1
     gossip round per step), in ``mode`` with the ``optimizer`` local step
     at ``lr``, on Dirichlet(``skew``) token shards where given, with the
-    EF state x_hat and s in ``state_dtype``: STEPS steps, then one
-    profiled step."""
+    EF state x_hat and s in ``state_dtype``, through the packed or the
+    per-leaf engine (``packed``), serial or pipelined: STEPS steps, then
+    one profiled step (with the pipelined engine, its trace read for the
+    side stream's overlap with the main stream's work)."""
     import torch
     from repro_torch.configs.base import ChocoConfig
     from repro_torch.configs.qwen3_1_7b import CONFIG
@@ -668,11 +789,15 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
         model=Model(cfg), choco=ChocoConfig(compressor=compressor, comp_kwargs=kw,
                                             topology=topology,
                                             data_skew_alpha=skew,
-                                            state_dtype=state_dtype),
+                                            state_dtype=state_dtype,
+                                            packed_gossip=packed,
+                                            pipeline_gossip=pipelined),
         n_nodes=N_NODES, optimizer=make_optimizer(optimizer),
         lr_fn=cosine_schedule(lr, warmup=STEPS // 10 + 1, total=STEPS),
         device=dev, mode=mode)
     state = tr.init_state(seed=0)
+    engine = (("packed" if packed else "per-leaf")
+              + (" pipelined" if pipelined else ""))
     if mode == "choco":
         check({b.dtype for b in state.x_hat + state.s}
               == {getattr(torch, state_dtype)},
@@ -689,8 +814,9 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
           f"params={count_params(cfg) / 1e6:.1f}M nodes={N_NODES} "
           f"mode={mode} optimizer={optimizer} lr={lr} "
           f"topology={topology} rounds={tr.schedules[0].n_rounds} "
-          f"compressor={label} state_dtype={state_dtype} "
-          f"buckets={tr.spec.n_buckets} gamma={tr.gamma:.3e}"
+          f"compressor={label} state_dtype={state_dtype} engine={engine} "
+          f"buckets={tr.spec.n_buckets} leaves={len(tr.paths)} "
+          f"gamma={tr.gamma:.3e}"
           + ("" if skew is None else
              f" data_skew_alpha={skew} skew_tv={skew_tv:.6f}"), flush=True)
     dispatch.reset_launch_counts()
@@ -709,39 +835,45 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     retries = torch.cuda.memory_stats()["num_alloc_retries"]
     check(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
-    expected = STEPS * tr.choco.gossip_steps * tr.spec.n_buckets
+    # a payload per bucket, or per leaf
+    units = tr.spec.n_buckets if packed else len(tr.paths)
+    unit = "buckets" if packed else "leaves"
+    expected = STEPS * tr.choco.gossip_steps * units
     # sparse payloads decode by scatter: no dequantize launch on their path;
     # the exact modes launch no kernel
     choco = mode == "choco"
     bf16 = state_dtype == "bfloat16"
-    on_path = {"qsgd_codes": choco and compressor == "qsgd",
-               "sign_codes": choco and compressor == "sign",
-               "dequantize": choco and compressor in ("qsgd", "sign"),
-               "ef_update": choco and not bf16,
-               "ef_update_bf16": choco and bf16, "flash_attention": False,
-               "block_topk_mask": False, "probe_scale": False}
+    ef = ("ef_update_bf16" if bf16 else "ef_update") + (
+        "_pipelined" if pipelined else "")
+    on_path = {k: False for k in counts}
+    on_path.update({"qsgd_codes" if packed else "qsgd_leaf_codes":
+                    choco and compressor == "qsgd",
+                    "sign_codes": choco and compressor == "sign",
+                    "dequantize": choco and compressor in ("qsgd", "sign"),
+                    ef: choco})
     for name, used in on_path.items():
         want = expected if used else 0
-        print(f"[train] {mode} {label}: {name} launches {counts[name]} "
-              f"(expected {want}: {STEPS} steps x {tr.choco.gossip_steps} "
-              f"gossip_steps x {tr.spec.n_buckets} buckets on its path, "
-              f"else 0)", flush=True)
+        print(f"[train] {mode} {label} {engine}: {name} launches "
+              f"{counts[name]} (expected {want}: {STEPS} steps x "
+              f"{tr.choco.gossip_steps} gossip_steps x {units} {unit} on its "
+              f"path, else 0)", flush=True)
         check(counts[name] == want, f"{name}: {counts[name]} launches, "
               f"expected {want}")
-    print(f"[train] {mode} {label} {optimizer} {state_dtype} state: losses "
-          f"{losses}; ms/step "
+    print(f"[train] {mode} {label} {optimizer} {state_dtype} state {engine}: "
+          f"losses {losses}; ms/step "
           f"{step_ms} (first step included); peak device memory {peak:.2f} "
           f"GiB over the steps, {init_peak:.2f} GiB at init; allocator "
           f"retries (cache flushed to fit an allocation) so far {retries}",
           flush=True)
     batch = tr.batch_to_device(batches())
-    profile = profile_call(f"one {mode} {label} {optimizer} step on the "
-                           f"{topology}", lambda: tr.step(state, batch),
-                           GOSSIP_KERNELS)
+    profile = profile_call(f"one {mode} {label} {optimizer} {engine} step on "
+                           f"the {topology}", lambda: tr.step(state, batch),
+                           GOSSIP_KERNELS, streams=pipelined)
     del state, tr
     torch.cuda.empty_cache()
     return counts, {"topology": topology, "mode": mode,
-                    "state_dtype": state_dtype,
+                    "state_dtype": state_dtype, "engine": engine,
+                    "units": units,
                     "optimizer": optimizer, "lr": lr, "skew_alpha": skew,
                     "skew_tv": skew_tv, "losses": losses,
                     "ms_per_step": step_ms, "peak_gib": peak,
@@ -797,6 +929,269 @@ def modes_full_width(dev):
     return runs
 
 
+def engines_full_width(dev, by_path, state_bf16):
+    """[per-leaf] and [pipelined]: the training cell (2 layers, ring, 4
+    nodes, top_k 0.01 and QSGD s=16) through the per-leaf engine (f32
+    state) and through the packed pipelined engine (PIPELINED_STATE), each
+    printed beside the packed serial run of this call with the same state
+    dtype: ms per step, peak memory, launches per step per kernel; the
+    pipelined runs with their side stream's overlap and the device's idle
+    share from the profiled step."""
+    runs = {}
+    for comp in ENGINE_COMPRESSORS:
+        counts, rec = train_full_width(comp, dev, packed=False)
+        base = by_path[comp][1]
+        per_step = {k: v // STEPS for k, v in counts.items() if v}
+        print(f"[per-leaf] {comp}: ms/step {rec['ms_per_step']} against the "
+              f"packed engine's {base['ms_per_step']} (first step included); "
+              f"peak {rec['peak_gib']:.3f} GiB against {base['peak_gib']:.3f} "
+              f"GiB; launches per step {per_step} ({rec['units']} leaves x "
+              f"1 round)", flush=True)
+        runs[f"per_leaf_{comp}"] = (counts, rec)
+    for comp in ENGINE_COMPRESSORS:
+        counts, rec = train_full_width(comp, dev, pipelined=True,
+                                       state_dtype=PIPELINED_STATE)
+        base = (by_path if PIPELINED_STATE == "float32"
+                else state_bf16)[comp][1]
+        prof, serial_prof = rec["profile"] or {}, base["profile"] or {}
+        ov = prof.get("streams", {})
+        print(f"[pipelined] {comp} ({PIPELINED_STATE} state): ms/step "
+              f"{rec['ms_per_step']} against the serial engine's "
+              f"{base['ms_per_step']} (first step included); peak "
+              f"{rec['peak_gib']:.3f} GiB against {base['peak_gib']:.3f} GiB; "
+              f"profiled step {prof.get('wall_ms', float('nan')):.3f} ms "
+              f"against {serial_prof.get('wall_ms', float('nan')):.3f}; side "
+              f"stream busy {ov.get('side_busy_ms', float('nan')):.3f} ms, "
+              f"{ov.get('side_hidden_share', float('nan')):.4f} of it beside "
+              f"the main stream's work; device idle share "
+              f"{ov.get('device_idle_share', float('nan')):.4f} against "
+              f"{serial_prof.get('device_idle_share', float('nan')):.4f}",
+              flush=True)
+        runs[f"pipelined_{comp}"] = (counts, rec)
+    return runs
+
+
+#: [per-leaf] small: leaf shapes of the exchange held card against CPU,
+#: the last above BLOCK_COMPRESS_SIZE (two block rows per node)
+LEAF_SMALL_SHAPES = ((300, 70), (5000,), (128, 33), (7,), (3, 1000),
+                     ((1 << 22) + 1000,))
+#: (compressor, comp_kwargs, state dtype, exact_small_leaves, pipelined)
+LEAF_SMALL_RUNS = (("qsgd", (("s", 16),), "float32", False, False),
+                   ("qsgd", (("s", 255),), "bfloat16", True, False),
+                   ("sign", (), "bfloat16", False, False),
+                   ("top_k", (("fraction", 0.05),), "float32", False, False),
+                   ("qsgd", (("s", 16),), "bfloat16", False, True),
+                   ("sign", (), "float32", True, True))
+
+
+def leaf_exchange_cuda_vs_cpu(dev):
+    """[per-leaf] small: the per-leaf exchange alone (serial and
+    pipelined), one round on the ring, on the card and on the CPU from the
+    same inputs and the same QSGD dither (made on the CPU): every leaf's
+    payload bit-equal (codes, values and indices; the QSGD and sign scales
+    within 1e-6 relative: the norms sum in another order on the card),
+    x_hat bit-equal where the scales are and the state is bf16 (f32: within
+    1e-6 of its magnitude), x and s likewise; one codes, dequantize and EF
+    launch per leaf (the EF alone for top_k and the exact leaves' none)."""
+    import torch
+    from repro_torch.comm import gossip, packing, schedule
+    from repro_torch.core import topology
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.kernels import dispatch
+    sched = schedule.compile_schedule(topology.make_topology("ring", N_NODES))
+    report = {}
+    for name, kw, sdt, exact, pipelined in LEAF_SMALL_RUNS:
+        comp = make_compressor(name, **dict(kw))
+        dtype = getattr(torch, sdt)
+        spec = packing.make_bucket_spec(
+            [torch.empty(sh, dtype=dtype, device="meta")
+             for sh in LEAF_SMALL_SHAPES], exact_small_leaves=exact,
+            small_leaf_threshold=4224)
+        gen = torch.Generator().manual_seed(41)
+        bufs = [[(torch.randn((N_NODES, b.size), generator=gen) * sc).to(
+            torch.float32 if part == 0 else dtype) for b in spec.buckets]
+            for part, sc in enumerate((1.0, 0.5, 0.1))]
+        for buf, b in zip(bufs[0], spec.buckets):      # zero padding
+            mask = torch.zeros(b.size, dtype=torch.bool)
+            for sl in spec.bucket_slots(b.index):
+                mask[sl.offset:sl.offset + sl.size] = True
+            for part in bufs:
+                part[b.index][:, ~mask] = 0
+        xi = {u: torch.rand((N_NODES * packing.leaf_rows(sl.size)[0],
+                             packing.leaf_rows(sl.size)[1]), generator=gen)
+              for u, sl in enumerate(spec.slots)} if comp.stochastic else {}
+        runs = {}
+        for device in (dev, torch.device("cpu")):
+            ex = gossip.make_choco_exchange(spec=spec, schedules=(sched,),
+                                            compressor=comp, gamma=0.3,
+                                            packed=False, pipelined=pipelined)
+            state = [[b.to(device) for b in part] for part in bufs]
+            payloads = []
+            compress = gossip.compress_rows
+
+            def record(*a, **k):
+                out = compress(*a, **k)
+                payloads.append(out)
+                return out
+            gossip.compress_rows = record
+            dispatch.reset_launch_counts()
+            try:
+                ex(*state, draws=(lambda t, u: xi[u]) if xi else None)
+            finally:
+                gossip.compress_rows = compress
+            torch.cuda.synchronize()
+            runs[device.type] = (payloads, [[b.cpu() for b in part]
+                                            for part in state],
+                                 dispatch.launch_counts())
+        (pc, sc_, counts), (pp, sp, _) = runs["cuda"], runs["cpu"]
+        scales_equal, worst = True, 0.0
+        for a, b in zip(pc, pp):
+            check(type(a) is type(b), f"[per-leaf] {name}: payload types")
+            for f in dataclasses.fields(a):
+                ta, tb = getattr(a, f.name), getattr(b, f.name)
+                if not torch.is_tensor(ta):
+                    continue
+                ta = ta.cpu()
+                if f.name == "scale":
+                    rel = float(((ta - tb).abs() / tb.abs().clamp_min(
+                        1e-30)).max())
+                    worst = max(worst, rel)
+                    scales_equal = scales_equal and torch.equal(ta, tb)
+                    check(rel <= 1e-6, f"[per-leaf] {name}: scales differ "
+                          f"by {rel}")
+                else:
+                    same = torch.equal(ta.view(torch.int16) if ta.dtype
+                                       == torch.bfloat16 else ta,
+                                       tb.view(torch.int16) if tb.dtype
+                                       == torch.bfloat16 else tb)
+                    check(same, f"[per-leaf] {name} {sdt}: payload field "
+                          f"{f.name} differs card against CPU")
+        diffs = []
+        for tag, a_part, b_part in zip(("x", "x_hat", "s"), sc_, sp):
+            d = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(a_part, b_part))
+            diffs.append(d)
+            exact_state = scales_equal and (sdt == "bfloat16"
+                                            or tag == "x_hat")
+            top = max(float(b.float().abs().max()) for b in b_part)
+            check(d == 0.0 if exact_state else d <= 1e-6 * max(top, 1.0),
+                  f"[per-leaf] {name} {sdt}: {tag} differs by {d} card "
+                  f"against CPU")
+        leaves = [sl for sl in spec.slots
+                  if not spec.buckets[sl.bucket].exact]
+        n_exact = len(spec.slots) - len(leaves)
+        ef = ("ef_update_bf16" if sdt == "bfloat16" else "ef_update") + (
+            "_pipelined" if pipelined else "")
+        want = {k: 0 for k in counts}
+        want[ef] = len(spec.slots)
+        if name in ("qsgd", "sign"):
+            want["qsgd_leaf_codes" if name == "qsgd" else "sign_codes"] = \
+                len(leaves)
+            want["dequantize"] = len(leaves)
+        check(counts == want, f"[per-leaf] {name}: launches {counts}, "
+              f"expected {want}")
+        label = (f"{name}{dict(kw).get('s', '')} {sdt}"
+                 f"{' exact_small_leaves' if exact else ''}"
+                 f"{' pipelined' if pipelined else ''}")
+        print(f"[per-leaf] small {label}, {len(spec.slots)} leaves "
+              f"({n_exact} exact, one of 2 block rows per node): payloads "
+              f"card against CPU bit-equal (scales bit-equal: {scales_equal}"
+              f", max relative {worst:.3e}); max |d| x {diffs[0]:.3e}, x_hat "
+              f"{diffs[1]:.3e}, s {diffs[2]:.3e}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        report[label] = {"scales_bit_equal": scales_equal,
+                         "scale_max_rel": worst, "max_dx": diffs[0],
+                         "max_dx_hat": diffs[1], "max_ds": diffs[2],
+                         "launches": counts}
+    return report
+
+
+def check_engine_kernels(dev):
+    """The kernel variants of the per-leaf and pipelined engines, each at
+    the shape the full-width path gives it, against its plain version:
+    the per-leaf QSGD codes (f32 and bf16 rows) at one node's embedding
+    leaf as it compresses, EMBED_LEAF_ROWS x N_NODES rows of
+    BLOCK_COMPRESS_SIZE (s = 16, the norm of each row); the pipelined EF
+    updates (f32 state; bf16 state) at the embedding bucket, (4,
+    311,164,928), in place, with star's weights.  Each timed beside its
+    plain version and its bytes bound; returns their records and errors."""
+    import torch
+    from repro_torch.comm.packing import BLOCK_COMPRESS_SIZE
+    from repro_torch.kernels import dispatch, ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+    records, errs = {}, {}
+    rows, C = EMBED_LEAF_ROWS * N_NODES, BLOCK_COMPRESS_SIZE
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn((rows, C), generator=gen, device=dev) * 0.01).to(dtype)
+        xi = torch.rand((rows, C), generator=gen, device=dev)
+        norm = x.float().square().sum(dim=1).sqrt()
+        codes = dispatch.qsgd_leaf_codes(x, xi, norm, 16)
+        same = all(torch.equal(codes[i:i + 16], ref.qsgd_leaf_codes_ref(
+            x[i:i + 16], xi[i:i + 16], norm[i:i + 16], 16))
+            for i in range(0, rows, 16))
+        check(same, f"[kernel] qsgd_leaf_codes {dtype}: kernel and plain "
+              f"version differ")
+        ms = time_ms(lambda: dispatch.qsgd_leaf_codes(x, xi, norm, 16), 5)
+        plain = time_ms(lambda: ref.qsgd_leaf_codes_ref(x, xi, norm, 16), 2)
+        bms, by = bound_ms([x, xi, norm], [codes], 6 * x.numel())
+        name = "qsgd_leaf_codes" + ("" if dtype == torch.float32 else "_bf16")
+        print(f"[kernel] {name} rows={rows} len={C} (one node's embedding "
+              f"leaf x {N_NODES} nodes): bit-equal; {ms:.3f} ms (bound "
+              f"{bms:.3f} ms, {by}), plain {plain:.3f} ms", flush=True)
+        records[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                             bound_ms=bms, bound_by=by, shape=[rows, C])
+        errs[name] = 0.0
+        del x, xi, codes
+        torch.cuda.empty_cache()
+    length = 311_164_928
+    shape = (N_NODES, length)
+    node = lambda w: torch.tensor(w, dtype=torch.float32, device=dev)
+    w = (node((0.25, 0.75, 0.75, 0.75)), node((0.25,) * N_NODES))
+    gamma = 1.956e-05
+    for bf16 in (False, True):
+        sd = torch.bfloat16 if bf16 else torch.float32
+        x = torch.randn(shape, generator=gen, device=dev)
+        rest = [(torch.randn(shape, generator=gen, device=dev) * sc).to(sd)
+                for sc in (0.5, 0.1, 0.3, 0.6)]
+        inplace = [x.clone(), rest[0].clone(), rest[1].clone()]
+        dispatch.ef_bucket_update(*inplace, *rest[2:], *w, gamma, False, True)
+        chunk = EF_BF16_PLAIN_CHUNK
+        for c in range(0, length, chunk):
+            part = slice(c, c + chunk)
+            ins = [x[:, part]] + [t[:, part] for t in rest]
+            want = (ref.ef_update_bf16_ref(*ins, *w, gamma, False, True) if bf16
+                    else ref.ef_update_ref(*ins, *w, gamma, True))
+            for g, wt in zip(inplace, want):
+                check(torch.equal(g[:, part], wt), f"[kernel] pipelined EF "
+                      f"({sd}) differs from its plain version")
+        name = "ef_update_bf16_pipelined" if bf16 else "ef_update_pipelined"
+        ms = time_ms(lambda: dispatch.ef_bucket_update(
+            *inplace, *rest[2:], *w, gamma, False, True), 5)
+
+        def plain():
+            for c in range(0, length, chunk):
+                part = slice(c, c + chunk)
+                ins = [x[:, part]] + [t[:, part] for t in rest]
+                if bf16:
+                    ref.ef_update_bf16_ref(*ins, *w, gamma, False, True)
+                else:
+                    ref.ef_update_ref(*ins, *w, gamma, True)
+        plain_ms = time_ms(plain, 2)
+        bms, by = bound_ms([x] + rest + list(w), inplace,
+                           (10 if bf16 else 8) * x.numel())
+        print(f"[kernel] {name} n={N_NODES} len={length}: bit-equal; "
+              f"{ms:.3f} ms (bound {bms:.3f} ms, {by}), plain {plain_ms:.3f} "
+              f"ms", flush=True)
+        records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                             bound_ms=bms, bound_by=by,
+                             shape=[N_NODES, length])
+        errs[name] = 0.0
+        del x, rest, inplace
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return records, errs
+
+
 #: the launcher's --smoke runs on the card: (label, extra flags); the
 #: first is the choco path, the second the exact mode with the new flags,
 #: the third the choco path with bf16 EF state
@@ -807,13 +1202,18 @@ LAUNCHER_RUNS = (("launcher_smoke", ["--compressor", "top_k", "--fraction",
                                                 "--data-skew-alpha", "0.5"]),
                  ("launcher_state_bf16", ["--compressor", "top_k",
                                           "--fraction", "0.05",
-                                          "--state-dtype", "bfloat16"]))
+                                          "--state-dtype", "bfloat16"]),
+                 ("launcher_per_leaf_pipelined",
+                  ["--gossip-engine", "per-leaf", "--pipeline-gossip",
+                   "--compressor", "qsgd", "--qsgd-s", "16"]))
 
 
 def run_launcher(extra):
     """The user's entry point, --smoke, on the card, with ``extra`` flags:
-    finite losses, and the EF update per bucket per step under choco and
-    no kernel in the exact modes."""
+    finite losses, and under choco per bucket (per leaf with
+    --gossip-engine per-leaf) per step the EF update (its pipelined order
+    with --pipeline-gossip) and, with QSGD, the codes and dequantize
+    kernels; no kernel in the exact modes."""
     from repro_torch.kernels import dispatch
     from repro_torch.launch.train import main
     argv = ["--arch", "qwen3-1.7b", "--smoke", "--mesh", f"{N_NODES}x1",
@@ -830,12 +1230,18 @@ def run_launcher(extra):
               for line in out.splitlines() if line.startswith("[train] step")]
     check(losses and all(math.isfinite(v) for v in losses),
           f"launcher losses {losses}")
-    buckets = int(out.split("buckets=")[1].split()[0])
-    want = STEPS * buckets if "mode=choco" in out else 0
-    ef = "ef_update_bf16" if "state_dtype=bfloat16" in out else "ef_update"
-    check(counts[ef] == want and sum(counts.values()) == want,
-          f"launcher launch counts {counts}, expected {want} {ef} "
-          f"launches and no other")
+    per_leaf = "gossip_engine=per-leaf" in out
+    units = int(out.split("leaves=" if per_leaf else "buckets=")[1].split()[0])
+    want = STEPS * units if "mode=choco" in out else 0
+    ef = ("ef_update_bf16" if "state_dtype=bfloat16" in out else "ef_update"
+          ) + ("_pipelined" if "--pipeline-gossip" in extra else "")
+    expected = {k: 0 for k in counts}
+    expected[ef] = want
+    if "qsgd" in extra:
+        expected["qsgd_leaf_codes" if per_leaf else "qsgd_codes"] = want
+        expected["dequantize"] = want
+    check(counts == expected, f"launcher launch counts {counts}, expected "
+          f"{expected}")
     if "--data-skew-alpha" in extra:
         check("skew_tv=" in out, "launcher: no skew_tv in the header")
     print(f"[launcher] {' '.join(extra)}: launches {counts}", flush=True)
@@ -915,16 +1321,34 @@ SMALL_RUNS = (("sign", (), False, "ring", 1, "choco", "momentum", 0.1),
               ("top_k", (("fraction", 0.05),), False, "ring", 1, "choco",
                "momentum", 0.1, "bfloat16"),
               ("qsgd", (("s", 16),), False, "chain", 2, "choco", "momentum",
-               0.1, "bfloat16"))
+               0.1, "bfloat16"),
+              # the per-leaf and the pipelined engines (the pipelined step's
+              # exchange on the side stream on the card, in turn on the CPU)
+              ("qsgd", (("s", 16),), False, "ring", 1, "choco", "momentum",
+               0.1, "float32", "per-leaf"),
+              ("top_k", (("fraction", 0.05),), True, "star", 1, "choco",
+               "momentum", 0.1, "bfloat16", "per-leaf"),
+              ("sign", (), False, "ring", 2, "choco", "momentum", 0.1,
+               "float32", "pipelined"),
+              ("qsgd", (("s", 16),), False, "ring", 1, "choco", "momentum",
+               0.1, "bfloat16", "per-leaf-pipelined"))
 
 
 def small_draws(tr, step):
-    """rand_k's and randomized gossip's draws for one step, made on the CPU
-    from a seed, so the card and the CPU run get the same ones."""
+    """The stochastic compressors' draws for one step (per bucket, or per
+    leaf on the per-leaf engine), made on the CPU from a seed, so the card
+    and the CPU run get the same ones."""
     import torch
     from repro_torch.comm import packing
     if tr.compressor is None or not tr.compressor.stochastic:
         return None
+    if not tr.choco.packed_gossip:
+        def leaf(t, u):
+            R, C = packing.leaf_rows(tr.spec.slots[u].size)
+            return packing.leaf_draw(
+                tr.compressor, torch.empty((N_NODES * R, C)), R,
+                packing.fold_seed(step, 7919 * t + u))
+        return leaf
 
     def draws(t, b):
         bucket = tr.spec.buckets[b]
@@ -969,15 +1393,19 @@ def small_cuda_vs_cpu(dev):
                               dtype="float32")
     params = Model(cfg).init(N_NODES, 1, "cpu")
     report, launches = {}, {k: 0 for k in kernel_names()}
-    for comp, kw, exact, topology, steps_k, mode, opt, lr, *sdt in SMALL_RUNS:
-        sdt = sdt[0] if sdt else "float32"
+    for comp, kw, exact, topology, steps_k, mode, opt, lr, *extra in SMALL_RUNS:
+        sdt = extra[0] if extra else "float32"
+        engine = extra[1] if len(extra) > 1 else "packed"
+        packed = not engine.startswith("per-leaf")
+        pipelined = engine.endswith("pipelined")
         runs = {}
         for device in (dev, "cpu"):
             tr = DecentralizedTrainer(
                 model=Model(cfg), choco=ChocoConfig(
                     compressor=comp, comp_kwargs=kw, exact_small_leaves=exact,
                     topology=topology, gossip_steps=steps_k,
-                    state_dtype=sdt),
+                    state_dtype=sdt, packed_gossip=packed,
+                    pipeline_gossip=pipelined),
                 n_nodes=N_NODES, optimizer=make_optimizer(opt),
                 lr_fn=cosine_schedule(lr, 1, STEPS), device=device, mode=mode)
             state = tr.state_from_params(params)
@@ -991,20 +1419,27 @@ def small_cuda_vs_cpu(dev):
                                  None if state.x_hat is None
                                  else [b.cpu() for b in state.x_hat], counts)
         (lc, xc, hc, counts), (lp, xp, hp, _) = runs[str(dev)], runs["cpu"]
-        per_kernel = STEPS * steps_k * tr.spec.n_buckets
+        units = (tr.spec.n_buckets if packed else
+                 [tr.spec.buckets[sl.bucket].exact for sl in tr.spec.slots])
+        per_kernel = STEPS * steps_k * (units if packed else len(units))
+        # exact leaves of the per-leaf engine ship uncompressed
+        coded = STEPS * steps_k * (units if packed else units.count(False))
         choco = mode == "choco"
         want = {k: 0 for k in counts}
-        want["ef_update" if sdt == "float32" else "ef_update_bf16"] = (
+        want[("ef_update" if sdt == "float32" else "ef_update_bf16")
+             + ("_pipelined" if pipelined else "")] = (
             per_kernel if choco else 0)
         if choco and comp in ("qsgd", "sign"):
-            want[f"{comp}_codes"] = want["dequantize"] = per_kernel
+            want["qsgd_leaf_codes" if comp == "qsgd" and not packed
+                 else f"{comp}_codes"] = want["dequantize"] = coded
         check(counts == want, f"[small] {mode} {comp} {topology}: launches "
               f"{counts}, expected {want}")
         for k, v in counts.items():
             launches[k] += v
         check(any(b.exact for b in tr.spec.buckets) == exact,
               f"[small] {comp}: exact buckets")
-        gammas = (tr.exchange.bucket_gammas if choco
+        gammas = (tr.exchange.bucket_gammas if choco and packed
+                  else [tr.gamma] * tr.spec.n_buckets if choco
                   else [0.0] * tr.spec.n_buckets)
         moved, dx, dx_moved, total = hold_small(
             "[small]", comp, gammas, (lc, xc, hc), (lp, xp, hp),
@@ -1012,6 +1447,8 @@ def small_cuda_vs_cpu(dev):
         what = comp if choco else mode
         if sdt != "float32":
             what += f" {sdt}-state"
+        if engine != "packed":
+            what += f" {engine}"
         print(f"[small] smoke f32 {what}{' exact_small_leaves' if exact else ''}"
               f" {opt} lr {lr} on {topology}, gossip_steps {steps_k}, {STEPS} "
               f"steps: CUDA losses {lc} vs CPU {lp}; max |x_cuda - "
@@ -1083,6 +1520,14 @@ DIST_MODE_RUNS = (("plain", "ring", 1), ("plain", "star", 2),
 #: comp_kwargs, gossip_steps, topology)
 DIST_BF16_RUNS = (("top_k", (("fraction", 0.05),), 1, "ring"),
                   ("qsgd", (("s", 16),), 2, "chain"))
+#: the per-leaf and pipelined exchanges of the [dist] small phase:
+#: (compressor, comp_kwargs, gossip_steps, topology, state dtype, packed,
+#: pipelined)
+DIST_ENGINE_RUNS = (("qsgd", (("s", 16),), 2, "ring", "float32", False, False),
+                    ("top_k", (("fraction", 0.05),), 1, "star", "bfloat16",
+                     False, False),
+                    ("qsgd", (("s", 16),), 1, "ring", "float32", True, True),
+                    ("sign", (), 2, "chain", "bfloat16", False, True))
 #: the [dist] small phase's checkpoint exchange between the per-rank and
 #: the stacked engine: (compressor, comp_kwargs, gossip_steps, topology),
 #: with bf16 EF state
@@ -1094,7 +1539,8 @@ DIST_TIMEOUT_S = 300.0
 
 
 def _dist_trainer(comp, kw, steps_k, cfg, dev, group=None, topology="ring",
-                  mode="choco", state_dtype="float32", n_nodes=N_NODES):
+                  mode="choco", state_dtype="float32", n_nodes=N_NODES,
+                  packed=True, pipelined=False):
     from repro_torch.configs.base import ChocoConfig
     from repro_torch.models.transformer import Model
     from repro_torch.optim.sgd import cosine_schedule, momentum_sgd
@@ -1103,7 +1549,9 @@ def _dist_trainer(comp, kw, steps_k, cfg, dev, group=None, topology="ring",
         model=Model(cfg), choco=ChocoConfig(compressor=comp, comp_kwargs=kw,
                                             topology=topology,
                                             gossip_steps=steps_k,
-                                            state_dtype=state_dtype),
+                                            state_dtype=state_dtype,
+                                            packed_gossip=packed,
+                                            pipeline_gossip=pipelined),
         n_nodes=n_nodes, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
         device=dev, group=group, mode=mode)
@@ -1216,6 +1664,19 @@ def _dist_small_rank(rank, store, out_dir):
         before = group.bytes_sent
         tr.exchange(*bufs, seed=31)
         out[("bf16", topology, comp)] = {
+            "exchange": [[b.cpu() for b in part] for part in bufs],
+            "sent": group.bytes_sent - before, "sends": tr.exchange.sends,
+            "payload_bytes": tr.exchange.payload_bytes}
+    for run in DIST_ENGINE_RUNS:
+        comp, kw, steps_k, topology, sdt, packed, pipelined = run
+        tr = _dist_trainer(comp, kw, steps_k, cfg, group.device, group,
+                           topology, state_dtype=sdt, packed=packed,
+                           pipelined=pipelined)
+        bufs = [[b[rank:rank + 1].to(group.device) for b in part]
+                for part in _exchange_inputs(tr.spec)]
+        before = group.bytes_sent
+        tr.exchange(*bufs, seed=37)
+        out[("engine",) + run] = {
             "exchange": [[b.cpu() for b in part] for part in bufs],
             "sent": group.bytes_sent - before, "sends": tr.exchange.sends,
             "payload_bytes": tr.exchange.payload_bytes}
@@ -1416,6 +1877,40 @@ def dist_small(dev):
         report[f"bf16-state {comp}@{topology}"] = {
             "exchange_bit_equal": same, "bytes_sent": sent, "sends": sends,
             "payload_bytes": payload}
+    for run in DIST_ENGINE_RUNS:
+        from repro_torch.comm.packing import (bucket_wire_nbytes,
+                                              leaf_wire_nbytes)
+        comp, kw, steps_k, topology, sdt, packed, pipelined = run
+        tr = _dist_trainer(comp, kw, steps_k, cfg, dev, topology=topology,
+                           state_dtype=sdt, packed=packed,
+                           pipelined=pipelined)
+        bufs = [[b.to(dev) for b in part] for part in _exchange_inputs(tr.spec)]
+        tr.exchange(*bufs, seed=37)
+        recs = [r[("engine",) + run] for r in ranks]
+        same = all(torch.equal(rec["exchange"][p][b][0], bufs[p][b][i].cpu())
+                   for i, rec in enumerate(recs) for p in range(3)
+                   for b in range(tr.spec.n_buckets))
+        sizes = (bucket_wire_nbytes if packed else leaf_wire_nbytes)(
+            tr.spec, tr.compressor)
+        payload = sum(sizes)
+        sends = [rec["sends"] for rec in recs]
+        sent = [rec["sent"] for rec in recs]
+        want_sends = [steps_k * k for k in SENDS_PER_ROUND[topology]]
+        label = (f"{'packed' if packed else 'per-leaf'}"
+                 f"{' pipelined' if pipelined else ''} {sdt}-state {comp} on "
+                 f"{topology}, gossip_steps={steps_k}")
+        print(f"[dist] small {label}: the exchange alone, per rank against "
+              f"the stacked exchange on the card: x, x_hat and s bit-equal: "
+              f"{same}; bytes sent per rank {sent} = sends {sends} x "
+              f"{payload} payload bytes ({len(sizes)} payloads)", flush=True)
+        check(same, f"[dist] {label}: the per-rank exchange and the stacked "
+              f"exchange differ")
+        check(sends == want_sends and sent == [k * payload for k in sends]
+              and all(rec["payload_bytes"] == sizes for rec in recs),
+              f"[dist] {label}: sends {sends} (expected {want_sends}), "
+              f"bytes {sent}")
+        report[label] = {"exchange_bit_equal": same, "bytes_sent": sent,
+                         "sends": sends, "payload_bytes": payload}
     return report
 
 
@@ -2099,6 +2594,66 @@ def sim_gossip(dev):
                          "rounds_moved": moved, "rounds_max_rel": worst,
                          "bits_per_coord": bits, "ms_per_round": timing[0],
                          "launches": timing[1]}
+    return report
+
+
+#: [sim]: pipelined CHOCO-Gossip (the pipelined engine's matrix twin) at
+#: the quickstart's sizes: (label, compressor spec, gamma, rounds)
+SIM_PIPELINED_RUNS = (("pipelined_exact", ("identity",), 0.5, 300),
+                      ("pipelined_qsgd127", ("qsgd", 127), 0.5, 300))
+
+
+def sim_pipelined(dev):
+    """Pipelined CHOCO-Gossip on the ring of 25 at d 2000, on the card and
+    on the CPU from the same x0 and dither: error curves within SIM_RTOL,
+    the error falling, and the QSGD run's launches one codes and one
+    dequantize per round; ms per round on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.core.choco_gossip import run_choco_pipelined_gossip
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.core.topology import ring
+    n, d = SIM_GOSSIP_N, SIM_GOSSIP_D
+    W = ring(n).W
+    x0 = torch.randn((n, d), generator=torch.Generator().manual_seed(0))
+    report = {}
+    for label, spec, gamma, rounds in SIM_PIPELINED_RUNS:
+        comp = (make_compressor("identity") if spec[0] == "identity"
+                else _sim_compressor(spec))
+        rand = None
+        if comp.stochastic:
+            gen = torch.Generator().manual_seed(1)
+            rand = [comp.draw(x0, gen) for _ in range(rounds)]
+        curves, timing = {}, None
+        for which, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            x = x0.to(device)
+            draws = (None if rand is None else
+                     (lambda t, r=[a.to(device) for a in rand]: r[t]))
+            err, ms, counts = _timed(lambda: run_choco_pipelined_gossip(
+                x, W, gamma, comp, rounds, draws=draws)[1], device)
+            curves[which] = err.cpu().numpy()
+            if which == "card":
+                timing = (ms / rounds, counts)
+        card, cpu = curves["card"], curves["cpu"]
+        rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        print(f"[sim] pipelined choco-gossip ring n={n} d={d} {label}, gamma "
+              f"{gamma}, {rounds} rounds: error {card[0]:.4e} -> "
+              f"{card[-1]:.4e} on the card, {cpu[0]:.4e} -> {cpu[-1]:.4e} on "
+              f"the CPU (max relative difference {rel:.3e}); "
+              f"{timing[0]:.4f} ms/round on the card; launches "
+              f"{ {k: v for k, v in timing[1].items() if v} }", flush=True)
+        check(np.all(np.isfinite(card)) and card[-1] < card[0],
+              f"[sim] {label}: the error did not fall ({card[0]} -> "
+              f"{card[-1]})")
+        check(rel <= SIM_RTOL, f"[sim] {label}: card and CPU error curves "
+              f"differ by {rel}")
+        _hold_sim_launches(label, None if comp.name == "identity" else comp,
+                           rounds, timing[1])
+        report[label] = {"rounds": rounds, "gamma": gamma,
+                         "err_first": float(card[0]),
+                         "err_last": float(card[-1]),
+                         "err_last_cpu": float(cpu[-1]), "max_rel_diff": rel,
+                         "ms_per_round": timing[0], "launches": timing[1]}
     return report
 
 
@@ -2833,6 +3388,9 @@ def main():
     print(f"[kernel] checking the full-width bucket lengths and an odd one: "
           f"{lengths}", flush=True)
     records, max_err = check_kernels(lengths, dev)
+    engine_records, engine_err = check_engine_kernels(dev)
+    records.update(engine_records)
+    max_err.update(engine_err)
     probe_record = check_probe(dev)
 
     topk_record, topk_err = check_topk(dev)
@@ -2847,12 +3405,14 @@ def main():
           f"(first step included); peak device memory {star['peak_gib']:.3f} "
           f"against {ring_run['peak_gib']:.3f} GiB", flush=True)
     state_bf16 = state_bf16_full_width(dev, by_path)
+    engines = engines_full_width(dev, by_path, state_bf16)
     modes = modes_full_width(dev)
     ckpt_full_counts, ckpt_full = checkpoint_full_width(dev)
     launcher_counts = {label: run_launcher(extra)
                        for label, extra in LAUNCHER_RUNS}
     per_rank_launcher_counts = run_launcher_per_rank()
     small = small_cuda_vs_cpu(dev)
+    leaf_small = leaf_exchange_cuda_vs_cpu(dev)
     ckpt_small = checkpoint_small(dev)
     torch.cuda.empty_cache()
     dist_small_report = dist_small(dev)
@@ -2867,7 +3427,8 @@ def main():
           f"{sum(b.size for b in spec.buckets)} padded elements), "
           f"{plain_bytes / top_k_bytes:.1f}x the {top_k_bytes} that top_k "
           f"0.01 sent per rank per step above", flush=True)
-    sim = {"gossip": sim_gossip(dev), "sgd": sim_sgd(dev)}
+    sim = {"gossip": sim_gossip(dev), "sgd": sim_sgd(dev),
+           "pipelined": sim_pipelined(dev)}
     sim_counts = {k: sum(r["launches"][k] for part in sim.values()
                          for r in part.values() if isinstance(r, dict))
                   for k in kernel_names()}
@@ -2892,9 +3453,12 @@ def main():
         "topology_star": star_counts,
         **{f"state_bf16_{c}": counts for c, (counts, _) in state_bf16.items()},
         **{f"modes_{label}": counts for label, (counts, _) in modes.items()},
+        **{label: counts for label, (counts, _) in engines.items()},
         **launcher_counts,
         "launcher_per_rank_rank0": per_rank_launcher_counts,
         "small": small["launches"],
+        "leaf_small": {k: sum(r["launches"][k] for r in leaf_small.values())
+                       for k in kernel_names()},
         "checkpoint_full_width": ckpt_full_counts,
         "checkpoint_warmup": ckpt_small["launches"],
         "dist_small": {k: sum(c[k] for c in dist_small_report["launches"])
@@ -2913,16 +3477,28 @@ def main():
     # runs, the [checkpoint] runs and its elastic warmups
     train_paths = (list(by_path) + ["topology_star"]
                    + [f"state_bf16_{c}" for c in state_bf16]
+                   + list(engines)
                    + [f"modes_{label}" for label in modes]
                    + ["checkpoint_full_width", "checkpoint_warmup"])
+    # the per-leaf and pipelined variants' paths also take in the small
+    # phases, where the bf16-state pipelined EF update runs
+    engine_paths = train_paths + ["small", "leaf_small",
+                                  "launcher_per_leaf_pipelined"]
 
     # ef_update_bf16 has no pallas_call counterpart: it replaces the leaf
     # update the JAX engine runs as fused jnp on bf16 EF state
+    # nor have the per-leaf codes (QSGD.compress, jnp in the per-leaf
+    # engine) and the pipelined order (_pipelined_leaf_updates, jnp)
     sources = {"qsgd_codes": "src/repro/kernels/qsgd.py:64",
                "sign_codes": "src/repro/kernels/qsgd.py:86",
                "dequantize": "src/repro/kernels/qsgd.py:118",
                "ef_update": "src/repro/kernels/ef_update.py:52",
-               "ef_update_bf16": "src/repro/comm/gossip.py:195"}
+               "ef_update_bf16": "src/repro/comm/gossip.py:195",
+               "qsgd_leaf_codes": "src/repro/core/compression.py:336",
+               "ef_update_pipelined": "src/repro/comm/pipelined.py:71",
+               "ef_update_bf16_pipelined": "src/repro/comm/pipelined.py:71"}
+    variants = ("qsgd_leaf_codes", "ef_update_pipelined",
+                "ef_update_bf16_pipelined")
     kernels = []
     for name, replaces in sources.items():
         rec = records[name]
@@ -2930,13 +3506,16 @@ def main():
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gossip_kernels.cu",
             "replaces": replaces,
-            "launches": sum(paths[p][name] for p in train_paths),
+            "launches": sum(paths[p][name] for p in (
+                engine_paths if name in variants else train_paths)),
             "launches_by_path": by_kernel(name),
             "max_abs_err": max(v for k, v in max_err.items()
                                if k in (name, name + "_int16")),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"]})
+        if name == "qsgd_leaf_codes":
+            kernels[-1]["bf16_input"] = records["qsgd_leaf_codes_bf16"]
         check(kernels[-1]["launches"] > 0, f"{name} never launched")
     kernels.append({
         "name": "flash_attention", "route": "cuda",
@@ -2974,6 +3553,8 @@ def main():
     print(json.dumps({"int16": extra, "train": train, "topology_star": star,
                       "state_bf16": {c: r for c, (_, r) in state_bf16.items()},
                       "modes": {k: r for k, (_, r) in modes.items()},
+                      "engines": {k: r for k, (_, r) in engines.items()},
+                      "leaf_small": leaf_small,
                       "checkpoint": {"full_width": ckpt_full,
                                      "small": ckpt_small},
                       "sim": sim, "small": small,

@@ -56,19 +56,35 @@ the JAX package, whose fused kernels serve the choco mode only:
 * all-reduce (the centralized baseline): ``x = sum_i x_i / n``
   (:func:`make_allreduce_exchange`, :func:`make_dist_allreduce_exchange`).
 
-Not ported: the per-leaf engine, the push-sum mode, stochastic topology
-processes and the pipelined engine.
+Both choco exchanges also run the JAX package's two other static
+engines.  The per-leaf engine (``packed=False``, JAX ``local_fn``) ships
+one payload per leaf: each leaf's slot of its bucket is compressed on its
+own with the operator's unpacked form (``QSGD.compress``, a leaf above
+``packing.BLOCK_COMPRESS_SIZE`` as zero-padded rows of that width, each a
+vector of its own; Identity for a leaf of an exact bucket) and updated in
+place by one EF launch, the kernels taking the slot's row stride.  Its
+QSGD and sign payloads decode to f32 with bf16 state too, and JAX sums
+and weights them in f32 (f32 weights; the bf16-state EF kernel's f32
+payload form).  The pipelined engine (``pipelined=True``, JAX
+``comm/pipelined.py``) ships the same payloads and updates x from the
+pre-round pair, ``x = x + gamma (s - x_hat)``, in the EF kernels'
+pipelined order; the trainer runs it on the pre-gradient iterate
+(``train/trainer.py``).
+
+Not ported: the push-sum mode and the stochastic topology processes.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, List, Optional, Sequence
 
 import torch
 
-from repro_torch.comm.packing import (BucketSpec, bucket_dense,
+from repro_torch.comm.packing import (Bucket, BucketSpec, bucket_dense,
                                       bucket_omegas, bucket_wire_nbytes,
-                                      compress_bufs, fold_seed, from_wire,
-                                      to_wire)
+                                      compress_bufs, compress_rows, fold_seed,
+                                      from_wire, leaf_draw, leaf_rows,
+                                      leaf_wire_nbytes, to_wire)
 from repro_torch.comm.schedule import GossipSchedule
 from repro_torch.core.choco_gossip import GammaSpec
 from repro_torch.core.compression import (BlockTopK, Identity, QSGD, RandK,
@@ -246,16 +262,85 @@ def _to_device(obj, dev):
     return obj
 
 
+@dataclasses.dataclass(frozen=True)
+class _Unit:
+    """What the exchange compresses as one payload per node: a bucket (the
+    packed engine) or a leaf, a slot of its bucket (the per-leaf engine).
+    ``rows`` x ``width`` are the compressed rows per node: 1 x the bucket,
+    or a leaf's R rows of C (``packing.leaf_rows``)."""
+    index: int                 # bucket index, or leaf index (the draws' key)
+    bucket: Bucket
+    offset: int
+    size: int                  # state elements per node row
+    rows: int
+    width: int
+    packed: bool
+
+    def views(self, bufs):
+        """The unit's (n, size) view of each node-stacked bucket buffer."""
+        buf = bufs[self.bucket.index]
+        return buf if self.packed else buf[:, self.offset:self.offset
+                                           + self.size]
+
+    def dense(self, payload, n: int) -> torch.Tensor:
+        """A payload's dense rows, (n, rows * width): a bucket's in its
+        dtype; a leaf's in the payload's own (f32 for QSGD and sign)."""
+        if self.packed:
+            return bucket_dense(payload, self.bucket)
+        return payload.dense().view(n, self.rows * self.width)
+
+
+def _units(spec: BucketSpec, packed: bool) -> List[_Unit]:
+    if packed:
+        return [_Unit(b.index, b, 0, b.size, 1, b.size, True)
+                for b in spec.buckets]
+    return [_Unit(sl.leaf, spec.buckets[sl.bucket], sl.offset, sl.size,
+                  *leaf_rows(sl.size), False)
+            for sl in sorted(spec.slots, key=lambda sl: sl.leaf)]
+
+
+def _compress_leaf(compressor, unit: _Unit, xv, hv, seed: int, draws, nodes):
+    """The per-leaf engine's send half for one leaf (JAX
+    ``_per_leaf_self_half`` / ``_compress_leaf``): the delta in the EF
+    state's dtype, zero-padded to R rows of C above BLOCK_COMPRESS_SIZE,
+    compressed row by row (a leaf of an exact bucket ships as it is).
+    Returns (payload, q): q the dense rows, (n, R * C)."""
+    n = xv.shape[0]
+    wide = unit.rows * unit.width
+    if wide == unit.size:
+        delta = xv.to(hv.dtype) - hv
+    else:
+        delta = torch.zeros((n, wide), dtype=hv.dtype, device=hv.device)
+        torch.sub(xv.to(hv.dtype), hv, out=delta[:, :unit.size])
+    rows = delta.view(n * unit.rows, unit.width)
+    comp = Identity() if unit.bucket.exact else compressor
+    rand = None
+    if comp.stochastic:
+        rand = (draws(unit.index) if draws is not None else
+                leaf_draw(comp, rows, unit.rows, fold_seed(seed, unit.index),
+                          nodes))
+    payload = compress_rows(comp, rows, rand)
+    return payload, unit.dense(payload, n)
+
+
 def _exchange(spec: BucketSpec, compressor, gammas, gossip_steps: int,
-              compiled, nodes, receiver) -> Callable:
+              compiled, nodes, receiver, *, packed: bool = True,
+              pipelined: bool = False, compiled_f32q=None) -> Callable:
     """The exchange loop both engines share.  ``compiled[t]`` is round t's
     entry of :func:`_compile`; ``nodes`` are the gossip nodes of the
-    buffers' rows (None: all of them); ``receiver(payload, q, bucket)``
+    buffers' rows (None: all of them); ``receiver(payload, q, unit)``
     returns ``receive(round) -> the dense payload this row receives``,
     ``round`` being the round's entry in ``compiled``, its tensors on the
     buffers' device.  ``compiled`` moves to a device once, at the first
-    call with buffers there."""
+    call with buffers there.
+
+    ``packed``: one payload per bucket; else one per leaf (the per-leaf
+    engine), whose QSGD and sign payloads decode to f32 and take the
+    weights of ``compiled_f32q`` (unrounded f32 weights) with bf16 state.
+    ``pipelined``: the EF update in the pipelined order.  ``gammas`` has
+    one entry per unit (bucket or leaf)."""
     on_device = {}
+    units = _units(spec, packed)
 
     @torch.no_grad()
     def exchange(x: List[torch.Tensor], x_hat: List[torch.Tensor],
@@ -263,33 +348,44 @@ def _exchange(spec: BucketSpec, compressor, gammas, gossip_steps: int,
                  draws: Optional[Callable[[int, int], torch.Tensor]] = None):
         dev = x[0].device
         if dev not in on_device:
-            on_device[dev] = _to_device(compiled, dev)
-        on_dev = on_device[dev]
+            on_device[dev] = [_to_device(c, dev) if c is not None else None
+                              for c in (compiled, compiled_f32q)]
+        on_dev, on_dev_f32q = on_device[dev]
         for t in range(gossip_steps):
-            groups, w_self, w_nbr, mix_in_bf16 = on_dev[t % len(on_dev)]
             tseed = seed if t == 0 else fold_seed(seed, t)
-            for bucket in spec.buckets:
-                b = bucket.index
-                # in the EF state's dtype, as the JAX engine's
-                # ``lh.astype(lhat.dtype) - lhat``
-                delta = x[b].to(bucket.dtype) - x_hat[b]
-                (payload,), (q,) = compress_bufs(
-                    compressor, spec, (bucket,), (delta,), seed=tseed,
-                    draws=None if draws is None
-                    else (lambda i, t=t: draws(t, i)), nodes=nodes)
-                receive = receiver(payload, q, bucket)
-                del delta, payload
+            tdraws = None if draws is None else (lambda i, t=t: draws(t, i))
+            for unit, gamma in zip(units, gammas):
+                xv, hv, sv = (unit.views(bufs) for bufs in (x, x_hat, s))
+                if packed:
+                    # in the EF state's dtype, as the JAX engine's
+                    # ``lh.astype(lhat.dtype) - lhat``
+                    delta = xv.to(hv.dtype) - hv
+                    (payload,), (q,) = compress_bufs(
+                        compressor, spec, (unit.bucket,), (delta,),
+                        seed=tseed, draws=tdraws, nodes=nodes)
+                    del delta
+                else:
+                    payload, q = _compress_leaf(compressor, unit, xv, hv,
+                                                tseed, tdraws, nodes)
+                f32q = q.dtype == torch.float32 and hv.dtype != q.dtype
+                groups, w_self, w_nbr, mix_in_bf16 = (
+                    on_dev_f32q if f32q else on_dev)[t % len(on_dev)]
+                receive = receiver(payload, q, unit)
+                del payload
                 if groups:
                     nbr = _neighbor_sum(groups, receive)
                 else:                               # n == 1: no neighbours
                     nbr = q * 0.0
                 del receive
-                dispatch.ef_bucket_update(x[b], x_hat[b], s[b], q, nbr,
-                                          w_self, w_nbr, gammas[b],
-                                          mix_in_bf16)
+                w = unit.size
+                dispatch.ef_bucket_update(xv, hv, sv, q[:, :w], nbr[:, :w],
+                                          w_self, w_nbr, gamma, mix_in_bf16,
+                                          pipelined)
                 del q, nbr
 
-    exchange.bucket_gammas = gammas
+    exchange.gammas = gammas
+    if packed:
+        exchange.bucket_gammas = gammas
     return exchange
 
 
@@ -316,9 +412,53 @@ def _gather_rows(q: torch.Tensor):
     return receive
 
 
+def _unit_gammas(gamma, spec: BucketSpec, compressor, packed: bool
+                 ) -> List[float]:
+    """One consensus stepsize per unit: per bucket (a float broadcasts, a
+    GammaSpec takes each bucket's omega), or the one scalar for every leaf
+    of the per-leaf engine, which refuses a GammaSpec as JAX's does."""
+    if packed:
+        return _resolve_bucket_gammas(gamma, spec, compressor)
+    if isinstance(gamma, GammaSpec):
+        raise ValueError(
+            "per-bucket gamma (GammaSpec) requires the packed engine: the "
+            "legacy per-leaf exchange has no bucket spec to derive omegas "
+            "from; pass a float gamma, or packed=True")
+    return [float(gamma)] * len(spec.slots)
+
+
+def _choco(spec, schedules, compressor, gamma, gossip_steps, nodes,
+           round_data, receiver, packed, pipelined, per_rank) -> Callable:
+    """The choco exchange of either engine: the rounds compiled for the
+    buffers' rows, the nodes ``nodes`` (and, per leaf with bf16 state,
+    again with f32 weights for the f32 payloads of QSGD and sign), then
+    :func:`_exchange`."""
+    state_dtype = _state_dtype(spec)
+    compiled = _compile(schedules, nodes, round_data, state_dtype)
+    compiled_f32q = (_compile(schedules, nodes, round_data)
+                     if not packed and state_dtype != torch.float32 else None)
+    return _exchange(spec, compressor,
+                     _unit_gammas(gamma, spec, compressor, packed),
+                     gossip_steps, compiled,
+                     tuple(nodes) if per_rank else None, receiver,
+                     packed=packed, pipelined=pipelined,
+                     compiled_f32q=compiled_f32q)
+
+
+def _check_pipelined(schedules, pipelined: bool) -> None:
+    """The pipelined engine runs one static schedule (JAX
+    ``make_gossip_exchange``)."""
+    if pipelined and len(schedules) > 1:
+        raise ValueError(
+            "pipelined gossip supports a single static schedule: the tau=1 "
+            "gamma is derived from one delay-averaged mixing matrix, which "
+            "a time-varying sequence does not have")
+
+
 def make_choco_exchange(*, spec: BucketSpec,
                         schedules: Sequence[GossipSchedule], compressor,
-                        gamma, gossip_steps: int = 1) -> Callable:
+                        gamma, gossip_steps: int = 1, packed: bool = True,
+                        pipelined: bool = False) -> Callable:
     """Returns ``exchange(x, x_hat, s, *, seed=0, draws=None)``.
 
     ``x``, ``x_hat``, ``s`` are lists of node-stacked bucket buffers:
@@ -327,63 +467,76 @@ def make_choco_exchange(*, spec: BucketSpec,
     ``gossip_steps`` rounds (schedule ``t % len(schedules)`` in round t)
     and updates the buffers in place, bucket by bucket.
 
+    ``packed=False`` is the per-leaf engine (JAX ``local_fn``,
+    ``src/repro/comm/gossip.py:573-596``): each leaf, a slot of its
+    bucket, is compressed on its own with the operator's unpacked form
+    (``packing.compress_rows``; a leaf above BLOCK_COMPRESS_SIZE as rows
+    of that width; a leaf of an exact bucket uncompressed) and ships as
+    one payload per round, and its slot is updated in place by one EF
+    launch.  It takes a float gamma.  ``pipelined=True`` is the pipelined
+    engine (JAX ``make_pipelined_choco_fn``): the same payloads, x
+    updated from the pre-round ``s - x_hat`` (one static schedule).
+
     ``seed`` salts the stochastic compressors' draws (QSGD's dither,
     RandK's positions, RandomizedGossip's keep bits): round t uses
-    ``fold_seed(seed, t)`` (t > 0), bucket b ``fold_seed(round_seed, b)``
-    and node i ``fold_seed(bucket_seed, i)``.  ``draws(t, b)``, when
-    given, supplies the draw instead (the parity tests inject the JAX
-    package's draws this way).
+    ``fold_seed(seed, t)`` (t > 0), bucket (or leaf) u
+    ``fold_seed(round_seed, u)`` and node i ``fold_seed(unit_seed, i)``.
+    ``draws(t, u)``, when given, supplies the draw of round t, bucket (or
+    leaf) u instead (the parity tests inject the JAX package's draws this
+    way; a leaf's as (n, ...) or as its (n * R, ...) rows).
     """
     n = _check_exchange(spec, schedules, compressor, gossip_steps)
-    compiled = _compile(schedules, range(n), _gather_index(n),
-                        _state_dtype(spec))
+    _check_pipelined(schedules, pipelined)
 
-    def receiver(payload, q, bucket):
+    def receiver(payload, q, unit):
         return _gather_rows(q)
 
-    return _exchange(spec, compressor,
-                     _resolve_bucket_gammas(gamma, spec, compressor),
-                     gossip_steps, compiled, None, receiver)
+    return _choco(spec, schedules, compressor, gamma, gossip_steps,
+                  range(n), _gather_index(n), receiver, packed, pipelined,
+                  False)
 
 
 def make_dist_choco_exchange(*, spec: BucketSpec,
                              schedules: Sequence[GossipSchedule], compressor,
                              gamma, gossip_steps: int = 1,
-                             group) -> Callable:
+                             group, packed: bool = True,
+                             pipelined: bool = False) -> Callable:
     """The per-rank exchange: the port of the JAX engine's
-    ``packed_local_fn`` (``src/repro/comm/gossip.py:491-548``), one process
-    per gossip node.  ``group`` (``launch/mesh.py:NodeGroup``) is this
-    node's rank; its buffers are ``(1, bucket.size)``, node ``group.rank``'s
-    row of the stacked engine's.
+    ``packed_local_fn`` (``src/repro/comm/gossip.py:491-548``), or with
+    ``packed=False`` of its per-leaf ``local_fn``, one process per gossip
+    node.  ``group`` (``launch/mesh.py:NodeGroup``) is this node's rank;
+    its buffers are ``(1, bucket.size)``, node ``group.rank``'s row of the
+    stacked engine's.
 
     Returns ``exchange(x, x_hat, s, *, seed=0, draws=None)`` with the
-    stacked exchange's contract, ``draws(t, b)`` giving this node's row.
-    Per round t and bucket, the node compresses its own row (its draws
-    are the stacked engine's row, see ``packing.draw``), then for each
-    schedule round sends its payload's wire bytes to the round's
-    destination and receives the source's in one ``batch_isend_irecv``
-    (``group.sendrecv``; where a partial round skips the rank, it sends
-    or receives nothing and adds a zero row), decodes each received
-    payload where it lands (the dequantize kernel for QSGD / sign codes, a
-    scatter for sparse payloads), sums them in the stacked engine's round order, applies the
-    weight groups and finishes with the EF-update kernel: bit for bit the
-    stacked exchange's row.
+    stacked exchange's contract, ``draws(t, u)`` giving this node's row.
+    Per round t and bucket (or leaf), the node compresses its own row (its
+    draws are the stacked engine's row, see ``packing.draw`` and
+    ``packing.leaf_draw``), then for each schedule round sends its
+    payload's wire bytes to the round's destination and receives the
+    source's in one ``batch_isend_irecv`` (``group.sendrecv``; where a
+    partial round skips the rank, it sends or receives nothing and adds a
+    zero row), decodes each received payload where it lands (the
+    dequantize kernel for QSGD / sign codes, a scatter for sparse
+    payloads), sums them in the stacked engine's round order, applies the
+    weight groups and finishes with the EF-update kernel (in the pipelined
+    order with ``pipelined``): bit for bit the stacked exchange's row.
 
     The collective-layer probe (``dispatch.probe_collectives``) runs once
     per process, here, before any payload moves.  ``exchange.payload_bytes``
     lists the spec's bytes of one payload per bucket
-    (``packing.bucket_wire_nbytes``), ``exchange.sends`` how many payloads
-    of each bucket this rank sends per call (on star, node 0 sends n - 1
-    per gossip round, a leaf one); ``group.bytes_sent`` counts what this
-    rank sent."""
+    (``packing.bucket_wire_nbytes``) or per leaf
+    (``packing.leaf_wire_nbytes``), ``exchange.sends`` how many payloads
+    of each this rank sends per call (on star, node 0 sends n - 1 per
+    gossip round, a leaf one); ``group.bytes_sent`` counts what this rank
+    sent."""
     n = _check_exchange(spec, schedules, compressor, gossip_steps)
+    _check_pipelined(schedules, pipelined)
     if group.size != n:
         raise ValueError(f"a group of {group.size} ranks for {n} nodes")
     probe = dispatch.probe_collectives(group)
-    compiled = _compile(schedules, (group.rank,),
-                        lambda rnd: rnd.peers(group.rank), _state_dtype(spec))
 
-    def receiver(payload, q, bucket):
+    def receiver(payload, q, unit):
         wire = to_wire(payload)
 
         def receive(peers):
@@ -391,14 +544,15 @@ def make_dist_choco_exchange(*, spec: BucketSpec,
             got = group.sendrecv(wire, dst, src)
             if src is None:                   # the round gives this node none
                 return torch.zeros_like(q)
-            return bucket_dense(from_wire(got, payload), bucket)
+            return unit.dense(from_wire(got, payload), 1)
         return receive
 
-    exchange = _exchange(spec, compressor,
-                         _resolve_bucket_gammas(gamma, spec, compressor),
-                         gossip_steps, compiled, (group.rank,), receiver)
+    exchange = _choco(spec, schedules, compressor, gamma, gossip_steps,
+                      (group.rank,), lambda rnd: rnd.peers(group.rank),
+                      receiver, packed, pipelined, True)
     exchange.probe = probe
-    exchange.payload_bytes = bucket_wire_nbytes(spec, compressor)
+    exchange.payload_bytes = (bucket_wire_nbytes(spec, compressor) if packed
+                              else leaf_wire_nbytes(spec, compressor))
     exchange.sends = _sends(schedules, gossip_steps, group.rank)
     return exchange
 

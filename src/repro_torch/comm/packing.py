@@ -27,7 +27,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.compression import (BlockTopK, Identity,
+from repro_torch.core.compression import (BlockTopK, DensePayload, Identity,
                                           PackedQuantPayload,
                                           PackedSparsePayload, QSGD, RandK,
                                           RandomizedGossip, SignNorm, TopK,
@@ -37,6 +37,10 @@ from repro_torch.kernels import ops
 LANES = 128
 #: default cap on bucket size (the JAX package's MAX_BUCKET_ELEMS)
 MAX_BUCKET_ELEMS = 1 << 22
+#: the per-leaf engine compresses a leaf above this many elements per node
+#: as zero-padded rows of this width, each its own vector (the JAX
+#: package's ``BLOCK_COMPRESS_SIZE``, ``src/repro/comm/gossip.py:80``)
+BLOCK_COMPRESS_SIZE = 1 << 22
 _MASK64 = (1 << 64) - 1
 
 #: leaf names the JAX sharding rules split over the model axis
@@ -321,6 +325,105 @@ def compress_bufs(compressor, spec: BucketSpec, buckets: Sequence[Bucket],
             bucket_rand(compressor, bucket, slots, buf, seed, draws, nodes)))
     q_bufs = [bucket_dense(p, b) for p, b in zip(payloads, buckets)]
     return payloads, q_bufs
+
+
+# ---------------------------------------------------------------------------
+# per-leaf compression (the per-leaf engine)
+# ---------------------------------------------------------------------------
+
+def leaf_rows(size: int) -> Tuple[int, int]:
+    """(R, C): a leaf of ``size`` elements per node is compressed as R
+    rows of C, each its own vector: one row of ``size`` up to
+    BLOCK_COMPRESS_SIZE, else ceil(size / C) zero-padded rows of C =
+    BLOCK_COMPRESS_SIZE (JAX ``_compress_leaf``)."""
+    if size <= BLOCK_COMPRESS_SIZE:
+        return 1, size
+    return -(-size // BLOCK_COMPRESS_SIZE), BLOCK_COMPRESS_SIZE
+
+
+def leaf_draw(compressor, rows: torch.Tensor, per_node: int, seed: int,
+              nodes: Optional[Sequence[int]] = None):
+    """The random draw of one leaf's compression rows ``(m, L)`` on their
+    device: ``per_node`` consecutive rows per node, node ``nodes[j]`` (by
+    default j) drawing its rows in order from a generator seeded with
+    ``fold_seed(seed, node)``, so that a node's draw is the same stacked
+    with the others or alone.
+
+    * QSGD: the dither xi, ``(m, L)`` f32;
+    * RandK: per row the first k of a uniform permutation of range(L),
+      ``(m, k)`` int64;
+    * RandomizedGossip: one keep bit per row, ``(m,)`` bool."""
+    m, L = rows.shape
+    nodes = range(m // per_node) if nodes is None else nodes
+    gens = [torch.Generator(device=rows.device).manual_seed(fold_seed(seed, i))
+            for i in nodes]
+    parts = []
+    for gen in gens:
+        if isinstance(compressor, QSGD):
+            parts.append(torch.empty((per_node, L), dtype=torch.float32,
+                                     device=rows.device).uniform_(
+                                         generator=gen))
+        elif isinstance(compressor, RandK):
+            k = _resolve_k(L, compressor.k, compressor.fraction)
+            parts.extend(torch.randperm(L, generator=gen,
+                                        device=rows.device)[:k][None]
+                         for _ in range(per_node))
+        elif isinstance(compressor, RandomizedGossip):
+            parts.append(torch.rand((per_node,), generator=gen,
+                                    device=rows.device) < compressor.p)
+        else:
+            raise ValueError(f"compressor {compressor.name!r} draws nothing")
+    return torch.cat(parts)
+
+
+def compress_rows(compressor, rows: torch.Tensor, rand=None):
+    """Compress each row of ``rows`` (m, L), an independent vector of L
+    elements, with the operator's unpacked form, as the JAX per-leaf
+    engine compresses a leaf (or each block row of a large one): ``rand``
+    is the draw of a stochastic operator (:func:`leaf_draw`'s, or an
+    injected one reshaped to the rows)."""
+    if isinstance(compressor, Identity):
+        return DensePayload(rows)
+    if isinstance(compressor, (TopK, BlockTopK, SignNorm)):
+        return compressor.compress(rows)
+    if rand is None:
+        raise ValueError(f"{compressor.name} is stochastic: it needs its draw")
+    m = rows.shape[0]
+    if isinstance(compressor, QSGD):
+        return compressor.compress(rows, rand.reshape(rows.shape))
+    if isinstance(compressor, RandK):
+        return compressor.compress(rows, rand.reshape(m, -1))
+    if isinstance(compressor, RandomizedGossip):
+        return compressor.compress(rows, rand.reshape(m))
+    raise ValueError(f"compressor {compressor.name!r} is not ported")
+
+
+def leaf_wire_nbytes(spec: BucketSpec, compressor) -> List[int]:
+    """Bytes of one node's payload on the wire per leaf, in leaf order,
+    from the spec alone: what :func:`to_wire` makes of the per-leaf
+    engine's payload of each leaf (a leaf in an exact bucket ships its
+    delta uncompressed; R rows of C for a leaf above
+    BLOCK_COMPRESS_SIZE; sparse values in the state's dtype, indices
+    int32, one f32 scale per row)."""
+    out = []
+    for slot in spec.slots:
+        R, C = leaf_rows(slot.size)
+        item = slot.dtype.itemsize
+        exact = spec.buckets[slot.bucket].exact
+        if exact or isinstance(compressor, (Identity, RandomizedGossip)):
+            per_row = C * item
+        elif isinstance(compressor, BlockTopK):
+            per_row = -(-C // compressor.block) * compressor._kb() * (item + 4)
+        elif isinstance(compressor, (TopK, RandK)):
+            per_row = _resolve_k(C, compressor.k, compressor.fraction) * (item + 4)
+        elif isinstance(compressor, QSGD):
+            per_row = C * code_dtype(compressor.s).itemsize + 4
+        elif isinstance(compressor, SignNorm):
+            per_row = C + 4
+        else:
+            raise ValueError(f"compressor {compressor.name!r} is not ported")
+        out.append(R * per_row)
+    return out
 
 
 # ---------------------------------------------------------------------------

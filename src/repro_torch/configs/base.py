@@ -8,11 +8,11 @@ MoE / SSM / hybrid / frontend sub-configs, the other architectures,
 sliding windows, local / global layer patterns and ``remat`` are not
 ported.  ``INPUT_SHAPES`` keeps the one JAX input shape the port serves,
 ``prefill_32k``.  ``ChocoConfig``
-keeps the settings of the static packed engine (its choco, plain and
-all-reduce modes), the EF-state dtype (f32 or bf16) and the data skew,
-with the JAX package's defaults: the stochastic processes, staleness,
-pipelining, push-sum, the per-leaf engine and the kernel-backend switch
-are not ported.
+keeps the settings of the static engines (the packed and the per-leaf
+engine, serial or pipelined; the choco, plain and all-reduce modes), the
+EF-state dtype (f32 or bf16) and the data skew, with the JAX package's
+defaults: the stochastic processes, staleness, push-sum and the
+kernel-backend switch are not ported.
 """
 from __future__ import annotations
 
@@ -83,7 +83,7 @@ def parse_topology(spec: str) -> Tuple[str, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class ChocoConfig:
-    """Settings of the static packed CHOCO path."""
+    """Settings of the static CHOCO engines."""
     compressor: str = "top_k"       # compression.make_compressor name
     comp_kwargs: tuple = (("fraction", 0.01),)
     # a symmetric registry name (ring, torus, fully_connected, chain, star,
@@ -94,6 +94,13 @@ class ChocoConfig:
     # leaves of at most 8192 elements gossip uncompressed, in exact
     # buckets (off for paper-faithful runs)
     exact_small_leaves: bool = False
+    # True: the bucketed engine (one payload per bucket); False: the
+    # per-leaf engine (one payload per leaf, JAX's reference engine)
+    packed_gossip: bool = True
+    # the pipelined engine: the exchange runs on the pre-gradient iterate
+    # and its payload lands in the next step's update (choco, one static
+    # graph); on the card the exchange runs on a side CUDA stream
+    pipeline_gossip: bool = False
     # dtype of the error-feedback states x_hat and s, one of STATE_DTYPES
     # (bf16 halves their memory and the sparse and dense payloads; x stays
     # f32)

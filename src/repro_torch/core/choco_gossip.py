@@ -16,8 +16,10 @@ The mixing products ``W @ X`` are ``torch.matmul`` (the JAX package
 leaves them to XLA, outside any Pallas kernel); the compression runs the
 port's kernels on the card (``Compressor.apply``).  A stochastic
 compressor's draw per round comes from ``draws(t)`` when the caller
-injects it, else from an explicit ``torch.Generator``.  Not ported: the
-stale, pipelined and push-sum simulators (they come with their engines).
+injects it, else from an explicit ``torch.Generator``.  The pipelined
+recursion (the matrix twin of the pipelined engine, ``comm/pipelined.py``)
+is here too.  Not ported: the stale and push-sum simulators (they come
+with their engines).
 """
 from __future__ import annotations
 
@@ -171,4 +173,46 @@ def run_choco_gossip_efficient(x0: torch.Tensor, W, gamma: float,
     W = mixing(W, x0)
     return _run(lambda st, r: choco_gossip_round_efficient(
         st, W, gamma, compressor, r), init_efficient_state(x0), x0, steps,
+        compressor, generator, draws)
+
+
+# ---------------------------------------------------------------------------
+# Pipelined CHOCO-Gossip: the x-update reads the carry, the round-(t-1)
+# pair, so this round's payload lands one round late (the pipelined
+# engine's recursion; JAX ``choco_pipelined_round``).
+# ---------------------------------------------------------------------------
+
+class PipelinedGossipState(NamedTuple):
+    x: torch.Tensor        # (n, d) local iterates
+    x_hat: torch.Tensor    # (n, d) public copies through round t-1
+    s: torch.Tensor        # (n, d) W-weighted aggregate through round t-1
+
+
+def init_pipelined_state(x0: torch.Tensor) -> PipelinedGossipState:
+    """Pipelined-recursion state at t=0 (zero EF state, like Algorithm 5)."""
+    return PipelinedGossipState(x=x0, x_hat=torch.zeros_like(x0),
+                                s=torch.zeros_like(x0))
+
+
+def choco_pipelined_round(state: PipelinedGossipState, W: torch.Tensor,
+                          gamma: float, compressor: Compressor,
+                          rand=None) -> PipelinedGossipState:
+    """One pipelined round: q = Q(x - x_hat) before the update,
+    x' = x + gamma (s - x_hat) from the carry, x_hat' = x_hat + q,
+    s' = s + W q (this round's payload lands at t + 1)."""
+    q = compressor.apply(state.x - state.x_hat, rand)
+    x = state.x + gamma * (state.s - state.x_hat)
+    return PipelinedGossipState(x=x, x_hat=state.x_hat + q,
+                                s=state.s + W @ q)
+
+
+def run_choco_pipelined_gossip(x0: torch.Tensor, W, gamma: float,
+                               compressor: Compressor, steps: int, *,
+                               generator: Optional[torch.Generator] = None,
+                               draws: Optional[Callable[[int], object]] = None):
+    """Run ``steps`` pipelined rounds from x0 (n, d); returns (final
+    state, per-round consensus errors (steps,))."""
+    W = mixing(W, x0)
+    return _run(lambda st, r: choco_pipelined_round(
+        st, W, gamma, compressor, r), init_pipelined_state(x0), x0, steps,
         compressor, generator, draws)

@@ -18,6 +18,12 @@ sampled positions and ``RandomizedGossip.compress`` the per-node keep
 bits (``comm/packing.py`` draws them, or a test hands in the JAX
 package's).
 
+``QSGD.compress`` and ``SignNorm.compress`` are the per-leaf engine's
+unpacked forms: rows of an ``(m, L)`` matrix, each an independent vector
+(a node's leaf, or one block row of a large leaf), compressed into a
+:class:`QuantPayload` with one scale per row and the JAX package's
+per-vector arithmetic (``ops.qsgd_leaf_compress``).
+
 ``apply(X, rand)`` is the matrix simulators' view (the JAX package's
 ``_rowwise_compress``): Q applied to each row of an ``(n, d)`` matrix,
 dense.  A stochastic operator takes its draw for the whole matrix as
@@ -102,6 +108,22 @@ class PackedSparsePayload:
     def wire_bits(self) -> int:
         R, k = self.values.shape[-2:]
         return int(R) * int(k) * (self.values.element_size() * 8 + 32)
+
+
+@dataclasses.dataclass
+class QuantPayload:
+    """Per-coordinate integer codes + one f32 scale per row (the qsgd and
+    sign wire format of one vector per row, JAX ``QuantPayload``)."""
+    codes: torch.Tensor        # (m, L) int8 / int16
+    scale: torch.Tensor        # (m,) f32
+    bits_per_coord: int
+
+    def dense(self) -> torch.Tensor:
+        """codes * scale in f32, through the dequantize kernel on the card."""
+        return dispatch.dequantize(self.codes, self.scale)
+
+    def wire_bits(self) -> int:
+        return int(self.codes.shape[-1]) * self.bits_per_coord + 32
 
 
 @dataclasses.dataclass
@@ -327,6 +349,17 @@ class QSGD(Compressor):
         return torch.rand(X.shape, generator=generator,
                           device=generator.device)
 
+    def compress(self, x, xi):
+        """x: (m, L) f32 or bf16 rows, each one vector; xi: (m, L) f32 ->
+        QuantPayload with the JAX operator's per-vector arithmetic
+        (``ops.qsgd_leaf_compress``): tau from L, codes through the
+        per-leaf codes kernel on the card."""
+        from repro_torch.kernels import ops
+        L = x.shape[-1]
+        codes, scale = ops.qsgd_leaf_compress(
+            x, xi.to(x.device), self.s, self._tau(L) if self.rescale else 1.0)
+        return QuantPayload(codes, scale, code_bits(self.s))
+
     def _apply(self, X, rand):
         from repro_torch.kernels import ops
         d = X.shape[-1]
@@ -346,6 +379,15 @@ class SignNorm(Compressor):
     """Scaled sign: Q(x) = ||x||_1 / d * sign(x).  Biased; omega >= 1/d."""
     name = "sign"
     stochastic = False
+
+    @staticmethod
+    def compress(x):
+        """x: (m, L) f32 or bf16 rows, each one vector -> QuantPayload of
+        int8 sign codes and the scale ||x_r||_1 / L per row
+        (``ops.sign_leaf_compress``)."""
+        from repro_torch.kernels import ops
+        codes, scale = ops.sign_leaf_compress(x)
+        return QuantPayload(codes, scale, 1)
 
     def _apply(self, X, rand):
         from repro_torch.kernels import ops

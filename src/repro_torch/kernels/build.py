@@ -7,8 +7,10 @@ at first use, into ``_build/`` beside this file (listed in
 flags, so a changed source rebuilds and two processes building at once
 never load a half-written file.
 
-* ``gossip`` (``csrc/gossip_kernels.cu``): the five gossip kernels, built
-  with ``--fmad=false``: the QSGD codes must be bit-equal to their plain
+* ``gossip`` (``csrc/gossip_kernels.cu``): the gossip kernels (codes in
+  the packed and the per-leaf form, dequantize, the EF update on f32 and
+  on bf16 state, each in serial and pipelined order), built with
+  ``--fmad=false``: the QSGD codes must be bit-equal to their plain
   versions, and an FMA contraction moves a code by a whole level.
 * ``flash`` (``csrc/flash_attention.cu``): the f32 flash-attention
   forward on the CUDA cores, held to a tolerance, so FMA contraction
@@ -61,12 +63,15 @@ LIBRARIES = {
         CSRC / "gossip_kernels.cu", _COMMON_FLAGS + ("--fmad=false",), {
             "qsgd_codes_i8": (_P, _P, _P, _F, _P, _I64, _I64, _P),
             "qsgd_codes_i16": (_P, _P, _P, _F, _P, _I64, _I64, _P),
-            "sign_codes": (_P, _P, _I64, _P),
+            "qsgd_leaf_codes": (_P, _INT, _P, _P, _F, _P, _INT, _I64, _I64,
+                                _P),
+            "sign_codes": (_P, _INT, _P, _I64, _P),
             "dequantize_i8": (_P, _P, _P, _I64, _I64, _P),
             "dequantize_i16": (_P, _P, _P, _I64, _I64, _P),
-            "ef_update": (_P, _P, _P, _P, _P, _P, _P, _F, _I64, _I64, _P),
-            "ef_update_bf16": (_P, _P, _P, _P, _P, _P, _P, _F, _INT, _I64,
-                               _I64, _P),
+            "ef_update": (_P, _P, _P, _P, _P, _P, _P, _F, _INT, _I64, _I64,
+                          _I64, _I64, _P),
+            "ef_update_bf16": (_P, _P, _P, _P, _P, _INT, _P, _P, _F, _INT,
+                               _INT, _I64, _I64, _I64, _I64, _P),
         }),
     "flash": Library(
         CSRC / "flash_attention.cu", _COMMON_FLAGS, {
@@ -162,6 +167,28 @@ def stream_of(t) -> int:
     lookups on its ``[kernel] probe_scale host path`` line)."""
     import torch
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def require_rows(t, name: str, dtype, shape) -> int:
+    """Check that a kernel argument is a 2-D CUDA tensor of the expected
+    dtype and shape whose rows are each contiguous (a slot of a bucket,
+    ``buf[:, off:off + len]``, or a whole buffer); returns its row stride
+    in elements."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    rows, cols = shape
+    ld, step = t.stride()
+    if cols > 1 and step != 1:
+        raise ValueError(f"{name}: expected contiguous rows, got strides "
+                         f"{t.stride()}")
+    if rows > 1 and ld < cols:
+        raise ValueError(f"{name}: rows overlap (row stride {ld} < {cols})")
+    return ld if rows > 1 else cols
 
 
 def require(t, name: str, dtype, shape=None) -> None:

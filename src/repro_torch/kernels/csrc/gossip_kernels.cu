@@ -7,11 +7,15 @@
 //   dequantize_*   <- src/repro/kernels/qsgd.py:qsgd_dequantize     (_dequant_kernel)
 //   ef_update      <- src/repro/kernels/ef_update.py:ef_gossip_update (_ef_kernel)
 //
-// and a fifth with no Pallas counterpart:
+// and kernels with no Pallas counterpart, for what the JAX package runs
+// as fused jnp:
 //
-//   ef_update_bf16 <- the leaf update the JAX package's packed engine runs
-//                     as fused jnp on bf16 EF state
-//                     (src/repro/comm/gossip.py:_choco_leaf_updates)
+//   ef_update_bf16  <- the leaf update on bf16 EF state
+//                      (src/repro/comm/gossip.py:_choco_leaf_updates)
+//   qsgd_leaf_codes <- the per-leaf engine's QSGD.compress
+//                      (src/repro/core/compression.py:336), f32 or bf16 input
+//   the EF updates in pipelined order <- _pipelined_leaf_updates
+//                      (src/repro/comm/pipelined.py:71)
 //
 // What bounds them: all five are elementwise, a handful of flops per
 // element against 5-36 bytes moved, so device-memory bandwidth bounds every
@@ -52,11 +56,33 @@
 // multiples of 128), each thread moves 4 elements per load: x as one
 // 16-byte word, each bf16 buffer as one 8-byte word.
 //
+// The two EF updates take row strides: ld_x for x, x_hat and s (a leaf of
+// the per-leaf engine is a slot of its bucket, buf[:, off:off + len], so its
+// rows lie a bucket apart) and ld_q for q_self and q_nbr, so a leaf is
+// updated in place without a copy in or out.  The packed engine passes
+// ld_x = ld_q = len.  A template flag selects the pipelined order, in which
+// x reads the pre-round (s, x_hat):  x' = x + gamma (s - x_hat), then
+// x_hat' and s' as above (f32: no FMA; bf16 state: fma(gamma, s - x_hat, x)
+// over the unrounded difference, as XLA compiles _pipelined_leaf_updates).
+// ef_update_bf16 also takes f32 payloads (q_f32): the per-leaf engine's
+// QSGD and sign payloads decode to f32, which JAX sums in f32 and adds to
+// x_hat rounded to bf16: x_hat' = bf16(x_hat + bf16(q_self)), the weighted
+// sum in f32, rounded once.
+//
+// qsgd_leaf_codes computes the per-leaf QSGD level
+// floor(s |x| / norm + xi), a true division by the row's norm (0 replaced
+// by 1), where the packed kernel multiplies by 1/norm: the two differ where
+// a value lands on a level boundary.  On bf16 input (bf16 EF state) it
+// rounds s |x| to bf16 and divides in f32, without rounding the quotient,
+// as XLA compiles the JAX text on the CPU (kernels/ref.py says how that was
+// found).
+//
 // C interface for ctypes: each entry launches on the caller's stream and
 // returns cudaGetLastError() (0 on success).  Nothing synchronises and
 // nothing allocates; the Python wrappers allocate the outputs.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -86,12 +112,44 @@ __global__ void qsgd_codes_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void sign_codes_kernel(const float* __restrict__ x,
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Per-leaf QSGD codes: sign(x) floor(s |x| / norm + xi), one row per leaf
+// (or per block row of a large leaf); norm has 0 replaced by 1.  TX is
+// float, or __nv_bfloat16 (s |x| rounded to bf16 first).
+template <typename TX, typename TC>
+__global__ void qsgd_leaf_codes_kernel(const TX* __restrict__ x,
+                                       const float* __restrict__ xi,
+                                       const float* __restrict__ norm, float s,
+                                       TC* __restrict__ out, int64_t len) {
+  constexpr bool kBf16 = sizeof(TX) == 2;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * len;
+  const float nrm = norm[blockIdx.y];
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < len; i += stride) {
+    const float v = to_f32(x[base + i]);
+    float m = __fmul_rn(s, fabsf(v));
+    if (kBf16) m = round_bf16(m);
+    const float level = floorf(__fadd_rn(__fdiv_rn(m, nrm), xi[base + i]));
+    out[base + i] = static_cast<TC>(static_cast<int>(__fmul_rn(sign_of(v), level)));
+  }
+}
+
+template <typename TX>
+__global__ void sign_codes_kernel(const TX* __restrict__ x,
                                   int8_t* __restrict__ out, int64_t total) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < total; i += stride) {
-    out[i] = static_cast<int8_t>(static_cast<int>(sign_of(x[i])));
+    out[i] = static_cast<int8_t>(static_cast<int>(sign_of(to_f32(x[i]))));
   }
 }
 
@@ -108,6 +166,7 @@ __global__ void dequantize_kernel(const T* __restrict__ codes,
   }
 }
 
+template <bool PIPELINED>
 __global__ void ef_update_kernel(float* __restrict__ x,
                                  float* __restrict__ x_hat,
                                  float* __restrict__ s,
@@ -115,41 +174,49 @@ __global__ void ef_update_kernel(float* __restrict__ x,
                                  const float* __restrict__ q_nbr,
                                  const float* __restrict__ w_self,
                                  const float* __restrict__ w_nbr, float gamma,
-                                 int64_t len) {
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * len;
-  const float ws = w_self[blockIdx.y];
-  const float wn = w_nbr[blockIdx.y];
+                                 int64_t len, int64_t ld_x, int64_t ld_q) {
+  const int64_t row = blockIdx.y;
+  x += row * ld_x;
+  x_hat += row * ld_x;
+  s += row * ld_x;
+  q_self += row * ld_q;
+  q_nbr += row * ld_q;
+  const float ws = w_self[row];
+  const float wn = w_nbr[row];
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = base + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < base + len; i += stride) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < len; i += stride) {
     const float qs = q_self[i];
-    const float xhat_n = __fadd_rn(x_hat[i], qs);
+    const float xhat_o = x_hat[i];
+    const float s_o = s[i];
+    const float xhat_n = __fadd_rn(xhat_o, qs);
     const float mix = __fadd_rn(__fmul_rn(ws, qs), __fmul_rn(wn, q_nbr[i]));
-    const float s_n = __fadd_rn(s[i], mix);
-    x[i] = __fadd_rn(x[i], __fmul_rn(gamma, __fsub_rn(s_n, xhat_n)));
+    const float s_n = __fadd_rn(s_o, mix);
+    const float d = PIPELINED ? __fsub_rn(s_o, xhat_o) : __fsub_rn(s_n, xhat_n);
+    x[i] = __fadd_rn(x[i], __fmul_rn(gamma, d));
     x_hat[i] = xhat_n;
     s[i] = s_n;
   }
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // One element of the bf16-state EF update; x, x_hat and s are updated in
-// place through the references.
+// place through the references.  TQ is the payloads' type: bf16, or f32
+// (the per-leaf engine's QSGD and sign payloads).
+template <bool PIPELINED, typename TQ>
 __device__ __forceinline__ void ef_bf16_one(float& x, __nv_bfloat16& x_hat,
-                                            __nv_bfloat16& s,
-                                            __nv_bfloat16 q_self,
-                                            __nv_bfloat16 q_nbr, float ws,
-                                            float wn, float gamma,
-                                            bool mix_in_bf16) {
-  const float qs = __bfloat162float(q_self);
-  const float xhat_n = round_bf16(__fadd_rn(__bfloat162float(x_hat), qs));
+                                            __nv_bfloat16& s, TQ q_self,
+                                            TQ q_nbr, float ws, float wn,
+                                            float gamma, bool mix_in_bf16) {
+  constexpr bool kF32Q = sizeof(TQ) == 4;
+  const float qs = to_f32(q_self);
+  const float xhat_o = __bfloat162float(x_hat);
   const float s_old = __bfloat162float(s);
-  const float nbr = __fmul_rn(wn, __bfloat162float(q_nbr));
+  const float xhat_n = round_bf16(__fadd_rn(xhat_o, kF32Q ? round_bf16(qs) : qs));
+  const float nbr = __fmul_rn(wn, to_f32(q_nbr));
   float s_n, s_x;
-  if (mix_in_bf16) {
+  if (kF32Q) {
+    s_n = s_x = round_bf16(__fadd_rn(s_old, round_bf16(__fadd_rn(__fmul_rn(ws, qs), nbr))));
+  } else if (mix_in_bf16) {
     const float mix = round_bf16(
         __fadd_rn(round_bf16(__fmul_rn(ws, qs)), round_bf16(nbr)));
     s_n = s_x = round_bf16(__fadd_rn(s_old, mix));
@@ -158,51 +225,58 @@ __device__ __forceinline__ void ef_bf16_one(float& x, __nv_bfloat16& x_hat,
     s_n = round_bf16(__fadd_rn(s_old, mix));
     s_x = round_bf16(__fadd_rn(s_old, round_bf16(__fmaf_rn(ws, qs, nbr))));
   }
-  x = __fmaf_rn(gamma, __fsub_rn(s_x, xhat_n), x);
+  const float d = PIPELINED ? __fsub_rn(s_old, xhat_o) : __fsub_rn(s_x, xhat_n);
+  x = __fmaf_rn(gamma, d, x);
   x_hat = __float2bfloat16_rn(xhat_n);
   s = __float2bfloat16_rn(s_n);
 }
 
 // VEC consecutive elements per thread and iteration: 4 when the row length
-// is a multiple of 4 and the buffers are aligned for it (x read as float4,
-// the bf16 buffers as 8-byte words), else 1.
-template <int VEC>
+// and both strides are multiples of 4 and the buffers are aligned for it (x
+// read as float4, the bf16 buffers as 8-byte words), else 1.
+template <int VEC, bool PIPELINED, typename TQ>
 __global__ void ef_update_bf16_kernel(float* __restrict__ x,
                                       __nv_bfloat16* __restrict__ x_hat,
                                       __nv_bfloat16* __restrict__ s,
-                                      const __nv_bfloat16* __restrict__ q_self,
-                                      const __nv_bfloat16* __restrict__ q_nbr,
+                                      const TQ* __restrict__ q_self,
+                                      const TQ* __restrict__ q_nbr,
                                       const float* __restrict__ w_self,
                                       const float* __restrict__ w_nbr,
                                       float gamma, int mix_in_bf16,
-                                      int64_t len) {
+                                      int64_t len, int64_t ld_x, int64_t ld_q) {
   struct alignas(2 * VEC) Bf { __nv_bfloat16 v[VEC]; };
   struct alignas(4 * VEC) Fl { float v[VEC]; };
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * (len / VEC);
-  const float ws = w_self[blockIdx.y];
-  const float wn = w_nbr[blockIdx.y];
+  struct alignas(sizeof(TQ) * VEC) Qv { TQ v[VEC]; };
+  const int64_t row = blockIdx.y;
+  const float ws = w_self[row];
+  const float wn = w_nbr[row];
   const bool in_bf16 = mix_in_bf16 != 0;
-  Fl* xv = reinterpret_cast<Fl*>(x);
-  Bf* hv = reinterpret_cast<Bf*>(x_hat);
-  Bf* sv = reinterpret_cast<Bf*>(s);
-  const Bf* qv = reinterpret_cast<const Bf*>(q_self);
-  const Bf* nv = reinterpret_cast<const Bf*>(q_nbr);
+  Fl* xv = reinterpret_cast<Fl*>(x + row * ld_x);
+  Bf* hv = reinterpret_cast<Bf*>(x_hat + row * ld_x);
+  Bf* sv = reinterpret_cast<Bf*>(s + row * ld_x);
+  const Qv* qv = reinterpret_cast<const Qv*>(q_self + row * ld_q);
+  const Qv* nv = reinterpret_cast<const Qv*>(q_nbr + row * ld_q);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = base + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < base + len / VEC; i += stride) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < len / VEC; i += stride) {
     Fl xs = xv[i];
     Bf hs = hv[i], ss = sv[i];
-    const Bf qs = qv[i], ns = nv[i];
+    const Qv qs = qv[i], ns = nv[i];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      ef_bf16_one(xs.v[j], hs.v[j], ss.v[j], qs.v[j], ns.v[j], ws, wn, gamma,
-                  in_bf16);
+      ef_bf16_one<PIPELINED, TQ>(xs.v[j], hs.v[j], ss.v[j], qs.v[j], ns.v[j],
+                                 ws, wn, gamma, in_bf16);
     }
     xv[i] = xs;
     hv[i] = hs;
     sv[i] = ss;
   }
 }
+
+template <typename T>
+struct TypeTag {
+  using type = T;
+};
 
 unsigned int blocks_for(int64_t work) {
   int64_t b = (work + kThreads - 1) / kThreads;
@@ -216,6 +290,43 @@ int launch_qsgd(const float* x, const float* xi, const float* inv_norm, float s,
   const dim3 grid(blocks_for(len), static_cast<unsigned int>(n));
   qsgd_codes_kernel<T><<<grid, kThreads, 0, stream>>>(x, xi, inv_norm, s, out, len);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TX, typename TC>
+int launch_leaf_codes(const void* x, const float* xi, const float* norm,
+                      float s, void* out, int64_t n, int64_t len,
+                      cudaStream_t stream) {
+  const dim3 grid(blocks_for(len), static_cast<unsigned int>(n));
+  qsgd_leaf_codes_kernel<TX, TC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TX*>(x), xi, norm, s, static_cast<TC*>(out), len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <bool PIPELINED, typename TQ>
+void launch_ef_bf16(float* x, __nv_bfloat16* x_hat, __nv_bfloat16* s,
+                    const void* q_self, const void* q_nbr, const float* w_self,
+                    const float* w_nbr, float gamma, int mix_in_bf16,
+                    int64_t n, int64_t len, int64_t ld_x, int64_t ld_q,
+                    cudaStream_t stream) {
+  const TQ* qs = static_cast<const TQ*>(q_self);
+  const TQ* qn = static_cast<const TQ*>(q_nbr);
+  if (len % 4 == 0 && ld_x % 4 == 0 && ld_q % 4 == 0 && aligned(x, 16) &&
+      aligned(x_hat, 8) && aligned(s, 8) && aligned(qs, 4 * sizeof(TQ)) &&
+      aligned(qn, 4 * sizeof(TQ))) {
+    const dim3 grid(blocks_for(len / 4), static_cast<unsigned int>(n));
+    ef_update_bf16_kernel<4, PIPELINED, TQ><<<grid, kThreads, 0, stream>>>(
+        x, x_hat, s, qs, qn, w_self, w_nbr, gamma, mix_in_bf16, len, ld_x,
+        ld_q);
+  } else {
+    const dim3 grid(blocks_for(len), static_cast<unsigned int>(n));
+    ef_update_bf16_kernel<1, PIPELINED, TQ><<<grid, kThreads, 0, stream>>>(
+        x, x_hat, s, qs, qn, w_self, w_nbr, gamma, mix_in_bf16, len, ld_x,
+        ld_q);
+  }
 }
 
 template <typename T>
@@ -242,8 +353,30 @@ int qsgd_codes_i16(const float* x, const float* xi, const float* inv_norm,
   return launch_qsgd<int16_t>(x, xi, inv_norm, s, out, n, len, stream);
 }
 
-int sign_codes(const float* x, int8_t* out, int64_t total, cudaStream_t stream) {
-  sign_codes_kernel<<<blocks_for(total), kThreads, 0, stream>>>(x, out, total);
+int qsgd_leaf_codes(const void* x, int x_bf16, const float* xi,
+                    const float* norm, float s, void* out, int out_i16,
+                    int64_t n, int64_t len, cudaStream_t stream) {
+  if (x_bf16) {
+    return out_i16 ? launch_leaf_codes<__nv_bfloat16, int16_t>(
+                         x, xi, norm, s, out, n, len, stream)
+                   : launch_leaf_codes<__nv_bfloat16, int8_t>(
+                         x, xi, norm, s, out, n, len, stream);
+  }
+  return out_i16 ? launch_leaf_codes<float, int16_t>(x, xi, norm, s, out, n,
+                                                      len, stream)
+                 : launch_leaf_codes<float, int8_t>(x, xi, norm, s, out, n,
+                                                     len, stream);
+}
+
+int sign_codes(const void* x, int x_bf16, int8_t* out, int64_t total,
+               cudaStream_t stream) {
+  if (x_bf16) {
+    sign_codes_kernel<__nv_bfloat16><<<blocks_for(total), kThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), out, total);
+  } else {
+    sign_codes_kernel<float><<<blocks_for(total), kThreads, 0, stream>>>(
+        static_cast<const float*>(x), out, total);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -259,30 +392,35 @@ int dequantize_i16(const int16_t* codes, const float* scale, float* out,
 
 int ef_update(float* x, float* x_hat, float* s, const float* q_self,
               const float* q_nbr, const float* w_self, const float* w_nbr,
-              float gamma, int64_t n, int64_t len, cudaStream_t stream) {
+              float gamma, int pipelined, int64_t n, int64_t len,
+              int64_t ld_x, int64_t ld_q, cudaStream_t stream) {
   const dim3 grid(blocks_for(len), static_cast<unsigned int>(n));
-  ef_update_kernel<<<grid, kThreads, 0, stream>>>(
-      x, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, len);
+  if (pipelined) {
+    ef_update_kernel<true><<<grid, kThreads, 0, stream>>>(
+        x, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, len, ld_x, ld_q);
+  } else {
+    ef_update_kernel<false><<<grid, kThreads, 0, stream>>>(
+        x, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, len, ld_x, ld_q);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 int ef_update_bf16(float* x, __nv_bfloat16* x_hat, __nv_bfloat16* s,
-                   const __nv_bfloat16* q_self, const __nv_bfloat16* q_nbr,
+                   const void* q_self, const void* q_nbr, int q_f32,
                    const float* w_self, const float* w_nbr, float gamma,
-                   int mix_in_bf16, int64_t n, int64_t len,
-                   cudaStream_t stream) {
-  const auto aligned = [](const void* p, uintptr_t bytes) {
-    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+                   int mix_in_bf16, int pipelined, int64_t n, int64_t len,
+                   int64_t ld_x, int64_t ld_q, cudaStream_t stream) {
+  const auto run = [&](auto pipe, auto q) {
+    launch_ef_bf16<decltype(pipe)::value, typename decltype(q)::type>(
+        x, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, mix_in_bf16, n, len,
+        ld_x, ld_q, stream);
   };
-  if (len % 4 == 0 && aligned(x, 16) && aligned(x_hat, 8) && aligned(s, 8) &&
-      aligned(q_self, 8) && aligned(q_nbr, 8)) {
-    const dim3 grid(blocks_for(len / 4), static_cast<unsigned int>(n));
-    ef_update_bf16_kernel<4><<<grid, kThreads, 0, stream>>>(
-        x, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, mix_in_bf16, len);
+  using Bq = TypeTag<__nv_bfloat16>;
+  using Fq = TypeTag<float>;
+  if (pipelined) {
+    q_f32 ? run(std::true_type{}, Fq{}) : run(std::true_type{}, Bq{});
   } else {
-    const dim3 grid(blocks_for(len), static_cast<unsigned int>(n));
-    ef_update_bf16_kernel<1><<<grid, kThreads, 0, stream>>>(
-        x, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma, mix_in_bf16, len);
+    q_f32 ? run(std::false_type{}, Fq{}) : run(std::false_type{}, Bq{});
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
-"""Route each kernel call of the port to its kernel: the four stages of
-the packed gossip exchange (the EF update in an f32 and a bf16-state
-entry), the top-k selection mask, flash attention, and the
-collective-layer probe.
+"""Route each kernel call of the port to its kernel: the stages of the
+gossip exchanges (QSGD codes in the packed and the per-leaf form, sign
+codes, dequantize, and the EF update on f32 and on bf16 state, each in
+serial and in pipelined order), the top-k selection mask, flash
+attention, and the collective-layer probe.
 
 The route follows the tensor's device and nothing else:
 
@@ -11,7 +12,7 @@ The route follows the tensor's device and nothing else:
   version never runs on the card.
 
 Each kernel wrapper counts its own launches; :func:`launch_counts` reads
-the eight counts and :func:`reset_launch_counts` sets them to 0.
+the counts and :func:`reset_launch_counts` sets them to 0.
 
 :func:`probe_collectives` is the port's counterpart of the JAX package's
 toolchain probe (``src/repro/kernels/dispatch.py:77-157``): it asks the
@@ -35,10 +36,13 @@ from . import topk as _topk
 #: entry name -> kernel wrapper carrying the ``launches`` count
 KERNELS = {
     "qsgd_codes": _qsgd.qsgd_codes,
+    "qsgd_leaf_codes": _qsgd.qsgd_leaf_codes,
     "sign_codes": _qsgd.sign_codes,
     "dequantize": _qsgd.dequantize,
     "ef_update": _ef.ef_update,
+    "ef_update_pipelined": _ef.ef_update_pipelined,
     "ef_update_bf16": _ef.ef_update_bf16,
+    "ef_update_bf16_pipelined": _ef.ef_update_bf16_pipelined,
     "flash_attention": _flash.flash_attention,
     "block_topk_mask": _topk.block_topk_mask,
     "probe_scale": _probe.probe_scale,
@@ -61,8 +65,18 @@ def qsgd_codes(x, xi, inv_norm, s: int):
     return _qsgd.qsgd_codes(x, xi, inv_norm, s)
 
 
+def qsgd_leaf_codes(x, xi, norm, s: int):
+    """The per-leaf engine's QSGD wire codes, one row per leaf row
+    (``ref.qsgd_leaf_codes_ref``).  ``x``: (n, L) f32 or bf16 delta;
+    ``xi``: (n, L) f32; ``norm``: (n,) f32 row norms, a zero norm given
+    as 1."""
+    if _on_cpu(x):
+        return ref.qsgd_leaf_codes_ref(x, xi, norm, s)
+    return _qsgd.qsgd_leaf_codes(x, xi, norm, s)
+
+
 def sign_codes(x):
-    """SignNorm int8 wire codes for node-stacked bucket buffers."""
+    """SignNorm int8 wire codes of (n, L) f32 or bf16 rows."""
     if _on_cpu(x):
         return ref.sign_codes_ref(x)
     return _qsgd.sign_codes(x)
@@ -76,25 +90,32 @@ def dequantize(codes, scale):
 
 
 def ef_bucket_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma,
-                     mix_in_bf16: bool = False):
-    """Fused CHOCO EF integrate for one node-stacked bucket (recv half),
-    in place: ``x_half`` (f32) becomes x', ``x_hat`` and ``s`` their
-    updates.  ``w_self`` and ``w_nbr`` are (n,) f32 on the buffers'
+                     mix_in_bf16: bool = False, pipelined: bool = False):
+    """Fused CHOCO EF integrate for one node-stacked bucket, or one leaf's
+    slot of it (recv half), in place: ``x_half`` (f32) becomes x',
+    ``x_hat`` and ``s`` their updates.  Each row of the five tensors is
+    contiguous; x_half, x_hat and s share one row stride, the payloads
+    another.  ``w_self`` and ``w_nbr`` are (n,) f32 on the buffers'
     device, one weight per node row.  The EF state's dtype picks the
-    entry: f32, or bf16 (``x_hat``, ``s``, ``q_self``, ``q_nbr``), where
-    ``mix_in_bf16`` says whether the weighted sum runs in bf16
-    (``ref.ef_update_bf16_ref``).  Returns those three tensors."""
+    entry: f32, or bf16 (``x_hat``, ``s``; the payloads bf16, or f32 from
+    the per-leaf engine's QSGD and sign), where ``mix_in_bf16`` says
+    whether the weighted sum of bf16 payloads runs in bf16
+    (``ref.ef_update_bf16_ref``).  ``pipelined`` takes the pipelined
+    engine's order (x reads the pre-round s - x_hat).  Returns those
+    three tensors."""
     bf16 = x_hat.dtype == torch.bfloat16
     if not _on_cpu(x_half):
         if bf16:
-            return _ef.ef_update_bf16(x_half, x_hat, s, q_self, q_nbr, w_self,
-                                      w_nbr, gamma, mix_in_bf16)
-        return _ef.ef_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
-                             gamma)
+            fn = _ef.ef_update_bf16_pipelined if pipelined else _ef.ef_update_bf16
+            return fn(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma,
+                      mix_in_bf16)
+        fn = _ef.ef_update_pipelined if pipelined else _ef.ef_update
+        return fn(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma)
     new = (ref.ef_update_bf16_ref(x_half, x_hat, s, q_self, q_nbr, w_self,
-                                  w_nbr, gamma, mix_in_bf16) if bf16 else
+                                  w_nbr, gamma, mix_in_bf16, pipelined)
+           if bf16 else
            ref.ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
-                             gamma))
+                             gamma, pipelined))
     for old, n in zip((x_half, x_hat, s), new):
         old.copy_(n)
     return x_half, x_hat, s

@@ -1,7 +1,8 @@
-"""CUDA wrapper for the fused CHOCO error-feedback update kernel.
+"""CUDA wrappers for the fused CHOCO error-feedback update kernels.
 
-Replaces the Pallas kernel ``src/repro/kernels/ef_update.py:ef_gossip_update``
-(:52): five full-size reads and three writes in one pass,
+:func:`ef_update` replaces the Pallas kernel
+``src/repro/kernels/ef_update.py:ef_gossip_update`` (:52): five full-size
+reads and three writes in one pass,
 
     x_hat' = x_hat + q_self
     s'     = s + (w_self q_self + w_nbr q_nbr)
@@ -13,14 +14,25 @@ i's weights (the JAX engine gathers node i's scalar by its index inside
 ``shard_map``): a uniform schedule passes filled vectors, one rank of the
 per-rank engine a vector of length 1.  The outputs are written over
 ``x_half``, ``x_hat`` and ``s``, which saves three bucket-sized buffers
-at the exchange's peak.  The kernel is in ``csrc/gossip_kernels.cu``.
+at the exchange's peak.  The kernels are in ``csrc/gossip_kernels.cu``.
+
+Each row of the five buffers must be contiguous, and the rows may lie
+apart: ``x_half``, ``x_hat`` and ``s`` share one row stride and
+``q_self`` and ``q_nbr`` another, so the per-leaf engine updates a leaf,
+a slot ``buf[:, off:off + L]`` of its bucket, in place.
 
 :func:`ef_update_bf16` is the same update on bf16 EF state (x stays
-f32, x_hat, s, q_self and q_nbr are bf16), rounded to bf16 where the
-JAX package's packed engine rounds it (``ref.ef_update_bf16_ref`` says
-where).  It has no Pallas counterpart: JAX runs that update as fused jnp
+f32, x_hat and s are bf16; the payloads bf16, or f32 where the per-leaf
+engine decodes QSGD and sign payloads), rounded to bf16 where the JAX
+engines round it (``ref.ef_update_bf16_ref`` says where).  It has no
+Pallas counterpart: JAX runs that update as fused jnp
 (``src/repro/comm/gossip.py:_choco_leaf_updates``), and the port runs no
 plain version on the card.
+
+:func:`ef_update_pipelined` and :func:`ef_update_bf16_pipelined` are the
+pipelined engine's order (``src/repro/comm/pipelined.py:
+_pipelined_leaf_updates``, jnp in JAX): x reads the pre-round pair,
+``x' = x_half + gamma (s - x_hat)``, then x_hat' and s' as above.
 """
 from __future__ import annotations
 
@@ -29,71 +41,126 @@ import torch
 from . import build
 
 
-def _check(kernel, state_dtype, x_half, x_hat, s, q_self, q_nbr, w_self,
-           w_nbr):
-    """The arguments' checks both entries share: (n, L) contiguous CUDA
-    buffers, x_half f32 and the other four ``state_dtype``, no two the
-    same memory, and (n,) f32 weights on their device."""
+def _check(kernel, state_dtype, q_dtypes, x_half, x_hat, s, q_self, q_nbr,
+           w_self, w_nbr):
+    """The arguments' checks every entry shares: five (n, L) CUDA tensors
+    with contiguous rows, x_half f32, x_hat and s ``state_dtype``, the
+    payloads one dtype of ``q_dtypes``; x_half, x_hat and s one row
+    stride, q_self and q_nbr another; no two the same memory; (n,) f32
+    weights on their device.  Returns (q dtype, ld_x, ld_q)."""
     shape = x_half.shape
     if x_half.dim() != 2:
         raise ValueError(f"{kernel}: expected (n, L) buffers, got "
                          f"{tuple(shape)}")
-    ins = (("x_half", x_half), ("x_hat", x_hat), ("s", s),
-           ("q_self", q_self), ("q_nbr", q_nbr))
-    for name, t in ins:
-        build.require(t, name, torch.float32 if name == "x_half"
-                      else state_dtype, shape)
+    q_dtype = q_self.dtype
+    if q_dtype not in q_dtypes:
+        raise ValueError(f"{kernel}: payloads of {q_dtype}, expected one of "
+                         f"{', '.join(map(str, q_dtypes))}")
+    ptrs = [t.data_ptr() for t in (x_half, x_hat, s, q_self, q_nbr)]
+    if len(set(ptrs)) < len(ptrs):
+        raise ValueError(f"{kernel}: x_half, x_hat, s, q_self and q_nbr "
+                         f"must be five distinct buffers")
+    lds = {}
+    for name, t, dtype in (("x_half", x_half, torch.float32),
+                           ("x_hat", x_hat, state_dtype),
+                           ("s", s, state_dtype),
+                           ("q_self", q_self, q_dtype),
+                           ("q_nbr", q_nbr, q_dtype)):
+        lds[name] = build.require_rows(t, name, dtype, shape)
+    if not lds["x_half"] == lds["x_hat"] == lds["s"]:
+        raise ValueError(f"{kernel}: x_half, x_hat and s must share one row "
+                         f"stride, got {lds}")
+    if lds["q_self"] != lds["q_nbr"]:
+        raise ValueError(f"{kernel}: q_self and q_nbr must share one row "
+                         f"stride, got {lds}")
     for name, t in (("w_self", w_self), ("w_nbr", w_nbr)):
         build.require(t, name, torch.float32, shape[:1])
         if t.device != x_half.device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, the "
                              f"buffers on {x_half.device}")
-    if len({t.data_ptr() for _, t in ins}) < len(ins):
-        raise ValueError(f"{kernel}: x_half, x_hat, s, q_self and q_nbr "
-                         f"must be five distinct buffers")
+    return q_dtype, lds["x_half"], lds["q_self"]
+
+
+def _f32(kernel, pipelined, x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
+         gamma):
+    lib = build.load_library("gossip")
+    _, ld_x, ld_q = _check(kernel, torch.float32, (torch.float32,), x_half,
+                           x_hat, s, q_self, q_nbr, w_self, w_nbr)
+    n, L = x_half.shape
+    code = lib.ef_update(x_half.data_ptr(), x_hat.data_ptr(), s.data_ptr(),
+                         q_self.data_ptr(), q_nbr.data_ptr(), w_self.data_ptr(),
+                         w_nbr.data_ptr(), float(gamma), int(pipelined), n, L,
+                         ld_x, ld_q, build.stream_of(x_half))
+    build.check_launch(lib, code, kernel)
+    return x_half, x_hat, s
+
+
+def _bf16(kernel, pipelined, x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
+          gamma, mix_in_bf16):
+    lib = build.load_library("gossip")
+    q_dtype, ld_x, ld_q = _check(kernel, torch.bfloat16,
+                                 (torch.bfloat16, torch.float32), x_half,
+                                 x_hat, s, q_self, q_nbr, w_self, w_nbr)
+    n, L = x_half.shape
+    code = lib.ef_update_bf16(
+        x_half.data_ptr(), x_hat.data_ptr(), s.data_ptr(), q_self.data_ptr(),
+        q_nbr.data_ptr(), int(q_dtype == torch.float32), w_self.data_ptr(),
+        w_nbr.data_ptr(), float(gamma), int(bool(mix_in_bf16)),
+        int(pipelined), n, L, ld_x, ld_q, build.stream_of(x_half))
+    build.check_launch(lib, code, kernel)
+    return x_half, x_hat, s
 
 
 def ef_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
               gamma: float):
-    """Five ``(n, L)`` contiguous f32 CUDA tensors, no two of them the same
-    memory, two ``(n,)`` f32 weight vectors on the same device and the
-    scalar gamma; updates ``x_half`` (to x'), ``x_hat`` and ``s`` in place
-    and returns them."""
-    lib = build.load_library("gossip")
-    _check("ef_update", torch.float32, x_half, x_hat, s, q_self, q_nbr,
-           w_self, w_nbr)
-    n, L = x_half.shape
-    code = lib.ef_update(x_half.data_ptr(), x_hat.data_ptr(), s.data_ptr(),
-                         q_self.data_ptr(), q_nbr.data_ptr(), w_self.data_ptr(),
-                         w_nbr.data_ptr(), float(gamma), n, L,
-                         build.stream_of(x_half))
-    build.check_launch(lib, code, "ef_update")
+    """Five ``(n, L)`` f32 CUDA tensors with contiguous rows (x_half,
+    x_hat and s one row stride, q_self and q_nbr another), no two of
+    them the same memory, two ``(n,)`` f32 weight vectors on the same
+    device and the scalar gamma; updates ``x_half`` (to x'), ``x_hat``
+    and ``s`` in place and returns them."""
+    out = _f32("ef_update", False, x_half, x_hat, s, q_self, q_nbr, w_self,
+               w_nbr, gamma)
     ef_update.launches += 1
-    return x_half, x_hat, s
+    return out
 
 
-ef_update.launches = 0
+def ef_update_pipelined(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
+                        gamma: float):
+    """:func:`ef_update` in the pipelined order: x' reads the pre-round
+    ``s - x_hat``."""
+    out = _f32("ef_update_pipelined", True, x_half, x_hat, s, q_self, q_nbr,
+               w_self, w_nbr, gamma)
+    ef_update_pipelined.launches += 1
+    return out
 
 
 def ef_update_bf16(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
                    gamma: float, mix_in_bf16: bool):
-    """``x_half`` an ``(n, L)`` contiguous f32 CUDA tensor, ``x_hat``,
-    ``s``, ``q_self`` and ``q_nbr`` bf16 of its shape, no two of the five
-    the same memory, two ``(n,)`` f32 weight vectors on the same device,
-    the scalar gamma, and whether the weighted sum runs in bf16 (uniform,
-    bf16-valued weights) or in f32 (per-node self weights); updates
-    ``x_half`` (to x'), ``x_hat`` and ``s`` in place and returns them."""
-    lib = build.load_library("gossip")
-    _check("ef_update_bf16", torch.bfloat16, x_half, x_hat, s, q_self, q_nbr,
-           w_self, w_nbr)
-    n, L = x_half.shape
-    code = lib.ef_update_bf16(
-        x_half.data_ptr(), x_hat.data_ptr(), s.data_ptr(), q_self.data_ptr(),
-        q_nbr.data_ptr(), w_self.data_ptr(), w_nbr.data_ptr(), float(gamma),
-        int(bool(mix_in_bf16)), n, L, build.stream_of(x_half))
-    build.check_launch(lib, code, "ef_update_bf16")
+    """``x_half`` an ``(n, L)`` f32 CUDA tensor, ``x_hat`` and ``s`` bf16
+    of its shape and row stride, ``q_self`` and ``q_nbr`` bf16 or f32 of
+    its shape (one row stride of their own), no two of the five the same
+    memory, two ``(n,)`` f32 weight vectors on the same device, the scalar
+    gamma, and whether the weighted sum of bf16 payloads runs in bf16
+    (uniform, bf16-valued weights) or in f32 (per-node self weights);
+    updates ``x_half`` (to x'), ``x_hat`` and ``s`` in place and returns
+    them."""
+    out = _bf16("ef_update_bf16", False, x_half, x_hat, s, q_self, q_nbr,
+                w_self, w_nbr, gamma, mix_in_bf16)
     ef_update_bf16.launches += 1
-    return x_half, x_hat, s
+    return out
 
 
+def ef_update_bf16_pipelined(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
+                             gamma: float, mix_in_bf16: bool):
+    """:func:`ef_update_bf16` in the pipelined order: x' =
+    fma(gamma, s - x_hat, x_half) over the pre-round pair."""
+    out = _bf16("ef_update_bf16_pipelined", True, x_half, x_hat, s, q_self,
+                q_nbr, w_self, w_nbr, gamma, mix_in_bf16)
+    ef_update_bf16_pipelined.launches += 1
+    return out
+
+
+ef_update.launches = 0
+ef_update_pipelined.launches = 0
 ef_update_bf16.launches = 0
+ef_update_bf16_pipelined.launches = 0

@@ -52,6 +52,56 @@ def sign_compress(x, logical: int):
     return dispatch.sign_codes(x), scale
 
 
+# -- the per-leaf engine's forms --------------------------------------------
+#
+# JAX compresses each leaf with the operator's own ``compress``
+# (``src/repro/core/compression.py``), in the leaf's dtype.  XLA on the CPU
+# turns a division by a constant into a multiply by its f32 reciprocal, and
+# on bf16 vectors keeps the reductions' results and the quotients in f32
+# where the text rounds to bf16 and upcasts again; each rounding below was
+# found by holding candidate forms against the jitted operator on bf16 and
+# f32 vectors (``tests/test_torch_per_leaf.py`` holds them).
+
+def _bf16_round(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _recip(c: float, bf16: bool) -> float:
+    """1 / c as XLA folds ``v / c`` for a Python constant c: c in the
+    vector's dtype (f32, or bf16), its reciprocal in f32."""
+    c = torch.tensor(c, dtype=torch.float32)
+    if bf16:
+        c = _bf16_round(c)
+    return float(torch.tensor(1.0, dtype=torch.float32) / c)
+
+
+def qsgd_leaf_compress(x, xi, s: int, tau: float):
+    """x: (m, L) f32 or bf16 rows (one vector each), xi: (m, L) f32 ->
+    (codes (m, L) int8/int16, scale (m,) f32), per row as JAX
+    ``QSGD.compress``: the norm ||x_r|| (on bf16 rows the f32 sum of
+    squares rounded to bf16, its root rounded to bf16), the codes
+    ``sign(x) floor(s |x| / norm + xi)`` (a zero norm divides as 1;
+    ``dispatch.qsgd_leaf_codes``) and the scale ``norm * (1 / (s tau))``
+    (the constant s tau in the rows' dtype, its reciprocal in f32)."""
+    bf16 = x.dtype == torch.bfloat16
+    sq = _row_sums(lambda r: torch.square(r.to(torch.float32)), x)
+    norm = _bf16_round(torch.sqrt(_bf16_round(sq))) if bf16 else torch.sqrt(sq)
+    safe = torch.where(norm == 0, torch.ones_like(norm), norm)
+    codes = dispatch.qsgd_leaf_codes(x, xi, safe, s)
+    return codes, norm * _recip(s * tau, bf16)
+
+
+def sign_leaf_compress(x):
+    """x: (m, L) f32 or bf16 rows -> (int8 sign codes, scale (m,) f32 =
+    ||x_r||_1 * (1 / L)), per row as JAX ``SignNorm.compress`` (on bf16
+    rows the f32 sum rounded to bf16, L as a bf16 constant)."""
+    bf16 = x.dtype == torch.bfloat16
+    total = _row_sums(lambda r: torch.abs(r.to(torch.float32)), x)
+    if bf16:
+        total = _bf16_round(total)
+    return dispatch.sign_codes(x), total * _recip(float(x.shape[-1]), bf16)
+
+
 # -- top-k -----------------------------------------------------------------------
 
 def _topk_of_magnitudes(mag, k: int):

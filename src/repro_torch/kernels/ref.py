@@ -36,8 +36,28 @@ def qsgd_codes_ref(x, xi, inv_norm, s: int):
     return (torch.sign(x) * level).to(code_dtype(s))
 
 
+def qsgd_leaf_codes_ref(x, xi, norm, s: int):
+    """The per-leaf engine's QSGD wire codes
+    sign(x) * floor(s |x| / norm + xi), a true division (the packed form,
+    :func:`qsgd_codes_ref`, multiplies by 1/norm).
+
+    x: (n, L) f32 or bf16; xi: (n, L) f32; norm: (n,) f32, a zero norm
+    given as 1.  On bf16 x, s |x| is rounded to bf16 and the quotient is
+    not: what XLA compiles the JAX text ``floor(s * |x| / norm + xi)`` to
+    on the CPU for a bf16 x and an f32 xi (its default excess precision
+    keeps the bf16 division in f32 before the f32 add), found by holding
+    candidate roundings against ``QSGD.compress`` jitted on bf16 vectors
+    of many lengths and scales, s in {3, 16, 100, 255}: this one matched
+    every code.  Returns int8 codes for s <= 127, int16 above."""
+    m = x.to(torch.float32).abs() * float(s)
+    if x.dtype == torch.bfloat16:
+        m = m.to(torch.bfloat16).to(torch.float32)
+    level = torch.floor(m / norm[:, None] + xi)
+    return (torch.sign(x.to(torch.float32)) * level).to(code_dtype(s))
+
+
 def sign_codes_ref(x):
-    """SignNorm wire codes: int8 sign(x)."""
+    """SignNorm wire codes: int8 sign(x) (x f32 or bf16)."""
     return torch.sign(x).to(torch.int8)
 
 
@@ -68,7 +88,7 @@ def probe_scale_ref(x):
 
 
 def ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
-                  gamma: float):
+                  gamma: float, pipelined: bool = False):
     """CHOCO error-feedback update (Algorithm 6 lines 8-10), per node row:
 
         x_hat' = x_hat + q_self
@@ -76,10 +96,13 @@ def ef_update_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
         x'     = x_half + gamma * (s' - x_hat')
 
     Buffers (n, L) f32; ``w_self``, ``w_nbr``: (n,) f32, node i's weights.
-    The s' association is part of the contract.  Returns (x', x_hat', s')."""
+    The s' association is part of the contract.  ``pipelined``: the
+    pipelined engine's order (``_pipelined_leaf_updates``), in which x
+    reads the pre-round pair, ``x' = x_half + gamma * (s - x_hat)``.
+    Returns (x', x_hat', s')."""
     x_hat_n = x_hat + q_self
     s_n = s + (w_self[:, None] * q_self + w_nbr[:, None] * q_nbr)
-    x_n = x_half + gamma * (s_n - x_hat_n)
+    x_n = x_half + gamma * ((s - x_hat) if pipelined else (s_n - x_hat_n))
     return x_n, x_hat_n, s_n
 
 
@@ -110,7 +133,8 @@ def fma_f32(a, b, c):
 
 
 def ef_update_bf16_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
-                       gamma: float, mix_in_bf16: bool):
+                       gamma: float, mix_in_bf16: bool,
+                       pipelined: bool = False):
     """The CHOCO error-feedback update on bf16 EF state, per node row, with
     the rounding of the JAX package's packed engine on bf16 leaves
     (``_choco_leaf_updates`` as XLA compiles it on the CPU by default):
@@ -137,8 +161,24 @@ def ef_update_bf16_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
     with the weighted sum contracted into ``fma(w_self, q_self, w_nbr
     q_nbr)``, so s'' may differ from the s' it stores by one bf16 step;
     with uniform weights s'' is s'.  Each step is one f32 operation,
-    rounded to bf16 where shown.  Returns (x', x_hat', s')."""
+    rounded to bf16 where shown.
+
+    f32 payloads (``q_self`` and ``q_nbr`` f32: the per-leaf engine's
+    QSGD and sign payloads, which JAX decodes to f32) take the per-leaf
+    engine's rounding, as XLA compiles it (held bit for bit against the
+    JAX per-leaf engine, ``tests/test_torch_per_leaf.py``):
+
+        x_hat' = bf16(x_hat + bf16(q_self))
+        s'     = bf16(s + bf16(w_self q_self + w_nbr q_nbr))   in f32
+        x'     = fma(gamma, f32(s') - f32(x_hat'), x_half)
+
+    ``pipelined``: the pipelined order (``_pipelined_leaf_updates``), x'
+    = fma(gamma, f32(s) - f32(x_hat), x_half) over the pre-round pair;
+    x_hat' and s' as above.  Returns (x', x_hat', s')."""
     f32, bf16 = torch.float32, torch.bfloat16
+    if q_self.dtype == f32:
+        return _ef_update_bf16_f32q(x_half, x_hat, s, q_self, q_nbr, w_self,
+                                    w_nbr, gamma, pipelined)
     qs = q_self.to(f32)
     x_hat_n = (x_hat.to(f32) + qs).to(bf16)
     ws = w_self[:, None].expand_as(qs)
@@ -153,7 +193,23 @@ def ef_update_bf16_ref(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
     if not mix_in_bf16:
         mix_x = fma_f32(ws, qs, nbr).to(bf16).to(f32)
         s_x = (s.to(f32) + mix_x).to(bf16)
-    d = s_x.to(f32) - x_hat_n.to(f32)
+    d = ((s.to(f32) - x_hat.to(f32)) if pipelined
+         else (s_x.to(f32) - x_hat_n.to(f32)))
+    x_n = fma_f32(torch.full_like(d, gamma), d, x_half)
+    return x_n, x_hat_n, s_n
+
+
+def _ef_update_bf16_f32q(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
+                         gamma: float, pipelined: bool):
+    """:func:`ef_update_bf16_ref` on f32 payloads."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    x_hat_n = (x_hat.to(f32) + q_self.to(bf16).to(f32)).to(bf16)
+    own = w_self[:, None] * q_self
+    nbr = w_nbr[:, None] * q_nbr
+    mix = (own + nbr).to(bf16).to(f32)
+    s_n = (s.to(f32) + mix).to(bf16)
+    d = ((s.to(f32) - x_hat.to(f32)) if pipelined
+         else (s_n.to(f32) - x_hat_n.to(f32)))
     x_n = fma_f32(torch.full_like(d, gamma), d, x_half)
     return x_n, x_hat_n, s_n
 

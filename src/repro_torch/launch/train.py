@@ -15,6 +15,11 @@ gives the node count N; a model extent above 1 is refused.  Two engines:
 
 ``--optimizer sgd|momentum|adamw`` picks the local step and
 ``--data-skew-alpha`` Dirichlet(alpha) non-IID token shards.
+``--gossip-engine per-leaf`` runs the per-leaf gossip engine (one payload
+per leaf) instead of the packed one, and ``--pipeline-gossip`` the
+pipelined engine (the exchange on the pre-gradient iterate, on a side
+CUDA stream beside the backward pass on the stacked engine); both refuse
+what the JAX launcher refuses.
 
 Checkpoints are the JAX launcher's: ``--checkpoint-dir D
 --checkpoint-every K`` saves a sharded checkpoint (``checkpoint/``) to
@@ -53,6 +58,8 @@ COMPRESSOR_CHOICES = ("identity", "rand_k", "top_k", "block_top_k", "qsgd",
                       "sign")
 #: ``optim/sgd.py:make_optimizer``'s names, checked before torch is imported
 OPTIMIZER_CHOICES = ("sgd", "momentum", "adamw")
+#: the JAX launcher's gossip engines
+ENGINE_CHOICES = ("packed", "per-leaf")
 
 #: flags of the JAX launcher whose features the port does not have:
 #: given any value other than the default, the launcher refuses them
@@ -63,8 +70,6 @@ _REFUSED = {
     "max_staleness": (None, "bounded-staleness gossip"),
     "straggler_edges": (None, "straggler links"),
     "straggler_delay_probs": (None, "straggler links"),
-    "pipeline_gossip": (False, "the pipelined gossip engine"),
-    "gossip_engine": ("packed", "the per-leaf gossip engine"),
     "kernel_backend": (None, "a kernel-backend switch (the route follows "
                              "the tensor's device: --device)"),
     "metrics_dir": (None, "the telemetry sinks"),
@@ -156,6 +161,9 @@ def _validate(ap, args) -> int:
     if args.mode == "pushsum":
         ap.error("--mode pushsum is not ported; the port runs --mode choco, "
                  "plain or allreduce")
+    if args.gossip_engine not in ENGINE_CHOICES:
+        ap.error(f"--gossip-engine {args.gossip_engine!r}: choose from "
+                 f"{', '.join(ENGINE_CHOICES)}")
     if args.optimizer not in OPTIMIZER_CHOICES:
         ap.error(f"--optimizer {args.optimizer!r}: choose from "
                  f"{', '.join(OPTIMIZER_CHOICES)}")
@@ -173,6 +181,19 @@ def _validate(ap, args) -> int:
             ap.error(f"--topology {name!r}: choose from "
                      f"{', '.join(SYMMETRIC_TOPOLOGIES)}, or a comma-separated "
                      f"sequence of them")
+    if args.pipeline_gossip:
+        # the JAX launcher's rules (src/repro/launch/train.py:295-311); a
+        # topology process is refused above
+        if args.mode != "choco":
+            ap.error(f"--pipeline-gossip hides the COMPRESSED exchange "
+                     f"behind the backward pass via the error-feedback "
+                     f"carry; --mode {args.mode} has no (x_hat, s) state to "
+                     f"double-buffer; it requires --mode choco")
+        if len(names) > 1:
+            ap.error(f"--pipeline-gossip needs one static schedule: a "
+                     f"payload compressed under graph W_k but integrated a "
+                     f"step later under W_k+1 breaks the recursion (got "
+                     f"--topology {args.topology!r})")
     if args.gossip_steps < 1:
         ap.error("--gossip-steps must be >= 1")
     if args.gossip_steps % len(names):
@@ -338,6 +359,8 @@ def _train(args, n_nodes: int, group) -> int:
                           topology=args.topology,
                           gossip_steps=args.gossip_steps,
                           exact_small_leaves=args.exact_small_leaves,
+                          packed_gossip=args.gossip_engine == "packed",
+                          pipeline_gossip=args.pipeline_gossip,
                           state_dtype=args.state_dtype,
                           data_skew_alpha=args.data_skew_alpha),
         n_nodes=n_nodes, optimizer=make_optimizer(args.optimizer),
@@ -359,7 +382,10 @@ def _train(args, n_nodes: int, group) -> int:
         f"device={device} mode={args.mode} "
         f"optimizer={args.optimizer} "
         f"topology={args.topology} gossip_steps={args.gossip_steps} "
+        f"gossip_engine={args.gossip_engine}"
+        f"{' pipelined' if args.pipeline_gossip else ''} "
         f"compressor={compressor} buckets={trainer.spec.n_buckets} "
+        f"leaves={len(trainer.paths)} "
         f"exact_buckets={sum(b.exact for b in trainer.spec.buckets)} "
         f"gamma={trainer.gamma:.3e}{skew}", flush=True)
     if group is None:

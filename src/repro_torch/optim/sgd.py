@@ -36,9 +36,11 @@ class OptState(NamedTuple):
 class Optimizer:
     name: str
     init: Callable[[List[torch.Tensor]], OptState]
-    #: update(params, grads, state, lr) -> new state; ``params`` (and the
-    #: moments) are updated in place to the half-step, and each ``grads``
-    #: entry is used as scratch and released (set to None)
+    #: update(params, grads, state, lr, keep_params=False) -> new state;
+    #: ``params`` (and the moments) are updated in place to the half-step,
+    #: and each ``grads`` entry is used as scratch and released (set to
+    #: None); with ``keep_params`` the params stay and ``grads[i]`` is left
+    #: holding bucket i's half-step
     update: Callable[..., OptState]
 
 
@@ -48,16 +50,26 @@ def _decayed(d: torch.Tensor, p: torch.Tensor,
     return d.add_(p * weight_decay) if weight_decay else d
 
 
+def _step(p: torch.Tensor, u: torch.Tensor, keep_params: bool):
+    """``p - u``: in place on p (returns None), or with ``keep_params``
+    into u's buffer, which is returned."""
+    if keep_params:
+        return torch.sub(p, u, out=u)
+    p.sub_(u)
+    return None
+
+
 def sgd(weight_decay: float = 0.0) -> Optimizer:
     """Plain SGD:  x = x - lr (g + wd x)."""
     def init(params):
         return OptState(mu=None, nu=None, count=0)
 
     @torch.no_grad()
-    def update(params, grads, state, lr):
+    def update(params, grads, state, lr, keep_params=False):
         for i, p in enumerate(params):
             g, grads[i] = grads[i], None
-            p.sub_(_decayed(g, p, weight_decay).mul_(lr))
+            grads[i] = _step(p, _decayed(g, p, weight_decay).mul_(lr),
+                             keep_params)
         return state._replace(count=state.count + 1)
 
     return Optimizer("sgd", init, update)
@@ -72,7 +84,7 @@ def momentum_sgd(beta: float = 0.9, weight_decay: float = 0.0,
                         count=0)
 
     @torch.no_grad()
-    def update(params, grads, state, lr):
+    def update(params, grads, state, lr, keep_params=False):
         for i, (p, m) in enumerate(zip(params, state.mu)):
             g, grads[i] = grads[i], None
             m.mul_(beta).add_(g)
@@ -81,9 +93,10 @@ def momentum_sgd(beta: float = 0.9, weight_decay: float = 0.0,
             elif weight_decay:
                 g.copy_(m)                       # d = mu
             else:                                # lr mu in one pass
-                p.sub_(torch.mul(m, lr, out=g))
+                grads[i] = _step(p, torch.mul(m, lr, out=g), keep_params)
                 continue
-            p.sub_(_decayed(g, p, weight_decay).mul_(lr))
+            grads[i] = _step(p, _decayed(g, p, weight_decay).mul_(lr),
+                             keep_params)
         return state._replace(count=state.count + 1)
 
     return Optimizer("momentum", init, update)
@@ -109,7 +122,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                         nu=[torch.zeros_like(p) for p in params], count=0)
 
     @torch.no_grad()
-    def update(params, grads, state, lr):
+    def update(params, grads, state, lr, keep_params=False):
         count = state.count + 1
         f32 = lambda v: torch.tensor(v, dtype=torch.float32)
         c = f32(float(count))
@@ -121,6 +134,10 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             m.lerp_(g, 1 - b1)
             v.mul_(b2).addcmul_(g, g, value=1 - b2)
             den = torch.div(v, bc2, out=g).sqrt_().add_(eps)
+            if keep_params:
+                base = p * (1 - lr * weight_decay) if weight_decay else p
+                grads[i] = torch.addcdiv(base, m, den, value=-step, out=den)
+                continue
             if weight_decay:
                 p.mul_(1 - lr * weight_decay)
             p.addcdiv_(m, den, value=-step)

@@ -29,16 +29,48 @@ f32.  The exact modes never read x_hat and s: where the JAX state keeps
 them as zeros, this one leaves them unallocated (None), which saves two
 copies of the parameters.
 
+The pipelined step (``ChocoConfig.pipeline_gossip``, the JAX trainer's
+``pipelined_step``, ``src/repro/train/trainer.py:560-605``) runs in two
+phases with no data dependency between them:
+
+1. the exchange on the pre-gradient iterate: a copy G of x_k goes
+   through the pipelined exchange, G = x_k + gamma (s_k - x_hat_k), and
+   x_hat and s advance;
+2. the gradient at x_k (the model reads x itself) and the optimizer's
+   half-step, which the optimizer leaves in the gradient's buffers
+   (``keep_params``), so x_k stays;
+
+then the merge ``x_{k+1} = G + (x_half - x_k)``, in that association.  On
+the card the stacked engine issues phase 2 on the current stream, then
+phase 1 on a side CUDA stream that waits only for x_k, and the merge
+after an event of the side stream: the exchange runs beside what is left
+of the forward, backward and optimizer passes (top_k's host syncs then
+wait on the side stream alone).  Issued in that order, the exchange's
+temporaries are allocated once phase 2's activations are freed on the
+host's side; issued first from a host thread of its own, the side stream
+hid more of top_k's exchange but raised the step's peak by 5 to 7 GiB.
+Nothing on the side stream writes x, and the side stream's temporaries
+are made and freed there.  G is one more f32 copy of x.  The per-rank
+engine and the CPU run the phases one after the other, with the same
+arithmetic.
+
 The slice: the choco, plain and allreduce modes, every symmetric
 topology of the JAX registry and time-varying sequences of them, f32
 or bf16 EF state, every compressor of the JAX package (with the exact
-small-leaf bucket) and the Theorem-2 gamma under choco, the sgd,
+small-leaf bucket) and the Theorem-2 gamma under choco, the packed and
+the per-leaf engine, each serial or pipelined, the sgd,
 momentum and AdamW local steps, naive attention (the flash kernel has no
 backward), and checkpoints in the JAX package's sharded format
 (``save_checkpoint``, ``restore_checkpoint`` with its elastic restore,
 ``consensus_warmup``).
 The push-sum mode with the directed topologies, the processes and a
 fixed gamma are not ported.
+
+Gamma follows the JAX trainer: the packed engine takes per-bucket
+Theorem-2 values (``GammaSpec``), the per-leaf engine one scalar at
+``compressor.omega(1 << 20)``; the pipelined engine reads (delta, beta)
+of the delay-1 surrogate ``(W + I) / 2`` and omega / 2
+(``comm/pipelined.py``).
 
 Checkpoints hold the JAX ``TrainState``'s leaves under its flat keys
 (``params__embed__tok``, ``x_hat__...``, ``s__...``, ``opt__mu__...``,
@@ -71,6 +103,8 @@ from repro_torch.comm.gossip import (_pack_align, make_allreduce_exchange,
 from repro_torch.comm.packing import (bucket_omega_worst, fold_seed,
                                       leaf_route, make_bucket_spec,
                                       pack_leaves, unpack_leaves)
+from repro_torch.comm.pipelined import (PIPELINE_OMEGA_SCALE,
+                                        pipeline_delta_beta, pipeline_omega)
 from repro_torch.checkpoint.checkpointing import (LegacyStore, Leaf, Part,
                                                   ShardStore, flat_key,
                                                   save_sharded, storage_tensor)
@@ -94,8 +128,7 @@ MODES = ("choco", "plain", "allreduce")
 #: fingerprint entries of JAX ``ChocoConfig`` settings the port does not
 #: have, at the JAX defaults a port run stands for
 _UNPORTED_FINGERPRINT = {
-    "packed_gossip": True, "pack_align": None, "small_leaf_threshold": 8192,
-    "pipeline_gossip": False, "topology_process": None,
+    "pack_align": None, "small_leaf_threshold": 8192, "topology_process": None,
     "edge_drop_prob": 0.1, "matching_sampler": "uniform", "max_staleness": 0,
     "straggler_edges": None, "straggler_delay_probs": None}
 #: the fingerprint entries whose change re-mixes the EF state (the JAX
@@ -192,6 +225,20 @@ class DecentralizedTrainer:
                 f"sequence of {len(self.schedules)} graphs: gossip_steps "
                 f"must be a multiple of the sequence length so every graph "
                 f"runs each SGD step (got {self.choco.gossip_steps})")
+        if self.choco.pipeline_gossip:
+            # the JAX trainer's rules (src/repro/train/trainer.py:203-224)
+            if self.mode != "choco":
+                raise ValueError(
+                    f"pipeline_gossip hides the COMPRESSED exchange behind "
+                    f"the backward pass via the error-feedback recursion; "
+                    f"mode={self.mode!r} has no (x_hat, s) carry to "
+                    f"double-buffer; it requires mode='choco'")
+            if len(self.schedules) > 1:
+                raise ValueError(
+                    f"pipeline_gossip needs one static schedule: a payload "
+                    f"compressed under graph W_k but integrated a step "
+                    f"later under W_{{k+1}} breaks the recursion (got "
+                    f"time-varying topology={self.choco.topology!r})")
         if self.choco.state_dtype not in STATE_DTYPES:
             raise ValueError(f"state_dtype={self.choco.state_dtype!r} is not "
                              f"ported; choose from {', '.join(STATE_DTYPES)}")
@@ -225,14 +272,26 @@ class DecentralizedTrainer:
         else:
             # Theorem-2 consensus stepsize: the scalar worst case for
             # logging, and per-bucket values (each bucket at its own omega)
-            # for the engine; a time-varying sequence takes the worst
-            # (delta, beta).
-            delta = min(t.delta for t in self.topologies)
-            beta = max(t.beta for t in self.topologies)
+            # for the packed engine, the scalar for the per-leaf one; a
+            # time-varying sequence takes the worst (delta, beta), the
+            # pipelined engine its tau = 1 surrogate's
+            packed = self.choco.packed_gossip
+            pipelined = self.choco.pipeline_gossip
+            if pipelined:
+                delta, beta = pipeline_delta_beta(self.schedules[0])
+            else:
+                delta = min(t.delta for t in self.topologies)
+                beta = max(t.beta for t in self.topologies)
+            omega = (bucket_omega_worst(self.spec, self.compressor) if packed
+                     else self.compressor.omega(1 << 20))
             self.gamma = theorem2_stepsize(
-                delta, beta, bucket_omega_worst(self.spec, self.compressor))
-            kw.update(compressor=self.compressor,
-                      gamma=GammaSpec(delta=delta, beta=beta))
+                delta, beta, pipeline_omega(omega) if pipelined else omega)
+            kw.update(compressor=self.compressor, packed=packed,
+                      pipelined=pipelined,
+                      gamma=(GammaSpec(delta=delta, beta=beta,
+                                       omega_scale=(PIPELINE_OMEGA_SCALE
+                                                    if pipelined else 1.0))
+                             if packed else self.gamma))
             self.exchange = (make_dist_choco_exchange(**kw, group=self.group)
                              if dist else make_choco_exchange(**kw))
 
@@ -281,22 +340,21 @@ class DecentralizedTrainer:
         add this rank's ``wire_bytes`` (counted: the payloads it sent) and
         ``wire_bytes_modelled`` (the ring all-reduce's bytes, a model, in
         allreduce mode)."""
-        for b in state.x:
-            b.requires_grad_(True)
-        losses = self.model.loss(self.params(state), batch)     # (n,)
-        grads = list(torch.autograd.grad(losses.sum(), state.x))
-        with torch.no_grad():
-            grad_sq = sum(torch.sum(torch.square(g)) for g in grads)
-            lr = self.lr_fn(state.step)
-            for b in state.x:
-                b.requires_grad_(False)
-            state.opt = self.optimizer.update(state.x, grads, state.opt, lr)
-            del grads                  # frees a state-sized copy for the exchange
-            sent = (None if self.group is None else
-                    (self.group.bytes_sent, self.group.bytes_modelled))
-            self.exchange(state.x, state.x_hat, state.s,
-                          seed=fold_seed(state.seed, state.step),
-                          draws=draws)
+        sent = (None if self.group is None else
+                (self.group.bytes_sent, self.group.bytes_modelled))
+        if self.mode == "choco" and self.choco.pipeline_gossip:
+            losses, grad_sq, lr = self._pipelined_step(state, batch, draws)
+        else:
+            losses, grads = self._gradient(state, batch)
+            with torch.no_grad():
+                grad_sq = sum(torch.sum(torch.square(g)) for g in grads)
+                lr = self.lr_fn(state.step)
+                state.opt = self.optimizer.update(state.x, grads, state.opt,
+                                                  lr)
+                del grads          # frees a state-sized copy for the exchange
+                self.exchange(state.x, state.x_hat, state.s,
+                              seed=fold_seed(state.seed, state.step),
+                              draws=draws)
         state.step += 1
         losses = losses.detach()
         if self.group is None:
@@ -314,6 +372,63 @@ class DecentralizedTrainer:
                 "wire_bytes": self.group.bytes_sent - sent[0],
                 "wire_bytes_modelled": self.group.bytes_modelled - sent[1]}
 
+    def _gradient(self, state: TrainState, batch):
+        """(per-node losses, gradients in bucket layout) at state.x."""
+        for b in state.x:
+            b.requires_grad_(True)
+        losses = self.model.loss(self.params(state), batch)     # (n,)
+        grads = list(torch.autograd.grad(losses.sum(), state.x))
+        for b in state.x:
+            b.requires_grad_(False)
+        return losses, grads
+
+    def _side_stream(self):
+        """The stacked engine's side CUDA stream for the pipelined
+        exchange (None on the CPU and per rank: the phases run in turn)."""
+        if self.group is not None or self.device.type != "cuda":
+            return None
+        if getattr(self, "_stream", None) is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        return self._stream
+
+    def _pipelined_step(self, state: TrainState, batch, draws):
+        """The two phases and the merge of the module docstring, in place
+        on ``state`` (its step not advanced).  Returns (losses, the
+        squared gradient norm, lr)."""
+        side = self._side_stream()
+        main = None if side is None else torch.cuda.current_stream(
+            self.device)
+        with torch.no_grad():
+            g_bufs = [torch.empty_like(b) for b in state.x]
+            x_ready = None if side is None else main.record_event()
+
+        @torch.no_grad()
+        def phase1():
+            for g, b in zip(g_bufs, state.x):
+                g.copy_(b)
+            self.exchange(g_bufs, state.x_hat, state.s,
+                          seed=fold_seed(state.seed, state.step), draws=draws)
+
+        if side is None:                       # phase 1, then phase 2
+            phase1()
+        losses, halves = self._gradient(state, batch)
+        with torch.no_grad():
+            grad_sq = sum(torch.sum(torch.square(g)) for g in halves)
+            lr = self.lr_fn(state.step)
+            state.opt = self.optimizer.update(state.x, halves, state.opt, lr,
+                                              keep_params=True)
+            if side is not None:
+                # phase 1 on the side stream, issued after phase 2 so that
+                # its host syncs block nothing the main stream waits for
+                side.wait_event(x_ready)
+                with torch.cuda.stream(side):
+                    phase1()
+                main.wait_event(side.record_event())
+            for x, half, g in zip(state.x, halves, g_bufs):
+                torch.add(g, half.sub_(x), out=x)     # G + (x_half - x_k)
+            del halves, g_bufs
+        return losses, grad_sq, lr
+
     # -- checkpoints ------------------------------------------------------------
 
     def fingerprint(self) -> dict:
@@ -328,6 +443,8 @@ class DecentralizedTrainer:
                 "mode": self.mode, "compressor": c.compressor,
                 "compressor_config": c.comp_dict(),
                 "exact_small_leaves": bool(c.exact_small_leaves),
+                "packed_gossip": bool(c.packed_gossip),
+                "pipeline_gossip": bool(c.pipeline_gossip),
                 "state_dtype": c.state_dtype, **_UNPORTED_FINGERPRINT}
 
     def _moments(self) -> Tuple[bool, bool]:

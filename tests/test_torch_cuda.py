@@ -161,7 +161,8 @@ def _counts(**launched):
     return {name: launched.get(name, 0) for name in dispatch.KERNELS}
 
 
-def _run(compressor, device, steps=2, state_dtype="float32"):
+def _run(compressor, device, steps=2, state_dtype="float32", packed=True,
+         pipelined=False):
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
     kw = {"qsgd": (("s", 16),), "sign": ()}.get(compressor,
@@ -169,7 +170,9 @@ def _run(compressor, device, steps=2, state_dtype="float32"):
     tr = DecentralizedTrainer(
         model=Model(cfg), choco=ChocoConfig(compressor=compressor,
                                             comp_kwargs=kw,
-                                            state_dtype=state_dtype),
+                                            state_dtype=state_dtype,
+                                            packed_gossip=packed,
+                                            pipeline_gossip=pipelined),
         n_nodes=N, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, 1, steps), device=device)
     state = tr.state_from_params(tr.model.init(N, 0, "cpu"))
@@ -230,6 +233,158 @@ def test_trainer_bf16_state_launches_per_bucket_per_round(cuda, compressor):
 
 def _bits(t):
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+# -- the per-leaf and the pipelined engines ------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [16, 255])
+@pytest.mark.parametrize("length", LENGTHS)
+def test_qsgd_leaf_codes_bit_equal_to_plain(cuda, length, s, dtype):
+    """The per-leaf codes variant, f32 and bf16 rows, with the norm as the
+    per-leaf engine passes it (a row of zeros takes norm 1) and with
+    max|x| in its place, which reaches every level up to s; and the sign
+    codes of bf16 rows."""
+    x = (_normal(length, (N, length), cuda) * 0.01).to(dtype)
+    x[2] = 0
+    xi = torch.rand((N, length), device=cuda)
+    norm = x.float().square().sum(dim=1).sqrt()
+    top = x.float().abs().amax(dim=1)
+    for nrm in (norm, top):
+        nrm = torch.where(nrm == 0, torch.ones_like(nrm), nrm)
+        codes = _launched("qsgd_leaf_codes",
+                          lambda: dispatch.qsgd_leaf_codes(x, xi, nrm, s))
+        assert torch.equal(codes, ref.qsgd_leaf_codes_ref(x, xi, nrm, s))
+        assert int(codes[2].abs().sum()) == 0
+    assert int(codes.abs().max()) == s
+    signs = _launched("sign_codes", lambda: dispatch.sign_codes(x))
+    assert torch.equal(signs, ref.sign_codes_ref(x))
+    torch.cuda.synchronize()
+
+
+SLOT = 128
+
+
+def _ef_inputs(length, state_dtype, q_dtype, device, width=None):
+    """x f32, x_hat and s in ``state_dtype``, the payloads in ``q_dtype``,
+    (N, length); with ``width`` each is a slot [:, 128:128 + length] of an
+    (N, width) buffer, the payloads' own buffers of another width."""
+    def mk(i, scale, dtype, w):
+        full = (_normal(length + i, (N, w or length), device)
+                * scale).to(dtype)
+        return full if w is None else full[:, SLOT:SLOT + length]
+    x = mk(0, 1.0, torch.float32, width)
+    x_hat, s = mk(1, 0.5, state_dtype, width), mk(2, 0.1, state_dtype, width)
+    qw = None if width is None else width + 64
+    q_self, q_nbr = mk(3, 0.3, q_dtype, qw), mk(4, 0.6, q_dtype, qw)
+    return x, x_hat, s, q_self, q_nbr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype,q_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("width", [None, 5000])
+def test_ef_update_variants_bit_equal_to_plain(cuda, state_dtype, q_dtype,
+                                               pipelined, width):
+    """Every EF entry (f32 state; bf16 state with bf16 or f32 payloads;
+    serial and pipelined order), in place, against its plain version:
+    on whole (N, 4096) buffers and on bucket-slot views at offset 128
+    whose rows lie 5000 apart (the payloads' 5064), as the per-leaf engine
+    calls it (its slots start at multiples of 128: the 4-wide loads)."""
+    ins = _ef_inputs(4096, state_dtype, q_dtype, cuda, width)
+    assert width is None or not ins[0].is_contiguous()
+    w_self = torch.tensor((0.25, 0.75, 0.75, 0.75), device=cuda)
+    w_nbr = torch.full((N,), 0.25, device=cuda)
+    bf16 = state_dtype == torch.bfloat16
+    want = (ref.ef_update_bf16_ref(*ins, w_self, w_nbr, 2.8e-4, False,
+                                   pipelined) if bf16 else
+            ref.ef_update_ref(*ins, w_self, w_nbr, 2.8e-4, pipelined))
+    name = ("ef_update_bf16" if bf16 else "ef_update") + (
+        "_pipelined" if pipelined else "")
+    base = [t._base if t._base is not None else t for t in ins[:3]]
+    before = [b.clone() for b in base]
+    _launched(name, lambda: dispatch.ef_bucket_update(
+        *ins, w_self, w_nbr, 2.8e-4, False, pipelined))
+    for g, w in zip(ins[:3], want):
+        assert g.dtype == w.dtype and torch.equal(_bits(g), _bits(w))
+    if width is not None:                    # nothing outside the slot moves
+        for b, old in zip(base, before):
+            assert torch.equal(_bits(b[:, :SLOT]), _bits(old[:, :SLOT]))
+            assert torch.equal(_bits(b[:, SLOT + 4096:]),
+                               _bits(old[:, SLOT + 4096:]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_ef_wrapper_rejects_mismatched_row_strides(cuda):
+    x, x_hat, s, q_self, q_nbr = _ef_inputs(64, torch.float32, torch.float32,
+                                            cuda, width=300)
+    w = torch.full((N,), 0.25, device=cuda)
+    with pytest.raises(ValueError, match="one row stride"):
+        dispatch.ef_bucket_update(x, x_hat.contiguous(), s, q_self, q_nbr, w,
+                                  w, 0.1)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        dispatch.ef_bucket_update(x[:, ::2], x_hat[:, ::2], s[:, ::2],
+                                  q_self[:, :32], q_nbr[:, :32], w, w, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compressor,state_dtype", [
+    ("qsgd", "float32"), ("sign", "bfloat16"), ("top_k", "float32"),
+    ("qsgd", "bfloat16")])
+def test_per_leaf_trainer_launches_per_leaf_per_round(cuda, compressor,
+                                                      state_dtype):
+    """``packed_gossip=False``: per step, one codes, one dequantize and one
+    EF launch per leaf per gossip round (the EF update alone for top_k),
+    none of the packed codes kernel; losses finite and within 1e-4 of the
+    CPU run's."""
+    dispatch.reset_launch_counts()
+    tr, state, losses = _run(compressor, cuda, state_dtype=state_dtype,
+                             packed=False)
+    per = 2 * tr.choco.gossip_steps * len(tr.paths)
+    ef = "ef_update_bf16" if state_dtype == "bfloat16" else "ef_update"
+    codes = {"qsgd": {"qsgd_leaf_codes": per, "dequantize": per},
+             "sign": {"sign_codes": per, "dequantize": per}}.get(
+                 compressor, {})
+    assert dispatch.launch_counts() == _counts(**{ef: per}, **codes)
+    _, _, cpu_losses = _run(compressor, "cpu", state_dtype=state_dtype,
+                            packed=False)
+    assert all(np.isfinite(losses))
+    np.testing.assert_allclose(losses, cpu_losses, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+def test_pipelined_trainer_on_the_side_stream_agrees_with_cpu(cuda, packed,
+                                                              monkeypatch):
+    """``pipeline_gossip`` (sign, deterministic): the exchange runs on the
+    trainer's side stream and launches the pipelined-order EF kernel once
+    per bucket (or leaf) per round, never the serial one; x, x_hat and s
+    bit-equal to the same run on the card with the two phases in turn (no
+    side stream), and x within 1e-5 of the CPU run's."""
+    dispatch.reset_launch_counts()
+    tr, state, losses = _run("sign", cuda, packed=packed, pipelined=True)
+    assert tr._stream is not None
+    units = tr.spec.n_buckets if packed else len(tr.paths)
+    per = 2 * tr.choco.gossip_steps * units
+    assert dispatch.launch_counts() == _counts(
+        ef_update_pipelined=per, dequantize=per, sign_codes=per)
+    monkeypatch.setattr(DecentralizedTrainer, "_side_stream",
+                        lambda self: None)
+    _, in_turn, turn_losses = _run("sign", cuda, packed=packed,
+                                   pipelined=True)
+    assert losses == turn_losses
+    for a, b in zip(state.x + state.x_hat + state.s,
+                    in_turn.x + in_turn.x_hat + in_turn.s):
+        assert torch.equal(a, b)
+    _, cpu_state, cpu_losses = _run("sign", "cpu", packed=packed,
+                                    pipelined=True)
+    np.testing.assert_allclose(losses, cpu_losses, rtol=1e-5)
+    for a, b in zip(state.x, cpu_state.x):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -493,7 +493,7 @@ def test_launcher_skew_tv_is_the_streams():
     (["--mode", "pushsum"], "--mode pushsum is not ported"),
     (["--data-skew-alpha", "0"], "--data-skew-alpha must be > 0"),
     (["--data-skew-alpha", "-1"], "--data-skew-alpha must be > 0"),
-    (["--gossip-engine", "per-leaf"], "--gossip-engine"),
+    (["--gossip-engine", "per_leaf"], "--gossip-engine 'per_leaf'"),
     (["--optimizer", "lamb"], "--optimizer 'lamb'"),
     (["--mode", "plain", "--pipeline-gossip"], "--pipeline-gossip"),
 ])
