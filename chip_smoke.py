@@ -25,8 +25,12 @@ from the root of a checkout, on a machine with one CUDA device.  It
    step by step, and it is timed in turns with its plain version and
    ``torch.mul(x, 2)`` in one loop; the per-leaf engine's QSGD codes
    (f32 and bf16 rows) at one node's embedding leaf as it compresses,
-   75 x 4 rows of 4,194,304, and the pipelined order of both EF updates at
-   (4, 311,164,928), bit-equal and timed beside their bounds;
+   75 x 4 rows of 4,194,304, the pipelined order of both EF updates at
+   (4, 311,164,928), and the topology-process engine's replica update
+   (``replica_update``: the matching form and the link-failure form with
+   the ring's 2 replicas; f32 state, bf16 state with bf16 payloads and
+   with f32 payloads) at (4, 311,164,928), each
+   bit-equal and timed beside its plain version and its bounds;
 3. holds the top-k mask kernel against its plain version, bit for bit in
    mask and thresholds: at the tile shape of one node's embedding bucket
    (2,430,976 x 128) with k = 2 and 13, at C = 1024, and with planted
@@ -51,7 +55,12 @@ from the root of a checkout, on a machine with one CUDA device.  It
    with bf16 EF state (f32 state runs out of memory beside the step's
    copy of x), beside the bf16 serial runs, with the side stream's busy
    time, the share of it beside the main stream's and the device's idle
-   share from the profiled step's trace; then ``[modes]``, the same
+   share from the profiled step's trace; then ``[process]``, the top_k
+   and QSGD runs with bf16 EF state under the topology processes
+   (matching; link failures at p = 0.1) through the replica engine, beside
+   the ``[state-bf16]`` static runs: ms per step over steps 2-3, the peak
+   beside its prediction, the idle share, launches per step and the wire
+   bytes per node per step; then ``[modes]``, the same
    cell through the same code in the paper's three modes: CHOCO-SGD top_k
    with plain SGD on Dirichlet(0.1) token shards, exact D-SGD (plain) with
    momentum and the all-reduce baseline with AdamW, checking finite
@@ -68,9 +77,11 @@ from the root of a checkout, on a machine with one CUDA device.  It
 5. runs the training launcher (``repro_torch.launch.train.main``) for a
    --smoke run with --compressor top_k --fraction 0.05, one with
    --mode plain --optimizer adamw --data-skew-alpha 0.5, the first
-   with --state-dtype bfloat16 and a QSGD run with --gossip-engine
-   per-leaf --pipeline-gossip, then the first
-   with --simulate-devices 4 (4 ranks on the card, the per-rank engine),
+   with --state-dtype bfloat16, a QSGD run with --gossip-engine
+   per-leaf --pipeline-gossip, a top_k run with --topology-process
+   matching and a QSGD run with --topology-process linkfail
+   --edge-drop-prob 0.1, then the first with --simulate-devices 4 (4
+   ranks on the card, the per-rank engine), also under matching,
    checking its engine line, its probe record and rank 0's launches;
 6. holds small float32 training runs on the card against the same runs on
    the CPU (the plain versions), step by step: SignNorm, top_k,
@@ -84,7 +95,12 @@ from the root of a checkout, on a machine with one CUDA device.  It
    alone (serial and pipelined, f32 and bf16 state, a leaf of two block
    rows) on the card against the CPU, every payload bit-equal, x_hat
    bit-equal where the scales are, one codes, dequantize and EF launch
-   per leaf; then ``[checkpoint]``
+   per leaf; ``[process] small``, the replica exchange alone (matching
+   and link failures, packed and per leaf, f32 and bf16 state, ring,
+   chain and star, top_k, rand_k and QSGD) on the card against the CPU:
+   the samples equal, x and
+   every reference and replica bit-equal, one replica-update launch per
+   unit per gossip round; then ``[checkpoint]``
    at that size, QSGD s=16 and top_k, f32 and bf16 EF state: a card
    checkpoint restored on the CPU and a CPU checkpoint on the card, bit
    for bit, and elastic restores 4 -> 8 and 4 -> 2 nodes on the card,
@@ -116,6 +132,10 @@ from the root of a checkout, on a machine with one CUDA device.  It
    times the per-leaf (or per-bucket) payload bytes; each rank
    restores its row of a stacked checkpoint and the stacked engine
    restores the 4 ranks' checkpoint, bit for bit (bf16 EF state, top_k);
+   the per-rank replica exchange (``[process] small per rank``: matching
+   on chain, link failures on ring and star) bit-equal to the stacked one
+   on the card, each rank's bytes its payload bytes times the rounds it
+   shipped;
    then ``[sim]``, the paper's algorithms as matrix simulators on the card
    against the CPU: CHOCO-Gossip at the quickstart's sizes (ring 25, d
    2000: exact, QSGD(127), top 1%) and CHOCO-SGD (QSGD(16), top 1%) with
@@ -124,7 +144,9 @@ from the root of a checkout, on a machine with one CUDA device.  It
    making each round from the card's state (x, x_hat and s held; QSGD
    levels and top-k selections counted where they move); and pipelined
    CHOCO-Gossip at ring 25, d 2000 (exact and QSGD(127)), card against
-   CPU;
+   CPU; and CHOCO-Gossip under matching and link failures (the replica
+   simulator) at ring 25, d 2000, exact and top 1%, each round held
+   against the CPU's repeat of it, with the final consensus errors;
 7. holds the flash-attention kernels against their plain version: the
    bf16 tensor-core kernel (``csrc/flash_attention_sm90.cu``; the build
    phase checks that its SASS holds wgmma and TMA loads) at the
@@ -195,7 +217,8 @@ TF32_TERMS = 3
 ODD_LENGTH = 1_000_003
 GOSSIP_KERNELS = ("qsgd_codes_kernel", "qsgd_leaf_codes_kernel",
                   "sign_codes_kernel", "dequantize_kernel", "ef_update_kernel",
-                  "ef_update_bf16_kernel")
+                  "ef_update_bf16_kernel", "replica_matching_kernel",
+                  "replica_linkfail_kernel")
 #: [state-bf16]: the compressors of the full-width runs with bf16 EF state
 STATE_BF16_COMPRESSORS = ("top_k", "qsgd")
 #: columns of the bf16 EF update's plain version per call, when it is held
@@ -764,12 +787,14 @@ def profile_call(label, fn, ours, show=True, streams=False):
 
 def train_full_width(compressor, dev, topology="ring", mode="choco",
                      optimizer="momentum", lr=0.1, skew=None,
-                     state_dtype="float32", packed=True, pipelined=False):
+                     state_dtype="float32", packed=True, pipelined=False,
+                     process=None, drop=0.1):
     """Full-width qwen3-1.7b (2 layers), 4 nodes, on ``topology`` (1
     gossip round per step), in ``mode`` with the ``optimizer`` local step
     at ``lr``, on Dirichlet(``skew``) token shards where given, with the
     EF state x_hat and s in ``state_dtype``, through the packed or the
-    per-leaf engine (``packed``), serial or pipelined: STEPS steps, then
+    per-leaf engine (``packed``), serial or pipelined, or under the
+    topology ``process`` (link failures at ``drop``): STEPS steps, then
     one profiled step (with the pipelined engine, its trace read for the
     side stream's overlap with the main stream's work)."""
     import torch
@@ -791,15 +816,20 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
                                             data_skew_alpha=skew,
                                             state_dtype=state_dtype,
                                             packed_gossip=packed,
-                                            pipeline_gossip=pipelined),
+                                            pipeline_gossip=pipelined,
+                                            topology_process=process,
+                                            edge_drop_prob=drop),
         n_nodes=N_NODES, optimizer=make_optimizer(optimizer),
         lr_fn=cosine_schedule(lr, warmup=STEPS // 10 + 1, total=STEPS),
         device=dev, mode=mode)
     state = tr.init_state(seed=0)
     engine = (("packed" if packed else "per-leaf")
-              + (" pipelined" if pipelined else ""))
+              + (" pipelined" if pipelined else "")
+              + (f" {process}" if process else ""))
+    flat = lambda bufs: [b for item in bufs for b in (
+        item if isinstance(item, list) else [item])]
     if mode == "choco":
-        check({b.dtype for b in state.x_hat + state.s}
+        check({b.dtype for b in flat(state.x_hat) + flat(state.s)}
               == {getattr(torch, state_dtype)},
               f"[train] the EF state is not {state_dtype}")
     init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -820,7 +850,7 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
           + ("" if skew is None else
              f" data_skew_alpha={skew} skew_tv={skew_tv:.6f}"), flush=True)
     dispatch.reset_launch_counts()
-    losses, step_ms = [], []
+    losses, step_ms, samples = [], [], []
     for _ in range(STEPS):
         batch = tr.batch_to_device(batches())
         torch.cuda.synchronize()
@@ -829,6 +859,9 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(mets["loss"])
+        if process:
+            samples.append([s_ if isinstance(s_, int) else s_.tolist()
+                            for s_ in tr.exchange.last_samples])
         print(f"[train] step {state.step} loss {mets['loss']:.4f} "
               f"lr {mets['lr']:.4f} ({step_ms[-1]:.1f} ms)", flush=True)
     counts = dispatch.launch_counts()
@@ -843,8 +876,9 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     # the exact modes launch no kernel
     choco = mode == "choco"
     bf16 = state_dtype == "bfloat16"
-    ef = ("ef_update_bf16" if bf16 else "ef_update") + (
-        "_pipelined" if pipelined else "")
+    ef = ("replica_update" if process else
+          ("ef_update_bf16" if bf16 else "ef_update")
+          + ("_pipelined" if pipelined else ""))
     on_path = {k: False for k in counts}
     on_path.update({"qsgd_codes" if packed else "qsgd_leaf_codes":
                     choco and compressor == "qsgd",
@@ -869,6 +903,7 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     profile = profile_call(f"one {mode} {label} {optimizer} {engine} step on "
                            f"the {topology}", lambda: tr.step(state, batch),
                            GOSSIP_KERNELS, streams=pipelined)
+    wire = wire_per_node_step(tr)
     del state, tr
     torch.cuda.empty_cache()
     return counts, {"topology": topology, "mode": mode,
@@ -878,7 +913,28 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
                     "skew_tv": skew_tv, "losses": losses,
                     "ms_per_step": step_ms, "peak_gib": peak,
                     "init_peak_gib": init_peak, "alloc_retries": retries,
-                    "profile": profile}
+                    "profile": profile, "process": process,
+                    "samples": samples,
+                    "wire_bytes_per_node_step": wire}
+
+
+def wire_per_node_step(tr):
+    """Bytes node 0 puts on the wire per step, computed from the spec: its
+    payload bytes per bucket (or leaf) times the payloads it sends per
+    step (the static engine and link failures: every schedule round node
+    0 sends in; matching: the sampled round, which on the ring it always
+    sends in), for the exchange's gossip rounds; None in the exact modes."""
+    from repro_torch.comm.packing import bucket_wire_nbytes, leaf_wire_nbytes
+    if tr.mode != "choco":
+        return None
+    per = (bucket_wire_nbytes(tr.spec, tr.compressor)
+           if tr.choco.packed_gossip
+           else leaf_wire_nbytes(tr.spec, tr.compressor))
+    rounds = tr.schedules[0].rounds
+    sends = sum(r.peers(0)[0] is not None for r in rounds)
+    if tr.process is not None and tr.process.kind == "matching":
+        sends = 1
+    return sum(per) * sends * tr.choco.gossip_steps
 
 
 def state_bf16_full_width(dev, f32_runs):
@@ -1205,7 +1261,18 @@ LAUNCHER_RUNS = (("launcher_smoke", ["--compressor", "top_k", "--fraction",
                                           "--state-dtype", "bfloat16"]),
                  ("launcher_per_leaf_pipelined",
                   ["--gossip-engine", "per-leaf", "--pipeline-gossip",
-                   "--compressor", "qsgd", "--qsgd-s", "16"]))
+                   "--compressor", "qsgd", "--qsgd-s", "16"]),
+                 ("launcher_matching", ["--topology-process", "matching",
+                                        "--compressor", "top_k",
+                                        "--fraction", "0.05"]),
+                 ("launcher_linkfail", ["--topology-process", "linkfail",
+                                        "--edge-drop-prob", "0.1",
+                                        "--compressor", "qsgd",
+                                        "--qsgd-s", "16"]))
+#: the per-rank launcher runs: (label, extra flags)
+LAUNCHER_PER_RANK_RUNS = (("launcher_per_rank_rank0", []),
+                          ("launcher_per_rank_matching_rank0",
+                           ["--topology-process", "matching"]))
 
 
 def run_launcher(extra):
@@ -1235,6 +1302,10 @@ def run_launcher(extra):
     want = STEPS * units if "mode=choco" in out else 0
     ef = ("ef_update_bf16" if "state_dtype=bfloat16" in out else "ef_update"
           ) + ("_pipelined" if "--pipeline-gossip" in extra else "")
+    if "--topology-process" in extra:
+        ef = "replica_update"
+        check(" process=" in out and "expected_delta=" in out,
+              "launcher: no process in the header")
     expected = {k: 0 for k in counts}
     expected[ef] = want
     if "qsgd" in extra:
@@ -1248,15 +1319,17 @@ def run_launcher(extra):
     return counts
 
 
-def run_launcher_per_rank():
-    """The user's entry point with --simulate-devices: the launcher builds
-    the kernels, spawns N_NODES ranks on the card and rank 0 prints.
-    Checks the engine line, the probe record, finite losses and rank 0's
-    launches: the probe kernel once, the EF update per bucket per step."""
+def run_launcher_per_rank(extra=()):
+    """The user's entry point with --simulate-devices (and ``extra``
+    flags): the launcher builds the kernels, spawns N_NODES ranks on the
+    card and rank 0 prints.  Checks the engine line, the probe record,
+    finite losses and rank 0's launches: the probe kernel once, the EF
+    update (under a process the replica update) per bucket per step."""
     argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
             "qwen3-1.7b", "--smoke", "--mesh", f"{N_NODES}x1",
             "--simulate-devices", str(N_NODES), "--compressor", "top_k",
-            "--fraction", "0.05", "--steps", str(STEPS)]
+            "--fraction", "0.05", "--steps", str(STEPS), *extra]
+    ef = "replica_update" if "--topology-process" in extra else "ef_update"
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     t0 = time.perf_counter()
     r = subprocess.run(argv, env=env, capture_output=True, text=True,
@@ -1279,12 +1352,13 @@ def run_launcher_per_rank():
     check(len(line) == 1, "per-rank launcher: no launches line")
     counts = json.loads(line[0].split(" rank 0 ")[1])
     want = STEPS * int(out.split("buckets=")[1].split()[0])
-    check(counts["ef_update"] == want and counts["probe_scale"] == 1
+    check(counts[ef] == want and counts["probe_scale"] == 1
           and sum(counts.values()) == want + 1,
           f"per-rank launcher: rank 0 launches {counts}, expected {want} "
-          f"ef_update and one probe_scale")
-    print(f"[launcher] per-rank, {N_NODES} ranks on the card: {wall:.1f} s "
-          f"from start to exit; rank 0 launches {counts}", flush=True)
+          f"{ef} and one probe_scale")
+    print(f"[launcher] per-rank {' '.join(extra)}, {N_NODES} ranks on the "
+          f"card: {wall:.1f} s from start to exit; rank 0 launches {counts}",
+          flush=True)
     return counts
 
 
@@ -2763,6 +2837,419 @@ def sim_sgd(dev):
     return report
 
 
+# ---------------------------------------------------------------------------
+# [process]: the stochastic topology processes through the replica engine
+# ---------------------------------------------------------------------------
+
+#: [process]: (process, compressor) of the full-width runs, bf16 EF state
+#: (matching with f32 state would need about 84.6 GiB, more than the card)
+PROCESS_RUNS = (("matching", "top_k"), ("matching", "qsgd"),
+                ("linkfail", "top_k"), ("linkfail", "qsgd"))
+PROCESS_STATE = "bfloat16"
+PROCESS_DROP = 0.1
+#: the peaks predicted before the first run (GiB): the bf16 state's
+#: measured 52.276 GiB plus 5.39 GiB per further bf16 tree (matching on the
+#: ring keeps 2 more, link failures 1 more)
+PROCESS_PREDICTED_GIB = {"matching": 63.1, "linkfail": 57.7}
+#: [process] small: (process, compressor, kwargs, state dtype, packed,
+#: topology, gossip rounds) of the exchange held card against CPU
+PROCESS_SMALL_RUNS = (
+    ("matching", "top_k", (("fraction", 0.05),), "float32", True, "ring", 2),
+    ("matching", "rand_k", (("fraction", 0.05),), "bfloat16", True, "chain", 2),
+    ("matching", "rand_k", (("fraction", 0.05),), "float32", False, "star", 2),
+    ("matching", "top_k", (("fraction", 0.05),), "bfloat16", False, "ring", 2),
+    ("linkfail", "rand_k", (("fraction", 0.05),), "float32", True, "chain", 2),
+    ("linkfail", "top_k", (("fraction", 0.05),), "bfloat16", True, "ring", 2),
+    ("linkfail", "top_k", (("fraction", 0.05),), "float32", False, "star", 2),
+    ("linkfail", "rand_k", (("fraction", 0.05),), "bfloat16", False, "ring",
+     2),
+    # QSGD on bf16 state per leaf: f32 payloads (decoded), the kernel's
+    # (bf16 state, f32 payload) build
+    ("matching", "qsgd", (("s", 16),), "bfloat16", False, "ring", 2),
+    ("linkfail", "qsgd", (("s", 16),), "bfloat16", False, "chain", 2))
+PROCESS_SMALL_SHAPES = ((300, 70), (5000,), (128, 33), (7,), (3, 1000))
+#: [process] small, per rank: runs of PROCESS_DIST_RUNS's form, seeded
+PROCESS_DIST_RUNS = (
+    ("matching", "qsgd", (("s", 16),), "bfloat16", True, "chain", 2),
+    ("linkfail", "top_k", (("fraction", 0.05),), "float32", False, "ring", 2),
+    ("linkfail", "qsgd", (("s", 16),), "bfloat16", True, "star", 1))
+PROCESS_SEED = 4242
+#: [sim]: (label, process, compressor, gamma, rounds) of CHOCO-Gossip under
+#: the processes at the quickstart's size (ring 25, d 2000)
+SIM_PROCESS_RUNS = (("matching_exact", "matching", None, 1.0, 300),
+                    ("matching_top_1pct", "matching", ("top_k", 0.01), 0.046,
+                     300),
+                    ("linkfail_exact", "linkfail", None, 1.0, 300),
+                    ("linkfail_top_1pct", "linkfail", ("top_k", 0.01), 0.046,
+                     300))
+#: [sim] under a process: elements of x and the references that may differ
+#: from the CPU's repeat of a round by more than SIM_STEP_RTOL of the
+#: largest magnitude (a top-k selection flipped by an ulp moves 2
+#: coordinates of one node's reference and, through the mixing, of up to
+#: 3 nodes' x)
+SIM_PROCESS_MOVED = 8
+
+
+#: [kernel] replica_update: (EF state, payload) dtypes of each form's
+#: cases: f32, bf16 state with bf16 payloads (the packed engine's) and with
+#: f32 payloads (the per-leaf engine's QSGD and sign, decoded to f32)
+REPLICA_DTYPES = (("float32", "float32"), ("bfloat16", "bfloat16"),
+                  ("bfloat16", "float32"))
+
+
+def check_replica_kernels(dev):
+    """The replica-update kernel's two forms in each REPLICA_DTYPES case at
+    the embedding bucket (4, 311,164,928), in place, against the plain
+    version chunk by chunk, bit for bit: matching with ring weights (send
+    1, gamma v), link failures with the ring's R = 2 replicas and one link
+    of each round down.  Each timed beside its plain version and its
+    bytes bound.  Returns (records by case, the record of the kernel line:
+    matching on bf16 state and payloads, the [process] cell's build, the
+    largest |kernel - plain| over every case)."""
+    import torch
+    from repro_torch.kernels import dispatch, ref
+    gen = torch.Generator(device=dev).manual_seed(11)
+    length = 311_164_928
+    shape = (N_NODES, length)
+    chunk = EF_BF16_PLAIN_CHUNK
+    records, max_err = {}, 0.0
+    node = lambda w: torch.tensor(w, dtype=torch.float32, device=dev)
+    send, gv = node((1.0,) * N_NODES), node((2.5e-5,) * N_NODES)
+    # the ring's receive weights, rows 0 and 3 of round 0 and row 1 of
+    # round 1 with their link down
+    w = node(((0.0, 1 / 3, 1 / 3, 0.0), (1 / 3, 0.0, 1 / 3, 1 / 3)))
+    gamma = 3.7e-5
+    for form in ("matching", "linkfail"):
+        for sdt, qdt in REPLICA_DTYPES:
+            sd, qd = getattr(torch, sdt), getattr(torch, qdt)
+            x = torch.randn(shape, generator=gen, device=dev)
+            mk = lambda sc, dt: (torch.randn(shape, generator=gen, device=dev)
+                                 * sc).to(dt)
+            if form == "matching":
+                ins = [x, mk(0.5, sd), mk(0.5, sd), mk(0.1, qd), mk(0.1, qd)]
+                out = [t.clone() for t in ins[:3]]
+                call = lambda o: dispatch.replica_matching(*o, ins[3], ins[4],
+                                                           send, gv)
+                plain_one = lambda part: ref.replica_matching_ref(
+                    *[t[:, part] for t in ins], send, gv)
+                flops = 7 * x.numel()
+            else:
+                ins = [x, mk(0.5, sd), mk(0.1, qd), mk(0.5, sd), mk(0.5, sd),
+                       mk(0.1, qd), mk(0.1, qd)]
+                out = [t.clone() for t in (ins[0], ins[1], ins[3], ins[4])]
+                call = lambda o: dispatch.replica_linkfail(
+                    o[0], o[1], ins[2], o[2:], ins[5:], w, gamma)
+                plain_one = lambda part: (lambda r: (r[0], r[1], *r[2]))(
+                    ref.replica_linkfail_ref(
+                        ins[0][:, part], ins[1][:, part], ins[2][:, part],
+                        [t[:, part] for t in ins[3:5]],
+                        [t[:, part] for t in ins[5:]], w, gamma))
+                flops = 15 * x.numel()
+            call(out)
+            err = 0.0
+            for c in range(0, length, chunk):
+                part = slice(c, c + chunk)
+                for g, want in zip(out, plain_one(part)):
+                    got = g[:, part]
+                    err = max(err, float((got.double() - want.double())
+                                         .abs().max()))
+                    check(torch.equal(got, want),
+                          f"[kernel] replica_update {form} {sdt} state, "
+                          f"{qdt} payloads differs from its plain version "
+                          f"(max abs {err})")
+            max_err = max(max_err, err)
+            ms = time_ms(lambda: call(out), 5)
+
+            def plain():
+                for c in range(0, length, chunk):
+                    plain_one(slice(c, c + chunk))
+            plain_ms = time_ms(plain, 1)
+            bms, by = bound_ms(ins, out, flops)
+            short = {"float32": "f32", "bfloat16": "bf16"}
+            name = f"{form}_{short[sdt]}" + (
+                "" if sdt == qdt else f"_{short[qdt]}q")
+            print(f"[kernel] replica_update {name} n={N_NODES} len={length}"
+                  f"{' R=2' if form == 'linkfail' else ''}: bit-equal (max "
+                  f"abs {err}); {ms:.3f} ms (bound {bms:.3f} ms, {by}, "
+                  f"{bms / ms:.3f} of it), plain {plain_ms:.3f} ms",
+                  flush=True)
+            records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                 bound_ms=bms, bound_by=by, max_abs_err=err,
+                                 shape=[N_NODES, length])
+            del x, ins, out
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    main = {k: v for k, v in records["matching_bf16"].items()
+            if k != "max_abs_err"}
+    return records, main, max_err
+
+
+def process_full_width(dev, state_bf16):
+    """[process]: the training cell (2 layers, ring, 4 nodes, bf16 EF
+    state) under matching and link failures (p = PROCESS_DROP), top_k 0.01
+    and QSGD s=16, each printed beside the [state-bf16] static run of the
+    same compressor in this call: ms per step over steps 2-3, the peak
+    beside its prediction, the device's idle share of the profiled step,
+    launches per step per kernel, and the wire bytes per node per step
+    (computed from the spec)."""
+    runs = {}
+    for kind, comp in PROCESS_RUNS:
+        counts, rec = train_full_width(comp, dev, state_dtype=PROCESS_STATE,
+                                       process=kind, drop=PROCESS_DROP)
+        base = state_bf16[comp][1]
+        prof, base_prof = rec["profile"] or {}, base["profile"] or {}
+        per_step = {k: v // STEPS for k, v in counts.items() if v}
+        rec["predicted_peak_gib"] = PROCESS_PREDICTED_GIB[kind]
+        print(f"[process] {kind} {comp} ({PROCESS_STATE} state): ms/step "
+              f"over steps 2-3 {rec['ms_per_step'][1:]} against the static "
+              f"engine's {base['ms_per_step'][1:]}; peak "
+              f"{rec['peak_gib']:.3f} GiB against {base['peak_gib']:.3f} GiB, "
+              f"predicted {PROCESS_PREDICTED_GIB[kind]} GiB; device idle "
+              f"share {prof.get('device_idle_share', float('nan')):.4f} "
+              f"against {base_prof.get('device_idle_share', float('nan')):.4f}"
+              f"; launches per step {per_step}; wire bytes per node per step "
+              f"{rec['wire_bytes_per_node_step']} against "
+              f"{base['wire_bytes_per_node_step']} (computed from the spec); "
+              f"samples {rec['samples']}", flush=True)
+        runs[f"process_{kind}_{comp}"] = (counts, rec)
+    return runs
+
+
+def _process_case(run, device):
+    """(process, compressor, spec, (x, x_hat, s) in the engine's layout on
+    ``device``, draws(t, u) of the CPU's making, moved to ``device``) of
+    one PROCESS_SMALL_RUNS / PROCESS_DIST_RUNS entry."""
+    import numpy as np
+    import torch
+    from repro_torch.comm import gossip, packing
+    from repro_torch.comm.schedule import compile_schedule
+    from repro_torch.comm.stochastic import make_topology_process
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.core.topology import make_topology
+    kind, comp_name, kw, sdt, packed, topo, k = run
+    proc = make_topology_process(kind, compile_schedule(
+        make_topology(topo, N_NODES)), edge_drop_prob=0.4)
+    comp = make_compressor(comp_name, **dict(kw))
+    dtype = getattr(torch, sdt)
+    spec = packing.make_bucket_spec(
+        [torch.empty(sh, dtype=dtype, device="meta")
+         for sh in PROCESS_SMALL_SHAPES], align=gossip._pack_align(comp))
+    rng = np.random.default_rng(len(str(run)))
+    leaves = lambda sc, dt: packing.pack_leaves(spec, [torch.from_numpy(
+        (sc * rng.standard_normal((N_NODES,) + sh)).astype(np.float32))
+        for sh in PROCESS_SMALL_SHAPES], dtype=dt)
+    R = proc.schedule.n_rounds
+    x = leaves(1.0, torch.float32)
+    x_hat = ([leaves(0.5, dtype) for _ in range(R)] if kind == "matching"
+             else leaves(0.5, dtype))
+    s = [leaves(0.5, dtype) for _ in range(R)]
+    to = lambda obj: (obj.to(device) if torch.is_tensor(obj)
+                      else [to(o) for o in obj])
+    units = gossip._units(spec, packed)
+    cache = {}
+
+    def draws(t, u):
+        if (t, u) not in cache:
+            seed = packing.fold_seed(PROCESS_SEED, t * 1000 + u)
+            if packed:
+                b = spec.buckets[u]
+                cache[t, u] = packing.draw(comp, b, spec.bucket_slots(u),
+                                           torch.empty((N_NODES, b.size)),
+                                           seed)
+            else:
+                unit = [un for un in units if un.index == u][0]
+                cache[t, u] = packing.leaf_draw(
+                    comp, torch.empty((N_NODES * unit.rows, unit.width)),
+                    unit.rows, seed)
+        return cache[t, u].to(device)
+    return (proc, comp, spec, (to(x), to(x_hat), to(s)),
+            draws if comp.stochastic else None)
+
+
+def _flat_bufs(obj):
+    return ([obj] if not isinstance(obj, (list, tuple))
+            else [b for o in obj for b in _flat_bufs(o)])
+
+
+def process_small(dev):
+    """[process] small: the replica exchange alone on the card against the
+    CPU, PROCESS_SMALL_RUNS: matching and link failures, packed and per
+    leaf, f32 and bf16 state, on ring, chain and star, top_k, rand_k and
+    QSGD (the CPU's draws on both; QSGD per leaf on bf16 state ships f32
+    payloads), the samples drawn from the same seed on
+    both devices: the samples equal, x, x_hat and s (every reference and
+    replica) bit-equal, one replica-update launch per unit per gossip
+    round on the card.  Returns the card's launches."""
+    import torch
+    from repro_torch.comm import gossip
+    from repro_torch.kernels import dispatch
+    launches = {k: 0 for k in kernel_names()}
+    for run in PROCESS_SMALL_RUNS:
+        kind, comp_name, kw, sdt, packed, topo, k = run
+        got = {}
+        for device in (dev, torch.device("cpu")):
+            proc, comp, spec, bufs, draws = _process_case(run, device)
+            ex = gossip.make_process_exchange(spec=spec, process=proc,
+                                              compressor=comp, gamma=0.3,
+                                              gossip_steps=k, packed=packed)
+            dispatch.reset_launch_counts()
+            ex(*bufs, seed=PROCESS_SEED, draws=draws)
+            counts = dispatch.launch_counts()
+            got[device.type] = (bufs, [getattr(sm, "tolist", lambda: sm)()
+                                       for sm in ex.last_samples], counts)
+        (cb, cs, cc), (hb, hs, hc) = got[dev.type], got["cpu"]
+        check(cs == hs, f"[process] small {run}: samples {cs} on the card, "
+              f"{hs} on the CPU")
+        for g, w in zip(_flat_bufs(cb), _flat_bufs(hb)):
+            check(torch.equal(g.cpu(), w), f"[process] small {run}: the card "
+                  f"and the CPU differ")
+        units = spec.n_buckets if packed else len(spec.slots)
+        # besides the replica update only the compressor's kernels launch
+        # (QSGD's codes and dequantize), no EF update
+        check(cc["replica_update"] == k * units
+              and not any(v for name, v in cc.items()
+                          if name.startswith("ef_update"))
+              and sum(hc.values()) == 0,
+              f"[process] small {run}: launches {cc}, expected "
+              f"{k * units} replica_update and no EF update")
+        for name, v in cc.items():
+            launches[name] += v
+        print(f"[process] small {kind} {comp_name} {sdt} "
+              f"{'packed' if packed else 'per-leaf'} {topo} x{k}: samples "
+              f"{cs} equal, x, x_hat and s bit-equal card and CPU; "
+              f"replica_update {cc['replica_update']} launches ({units} "
+              f"units x {k} rounds)", flush=True)
+    return launches
+
+
+def _process_dist_rank(rank, store, out_dir):
+    import torch
+    from repro_torch.comm import gossip
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import mesh
+    group = _dist_group(rank, store)
+    dev = group.device
+    results = {}
+    for i, run in enumerate(PROCESS_DIST_RUNS):
+        proc, comp, spec, bufs, _ = _process_case(run, dev)
+        ex = gossip.make_dist_process_exchange(
+            spec=spec, process=proc, compressor=comp, gamma=0.3,
+            gossip_steps=run[6], group=group, packed=run[4])
+        row = lambda obj: (obj[rank:rank + 1].clone() if torch.is_tensor(obj)
+                           else [row(o) for o in obj])
+        mine = row(bufs)
+        before = group.bytes_sent
+        dispatch.reset_launch_counts()
+        ex(*mine, seed=PROCESS_SEED)
+        results[i] = ([b.cpu() for b in _flat_bufs(mine)],
+                      group.bytes_sent - before,
+                      ex.sent_rounds(ex.last_samples) * sum(ex.payload_bytes),
+                      dispatch.launch_counts())
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    mesh.close_node_group()
+
+
+def process_dist_small(dev):
+    """[process] small, per rank: 4 ranks on the card run
+    PROCESS_DIST_RUNS with the seeds' own draws and samples, each rank's
+    x, x_hat and s bit-equal to its row of the stacked exchange on the
+    card, its bytes sent its payload bytes times the rounds it shipped.
+    Returns the ranks' launches, summed."""
+    import tempfile
+    import torch
+    from repro_torch.comm import gossip
+    with tempfile.TemporaryDirectory(prefix="chip_process_") as tmp:
+        spawn_ranks_of(_process_dist_rank, tmp, DIST_TIMEOUT_S)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(N_NODES)]
+    launches = {k: 0 for k in kernel_names()}
+    for i, run in enumerate(PROCESS_DIST_RUNS):
+        proc, comp, spec, bufs, _ = _process_case(run, dev)
+        gossip.make_process_exchange(spec=spec, process=proc, compressor=comp,
+                                     gamma=0.3, gossip_steps=run[6],
+                                     packed=run[4])(*bufs, seed=PROCESS_SEED)
+        stacked = [b.cpu() for b in _flat_bufs(bufs)]
+        sent = []
+        for r, res in enumerate(ranks):
+            mine, nbytes, want, counts = res[i]
+            for g, w in zip(mine, stacked):
+                check(torch.equal(g, w[r:r + 1]), f"[process] dist {run}: "
+                      f"rank {r} differs from the stacked exchange")
+            check(nbytes == want, f"[process] dist {run}: rank {r} sent "
+                  f"{nbytes} bytes, expected {want}")
+            sent.append(nbytes)
+            for name, v in counts.items():
+                launches[name] += v
+        print(f"[process] small per rank {run[0]} {run[1]} {run[3]} "
+              f"{'packed' if run[4] else 'per-leaf'} {run[5]} x{run[6]}: "
+              f"{N_NODES} ranks bit-equal to the stacked exchange on the "
+              f"card; bytes sent per rank {sent} (payload bytes x rounds "
+              f"shipped)", flush=True)
+    return launches
+
+
+def sim_process(dev):
+    """[sim] under the processes: CHOCO-Gossip (the replica simulator,
+    ``comm/stochastic.py:run_choco_gossip_process``) at ring 25, d 2000,
+    SIM_PROCESS_RUNS, on the card and on the CPU from the same x0, the
+    samples drawn from the same seed: each round held against the CPU's
+    repeat of it from the card's state (x and the references within
+    SIM_STEP_RTOL of their largest magnitude, at most SIM_PROCESS_MOVED
+    elements beyond), the free runs' final consensus errors printed."""
+    import torch
+    from repro_torch.comm.packing import fold_seed
+    from repro_torch.comm.stochastic import (ProcessGossipState,
+                                             choco_process_round,
+                                             init_process_state,
+                                             process_from_topology,
+                                             run_choco_gossip_process)
+    from repro_torch.core.topology import ring
+    n, d = SIM_GOSSIP_N, SIM_GOSSIP_D
+    x0 = torch.randn((n, d), generator=torch.Generator().manual_seed(5))
+    report = {}
+    for label, kind, spec, gamma, rounds in SIM_PROCESS_RUNS:
+        proc = process_from_topology(kind, ring(n), edge_drop_prob=0.1)
+        comp = _sim_compressor(spec)
+        if comp is None:
+            from repro_torch.core.compression import Identity
+            comp = Identity()
+        finals = {}
+        for which, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            st, errs = run_choco_gossip_process(x0.to(device), proc, gamma,
+                                                comp, rounds, seed=7)
+            finals[which] = (float(errs[0]), float(errs[-1]))
+        check(all(math.isfinite(v) for v in finals["card"]) and
+              finals["card"][1] < finals["card"][0],
+              f"[sim] {label}: consensus error {finals['card']}")
+        moved_max, worst = 0, 0.0
+        state = init_process_state(x0.to(dev), proc)
+        for step in range(rounds):
+            seed = fold_seed(7, step)
+            nxt = choco_process_round(state, proc, gamma, comp, seed)
+            cpu = choco_process_round(ProcessGossipState(
+                state.x.cpu(), state.refs.cpu()), proc, gamma, comp, seed)
+            for g, w in ((nxt.x, cpu.x), (nxt.refs, cpu.refs)):
+                gap = (g.cpu() - w).abs()
+                tol = SIM_STEP_RTOL * float(w.abs().max())
+                moved = int((gap > tol).sum())
+                moved_max = max(moved_max, moved)
+                worst = max(worst, float(gap.max()) / max(
+                    float(w.abs().max()), 1e-30))
+            check(moved_max <= SIM_PROCESS_MOVED, f"[sim] {label}: round "
+                  f"{step} moved {moved_max} elements beyond the tolerance")
+            state = nxt
+        print(f"[sim] {label}: ring {n}, d {d}, {rounds} rounds, gamma "
+              f"{gamma}: consensus error {finals['card'][0]:.6e} -> "
+              f"{finals['card'][1]:.6e} on the card, {finals['cpu'][1]:.6e} "
+              f"on the CPU; held round by round (largest relative gap "
+              f"{worst:.3e}, at most {moved_max} elements moved)", flush=True)
+        report[label] = {"first_error": finals["card"][0],
+                         "final_error_card": finals["card"][1],
+                         "final_error_cpu": finals["cpu"][1],
+                         "round_max_rel": worst, "moved_max": moved_max}
+    return report
+
+
 def kernel_names():
     """Every kernel's name in the launch counts."""
     from repro_torch.kernels import dispatch
@@ -3391,6 +3878,7 @@ def main():
     engine_records, engine_err = check_engine_kernels(dev)
     records.update(engine_records)
     max_err.update(engine_err)
+    replica_forms, replica_record, replica_err = check_replica_kernels(dev)
     probe_record = check_probe(dev)
 
     topk_record, topk_err = check_topk(dev)
@@ -3406,16 +3894,21 @@ def main():
           f"against {ring_run['peak_gib']:.3f} GiB", flush=True)
     state_bf16 = state_bf16_full_width(dev, by_path)
     engines = engines_full_width(dev, by_path, state_bf16)
+    process_runs = process_full_width(dev, state_bf16)
     modes = modes_full_width(dev)
     ckpt_full_counts, ckpt_full = checkpoint_full_width(dev)
     launcher_counts = {label: run_launcher(extra)
                        for label, extra in LAUNCHER_RUNS}
-    per_rank_launcher_counts = run_launcher_per_rank()
+    per_rank_launcher_counts = {label: run_launcher_per_rank(extra)
+                                for label, extra in LAUNCHER_PER_RANK_RUNS}
     small = small_cuda_vs_cpu(dev)
     leaf_small = leaf_exchange_cuda_vs_cpu(dev)
+    process_small_counts = process_small(dev)
     ckpt_small = checkpoint_small(dev)
     torch.cuda.empty_cache()
     dist_small_report = dist_small(dev)
+    torch.cuda.empty_cache()
+    process_dist_counts = process_dist_small(dev)
     torch.cuda.empty_cache()
     dist_full = dist_full_width(by_path[DIST_FULL[0]][1])
     torch.cuda.empty_cache()
@@ -3432,6 +3925,7 @@ def main():
     sim_counts = {k: sum(r["launches"][k] for part in sim.values()
                          for r in part.values() if isinstance(r, dict))
                   for k in kernel_names()}
+    sim_proc = sim_process(dev)
 
     flash_record, flash_err = check_flash(dev)
     model, params = full_width_serving_model(dev)
@@ -3454,8 +3948,11 @@ def main():
         **{f"state_bf16_{c}": counts for c, (counts, _) in state_bf16.items()},
         **{f"modes_{label}": counts for label, (counts, _) in modes.items()},
         **{label: counts for label, (counts, _) in engines.items()},
+        **{label: counts for label, (counts, _) in process_runs.items()},
         **launcher_counts,
-        "launcher_per_rank_rank0": per_rank_launcher_counts,
+        **per_rank_launcher_counts,
+        "process_small": process_small_counts,
+        "process_dist_small": process_dist_counts,
         "small": small["launches"],
         "leaf_small": {k: sum(r["launches"][k] for r in leaf_small.values())
                        for k in kernel_names()},
@@ -3517,6 +4014,20 @@ def main():
         if name == "qsgd_leaf_codes":
             kernels[-1]["bf16_input"] = records["qsgd_leaf_codes_bf16"]
         check(kernels[-1]["launches"] > 0, f"{name} never launched")
+    # the replica update has no pallas_call counterpart: it replaces the
+    # process engine's update, which JAX runs as jnp; its main path is the
+    # [process] cell and the launchers under a process
+    process_paths = list(process_runs) + ["launcher_matching",
+                                          "launcher_linkfail"]
+    kernels.append({
+        "name": "replica_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gossip_kernels.cu",
+        "replaces": "src/repro/comm/gossip.py:667",
+        "launches": sum(paths[p]["replica_update"] for p in process_paths),
+        "launches_by_path": by_kernel("replica_update"),
+        "max_abs_err": replica_err, **replica_record,
+        "forms": replica_forms})
+    check(kernels[-1]["launches"] > 0, "replica_update never launched")
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         # the bf16 tensor-core kernel, the main path's; f32 inputs take the
@@ -3554,6 +4065,8 @@ def main():
                       "state_bf16": {c: r for c, (_, r) in state_bf16.items()},
                       "modes": {k: r for k, (_, r) in modes.items()},
                       "engines": {k: r for k, (_, r) in engines.items()},
+                      "process": {k: r for k, (_, r) in process_runs.items()},
+                      "sim_process": sim_proc,
                       "leaf_small": leaf_small,
                       "checkpoint": {"full_width": ckpt_full,
                                      "small": ckpt_small},

@@ -71,13 +71,22 @@ pre-round pair, ``x = x + gamma (s - x_hat)``, in the EF kernels'
 pipelined order; the trainer runs it on the pre-gradient iterate
 (``train/trainer.py``).
 
-Not ported: the push-sum mode and the stochastic topology processes.
+Under a stochastic topology process (``comm/stochastic.py``) the choco
+exchange is the replica engine (:func:`make_process_exchange`,
+:func:`make_dist_process_exchange`; JAX ``make_process_choco_fn``): the
+paper's Algorithm-2 form with per-round references and source replicas,
+x_hat and s lists of bucket lists, one replica-update launch per bucket
+(or leaf) per gossip round; the plain mode averages with the sampled
+matrix (:func:`make_plain_exchange` with ``process=``).
+
+Not ported: the push-sum mode and the bounded-staleness process.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.comm.packing import (Bucket, BucketSpec, bucket_dense,
@@ -558,58 +567,395 @@ def make_dist_choco_exchange(*, spec: BucketSpec,
 
 
 # ---------------------------------------------------------------------------
-# exact baselines
+# the topology-process engine (replicas, the paper's Algorithm-2 form)
 # ---------------------------------------------------------------------------
 
-def _plain(gossip_steps: int, compiled, receiver) -> Callable:
-    """The plain exchange loop both engines share: per round t and bucket,
-    ``x = w_self x + w_nbr nbr`` with ``nbr = _neighbor_sum`` of what
-    ``receiver(buf)`` returns per round (``compiled`` as in
-    :func:`_exchange`), in place; a schedule without rounds leaves x as
-    it is.  The arithmetic is the JAX engine's as XLA compiles it: the
-    sum contracts into one fused multiply-add,
-    ``fma(w_self, x, round(w_nbr nbr))`` (``torch.add`` with ``alpha``
-    fuses the same way on the CPU and on the card).  Each row takes its
-    weights as host floats, so every pass is a vectorized one over a row
-    and the result lands in x without a copy."""
+def _check_process(spec: BucketSpec, process, gamma, gossip_steps: int,
+                   compressor=None) -> None:
+    """What a process exchange refuses (the plain mode passes no
+    ``compressor``): a process the port has not, no gossip round, and
+    what the static exchanges refuse of the spec and the compressor,
+    every schedule taken with bf16 state (the replica update weighs in
+    f32); under choco, the port's own rules, a per-bucket GammaSpec (the
+    JAX trainer passes the scalar under a process) and exact buckets (the
+    JAX process engine packs without them).  The trainer refuses the
+    combinations JAX's trainer does."""
+    if getattr(process, "kind", None) not in ("matching", "linkfail"):
+        raise ValueError(f"topology process {getattr(process, 'kind', None)!r}"
+                         f" is not ported (matching and linkfail are)")
+    if gossip_steps < 1:
+        raise ValueError("gossip_steps must be >= 1")
+    if compressor is None:
+        _check_f32(spec)
+        return
+    if type(compressor) not in _PORTED:
+        raise ValueError(f"compressor {compressor.name!r} is not ported "
+                         f"to the exchange")
+    _state_dtype(spec)
+    if isinstance(gamma, GammaSpec):
+        raise ValueError("under a topology process gamma is the scalar "
+                         "Theorem-2 value at the expected (delta, beta); "
+                         "a per-bucket GammaSpec is not taken")
+    if any(b.exact for b in spec.buckets):
+        raise ValueError("the process engine packs without exact buckets, "
+                         "as the JAX engine does: build the spec without "
+                         "exact_small_leaves")
+
+
+def _matching_tables(process, nodes, gamma: float):
+    """Per round r of a matching process, the rows' ``(send_r, f32(gamma)
+    * v_r)`` (``(rows,)`` f32 each), on the CPU, for the nodes
+    ``nodes``."""
+    f32 = torch.float32
+    idx = list(nodes)
+    g = torch.tensor(gamma, dtype=f32)
+    return [(torch.tensor(process.round_send[r], dtype=f32)[idx],
+             torch.tensor(process.branch_recv[r], dtype=f32)[idx] * g)
+            for r in range(process.n_rounds)]
+
+
+def _round_weights(process, mask, nodes, dev) -> torch.Tensor:
+    """The ``(R, rows)`` f32 receive weights of the nodes ``nodes`` under
+    the edge mask ``mask`` (JAX's ``round_recv[r] * mask``), on ``dev``:
+    computed on the host and, on the card, copied through pinned memory
+    without a host sync."""
+    w = torch.from_numpy(np.stack(process.round_weights(mask)))[:, list(nodes)]
+    if dev.type != "cuda":
+        return w
+    return w.pin_memory().to(dev, non_blocking=True)
+
+
+def _process_exchange(spec: BucketSpec, process, compressor, gamma: float,
+                      gossip_steps: int, nodes, round_data, receiver, *,
+                      packed: bool, per_rank: bool) -> Callable:
+    """The replica exchange loop both engines share (JAX
+    ``make_process_choco_fn``).  ``round_data(round)`` and
+    ``receiver(payload, q, unit)`` as in :func:`_exchange`; ``receive``
+    returns None where the round gives the row nothing and leaves it to
+    this loop to add a zero row."""
+    units = _units(spec, packed)
+    nodes = tuple(nodes)
+    rounds = process.schedule.rounds
+    data = [round_data(r) for r in rounds]
+    matching = process.kind == "matching"
+    tables = _matching_tables(process, nodes, gamma) if matching else []
     on_device = {}
-    rows = [(w_self.tolist(), w_nbr.tolist())
-            for _, w_self, w_nbr, _ in compiled]
 
     @torch.no_grad()
-    def exchange(x: List[torch.Tensor], x_hat=None, s=None, *, seed: int = 0,
-                 draws=None):
+    def exchange(x: List[torch.Tensor], x_hat, s, *, seed: int = 0,
+                 draws: Optional[Callable[[int, int], torch.Tensor]] = None,
+                 samples: Optional[Callable[[int], object]] = None):
         dev = x[0].device
         if dev not in on_device:
-            on_device[dev] = _to_device(compiled, dev)
-        on_dev = on_device[dev]
-        for t in range(gossip_steps):
-            groups = on_dev[t % len(on_dev)][0]
-            if not groups:
-                continue
-            for buf in x:
-                nbr = _neighbor_sum(groups, receiver(buf))
-                for i, (ws, wn) in enumerate(zip(*rows[t % len(on_dev)])):
-                    torch.add(nbr[i].mul_(wn), buf[i], alpha=ws, out=buf[i])
-                del nbr
+            on_device[dev] = (_to_device(tables, dev), _to_device(data, dev))
+        tab, on_data = on_device[dev]
 
+        def receive_dense(receive, r, q):
+            got = receive(on_data[r])
+            return torch.zeros_like(q) if got is None else got
+        exchange.last_samples = []
+        for t in range(gossip_steps):
+            sample = (samples(t) if samples is not None
+                      else process.sample(seed, t))
+            exchange.last_samples.append(sample)
+            tseed = seed if t == 0 else fold_seed(seed, t)
+            tdraws = None if draws is None else (lambda i, t=t: draws(t, i))
+            if matching:
+                r = int(sample)
+                # the sampled branch's draws: JAX fold_in(tkey, r)
+                cseed, hats, reps = fold_seed(tseed, r), x_hat[r], s[r]
+                send, gv = tab[r]
+            else:
+                cseed, hats = tseed, x_hat
+                w_rounds = _round_weights(process, sample, nodes, dev)
+            for unit in units:
+                xv, hv = unit.views(x), unit.views(hats)
+                if packed:
+                    delta = xv.to(hv.dtype) - hv
+                    (payload,), (q,) = compress_bufs(
+                        compressor, spec, (unit.bucket,), (delta,),
+                        seed=cseed, draws=tdraws,
+                        nodes=nodes if per_rank else None)
+                    del delta
+                else:
+                    payload, q = _compress_leaf(compressor, unit, xv, hv,
+                                                cseed, tdraws,
+                                                nodes if per_rank else None)
+                receive = receiver(payload, q, unit)
+                del payload
+                w = unit.size
+                if matching:
+                    nbr = receive_dense(receive, r, q)
+                    dispatch.replica_matching(xv, hv, unit.views(reps),
+                                              q[:, :w], nbr[:, :w], send, gv)
+                else:
+                    nbrs = [receive_dense(receive, r, q)
+                            for r in range(len(rounds))]
+                    dispatch.replica_linkfail(
+                        xv, hv, q[:, :w], [unit.views(sr) for sr in s],
+                        [nb[:, :w] for nb in nbrs], w_rounds, gamma)
+                    del nbrs
+                del receive, q
+
+    exchange.gammas = [float(gamma)] * len(units)
+    exchange.last_samples = []
     return exchange
 
 
+def make_process_exchange(*, spec: BucketSpec, process, compressor,
+                          gamma: float, gossip_steps: int = 1,
+                          packed: bool = True) -> Callable:
+    """The stacked choco exchange under a topology process
+    (``comm/stochastic.py``), the port of JAX ``make_process_choco_fn``
+    (``src/repro/comm/gossip.py:667-816``) with the paper's Algorithm-2
+    replicas.  Returns ``exchange(x, x_hat, s, *, seed=0, draws=None,
+    samples=None)``, updating the buffers in place:
+
+    * matching: ``x_hat`` and ``s`` are lists of R bucket-buffer lists,
+      the own references H_r and the source replicas S_r.  Per gossip
+      round one round r is sampled; each node compresses q = Q(x - H_r)
+      (the compressor's draws salted with ``fold_seed(round_seed, r)``, as
+      JAX folds r into its key), ships it along round r only, and
+      ``H_r += send_r q``, ``S_r += q_received`` (nothing where the round
+      skips the node), ``x += gamma v_r (S_r - H_r)``: one replica-update
+      launch per bucket (or leaf).
+    * linkfail: ``x_hat`` is one bucket-buffer list, ``s`` a list of R.
+      One compression against x_hat, every round ships, every replica
+      takes in what it received, and the sampled edge mask gates only the
+      mixing weight: ``x += gamma sum_r recv_r mask_r (S_r - x_hat)``, all
+      R replicas in one launch per bucket (or leaf).
+
+    ``seed`` is the exchange seed: the sample of gossip round t is
+    ``process.sample(seed, t)``, the same on every node and engine, unless
+    ``samples(t)`` gives it (a round index, or an edge mask: the parity
+    tests hand over JAX's).  ``draws(t, u)`` injects the compressor's draw
+    of round t, unit u (for matching, the sampled branch's).
+    ``exchange.last_samples`` keeps the last call's samples.  ``packed``
+    as in :func:`make_choco_exchange`; gamma is one float."""
+    _check_process(spec, process, gamma, gossip_steps, compressor)
+    n = process.n
+
+    def receiver(payload, q, unit):
+        return _gather_rows(q)
+
+    return _process_exchange(spec, process, compressor, float(gamma),
+                             gossip_steps, range(n), _gather_index(n),
+                             receiver, packed=packed, per_rank=False)
+
+
+def make_dist_process_exchange(*, spec: BucketSpec, process, compressor,
+                               gamma: float, gossip_steps: int = 1, group,
+                               packed: bool = True) -> Callable:
+    """The per-rank exchange under a topology process: rank
+    ``group.rank``'s row of :func:`make_process_exchange`, bit for bit.
+    Matching ships only the sampled round (a rank the round skips makes
+    no ``sendrecv`` call); link failures ship every round, a dropped link
+    still carrying its payload.  The probe runs once per process.
+    ``exchange.payload_bytes`` as in :func:`make_dist_choco_exchange`;
+    ``exchange.sent_rounds(samples)`` counts the payloads of each unit
+    this rank sent under the samples of one call."""
+    _check_process(spec, process, gamma, gossip_steps, compressor)
+    n = process.n
+    if group.size != n:
+        raise ValueError(f"a group of {group.size} ranks for {n} nodes")
+    probe = dispatch.probe_collectives(group)
+    rank = group.rank
+
+    def receiver(payload, q, unit):
+        wire = to_wire(payload)
+
+        def receive(peers):
+            dst, src = peers
+            if dst is None and src is None:
+                return None
+            got = group.sendrecv(wire, dst, src)
+            return None if src is None else unit.dense(
+                from_wire(got, payload), 1)
+        return receive
+
+    exchange = _process_exchange(spec, process, compressor, float(gamma),
+                                 gossip_steps, (rank,),
+                                 lambda rnd: rnd.peers(rank), receiver,
+                                 packed=packed, per_rank=True)
+    exchange.probe = probe
+    exchange.payload_bytes = (bucket_wire_nbytes(spec, compressor) if packed
+                              else leaf_wire_nbytes(spec, compressor))
+    rounds = process.schedule.rounds
+
+    def sent_rounds(samples) -> int:
+        if process.kind == "matching":
+            return sum(rounds[int(r)].peers(rank)[0] is not None
+                       for r in samples)
+        return len(samples) * sum(rnd.peers(rank)[0] is not None
+                                  for rnd in rounds)
+    exchange.sent_rounds = sent_rounds
+    return exchange
+
+
+# ---------------------------------------------------------------------------
+# exact baselines
+# ---------------------------------------------------------------------------
+
+def _plain(gossip_steps: int, mixing, receiver) -> Callable:
+    """The plain exchange loop all its engines share, in place: per gossip
+    round t, ``mixing(t, device, seed, samples)`` gives (the round's
+    sample, None on a static schedule; ``neighbours(receive)``, the rows'
+    weighted neighbour sum of what ``receiver(buf)``'s ``receive`` returns
+    per schedule round; the rows' self weights as host floats), or None
+    where the schedule has no rounds (x stays as it is).  Per bucket and
+    row, ``x = fma(w_self, x, neighbours)``: ``torch.add`` with ``alpha``
+    fuses into one multiply-add on the CPU and on the card, as XLA
+    compiles the JAX engines' sum, and the result lands in x without a
+    copy.  ``exchange.last_samples`` keeps the last call's samples."""
+
+    @torch.no_grad()
+    def exchange(x: List[torch.Tensor], x_hat=None, s=None, *, seed: int = 0,
+                 draws=None, samples=None):
+        exchange.last_samples = []
+        for t in range(gossip_steps):
+            step = mixing(t, x[0].device, seed, samples)
+            if step is None:
+                continue
+            sample, neighbours, ws_rows = step
+            if sample is not None:
+                exchange.last_samples.append(sample)
+            for buf in x:
+                nbr = neighbours(receiver(buf))
+                for i, ws in enumerate(ws_rows):
+                    torch.add(nbr[i], buf[i], alpha=ws, out=buf[i])
+                del nbr
+
+    exchange.last_samples = []
+    return exchange
+
+
+def _schedule_mixing(compiled) -> Callable:
+    """:func:`_plain`'s mixing over static schedules (``compiled`` as in
+    :func:`_exchange`), schedule ``t % len``: the JAX engine's
+    ``w_nbr nbr`` with ``nbr = _neighbor_sum``, rounded before the FMA."""
+    rows = [(w_self.tolist(), w_nbr.tolist())
+            for _, w_self, w_nbr, _ in compiled]
+    on_device = {}
+
+    def mixing(t, dev, seed, samples):
+        if dev not in on_device:
+            on_device[dev] = _to_device(compiled, dev)
+        k = t % len(compiled)
+        groups = on_device[dev][k][0]
+        if not groups:
+            return None
+        ws, wn = rows[k]
+
+        def neighbours(receive):
+            nbr = _neighbor_sum(groups, receive)
+            for i, w in enumerate(wn):
+                nbr[i].mul_(w)
+            return nbr
+        return None, neighbours, ws
+    return mixing
+
+
+def _process_mixing(process, nodes, round_data) -> Callable:
+    """:func:`_plain`'s mixing under a topology process (JAX
+    ``_process_neighbor_sum``), for the nodes ``nodes``: the sample of
+    gossip round t is ``samples(t)`` if given, else ``process.sample(seed,
+    t)``.  Matching: the sampled round's payload weighted by the
+    1/p_r-scaled receive weight, the self weight its complement.  Link
+    failures: every round's payload weighted by its receive weight times
+    the edge mask, summed as XLA contracts the round loop
+    (:func:`_contracted_sum`), the self weight 1 minus the summed
+    weights."""
+    f32 = torch.float32
+    idx = list(nodes)
+    data = [round_data(r) for r in process.schedule.rounds]
+    on_device = {}
+
+    def mixing(t, dev, seed, samples):
+        if dev not in on_device:
+            on_device[dev] = _to_device(data, dev)
+        on_dev = on_device[dev]
+        sample = (samples(t) if samples is not None
+                  else process.sample(seed, t))
+        if process.kind == "matching":
+            r = int(sample)
+            live = [(r, torch.tensor(process.branch_recv[r], dtype=f32)[idx])]
+            w_self = torch.tensor(process.branch_self[r], dtype=f32)[idx]
+        else:
+            live = [(r, torch.from_numpy(wv)[idx]) for r, wv in
+                    enumerate(process.round_weights(sample))]
+            recv_w = torch.zeros((), dtype=f32)
+            for _, wv in live:
+                recv_w = recv_w + wv
+            w_self = 1.0 - recv_w
+
+        def neighbours(receive):
+            return _contracted_sum([(wv.tolist(), receive(on_dev[r]))
+                                    for r, wv in live])
+        return sample, neighbours, w_self.tolist()
+    return mixing
+
+
+def _contracted_sum(terms):
+    """sum_r w_r b_r over ``[(w_r, b_r)]`` (w_r one host float per row,
+    b_r the rows' received buffers), as XLA contracts the JAX engine's
+    round loop on the CPU (the replica kernel's order,
+    ``ref.replica_linkfail_ref``): w_0 b_0 alone; fma(w_0, b_0, w_1 b_1);
+    then fma(w_r, b_r, acc).  Each FMA is ``torch.add(acc, b, alpha=w)``
+    per row, as in :func:`_plain`.  Returns a new buffer."""
+    (w0, b0), rest = terms[0], terms[1:]
+    if not rest:
+        return b0 * torch.tensor(w0, dtype=b0.dtype, device=b0.device)[:, None]
+    w1, b1 = rest[0]
+    acc = b1 * torch.tensor(w1, dtype=b1.dtype, device=b1.device)[:, None]
+    for w, b in [(w0, b0)] + rest[1:]:
+        for i, wi in enumerate(w):
+            torch.add(acc[i], b[i], alpha=wi, out=acc[i])
+    return acc
+
+
+def _wire_receiver(group) -> Callable:
+    """``receiver(buf)`` of the per-rank plain exchanges: this rank's
+    ``(1, size)`` f32 bucket goes, as its bytes, to the round's
+    destination through ``group.sendrecv``, and the source's arrives (a
+    zero row where the round gives this rank none; no call where it skips
+    the rank)."""
+    def receiver(buf):
+        wire = buf.reshape(-1).view(torch.uint8)
+
+        def receive(peers):
+            dst, src = peers
+            got = (None if dst is None and src is None
+                   else group.sendrecv(wire, dst, src))
+            if got is None:
+                return torch.zeros_like(buf)
+            return got.view(buf.dtype).view(buf.shape)
+        return receive
+    return receiver
+
+
 def make_plain_exchange(*, spec: BucketSpec,
-                        schedules: Sequence[GossipSchedule],
-                        gossip_steps: int = 1) -> Callable:
+                        schedules: Sequence[GossipSchedule] = (),
+                        gossip_steps: int = 1, process=None) -> Callable:
     """Exact neighbour averaging (D-SGD, Algorithm 3), the port of
-    ``make_plain_schedule_fn`` (``src/repro/comm/gossip.py:823-857``):
-    returns ``exchange(x, x_hat=None, s=None, *, seed=0, draws=None)``,
-    the choco exchange's call, which averages the node-stacked f32 bucket
-    buffers ``x`` in place, ``gossip_steps`` rounds of schedule
-    ``t % len(schedules)``.  ``x_hat``, ``s``, ``seed`` and ``draws`` are
-    not read: the payload is the iterate itself."""
-    n = _check_exchange(spec, schedules, None, gossip_steps)
-    return _plain(gossip_steps,
-                  _compile(schedules, range(n), _gather_index(n)),
-                  _gather_rows)
+    ``make_plain_schedule_fn`` (``src/repro/comm/gossip.py:823-858``):
+    returns ``exchange(x, x_hat=None, s=None, *, seed=0, draws=None,
+    samples=None)``, the choco exchange's call, which averages the
+    node-stacked f32 bucket buffers ``x`` in place, ``gossip_steps``
+    rounds of schedule ``t % len(schedules)``, or, under a topology
+    ``process`` (whose schedule then stands in for ``schedules``), exact
+    sampled averaging with no replicas: the sample of round t
+    ``process.sample(seed, t)`` unless ``samples(t)`` gives it.  ``x_hat``,
+    ``s`` and ``draws`` are not read: the payload is the iterate
+    itself."""
+    if process is not None:
+        _check_process(spec, process, 1.0, gossip_steps)
+        n = process.n
+        mixing = _process_mixing(process, range(n), _gather_index(n))
+    else:
+        n = _check_exchange(spec, schedules, None, gossip_steps)
+        mixing = _schedule_mixing(_compile(schedules, range(n),
+                                           _gather_index(n)))
+    return _plain(gossip_steps, mixing, _gather_rows)
 
 
 def make_allreduce_exchange(*, spec: BucketSpec, n: int) -> Callable:
@@ -636,37 +982,31 @@ def make_allreduce_exchange(*, spec: BucketSpec, n: int) -> Callable:
 
 
 def make_dist_plain_exchange(*, spec: BucketSpec,
-                             schedules: Sequence[GossipSchedule],
-                             gossip_steps: int = 1, group) -> Callable:
-    """The per-rank plain exchange: this rank's ``(1, size)`` f32 bucket
-    goes, as its bytes, to each schedule round's destination through
-    ``group.sendrecv``, and the source's arrives (a zero row where a
-    partial round gives this node none); the weighting is the stacked
-    form's, so each rank computes its row of :func:`make_plain_exchange`
-    bit for bit.  No probe runs (the JAX package probes only on its
-    kernel path).  ``exchange.payload_bytes`` lists each bucket's bytes
-    (4 per padded element) and ``exchange.sends`` the payloads of each
+                             schedules: Sequence[GossipSchedule] = (),
+                             gossip_steps: int = 1, process=None,
+                             group) -> Callable:
+    """The per-rank plain exchange: this rank's row of
+    :func:`make_plain_exchange` bit for bit, its bucket sent as its bytes
+    (:func:`_wire_receiver`; under matching only the sampled round ships).
+    No probe runs (the JAX package probes only on its kernel path).
+    ``exchange.payload_bytes`` lists each bucket's bytes (4 per padded
+    element); on a static schedule ``exchange.sends`` the payloads of each
     bucket this rank sends per call."""
-    n = _check_exchange(spec, schedules, None, gossip_steps)
+    rank = group.rank
+    if process is not None:
+        _check_process(spec, process, 1.0, gossip_steps)
+        n = process.n
+        mixing = _process_mixing(process, (rank,), lambda rnd: rnd.peers(rank))
+    else:
+        n = _check_exchange(spec, schedules, None, gossip_steps)
+        mixing = _schedule_mixing(_compile(schedules, (rank,),
+                                           lambda rnd: rnd.peers(rank)))
     if group.size != n:
         raise ValueError(f"a group of {group.size} ranks for {n} nodes")
-    compiled = _compile(schedules, (group.rank,),
-                        lambda rnd: rnd.peers(group.rank))
-
-    def receiver(buf):
-        wire = buf.reshape(-1).view(torch.uint8)
-
-        def receive(peers):
-            dst, src = peers
-            got = group.sendrecv(wire, dst, src)
-            if src is None:
-                return torch.zeros_like(buf)
-            return got.view(buf.dtype).view(buf.shape)
-        return receive
-
-    exchange = _plain(gossip_steps, compiled, receiver)
+    exchange = _plain(gossip_steps, mixing, _wire_receiver(group))
     exchange.payload_bytes = [4 * b.size for b in spec.buckets]
-    exchange.sends = _sends(schedules, gossip_steps, group.rank)
+    if process is None:
+        exchange.sends = _sends(schedules, gossip_steps, rank)
     return exchange
 
 

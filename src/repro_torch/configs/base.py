@@ -111,6 +111,15 @@ class ChocoConfig:
     # made, by passing it to make_lm_batch_fn(skew_alpha=), as the
     # launcher does
     data_skew_alpha: Optional[float] = None
+    # a stochastic topology process over the compiled schedule
+    # (comm/stochastic.py): None (the static graph), "matching" (one
+    # sampled round per gossip round) or "linkfail" (i.i.d. link drops);
+    # one graph, the choco or plain mode, not pipelined
+    topology_process: Optional[str] = None
+    # drop probability of each undirected link per gossip round (linkfail)
+    edge_drop_prob: float = 0.1
+    # "uniform" or "weighted" round probabilities (matching)
+    matching_sampler: str = "uniform"
 
     def comp_dict(self):
         return dict(self.comp_kwargs)

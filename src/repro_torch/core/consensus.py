@@ -5,8 +5,8 @@ the average of X and (ii) contracts the Lyapunov function
 Psi(X, Y) = ||X - Xbar||_F^2 + ||X - Y||_F^2 by (1 - p).  Exact gossip
 satisfies it with p = gamma delta; CHOCO-Gossip with p = delta^2 omega /
 82 (Theorem 2).  Decentralized SGD with any such h converges (Theorem
-19).  Not ported: ``stochastic_choco_averaging`` (it needs the stochastic
-topology processes).
+19).  ``stochastic_choco_averaging`` runs CHOCO-Gossip over a stochastic
+topology process (``comm/stochastic.py``).
 """
 from __future__ import annotations
 
@@ -57,3 +57,31 @@ def choco_averaging(W: torch.Tensor, delta: float, beta: float,
         return Xn, Yn
 
     return AveragingScheme("choco", h, p=1.0 - theorem2_rate(delta, omega))
+
+
+def stochastic_choco_averaging(process, compressor: Compressor, d: int,
+                               gamma: Optional[float] = None
+                               ) -> AveragingScheme:
+    """Blackbox averaging over a stochastic topology process
+    (``comm/stochastic.py``; JAX ``src/repro/core/consensus.py:64-96``):
+    h's auxiliary Y is the process's reference state, the (R, n, d)
+    per-round reference stack for matchings, the (n, d) public copy for
+    link failures, and each call consumes one sampled round.  p is
+    Theorem 2's at the EXPECTED mixing matrix.  ``h(X, Y, seed=0,
+    rand=None, sample=None)``: ``seed`` draws the sample (the exchange
+    seed, as the engines take it) unless ``sample`` gives it; ``rand`` is
+    a stochastic compressor's draw."""
+    from repro_torch.comm.stochastic import (ProcessGossipState,
+                                             choco_process_round)
+    delta, beta = process.expected_delta_beta()
+    omega = compressor.omega(d)
+    if gamma is None:
+        gamma = theorem2_stepsize(delta, beta, omega)
+
+    def h(X, Y, seed: int = 0, rand=None, sample=None):
+        st = choco_process_round(ProcessGossipState(X, Y), process, gamma,
+                                 compressor, seed, rand=rand, sample=sample)
+        return st.x, st.refs
+
+    return AveragingScheme(f"stochastic-{process.kind}", h,
+                           p=1.0 - theorem2_rate(delta, omega))

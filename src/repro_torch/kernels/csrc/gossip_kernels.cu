@@ -16,6 +16,9 @@
 //                      (src/repro/core/compression.py:336), f32 or bf16 input
 //   the EF updates in pipelined order <- _pipelined_leaf_updates
 //                      (src/repro/comm/pipelined.py:71)
+//   replica_update  <- the topology-process engine's replica update
+//                      (src/repro/comm/gossip.py:make_process_choco_fn,
+//                      :721-810), matching and link-failure forms
 //
 // What bounds them: all five are elementwise, a handful of flops per
 // element against 5-36 bytes moved, so device-memory bandwidth bounds every
@@ -273,6 +276,113 @@ __global__ void ef_update_bf16_kernel(float* __restrict__ x,
   }
 }
 
+// The replica update of the topology-process engine (the JAX package's
+// make_process_choco_fn, jnp there).  TS is the EF state's type (float or
+// bf16), TQ the payloads' (float, or bf16 with bf16 state); round_state
+// rounds to TS (nothing for f32), as the JAX text's .astype(h.dtype) does.
+// The multiply-adds are the FMAs XLA contracts the JAX text into on the
+// CPU (kernels/ref.py:replica_matching_ref, replica_linkfail_ref), explicit
+// here (__fmaf_rn) and nowhere else.
+template <typename TS>
+__device__ __forceinline__ float round_state(float v) {
+  if constexpr (std::is_same<TS, float>::value) {
+    return v;
+  } else {
+    return round_bf16(v);
+  }
+}
+
+template <typename TS>
+__device__ __forceinline__ TS store_state(float v) {
+  if constexpr (std::is_same<TS, float>::value) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
+// Matching form, one sampled round r: H_r += send q_self, S_r += q_nbr,
+// x += (gamma v_r) (S_r - H_r), in place.  send and gv are per node row.
+template <typename TS, typename TQ>
+__global__ void replica_matching_kernel(float* __restrict__ x,
+                                        TS* __restrict__ h,
+                                        TS* __restrict__ s,
+                                        const TQ* __restrict__ q_self,
+                                        const TQ* __restrict__ q_nbr,
+                                        const float* __restrict__ send,
+                                        const float* __restrict__ gv,
+                                        int64_t len, int64_t ld_x,
+                                        int64_t ld_q) {
+  const int64_t row = blockIdx.y;
+  x += row * ld_x;
+  h += row * ld_x;
+  s += row * ld_x;
+  q_self += row * ld_q;
+  q_nbr += row * ld_q;
+  const float sd = send[row];
+  const float g = gv[row];
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < len; i += stride) {
+    const float h_n = round_state<TS>(__fadd_rn(
+        to_f32(h[i]), round_state<TS>(__fmul_rn(sd, to_f32(q_self[i])))));
+    const float s_n = round_state<TS>(
+        __fadd_rn(to_f32(s[i]), round_state<TS>(to_f32(q_nbr[i]))));
+    x[i] = __fmaf_rn(g, __fsub_rn(s_n, h_n), x[i]);
+    h[i] = store_state<TS>(h_n);
+    s[i] = store_state<TS>(s_n);
+  }
+}
+
+// Link-failure form: x_hat += q_self; S_r += q_r for every round (the
+// payload always arrives); acc = sum_r w_r (S_r - x_hat), w_r = recv_r keep_r
+// the round's weight under the sampled edge mask: w_0 d_0 alone,
+// fma(w_0, d_0, w_1 d_1) with two rounds, then fma(w_r, d_r, acc);
+// x = fma(gamma, acc, x).  One launch for all R rounds.  reps holds the R
+// replicas' pointers, then the R payloads', and w the (R, rows) weights,
+// both in device memory, so neither R nor the rows are capped.
+template <typename TS, typename TQ>
+__global__ void replica_linkfail_kernel(float* __restrict__ x,
+                                        TS* __restrict__ h,
+                                        const TQ* __restrict__ q_self,
+                                        void* const* __restrict__ reps,
+                                        const float* __restrict__ w,
+                                        int rounds, int64_t rows, float gamma,
+                                        int64_t len, int64_t ld_x,
+                                        int64_t ld_q) {
+  const int64_t row = blockIdx.y;
+  x += row * ld_x;
+  h += row * ld_x;
+  q_self += row * ld_q;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < len; i += stride) {
+    const float h_n = round_state<TS>(
+        __fadd_rn(to_f32(h[i]), round_state<TS>(to_f32(q_self[i]))));
+    float acc = 0.0f, w0 = 0.0f, d0 = 0.0f;
+    for (int r = 0; r < rounds; ++r) {
+      TS* sr = static_cast<TS*>(reps[r]) + row * ld_x;
+      const TQ* qr = static_cast<const TQ*>(reps[rounds + r]) + row * ld_q;
+      const float s_n = round_state<TS>(
+          __fadd_rn(to_f32(sr[i]), round_state<TS>(to_f32(qr[i]))));
+      sr[i] = store_state<TS>(s_n);
+      const float wr = w[r * rows + row];
+      const float d = __fsub_rn(s_n, h_n);
+      if (r == 0) {
+        w0 = wr;
+        d0 = d;
+        acc = __fmul_rn(wr, d);
+      } else if (r == 1) {
+        acc = __fmaf_rn(w0, d0, __fmul_rn(wr, d));
+      } else {
+        acc = __fmaf_rn(wr, d, acc);
+      }
+    }
+    x[i] = __fmaf_rn(gamma, acc, x[i]);
+    h[i] = store_state<TS>(h_n);
+  }
+}
+
 template <typename T>
 struct TypeTag {
   using type = T;
@@ -421,6 +531,45 @@ int ef_update_bf16(float* x, __nv_bfloat16* x_hat, __nv_bfloat16* s,
     q_f32 ? run(std::true_type{}, Fq{}) : run(std::true_type{}, Bq{});
   } else {
     q_f32 ? run(std::false_type{}, Fq{}) : run(std::false_type{}, Bq{});
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// form 0: matching (s is S_r, q q_nbr, aux0 send, aux1 gamma v, reps
+// unused); form 1: link failures (reps the device array of the R replicas'
+// and then the R payloads' pointers, aux0 the (R, n) weights recv_r keep_r;
+// s, q and aux1 unused).
+int replica_update(int form, float* x, void* h, const void* q_self, void* s,
+                   const void* q, void* const* reps, int rounds,
+                   const float* aux0, const float* aux1, float gamma,
+                   int state_bf16, int q_f32, int64_t n, int64_t len,
+                   int64_t ld_x, int64_t ld_q, cudaStream_t stream) {
+  if (rounds < 1 || (form == 0 && rounds != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(blocks_for(len), static_cast<unsigned int>(n));
+  const auto run = [&](auto ts, auto tq) {
+    using TS = typename decltype(ts)::type;
+    using TQ = typename decltype(tq)::type;
+    if (form == 0) {
+      replica_matching_kernel<TS, TQ><<<grid, kThreads, 0, stream>>>(
+          x, static_cast<TS*>(h), static_cast<TS*>(s),
+          static_cast<const TQ*>(q_self), static_cast<const TQ*>(q), aux0,
+          aux1, len, ld_x, ld_q);
+    } else {
+      replica_linkfail_kernel<TS, TQ><<<grid, kThreads, 0, stream>>>(
+          x, static_cast<TS*>(h), static_cast<const TQ*>(q_self), reps, aux0,
+          rounds, n, gamma, len, ld_x, ld_q);
+    }
+  };
+  using Bf = TypeTag<__nv_bfloat16>;
+  using Fl = TypeTag<float>;
+  if (!state_bf16) {
+    run(Fl{}, Fl{});
+  } else if (q_f32) {
+    run(Bf{}, Fl{});
+  } else {
+    run(Bf{}, Bf{});
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 """Route each kernel call of the port to its kernel: the stages of the
 gossip exchanges (QSGD codes in the packed and the per-leaf form, sign
-codes, dequantize, and the EF update on f32 and on bf16 state, each in
-serial and in pipelined order), the top-k selection mask, flash
+codes, dequantize, the EF update on f32 and on bf16 state, each in
+serial and in pipelined order, and the topology-process engine's replica
+update), the top-k selection mask, flash
 attention, and the collective-layer probe.
 
 The route follows the tensor's device and nothing else:
@@ -43,6 +44,7 @@ KERNELS = {
     "ef_update_pipelined": _ef.ef_update_pipelined,
     "ef_update_bf16": _ef.ef_update_bf16,
     "ef_update_bf16_pipelined": _ef.ef_update_bf16_pipelined,
+    "replica_update": _ef.replica_update,
     "flash_attention": _flash.flash_attention,
     "block_topk_mask": _topk.block_topk_mask,
     "probe_scale": _probe.probe_scale,
@@ -119,6 +121,33 @@ def ef_bucket_update(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr, gamma,
     for old, n in zip((x_half, x_hat, s), new):
         old.copy_(n)
     return x_half, x_hat, s
+
+
+def replica_matching(x, h, s, q_self, q_nbr, send, gv):
+    """The topology-process engine's matching update for one bucket (or
+    leaf slot) in place (``ref.replica_matching_ref``): ``h`` is the
+    sampled round's own reference H_r, ``s`` its source replica S_r,
+    ``send`` and ``gv`` (n,) f32 per node row.  Returns (x, h, s)."""
+    if not _on_cpu(x):
+        return _ef.replica_matching(x, h, s, q_self, q_nbr, send, gv)
+    new = ref.replica_matching_ref(x, h, s, q_self, q_nbr, send, gv)
+    for old, t in zip((x, h, s), new):
+        old.copy_(t)
+    return x, h, s
+
+
+def replica_linkfail(x, h, q_self, s_list, q_list, w, gamma):
+    """The link-failure update for one bucket (or leaf slot) in place,
+    x_hat and all R replicas at once (``ref.replica_linkfail_ref``): ``w``
+    (R, n) f32, each round's receive weights under the sampled edge mask.
+    Returns (x, h, s_list)."""
+    if not _on_cpu(x):
+        return _ef.replica_linkfail(x, h, q_self, s_list, q_list, w, gamma)
+    x_n, h_n, s_n = ref.replica_linkfail_ref(x, h, q_self, s_list, q_list,
+                                             w, gamma)
+    for old, t in zip((x, h, *s_list), (x_n, h_n, *s_n)):
+        old.copy_(t)
+    return x, h, s_list
 
 
 def block_topk_mask(x, k: int):

@@ -33,6 +33,17 @@ plain version on the card.
 pipelined engine's order (``src/repro/comm/pipelined.py:
 _pipelined_leaf_updates``, jnp in JAX): x reads the pre-round pair,
 ``x' = x_half + gamma (s - x_hat)``, then x_hat' and s' as above.
+
+:func:`replica_matching` and :func:`replica_linkfail` are the two forms
+of the topology-process engine's replica update (``src/repro/comm/
+gossip.py:make_process_choco_fn``, jnp in JAX), one kernel,
+``replica_update``, with the form, the state dtype and the payload dtype
+as template parameters (``ref.replica_matching_ref`` and
+``ref.replica_linkfail_ref`` say what they compute).  The matching form
+moves the EF update's bytes; the link-failure form updates x, x_hat and
+all R replicas of a bucket in one launch, the replicas' and payloads'
+pointers and the rounds' weights under the edge mask passed in device
+memory (so neither the rounds nor the node rows are capped).
 """
 from __future__ import annotations
 
@@ -160,7 +171,107 @@ def ef_update_bf16_pipelined(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
     return out
 
 
+def _replica_check(kernel, x, h, q_self, states, payloads):
+    """The replica update's argument checks: x (n, L) f32 and the EF state
+    (x_hat / H_r and the replicas) f32 or bf16, one row stride; the
+    payloads one dtype (f32, or bf16 with bf16 state) and one row stride
+    of their own; no two buffers the same memory.  Returns (state bf16,
+    q f32, ld_x, ld_q)."""
+    shape = x.shape
+    if x.dim() != 2:
+        raise ValueError(f"{kernel}: expected (n, L) buffers, got "
+                         f"{tuple(shape)}")
+    sd, qd = h.dtype, q_self.dtype
+    if sd not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{kernel}: EF state of {sd}, expected f32 or bf16")
+    if qd not in ((torch.float32,) if sd == torch.float32
+                  else (torch.float32, torch.bfloat16)):
+        raise ValueError(f"{kernel}: payloads of {qd} on {sd} state")
+    bufs = [x, h, q_self, *states, *payloads]
+    ptrs = [t.data_ptr() for t in bufs]
+    if len(set(ptrs)) < len(ptrs):
+        raise ValueError(f"{kernel}: every buffer must be distinct memory")
+    ld_x = {build.require_rows(t, name, dtype, shape) for name, t, dtype in
+            [("x", x, torch.float32), ("x_hat", h, sd)]
+            + [("s", t, sd) for t in states]}
+    ld_q = {build.require_rows(t, "q", qd, shape)
+            for t in (q_self, *payloads)}
+    if len(ld_x) != 1 or len(ld_q) != 1:
+        raise ValueError(f"{kernel}: x, x_hat and the replicas must share "
+                         f"one row stride, the payloads another; got "
+                         f"{sorted(ld_x)} and {sorted(ld_q)}")
+    return sd == torch.bfloat16, qd == torch.float32, ld_x.pop(), ld_q.pop()
+
+
+def _row_vector(t, name, rows, device):
+    build.require(t, name, torch.float32, (rows,))
+    if t.device != device:
+        raise ValueError(f"replica_update: {name} is on {t.device}, the "
+                         f"buffers on {device}")
+
+
+def _on_device(values, dtype, device):
+    """A small host list on ``device`` without a host sync: staged through
+    pinned memory, copied on the current stream ahead of the launch."""
+    return torch.tensor(values, dtype=dtype).pin_memory().to(
+        device, non_blocking=True)
+
+
+def replica_update(form: int, x, h, q_self, states, payloads, aux0, aux1,
+                   gamma: float):
+    """Launch the replica-update kernel (form 0 matching, 1 link
+    failures) on checked arguments; counts the launch."""
+    lib = build.load_library("gossip")
+    bf16, q_f32, ld_x, ld_q = _replica_check(
+        "replica_update", x, h, q_self, states, payloads)
+    n, L = x.shape
+    R = len(states)
+    if R < 1 or len(payloads) != R:
+        raise ValueError(f"replica_update: {R} replicas and {len(payloads)} "
+                         f"payloads, expected one or more of each")
+    reps = None
+    if form == 1:
+        reps = _on_device([t.data_ptr() for t in (*states, *payloads)],
+                          torch.int64, x.device)
+    code = lib.replica_update(
+        int(form), x.data_ptr(), h.data_ptr(), q_self.data_ptr(),
+        states[0].data_ptr(), payloads[0].data_ptr(),
+        0 if reps is None else reps.data_ptr(), R, aux0.data_ptr(),
+        0 if aux1 is None else aux1.data_ptr(), float(gamma), int(bf16),
+        int(q_f32), n, L, ld_x, ld_q, build.stream_of(x))
+    build.check_launch(lib, code, "replica_update")
+    replica_update.launches += 1
+
+
+def replica_matching(x, h, s, q_self, q_nbr, send, gv):
+    """The matching form on CUDA tensors, in place: ``x`` (n, L) f32;
+    ``h`` (H_r) and ``s`` (S_r) f32 or bf16, x's row stride; ``q_self``
+    and ``q_nbr`` f32, or bf16 with bf16 state, a row stride of their own;
+    ``send`` and ``gv`` (n,) f32 on the same device.  Returns (x, h, s)."""
+    n = x.shape[0]
+    for name, t in (("send", send), ("gv", gv)):
+        _row_vector(t, name, n, x.device)
+    replica_update(0, x, h, q_self, [s], [q_nbr], send, gv, 0.0)
+    return x, h, s
+
+
+def replica_linkfail(x, h, q_self, s_list, q_list, w, gamma: float):
+    """The link-failure form on CUDA tensors, in place: ``x`` (n, L) f32,
+    ``h`` (x_hat) and the R replicas ``s_list`` f32 or bf16, one row
+    stride; ``q_self`` and the R received payloads ``q_list`` one dtype
+    and row stride; ``w`` (R, n) f32 on the device, each round's receive
+    weights under the sampled edge mask.  Returns (x, h, s_list)."""
+    build.require(w, "w", torch.float32, (len(s_list), x.shape[0]))
+    if w.device != x.device:
+        raise ValueError(f"replica_update: w is on {w.device}, the buffers "
+                         f"on {x.device}")
+    replica_update(1, x, h, q_self, list(s_list), list(q_list), w, None,
+                   gamma)
+    return x, h, s_list
+
+
 ef_update.launches = 0
 ef_update_pipelined.launches = 0
 ef_update_bf16.launches = 0
 ef_update_bf16_pipelined.launches = 0
+replica_update.launches = 0

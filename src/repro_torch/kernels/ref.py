@@ -214,6 +214,77 @@ def _ef_update_bf16_f32q(x_half, x_hat, s, q_self, q_nbr, w_self, w_nbr,
     return x_n, x_hat_n, s_n
 
 
+def _round_state(v, dtype):
+    """f32 values rounded to the EF state's dtype (nothing for f32)."""
+    return v if dtype == torch.float32 else v.to(dtype).to(torch.float32)
+
+
+def replica_matching_ref(x, h, s, q_self, q_nbr, send, gv):
+    """The matching form of the topology-process engine's replica update
+    (JAX ``make_process_choco_fn``, ``matching_local_fn``), per node row,
+    for the sampled round r:
+
+        H_r' = H_r + st(send q_self)
+        S_r' = S_r + st(q_nbr)
+        x'   = x + (gamma v_r) (S_r' - H_r')
+
+    each sum rounded to the EF state's dtype (st: the rounding of
+    ``.astype(h.dtype)``, nothing on f32 state).  ``x`` (n, L) f32; ``h``,
+    ``s`` f32 or bf16; ``q_self``, ``q_nbr`` f32, or bf16 with bf16 state
+    (``q_nbr`` zero on a row the round gives nothing); ``send`` and ``gv``
+    (n,) f32: the node's send bit and ``f32(gamma) * v_r``.  x' is one
+    FMA over the unrounded f32 difference, ``fma(gv, S_r' - H_r', x)``,
+    as XLA compiles the JAX text on the CPU (found by holding candidate
+    roundings against the jitted JAX engine, f32 and bf16 state: this one
+    matched every element).  Returns (x', H_r', S_r')."""
+    f32, sd = torch.float32, h.dtype
+    h_n = _round_state(h.to(f32) + _round_state(send[:, None]
+                                                * q_self.to(f32), sd), sd)
+    s_n = _round_state(s.to(f32) + _round_state(q_nbr.to(f32), sd), sd)
+    d = s_n - h_n
+    x_n = fma_f32(gv[:, None].expand_as(d), d, x)
+    return x_n, h_n.to(sd), s_n.to(sd)
+
+
+def replica_linkfail_ref(x, h, q_self, s_list, q_list, w, gamma: float):
+    """The link-failure form of the replica update (JAX
+    ``linkfail_local_fn``), per node row, over the schedule's R rounds:
+
+        x_hat' = x_hat + st(q_self)
+        S_r'   = S_r + st(q_r)                            every round
+        acc    = sum_r w_r (S_r' - x_hat'),                  f32
+        x'     = fma(gamma, acc, x)
+
+    ``s_list`` and ``q_list`` the R replicas and received payloads (a
+    payload zero where the round gives the row nothing); ``w`` (R, n) f32,
+    each round's receive weights under the sampled edge mask (JAX's
+    ``round_recv[r] * mask``, zero where row i's link of round r is down).
+    The sum is XLA's
+    contraction of the JAX loop ``acc = 0 + w_0 d_0; acc = acc + w_r d_r``
+    on the CPU: the zero dropped, the first add contracted into
+    ``fma(w_0, d_0, w_1 d_1)`` and each later one into ``fma(w_r, d_r,
+    acc)`` (found, like x's FMA, by holding candidates against the jitted
+    JAX engine; the order of the first pair matters).  Returns (x',
+    x_hat', [S_r'])."""
+    f32, sd = torch.float32, h.dtype
+    h_n = _round_state(h.to(f32) + _round_state(q_self.to(f32), sd), sd)
+    terms, new_s = [], []
+    for r, (sr, qr) in enumerate(zip(s_list, q_list)):
+        s_n = _round_state(sr.to(f32) + _round_state(qr.to(f32), sd), sd)
+        new_s.append(s_n.to(sd))
+        d = s_n - h_n
+        terms.append((w[r][:, None].expand_as(d), d))
+    (w0, d0), rest = terms[0], terms[1:]
+    if not rest:
+        acc = w0 * d0
+    else:
+        acc = fma_f32(w0, d0, rest[0][0] * rest[0][1])
+        for wr, d in rest[1:]:
+            acc = fma_f32(wr, d, acc)
+    x_n = fma_f32(torch.full_like(acc, gamma), acc, x)
+    return x_n, h_n.to(sd), new_s
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None):
     """Online-softmax attention, step for step as the flash kernels.
 

@@ -13,6 +13,12 @@ gives the node count N; a model extent above 1 is refused.  Two engines:
   each, and under ``torchrun --nproc-per-node N`` each process is one node
   (the per-rank engine, ``launch/mesh.py`` says which transport).
 
+``--topology-process matching|linkfail`` runs the gossip under a
+stochastic topology process (``comm/stochastic.py``; ``--matching-sampler
+uniform|weighted``, ``--edge-drop-prob P``), the header printing the
+process and its expected (delta, beta); ``staleness`` is refused.
+Spawned ranks on ``--device cpu`` run on one thread each
+(``CPU_RANK_ENV``), as the stacked run's bit-equal twin.
 ``--optimizer sgd|momentum|adamw`` picks the local step and
 ``--data-skew-alpha`` Dirichlet(alpha) non-IID token shards.
 ``--gossip-engine per-leaf`` runs the per-leaf gossip engine (one payload
@@ -60,13 +66,17 @@ COMPRESSOR_CHOICES = ("identity", "rand_k", "top_k", "block_top_k", "qsgd",
 OPTIMIZER_CHOICES = ("sgd", "momentum", "adamw")
 #: the JAX launcher's gossip engines
 ENGINE_CHOICES = ("packed", "per-leaf")
+#: the JAX launcher's ``--topology-process`` choices; "staleness" is refused
+PROCESS_CHOICES = ("none", "matching", "linkfail", "staleness")
+#: the environment of a spawned CPU rank, set before its interpreter
+#: starts: one OpenMP and one MKL thread (a CPU sum over more threads adds
+#: in another order, and the stacked run takes one thread per node)
+CPU_RANK_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
+                "MKL_DYNAMIC": "FALSE", "OMP_DYNAMIC": "FALSE"}
 
 #: flags of the JAX launcher whose features the port does not have:
 #: given any value other than the default, the launcher refuses them
 _REFUSED = {
-    "topology_process": ("none", "stochastic topology processes"),
-    "edge_drop_prob": (None, "link-failure processes"),
-    "matching_sampler": (None, "matching processes"),
     "max_staleness": (None, "bounded-staleness gossip"),
     "straggler_edges": (None, "straggler links"),
     "straggler_delay_probs": (None, "straggler links"),
@@ -91,9 +101,19 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mode", default="choco",
                     choices=["choco", "plain", "allreduce", "pushsum"])
     ap.add_argument("--topology", default="ring")
-    ap.add_argument("--topology-process", default="none")
-    ap.add_argument("--edge-drop-prob", type=float, default=None)
-    ap.add_argument("--matching-sampler", default=None)
+    ap.add_argument("--topology-process", default="none",
+                    choices=list(PROCESS_CHOICES),
+                    help="stochastic topology process: 'matching' samples "
+                         "one schedule round per gossip round, 'linkfail' "
+                         "drops each edge i.i.d. with --edge-drop-prob per "
+                         "round ('staleness' is not ported)")
+    ap.add_argument("--edge-drop-prob", type=float, default=None,
+                    help="Bernoulli link-failure probability in [0, 1) "
+                         "(requires --topology-process linkfail)")
+    ap.add_argument("--matching-sampler", default=None,
+                    choices=["uniform", "weighted"],
+                    help="round sampler for --topology-process matching "
+                         "(default uniform)")
     ap.add_argument("--max-staleness", type=int, default=None)
     ap.add_argument("--straggler-edges", default=None)
     ap.add_argument("--straggler-delay-probs", default=None)
@@ -155,6 +175,9 @@ def _validate(ap, args) -> int:
             flag = "--" + dest.replace("_", "-")
             ap.error(f"{flag} is not supported by the port: {what} is not "
                      f"ported")
+    if args.topology_process == "staleness":
+        ap.error("--topology-process staleness is not supported by the "
+                 "port: bounded-staleness gossip is not ported")
     if args.state_dtype not in STATE_DTYPES:
         ap.error(f"--state-dtype {args.state_dtype} is not supported by the "
                  f"port: the EF state is {' or '.join(STATE_DTYPES)}")
@@ -181,14 +204,39 @@ def _validate(ap, args) -> int:
             ap.error(f"--topology {name!r}: choose from "
                      f"{', '.join(SYMMETRIC_TOPOLOGIES)}, or a comma-separated "
                      f"sequence of them")
+    if args.topology_process != "none":
+        # the JAX launcher's combination rules
+        # (src/repro/launch/train.py:237-258)
+        if len(names) > 1:
+            ap.error(f"--topology-process {args.topology_process} is itself "
+                     f"the per-step mixing distribution; a time-varying "
+                     f"--topology sequence ({args.topology!r}) is ambiguous")
+        if args.mode == "allreduce":
+            ap.error("--topology-process has no effect under --mode "
+                     "allreduce (no gossip graph); drop one of the two")
+    if args.edge_drop_prob is not None:
+        if args.topology_process != "linkfail":
+            ap.error("--edge-drop-prob only applies to --topology-process "
+                     "linkfail")
+        if not 0.0 <= args.edge_drop_prob < 1.0:
+            ap.error(f"--edge-drop-prob must be in [0, 1), got "
+                     f"{args.edge_drop_prob} (p = 1 never mixes)")
+    if args.matching_sampler is not None \
+            and args.topology_process != "matching":
+        ap.error("--matching-sampler only applies to --topology-process "
+                 "matching")
     if args.pipeline_gossip:
-        # the JAX launcher's rules (src/repro/launch/train.py:295-311); a
-        # topology process is refused above
+        # the JAX launcher's rules (src/repro/launch/train.py:295-311)
         if args.mode != "choco":
             ap.error(f"--pipeline-gossip hides the COMPRESSED exchange "
                      f"behind the backward pass via the error-feedback "
                      f"carry; --mode {args.mode} has no (x_hat, s) state to "
                      f"double-buffer; it requires --mode choco")
+        if args.topology_process != "none":
+            ap.error(f"--pipeline-gossip is itself a deterministic delay-1 "
+                     f"staleness process; stacking --topology-process "
+                     f"{args.topology_process} on top compounds two delay "
+                     f"models with no Theorem-2 gamma for the composite")
         if len(names) > 1:
             ap.error(f"--pipeline-gossip needs one static schedule: a "
                      f"payload compressed under graph W_k but integrated a "
@@ -311,10 +359,22 @@ def _spawn(args, n_nodes: int) -> int:
         from repro_torch.kernels import build
         with concurrent.futures.ThreadPoolExecutor(len(build.LIBRARIES)) as ex:
             list(ex.map(build.build, build.LIBRARIES))
-    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
-        spawn_ranks(_rank_main, n_nodes,
-                    (args, n_nodes, os.path.join(tmp, "store")),
-                    deadline_s=spawn_deadline_s(args.steps))
+    # CPU ranks start on one thread each (CPU_RANK_ENV, set before their
+    # interpreters start, then restored here); the card's ranks as they are
+    env = CPU_RANK_ENV if args.device == "cpu" else {}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+            spawn_ranks(_rank_main, n_nodes,
+                        (args, n_nodes, os.path.join(tmp, "store")),
+                        deadline_s=spawn_deadline_s(args.steps))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return 0
 
 
@@ -323,7 +383,7 @@ def _rank_main(rank: int, args, n_nodes: int, store: str) -> None:
     import torch
     from repro_torch.launch.mesh import close_node_group, make_node_group
     if args.device == "cpu":
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_nodes))
+        torch.set_num_threads(1)
     group = make_node_group(n_nodes, args.device,
                             file_rendezvous(store, rank, n_nodes))
     try:
@@ -362,7 +422,14 @@ def _train(args, n_nodes: int, group) -> int:
                           packed_gossip=args.gossip_engine == "packed",
                           pipeline_gossip=args.pipeline_gossip,
                           state_dtype=args.state_dtype,
-                          data_skew_alpha=args.data_skew_alpha),
+                          data_skew_alpha=args.data_skew_alpha,
+                          topology_process=(None if args.topology_process
+                                            == "none"
+                                            else args.topology_process),
+                          edge_drop_prob=(0.1 if args.edge_drop_prob is None
+                                          else args.edge_drop_prob),
+                          matching_sampler=args.matching_sampler
+                          or "uniform"),
         n_nodes=n_nodes, optimizer=make_optimizer(args.optimizer),
         lr_fn=cosine_schedule(args.lr, warmup=min(100, args.steps // 10 + 1),
                               total=args.steps),
@@ -377,6 +444,13 @@ def _train(args, n_nodes: int, group) -> int:
     skew = ("" if args.data_skew_alpha is None else
             f" data_skew_alpha={args.data_skew_alpha} "
             f"skew_tv={next_batch.skew_tv:.4f}")
+    proc = trainer.process
+    if proc is not None:
+        delta, beta = proc.expected_delta_beta()
+        detail = (f"sampler={proc.sampler}" if proc.kind == "matching"
+                  else f"edge_drop_prob={proc.drop_prob}")
+        skew += (f" process={proc.kind} {detail} expected_delta={delta:.4f} "
+                 f"expected_beta={beta:.4f}")
     say(f"[train] arch={cfg.name} params={count_params(cfg) / 1e6:.1f}M "
         f"nodes={n_nodes} engine={engine} state_dtype={args.state_dtype} "
         f"device={device} mode={args.mode} "

@@ -63,8 +63,16 @@ momentum and AdamW local steps, naive attention (the flash kernel has no
 backward), and checkpoints in the JAX package's sharded format
 (``save_checkpoint``, ``restore_checkpoint`` with its elastic restore,
 ``consensus_warmup``).
-The push-sum mode with the directed topologies, the processes and a
-fixed gamma are not ported.
+Under a stochastic topology process (``ChocoConfig.topology_process``
+"matching" or "linkfail", ``comm/stochastic.py``) the choco exchange is
+the replica engine and x_hat and s are lists of bucket lists, as the JAX
+``TrainState`` holds lists of trees: matching keeps the R per-round own
+references in x_hat and the R source replicas in s, link failures one
+x_hat and R replicas in s (R the schedule's rounds); the plain mode
+averages with the sampled matrix and keeps none.  Gamma is then the
+scalar Theorem-2 value at the expected matrix's (delta, beta).  The
+push-sum mode with the directed topologies, the bounded-staleness
+process and a fixed gamma are not ported.
 
 Gamma follows the JAX trainer: the packed engine takes per-bucket
 Theorem-2 values (``GammaSpec``), the per-leaf engine one scalar at
@@ -99,7 +107,9 @@ from repro_torch.comm.gossip import (_pack_align, make_allreduce_exchange,
                                      make_dist_allreduce_exchange,
                                      make_dist_choco_exchange,
                                      make_dist_plain_exchange,
-                                     make_plain_exchange)
+                                     make_dist_process_exchange,
+                                     make_plain_exchange,
+                                     make_process_exchange)
 from repro_torch.comm.packing import (bucket_omega_worst, fold_seed,
                                       leaf_route, make_bucket_spec,
                                       pack_leaves, unpack_leaves)
@@ -115,6 +125,7 @@ from repro_torch.checkpoint.manifest import (LeafSpec, Manifest,
                                              read_manifest, storage_dtype,
                                              validate_tree)
 from repro_torch.comm.schedule import compile_schedules
+from repro_torch.comm.stochastic import PROCESS_KINDS, make_topology_process
 from repro_torch.configs.base import STATE_DTYPES, ChocoConfig, parse_topology
 from repro_torch.core.choco_gossip import GammaSpec, theorem2_stepsize
 from repro_torch.core.compression import make_compressor
@@ -128,8 +139,7 @@ MODES = ("choco", "plain", "allreduce")
 #: fingerprint entries of JAX ``ChocoConfig`` settings the port does not
 #: have, at the JAX defaults a port run stands for
 _UNPORTED_FINGERPRINT = {
-    "pack_align": None, "small_leaf_threshold": 8192, "topology_process": None,
-    "edge_drop_prob": 0.1, "matching_sampler": "uniform", "max_staleness": 0,
+    "pack_align": None, "small_leaf_threshold": 8192, "max_staleness": 0,
     "straggler_edges": None, "straggler_delay_probs": None}
 #: the fingerprint entries whose change re-mixes the EF state (the JAX
 #: restore's compression and packing fingerprint)
@@ -174,9 +184,11 @@ def resolve_device(device) -> torch.device:
 @dataclasses.dataclass
 class TrainState:
     x: List[torch.Tensor]                 # parameters x_i, in bucket space
-    x_hat: Optional[List[torch.Tensor]]   # public copies (None off choco)
-    s: Optional[List[torch.Tensor]]       # weighted neighbour aggregates
-                                          #   (None off choco)
+    x_hat: Optional[list]                 # public copies (None off choco;
+                                          #   under matching R lists)
+    s: Optional[list]                     # weighted neighbour aggregates
+                                          #   (None off choco; under a
+                                          #   process the R replicas)
     opt: OptState                         # the optimizer's moments
     step: int = 0
     seed: int = 0                # salts the compressors' draws every step;
@@ -239,6 +251,7 @@ class DecentralizedTrainer:
                     f"compressed under graph W_k but integrated a step "
                     f"later under W_{{k+1}} breaks the recursion (got "
                     f"time-varying topology={self.choco.topology!r})")
+        self.process = self._make_process()
         if self.choco.state_dtype not in STATE_DTYPES:
             raise ValueError(f"state_dtype={self.choco.state_dtype!r} is not "
                              f"ported; choose from {', '.join(STATE_DTYPES)}")
@@ -249,12 +262,15 @@ class DecentralizedTrainer:
                             else self.model.param_dtype)
         self.paths = [p for p, _ in param_shapes(self.model.cfg)]
         shapes = dict(param_shapes(self.model.cfg))
-        self.spec = make_bucket_spec(
+        spec_of = lambda exact: make_bucket_spec(
             [torch.empty(shapes[p], dtype=self.state_dtype, device="meta")
              for p in self.paths],
-            align=_pack_align(self.compressor),
-            exact_small_leaves=self.choco.exact_small_leaves,
+            align=_pack_align(self.compressor), exact_small_leaves=exact,
             routes=[leaf_route(p) for p in self.paths])
+        # the JAX process engine packs without exact buckets (its gamma
+        # still takes the omega of the trainer's spec, exact buckets and all)
+        replicas = self.process is not None and self.mode == "choco"
+        self.spec = spec_of(self.choco.exact_small_leaves and not replicas)
         dist = self.group is not None
         kw = dict(spec=self.spec, schedules=self.schedules,
                   gossip_steps=self.choco.gossip_steps)
@@ -267,8 +283,25 @@ class DecentralizedTrainer:
                                                      n=self.n_nodes))
         elif self.mode == "plain":
             self.gamma = 1.0
+            kw["process"] = self.process
             self.exchange = (make_dist_plain_exchange(**kw, group=self.group)
                              if dist else make_plain_exchange(**kw))
+        elif self.process is not None:
+            # the JAX trainer's: the scalar at the expected (delta, beta),
+            # omega the worst bucket's of its own spec (no GammaSpec)
+            packed = self.choco.packed_gossip
+            delta, beta = self.process.expected_delta_beta()
+            omega = (bucket_omega_worst(spec_of(self.choco.exact_small_leaves),
+                                        self.compressor) if packed
+                     else self.compressor.omega(1 << 20))
+            self.gamma = theorem2_stepsize(
+                delta, beta, self.process.effective_omega(omega))
+            pkw = dict(spec=self.spec, process=self.process,
+                       compressor=self.compressor, gamma=self.gamma,
+                       gossip_steps=self.choco.gossip_steps, packed=packed)
+            self.exchange = (make_dist_process_exchange(**pkw,
+                                                        group=self.group)
+                             if dist else make_process_exchange(**pkw))
         else:
             # Theorem-2 consensus stepsize: the scalar worst case for
             # logging, and per-bucket values (each bucket at its own omega)
@@ -295,6 +328,49 @@ class DecentralizedTrainer:
             self.exchange = (make_dist_choco_exchange(**kw, group=self.group)
                              if dist else make_choco_exchange(**kw))
 
+    def _make_process(self):
+        """The topology process over the compiled schedule, with the JAX
+        trainer's and exchange's refusals, or None."""
+        kind = self.choco.topology_process
+        if kind is None:
+            return None
+        if kind == "staleness":
+            raise ValueError("topology_process='staleness' (bounded-staleness "
+                             "gossip) is not ported")
+        if kind not in PROCESS_KINDS:
+            raise ValueError(f"unknown topology process {kind!r}; have "
+                             f"('matching', 'linkfail', 'staleness')")
+        if self.mode not in ("choco", "plain"):
+            raise ValueError(
+                f"topology processes run on the choco/plain engines only; "
+                f"mode={self.mode!r} (the push-sum engine handles directed "
+                f"graphs itself, allreduce has no gossip graph)")
+        if self.choco.pipeline_gossip:
+            raise ValueError(
+                f"pipeline_gossip is itself a deterministic delay-1 "
+                f"staleness process; stacking topology_process={kind!r} on "
+                f"top would compound two delay models with no Theorem-2 "
+                f"gamma for the composite - run one or the other")
+        if len(self.schedules) > 1:
+            raise ValueError(
+                "a topology process already IS the per-step mixing "
+                "distribution; combining it with a time-varying schedule "
+                "sequence is ambiguous - pass one or the other")
+        return make_topology_process(
+            kind, self.schedules[0],
+            matching_sampler=self.choco.matching_sampler,
+            edge_drop_prob=self.choco.edge_drop_prob)
+
+    def ef_layout(self) -> Tuple[Optional[int], Optional[int]]:
+        """How many bucket lists x_hat and s hold: None for one (the static
+        engine), R for a list of R (the replica engine: matching (R, R),
+        link failures (None, R)); (None, None) too in the exact modes,
+        which allocate none."""
+        if self.process is None or self.mode != "choco":
+            return None, None
+        R = self.process.schedule.n_rounds
+        return (R if self.process.kind == "matching" else None), R
+
     # -- state ----------------------------------------------------------------
 
     def state_from_params(self, params: Dict[str, torch.Tensor],
@@ -312,7 +388,10 @@ class DecentralizedTrainer:
         del leaves
         zeros = lambda: ([torch.zeros_like(b, dtype=self.state_dtype)
                           for b in x] if self.mode == "choco" else None)
-        return TrainState(x=x, x_hat=zeros(), s=zeros(),
+        listed = lambda count: (zeros() if count is None
+                                else [zeros() for _ in range(count)])
+        n_hat, n_s = self.ef_layout()
+        return TrainState(x=x, x_hat=listed(n_hat), s=listed(n_s),
                           opt=self.optimizer.init(x), seed=seed)
 
     def init_state(self, seed: int = 0) -> TrainState:
@@ -331,12 +410,16 @@ class DecentralizedTrainer:
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
 
     def step(self, state: TrainState, batch,
-             draws: Optional[Callable[[int, int], torch.Tensor]] = None
+             draws: Optional[Callable[[int, int], torch.Tensor]] = None,
+             samples: Optional[Callable[[int], object]] = None
              ) -> Dict[str, float]:
         """One training step, in place on ``state``.  ``draws(t, b)``
         optionally injects the choco compressor's draw for gossip round t,
         bucket b (``comm/packing.py:draw`` says what each one draws) for
-        the nodes this trainer holds.  On the per-rank engine the metrics
+        the nodes this trainer holds; under a topology process
+        ``samples(t)`` injects the sample of gossip round t (a round index
+        or an edge mask) instead of the one the step's seed draws.  On the
+        per-rank engine the metrics
         add this rank's ``wire_bytes`` (counted: the payloads it sent) and
         ``wire_bytes_modelled`` (the ring all-reduce's bytes, a model, in
         allreduce mode)."""
@@ -354,7 +437,7 @@ class DecentralizedTrainer:
                 del grads          # frees a state-sized copy for the exchange
                 self.exchange(state.x, state.x_hat, state.s,
                               seed=fold_seed(state.seed, state.step),
-                              draws=draws)
+                              draws=draws, **self._sampled(samples))
         state.step += 1
         losses = losses.detach()
         if self.group is None:
@@ -371,6 +454,10 @@ class DecentralizedTrainer:
                 "grad_norm": math.sqrt(sq), "node_loss_spread": top + neg_low,
                 "wire_bytes": self.group.bytes_sent - sent[0],
                 "wire_bytes_modelled": self.group.bytes_modelled - sent[1]}
+
+    def _sampled(self, samples) -> dict:
+        """The exchange's ``samples`` keyword, under a process only."""
+        return {} if self.process is None else {"samples": samples}
 
     def _gradient(self, state: TrainState, batch):
         """(per-node losses, gradients in bucket layout) at state.x."""
@@ -445,7 +532,11 @@ class DecentralizedTrainer:
                 "exact_small_leaves": bool(c.exact_small_leaves),
                 "packed_gossip": bool(c.packed_gossip),
                 "pipeline_gossip": bool(c.pipeline_gossip),
-                "state_dtype": c.state_dtype, **_UNPORTED_FINGERPRINT}
+                "state_dtype": c.state_dtype,
+                "topology_process": c.topology_process,
+                "edge_drop_prob": float(c.edge_drop_prob),
+                "matching_sampler": c.matching_sampler,
+                **_UNPORTED_FINGERPRINT}
 
     def _moments(self) -> Tuple[bool, bool]:
         """Whether the optimizer keeps a first and a second moment."""
@@ -455,13 +546,21 @@ class DecentralizedTrainer:
     def _groups(self, state: Optional[TrainState] = None
                 ) -> List[Tuple[str, str, Optional[List[torch.Tensor]]]]:
         """(key prefix, dtype name, the state's buffers or None) of each
-        node-stacked leaf group, in the JAX tree's order."""
+        node-stacked leaf group, in the JAX tree's order; a list of R
+        bucket lists (the replica engine's x_hat or s) is R groups,
+        ``x_hat__0`` to ``x_hat__{R-1}``, the JAX list's flat keys."""
         has_mu, has_nu = self._moments()
         x_dt = _dtype_name(self.model.param_dtype)
         get = lambda name: None if state is None else getattr(state, name)
-        groups = [("params", x_dt, get("x")),
-                  ("x_hat", self.choco.state_dtype, get("x_hat")),
-                  ("s", self.choco.state_dtype, get("s"))]
+        groups = [("params", x_dt, get("x"))]
+        for name, count in zip(("x_hat", "s"), self.ef_layout()):
+            bufs = get(name)
+            if count is None:
+                groups.append((name, self.choco.state_dtype, bufs))
+            else:
+                groups += [(f"{name}__{r}", self.choco.state_dtype,
+                            None if bufs is None else bufs[r])
+                           for r in range(count)]
         if has_mu:
             groups.append(("opt__mu", x_dt, None if state is None
                            else state.opt.mu))
@@ -554,7 +653,7 @@ class DecentralizedTrainer:
         n_old = man.n_nodes
         same_nodes = n_old is None or n_old == self.n_nodes
         same = (fp.get("topology", mine["topology"]) == mine["topology"]
-                and fp.get("topology_process") is None
+                and fp.get("topology_process") == mine["topology_process"]
                 and fp.get("max_staleness", 0) == 0
                 and all(fp.get(k, mine[k]) == mine[k]
                         for k in _COMPRESSION_KEYS))
@@ -571,7 +670,11 @@ class DecentralizedTrainer:
             state = self._read_state(store, man.leaves, remap, reset)
         if exact or self.mode != "choco":
             return state, man, 0
-        delta = min(t.delta for t in self.topologies)
+        # the warmup contracts at the graph it runs on: the process's
+        # expected eigengap, as the JAX trainer takes it
+        delta = (self.process.expected_delta_beta()[0]
+                 if self.process is not None
+                 else min(t.delta for t in self.topologies))
         return state, man, consensus_warmup_rounds(delta)
 
     def restore_legacy(self, path: str) -> TrainState:
@@ -608,7 +711,7 @@ class DecentralizedTrainer:
             bufs = [torch.zeros((len(self.nodes), b.size), dtype=dtype,
                                 device=self.device)
                     for b in self.spec.buckets]
-            if prefix in reset:
+            if prefix.split("__", 1)[0] in reset:
                 return bufs
             for path, slot in self._leaf_order():
                 key = flat_key(prefix, path)
@@ -626,10 +729,17 @@ class DecentralizedTrainer:
         f32 = self.model.param_dtype
         choco = self.mode == "choco"
         state_dt = getattr(torch, self.choco.state_dtype)
+
+        def ef(name, count):
+            if not choco:
+                return None
+            if count is None:
+                return read(name, state_dt)
+            return [read(f"{name}__{r}", state_dt) for r in range(count)]
+        n_hat, n_s = self.ef_layout()
         return TrainState(
-            x=read("params", f32),
-            x_hat=read("x_hat", state_dt) if choco else None,
-            s=read("s", state_dt) if choco else None,
+            x=read("params", f32), x_hat=ef("x_hat", n_hat),
+            s=ef("s", n_s),
             opt=OptState(mu=read("opt__mu", f32) if has_mu else None,
                          nu=read("opt__nu", f32) if has_nu else None,
                          count=int(scalar("opt__count"))),
@@ -637,14 +747,17 @@ class DecentralizedTrainer:
 
     def consensus_warmup(self, state: TrainState, rounds: int,
                          draws: Optional[Callable[[int, int, int],
-                                                  torch.Tensor]] = None
+                                                  torch.Tensor]] = None,
+                         samples: Optional[Callable[[int, int],
+                                                    object]] = None
                          ) -> TrainState:
         """``rounds`` calls of the choco exchange on the current x with no
         gradient step, in place: they rebuild x_hat and s under the current
-        mixing matrix and gamma after an elastic restore.  The draws are
-        salted with WARMUP_SALT apart from every training step's, as the
-        JAX trainer salts its warmup; ``draws(r, t, b)`` injects round r's
-        draw for gossip round t, bucket b."""
+        mixing matrix and gamma after an elastic restore (under a process,
+        through the replica engine).  The draws are salted with
+        WARMUP_SALT apart from every training step's, as the JAX trainer
+        salts its warmup; ``draws(r, t, b)`` injects round r's draw for
+        gossip round t, bucket b, and ``samples(r, t)`` its sample."""
         if rounds <= 0 or self.mode != "choco":
             return state
         base = fold_seed(state.seed, WARMUP_SALT)
@@ -652,5 +765,8 @@ class DecentralizedTrainer:
             self.exchange(state.x, state.x_hat, state.s,
                           seed=fold_seed(base, r),
                           draws=None if draws is None
-                          else (lambda t, b, r=r: draws(r, t, b)))
+                          else (lambda t, b, r=r: draws(r, t, b)),
+                          **self._sampled(
+                              None if samples is None
+                              else (lambda t, r=r: samples(r, t))))
         return state

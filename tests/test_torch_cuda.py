@@ -1,7 +1,8 @@
 """The PyTorch port on the card: each CUDA kernel against its plain version,
 the trainer through the gossip kernels (with QSGD, sign and top-k gossip),
 the per-rank exchange (4 ranks sharing the card) against the stacked one,
-and the prefill through the flash kernel.
+the topology-process engine's replica update, and the prefill through
+the flash kernel.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so on a machine without JAX it
@@ -162,7 +163,7 @@ def _counts(**launched):
 
 
 def _run(compressor, device, steps=2, state_dtype="float32", packed=True,
-         pipelined=False):
+         pipelined=False, process=None):
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
     kw = {"qsgd": (("s", 16),), "sign": ()}.get(compressor,
@@ -172,7 +173,8 @@ def _run(compressor, device, steps=2, state_dtype="float32", packed=True,
                                             comp_kwargs=kw,
                                             state_dtype=state_dtype,
                                             packed_gossip=packed,
-                                            pipeline_gossip=pipelined),
+                                            pipeline_gossip=pipelined,
+                                            topology_process=process),
         n_nodes=N, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, 1, steps), device=device)
     state = tr.state_from_params(tr.model.init(N, 0, "cpu"))
@@ -695,3 +697,142 @@ def test_prefill_goes_through_the_flash_kernel_and_agrees_with_cpu(cuda):
     for name in ("k", "v"):
         torch.testing.assert_close(cache[name].cpu(), want_cache[name],
                                    rtol=1e-5, atol=4e-5)
+
+
+# -- the topology-process engine's replica update -----------------------------------
+
+def _replica_inputs(length, state_dtype, q_dtype, device, width, rounds):
+    """x f32 and x_hat in ``state_dtype`` as bucket-slot views [:, 128:128
+    + length] of (N, width) buffers, ``rounds`` replicas the same way, the
+    payloads (q_self and one per round) slots of (N, width + 64) buffers."""
+    def mk(i, scale, dtype, w):
+        full = (_normal(length + i, (N, w), device) * scale).to(dtype)
+        return full[:, SLOT:SLOT + length]
+    x, h = mk(0, 1.0, torch.float32, width), mk(1, 0.5, state_dtype, width)
+    reps = [mk(2 + r, 0.5, state_dtype, width) for r in range(rounds)]
+    qs = mk(10, 0.1, q_dtype, width + 64)
+    qr = [mk(11 + r, 0.1, q_dtype, width + 64) for r in range(rounds)]
+    return x, h, reps, qs, qr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype,q_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("length", [4096, 1_000_003])
+def test_replica_update_bit_equal_to_plain(cuda, state_dtype, q_dtype,
+                                           length):
+    """Both forms of the replica update, in place, on bucket-slot views
+    (the per-leaf engine's call), against their plain versions bit for
+    bit: matching with per-node send bits and weights (one row outside the
+    round), link failures with 3 replicas and a different link mask per
+    round; one launch per call; nothing outside the slots moves."""
+    x, h, reps, qs, qr = _replica_inputs(length, state_dtype, q_dtype, cuda,
+                                         length + 300, 3)
+    send = torch.tensor((1.0, 1.0, 0.0, 1.0), device=cuda)
+    gv = torch.tensor((2.5e-4, 2.5e-4, 0.0, 1.25e-4), device=cuda)
+    want = ref.replica_matching_ref(x, h, reps[0], qs, qr[0], send, gv)
+    base = [t._base for t in (x, h, reps[0])]
+    before = [b.clone() for b in base]
+    _launched("replica_update", lambda: dispatch.replica_matching(
+        x, h, reps[0], qs, qr[0], send, gv))
+    for g, w in zip((x, h, reps[0]), want):
+        assert g.dtype == w.dtype and torch.equal(_bits(g), _bits(w))
+    for b, old in zip(base, before):
+        assert torch.equal(_bits(b[:, :SLOT]), _bits(old[:, :SLOT]))
+        assert torch.equal(_bits(b[:, SLOT + length:]),
+                           _bits(old[:, SLOT + length:]))
+    x, h, reps, qs, qr = _replica_inputs(length, state_dtype, q_dtype, cuda,
+                                         length + 300, 3)
+    # receive weights under a different link mask per round
+    w = torch.tensor([[1 / 3, 1 / 3, 0.0, 1 / 3], [0.25, 0.5, 0.25, 0.5],
+                      [0.0, 0.0, 0.2, 0.0]], device=cuda)
+    want_x, want_h, want_s = ref.replica_linkfail_ref(x, h, qs, reps, qr, w,
+                                                      3.7e-4)
+    _launched("replica_update", lambda: dispatch.replica_linkfail(
+        x, h, qs, reps, qr, w, 3.7e-4))
+    for g, w in zip([x, h] + reps, [want_x, want_h] + want_s):
+        assert g.dtype == w.dtype and torch.equal(_bits(g), _bits(w))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_replica_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, h, reps, qs, qr = _replica_inputs(64, torch.float32, torch.float32,
+                                         cuda, 300, 2)
+    w = torch.full((2, N), 0.25, device=cuda)
+    with pytest.raises(ValueError, match="one row stride"):
+        dispatch.replica_linkfail(x, h.contiguous(), qs, reps, qr, w, 0.1)
+    with pytest.raises(ValueError, match="w: expected shape"):
+        dispatch.replica_linkfail(x, h, qs, reps, qr, w[:1], 0.1)
+    with pytest.raises(ValueError, match="w: expected a CUDA tensor"):
+        dispatch.replica_linkfail(x, h, qs, reps, qr, w.cpu(), 0.1)
+    with pytest.raises(ValueError, match="payloads of"):
+        dispatch.replica_linkfail(x, h, qs.to(torch.bfloat16), reps,
+                                  [q.to(torch.bfloat16) for q in qr], w, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["matching", "linkfail"])
+def test_replica_update_takes_any_rows_and_rounds(cuda, form):
+    """More than 64 node rows, and under link failures more than 64
+    rounds (a star or fully connected graph of 70 nodes, stacked), bit for
+    bit against the plain version: the kernel caps neither, as the CPU
+    route and the JAX engine do not."""
+    rows, rounds, length = 70, 69 if form == "linkfail" else 1, 1000
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    mk = lambda sc: torch.randn((rows, length), generator=gen,
+                                device=cuda) * sc
+    x, h, qs = mk(1.0), mk(0.5), mk(0.1)
+    reps, qr = [mk(0.5) for _ in range(rounds)], [mk(0.1)
+                                                   for _ in range(rounds)]
+    if form == "matching":
+        send = (torch.arange(rows, device=cuda) % 3 != 0).float()
+        gv = torch.full((rows,), 2.5e-4, device=cuda)
+        want = ref.replica_matching_ref(x, h, reps[0], qs, qr[0], send, gv)
+        _launched("replica_update", lambda: dispatch.replica_matching(
+            x, h, reps[0], qs, qr[0], send, gv))
+        got = (x, h, reps[0])
+    else:
+        keep = torch.rand((rounds, rows), generator=gen, device=cuda) > 0.3
+        w = keep.float() / rounds
+        want_x, want_h, want_s = ref.replica_linkfail_ref(x, h, qs, reps, qr,
+                                                          w, 3.7e-4)
+        want = [want_x, want_h] + want_s
+        _launched("replica_update", lambda: dispatch.replica_linkfail(
+            x, h, qs, reps, qr, w, 3.7e-4))
+        got = [x, h] + reps
+    for g, wt in zip(got, want):
+        assert torch.equal(_bits(g), _bits(wt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("process,compressor,state_dtype,packed", [
+    ("matching", "qsgd", "float32", True),
+    ("matching", "top_k", "bfloat16", False),
+    ("linkfail", "qsgd", "bfloat16", True),
+    ("linkfail", "sign", "float32", False)])
+def test_process_trainer_launches_per_unit_per_round(cuda, process,
+                                                     compressor, state_dtype,
+                                                     packed):
+    """Under a process, per step and unit (bucket or leaf): one
+    compression (under matching, of the one sampled round: one codes and
+    one dequantize, not one per schedule round) and one replica-update
+    launch, no EF launch; one sample per gossip round; losses finite and
+    within 1e-4 of the CPU run's (the samples are drawn on the host, the
+    same on both)."""
+    dispatch.reset_launch_counts()
+    tr, state, losses = _run(compressor, cuda, state_dtype=state_dtype,
+                             packed=packed, process=process)
+    units = tr.spec.n_buckets if packed else len(tr.paths)
+    per = 2 * tr.choco.gossip_steps * units
+    codes = ({"qsgd": {"qsgd_codes" if packed else "qsgd_leaf_codes": per,
+                       "dequantize": per},
+              "sign": {"sign_codes": per, "dequantize": per}}
+             .get(compressor, {}))
+    assert dispatch.launch_counts() == _counts(replica_update=per, **codes)
+    assert len(tr.exchange.last_samples) == tr.choco.gossip_steps
+    _, _, cpu_losses = _run(compressor, "cpu", state_dtype=state_dtype,
+                            packed=packed, process=process)
+    assert all(np.isfinite(losses))
+    np.testing.assert_allclose(losses, cpu_losses, rtol=1e-4)

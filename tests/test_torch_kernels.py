@@ -438,10 +438,11 @@ def test_flash_has_its_own_library_and_build_flags():
     assert set(dispatch.launch_counts()) == {
         "qsgd_codes", "qsgd_leaf_codes", "sign_codes", "dequantize",
         "ef_update", "ef_update_pipelined", "ef_update_bf16",
-        "ef_update_bf16_pipelined", "flash_attention", "block_topk_mask",
-        "probe_scale"}
+        "ef_update_bf16_pipelined", "replica_update", "flash_attention",
+        "block_topk_mask", "probe_scale"}
     assert set(libs["gossip"].signatures) >= {"ef_update", "ef_update_bf16",
-                                              "qsgd_leaf_codes"}
+                                              "qsgd_leaf_codes",
+                                              "replica_update"}
 
 
 # -- block top-k mask ----------------------------------------------------------------

@@ -54,6 +54,8 @@ from repro_torch.train.trainer import DecentralizedTrainer
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 N, STEPS, SEQ, BPN = 4, 3, 128, 4
+#: the link-failure reference runs' edge drop probability
+PROCESS_DROP = 0.3
 
 
 @pytest.fixture(autouse=True)
@@ -82,8 +84,9 @@ _JAX_REFERENCE = textwrap.dedent("""
     from repro.optim import cosine_schedule, make_optimizer
     from repro.train.trainer import DecentralizedTrainer
 
-    comp, arg, k, exact, steps, seq, bpn, out, topology, sdt, engine = \
-        sys.argv[1:]
+    (comp, arg, k, exact, steps, seq, bpn, out, topology, sdt, engine,
+     process, drop) = sys.argv[1:]
+    process = None if process == "none" else process
     packed = not engine.startswith("per-leaf")
     k, steps, seq, bpn = int(k), int(steps), int(seq), int(bpn)
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
@@ -103,18 +106,23 @@ _JAX_REFERENCE = textwrap.dedent("""
                           kernel_backend="jnp", state_dtype=sdt,
                           exact_small_leaves=exact == "exact",
                           packed_gossip=packed,
-                          pipeline_gossip=engine.endswith("pipelined")),
+                          pipeline_gossip=engine.endswith("pipelined"),
+                          topology_process=process,
+                          edge_drop_prob=(float(drop) if process == "linkfail"
+                                          else 0.1)),
         mesh=mesh, n_nodes=4, optimizer=make_optimizer("momentum"),
         lr_fn=cosine_schedule(0.1, warmup=steps // 10 + 1, total=steps),
         mode="choco")
     from repro.comm.gossip import _resolve_bucket_gammas
     res = {"gamma": np.array([tr.gamma] + (_resolve_bucket_gammas(
-        tr.gamma_spec, tr._bucket_spec(), tr.compressor) if packed else []))}
+        tr.gamma_spec, tr._bucket_spec(), tr.compressor)
+        if packed and process is None else []))}
 
     def save(tag, tree):
         # bf16 state is saved as the f32 values it holds (exact)
         for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-            res[tag + ":" + "/".join(k.key for k in path)] = np.asarray(
+            res[tag + ":" + "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                                     for k in path)] = np.asarray(
                 leaf.astype(jnp.float32))
 
     key = jax.random.PRNGKey(0)
@@ -130,6 +138,14 @@ _JAX_REFERENCE = textwrap.dedent("""
         state, m = step(state, batch)
         mets.append([float(m["loss"]), float(m["lr"]), float(m["grad_norm"])])
     res["metrics"] = np.array(mets)
+    for j in range(steps if process else 0):
+        # the process's sample of step j, gossip round t (exchange key
+        # fold_in(key, j))
+        for t in range(k):
+            ek = jax.random.fold_in(key, j)
+            res[f"sample:{j}:{t}"] = np.asarray(
+                tr.process.round_index(ek, t) if process == "matching"
+                else tr.process.edge_mask(ek, t))
     save("x", state.params)
     save("x_hat", state.x_hat)
     save("s", state.s)
@@ -174,12 +190,14 @@ _JAX_REFERENCE = textwrap.dedent("""
 
 def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
                        topology="ring", state_dtype="float32",
-                       engine="packed"):
+                       engine="packed", process=None):
     """The path of the JAX reference run of one case (on the ring unless
     ``topology`` names another graph or a comma-separated sequence; f32
     EF state unless ``state_dtype`` says "bfloat16"; the packed engine
     unless ``engine`` says "per-leaf", "pipelined" or
-    "per-leaf-pipelined"), made
+    "per-leaf-pipelined"; the static graph unless ``process`` names a
+    topology process, "matching", or "linkfail" at PROCESS_DROP, whose
+    samples the run saves as ``sample:<step>:<round>``), made
     once per pytest run: tests that need the same case share it, across
     xdist workers too (they meet in the run's common temporary directory
     and take turns under a file lock)."""
@@ -193,6 +211,8 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
         tag += "_" + state_dtype
     if engine != "packed":
         tag += "_" + engine
+    if process is not None:
+        tag += "_" + process
     out = root / f"jax_{comp}_{arg}_{k}_{'exact' if exact else '-'}{tag}.npz"
     with open(str(out) + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -204,7 +224,8 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
             r = subprocess.run(
                 [sys.executable, "-c", _JAX_REFERENCE, comp, str(arg), str(k),
                  "exact" if exact else "-", str(STEPS), str(SEQ), str(BPN),
-                 str(part), topology, state_dtype, engine],
+                 str(part), topology, state_dtype, engine,
+                 process or "none", str(PROCESS_DROP)],
                 env=env, capture_output=True, text=True, timeout=600)
             assert r.returncode == 0, \
                 f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
@@ -225,7 +246,7 @@ def _tree(ref, tag):
 
 
 def _port_trainer(comp, arg, k, exact, topology="ring",
-                  state_dtype="float32", engine="packed"):
+                  state_dtype="float32", engine="packed", process=None):
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
     if comp == "qsgd":
@@ -242,7 +263,12 @@ def _port_trainer(comp, arg, k, exact, topology="ring",
                                             packed_gossip=not engine.startswith(
                                                 "per-leaf"),
                                             pipeline_gossip=engine.endswith(
-                                                "pipelined")),
+                                                "pipelined"),
+                                            topology_process=process,
+                                            edge_drop_prob=(
+                                                PROCESS_DROP
+                                                if process == "linkfail"
+                                                else 0.1)),
         n_nodes=N, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
         device="cpu")
@@ -387,7 +413,7 @@ def test_launcher_runs_each_compressor_on_cpu(extra, capsys):
     (["--compressor", "sign", "--mode", "pushsum"], "--mode pushsum"),
     (["--compressor", "sign", "--pipeline-gossip", "--topology", "ring,star",
       "--gossip-steps", "2"], "--pipeline-gossip needs one static schedule"),
-    (["--compressor", "sign", "--topology-process", "matching"],
+    (["--compressor", "sign", "--topology-process", "staleness"],
      "--topology-process"),
     (["--compressor", "sign", "--gossip-engine", "leaf"],
      "--gossip-engine 'leaf'"),
