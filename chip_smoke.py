@@ -27,9 +27,11 @@ from the root of a checkout, on a machine with one CUDA device.  It
    (f32 and bf16 rows) at one node's embedding leaf as it compresses,
    75 x 4 rows of 4,194,304, the pipelined order of both EF updates at
    (4, 311,164,928), and the topology-process engine's replica update
-   (``replica_update``: the matching form and the link-failure form with
-   the ring's 2 replicas; f32 state, bf16 state with bf16 payloads and
-   with f32 payloads) at (4, 311,164,928), each
+   (``replica_update``: the matching form, and the ring form at tau 0,
+   link failures, with the ring's 2 replicas; f32 state, bf16 state with
+   bf16 payloads and with f32 payloads) at (4, 311,164,928), and its ring
+   form under bounded staleness in the same three cases (tau 1 there, tau 2 and 3 at an odd length
+   and at one a multiple of 4, every delay in range), each
    bit-equal and timed beside its plain version and its bounds;
 3. holds the top-k mask kernel against its plain version, bit for bit in
    mask and thresholds: at the tile shape of one node's embedding bucket
@@ -60,7 +62,10 @@ from the root of a checkout, on a machine with one CUDA device.  It
    (matching; link failures at p = 0.1) through the replica engine, beside
    the ``[state-bf16]`` static runs: ms per step over steps 2-3, the peak
    beside its prediction, the idle share, launches per step and the wire
-   bytes per node per step; then ``[modes]``, the same
+   bytes per node per step; then ``[stale]``, the same two under bounded
+   staleness (tau 1, the uniform law) beside the static and link-failure
+   runs (3 nodes, never a narrower model, if 4 run out of memory); then
+   ``[modes]``, the same
    cell through the same code in the paper's three modes: CHOCO-SGD top_k
    with plain SGD on Dirichlet(0.1) token shards, exact D-SGD (plain) with
    momentum and the all-reduce baseline with AdamW, checking finite
@@ -79,9 +84,11 @@ from the root of a checkout, on a machine with one CUDA device.  It
    --mode plain --optimizer adamw --data-skew-alpha 0.5, the first
    with --state-dtype bfloat16, a QSGD run with --gossip-engine
    per-leaf --pipeline-gossip, a top_k run with --topology-process
-   matching and a QSGD run with --topology-process linkfail
-   --edge-drop-prob 0.1, then the first with --simulate-devices 4 (4
-   ranks on the card, the per-rank engine), also under matching,
+   matching, a QSGD run with --topology-process linkfail
+   --edge-drop-prob 0.1 and a top_k run with --topology-process staleness
+   --max-staleness 2 --straggler-edges 0-1, then the first with
+   --simulate-devices 4 (4 ranks on the card, the per-rank engine), also
+   under matching and under that staleness,
    checking its engine line, its probe record and rank 0's launches;
 6. holds small float32 training runs on the card against the same runs on
    the CPU (the plain versions), step by step: SignNorm, top_k,
@@ -100,7 +107,10 @@ from the root of a checkout, on a machine with one CUDA device.  It
    chain and star, top_k, rand_k and QSGD) on the card against the CPU:
    the samples equal, x and
    every reference and replica bit-equal, one replica-update launch per
-   unit per gossip round; then ``[checkpoint]``
+   unit per gossip round; ``[stale] small``, the stale exchange alone
+   over 3 calls (packed and per leaf, f32 and bf16, ring, chain and star,
+   tau 0 to 3, top_k, rand_k and QSGD, a straggler link) the same way,
+   every ring slot bit-equal; then ``[checkpoint]``
    at that size, QSGD s=16 and top_k, f32 and bf16 EF state: a card
    checkpoint restored on the CPU and a CPU checkpoint on the card, bit
    for bit, and elastic restores 4 -> 8 and 4 -> 2 nodes on the card,
@@ -135,7 +145,8 @@ from the root of a checkout, on a machine with one CUDA device.  It
    the per-rank replica exchange (``[process] small per rank``: matching
    on chain, link failures on ring and star) bit-equal to the stacked one
    on the card, each rank's bytes its payload bytes times the rounds it
-   shipped;
+   shipped, and the per-rank stale exchange (``[stale] small per rank``,
+   in the same ranks) likewise over 3 calls;
    then ``[sim]``, the paper's algorithms as matrix simulators on the card
    against the CPU: CHOCO-Gossip at the quickstart's sizes (ring 25, d
    2000: exact, QSGD(127), top 1%) and CHOCO-SGD (QSGD(16), top 1%) with
@@ -146,7 +157,8 @@ from the root of a checkout, on a machine with one CUDA device.  It
    CHOCO-Gossip at ring 25, d 2000 (exact and QSGD(127)), card against
    CPU; and CHOCO-Gossip under matching and link failures (the replica
    simulator) at ring 25, d 2000, exact and top 1%, each round held
-   against the CPU's repeat of it, with the final consensus errors;
+   against the CPU's repeat of it, with the final consensus errors, and
+   under bounded staleness (tau 2, the stale simulator) the same way;
 7. holds the flash-attention kernels against their plain version: the
    bf16 tensor-core kernel (``csrc/flash_attention_sm90.cu``; the build
    phase checks that its SASS holds wgmma and TMA loads) at the
@@ -184,6 +196,9 @@ from the root of a checkout, on a machine with one CUDA device.  It
 11. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
+Each phase prints ``[phase] <name> <seconds> s`` as it ends (the host's
+clock), and the detail JSON line carries the seconds under ``phases_s``.
+
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the repository's ``src/`` beside it, it exits non-zero and prints no result.
 """
@@ -218,7 +233,7 @@ ODD_LENGTH = 1_000_003
 GOSSIP_KERNELS = ("qsgd_codes_kernel", "qsgd_leaf_codes_kernel",
                   "sign_codes_kernel", "dequantize_kernel", "ef_update_kernel",
                   "ef_update_bf16_kernel", "replica_matching_kernel",
-                  "replica_linkfail_kernel")
+                  "replica_stale_kernel")
 #: [state-bf16]: the compressors of the full-width runs with bf16 EF state
 STATE_BF16_COMPRESSORS = ("top_k", "qsgd")
 #: columns of the bf16 EF update's plain version per call, when it is held
@@ -273,6 +288,20 @@ PREFILL_CACHE_ATOL = 4e-5
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+#: seconds of each phase of this run, in order
+PHASES = {}
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Time one phase of the script on the host's clock and print
+    ``[phase] <name> <seconds> s`` when it ends."""
+    t0 = time.perf_counter()
+    yield
+    PHASES[name] = time.perf_counter() - t0
+    print(f"[phase] {name} {PHASES[name]:.1f} s", flush=True)
 
 
 def time_ms(fn, reps):
@@ -788,13 +817,14 @@ def profile_call(label, fn, ours, show=True, streams=False):
 def train_full_width(compressor, dev, topology="ring", mode="choco",
                      optimizer="momentum", lr=0.1, skew=None,
                      state_dtype="float32", packed=True, pipelined=False,
-                     process=None, drop=0.1):
-    """Full-width qwen3-1.7b (2 layers), 4 nodes, on ``topology`` (1
-    gossip round per step), in ``mode`` with the ``optimizer`` local step
-    at ``lr``, on Dirichlet(``skew``) token shards where given, with the
-    EF state x_hat and s in ``state_dtype``, through the packed or the
-    per-leaf engine (``packed``), serial or pipelined, or under the
-    topology ``process`` (link failures at ``drop``): STEPS steps, then
+                     process=None, drop=0.1, tau=1, n_nodes=N_NODES):
+    """Full-width qwen3-1.7b (2 layers), ``n_nodes`` nodes, on
+    ``topology`` (1 gossip round per step), in ``mode`` with the
+    ``optimizer`` local step at ``lr``, on Dirichlet(``skew``) token
+    shards where given, with the EF state x_hat and s in ``state_dtype``,
+    through the packed or the per-leaf engine (``packed``), serial or
+    pipelined, or under the topology ``process`` (link failures at
+    ``drop``, bounded staleness at ``tau``): STEPS steps, then
     one profiled step (with the pipelined engine, its trace read for the
     side stream's overlap with the main stream's work)."""
     import torch
@@ -818,14 +848,16 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
                                             packed_gossip=packed,
                                             pipeline_gossip=pipelined,
                                             topology_process=process,
-                                            edge_drop_prob=drop),
-        n_nodes=N_NODES, optimizer=make_optimizer(optimizer),
+                                            edge_drop_prob=drop,
+                                            max_staleness=tau),
+        n_nodes=n_nodes, optimizer=make_optimizer(optimizer),
         lr_fn=cosine_schedule(lr, warmup=STEPS // 10 + 1, total=STEPS),
         device=dev, mode=mode)
     state = tr.init_state(seed=0)
     engine = (("packed" if packed else "per-leaf")
               + (" pipelined" if pipelined else "")
-              + (f" {process}" if process else ""))
+              + (f" {process}" if process else "")
+              + (f" tau={tau}" if process == "staleness" else ""))
     flat = lambda bufs: [b for item in bufs for b in (
         item if isinstance(item, list) else [item])]
     if mode == "choco":
@@ -836,12 +868,12 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     torch.cuda.reset_peak_memory_stats()
     # the launcher's default sequence for the uncut 28-layer model
     seq = min(CONFIG.n_layers * 64, 512)
-    batches = make_lm_batch_fn(cfg, seq, 4, N_NODES, 1.0,
+    batches = make_lm_batch_fn(cfg, seq, 4, n_nodes, 1.0,
                                skew_alpha=tr.choco.data_skew_alpha)
     label = compressor if mode == "choco" else "none"
     skew_tv = None if skew is None else batches.skew_tv
     print(f"[train] arch={cfg.name} layers={cfg.n_layers} seq={seq} batch=4 "
-          f"params={count_params(cfg) / 1e6:.1f}M nodes={N_NODES} "
+          f"params={count_params(cfg) / 1e6:.1f}M nodes={n_nodes} "
           f"mode={mode} optimizer={optimizer} lr={lr} "
           f"topology={topology} rounds={tr.schedules[0].n_rounds} "
           f"compressor={label} state_dtype={state_dtype} engine={engine} "
@@ -1273,6 +1305,15 @@ LAUNCHER_RUNS = (("launcher_smoke", ["--compressor", "top_k", "--fraction",
 LAUNCHER_PER_RANK_RUNS = (("launcher_per_rank_rank0", []),
                           ("launcher_per_rank_matching_rank0",
                            ["--topology-process", "matching"]))
+#: the bounded-staleness launcher runs' flags, stacked and per rank
+STALE_LAUNCHER_FLAGS = ["--topology-process", "staleness", "--max-staleness",
+                        "2", "--straggler-edges", "0-1"]
+#: the bounded-staleness launcher runs: (label, extra flags, per rank)
+STALE_LAUNCHER_RUNS = (("launcher_staleness", STALE_LAUNCHER_FLAGS + [
+                           "--compressor", "top_k", "--fraction", "0.05"],
+                        False),
+                       ("launcher_per_rank_staleness_rank0",
+                        STALE_LAUNCHER_FLAGS, True))
 
 
 def run_launcher(extra):
@@ -2188,6 +2229,9 @@ def dist_full_width(stacked, batch_per_node=DIST_BATCH):
 #: [checkpoint]: the full-width cell (compressor and fraction, EF state
 #: dtype, local step) and the parameters per node it reckons with
 CKPT_FULL = ("top_k", (("fraction", 0.01),), "bfloat16", "sgd")
+#: its depth: 1 layer at full width, the script's time budget having been
+#: overrun; its training is the [state-bf16] path's, run there at 2 layers
+CKPT_FULL_LAYERS = 1
 #: [checkpoint] small: (compressor, comp_kwargs) x EF state dtype
 CKPT_SMALL = ((("qsgd", (("s", 16),)), ("top_k", (("fraction", 0.05),))),
               ("float32", "bfloat16"))
@@ -2227,8 +2271,9 @@ def _dir_bytes(path):
 
 
 def checkpoint_full_width(dev):
-    """[checkpoint] at full width: qwen3-1.7b widths, 2 layers, 4 nodes on a
-    ring, CKPT_FULL, sequence 512 x batch 4 per node.  STEPS steps
+    """[checkpoint] at full width: qwen3-1.7b widths, CKPT_FULL_LAYERS
+    layers, 4 nodes on a ring, CKPT_FULL, sequence 512 x batch 4 per
+    node.  STEPS steps
     uninterrupted; then, from the same seed and batches, 1 step, a save, a
     restore into a fresh trainer and STEPS - 1 steps.  x, x_hat, s, the
     step and the seed must be bit-equal between the two runs (every
@@ -2249,7 +2294,7 @@ def checkpoint_full_width(dev):
     from repro_torch.train.trainer import DecentralizedTrainer
 
     comp, kw, sdt, opt = CKPT_FULL
-    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    cfg = dataclasses.replace(CONFIG, n_layers=CKPT_FULL_LAYERS)
     params = count_params(cfg)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -2257,7 +2302,8 @@ def checkpoint_full_width(dev):
         nodes = N_NODES
         reckoned = lambda n: n * params * (4 + 2 + 2)
         print(f"[checkpoint] full width: {tmp} has {free} bytes free "
-              f"({free / 2 ** 30:.2f} GiB); one checkpoint of {nodes} nodes is "
+              f"({free / 2 ** 30:.2f} GiB); one checkpoint of {nodes} nodes, "
+              f"{cfg.n_layers} layer(s), is "
               f"reckoned at {reckoned(nodes)} bytes ({nodes} x {params} "
               f"parameters x (4 + 2 + 2) bytes)", flush=True)
         while nodes > 1 and 2 * reckoned(nodes) > free:
@@ -2901,8 +2947,8 @@ def check_replica_kernels(dev):
     """The replica-update kernel's two forms in each REPLICA_DTYPES case at
     the embedding bucket (4, 311,164,928), in place, against the plain
     version chunk by chunk, bit for bit: matching with ring weights (send
-    1, gamma v), link failures with the ring's R = 2 replicas and one link
-    of each round down.  Each timed beside its plain version and its
+    1, gamma v), link failures (the ring form at tau 0) with the ring's
+    R = 2 replicas and one link of each round down.  Each timed beside its plain version and its
     bytes bound.  Returns (records by case, the record of the kernel line:
     matching on bf16 state and payloads, the [process] cell's build, the
     largest |kernel - plain| over every case)."""
@@ -2937,13 +2983,16 @@ def check_replica_kernels(dev):
                 ins = [x, mk(0.5, sd), mk(0.1, qd), mk(0.5, sd), mk(0.5, sd),
                        mk(0.1, qd), mk(0.1, qd)]
                 out = [t.clone() for t in (ins[0], ins[1], ins[3], ins[4])]
-                call = lambda o: dispatch.replica_linkfail(
-                    o[0], o[1], ins[2], o[2:], ins[5:], w, gamma)
+                # link failures: the ring form at tau = 0
+                call = lambda o: dispatch.replica_stale(
+                    o[0], o[1], ins[2], o[2:], ins[5:], [], [[], []], w,
+                    None, gamma)
                 plain_one = lambda part: (lambda r: (r[0], r[1], *r[2]))(
-                    ref.replica_linkfail_ref(
+                    ref.replica_stale_ref(
                         ins[0][:, part], ins[1][:, part], ins[2][:, part],
                         [t[:, part] for t in ins[3:5]],
-                        [t[:, part] for t in ins[5:]], w, gamma))
+                        [t[:, part] for t in ins[5:]], [], [[], []], w,
+                        None, gamma))
                 flops = 15 * x.numel()
             call(out)
             err = 0.0
@@ -3018,7 +3067,9 @@ def process_full_width(dev, state_bf16):
 def _process_case(run, device):
     """(process, compressor, spec, (x, x_hat, s) in the engine's layout on
     ``device``, draws(t, u) of the CPU's making, moved to ``device``) of
-    one PROCESS_SMALL_RUNS / PROCESS_DIST_RUNS entry."""
+    one PROCESS_SMALL_RUNS / PROCESS_DIST_RUNS / STALE_SMALL_RUNS /
+    STALE_DIST_RUNS entry; a staleness run's rings start random, so every
+    delay reads them."""
     import numpy as np
     import torch
     from repro_torch.comm import gossip, packing
@@ -3026,9 +3077,11 @@ def _process_case(run, device):
     from repro_torch.comm.stochastic import make_topology_process
     from repro_torch.core.compression import make_compressor
     from repro_torch.core.topology import make_topology
-    kind, comp_name, kw, sdt, packed, topo, k = run
+    kind, comp_name, kw, sdt, packed, topo, k = run[:7]
+    opts = (dict(max_staleness=run[7], straggler_edges=run[8])
+            if kind == "staleness" else dict(edge_drop_prob=0.4))
     proc = make_topology_process(kind, compile_schedule(
-        make_topology(topo, N_NODES)), edge_drop_prob=0.4)
+        make_topology(topo, N_NODES)), **opts)
     comp = make_compressor(comp_name, **dict(kw))
     dtype = getattr(torch, sdt)
     spec = packing.make_bucket_spec(
@@ -3039,10 +3092,14 @@ def _process_case(run, device):
         (sc * rng.standard_normal((N_NODES,) + sh)).astype(np.float32))
         for sh in PROCESS_SMALL_SHAPES], dtype=dt)
     R = proc.schedule.n_rounds
+    tau = run[7] if kind == "staleness" else 0
     x = leaves(1.0, torch.float32)
     x_hat = ([leaves(0.5, dtype) for _ in range(R)] if kind == "matching"
-             else leaves(0.5, dtype))
-    s = [leaves(0.5, dtype) for _ in range(R)]
+             else [leaves(0.5, dtype)] + [leaves(0.05, dtype)
+                                          for _ in range(tau)]
+             if kind == "staleness" else leaves(0.5, dtype))
+    s = ([leaves(0.5, dtype) for _ in range(R)]
+         + [leaves(0.05, dtype) for _ in range(R * tau)])
     to = lambda obj: (obj.to(device) if torch.is_tensor(obj)
                       else [to(o) for o in obj])
     units = gossip._units(spec, packed)
@@ -3130,21 +3187,28 @@ def _process_dist_rank(rank, store, out_dir):
     group = _dist_group(rank, store)
     dev = group.device
     results = {}
-    for i, run in enumerate(PROCESS_DIST_RUNS):
-        proc, comp, spec, bufs, _ = _process_case(run, dev)
+    row = lambda obj: (obj[rank:rank + 1].clone() if torch.is_tensor(obj)
+                       else [row(o) for o in obj])
+    # the [stale] runs in the same ranks: one spawn for both phases
+    for key, run in ([(i, r) for i, r in enumerate(PROCESS_DIST_RUNS)]
+                     + [(("stale", i), r)
+                        for i, r in enumerate(STALE_DIST_RUNS)]):
+        proc, comp, spec, bufs, draws = _process_case(run, dev)
         ex = gossip.make_dist_process_exchange(
             spec=spec, process=proc, compressor=comp, gamma=0.3,
             gossip_steps=run[6], group=group, packed=run[4])
-        row = lambda obj: (obj[rank:rank + 1].clone() if torch.is_tensor(obj)
-                           else [row(o) for o in obj])
         mine = row(bufs)
         before = group.bytes_sent
         dispatch.reset_launch_counts()
-        ex(*mine, seed=PROCESS_SEED)
-        results[i] = ([b.cpu() for b in _flat_bufs(mine)],
-                      group.bytes_sent - before,
-                      ex.sent_rounds(ex.last_samples) * sum(ex.payload_bytes),
-                      dispatch.launch_counts())
+        if run[0] == "staleness":
+            _, shipped = _stale_calls(ex, mine, draws, slice(rank, rank + 1))
+        else:
+            ex(*mine, seed=PROCESS_SEED)
+            shipped = ex.sent_rounds(ex.last_samples)
+        results[key] = ([b.cpu() for b in _flat_bufs(mine)],
+                        group.bytes_sent - before,
+                        shipped * sum(ex.payload_bytes),
+                        dispatch.launch_counts())
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     mesh.close_node_group()
 
@@ -3153,8 +3217,9 @@ def process_dist_small(dev):
     """[process] small, per rank: 4 ranks on the card run
     PROCESS_DIST_RUNS with the seeds' own draws and samples, each rank's
     x, x_hat and s bit-equal to its row of the stacked exchange on the
-    card, its bytes sent its payload bytes times the rounds it shipped.
-    Returns the ranks' launches, summed."""
+    card, its bytes sent its payload bytes times the rounds it shipped;
+    the same ranks then run STALE_DIST_RUNS (held by stale_dist_small).
+    Returns (the ranks' launches, summed, the ranks' results)."""
     import tempfile
     import torch
     from repro_torch.comm import gossip
@@ -3185,7 +3250,7 @@ def process_dist_small(dev):
               f"{N_NODES} ranks bit-equal to the stacked exchange on the "
               f"card; bytes sent per rank {sent} (payload bytes x rounds "
               f"shipped)", flush=True)
-    return launches
+    return launches, ranks
 
 
 def sim_process(dev):
@@ -3243,6 +3308,402 @@ def sim_process(dev):
               f"{finals['card'][1]:.6e} on the card, {finals['cpu'][1]:.6e} "
               f"on the CPU; held round by round (largest relative gap "
               f"{worst:.3e}, at most {moved_max} elements moved)", flush=True)
+        report[label] = {"first_error": finals["card"][0],
+                         "final_error_card": finals["card"][1],
+                         "final_error_cpu": finals["cpu"][1],
+                         "round_max_rel": worst, "moved_max": moved_max}
+    return report
+
+
+# ---------------------------------------------------------------------------
+# [stale]: bounded-staleness gossip through the replica engine's stale form
+# ---------------------------------------------------------------------------
+
+#: [stale]: the compressors of the full-width runs (bf16 EF state, tau
+#: STALE_TAU, the uniform delay law (0.5, 0.5))
+STALE_RUNS = ("top_k", "qsgd")
+STALE_TAU = 1
+#: the peak reckoned before the first run (GiB): the bf16 state's measured
+#: 52.276 GiB plus 4 more bf16 trees of 5.386 GiB (x_hat's ring slot, and
+#: each of the ring's 2 rounds a receive-ring slot and a replica beyond
+#: the static engine's one s)
+STALE_PREDICTED_GIB = 73.8
+#: the full-width memory a 4-node run may take before it falls back to 3
+#: nodes on the ring (R is still 2), never a narrower model
+STALE_FALLBACK_NODES = 3
+#: [stale] small: ("staleness", compressor, kwargs, state dtype, packed,
+#: topology, gossip rounds, tau, straggler edges) of the exchange held card against
+#: CPU over STALE_SMALL_CALLS calls (QSGD on bf16 state per leaf only: on
+#: f32 state the card's and the CPU's norms sum in another order)
+STALE_SMALL_RUNS = (
+    ("staleness", "top_k", (("fraction", 0.05),), "float32", True, "ring",
+     2, 1, None),
+    ("staleness", "rand_k", (("fraction", 0.05),), "bfloat16", True,
+     "chain", 1, 2, None),
+    ("staleness", "top_k", (("fraction", 0.05),), "float32", True, "star",
+     1, 3, None),
+    ("staleness", "top_k", (("fraction", 0.05),), "bfloat16", False,
+     "star", 1, 2, ((0, 1),)),
+    ("staleness", "rand_k", (("fraction", 0.05),), "float32", False, "ring",
+     2, 3, None),
+    # QSGD on bf16 state per leaf: f32 payloads, the kernel's (bf16 state,
+    # f32 payload) build
+    ("staleness", "qsgd", (("s", 16),), "bfloat16", False, "chain", 1, 2,
+     None),
+    ("staleness", "top_k", (("fraction", 0.05),), "bfloat16", True, "ring",
+     1, 0, None))
+STALE_SMALL_CALLS = 3
+#: [stale] small per rank: runs of STALE_SMALL_RUNS's form
+STALE_DIST_RUNS = (
+    ("staleness", "qsgd", (("s", 16),), "bfloat16", True, "chain", 2, 2,
+     None),
+    ("staleness", "top_k", (("fraction", 0.05),), "float32", False, "star",
+     1, 3, ((0, 2),)))
+STALE_SEED = 5151
+#: [sim]: (label, compressor, gamma, rounds) of bounded-staleness
+#: CHOCO-Gossip at ring 25, d 2000, tau STALE_SIM_TAU
+SIM_STALE_RUNS = (("stale_exact", None, 1.0, 300),
+                  ("stale_top_1pct", ("top_k", 0.01), 0.046, 300))
+STALE_SIM_TAU = 2
+#: [kernel] replica_update stale form: the length of the tau > 1 cases,
+#: and the plain version's column chunk at the full width
+STALE_TAUS = (2, 3)
+STALE_PLAIN_CHUNK = 1 << 23
+
+
+def check_stale_kernels(dev):
+    """The replica-update kernel's bounded-staleness form in each
+    REPLICA_DTYPES case, bit for bit against ``ref.replica_stale_ref``:
+    tau 1 with the ring's R = 2 replicas at the embedding bucket
+    (4, 311,164,928), in place, chunk by chunk, with the delays (0, 1) and
+    (1, 0) on the two rounds' rows, timed beside its plain version and its
+    bytes bound (4 elements a thread); tau 2 and 3 at ODD_LENGTH (one
+    element a thread) and ODD_LENGTH + 1 (4 a thread) with every delay in
+    range on some row and round.  Returns (records by case, the record of the
+    kernel line: bf16 state and payloads, the [stale] cell's build, the
+    largest |kernel - plain| over every case)."""
+    import torch
+    from repro_torch.kernels import dispatch, ref
+    gen = torch.Generator(device=dev).manual_seed(13)
+    node = lambda v, dt=torch.float32: torch.tensor(v, dtype=dt, device=dev)
+    w = node(((1 / 3,) * N_NODES, (1 / 3,) * N_NODES))
+    gamma = 3.7e-5
+    records, max_err = {}, 0.0
+    short = {"float32": "f32", "bfloat16": "bf16"}
+    for sdt, qdt in REPLICA_DTYPES:
+        sd, qd = getattr(torch, sdt), getattr(torch, qdt)
+        for tau, length in ((STALE_TAU, 311_164_928),) + tuple(
+                (t, n) for t in STALE_TAUS for n in (ODD_LENGTH,
+                                                     ODD_LENGTH + 1)):
+            shape = (N_NODES, length)
+            mk = lambda sc, dt: (torch.randn(shape, generator=gen, device=dev)
+                                 * sc).to(dt)
+            R = 2
+            # every delay 0..tau on some row of some round
+            delays = node([[(i + r) % (tau + 1) for i in range(N_NODES)]
+                           for r in range(R)], torch.int32)
+            x, h, q_self = mk(1.0, torch.float32), mk(0.5, sd), mk(0.1, qd)
+            reps = [mk(0.5, sd) for _ in range(R)]
+            pays = [mk(0.1, qd) for _ in range(R)]
+            own = [torch.empty(shape, dtype=sd, device=dev)] + [
+                mk(0.1, sd) for _ in range(tau - 1)]
+            rings = [[torch.empty(shape, dtype=sd, device=dev)] + [
+                mk(0.1, sd) for _ in range(tau - 1)] for _ in range(R)]
+            outs = [x.clone(), h.clone(), *[t.clone() for t in reps]]
+
+            def call():
+                dispatch.replica_stale(outs[0], outs[1], q_self, outs[2:],
+                                       pays, own, rings, w, delays, gamma)
+            call()
+            full = length > ODD_LENGTH + 1
+            chunk = STALE_PLAIN_CHUNK if full else length
+
+            def plain_one(part):
+                cut = lambda t: t[:, part]
+                return ref.replica_stale_ref(
+                    cut(x), cut(h), cut(q_self), [cut(t) for t in reps],
+                    [cut(t) for t in pays], [cut(t) for t in own],
+                    [[cut(t) for t in rg] for rg in rings], w, delays, gamma)
+            err = 0.0
+            for c in range(0, length, chunk):
+                part = slice(c, c + chunk)
+                x_n, h_n, s_n, own0, ring0 = plain_one(part)
+                pairs = list(zip(outs, [x_n, h_n, *s_n])) + list(zip(
+                    [own[0]] + [rg[0] for rg in rings], [own0, *ring0]))
+                for g, want in pairs:
+                    got = g[:, part]
+                    err = max(err, float((got.double() - want.double())
+                                         .abs().max()))
+                    check(torch.equal(got, want),
+                          f"[kernel] replica_update stale tau={tau} {sdt} "
+                          f"state, {qdt} payloads differs from its plain "
+                          f"version (max abs {err})")
+            max_err = max(max_err, err)
+            name = f"stale_tau{tau}_{short[sdt]}" + (
+                "" if sdt == qdt else f"_{short[qdt]}q") + (
+                "" if full or length % 4 else "_vec4")
+            rec = dict(max_abs_err=err, shape=[N_NODES, length], tau=tau)
+            if full:
+                ms = time_ms(call, 5)
+
+                def plain():
+                    for c in range(0, length, chunk):
+                        plain_one(slice(c, c + chunk))
+                plain_ms = time_ms(plain, 1)
+                # what this run's delays read: the ring slots 1.. of the
+                # rows whose delay reaches them (none at tau 1)
+                bms, by = bound_ms([x, h, q_self, *reps, *pays],
+                                   [x, h, *reps, own[0],
+                                    *[rg[0] for rg in rings]],
+                                   (5 + R * 6) * x.numel())
+                rec.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                           bound_ms=bms, bound_by=by)
+                print(f"[kernel] replica_update {name} n={N_NODES} "
+                      f"len={length} R={R}: bit-equal (max abs {err}); "
+                      f"{ms:.3f} ms (bound {bms:.3f} ms, {by}, "
+                      f"{bms / ms:.3f} of it), plain {plain_ms:.3f} ms",
+                      flush=True)
+            else:
+                print(f"[kernel] replica_update {name} n={N_NODES} "
+                      f"len={length} R={R}, delays {delays.tolist()}: "
+                      f"bit-equal (max abs {err})", flush=True)
+            records[name] = rec
+            del x, h, q_self, reps, pays, own, rings, outs
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    main = {k: v for k, v in records[f"stale_tau{STALE_TAU}_bf16"].items()
+            if k not in ("max_abs_err", "tau")}
+    return records, main, max_err
+
+
+def stale_full_width(dev, state_bf16, process_runs):
+    """[stale]: the training cell (2 layers, ring, 4 nodes, bf16 EF state)
+    under bounded staleness, tau STALE_TAU with the uniform law, top_k
+    0.01 and QSGD s=16, each printed beside the [state-bf16] static run
+    and the [process] link-failure run of the same compressor in this
+    call: ms per step over steps 2-3, the peak beside the reckoned
+    STALE_PREDICTED_GIB, the device's idle share of the profiled step,
+    launches per step per kernel, the wire bytes per node per step
+    (computed from the spec) and the sampled delays.  If 4 nodes run out
+    of memory, 3 nodes on the ring at the same width (R is still 2)."""
+    import torch
+    runs = {}
+    for comp in STALE_RUNS:
+        nodes = N_NODES
+        try:
+            counts, rec = train_full_width(comp, dev, state_dtype=PROCESS_STATE,
+                                           process="staleness",
+                                           tau=STALE_TAU)
+        except torch.OutOfMemoryError as err:
+            torch.cuda.empty_cache()
+            nodes = STALE_FALLBACK_NODES
+            print(f"[stale] {comp}: 4 nodes ran out of memory ({err}); the "
+                  f"reckoning was {STALE_PREDICTED_GIB} GiB against the "
+                  f"card's {torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}"
+                  f" GiB; running {nodes} nodes on the ring at the same "
+                  f"width", flush=True)
+            counts, rec = train_full_width(comp, dev, state_dtype=PROCESS_STATE,
+                                           process="staleness", tau=STALE_TAU,
+                                           n_nodes=nodes)
+        base = state_bf16[comp][1]
+        lf = process_runs[f"process_linkfail_{comp}"][1]
+        prof = rec["profile"] or {}
+        per_step = {k: v // STEPS for k, v in counts.items() if v}
+        check(per_step.get("replica_update") == 10,
+              f"[stale] {comp}: replica_update {per_step} a step, expected "
+              f"10 (one per bucket)")
+        check(rec["wire_bytes_per_node_step"]
+              == base["wire_bytes_per_node_step"],
+              f"[stale] {comp}: wire bytes {rec['wire_bytes_per_node_step']}"
+              f" against the static {base['wire_bytes_per_node_step']}")
+        rec.update(predicted_peak_gib=STALE_PREDICTED_GIB, nodes=nodes,
+                   tau=STALE_TAU)
+        print(f"[stale] staleness tau={STALE_TAU} {comp} ({PROCESS_STATE} "
+              f"state, {nodes} nodes): ms/step over steps 2-3 "
+              f"{rec['ms_per_step'][1:]} against the static engine's "
+              f"{base['ms_per_step'][1:]} and link failures' "
+              f"{lf['ms_per_step'][1:]}; peak {rec['peak_gib']:.3f} GiB, "
+              f"reckoned {STALE_PREDICTED_GIB} GiB (static "
+              f"{base['peak_gib']:.3f}, link failures {lf['peak_gib']:.3f});"
+              f" device idle share "
+              f"{prof.get('device_idle_share', float('nan')):.4f}; launches "
+              f"per step {per_step}; wire bytes per node per step "
+              f"{rec['wire_bytes_per_node_step']} against "
+              f"{base['wire_bytes_per_node_step']} (computed from the spec);"
+              f" delays {rec['samples']}", flush=True)
+        runs[f"stale_{comp}"] = (counts, rec)
+    return runs
+
+
+def _stale_calls(ex, bufs, draws, rows=None):
+    """STALE_SMALL_CALLS calls of a stale exchange on ``bufs``, seeds
+    STALE_SEED + call, the draws of ``rows`` (all rows if None; call c's
+    round t draws ``draws(10 c + t, u)``).  Returns the delays of every
+    call's gossip rounds and the rounds it shipped (per rank)."""
+    delays, shipped = [], 0
+    for call in range(STALE_SMALL_CALLS):
+        cut = (lambda d: d) if rows is None else (lambda d: d[rows])
+        ex(*bufs, seed=STALE_SEED + call,
+           draws=None if draws is None else
+           (lambda t, u, c=call: cut(draws(10 * c + t, u))))
+        delays.append([d.tolist() for d in ex.last_samples])
+        if hasattr(ex, "sent_rounds"):
+            shipped += ex.sent_rounds(ex.last_samples)
+    return delays, shipped
+
+
+def stale_small(dev):
+    """[stale] small: the stale exchange alone on the card against the CPU,
+    STALE_SMALL_RUNS over STALE_SMALL_CALLS calls each: packed and per
+    leaf, f32 and bf16 state, ring, chain and star, tau 0 to 3, top_k,
+    rand_k and QSGD (QSGD per leaf on bf16 state ships f32 payloads), one
+    straggler link; the delays drawn from the same seeds on both devices:
+    the delays equal, x, x_hat and every replica and ring slot bit-equal,
+    one replica-update launch per unit per gossip round on the card and
+    no EF launch.  Returns the card's launches."""
+    import torch
+    from repro_torch.comm import gossip
+    from repro_torch.kernels import dispatch
+    launches = {k: 0 for k in kernel_names()}
+    for run in STALE_SMALL_RUNS:
+        _, comp_name, kw, sdt, packed, topo, k, tau, edges = run
+        got = {}
+        for device in (dev, torch.device("cpu")):
+            proc, comp, spec, bufs, draws = _process_case(run, device)
+            ex = gossip.make_process_exchange(spec=spec, process=proc,
+                                              compressor=comp, gamma=0.3,
+                                              gossip_steps=k, packed=packed)
+            dispatch.reset_launch_counts()
+            delays, _ = _stale_calls(ex, bufs, draws)
+            got[device.type] = (bufs, delays, dispatch.launch_counts())
+        (cb, cs, cc), (hb, hs, hc) = got[dev.type], got["cpu"]
+        check(cs == hs, f"[stale] small {run}: delays {cs} on the card, {hs}"
+              f" on the CPU")
+        flat_c, flat_h = _flat_bufs(cb), _flat_bufs(hb)
+        check(len(flat_c) == spec.n_buckets * (
+            1 + 1 + tau + proc.schedule.n_rounds * (1 + tau)),
+            f"[stale] small {run}: {len(flat_c)} buffers")
+        for g, w in zip(flat_c, flat_h):
+            check(torch.equal(g.cpu(), w), f"[stale] small {run}: the card "
+                  f"and the CPU differ")
+        units = spec.n_buckets if packed else len(spec.slots)
+        want = STALE_SMALL_CALLS * k * units
+        check(cc["replica_update"] == want
+              and not any(v for name, v in cc.items()
+                          if name.startswith("ef_update"))
+              and sum(hc.values()) == 0,
+              f"[stale] small {run}: launches {cc}, expected {want} "
+              f"replica_update and no EF update")
+        for name, v in cc.items():
+            launches[name] += v
+        print(f"[stale] small {comp_name} {sdt} "
+              f"{'packed' if packed else 'per-leaf'} {topo} x{k} tau={tau}"
+              f"{'' if edges is None else f' stragglers={edges}'}: delays "
+              f"{cs} equal; x, x_hat, replicas and rings bit-equal card and "
+              f"CPU; replica_update {cc['replica_update']} launches "
+              f"({units} units x {k} rounds x {STALE_SMALL_CALLS} calls)",
+              flush=True)
+    return launches
+
+
+def stale_dist_small(dev, ranks):
+    """[stale] small per rank: the 4 ranks of ``process_dist_small``'s
+    spawn ran STALE_DIST_RUNS on the card (their results under
+    ``("stale", i)`` in ``ranks``), each rank's x, x_hat and s bit-equal
+    to its row of the stacked exchange on the card, its bytes its payload
+    bytes times the rounds it ships in times the gossip rounds and calls.
+    Returns the ranks' launches, summed."""
+    import torch
+    from repro_torch.comm import gossip, packing
+    launches = {k: 0 for k in kernel_names()}
+    for i, run in enumerate(STALE_DIST_RUNS):
+        proc, comp, spec, bufs, draws = _process_case(run, dev)
+        ex = gossip.make_process_exchange(spec=spec, process=proc,
+                                          compressor=comp, gamma=0.3,
+                                          gossip_steps=run[6], packed=run[4])
+        _stale_calls(ex, bufs, draws)
+        stacked = [b.cpu() for b in _flat_bufs(bufs)]
+        sent = []
+        for r, res in enumerate(ranks):
+            mine, nbytes, want, counts = res["stale", i]
+            for g, w in zip(mine, stacked):
+                check(torch.equal(g, w[r:r + 1]), f"[stale] dist {run}: "
+                      f"rank {r} differs from the stacked exchange")
+            sends = sum(rnd.peers(r)[0] is not None
+                        for rnd in proc.schedule.rounds)
+            check(nbytes == want == STALE_SMALL_CALLS * run[6] * sends * sum(
+                packing.bucket_wire_nbytes(spec, comp) if run[4]
+                else packing.leaf_wire_nbytes(spec, comp)),
+                f"[stale] dist {run}: rank {r} sent {nbytes} bytes, expected "
+                f"{want}")
+            sent.append(nbytes)
+            for name, v in counts.items():
+                launches[name] += v
+        print(f"[stale] small per rank {run[1]} {run[3]} "
+              f"{'packed' if run[4] else 'per-leaf'} {run[5]} x{run[6]} "
+              f"tau={run[7]}: {N_NODES} ranks bit-equal to the stacked "
+              f"exchange on the card over {STALE_SMALL_CALLS} calls; bytes "
+              f"sent per rank {sent} (payload bytes x rounds shipped in x "
+              f"gossip rounds x calls)", flush=True)
+    return launches
+
+
+def sim_stale(dev):
+    """[sim] under bounded staleness: CHOCO-Gossip (the stale simulator,
+    ``core/choco_gossip.py:run_choco_stale_gossip``) at ring 25, d 2000,
+    tau STALE_SIM_TAU, SIM_STALE_RUNS, on the card and on the CPU from the
+    same x0, the delays drawn from the same seed: each round held against
+    the CPU's repeat of it from the card's state (x, x_hat and the ring
+    within SIM_STEP_RTOL of their largest magnitude, at most
+    SIM_PROCESS_MOVED elements beyond), the final consensus errors
+    printed."""
+    import torch
+    from repro_torch.comm.packing import fold_seed
+    from repro_torch.comm.stochastic import process_from_topology
+    from repro_torch.core.choco_gossip import (StaleGossipState,
+                                               choco_stale_round,
+                                               init_stale_state,
+                                               run_choco_stale_gossip)
+    from repro_torch.core.compression import Identity
+    from repro_torch.core.topology import ring
+    n, d = SIM_GOSSIP_N, SIM_GOSSIP_D
+    x0 = torch.randn((n, d), generator=torch.Generator().manual_seed(5))
+    proc = process_from_topology("staleness", ring(n),
+                                 max_staleness=STALE_SIM_TAU)
+    report = {}
+    for label, spec, gamma, rounds in SIM_STALE_RUNS:
+        comp = _sim_compressor(spec) or Identity()
+        finals = {}
+        for which, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            st, errs = run_choco_stale_gossip(x0.to(device), proc, gamma,
+                                              comp, rounds, seed=7)
+            finals[which] = (float(errs[0]), float(errs[-1]))
+        check(all(math.isfinite(v) for v in finals["card"]) and
+              finals["card"][1] < finals["card"][0],
+              f"[sim] {label}: consensus error {finals['card']}")
+        moved_max, worst = 0, 0.0
+        state = init_stale_state(x0.to(dev), STALE_SIM_TAU)
+        for step in range(rounds):
+            seed = fold_seed(7, step)
+            nxt = choco_stale_round(state, proc, gamma, comp, seed)
+            cpu = choco_stale_round(StaleGossipState(
+                *(t.cpu() for t in state)), proc, gamma, comp, seed)
+            for g, w in zip(nxt, cpu):
+                gap = (g.cpu() - w).abs()
+                tol = SIM_STEP_RTOL * float(w.abs().max())
+                moved = int((gap > tol).sum())
+                moved_max = max(moved_max, moved)
+                worst = max(worst, float(gap.max()) / max(
+                    float(w.abs().max()), 1e-30))
+            check(moved_max <= SIM_PROCESS_MOVED, f"[sim] {label}: round "
+                  f"{step} moved {moved_max} elements beyond the tolerance")
+            state = nxt
+        print(f"[sim] {label}: ring {n}, d {d}, tau {STALE_SIM_TAU}, "
+              f"{rounds} rounds, gamma {gamma}: consensus error "
+              f"{finals['card'][0]:.6e} -> {finals['card'][1]:.6e} on the "
+              f"card, {finals['cpu'][1]:.6e} on the CPU; held round by round "
+              f"(largest relative gap {worst:.3e}, at most {moved_max} "
+              f"elements moved)", flush=True)
         report[label] = {"first_error": finals["card"][0],
                          "final_error_card": finals["card"][1],
                          "final_error_cpu": finals["cpu"][1],
@@ -3853,17 +4314,19 @@ def main():
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(build.LIBRARIES)) as pool:
-        built = list(pool.map(build.build, build.LIBRARIES))
-    for name in build.LIBRARIES:
-        build.load_library(name)
-    print(f"[build] {', '.join(p.name for p, _ in built)} in "
-          f"{time.perf_counter() - t0:.1f}s (one nvcc per source, in parallel)",
-          flush=True)
-    for _, log in built:
-        for line in log.splitlines():
-            print(f"[build] {line}", flush=True)
-    check_flash_sass(build.library_path("flash_tc"), build.library_path("flash"))
+    with phase("build"):
+        with concurrent.futures.ThreadPoolExecutor(len(build.LIBRARIES)) as pool:
+            built = list(pool.map(build.build, build.LIBRARIES))
+        for name in build.LIBRARIES:
+            build.load_library(name)
+        print(f"[build] {', '.join(p.name for p, _ in built)} in "
+              f"{time.perf_counter() - t0:.1f}s (one nvcc per source, in "
+              f"parallel)", flush=True)
+        for _, log in built:
+            for line in log.splitlines():
+                print(f"[build] {line}", flush=True)
+        check_flash_sass(build.library_path("flash_tc"),
+                         build.library_path("flash"))
 
     from repro_torch.comm.packing import leaf_route, make_bucket_spec
     from repro_torch.configs.qwen3_1_7b import CONFIG
@@ -3874,70 +4337,106 @@ def main():
     lengths = sorted({b.size for b in spec.buckets}, reverse=True) + [ODD_LENGTH]
     print(f"[kernel] checking the full-width bucket lengths and an odd one: "
           f"{lengths}", flush=True)
-    records, max_err = check_kernels(lengths, dev)
-    engine_records, engine_err = check_engine_kernels(dev)
-    records.update(engine_records)
-    max_err.update(engine_err)
-    replica_forms, replica_record, replica_err = check_replica_kernels(dev)
-    probe_record = check_probe(dev)
+    with phase("kernels"):
+        records, max_err = check_kernels(lengths, dev)
+        engine_records, engine_err = check_engine_kernels(dev)
+        records.update(engine_records)
+        max_err.update(engine_err)
+        replica_forms, replica_record, replica_err = check_replica_kernels(dev)
+        probe_record = check_probe(dev)
+        topk_record, topk_err = check_topk(dev)
+        topk_selection_cuda_vs_cpu(dev)
+        ops_counts = topk_ops_path(dev)
+    with phase("kernels-stale"):
+        stale_forms, stale_record, stale_err = check_stale_kernels(dev)
+    with phase("train"):
+        by_path = {c: train_full_width(c, dev) for c in TRAIN_COMPRESSORS}
+    with phase("topology"):
+        # the slice's own path: the top_k cell with only the graph changed
+        star_counts, star = train_full_width("top_k", dev, topology="star")
+        ring_run = by_path["top_k"][1]
+        print(f"[topology] star against the ring, top_k 0.01, full width: "
+              f"ms/step {star['ms_per_step']} against "
+              f"{ring_run['ms_per_step']} (first step included); peak device "
+              f"memory {star['peak_gib']:.3f} against "
+              f"{ring_run['peak_gib']:.3f} GiB", flush=True)
+    with phase("state-bf16"):
+        state_bf16 = state_bf16_full_width(dev, by_path)
+    with phase("engines"):
+        engines = engines_full_width(dev, by_path, state_bf16)
+    with phase("process"):
+        process_runs = process_full_width(dev, state_bf16)
+    with phase("stale"):
+        stale_runs = stale_full_width(dev, state_bf16, process_runs)
+    with phase("modes"):
+        modes = modes_full_width(dev)
+    with phase("checkpoint"):
+        ckpt_full_counts, ckpt_full = checkpoint_full_width(dev)
+    with phase("launcher"):
+        launcher_counts = {label: run_launcher(extra)
+                           for label, extra in LAUNCHER_RUNS}
+        per_rank_launcher_counts = {
+            label: run_launcher_per_rank(extra)
+            for label, extra in LAUNCHER_PER_RANK_RUNS}
+    with phase("launcher-stale"):
+        for label, extra, per_rank in STALE_LAUNCHER_RUNS:
+            if per_rank:
+                per_rank_launcher_counts[label] = run_launcher_per_rank(extra)
+            else:
+                launcher_counts[label] = run_launcher(extra)
+    with phase("small"):
+        small = small_cuda_vs_cpu(dev)
+        leaf_small = leaf_exchange_cuda_vs_cpu(dev)
+        process_small_counts = process_small(dev)
+        ckpt_small = checkpoint_small(dev)
+        torch.cuda.empty_cache()
+    with phase("small-stale"):
+        stale_small_counts = stale_small(dev)
+        torch.cuda.empty_cache()
+    with phase("dist"):
+        dist_small_report = dist_small(dev)
+        torch.cuda.empty_cache()
+        # the ranks also run the [stale] per-rank cases (one spawn)
+        process_dist_counts, process_ranks = process_dist_small(dev)
+        torch.cuda.empty_cache()
+    with phase("dist-stale"):
+        stale_dist_counts = stale_dist_small(dev, process_ranks)
+        torch.cuda.empty_cache()
+    with phase("dist-full-width"):
+        dist_full = dist_full_width(by_path[DIST_FULL[0]][1])
+        torch.cuda.empty_cache()
+        plain_bytes = exact_wire_bytes("plain", "ring", 1, 0, spec)[0]
+        top_k_bytes = dist_full["ranks"][0]["wire_bytes"][-1]
+        print(f"[dist] computed, not measured: the per-rank plain mode "
+              f"(exact D-SGD) at full width on the ring would send "
+              f"{plain_bytes} bytes per rank per step (2 sends x 4 B x "
+              f"{sum(b.size for b in spec.buckets)} padded elements), "
+              f"{plain_bytes / top_k_bytes:.1f}x the {top_k_bytes} that "
+              f"top_k 0.01 sent per rank per step above", flush=True)
+    with phase("sim"):
+        sim = {"gossip": sim_gossip(dev), "sgd": sim_sgd(dev),
+               "pipelined": sim_pipelined(dev)}
+        sim_counts = {k: sum(r["launches"][k] for part in sim.values()
+                             for r in part.values() if isinstance(r, dict))
+                      for k in kernel_names()}
+        sim_proc = sim_process(dev)
+    with phase("sim-stale"):
+        sim_stale_report = sim_stale(dev)
 
-    topk_record, topk_err = check_topk(dev)
-    topk_selection_cuda_vs_cpu(dev)
-    ops_counts = topk_ops_path(dev)
-    by_path = {c: train_full_width(c, dev) for c in TRAIN_COMPRESSORS}
-    # the slice's own path: the top_k cell with only the graph changed
-    star_counts, star = train_full_width("top_k", dev, topology="star")
-    ring_run = by_path["top_k"][1]
-    print(f"[topology] star against the ring, top_k 0.01, full width: "
-          f"ms/step {star['ms_per_step']} against {ring_run['ms_per_step']} "
-          f"(first step included); peak device memory {star['peak_gib']:.3f} "
-          f"against {ring_run['peak_gib']:.3f} GiB", flush=True)
-    state_bf16 = state_bf16_full_width(dev, by_path)
-    engines = engines_full_width(dev, by_path, state_bf16)
-    process_runs = process_full_width(dev, state_bf16)
-    modes = modes_full_width(dev)
-    ckpt_full_counts, ckpt_full = checkpoint_full_width(dev)
-    launcher_counts = {label: run_launcher(extra)
-                       for label, extra in LAUNCHER_RUNS}
-    per_rank_launcher_counts = {label: run_launcher_per_rank(extra)
-                                for label, extra in LAUNCHER_PER_RANK_RUNS}
-    small = small_cuda_vs_cpu(dev)
-    leaf_small = leaf_exchange_cuda_vs_cpu(dev)
-    process_small_counts = process_small(dev)
-    ckpt_small = checkpoint_small(dev)
-    torch.cuda.empty_cache()
-    dist_small_report = dist_small(dev)
-    torch.cuda.empty_cache()
-    process_dist_counts = process_dist_small(dev)
-    torch.cuda.empty_cache()
-    dist_full = dist_full_width(by_path[DIST_FULL[0]][1])
-    torch.cuda.empty_cache()
-    plain_bytes = exact_wire_bytes("plain", "ring", 1, 0, spec)[0]
-    top_k_bytes = dist_full["ranks"][0]["wire_bytes"][-1]
-    print(f"[dist] computed, not measured: the per-rank plain mode (exact "
-          f"D-SGD) at full width on the ring would send {plain_bytes} bytes "
-          f"per rank per step (2 sends x 4 B x "
-          f"{sum(b.size for b in spec.buckets)} padded elements), "
-          f"{plain_bytes / top_k_bytes:.1f}x the {top_k_bytes} that top_k "
-          f"0.01 sent per rank per step above", flush=True)
-    sim = {"gossip": sim_gossip(dev), "sgd": sim_sgd(dev),
-           "pipelined": sim_pipelined(dev)}
-    sim_counts = {k: sum(r["launches"][k] for part in sim.values()
-                         for r in part.values() if isinstance(r, dict))
-                  for k in kernel_names()}
-    sim_proc = sim_process(dev)
-
-    flash_record, flash_err = check_flash(dev)
-    model, params = full_width_serving_model(dev)
-    prefill_counts, prefill = prefill_full_width(model, params, dev)
-    consistency_counts, consistency = consistency_full_width(model, params,
-                                                             dev)
-    decode = profile_decode(model, params, dev)
-    del model, params
-    torch.cuda.empty_cache()
-    serve_counts, serve = serve_full_width()
-    serve_small_cuda_vs_cpu(dev)
-    budget = prefill_budget(dev)
+    with phase("flash"):
+        flash_record, flash_err = check_flash(dev)
+    with phase("prefill"):
+        model, params = full_width_serving_model(dev)
+        prefill_counts, prefill = prefill_full_width(model, params, dev)
+        consistency_counts, consistency = consistency_full_width(
+            model, params, dev)
+        decode = profile_decode(model, params, dev)
+        del model, params
+        torch.cuda.empty_cache()
+    with phase("serve"):
+        serve_counts, serve = serve_full_width()
+        serve_small_cuda_vs_cpu(dev)
+        budget = prefill_budget(dev)
 
     # launches of each kernel on every path this script drives (the counts
     # set to 0 just before each path and read just after); the per-rank
@@ -3949,10 +4448,13 @@ def main():
         **{f"modes_{label}": counts for label, (counts, _) in modes.items()},
         **{label: counts for label, (counts, _) in engines.items()},
         **{label: counts for label, (counts, _) in process_runs.items()},
+        **{label: counts for label, (counts, _) in stale_runs.items()},
         **launcher_counts,
         **per_rank_launcher_counts,
         "process_small": process_small_counts,
         "process_dist_small": process_dist_counts,
+        "stale_small": stale_small_counts,
+        "stale_dist_small": stale_dist_counts,
         "small": small["launches"],
         "leaf_small": {k: sum(r["launches"][k] for r in leaf_small.values())
                        for k in kernel_names()},
@@ -4019,6 +4521,9 @@ def main():
     # [process] cell and the launchers under a process
     process_paths = list(process_runs) + ["launcher_matching",
                                           "launcher_linkfail"]
+    check(all(paths[p]["replica_update"] > 0 for p in list(stale_runs)
+              + ["launcher_staleness", "stale_small"]),
+          "the stale paths launched no replica_update")
     kernels.append({
         "name": "replica_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gossip_kernels.cu",
@@ -4028,6 +4533,20 @@ def main():
         "max_abs_err": replica_err, **replica_record,
         "forms": replica_forms})
     check(kernels[-1]["launches"] > 0, "replica_update never launched")
+    # its bounded-staleness form, one CUDA entry with the others: on the
+    # [stale] paths every replica_update launch is the stale form's
+    stale_paths = list(stale_runs) + ["launcher_staleness",
+                                      "launcher_per_rank_staleness_rank0"]
+    kernels.append({
+        "name": "replica_update_stale", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gossip_kernels.cu",
+        "replaces": "src/repro/comm/async_gossip.py:376",
+        "launches": sum(paths[p]["replica_update"] for p in stale_paths),
+        "launches_by_path": {p: paths[p]["replica_update"]
+                             for p in stale_paths
+                             + ["stale_small", "stale_dist_small"]},
+        "max_abs_err": stale_err, **stale_record, "forms": stale_forms})
+    check(kernels[-1]["launches"] > 0, "replica_update_stale never launched")
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         # the bf16 tensor-core kernel, the main path's; f32 inputs take the
@@ -4066,7 +4585,9 @@ def main():
                       "modes": {k: r for k, (_, r) in modes.items()},
                       "engines": {k: r for k, (_, r) in engines.items()},
                       "process": {k: r for k, (_, r) in process_runs.items()},
-                      "sim_process": sim_proc,
+                      "stale": {k: r for k, (_, r) in stale_runs.items()},
+                      "sim_process": sim_proc, "sim_stale": sim_stale_report,
+                      "phases_s": PHASES,
                       "leaf_small": leaf_small,
                       "checkpoint": {"full_width": ckpt_full,
                                      "small": ckpt_small},

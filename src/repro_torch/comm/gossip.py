@@ -77,9 +77,11 @@ exchange is the replica engine (:func:`make_process_exchange`,
 paper's Algorithm-2 form with per-round references and source replicas,
 x_hat and s lists of bucket lists, one replica-update launch per bucket
 (or leaf) per gossip round; the plain mode averages with the sampled
-matrix (:func:`make_plain_exchange` with ``process=``).
+matrix (:func:`make_plain_exchange` with ``process=``).  Bounded
+staleness (JAX ``comm/async_gossip.py:make_async_choco_fn``) is the
+replica engine's third form, with depth-tau rings of increments.
 
-Not ported: the push-sum mode and the bounded-staleness process.
+Not ported: the push-sum mode.
 """
 from __future__ import annotations
 
@@ -573,19 +575,27 @@ def make_dist_choco_exchange(*, spec: BucketSpec,
 def _check_process(spec: BucketSpec, process, gamma, gossip_steps: int,
                    compressor=None) -> None:
     """What a process exchange refuses (the plain mode passes no
-    ``compressor``): a process the port has not, no gossip round, and
+    ``compressor``): a process the port has not, no gossip round,
+    staleness in the plain mode (JAX's reason), and
     what the static exchanges refuse of the spec and the compressor,
     every schedule taken with bf16 state (the replica update weighs in
     f32); under choco, the port's own rules, a per-bucket GammaSpec (the
     JAX trainer passes the scalar under a process) and exact buckets (the
     JAX process engine packs without them).  The trainer refuses the
     combinations JAX's trainer does."""
-    if getattr(process, "kind", None) not in ("matching", "linkfail"):
-        raise ValueError(f"topology process {getattr(process, 'kind', None)!r}"
-                         f" is not ported (matching and linkfail are)")
+    kind = getattr(process, "kind", None)
+    if kind not in ("matching", "linkfail", "staleness"):
+        raise ValueError(f"topology process {kind!r} is not ported "
+                         f"(matching, linkfail and staleness are)")
     if gossip_steps < 1:
         raise ValueError("gossip_steps must be >= 1")
     if compressor is None:
+        if kind == "staleness":
+            raise ValueError(
+                "bounded staleness runs on the compressed choco engine "
+                "only: the stale snapshots are reconstructed from rings of "
+                "compressed increments, and the plain engine ships fresh "
+                "iterates with no increment stream to ring-buffer")
         _check_f32(spec)
         return
     if type(compressor) not in _PORTED:
@@ -614,15 +624,23 @@ def _matching_tables(process, nodes, gamma: float):
             for r in range(process.n_rounds)]
 
 
-def _round_weights(process, mask, nodes, dev) -> torch.Tensor:
-    """The ``(R, rows)`` f32 receive weights of the nodes ``nodes`` under
-    the edge mask ``mask`` (JAX's ``round_recv[r] * mask``), on ``dev``:
-    computed on the host and, on the card, copied through pinned memory
-    without a host sync."""
-    w = torch.from_numpy(np.stack(process.round_weights(mask)))[:, list(nodes)]
+def _round_rows(vectors, nodes, dev) -> torch.Tensor:
+    """The ``(R, rows)`` stack of per-round ``(n,)`` host vectors (the
+    link-failure weights ``round_recv[r] * mask``, the stale delays) at
+    the nodes ``nodes``, on ``dev``: on the card copied through pinned
+    memory without a host sync."""
+    t = torch.from_numpy(np.stack(vectors))[:, list(nodes)]
     if dev.type != "cuda":
-        return w
-    return w.pin_memory().to(dev, non_blocking=True)
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def _rotate(slots: list, lo: int, tau: int) -> None:
+    """Rotate the ring ``slots[lo:lo + tau]`` one place in place: the
+    oldest slot becomes slot 0, which the update then overwrites, and
+    every other moves one round back.  No tensor is copied."""
+    if tau:
+        slots[lo:lo + tau] = [slots[lo + tau - 1]] + slots[lo:lo + tau - 1]
 
 
 def _process_exchange(spec: BucketSpec, process, compressor, gamma: float,
@@ -636,8 +654,11 @@ def _process_exchange(spec: BucketSpec, process, compressor, gamma: float,
     units = _units(spec, packed)
     nodes = tuple(nodes)
     rounds = process.schedule.rounds
+    R = len(rounds)
     data = [round_data(r) for r in rounds]
     matching = process.kind == "matching"
+    stale = process.kind == "staleness"
+    tau = process.max_staleness if stale else 0
     tables = _matching_tables(process, nodes, gamma) if matching else []
     on_device = {}
 
@@ -666,8 +687,20 @@ def _process_exchange(spec: BucketSpec, process, compressor, gamma: float,
                 cseed, hats, reps = fold_seed(tseed, r), x_hat[r], s[r]
                 send, gv = tab[r]
             else:
-                cseed, hats = tseed, x_hat
-                w_rounds = _round_weights(process, sample, nodes, dev)
+                if stale:
+                    # the rings turn before the update, whose slot 0 takes
+                    # this round's increments
+                    _rotate(x_hat, 1, tau)
+                    for r in range(R):
+                        _rotate(s, R + r * tau, tau)
+                # link failures are the ring form at tau = 0: no ring is
+                # kept, and the sampled edge mask is in the rounds' weights
+                cseed = tseed
+                hats, own = (x_hat[0], x_hat[1:]) if stale else (x_hat, [])
+                w_rounds = _round_rows(process.round_weights(sample), nodes,
+                                       dev)
+                d_rounds = (_round_rows(process.round_delays(sample), nodes,
+                                        dev) if stale else None)
             for unit in units:
                 xv, hv = unit.views(x), unit.views(hats)
                 if packed:
@@ -689,11 +722,14 @@ def _process_exchange(spec: BucketSpec, process, compressor, gamma: float,
                     dispatch.replica_matching(xv, hv, unit.views(reps),
                                               q[:, :w], nbr[:, :w], send, gv)
                 else:
-                    nbrs = [receive_dense(receive, r, q)
-                            for r in range(len(rounds))]
-                    dispatch.replica_linkfail(
-                        xv, hv, q[:, :w], [unit.views(sr) for sr in s],
-                        [nb[:, :w] for nb in nbrs], w_rounds, gamma)
+                    nbrs = [receive_dense(receive, r, q) for r in range(R)]
+                    dispatch.replica_stale(
+                        xv, hv, q[:, :w], [unit.views(sr) for sr in s[:R]],
+                        [nb[:, :w] for nb in nbrs],
+                        [unit.views(o) for o in own],
+                        [[unit.views(o) for o in s[R + r * tau:
+                                                   R + (r + 1) * tau]]
+                         for r in range(R)], w_rounds, d_rounds, gamma)
                     del nbrs
                 del receive, q
 
@@ -724,11 +760,23 @@ def make_process_exchange(*, spec: BucketSpec, process, compressor,
       takes in what it received, and the sampled edge mask gates only the
       mixing weight: ``x += gamma sum_r recv_r mask_r (S_r - x_hat)``, all
       R replicas in one launch per bucket (or leaf).
+    * staleness (JAX ``make_async_choco_fn``): ``x_hat`` is a list of
+      1 + tau bucket-buffer lists (the public copy, then the own ring of
+      increments, slot j of j rounds back), ``s`` a list of R (1 + tau)
+      (the R replicas, then ring r's slot j at ``s[R + r tau + j]``).
+      One compression against x_hat, every round ships, every replica
+      takes in what it received; the rings turn (a rotation of the lists:
+      the oldest slot becomes slot 0, which the update overwrites with
+      this round's increments, no tensor copied), and the sampled delay d
+      of each row's round-r edge selects which ring prefix the update
+      subtracts: ``x += gamma sum_r recv_r ((S_r - x_hat) - sum_{j<d}
+      (ring_r[j] - own[j]))``, one launch per bucket (or leaf).  tau = 0
+      is link failures at p = 0.
 
     ``seed`` is the exchange seed: the sample of gossip round t is
     ``process.sample(seed, t)``, the same on every node and engine, unless
-    ``samples(t)`` gives it (a round index, or an edge mask: the parity
-    tests hand over JAX's).  ``draws(t, u)`` injects the compressor's draw
+    ``samples(t)`` gives it (a round index, an edge mask, or the edge
+    delays: the parity tests hand over JAX's).  ``draws(t, u)`` injects the compressor's draw
     of round t, unit u (for matching, the sampled branch's).
     ``exchange.last_samples`` keeps the last call's samples.  ``packed``
     as in :func:`make_choco_exchange`; gamma is one float."""
@@ -749,8 +797,8 @@ def make_dist_process_exchange(*, spec: BucketSpec, process, compressor,
     """The per-rank exchange under a topology process: rank
     ``group.rank``'s row of :func:`make_process_exchange`, bit for bit.
     Matching ships only the sampled round (a rank the round skips makes
-    no ``sendrecv`` call); link failures ship every round, a dropped link
-    still carrying its payload.  The probe runs once per process.
+    no ``sendrecv`` call); link failures and staleness ship every round,
+    a dropped or late link still carrying its payload.  The probe runs once per process.
     ``exchange.payload_bytes`` as in :func:`make_dist_choco_exchange`;
     ``exchange.sent_rounds(samples)`` counts the payloads of each unit
     this rank sent under the samples of one call."""
@@ -899,7 +947,7 @@ def _contracted_sum(terms):
     """sum_r w_r b_r over ``[(w_r, b_r)]`` (w_r one host float per row,
     b_r the rows' received buffers), as XLA contracts the JAX engine's
     round loop on the CPU (the replica kernel's order,
-    ``ref.replica_linkfail_ref``): w_0 b_0 alone; fma(w_0, b_0, w_1 b_1);
+    ``ref.replica_stale_ref``): w_0 b_0 alone; fma(w_0, b_0, w_1 b_1);
     then fma(w_r, b_r, acc).  Each FMA is ``torch.add(acc, b, alpha=w)``
     per row, as in :func:`_plain`.  Returns a new buffer."""
     (w0, b0), rest = terms[0], terms[1:]

@@ -14,6 +14,15 @@ takes the Theorem-2 stepsize at the *expected* matrix's (delta, beta).
 * :class:`LinkFailureProcess`: each undirected edge of the schedule drops
   with probability p, both directions together, its weight folded back
   into both endpoints' self weight: E[W_t] = (1 - p) W + p I.
+* :class:`StalenessProcess` (JAX ``comm/async_gossip.py:104-307``):
+  bounded staleness.  Each undirected edge draws a delay d in {0..tau}
+  per gossip round (both directions share it) from ``delay_probs``
+  (uniform by default; ``straggler_edges`` take ``straggler_delay_probs``,
+  by default the point mass at tau).  Every round ships; the delay only
+  selects how stale a pair of public copies the update reads.  Its
+  stepsize surrogate is the per-edge expected matrix (an edge delivers
+  its weight at its freshness phi_e = E[1 / (1 + d_e)]) and
+  ``omega * min phi_e``.
 
 The sampler.  JAX draws every sample from ``fold_in(exchange_key,
 SAMPLE_SALT + t)`` with threefry, which the port cannot match, so the
@@ -21,14 +30,14 @@ port draws from ``packing.fold_seed(exchange_seed, SAMPLE_SALT + t)``: a
 63-bit integer whose top 24 bits are a uniform u in [0, 1), exact in f32.
 The matching round is the inverse CDF of u over the f32 cumulative
 ``probs``, as JAX's ``round_index`` takes it; the link-failure mask keeps
-edge e where ``uniform(fold_seed(z, e)) < f32(1 - p)``.  Both are drawn on
-the host from integers, so picking a round or a mask never reads the
+edge e where ``uniform(fold_seed(z, e)) < f32(1 - p)``; edge e's delay is
+the inverse CDF of ``uniform(fold_seed(z, e))`` over its f32 cumulative
+delay table, as JAX's ``edge_delays`` takes it.  All are drawn on the
+host from integers, so picking a round, a mask or a delay never reads the
 device.  Every node, every engine and the simulator draw the same sample
 from the same seed with no byte on the wire: the JAX determinism contract
 (``:47-53``).  The parity tests hand JAX's samples to the engines instead
 (their ``samples`` hook).
-
-``"staleness"`` (``comm/async_gossip.py`` in JAX) is not ported.
 """
 from __future__ import annotations
 
@@ -49,7 +58,7 @@ SAMPLE_SALT = 0x70C0
 
 _MATCHING_SAMPLERS = ("uniform", "weighted")
 #: the processes the port runs (``--topology-process``)
-PROCESS_KINDS = ("matching", "linkfail")
+PROCESS_KINDS = ("matching", "linkfail", "staleness")
 
 
 def uniform_of(z: int) -> float:
@@ -295,21 +304,194 @@ class LinkFailureProcess(TopologyProcess):
         return (1.0 - p) * W + p * np.eye(self.n)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class StalenessProcess(TopologyProcess):
+    """Bounded-staleness delays over a compiled schedule's edges.
+
+    Each undirected edge draws a delay ``d in {0..max_staleness}`` per
+    gossip round from ``delay_probs`` (``delay_probs[k]`` = P(d = k);
+    None: uniform), both directions one draw.  ``straggler_edges`` names
+    links (node pairs of the schedule's support) whose delays come from
+    ``straggler_delay_probs`` instead (None: the point mass at
+    max_staleness, a maximally slow link).  ``max_staleness = 0`` keeps
+    every edge fresh: the link-failure engine at p = 0."""
+    schedule: GossipSchedule
+    max_staleness: int = 1
+    delay_probs: Optional[Tuple[float, ...]] = None
+    straggler_edges: Optional[Tuple[Tuple[int, int], ...]] = None
+    straggler_delay_probs: Optional[Tuple[float, ...]] = None
+
+    kind = "staleness"
+
+    def _normalize_probs(self, probs, what: str) -> Tuple[float, ...]:
+        """A delay law over {0..tau}, checked and normalised."""
+        tau = self.max_staleness
+        arr = np.asarray(probs, dtype=np.float64)
+        if arr.shape != (tau + 1,):
+            raise ValueError(
+                f"{what} needs max_staleness + 1 = {tau + 1} "
+                f"entries (P(d=0..{tau})), got shape {arr.shape}")
+        if arr.min() < 0 or arr.sum() <= 0:
+            raise ValueError(f"{what} must be nonnegative with "
+                             f"positive mass, got {tuple(arr)}")
+        return tuple(float(p) for p in arr / arr.sum())
+
+    def __post_init__(self):
+        tau = self.max_staleness
+        if tau < 0:
+            raise ValueError(f"max_staleness must be >= 0, got {tau}")
+        if self.schedule.n_rounds == 0:
+            raise ValueError("staleness process needs a schedule with at "
+                             "least one round (n >= 2)")
+        if self.delay_probs is None:
+            probs = tuple(1.0 / (tau + 1) for _ in range(tau + 1))
+        else:
+            probs = self._normalize_probs(self.delay_probs, "delay_probs")
+        object.__setattr__(self, "delay_probs", probs)
+        edges, round_edge_ids, round_recv = _index_schedule_edges(
+            self.schedule)
+        object.__setattr__(self, "n_edges", len(edges))
+        object.__setattr__(self, "_edges", edges)
+        object.__setattr__(self, "round_edge_ids", round_edge_ids)
+        object.__setattr__(self, "round_recv", round_recv)
+        if self.straggler_delay_probs is not None \
+                and self.straggler_edges is None:
+            raise ValueError("straggler_delay_probs given without "
+                             "straggler_edges")
+        # each edge's law: the global one, straggler rows overridden
+        table = np.tile(np.asarray(probs), (max(len(edges), 1), 1))
+        if self.straggler_edges is not None:
+            if self.straggler_delay_probs is None:
+                sprobs = tuple(0.0 for _ in range(tau)) + (1.0,)
+            else:
+                sprobs = self._normalize_probs(self.straggler_delay_probs,
+                                               "straggler_delay_probs")
+            object.__setattr__(self, "straggler_delay_probs", sprobs)
+            canon = []
+            edge_pos = {e: k for k, e in enumerate(edges)}
+            for a, b in self.straggler_edges:
+                e = (min(int(a), int(b)), max(int(a), int(b)))
+                if e not in edge_pos:
+                    raise ValueError(
+                        f"unknown straggler edge {a}-{b}: the schedule's "
+                        f"edge support is {list(edges)}")
+                canon.append(e)
+                table[edge_pos[e]] = np.asarray(sprobs)
+            object.__setattr__(self, "straggler_edges", tuple(canon))
+        object.__setattr__(self, "edge_delay_probs",
+                           tuple(tuple(float(p) for p in row)
+                                 for row in table))
+        # the inverse CDF's f32 thresholds per edge, as JAX compares them
+        object.__setattr__(self, "_cum", tuple(
+            tuple(float(c) for c in row) for row in
+            np.cumsum(np.asarray(self.edge_delay_probs), axis=1)[:, :-1]
+            .astype(np.float32)))
+        n = self.schedule.n
+        srcs = []
+        for rnd in self.schedule.rounds:
+            sv = np.arange(n)
+            for src, dst in rnd.perm:
+                sv[dst] = src
+            srcs.append(tuple(int(v) for v in sv))
+        object.__setattr__(self, "round_src", tuple(srcs))
+
+    @property
+    def mean_delay(self) -> float:
+        """E[d] under ``delay_probs``."""
+        return float(sum(k * p for k, p in enumerate(self.delay_probs)))
+
+    @property
+    def freshness(self) -> float:
+        """phi = E[1 / (1 + d)] of the global law: the share of a fresh
+        exchange an edge delivers per round on average."""
+        return float(sum(p / (1.0 + k)
+                         for k, p in enumerate(self.delay_probs)))
+
+    @property
+    def edge_freshness(self) -> Tuple[float, ...]:
+        """phi_e of each edge under its own law."""
+        return tuple(float(sum(p / (1.0 + k) for k, p in enumerate(row)))
+                     for row in self.edge_delay_probs)
+
+    def edge_delays(self, seed: int, t: int) -> np.ndarray:
+        """(max(n_edges, 1),) int32 delays of gossip round t, the same on
+        every node: edge e's uniform ``uniform(fold_seed(z, e))`` through
+        the inverse CDF of its f32 cumulative law."""
+        z = self.sample_seed(seed, t)
+        return np.array([sum(uniform_of(fold_seed(z, e)) >= c for c in cum)
+                         for e, cum in enumerate(self._cum)], dtype=np.int32)
+
+    sample = edge_delays
+
+    def round_delays(self, delays) -> list:
+        """Per round, the (n,) int32 delay of each destination's edge (0
+        where the round skips the node: its zero weight drops the term)."""
+        delays = np.asarray(delays, dtype=np.int32)
+        out = []
+        for ids in self.round_edge_ids:
+            idx = np.asarray(ids)
+            out.append(np.where(idx >= 0, delays[np.clip(idx, 0, None)],
+                                0).astype(np.int32))
+        return out
+
+    def round_weights(self, delays) -> list:
+        """Per round, the (n,) f32 receive weights: every link delivers,
+        late or not, so they are ``f32(recv_r)`` whatever the delays."""
+        return [np.asarray(recv, dtype=np.float32) for recv in self.round_recv]
+
+    def sample_matrix(self, seed: int, t: int, sample=None) -> torch.Tensor:
+        raise NotImplementedError(
+            "a bounded-staleness step mixes SNAPSHOTS from up to tau steps "
+            "back — it is not a single (n, n) matrix on the current "
+            "iterates.  Use core.choco_gossip.choco_stale_round (the "
+            "delay-expanded simulator) for parity checks, and "
+            "expected_matrix() for the delay-averaged theory surrogate.")
+
+    def expected_matrix(self) -> np.ndarray:
+        """The delay-averaged matrix, edge by edge: each edge delivers its
+        weight at its freshness phi_e, the rest folds into the
+        destination's diagonal (one global law: phi W + (1 - phi) I)."""
+        phis = self.edge_freshness
+        E = np.diag(np.asarray(self.schedule.self_weights,
+                               dtype=np.float64))
+        for r, rnd in enumerate(self.schedule.rounds):
+            recv = round_recv_vec(rnd, self.n)
+            for src, dst in rnd.perm:
+                e = self.round_edge_ids[r][dst]
+                phi = phis[e] if e >= 0 else 1.0
+                E[dst, src] += phi * recv[dst]
+                E[dst, dst] += (1.0 - phi) * recv[dst]
+        return E
+
+    def effective_omega(self, omega: float) -> float:
+        """omega * min phi_e: a delay-d edge reads a snapshot d increments
+        old, which scales the compression-error term by 1 / (1 + d) (the
+        point mass at tau gives omega / (1 + tau)); the slowest edge
+        governs."""
+        return omega * min(self.edge_freshness)
+
+
 # ---------------------------------------------------------------------------
 # constructors + matrix simulators
 # ---------------------------------------------------------------------------
 
 def make_topology_process(kind: str, schedule: GossipSchedule, *,
                           matching_sampler: str = "uniform",
-                          edge_drop_prob: float = 0.1) -> TopologyProcess:
+                          edge_drop_prob: float = 0.1,
+                          max_staleness: int = 1,
+                          delay_probs=None,
+                          straggler_edges=None,
+                          straggler_delay_probs=None) -> TopologyProcess:
     """Named-process registry mirrored by ``--topology-process``."""
     if kind == "matching":
         return MatchingProcess(schedule, sampler=matching_sampler)
     if kind == "linkfail":
         return LinkFailureProcess(schedule, drop_prob=edge_drop_prob)
     if kind == "staleness":
-        raise ValueError("topology process 'staleness' (bounded-staleness "
-                         "gossip) is not ported")
+        return StalenessProcess(schedule, max_staleness=max_staleness,
+                                delay_probs=delay_probs,
+                                straggler_edges=straggler_edges,
+                                straggler_delay_probs=straggler_delay_probs)
     raise ValueError(f"unknown topology process {kind!r}; "
                      f"have ('matching', 'linkfail', 'staleness')")
 

@@ -10,9 +10,12 @@ ported.  ``INPUT_SHAPES`` keeps the one JAX input shape the port serves,
 ``prefill_32k``.  ``ChocoConfig``
 keeps the settings of the static engines (the packed and the per-leaf
 engine, serial or pipelined; the choco, plain and all-reduce modes), the
-EF-state dtype (f32 or bf16) and the data skew, with the JAX package's
-defaults: the stochastic processes, staleness, push-sum and the
-kernel-backend switch are not ported.
+EF-state dtype (f32 or bf16), the data skew and the stochastic topology
+processes (matching, link failures and bounded staleness with its
+straggler links), with the JAX package's defaults: push-sum and the
+kernel-backend switch are not ported.  ``parse_straggler_edges`` and
+``parse_delay_probs`` are the port's own copies of the JAX parsers
+(torch-free, so the launcher checks its flags before torch is imported).
 """
 from __future__ import annotations
 
@@ -81,6 +84,51 @@ def parse_topology(spec: str) -> Tuple[str, ...]:
     return tuple(t.strip() for t in spec.split(",") if t.strip())
 
 
+def parse_straggler_edges(spec: str) -> Tuple[Tuple[int, int], ...]:
+    """Comma-separated edge spec -> node-pair tuple ("0-1,2-3" ->
+    ((0, 1), (2, 3))), each pair as (min, max).  Syntax only (integers,
+    the 'a-b' form, no self-edge, no negative id): that the edge is one
+    of the schedule's is checked by ``StalenessProcess``."""
+    out = []
+    for part in (p.strip() for p in spec.split(",") if p.strip()):
+        halves = part.split("-")
+        if len(halves) != 2:
+            raise ValueError(f"straggler edge {part!r} is not of the "
+                             f"form 'a-b'")
+        try:
+            a, b = int(halves[0]), int(halves[1])
+        except ValueError:
+            raise ValueError(f"straggler edge {part!r} has non-integer "
+                             f"node ids") from None
+        if a < 0 or b < 0:
+            raise ValueError(f"straggler edge {part!r} has negative "
+                             f"node ids")
+        if a == b:
+            raise ValueError(f"straggler edge {part!r} is a self-edge")
+        out.append((min(a, b), max(a, b)))
+    if not out:
+        raise ValueError(f"empty straggler edge spec {spec!r}")
+    return tuple(out)
+
+
+def parse_delay_probs(spec: str) -> Tuple[float, ...]:
+    """Comma-separated probability list ("0.1,0.2,0.7" -> floats).
+    Syntax, signs and mass only: the arity against max_staleness is the
+    consumer's check (the launcher, ``StalenessProcess``)."""
+    try:
+        probs = tuple(float(p.strip())
+                      for p in spec.split(",") if p.strip())
+    except ValueError:
+        raise ValueError(f"delay probs {spec!r} must be a comma-"
+                         f"separated float list") from None
+    if not probs:
+        raise ValueError(f"empty delay-probs spec {spec!r}")
+    if min(probs) < 0 or sum(probs) <= 0:
+        raise ValueError(f"delay probs must be nonnegative with positive "
+                         f"mass, got {probs}")
+    return probs
+
+
 @dataclasses.dataclass(frozen=True)
 class ChocoConfig:
     """Settings of the static CHOCO engines."""
@@ -113,13 +161,22 @@ class ChocoConfig:
     data_skew_alpha: Optional[float] = None
     # a stochastic topology process over the compiled schedule
     # (comm/stochastic.py): None (the static graph), "matching" (one
-    # sampled round per gossip round) or "linkfail" (i.i.d. link drops);
-    # one graph, the choco or plain mode, not pipelined
+    # sampled round per gossip round), "linkfail" (i.i.d. link drops) or
+    # "staleness" (each link's payload up to max_staleness rounds late;
+    # choco only); one graph, the choco or plain mode, not pipelined
     topology_process: Optional[str] = None
     # drop probability of each undirected link per gossip round (linkfail)
     edge_drop_prob: float = 0.1
     # "uniform" or "weighted" round probabilities (matching)
     matching_sampler: str = "uniform"
+    # the staleness bound tau (staleness): each link's delay is drawn
+    # uniformly from {0..tau}; tau = 0 is the always-fresh replica engine
+    max_staleness: int = 1
+    # slow links ("0-1,2-3") whose delays come from straggler_delay_probs
+    # ("P(d=0),...,P(d=tau)"; default the point mass at tau) instead of
+    # the uniform law (staleness only)
+    straggler_edges: Optional[str] = None
+    straggler_delay_probs: Optional[str] = None
 
     def comp_dict(self):
         return dict(self.comp_kwargs)

@@ -18,14 +18,16 @@ port's kernels on the card (``Compressor.apply``).  A stochastic
 compressor's draw per round comes from ``draws(t)`` when the caller
 injects it, else from an explicit ``torch.Generator``.  The pipelined
 recursion (the matrix twin of the pipelined engine, ``comm/pipelined.py``)
-is here too.  Not ported: the stale and push-sum simulators (they come
-with their engines).
+and the bounded-staleness simulator (the matrix twin of the stale replica
+engine, JAX ``core/choco_gossip.py:194-262``) are here too.  Not ported:
+the push-sum simulator (it comes with its engine).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .compression import Compressor
@@ -216,3 +218,87 @@ def run_choco_pipelined_gossip(x0: torch.Tensor, W, gamma: float,
     return _run(lambda st, r: choco_pipelined_round(
         st, W, gamma, compressor, r), init_pipelined_state(x0), x0, steps,
         compressor, generator, draws)
+
+
+# ---------------------------------------------------------------------------
+# Bounded-staleness CHOCO-Gossip: each edge's update reads both endpoints'
+# public copies as of d rounds ago (d <= tau, drawn per edge by the
+# process), x_hat^(t-d) = x_hat - (the last d increments); a ring of the
+# last tau global q's rebuilds every stale copy, and the engine's
+# replicas are rows of the global state (JAX ``choco_stale_round``).
+# ---------------------------------------------------------------------------
+
+class StaleGossipState(NamedTuple):
+    x: torch.Tensor        # (n, d) local iterates
+    x_hat: torch.Tensor    # (n, d) public copies (fresh)
+    ring: torch.Tensor     # (tau, n, d): ring[j] = the global q of j rounds ago
+
+
+def init_stale_state(x0: torch.Tensor, max_staleness: int
+                     ) -> StaleGossipState:
+    """Zero public copies and a zero depth-``max_staleness`` ring."""
+    return StaleGossipState(
+        x=x0, x_hat=torch.zeros_like(x0),
+        ring=torch.zeros((max_staleness,) + tuple(x0.shape), dtype=x0.dtype,
+                         device=x0.device))
+
+
+def choco_stale_round(state: StaleGossipState, process, gamma: float,
+                      compressor: Compressor, seed: int = 0, t: int = 0,
+                      rand=None, sample=None) -> StaleGossipState:
+    """One bounded-staleness round under ``process`` (a
+    ``comm.stochastic.StalenessProcess``):
+
+        q = Q(x - x_hat);  x_hat += q;  ring <- [q, ring[:-1]]
+        per round r, destination i, with d the delay of its edge:
+        x_i += gamma v_r[i] (x_hat^(t-d)[src_r(i)] - x_hat^(t-d)[i])
+
+    ``seed`` is the exchange seed, whose edge delays of gossip round t
+    are drawn unless ``sample`` gives them; ``rand`` a stochastic
+    compressor's draw."""
+    x = state.x
+    dev = x.device
+    tau = int(state.ring.shape[0])
+    q = compressor.apply(x - state.x_hat, rand)
+    x_hat = state.x_hat + q
+    ring = (torch.cat([q[None], state.ring[:-1]], dim=0) if tau
+            else state.ring)
+    if sample is None:
+        sample = process.edge_delays(seed, t)
+    dvecs = process.round_delays(sample)
+    acc = torch.zeros_like(x)
+    for r, src in enumerate(process.round_src):
+        src = torch.tensor(src, device=dev)
+        v = torch.tensor(np.asarray(process.round_recv[r], np.float32),
+                         device=dev)[:, None]
+        d = torch.from_numpy(dvecs[r]).to(dev)
+        diff = x_hat[src, :] - x_hat
+        for j in range(tau):
+            m = (d > j).to(torch.float32)[:, None]
+            diff = diff - m * (ring[j][src, :] - ring[j])
+        acc = acc + v * diff
+    return StaleGossipState(x=x + gamma * acc, x_hat=x_hat, ring=ring)
+
+
+def run_choco_stale_gossip(x0: torch.Tensor, process, gamma: float,
+                           compressor: Compressor, steps: int, *,
+                           seed: int = 0,
+                           generator: Optional[torch.Generator] = None,
+                           draws: Optional[Callable[[int], object]] = None,
+                           samples: Optional[Callable[[int], object]] = None):
+    """``steps`` bounded-staleness rounds with the trainer's seed plumbing
+    (exchange seed ``fold_seed(seed, step)``, gossip round 0).
+    ``draws(step)`` / ``generator`` give a stochastic compressor's draws,
+    ``samples(step)`` the edge delays of each step instead of the seed's.
+    Returns (final state, per-step consensus errors)."""
+    from repro_torch.comm.packing import fold_seed
+    xbar = torch.mean(x0, dim=0, keepdim=True)
+    st = init_stale_state(x0, process.max_staleness)
+    errs = []
+    for step in range(steps):
+        rand = round_draw(compressor, st.x, step, generator, draws)
+        st = choco_stale_round(
+            st, process, gamma, compressor, fold_seed(seed, step), t=0,
+            rand=rand, sample=None if samples is None else samples(step))
+        errs.append(consensus_error(st.x, xbar))
+    return st, torch.stack(errs) if errs else x0.new_zeros((0,))

@@ -72,8 +72,9 @@ LIBRARIES = {
                           _I64, _I64, _P),
             "ef_update_bf16": (_P, _P, _P, _P, _P, _INT, _P, _P, _F, _INT,
                                _INT, _I64, _I64, _I64, _I64, _P),
-            "replica_update": (_INT, _P, _P, _P, _P, _P, _P, _INT, _P, _P,
-                               _F, _INT, _INT, _I64, _I64, _I64, _I64, _P),
+            "replica_update": (_INT, _P, _P, _P, _P, _P, _P, _INT, _INT,
+                               _P, _P, _F, _INT, _INT, _INT, _I64, _I64,
+                               _I64, _I64, _P),
         }),
     "flash": Library(
         CSRC / "flash_attention.cu", _COMMON_FLAGS, {

@@ -18,7 +18,10 @@
 //                      (src/repro/comm/pipelined.py:71)
 //   replica_update  <- the topology-process engine's replica update
 //                      (src/repro/comm/gossip.py:make_process_choco_fn,
-//                      :721-810), matching and link-failure forms
+//                      :721-810), the matching form, and the ring form of
+//                      link failures (tau 0) and of the bounded-staleness
+//                      engine (src/repro/comm/async_gossip.py:
+//                      make_async_choco_fn, :376-404)
 //
 // What bounds them: all five are elementwise, a handful of flops per
 // element against 5-36 bytes moved, so device-memory bandwidth bounds every
@@ -281,7 +284,7 @@ __global__ void ef_update_bf16_kernel(float* __restrict__ x,
 // bf16), TQ the payloads' (float, or bf16 with bf16 state); round_state
 // rounds to TS (nothing for f32), as the JAX text's .astype(h.dtype) does.
 // The multiply-adds are the FMAs XLA contracts the JAX text into on the
-// CPU (kernels/ref.py:replica_matching_ref, replica_linkfail_ref), explicit
+// CPU (kernels/ref.py:replica_matching_ref, replica_stale_ref), explicit
 // here (__fmaf_rn) and nowhere else.
 template <typename TS>
 __device__ __forceinline__ float round_state(float v) {
@@ -334,52 +337,119 @@ __global__ void replica_matching_kernel(float* __restrict__ x,
   }
 }
 
-// Link-failure form: x_hat += q_self; S_r += q_r for every round (the
-// payload always arrives); acc = sum_r w_r (S_r - x_hat), w_r = recv_r keep_r
-// the round's weight under the sampled edge mask: w_0 d_0 alone,
-// fma(w_0, d_0, w_1 d_1) with two rounds, then fma(w_r, d_r, acc);
-// x = fma(gamma, acc, x).  One launch for all R rounds.  reps holds the R
-// replicas' pointers, then the R payloads', and w the (R, rows) weights,
-// both in device memory, so neither R nor the rows are capped.
-template <typename TS, typename TQ>
-__global__ void replica_linkfail_kernel(float* __restrict__ x,
-                                        TS* __restrict__ h,
-                                        const TQ* __restrict__ q_self,
-                                        void* const* __restrict__ reps,
-                                        const float* __restrict__ w,
-                                        int rounds, int64_t rows, float gamma,
-                                        int64_t len, int64_t ld_x,
-                                        int64_t ld_q) {
+// Ring form, link failures and bounded staleness: x_hat += q_self and the
+// recycled own-ring slot takes st(q_self); per round r, S_r += q_r (the
+// payload always arrives) and the recycled slot of ring r takes st(q_r);
+// diff_r = (S_r - x_hat) - sum_{j < d_r} (ring_r[j] - own[j]), ring and own
+// slot 0 being this round's increments and slot j those of j rounds back;
+// acc = sum_r w_r diff_r, w_r the round's receive weight (under link
+// failures times the sampled edge mask): w_0 d_0 alone, fma(w_0, d_0,
+// w_1 d_1) with two rounds, then fma(w_r, d_r, acc); x = fma(gamma, acc, x).
+// One launch for all R rounds.  d_r is the row's delay on round r's edge
+// (the (R, rows) int32 array dl, clamped to tau; not read at tau 0, where
+// no ring is kept: link failures): only the slots j < d_r are read.  reps
+// holds the R replicas' pointers, the R payloads', the R tau receive-ring
+// slots' (ring r's slot j at 2R + r tau + j) and the tau own-ring slots',
+// in device memory, so neither R, tau nor the rows are capped.  VEC
+// consecutive elements per thread: 4 when the row length and both strides
+// are multiples of 4 and every buffer is aligned for it (the wrapper checks
+// the pointers), each buffer then read and written in words of 4 elements;
+// else 1.
+template <int VEC, typename TS, typename TQ>
+__global__ void replica_stale_kernel(float* __restrict__ x,
+                                     TS* __restrict__ h,
+                                     const TQ* __restrict__ q_self,
+                                     void* const* __restrict__ reps,
+                                     const float* __restrict__ w,
+                                     const int* __restrict__ dl, int rounds,
+                                     int tau, int64_t rows, float gamma,
+                                     int64_t len, int64_t ld_x,
+                                     int64_t ld_q) {
+  struct alignas(4 * VEC) Fl { float v[VEC]; };
+  struct alignas(sizeof(TS) * VEC) Sv { TS v[VEC]; };
+  struct alignas(sizeof(TQ) * VEC) Qv { TQ v[VEC]; };
   const int64_t row = blockIdx.y;
-  x += row * ld_x;
-  h += row * ld_x;
-  q_self += row * ld_q;
+  Fl* xv = reinterpret_cast<Fl*>(x + row * ld_x);
+  Sv* hv = reinterpret_cast<Sv*>(h + row * ld_x);
+  const Qv* qv = reinterpret_cast<const Qv*>(q_self + row * ld_q);
+  void* const* rings = reps + 2 * rounds;
+  void* const* own = rings + rounds * tau;
+  const auto slot = [&](void* p) {
+    return reinterpret_cast<Sv*>(static_cast<TS*>(p) + row * ld_x);
+  };
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < len; i += stride) {
-    const float h_n = round_state<TS>(
-        __fadd_rn(to_f32(h[i]), round_state<TS>(to_f32(q_self[i]))));
-    float acc = 0.0f, w0 = 0.0f, d0 = 0.0f;
-    for (int r = 0; r < rounds; ++r) {
-      TS* sr = static_cast<TS*>(reps[r]) + row * ld_x;
-      const TQ* qr = static_cast<const TQ*>(reps[rounds + r]) + row * ld_q;
-      const float s_n = round_state<TS>(
-          __fadd_rn(to_f32(sr[i]), round_state<TS>(to_f32(qr[i]))));
-      sr[i] = store_state<TS>(s_n);
-      const float wr = w[r * rows + row];
-      const float d = __fsub_rn(s_n, h_n);
-      if (r == 0) {
-        w0 = wr;
-        d0 = d;
-        acc = __fmul_rn(wr, d);
-      } else if (r == 1) {
-        acc = __fmaf_rn(w0, d0, __fmul_rn(wr, d));
-      } else {
-        acc = __fmaf_rn(wr, d, acc);
-      }
+       i < len / VEC; i += stride) {
+    Fl xs = xv[i];
+    Sv hs = hv[i];
+    const Qv qs = qv[i];
+    float q_own[VEC], h_n[VEC], acc[VEC], d0[VEC];
+    Sv own0;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      q_own[k] = round_state<TS>(to_f32(qs.v[k]));
+      h_n[k] = round_state<TS>(__fadd_rn(to_f32(hs.v[k]), q_own[k]));
+      own0.v[k] = store_state<TS>(q_own[k]);
+      hs.v[k] = store_state<TS>(h_n[k]);
     }
-    x[i] = __fmaf_rn(gamma, acc, x[i]);
-    h[i] = store_state<TS>(h_n);
+    if (tau > 0) slot(own[0])[i] = own0;
+    float w0 = 0.0f;
+    for (int r = 0; r < rounds; ++r) {
+      Sv* srv = slot(reps[r]);
+      const Qv* qrv = reinterpret_cast<const Qv*>(
+          static_cast<const TQ*>(reps[rounds + r]) + row * ld_q);
+      void* const* ring = rings + r * tau;
+      Sv ss = srv[i];
+      const Qv qr = qrv[i];
+      Sv ring0;
+      float q_in[VEC], d[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        q_in[k] = round_state<TS>(to_f32(qr.v[k]));
+        const float s_n = round_state<TS>(__fadd_rn(to_f32(ss.v[k]), q_in[k]));
+        ss.v[k] = store_state<TS>(s_n);
+        ring0.v[k] = store_state<TS>(q_in[k]);
+        d[k] = __fsub_rn(s_n, h_n[k]);
+      }
+      srv[i] = ss;
+      if (tau > 0) slot(ring[0])[i] = ring0;
+      const int delay = tau > 0 ? min(dl[r * rows + row], tau) : 0;
+      for (int j = 0; j < delay; ++j) {
+        if (j == 0) {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            d[k] = __fsub_rn(d[k], __fsub_rn(q_in[k], q_own[k]));
+          }
+        } else {
+          const Sv rr = slot(ring[j])[i];
+          const Sv orr = slot(own[j])[i];
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            d[k] = __fsub_rn(d[k],
+                             __fsub_rn(to_f32(rr.v[k]), to_f32(orr.v[k])));
+          }
+        }
+      }
+      const float wr = w[r * rows + row];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        if (r == 0) {
+          d0[k] = d[k];
+          acc[k] = __fmul_rn(wr, d[k]);
+        } else if (r == 1) {
+          acc[k] = __fmaf_rn(w0, d0[k], __fmul_rn(wr, d[k]));
+        } else {
+          acc[k] = __fmaf_rn(wr, d[k], acc[k]);
+        }
+      }
+      if (r == 0) w0 = wr;
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      xs.v[k] = __fmaf_rn(gamma, acc[k], xs.v[k]);
+    }
+    xv[i] = xs;
+    hv[i] = hs;
   }
 }
 
@@ -536,18 +606,25 @@ int ef_update_bf16(float* x, __nv_bfloat16* x_hat, __nv_bfloat16* s,
 }
 
 // form 0: matching (s is S_r, q q_nbr, aux0 send, aux1 gamma v, reps
-// unused); form 1: link failures (reps the device array of the R replicas'
-// and then the R payloads' pointers, aux0 the (R, n) weights recv_r keep_r;
-// s, q and aux1 unused).
+// unused); form 1: link failures (tau 0, aux0 the (R, n) weights recv_r
+// keep_r, aux1 unused) and bounded staleness (aux0 the (R, n) receive
+// weights, aux1 the (R, n) int32 delays), reps the device array of the R
+// replicas', the R payloads', then the R tau receive-ring and the tau
+// own-ring slots' pointers; s and q unused; vec4: 4 elements a thread, the
+// caller having checked every pointer's alignment.
 int replica_update(int form, float* x, void* h, const void* q_self, void* s,
-                   const void* q, void* const* reps, int rounds,
-                   const float* aux0, const float* aux1, float gamma,
-                   int state_bf16, int q_f32, int64_t n, int64_t len,
-                   int64_t ld_x, int64_t ld_q, cudaStream_t stream) {
-  if (rounds < 1 || (form == 0 && rounds != 1)) {
+                   const void* q, void* const* reps, int rounds, int tau,
+                   const float* aux0, const void* aux1, float gamma,
+                   int state_bf16, int q_f32, int vec4, int64_t n,
+                   int64_t len, int64_t ld_x, int64_t ld_q,
+                   cudaStream_t stream) {
+  if (rounds < 1 || (form == 0 && rounds != 1) || form < 0 || form > 1 ||
+      tau < 0 || (form == 0 && tau != 0) || (tau > 0 && aux1 == nullptr) ||
+      (vec4 && (form != 1 || len % 4 || ld_x % 4 || ld_q % 4))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(blocks_for(len), static_cast<unsigned int>(n));
+  const dim3 grid4(blocks_for(len / 4), static_cast<unsigned int>(n));
   const auto run = [&](auto ts, auto tq) {
     using TS = typename decltype(ts)::type;
     using TQ = typename decltype(tq)::type;
@@ -555,11 +632,17 @@ int replica_update(int form, float* x, void* h, const void* q_self, void* s,
       replica_matching_kernel<TS, TQ><<<grid, kThreads, 0, stream>>>(
           x, static_cast<TS*>(h), static_cast<TS*>(s),
           static_cast<const TQ*>(q_self), static_cast<const TQ*>(q), aux0,
-          aux1, len, ld_x, ld_q);
-    } else {
-      replica_linkfail_kernel<TS, TQ><<<grid, kThreads, 0, stream>>>(
+          static_cast<const float*>(aux1), len, ld_x, ld_q);
+    } else if (vec4) {
+      replica_stale_kernel<4, TS, TQ><<<grid4, kThreads, 0, stream>>>(
           x, static_cast<TS*>(h), static_cast<const TQ*>(q_self), reps, aux0,
-          rounds, n, gamma, len, ld_x, ld_q);
+          static_cast<const int*>(aux1), rounds, tau, n, gamma, len, ld_x,
+          ld_q);
+    } else {
+      replica_stale_kernel<1, TS, TQ><<<grid, kThreads, 0, stream>>>(
+          x, static_cast<TS*>(h), static_cast<const TQ*>(q_self), reps, aux0,
+          static_cast<const int*>(aux1), rounds, tau, n, gamma, len, ld_x,
+          ld_q);
     }
   };
   using Bf = TypeTag<__nv_bfloat16>;

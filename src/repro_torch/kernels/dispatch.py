@@ -2,7 +2,7 @@
 gossip exchanges (QSGD codes in the packed and the per-leaf form, sign
 codes, dequantize, the EF update on f32 and on bf16 state, each in
 serial and in pipelined order, and the topology-process engine's replica
-update), the top-k selection mask, flash
+update in its matching, link-failure and bounded-staleness forms), the top-k selection mask, flash
 attention, and the collective-layer probe.
 
 The route follows the tensor's device and nothing else:
@@ -136,16 +136,25 @@ def replica_matching(x, h, s, q_self, q_nbr, send, gv):
     return x, h, s
 
 
-def replica_linkfail(x, h, q_self, s_list, q_list, w, gamma):
-    """The link-failure update for one bucket (or leaf slot) in place,
-    x_hat and all R replicas at once (``ref.replica_linkfail_ref``): ``w``
-    (R, n) f32, each round's receive weights under the sampled edge mask.
-    Returns (x, h, s_list)."""
+def replica_stale(x, h, q_self, s_list, q_list, own_ring, rings, w,
+                  delays, gamma):
+    """The ring form of the replica update for one bucket (or leaf slot)
+    in place (``ref.replica_stale_ref``): x, x_hat, the R replicas and
+    slot 0 of the own ring and of each receive ring (``own_ring`` tau
+    slots, ``rings`` R lists of tau); ``w`` (R, n) f32 receive weights,
+    ``delays`` (R, n) int32, None at tau 0.  Bounded staleness, and link
+    failures at tau 0 with the edge mask in ``w``.  Returns (x, h,
+    s_list)."""
     if not _on_cpu(x):
-        return _ef.replica_linkfail(x, h, q_self, s_list, q_list, w, gamma)
-    x_n, h_n, s_n = ref.replica_linkfail_ref(x, h, q_self, s_list, q_list,
-                                             w, gamma)
-    for old, t in zip((x, h, *s_list), (x_n, h_n, *s_n)):
+        return _ef.replica_stale(x, h, q_self, s_list, q_list, own_ring,
+                                 rings, w, delays, gamma)
+    x_n, h_n, s_n, own0, ring0 = ref.replica_stale_ref(
+        x, h, q_self, s_list, q_list, own_ring, rings, w, delays, gamma)
+    outs = [(x, x_n), (h, h_n)] + list(zip(s_list, s_n))
+    if own_ring:
+        outs += [(own_ring[0], own0)] + [(rg[0], t)
+                                         for rg, t in zip(rings, ring0)]
+    for old, t in outs:
         old.copy_(t)
     return x, h, s_list
 

@@ -34,16 +34,21 @@ pipelined engine's order (``src/repro/comm/pipelined.py:
 _pipelined_leaf_updates``, jnp in JAX): x reads the pre-round pair,
 ``x' = x_half + gamma (s - x_hat)``, then x_hat' and s' as above.
 
-:func:`replica_matching` and :func:`replica_linkfail` are the two forms
-of the topology-process engine's replica update (``src/repro/comm/
-gossip.py:make_process_choco_fn``, jnp in JAX), one kernel,
-``replica_update``, with the form, the state dtype and the payload dtype
-as template parameters (``ref.replica_matching_ref`` and
-``ref.replica_linkfail_ref`` say what they compute).  The matching form
-moves the EF update's bytes; the link-failure form updates x, x_hat and
-all R replicas of a bucket in one launch, the replicas' and payloads'
-pointers and the rounds' weights under the edge mask passed in device
-memory (so neither the rounds nor the node rows are capped).
+:func:`replica_matching` and :func:`replica_stale` are the two forms of
+the topology-process engine's replica update (``src/repro/comm/gossip.py:
+make_process_choco_fn`` and ``src/repro/comm/async_gossip.py:
+make_async_choco_fn``, jnp in JAX), one kernel, ``replica_update``, with
+the form, the state dtype and the payload dtype as template parameters
+(``ref.replica_matching_ref`` and ``ref.replica_stale_ref`` say what they
+compute).  The matching form moves the EF update's bytes.  The ring form
+updates x, x_hat and all R replicas of a bucket in one launch, with
+depth-tau rings of increments under bounded staleness; link failures are
+its tau = 0 case, the sampled edge mask folded into the rounds' weights.
+The replicas', payloads' and ring slots' pointers, the weights and the
+rows' delays are passed in device memory (so neither the rounds, tau nor
+the node rows are capped), each row reads only the ring slots its delay
+reaches, and a thread takes 4 elements where the row length, the strides
+and every buffer's alignment allow it.
 """
 from __future__ import annotations
 
@@ -218,27 +223,34 @@ def _on_device(values, dtype, device):
 
 
 def replica_update(form: int, x, h, q_self, states, payloads, aux0, aux1,
-                   gamma: float):
-    """Launch the replica-update kernel (form 0 matching, 1 link
-    failures) on checked arguments; counts the launch."""
+                   gamma: float, slots=(), tau: int = 0):
+    """Launch the replica-update kernel (form 0 matching, 1 the ring form
+    with the ring ``slots``: the R tau receive-ring slots, then the tau
+    own-ring slots, none at tau 0) on checked arguments; counts the
+    launch."""
     lib = build.load_library("gossip")
     bf16, q_f32, ld_x, ld_q = _replica_check(
-        "replica_update", x, h, q_self, states, payloads)
+        "replica_update", x, h, q_self, [*states, *slots], payloads)
     n, L = x.shape
     R = len(states)
     if R < 1 or len(payloads) != R:
         raise ValueError(f"replica_update: {R} replicas and {len(payloads)} "
                          f"payloads, expected one or more of each")
     reps = None
+    bufs = (*states, *payloads, *slots)
     if form == 1:
-        reps = _on_device([t.data_ptr() for t in (*states, *payloads)],
-                          torch.int64, x.device)
+        reps = _on_device([t.data_ptr() for t in bufs], torch.int64,
+                          x.device)
+    # the ring form moves 4 elements a thread where every buffer allows it
+    vec4 = form == 1 and L % 4 == 0 and ld_x % 4 == 0 and ld_q % 4 == 0 \
+        and all(t.data_ptr() % (4 * t.element_size()) == 0
+                for t in (x, h, q_self, *bufs))
     code = lib.replica_update(
         int(form), x.data_ptr(), h.data_ptr(), q_self.data_ptr(),
         states[0].data_ptr(), payloads[0].data_ptr(),
-        0 if reps is None else reps.data_ptr(), R, aux0.data_ptr(),
+        0 if reps is None else reps.data_ptr(), R, int(tau), aux0.data_ptr(),
         0 if aux1 is None else aux1.data_ptr(), float(gamma), int(bf16),
-        int(q_f32), n, L, ld_x, ld_q, build.stream_of(x))
+        int(q_f32), int(vec4), n, L, ld_x, ld_q, build.stream_of(x))
     build.check_launch(lib, code, "replica_update")
     replica_update.launches += 1
 
@@ -255,18 +267,34 @@ def replica_matching(x, h, s, q_self, q_nbr, send, gv):
     return x, h, s
 
 
-def replica_linkfail(x, h, q_self, s_list, q_list, w, gamma: float):
-    """The link-failure form on CUDA tensors, in place: ``x`` (n, L) f32,
-    ``h`` (x_hat) and the R replicas ``s_list`` f32 or bf16, one row
-    stride; ``q_self`` and the R received payloads ``q_list`` one dtype
-    and row stride; ``w`` (R, n) f32 on the device, each round's receive
-    weights under the sampled edge mask.  Returns (x, h, s_list)."""
-    build.require(w, "w", torch.float32, (len(s_list), x.shape[0]))
-    if w.device != x.device:
-        raise ValueError(f"replica_update: w is on {w.device}, the buffers "
-                         f"on {x.device}")
-    replica_update(1, x, h, q_self, list(s_list), list(q_list), w, None,
-                   gamma)
+def replica_stale(x, h, q_self, s_list, q_list, own_ring, rings, w, delays,
+                  gamma: float):
+    """The ring form on CUDA tensors, in place: ``x`` (n, L) f32, ``h``
+    (x_hat) and the R replicas ``s_list`` f32 or bf16, one row stride;
+    ``q_self`` and the R received payloads ``q_list`` one dtype and row
+    stride; ``own_ring`` the tau own-ring slots and ``rings`` the R lists
+    of tau receive-ring slots (state dtype, x's row stride; slot 0 of each
+    is overwritten, slots 1.. read where a delay reaches them); ``w``
+    (R, n) f32 on the device, the rounds' receive weights (under link
+    failures times the sampled edge mask); ``delays`` (R, n) int32 each
+    row's round-edge delay, None at tau 0.  Returns (x, h, s_list)."""
+    R, n, tau = len(s_list), x.shape[0], len(own_ring)
+    build.require(w, "w", torch.float32, (R, n))
+    if len(rings) != R or any(len(rg) != tau for rg in rings):
+        raise ValueError(f"replica_update: {len(rings)} receive rings for "
+                         f"{R} rounds, each of {tau} slots expected")
+    rows = [("w", w)]
+    if tau:
+        build.require(delays, "delays", torch.int32, (R, n))
+        rows.append(("delays", delays))
+    for name, t in rows:
+        if t.device != x.device:
+            raise ValueError(f"replica_update: {name} is on {t.device}, "
+                             f"the buffers on {x.device}")
+    replica_update(1, x, h, q_self, list(s_list), list(q_list), w,
+                   delays if tau else None, gamma,
+                   slots=[t for rg in rings for t in rg] + list(own_ring),
+                   tau=tau)
     return x, h, s_list
 
 

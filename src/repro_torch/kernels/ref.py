@@ -246,34 +246,55 @@ def replica_matching_ref(x, h, s, q_self, q_nbr, send, gv):
     return x_n, h_n.to(sd), s_n.to(sd)
 
 
-def replica_linkfail_ref(x, h, q_self, s_list, q_list, w, gamma: float):
-    """The link-failure form of the replica update (JAX
-    ``linkfail_local_fn``), per node row, over the schedule's R rounds:
+def replica_stale_ref(x, h, q_self, s_list, q_list, own_ring, rings, w,
+                      delays, gamma: float):
+    """The ring form of the replica update, bounded staleness (JAX
+    ``make_async_choco_fn``, ``src/repro/comm/async_gossip.py:376-404``)
+    and at tau = 0 link failures (JAX ``make_process_choco_fn``,
+    ``linkfail_local_fn``), per node row, over the schedule's R rounds and
+    the depth-tau rings:
 
-        x_hat' = x_hat + st(q_self)
-        S_r'   = S_r + st(q_r)                            every round
-        acc    = sum_r w_r (S_r' - x_hat'),                  f32
-        x'     = fma(gamma, acc, x)
+        x_hat'       = x_hat + st(q_self);   own_ring[0] <- st(q_self)
+        S_r'         = S_r + st(q_r);        rings[r][0] <- st(q_r)
+        diff_r       = (S_r' - x_hat') - sum_{j < d_r} (rings[r][j] - own_ring[j])
+        acc          = sum_r w_r diff_r                        f32
+        x'           = fma(gamma, acc, x)
 
     ``s_list`` and ``q_list`` the R replicas and received payloads (a
-    payload zero where the round gives the row nothing); ``w`` (R, n) f32,
-    each round's receive weights under the sampled edge mask (JAX's
-    ``round_recv[r] * mask``, zero where row i's link of round r is down).
-    The sum is XLA's
-    contraction of the JAX loop ``acc = 0 + w_0 d_0; acc = acc + w_r d_r``
-    on the CPU: the zero dropped, the first add contracted into
-    ``fma(w_0, d_0, w_1 d_1)`` and each later one into ``fma(w_r, d_r,
-    acc)`` (found, like x's FMA, by holding candidates against the jitted
-    JAX engine; the order of the first pair matters).  Returns (x',
-    x_hat', [S_r'])."""
+    payload zero where the round gives the row nothing; every payload
+    arrives); ``own_ring`` holds tau slots and ``rings`` R lists of tau
+    slots, slot 0 the recycled one (what it holds on entry is not read)
+    and slot j the increment of j rounds back; ``w`` (R, n) f32, each
+    round's receive weights (zero where the round skips the row; under
+    link failures JAX's ``round_recv[r] * mask``, zero where the row's
+    link of round r is down); ``delays`` (R, n) int32, the delay of each
+    row's round-r edge, in {0..tau} (not read at tau = 0, may be None).
+    The differences stay f32 (unrounded on bf16 state, XLA's excess
+    precision), a masked ring term is left out rather than subtracted as
+    zero, and the sum over r is XLA's contraction of the JAX loop ``acc =
+    0 + w_0 d_0; acc = acc + w_r d_r`` on the CPU: the zero dropped, the
+    first add contracted into ``fma(w_0, d_0, w_1 d_1)`` and each later
+    one into ``fma(w_r, d_r, acc)`` (found, like x's FMA, by holding
+    candidates against the jitted JAX engines; the order of the first
+    pair matters).  Returns (x', x_hat', [S_r'], own_ring[0]',
+    [rings[r][0]']); at tau = 0 no slot takes the last two."""
     f32, sd = torch.float32, h.dtype
-    h_n = _round_state(h.to(f32) + _round_state(q_self.to(f32), sd), sd)
-    terms, new_s = [], []
+    tau = len(own_ring)
+    q_own = _round_state(q_self.to(f32), sd)
+    h_n = _round_state(h.to(f32) + q_own, sd)
+    own = [q_own] + [o.to(f32) for o in own_ring[1:]]
+    terms, new_s, new_rings = [], [], []
     for r, (sr, qr) in enumerate(zip(s_list, q_list)):
-        s_n = _round_state(sr.to(f32) + _round_state(qr.to(f32), sd), sd)
+        q_in = _round_state(qr.to(f32), sd)
+        s_n = _round_state(sr.to(f32) + q_in, sd)
         new_s.append(s_n.to(sd))
-        d = s_n - h_n
-        terms.append((w[r][:, None].expand_as(d), d))
+        new_rings.append(q_in.to(sd))
+        diff = s_n - h_n
+        ring = [q_in] + [t.to(f32) for t in rings[r][1:]] if tau else []
+        for j in range(tau):
+            live = (delays[r] > j)[:, None]
+            diff = torch.where(live, diff - (ring[j] - own[j]), diff)
+        terms.append((w[r][:, None].expand_as(diff), diff))
     (w0, d0), rest = terms[0], terms[1:]
     if not rest:
         acc = w0 * d0
@@ -282,7 +303,7 @@ def replica_linkfail_ref(x, h, q_self, s_list, q_list, w, gamma: float):
         for wr, d in rest[1:]:
             acc = fma_f32(wr, d, acc)
     x_n = fma_f32(torch.full_like(acc, gamma), acc, x)
-    return x_n, h_n.to(sd), new_s
+    return x_n, h_n.to(sd), new_s, q_own.to(sd), new_rings
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None):

@@ -5,7 +5,9 @@
         --compressor top_k --fraction 0.05 --steps 3
 
 Flag names are the JAX launcher's (``repro.launch.train``).  ``--mesh Nx1``
-gives the node count N; a model extent above 1 is refused.  Two engines:
+gives the node count N (by default one node per ``--simulate-devices`` or
+torchrun rank, else 16, the gossip nodes of the JAX launcher's default
+production mesh); a model extent above 1 is refused.  Two engines:
 
 * by default the N nodes are stacked on one device (the stacked engine);
 * with ``--simulate-devices N`` (the counterpart of the JAX launcher's
@@ -13,10 +15,12 @@ gives the node count N; a model extent above 1 is refused.  Two engines:
   each, and under ``torchrun --nproc-per-node N`` each process is one node
   (the per-rank engine, ``launch/mesh.py`` says which transport).
 
-``--topology-process matching|linkfail`` runs the gossip under a
-stochastic topology process (``comm/stochastic.py``; ``--matching-sampler
-uniform|weighted``, ``--edge-drop-prob P``), the header printing the
-process and its expected (delta, beta); ``staleness`` is refused.
+``--topology-process matching|linkfail|staleness`` runs the gossip under
+a stochastic topology process (``comm/stochastic.py``; ``--matching-sampler
+uniform|weighted``, ``--edge-drop-prob P``; ``--max-staleness TAU``,
+``--straggler-edges 0-1,2-3``, ``--straggler-delay-probs P0,..,PTAU``,
+bounded staleness under ``--mode choco`` only), the header printing the
+process and its expected (delta, beta).
 Spawned ranks on ``--device cpu`` run on one thread each
 (``CPU_RANK_ENV``), as the stacked run's bit-equal twin.
 ``--optimizer sgd|momentum|adamw`` picks the local step and
@@ -52,7 +56,8 @@ import tempfile
 import time
 
 # torch-free: argument validation runs before torch is imported
-from repro_torch.configs.base import STATE_DTYPES, parse_topology
+from repro_torch.configs.base import (STATE_DTYPES, parse_delay_probs,
+                                      parse_straggler_edges, parse_topology)
 from repro_torch.core.topology import DIRECTED_TOPOLOGIES, SYMMETRIC_TOPOLOGIES
 from repro_torch.checkpoint.manifest import read_manifest
 from repro_torch.launch.env import file_rendezvous, torchrun_rendezvous
@@ -66,7 +71,12 @@ COMPRESSOR_CHOICES = ("identity", "rand_k", "top_k", "block_top_k", "qsgd",
 OPTIMIZER_CHOICES = ("sgd", "momentum", "adamw")
 #: the JAX launcher's gossip engines
 ENGINE_CHOICES = ("packed", "per-leaf")
-#: the JAX launcher's ``--topology-process`` choices; "staleness" is refused
+#: the node count without ``--mesh``, ``--simulate-devices`` or torchrun:
+#: the data extent of the JAX launcher's default, its production mesh
+#: (``src/repro/launch/mesh.py:make_production_mesh``, data 16 x model 16;
+#: the port's model extent is 1)
+PRODUCTION_NODES = 16
+#: the JAX launcher's ``--topology-process`` choices
 PROCESS_CHOICES = ("none", "matching", "linkfail", "staleness")
 #: the environment of a spawned CPU rank, set before its interpreter
 #: starts: one OpenMP and one MKL thread (a CPU sum over more threads adds
@@ -77,9 +87,6 @@ CPU_RANK_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
 #: flags of the JAX launcher whose features the port does not have:
 #: given any value other than the default, the launcher refuses them
 _REFUSED = {
-    "max_staleness": (None, "bounded-staleness gossip"),
-    "straggler_edges": (None, "straggler links"),
-    "straggler_delay_probs": (None, "straggler links"),
     "kernel_backend": (None, "a kernel-backend switch (the route follows "
                              "the tensor's device: --device)"),
     "metrics_dir": (None, "the telemetry sinks"),
@@ -106,7 +113,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="stochastic topology process: 'matching' samples "
                          "one schedule round per gossip round, 'linkfail' "
                          "drops each edge i.i.d. with --edge-drop-prob per "
-                         "round ('staleness' is not ported)")
+                         "round, 'staleness' delivers each edge's payload "
+                         "up to --max-staleness rounds late (--mode choco)")
     ap.add_argument("--edge-drop-prob", type=float, default=None,
                     help="Bernoulli link-failure probability in [0, 1) "
                          "(requires --topology-process linkfail)")
@@ -114,9 +122,20 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["uniform", "weighted"],
                     help="round sampler for --topology-process matching "
                          "(default uniform)")
-    ap.add_argument("--max-staleness", type=int, default=None)
-    ap.add_argument("--straggler-edges", default=None)
-    ap.add_argument("--straggler-delay-probs", default=None)
+    ap.add_argument("--max-staleness", type=int, default=None,
+                    help="staleness bound tau >= 0 for --topology-process "
+                         "staleness: per-edge payload delays are sampled "
+                         "uniformly from {0..tau} (default 1; tau=0 is the "
+                         "always-fresh replica engine)")
+    ap.add_argument("--straggler-edges", default=None,
+                    help="comma-separated slow links ('0-1,2-3') whose "
+                         "delays come from --straggler-delay-probs instead "
+                         "of the uniform law (requires --topology-process "
+                         "staleness; node pairs of the graph's edges)")
+    ap.add_argument("--straggler-delay-probs", default=None,
+                    help="comma-separated P(d=0..tau) of the straggler "
+                         "links (--max-staleness + 1 entries); default the "
+                         "point mass at tau, a maximally slow link")
     ap.add_argument("--pipeline-gossip", action="store_true")
     ap.add_argument("--gossip-steps", type=int, default=1,
                     help="CHOCO gossip rounds per SGD step")
@@ -154,7 +173,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="spawn N processes, one gossip node each (N must "
                          "match --mesh Nx1)")
     ap.add_argument("--mesh", default=None,
-                    help="Nx1: N gossip nodes, model extent 1 (required)")
+                    help="Nx1: N gossip nodes, model extent 1 (default: "
+                         "one node per --simulate-devices or torchrun rank, "
+                         "else 16x1, the data extent of the JAX launcher's "
+                         "production mesh)")
     ap.add_argument("--metrics-dir", default=None)
     ap.add_argument("--diag-every", type=int, default=0)
     ap.add_argument("--divergence-action", default=None)
@@ -175,9 +197,6 @@ def _validate(ap, args) -> int:
             flag = "--" + dest.replace("_", "-")
             ap.error(f"{flag} is not supported by the port: {what} is not "
                      f"ported")
-    if args.topology_process == "staleness":
-        ap.error("--topology-process staleness is not supported by the "
-                 "port: bounded-staleness gossip is not ported")
     if args.state_dtype not in STATE_DTYPES:
         ap.error(f"--state-dtype {args.state_dtype} is not supported by the "
                  f"port: the EF state is {' or '.join(STATE_DTYPES)}")
@@ -225,6 +244,40 @@ def _validate(ap, args) -> int:
             and args.topology_process != "matching":
         ap.error("--matching-sampler only applies to --topology-process "
                  "matching")
+    # bounded staleness and its straggler links (the JAX launcher's rules,
+    # src/repro/launch/train.py:259-291)
+    if args.topology_process == "staleness" and args.mode != "choco":
+        ap.error(f"--topology-process staleness requires --mode choco "
+                 f"(got --mode {args.mode}): the async engine ring-buffers "
+                 f"compressed increments, which only the choco engine ships")
+    if args.max_staleness is not None:
+        if args.topology_process != "staleness":
+            ap.error("--max-staleness only applies to --topology-process "
+                     "staleness")
+        if args.max_staleness < 0:
+            ap.error(f"--max-staleness must be >= 0, got "
+                     f"{args.max_staleness}")
+    if args.straggler_delay_probs is not None and args.straggler_edges is None:
+        ap.error("--straggler-delay-probs names the straggler links' delay "
+                 "distribution; it requires --straggler-edges")
+    if args.straggler_edges is not None:
+        if args.topology_process != "staleness":
+            ap.error("--straggler-edges models per-edge DELAYS; it requires "
+                     "--topology-process staleness")
+        try:
+            parse_straggler_edges(args.straggler_edges)
+        except ValueError as e:
+            ap.error(f"--straggler-edges: {e}")
+        if args.straggler_delay_probs is not None:
+            try:
+                probs = parse_delay_probs(args.straggler_delay_probs)
+            except ValueError as e:
+                ap.error(f"--straggler-delay-probs: {e}")
+            tau = args.max_staleness if args.max_staleness is not None else 1
+            if len(probs) != tau + 1:
+                ap.error(f"--straggler-delay-probs needs max_staleness + 1 "
+                         f"= {tau + 1} entries (P(d=0..{tau})), got "
+                         f"{len(probs)}")
     if args.pipeline_gossip:
         # the JAX launcher's rules (src/repro/launch/train.py:295-311)
         if args.mode != "choco":
@@ -266,9 +319,13 @@ def _validate(ap, args) -> int:
                      f"{args.keep_checkpoints}")
         if not args.checkpoint_dir:
             ap.error("--keep-checkpoints requires --checkpoint-dir")
+    rdv = torchrun_rendezvous()
     if args.mesh is None:
-        ap.error("--mesh Nx1 is required: the N gossip nodes are stacked on "
-                 "one device")
+        # one node per spawned or torchrun rank, else the JAX launcher's
+        # production mesh's gossip nodes
+        n = (args.simulate_devices
+             or (rdv.world_size if rdv else PRODUCTION_NODES))
+        args.mesh = f"{n}x1"
     dims = args.mesh.split("x")
     if len(dims) != 2 or not all(d.isdigit() for d in dims):
         ap.error(f"--mesh {args.mesh!r}: expected Nx1 (a pod axis is not "
@@ -279,7 +336,6 @@ def _validate(ap, args) -> int:
                  f"ported (tensor parallelism); use {n}x1")
     if n < 1:
         ap.error("--mesh: need at least one node")
-    rdv = torchrun_rendezvous()
     if args.simulate_devices:
         if rdv is not None:
             ap.error("--simulate-devices spawns the ranks itself; under "
@@ -429,7 +485,11 @@ def _train(args, n_nodes: int, group) -> int:
                           edge_drop_prob=(0.1 if args.edge_drop_prob is None
                                           else args.edge_drop_prob),
                           matching_sampler=args.matching_sampler
-                          or "uniform"),
+                          or "uniform",
+                          max_staleness=(1 if args.max_staleness is None
+                                         else args.max_staleness),
+                          straggler_edges=args.straggler_edges,
+                          straggler_delay_probs=args.straggler_delay_probs),
         n_nodes=n_nodes, optimizer=make_optimizer(args.optimizer),
         lr_fn=cosine_schedule(args.lr, warmup=min(100, args.steps // 10 + 1),
                               total=args.steps),
@@ -448,7 +508,11 @@ def _train(args, n_nodes: int, group) -> int:
     if proc is not None:
         delta, beta = proc.expected_delta_beta()
         detail = (f"sampler={proc.sampler}" if proc.kind == "matching"
-                  else f"edge_drop_prob={proc.drop_prob}")
+                  else f"edge_drop_prob={proc.drop_prob}"
+                  if proc.kind == "linkfail" else
+                  f"max_staleness={proc.max_staleness} "
+                  f"freshness={min(proc.edge_freshness):.4f} "
+                  f"straggler_edges={args.straggler_edges}")
         skew += (f" process={proc.kind} {detail} expected_delta={delta:.4f} "
                  f"expected_beta={beta:.4f}")
     say(f"[train] arch={cfg.name} params={count_params(cfg) / 1e6:.1f}M "

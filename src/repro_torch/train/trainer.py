@@ -64,21 +64,24 @@ backward), and checkpoints in the JAX package's sharded format
 (``save_checkpoint``, ``restore_checkpoint`` with its elastic restore,
 ``consensus_warmup``).
 Under a stochastic topology process (``ChocoConfig.topology_process``
-"matching" or "linkfail", ``comm/stochastic.py``) the choco exchange is
-the replica engine and x_hat and s are lists of bucket lists, as the JAX
-``TrainState`` holds lists of trees: matching keeps the R per-round own
-references in x_hat and the R source replicas in s, link failures one
-x_hat and R replicas in s (R the schedule's rounds); the plain mode
-averages with the sampled matrix and keeps none.  Gamma is then the
-scalar Theorem-2 value at the expected matrix's (delta, beta).  The
-push-sum mode with the directed topologies, the bounded-staleness
-process and a fixed gamma are not ported.
+"matching", "linkfail" or "staleness", ``comm/stochastic.py``) the choco
+exchange is the replica engine and x_hat and s are lists of bucket
+lists, as the JAX ``TrainState`` holds lists of trees: matching keeps the
+R per-round own references in x_hat and the R source replicas in s, link
+failures one x_hat and R replicas in s (R the schedule's rounds), bounded
+staleness (``max_staleness`` tau, the straggler links) the public copy
+and its depth-tau ring of own increments in x_hat (1 + tau) and the R
+replicas, then the R receive rings, in s (R (1 + tau)); the plain mode
+averages with the sampled matrix and keeps none (staleness refuses it).
+Gamma is then the scalar Theorem-2 value at the expected matrix's
+(delta, beta) and the process's effective omega.  The push-sum mode with
+the directed topologies and a fixed gamma are not ported.
 
 Gamma follows the JAX trainer: the packed engine takes per-bucket
 Theorem-2 values (``GammaSpec``), the per-leaf engine one scalar at
 ``compressor.omega(1 << 20)``; the pipelined engine reads (delta, beta)
-of the delay-1 surrogate ``(W + I) / 2`` and omega / 2
-(``comm/pipelined.py``).
+and omega / 2 of its delay-1 surrogate, a ``StalenessProcess`` with
+``delay_probs=(0, 1)`` (``comm/pipelined.py``).
 
 Checkpoints hold the JAX ``TrainState``'s leaves under its flat keys
 (``params__embed__tok``, ``x_hat__...``, ``s__...``, ``opt__mu__...``,
@@ -113,8 +116,7 @@ from repro_torch.comm.gossip import (_pack_align, make_allreduce_exchange,
 from repro_torch.comm.packing import (bucket_omega_worst, fold_seed,
                                       leaf_route, make_bucket_spec,
                                       pack_leaves, unpack_leaves)
-from repro_torch.comm.pipelined import (PIPELINE_OMEGA_SCALE,
-                                        pipeline_delta_beta, pipeline_omega)
+from repro_torch.comm.pipelined import pipeline_delay_process
 from repro_torch.checkpoint.checkpointing import (LegacyStore, Leaf, Part,
                                                   ShardStore, flat_key,
                                                   save_sharded, storage_tensor)
@@ -126,7 +128,9 @@ from repro_torch.checkpoint.manifest import (LeafSpec, Manifest,
                                              validate_tree)
 from repro_torch.comm.schedule import compile_schedules
 from repro_torch.comm.stochastic import PROCESS_KINDS, make_topology_process
-from repro_torch.configs.base import STATE_DTYPES, ChocoConfig, parse_topology
+from repro_torch.configs.base import (STATE_DTYPES, ChocoConfig,
+                                      parse_delay_probs,
+                                      parse_straggler_edges, parse_topology)
 from repro_torch.core.choco_gossip import GammaSpec, theorem2_stepsize
 from repro_torch.core.compression import make_compressor
 from repro_torch.core.topology import make_topology
@@ -138,9 +142,7 @@ MODES = ("choco", "plain", "allreduce")
 
 #: fingerprint entries of JAX ``ChocoConfig`` settings the port does not
 #: have, at the JAX defaults a port run stands for
-_UNPORTED_FINGERPRINT = {
-    "pack_align": None, "small_leaf_threshold": 8192, "max_staleness": 0,
-    "straggler_edges": None, "straggler_delay_probs": None}
+_UNPORTED_FINGERPRINT = {"pack_align": None, "small_leaf_threshold": 8192}
 #: the fingerprint entries whose change re-mixes the EF state (the JAX
 #: restore's compression and packing fingerprint)
 _COMPRESSION_KEYS = ("compressor", "compressor_config", "packed_gossip",
@@ -310,20 +312,21 @@ class DecentralizedTrainer:
             # pipelined engine its tau = 1 surrogate's
             packed = self.choco.packed_gossip
             pipelined = self.choco.pipeline_gossip
+            omega_scale = 1.0
             if pipelined:
-                delta, beta = pipeline_delta_beta(self.schedules[0])
+                surrogate = pipeline_delay_process(self.schedules[0])
+                delta, beta = surrogate.expected_delta_beta()
+                omega_scale = surrogate.effective_omega(1.0)
             else:
                 delta = min(t.delta for t in self.topologies)
                 beta = max(t.beta for t in self.topologies)
             omega = (bucket_omega_worst(self.spec, self.compressor) if packed
                      else self.compressor.omega(1 << 20))
-            self.gamma = theorem2_stepsize(
-                delta, beta, pipeline_omega(omega) if pipelined else omega)
+            self.gamma = theorem2_stepsize(delta, beta, omega * omega_scale)
             kw.update(compressor=self.compressor, packed=packed,
                       pipelined=pipelined,
                       gamma=(GammaSpec(delta=delta, beta=beta,
-                                       omega_scale=(PIPELINE_OMEGA_SCALE
-                                                    if pipelined else 1.0))
+                                       omega_scale=omega_scale)
                              if packed else self.gamma))
             self.exchange = (make_dist_choco_exchange(**kw, group=self.group)
                              if dist else make_choco_exchange(**kw))
@@ -332,11 +335,15 @@ class DecentralizedTrainer:
         """The topology process over the compiled schedule, with the JAX
         trainer's and exchange's refusals, or None."""
         kind = self.choco.topology_process
+        c = self.choco
+        stragglers = c.straggler_edges is not None \
+            or c.straggler_delay_probs is not None
         if kind is None:
+            if stragglers:
+                raise ValueError(
+                    "straggler edges model per-edge DELAYS - they require "
+                    "topology_process='staleness', got no topology process")
             return None
-        if kind == "staleness":
-            raise ValueError("topology_process='staleness' (bounded-staleness "
-                             "gossip) is not ported")
         if kind not in PROCESS_KINDS:
             raise ValueError(f"unknown topology process {kind!r}; have "
                              f"('matching', 'linkfail', 'staleness')")
@@ -356,20 +363,50 @@ class DecentralizedTrainer:
                 "a topology process already IS the per-step mixing "
                 "distribution; combining it with a time-varying schedule "
                 "sequence is ambiguous - pass one or the other")
+        if kind == "staleness" and self.mode != "choco":
+            raise ValueError(
+                f"topology_process='staleness' runs on the compressed "
+                f"choco engine only (mode={self.mode!r}): the stale "
+                f"snapshots are reconstructed from rings of compressed "
+                f"increments - the plain engine ships fresh iterates "
+                f"with no increment stream to ring-buffer")
+        edges = sprobs = None
+        if stragglers:
+            if kind != "staleness":
+                raise ValueError(
+                    f"straggler edges model per-edge DELAYS - they require "
+                    f"topology_process='staleness', got {kind!r}")
+            if c.straggler_edges is None:
+                raise ValueError("straggler_delay_probs given without "
+                                 "straggler_edges")
+            edges = parse_straggler_edges(c.straggler_edges)
+            if c.straggler_delay_probs is not None:
+                sprobs = parse_delay_probs(c.straggler_delay_probs)
         return make_topology_process(
-            kind, self.schedules[0],
-            matching_sampler=self.choco.matching_sampler,
-            edge_drop_prob=self.choco.edge_drop_prob)
+            kind, self.schedules[0], matching_sampler=c.matching_sampler,
+            edge_drop_prob=c.edge_drop_prob, max_staleness=c.max_staleness,
+            straggler_edges=edges, straggler_delay_probs=sprobs)
 
     def ef_layout(self) -> Tuple[Optional[int], Optional[int]]:
         """How many bucket lists x_hat and s hold: None for one (the static
-        engine), R for a list of R (the replica engine: matching (R, R),
-        link failures (None, R)); (None, None) too in the exact modes,
-        which allocate none."""
+        engine), a count for a list of that many (the replica engine:
+        matching (R, R), link failures (None, R), bounded staleness
+        (1 + tau, R (1 + tau)): the public copy and the own ring, then the
+        R replicas and the R receive rings); (None, None) too in the exact
+        modes, which allocate none."""
         if self.process is None or self.mode != "choco":
             return None, None
         R = self.process.schedule.n_rounds
+        if self.process.kind == "staleness":
+            depth = 1 + self.process.max_staleness
+            return depth, R * depth
         return (R if self.process.kind == "matching" else None), R
+
+    def effective_staleness(self) -> int:
+        """The staleness bound the state's layout depends on: tau under
+        the staleness process, else 0 (JAX ``_effective_staleness``)."""
+        return (self.choco.max_staleness
+                if self.choco.topology_process == "staleness" else 0)
 
     # -- state ----------------------------------------------------------------
 
@@ -536,6 +573,9 @@ class DecentralizedTrainer:
                 "topology_process": c.topology_process,
                 "edge_drop_prob": float(c.edge_drop_prob),
                 "matching_sampler": c.matching_sampler,
+                "max_staleness": self.effective_staleness(),
+                "straggler_edges": c.straggler_edges,
+                "straggler_delay_probs": c.straggler_delay_probs,
                 **_UNPORTED_FINGERPRINT}
 
     def _moments(self) -> Tuple[bool, bool]:
@@ -654,7 +694,7 @@ class DecentralizedTrainer:
         same_nodes = n_old is None or n_old == self.n_nodes
         same = (fp.get("topology", mine["topology"]) == mine["topology"]
                 and fp.get("topology_process") == mine["topology_process"]
-                and fp.get("max_staleness", 0) == 0
+                and fp.get("max_staleness", 0) == self.effective_staleness()
                 and all(fp.get(k, mine[k]) == mine[k]
                         for k in _COMPRESSION_KEYS))
         exact = same_nodes and (self.mode != "choco" or same)

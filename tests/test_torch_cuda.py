@@ -715,6 +715,17 @@ def _replica_inputs(length, state_dtype, q_dtype, device, width, rounds):
     return x, h, reps, qs, qr
 
 
+def _linkfail(x, h, qs, reps, qr, w, gamma):
+    """The link-failure update: the ring form at tau = 0."""
+    return dispatch.replica_stale(x, h, qs, reps, qr, [], [[]] * len(reps),
+                                  w, None, gamma)
+
+
+def _linkfail_ref(x, h, qs, reps, qr, w, gamma):
+    return ref.replica_stale_ref(x, h, qs, reps, qr, [], [[]] * len(reps),
+                                 w, None, gamma)[:3]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("state_dtype,q_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -747,10 +758,9 @@ def test_replica_update_bit_equal_to_plain(cuda, state_dtype, q_dtype,
     # receive weights under a different link mask per round
     w = torch.tensor([[1 / 3, 1 / 3, 0.0, 1 / 3], [0.25, 0.5, 0.25, 0.5],
                       [0.0, 0.0, 0.2, 0.0]], device=cuda)
-    want_x, want_h, want_s = ref.replica_linkfail_ref(x, h, qs, reps, qr, w,
-                                                      3.7e-4)
-    _launched("replica_update", lambda: dispatch.replica_linkfail(
-        x, h, qs, reps, qr, w, 3.7e-4))
+    want_x, want_h, want_s = _linkfail_ref(x, h, qs, reps, qr, w, 3.7e-4)
+    _launched("replica_update", lambda: _linkfail(x, h, qs, reps, qr, w,
+                                                  3.7e-4))
     for g, w in zip([x, h] + reps, [want_x, want_h] + want_s):
         assert g.dtype == w.dtype and torch.equal(_bits(g), _bits(w))
     torch.cuda.synchronize()
@@ -762,14 +772,14 @@ def test_replica_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                          cuda, 300, 2)
     w = torch.full((2, N), 0.25, device=cuda)
     with pytest.raises(ValueError, match="one row stride"):
-        dispatch.replica_linkfail(x, h.contiguous(), qs, reps, qr, w, 0.1)
+        _linkfail(x, h.contiguous(), qs, reps, qr, w, 0.1)
     with pytest.raises(ValueError, match="w: expected shape"):
-        dispatch.replica_linkfail(x, h, qs, reps, qr, w[:1], 0.1)
+        _linkfail(x, h, qs, reps, qr, w[:1], 0.1)
     with pytest.raises(ValueError, match="w: expected a CUDA tensor"):
-        dispatch.replica_linkfail(x, h, qs, reps, qr, w.cpu(), 0.1)
+        _linkfail(x, h, qs, reps, qr, w.cpu(), 0.1)
     with pytest.raises(ValueError, match="payloads of"):
-        dispatch.replica_linkfail(x, h, qs.to(torch.bfloat16), reps,
-                                  [q.to(torch.bfloat16) for q in qr], w, 0.1)
+        _linkfail(x, h, qs.to(torch.bfloat16), reps,
+                  [q.to(torch.bfloat16) for q in qr], w, 0.1)
 
 
 @pytest.mark.cuda
@@ -796,14 +806,88 @@ def test_replica_update_takes_any_rows_and_rounds(cuda, form):
     else:
         keep = torch.rand((rounds, rows), generator=gen, device=cuda) > 0.3
         w = keep.float() / rounds
-        want_x, want_h, want_s = ref.replica_linkfail_ref(x, h, qs, reps, qr,
-                                                          w, 3.7e-4)
+        want_x, want_h, want_s = _linkfail_ref(x, h, qs, reps, qr, w, 3.7e-4)
         want = [want_x, want_h] + want_s
-        _launched("replica_update", lambda: dispatch.replica_linkfail(
-            x, h, qs, reps, qr, w, 3.7e-4))
+        _launched("replica_update", lambda: _linkfail(x, h, qs, reps, qr, w,
+                                                      3.7e-4))
         got = [x, h] + reps
     for g, wt in zip(got, want):
         assert torch.equal(_bits(g), _bits(wt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype,q_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("tau", [0, 1, 3])
+@pytest.mark.parametrize("length", [4096, 1_000_003])
+def test_replica_stale_bit_equal_to_plain(cuda, state_dtype, q_dtype, tau,
+                                          length):
+    """The bounded-staleness form, in place, on bucket-slot views with 3
+    rounds and every delay 0..tau on some row, against
+    ``ref.replica_stale_ref`` bit for bit (4096: the kernel's 4-wide
+    form; an odd length: one element a thread): x, x_hat, the replicas
+    and slot 0 of the own ring and each receive ring; one launch per
+    call; the older ring slots untouched."""
+    x, h, reps, qs, qr = _replica_inputs(length, state_dtype, q_dtype, cuda,
+                                         length + 300, 3)
+    slot = lambda i: (_normal(i, (N, length + 300), cuda) * 0.1).to(
+        state_dtype)[:, SLOT:SLOT + length]
+    own = [slot(40 + j) for j in range(tau)]
+    rings = [[slot(50 + 10 * r + j) for j in range(tau)] for r in range(3)]
+    w = torch.tensor([[1 / 3, 1 / 3, 0.0, 1 / 3], [0.25, 0.5, 0.25, 0.5],
+                      [0.0, 0.0, 0.2, 0.0]], device=cuda)
+    delays = torch.tensor([[(i + r) % (tau + 1) for i in range(N)]
+                           for r in range(3)], dtype=torch.int32, device=cuda)
+    old = [t.clone() for t in own[1:]] + [t.clone() for rg in rings
+                                          for t in rg[1:]]
+    want_x, want_h, want_s, want_own, want_rings = ref.replica_stale_ref(
+        x, h, qs, reps, qr, own, rings, w, delays, 3.7e-4)
+    _launched("replica_update", lambda: dispatch.replica_stale(
+        x, h, qs, reps, qr, own, rings, w, delays, 3.7e-4))
+    got = [x, h] + reps
+    want = [want_x, want_h] + want_s
+    if tau:
+        got += [own[0]] + [rg[0] for rg in rings]
+        want += [want_own] + want_rings
+    for g, wt in zip(got, want):
+        assert g.dtype == wt.dtype and torch.equal(_bits(g), _bits(wt))
+    for g, o in zip(own[1:] + [t for rg in rings for t in rg[1:]], old):
+        assert torch.equal(_bits(g), _bits(o))
+
+
+@pytest.mark.cuda
+def test_stale_trainer_launches_per_unit_per_round(cuda):
+    """Under bounded staleness (tau 2, a straggler link), per step and
+    bucket one compression and one replica-update launch, no EF launch;
+    the delays the same as the CPU run's and the losses within 1e-4."""
+    import dataclasses as dc
+    dispatch.reset_launch_counts()
+    runs = {}
+    for dev in (cuda, "cpu"):
+        cfg = dc.replace(get_config("qwen3-1.7b", smoke=True), dtype="float32")
+        tr = DecentralizedTrainer(
+            model=Model(cfg), choco=ChocoConfig(
+                compressor="qsgd", comp_kwargs=(("s", 16),),
+                topology_process="staleness", max_staleness=2,
+                straggler_edges="0-1"),
+            n_nodes=N, optimizer=momentum_sgd(),
+            lr_fn=cosine_schedule(0.1, 1, 2), device=dev)
+        state = tr.state_from_params(tr.model.init(N, 0, "cpu"))
+        batches = make_lm_batch_fn(cfg, 64, 2, N, 1.0)
+        losses, delays = [], []
+        for _ in range(2):
+            losses.append(tr.step(state, tr.batch_to_device(batches()))["loss"])
+            delays.append([d.tolist() for d in tr.exchange.last_samples])
+        runs[str(dev)] = (losses, delays)
+        if dev != "cpu":
+            per = 2 * tr.spec.n_buckets
+            assert dispatch.launch_counts() == _counts(
+                replica_update=per, qsgd_codes=per, dequantize=per)
+    (lc, dc_), (lh, dh) = runs[str(cuda)], runs["cpu"]
+    assert dc_ == dh
+    assert all(np.isfinite(lc))
+    np.testing.assert_allclose(lc, lh, rtol=1e-4)
 
 
 @pytest.mark.cuda

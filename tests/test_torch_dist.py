@@ -389,6 +389,17 @@ def test_launcher_prints_the_stacked_engine_by_default():
     assert "[train] kernel launches {" in r.stdout
 
 
+def test_launcher_mesh_defaults_to_the_production_nodes(capsys):
+    """Without --mesh, the node count is the data extent of the JAX
+    launcher's default production mesh (16 x 16, model extent 1 here),
+    stacked."""
+    from repro_torch.launch import train as launcher
+    assert launcher.main(["--arch", "qwen3-1.7b", "--smoke", "--device",
+                          "cpu", "--steps", "1", "--seq-len", "16",
+                          "--batch-per-node", "1"]) == 0
+    assert " nodes=16 engine=stacked " in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("args,environ,message", [
     (["--simulate-devices", "4", "--mesh", "2x1"], None,
      "--simulate-devices 4 must match --mesh 2x1"),

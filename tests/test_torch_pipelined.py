@@ -35,9 +35,7 @@ import pytest
 import torch
 
 from repro_torch.comm import gossip, schedule
-from repro_torch.comm.pipelined import (pipeline_delta_beta,
-                                        pipeline_mixing_matrix,
-                                        pipeline_omega)
+from repro_torch.comm.pipelined import pipeline_delay_process
 from repro_torch.core import choco_gossip, compression, topology
 from repro_torch.kernels import ref
 from repro_torch.launch import mesh
@@ -183,11 +181,13 @@ def test_surrogate_matches_jax_delay_process(graph):
     from repro.core.topology import make_topology as jtopology
     n = 8
     proc = pipeline_delay_process(jcompile(jtopology(graph, n)))
-    sched = schedule.compile_schedule(topology.make_topology(graph, n))
-    np.testing.assert_array_equal(pipeline_mixing_matrix(sched),
+    mine = pipeline_delay_process(
+        schedule.compile_schedule(topology.make_topology(graph, n)))
+    np.testing.assert_array_equal(mine.expected_matrix(),
                                   proc.expected_matrix())
-    assert pipeline_delta_beta(sched) == proc.expected_delta_beta()
-    assert pipeline_omega(0.0123) == proc.effective_omega(0.0123)
+    assert mine.expected_delta_beta() == proc.expected_delta_beta()
+    assert mine.effective_omega(0.0123) == proc.effective_omega(0.0123)
+    assert mine.effective_omega(1.0) == 0.5
 
 
 # -- the trainer -----------------------------------------------------------------

@@ -56,6 +56,9 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 N, STEPS, SEQ, BPN = 4, 3, 128, 4
 #: the link-failure reference runs' edge drop probability
 PROCESS_DROP = 0.3
+#: the bounded-staleness reference runs' tau and straggler link
+PROCESS_TAU = 2
+PROCESS_STRAGGLERS = "0-1"
 
 
 @pytest.fixture(autouse=True)
@@ -85,7 +88,7 @@ _JAX_REFERENCE = textwrap.dedent("""
     from repro.train.trainer import DecentralizedTrainer
 
     (comp, arg, k, exact, steps, seq, bpn, out, topology, sdt, engine,
-     process, drop) = sys.argv[1:]
+     process, drop, tau, stragglers) = sys.argv[1:]
     process = None if process == "none" else process
     packed = not engine.startswith("per-leaf")
     k, steps, seq, bpn = int(k), int(steps), int(seq), int(bpn)
@@ -109,7 +112,10 @@ _JAX_REFERENCE = textwrap.dedent("""
                           pipeline_gossip=engine.endswith("pipelined"),
                           topology_process=process,
                           edge_drop_prob=(float(drop) if process == "linkfail"
-                                          else 0.1)),
+                                          else 0.1),
+                          **({"max_staleness": int(tau),
+                              "straggler_edges": stragglers}
+                             if process == "staleness" else {})),
         mesh=mesh, n_nodes=4, optimizer=make_optimizer("momentum"),
         lr_fn=cosine_schedule(0.1, warmup=steps // 10 + 1, total=steps),
         mode="choco")
@@ -145,6 +151,7 @@ _JAX_REFERENCE = textwrap.dedent("""
             ek = jax.random.fold_in(key, j)
             res[f"sample:{j}:{t}"] = np.asarray(
                 tr.process.round_index(ek, t) if process == "matching"
+                else tr.process.edge_delays(ek, t) if process == "staleness"
                 else tr.process.edge_mask(ek, t))
     save("x", state.params)
     save("x_hat", state.x_hat)
@@ -196,7 +203,8 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
     EF state unless ``state_dtype`` says "bfloat16"; the packed engine
     unless ``engine`` says "per-leaf", "pipelined" or
     "per-leaf-pipelined"; the static graph unless ``process`` names a
-    topology process, "matching", or "linkfail" at PROCESS_DROP, whose
+    topology process, "matching", "linkfail" at PROCESS_DROP, or
+    "staleness" at PROCESS_TAU with the PROCESS_STRAGGLERS link, whose
     samples the run saves as ``sample:<step>:<round>``), made
     once per pytest run: tests that need the same case share it, across
     xdist workers too (they meet in the run's common temporary directory
@@ -225,7 +233,8 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
                 [sys.executable, "-c", _JAX_REFERENCE, comp, str(arg), str(k),
                  "exact" if exact else "-", str(STEPS), str(SEQ), str(BPN),
                  str(part), topology, state_dtype, engine,
-                 process or "none", str(PROCESS_DROP)],
+                 process or "none", str(PROCESS_DROP), str(PROCESS_TAU),
+                 PROCESS_STRAGGLERS],
                 env=env, capture_output=True, text=True, timeout=600)
             assert r.returncode == 0, \
                 f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
@@ -268,7 +277,12 @@ def _port_trainer(comp, arg, k, exact, topology="ring",
                                             edge_drop_prob=(
                                                 PROCESS_DROP
                                                 if process == "linkfail"
-                                                else 0.1)),
+                                                else 0.1),
+                                            **({"max_staleness": PROCESS_TAU,
+                                                "straggler_edges":
+                                                    PROCESS_STRAGGLERS}
+                                               if process == "staleness"
+                                               else {})),
         n_nodes=N, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
         device="cpu")
@@ -413,8 +427,9 @@ def test_launcher_runs_each_compressor_on_cpu(extra, capsys):
     (["--compressor", "sign", "--mode", "pushsum"], "--mode pushsum"),
     (["--compressor", "sign", "--pipeline-gossip", "--topology", "ring,star",
       "--gossip-steps", "2"], "--pipeline-gossip needs one static schedule"),
-    (["--compressor", "sign", "--topology-process", "staleness"],
-     "--topology-process"),
+    (["--compressor", "sign", "--topology-process", "staleness",
+      "--mode", "plain"], "--topology-process staleness requires --mode "
+                          "choco"),
     (["--compressor", "sign", "--gossip-engine", "leaf"],
      "--gossip-engine 'leaf'"),
     (["--compressor", "sign", "--state-dtype", "float16"], "--state-dtype"),

@@ -32,7 +32,7 @@ Tolerances:
   x_hat and S_r carry the difference, held within 1e-6 absolute plus
   1e-6 relative);
 * x: bit for bit, f32 and bf16 state (the plain version takes XLA's
-  FMAs, ``ref.replica_matching_ref`` and ``replica_linkfail_ref``), but
+  FMAs, ``ref.replica_matching_ref`` and ``replica_stale_ref`` at tau 0), but
   with the f32 QSGD and sign scales' difference, within 1e-6 absolute
   plus 1e-6 relative;
 * the plain mode bit for bit;
@@ -442,8 +442,8 @@ def test_infeasible_sampler_names_the_binding_round():
         stochastic.MatchingProcess(sched, sampler="greedy")
     with pytest.raises(ValueError, match="drop_prob must be in"):
         stochastic.LinkFailureProcess(sched, drop_prob=1.0)
-    with pytest.raises(ValueError, match="not ported"):
-        stochastic.make_topology_process("staleness", sched)
+    with pytest.raises(ValueError, match="unknown topology process"):
+        stochastic.make_topology_process("push", sched)
 
 
 def dataclasses_replace_round(sched):
@@ -965,7 +965,8 @@ def test_launcher_trains_under_a_process_on_cpu(extra, capsys):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--topology-process", "staleness"], "staleness is not supported"),
+    (["--topology-process", "staleness", "--mode", "plain"],
+     "staleness requires --mode choco"),
     (["--topology-process", "matching", "--topology", "ring,star",
       "--gossip-steps", "2"], "is ambiguous"),
     (["--topology-process", "linkfail", "--mode", "allreduce"],
@@ -978,8 +979,8 @@ def test_launcher_trains_under_a_process_on_cpu(extra, capsys):
      "only applies to --topology-process matching"),
     (["--topology-process", "matching", "--pipeline-gossip"],
      "deterministic delay-1"),
-    (["--max-staleness", "2"], "--max-staleness is not supported"),
-    (["--straggler-edges", "0-1"], "--straggler-edges is not supported"),
+    (["--max-staleness", "2"], "--max-staleness only applies"),
+    (["--straggler-edges", "0-1"], "requires --topology-process staleness"),
 ])
 def test_launcher_refuses_what_jax_refuses(extra, message, capsys):
     """The JAX launcher's process rules, before torch is imported."""
@@ -1002,7 +1003,8 @@ def test_trainer_refuses_what_jax_refuses():
         optimizer=make_optimizer("sgd"), lr_fn=lambda s: 0.1, device="cpu",
         mode=mode)
     for kw, mode, msg in (
-            ({"topology_process": "staleness"}, "choco", "not ported"),
+            ({"topology_process": "staleness"}, "plain",
+             "compressed choco engine only"),
             ({"topology_process": "matching"}, "allreduce", "choco/plain"),
             ({"topology_process": "linkfail", "pipeline_gossip": True},
              "choco", "delay-1"),
