@@ -65,6 +65,15 @@ from the root of a checkout, on a machine with one CUDA device.  It
    bytes per node per step; then ``[stale]``, the same two under bounded
    staleness (tau 1, the uniform law) beside the static and link-failure
    runs (3 nodes, never a narrower model, if 4 run out of memory); then
+   ``[pushsum]``, the same two in push-sum mode on the directed ring and
+   top_k on random_digraph (f32 EF state, bf16 if f32 runs out of
+   memory), beside the static runs of the same state dtype: ms per step
+   over steps 2-3, the peak beside its reckoning and what is live at it
+   (one more step under the allocator's memory history), the idle share,
+   launches per step (codes, dequantize and the EF update once per
+   bucket), the wire bytes per node per step beside the static run's
+   (half of it plus 4 on the directed ring), and the weight column's mass
+   1^T w = n within 1e-3 relative and its spread max w / min w; then
    ``[modes]``, the same
    cell through the same code in the paper's three modes: CHOCO-SGD top_k
    with plain SGD on Dirichlet(0.1) token shards, exact D-SGD (plain) with
@@ -146,7 +155,15 @@ from the root of a checkout, on a machine with one CUDA device.  It
    on chain, link failures on ring and star) bit-equal to the stacked one
    on the card, each rank's bytes its payload bytes times the rounds it
    shipped, and the per-rank stale exchange (``[stale] small per rank``,
-   in the same ranks) likewise over 3 calls;
+   in the same ranks) likewise over 3 calls; ``[pushsum] small``, the
+   push-sum exchange alone over 3 calls (directed_ring and
+   random_digraph, QSGD, sign and top_k, f32 and bf16 state) on the card
+   against the CPU, x, x_hat, s and w bit-equal (QSGD and sign within
+   the norms' summation order) and the codes,
+   dequantize and EF launches counted; per rank (4 ranks on the card)
+   bit-equal to the stacked exchange, each rank's bytes its payload
+   bytes plus 4 for w per round it sends in; and the launcher with
+   --mode pushsum --topology random_digraph;
    then ``[sim]``, the paper's algorithms as matrix simulators on the card
    against the CPU: CHOCO-Gossip at the quickstart's sizes (ring 25, d
    2000: exact, QSGD(127), top 1%) and CHOCO-SGD (QSGD(16), top 1%) with
@@ -159,6 +176,9 @@ from the root of a checkout, on a machine with one CUDA device.  It
    simulator) at ring 25, d 2000, exact and top 1%, each round held
    against the CPU's repeat of it, with the final consensus errors, and
    under bounded staleness (tau 2, the stale simulator) the same way;
+   and the push-sum simulator on the directed ring of 25 nodes at d 2000
+   (exact and QSGD(127)) the same way, its de-biased consensus error
+   printed;
 7. holds the flash-attention kernels against their plain version: the
    bf16 tensor-core kernel (``csrc/flash_attention_sm90.cu``; the build
    phase checks that its SASS holds wgmma and TMA loads) at the
@@ -814,10 +834,66 @@ def profile_call(label, fn, ours, show=True, streams=False):
     return out
 
 
+def memory_at_peak(label, fn, top=8):
+    """One more call of ``fn`` under the caching allocator's memory
+    history: replays its allocations and frees from the memory allocated
+    before the call, finds the moment of the most memory allocated, and
+    prints the blocks live then that the call allocated, grouped by the
+    innermost frame in the port's code, largest first.  Returns
+    ``{"before_gib", "peak_gib", "max_allocated_gib", "live": [[gib,
+    where], ...]}``."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(max_entries=200_000,
+                                             stacks="python")
+    try:
+        fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    trace = snap["device_traces"][torch.cuda.current_device()]
+    cur = peak = before
+    live, at_peak = {}, {}
+    for ev in trace:
+        if ev["action"] == "alloc":
+            cur += ev["size"]
+            live[ev["addr"]] = ev
+            if cur > peak:
+                peak, at_peak = cur, dict(live)
+        elif ev["action"] == "free_requested":
+            cur -= ev["size"]
+            live.pop(ev["addr"], None)
+
+    def where(ev):
+        frames = ev.get("frames") or []
+        ours = [f for f in frames if "repro_torch" in f["filename"]]
+        f = (ours or frames or [{"filename": "?", "line": 0, "name": "?"}])[0]
+        return (f"{f['filename'].split('repro_torch/')[-1]}:{f['line']} "
+                f"({f['name']})")
+    groups = {}
+    for ev in at_peak.values():
+        groups[where(ev)] = groups.get(where(ev), 0) + ev["size"]
+    gib = 2 ** 30
+    rows = sorted(((v / gib, k) for k, v in groups.items()), reverse=True)
+    out = {"before_gib": before / gib, "peak_gib": peak / gib,
+           "max_allocated_gib": torch.cuda.max_memory_allocated() / gib,
+           "live": [[g, k] for g, k in rows[:top]]}
+    print(f"[memory] {label}: {out['before_gib']:.3f} GiB allocated before "
+          f"the step, peak {out['peak_gib']:.3f} GiB by the replayed trace "
+          f"({out['max_allocated_gib']:.3f} by the allocator's count); "
+          f"allocated in the step and live at the peak: " + "; ".join(
+              f"{g:.3f} GiB at {k}" for g, k in rows[:top]), flush=True)
+    return out
+
+
 def train_full_width(compressor, dev, topology="ring", mode="choco",
                      optimizer="momentum", lr=0.1, skew=None,
                      state_dtype="float32", packed=True, pipelined=False,
-                     process=None, drop=0.1, tau=1, n_nodes=N_NODES):
+                     process=None, drop=0.1, tau=1, n_nodes=N_NODES,
+                     memory_trace=False):
     """Full-width qwen3-1.7b (2 layers), ``n_nodes`` nodes, on
     ``topology`` (1 gossip round per step), in ``mode`` with the
     ``optimizer`` local step at ``lr``, on Dirichlet(``skew``) token
@@ -826,7 +902,8 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     pipelined, or under the topology ``process`` (link failures at
     ``drop``, bounded staleness at ``tau``): STEPS steps, then
     one profiled step (with the pipelined engine, its trace read for the
-    side stream's overlap with the main stream's work)."""
+    side stream's overlap with the main stream's work), and with
+    ``memory_trace`` one more under :func:`memory_at_peak`."""
     import torch
     from repro_torch.configs.base import ChocoConfig
     from repro_torch.configs.qwen3_1_7b import CONFIG
@@ -860,7 +937,8 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
               + (f" tau={tau}" if process == "staleness" else ""))
     flat = lambda bufs: [b for item in bufs for b in (
         item if isinstance(item, list) else [item])]
-    if mode == "choco":
+    compressed = mode in ("choco", "pushsum")
+    if compressed:
         check({b.dtype for b in flat(state.x_hat) + flat(state.s)}
               == {getattr(torch, state_dtype)},
               f"[train] the EF state is not {state_dtype}")
@@ -870,7 +948,7 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     seq = min(CONFIG.n_layers * 64, 512)
     batches = make_lm_batch_fn(cfg, seq, 4, n_nodes, 1.0,
                                skew_alpha=tr.choco.data_skew_alpha)
-    label = compressor if mode == "choco" else "none"
+    label = compressor if compressed else "none"
     skew_tv = None if skew is None else batches.skew_tv
     print(f"[train] arch={cfg.name} layers={cfg.n_layers} seq={seq} batch=4 "
           f"params={count_params(cfg) / 1e6:.1f}M nodes={n_nodes} "
@@ -905,8 +983,9 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     unit = "buckets" if packed else "leaves"
     expected = STEPS * tr.choco.gossip_steps * units
     # sparse payloads decode by scatter: no dequantize launch on their path;
-    # the exact modes launch no kernel
-    choco = mode == "choco"
+    # the exact modes launch no kernel; push-sum launches choco's (one
+    # decode per bucket serves every receiver of the stacked engine)
+    choco = compressed
     bf16 = state_dtype == "bfloat16"
     ef = ("replica_update" if process else
           ("ef_update_bf16" if bf16 else "ef_update")
@@ -935,7 +1014,18 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     profile = profile_call(f"one {mode} {label} {optimizer} {engine} step on "
                            f"the {topology}", lambda: tr.step(state, batch),
                            GOSSIP_KERNELS, streams=pipelined)
+    memory = None
+    if memory_trace:
+        batch = tr.batch_to_device(batches())
+        memory = memory_at_peak(f"one {mode} {label} step on the {topology}",
+                                lambda: tr.step(state, batch))
     wire = wire_per_node_step(tr)
+    rounds = tr.schedules[0].n_rounds
+    mass = spread = None
+    if mode == "pushsum":
+        # the weight column's mass 1^T w, conserved, and its spread
+        mass = float(state.psw.double().sum())
+        spread = float(state.psw.max() / state.psw.min())
     del state, tr
     torch.cuda.empty_cache()
     return counts, {"topology": topology, "mode": mode,
@@ -947,7 +1037,9 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
                     "init_peak_gib": init_peak, "alloc_retries": retries,
                     "profile": profile, "process": process,
                     "samples": samples,
-                    "wire_bytes_per_node_step": wire}
+                    "wire_bytes_per_node_step": wire,
+                    "rounds": rounds, "memory": memory,
+                    "psw_mass": mass, "psw_spread": spread}
 
 
 def wire_per_node_step(tr):
@@ -955,9 +1047,11 @@ def wire_per_node_step(tr):
     payload bytes per bucket (or leaf) times the payloads it sends per
     step (the static engine and link failures: every schedule round node
     0 sends in; matching: the sampled round, which on the ring it always
-    sends in), for the exchange's gossip rounds; None in the exact modes."""
+    sends in; push-sum: every round, the first payload 4 bytes longer for
+    w), for the exchange's gossip rounds; None in the exact modes."""
     from repro_torch.comm.packing import bucket_wire_nbytes, leaf_wire_nbytes
-    if tr.mode != "choco":
+    from repro_torch.comm.pushsum import W_BYTES
+    if tr.mode not in ("choco", "pushsum"):
         return None
     per = (bucket_wire_nbytes(tr.spec, tr.compressor)
            if tr.choco.packed_gossip
@@ -966,7 +1060,8 @@ def wire_per_node_step(tr):
     sends = sum(r.peers(0)[0] is not None for r in rounds)
     if tr.process is not None and tr.process.kind == "matching":
         sends = 1
-    return sum(per) * sends * tr.choco.gossip_steps
+    w_bytes = W_BYTES if tr.mode == "pushsum" else 0
+    return (sum(per) + w_bytes) * sends * tr.choco.gossip_steps
 
 
 def state_bf16_full_width(dev, f32_runs):
@@ -1340,7 +1435,8 @@ def run_launcher(extra):
           f"launcher losses {losses}")
     per_leaf = "gossip_engine=per-leaf" in out
     units = int(out.split("leaves=" if per_leaf else "buckets=")[1].split()[0])
-    want = STEPS * units if "mode=choco" in out else 0
+    want = (STEPS * units
+            if "mode=choco" in out or "mode=pushsum" in out else 0)
     ef = ("ef_update_bf16" if "state_dtype=bfloat16" in out else "ef_update"
           ) + ("_pipelined" if "--pipeline-gossip" in extra else "")
     if "--topology-process" in extra:
@@ -2619,7 +2715,11 @@ def _hold_rounds(label, state, step, rounds, levels):
             moved += int(at.sum())
             keep = ~at.any(dim=0)
         for f in fields:
-            worst[f] = max(worst[f], _rel(got[f], want[f], keep))
+            # a field of another width (push-sum's weight column) never
+            # reads x_hat's columns: it is held whole
+            cols = (keep if keep is not None
+                    and got[f].shape[-1] == keep.numel() else None)
+            worst[f] = max(worst[f], _rel(got[f], want[f], cols))
         if grad is not None:
             worst["grad"] = max(worst.get("grad", 0.0),
                                 _rel(grad.cpu(), ref_grad))
@@ -3064,15 +3164,61 @@ def process_full_width(dev, state_bf16):
     return runs
 
 
+def _small_inputs(run, comp, sdt, seed, packed=True):
+    """The shared inputs of a small exchange run (``run`` seeds the data):
+    (spec over PROCESS_SMALL_SHAPES in ``sdt``, ``leaves(scale, dtype)``
+    drawing node-stacked packed buffers from ``rng``, ``rng``,
+    ``draws_on(device)``: draws(t,
+    u) of the CPU's making under ``seed``, moved to ``device``, per
+    bucket, or per leaf unit unless ``packed``; None without draws)."""
+    import numpy as np
+    import torch
+    from repro_torch.comm import gossip, packing
+    spec = packing.make_bucket_spec(
+        [torch.empty(sh, dtype=getattr(torch, sdt), device="meta")
+         for sh in PROCESS_SMALL_SHAPES], align=gossip._pack_align(comp))
+    rng = np.random.default_rng(len(str(run)))
+    leaves = lambda sc, dt: packing.pack_leaves(spec, [torch.from_numpy(
+        (sc * rng.standard_normal((N_NODES,) + sh)).astype(np.float32))
+        for sh in PROCESS_SMALL_SHAPES], dtype=dt)
+    units = None if packed else gossip._units(spec, False)
+    cache = {}
+
+    def draw(t, u):
+        if (t, u) not in cache:
+            key = packing.fold_seed(seed, t * 1000 + u)
+            if units is None:
+                b = spec.buckets[u]
+                cache[t, u] = packing.draw(comp, b, spec.bucket_slots(u),
+                                           torch.empty((N_NODES, b.size)),
+                                           key)
+            else:
+                unit = [un for un in units if un.index == u][0]
+                cache[t, u] = packing.leaf_draw(
+                    comp, torch.empty((N_NODES * unit.rows, unit.width)),
+                    unit.rows, key)
+        return cache[t, u]
+
+    def draws_on(device):
+        if not comp.stochastic:
+            return None
+        return lambda t, u: draw(t, u).to(device)
+    return spec, leaves, rng, draws_on
+
+
+def _to_device(obj, device):
+    import torch
+    return (obj.to(device) if torch.is_tensor(obj)
+            else [_to_device(o, device) for o in obj])
+
+
 def _process_case(run, device):
     """(process, compressor, spec, (x, x_hat, s) in the engine's layout on
     ``device``, draws(t, u) of the CPU's making, moved to ``device``) of
     one PROCESS_SMALL_RUNS / PROCESS_DIST_RUNS / STALE_SMALL_RUNS /
     STALE_DIST_RUNS entry; a staleness run's rings start random, so every
     delay reads them."""
-    import numpy as np
     import torch
-    from repro_torch.comm import gossip, packing
     from repro_torch.comm.schedule import compile_schedule
     from repro_torch.comm.stochastic import make_topology_process
     from repro_torch.core.compression import make_compressor
@@ -3084,13 +3230,8 @@ def _process_case(run, device):
         make_topology(topo, N_NODES)), **opts)
     comp = make_compressor(comp_name, **dict(kw))
     dtype = getattr(torch, sdt)
-    spec = packing.make_bucket_spec(
-        [torch.empty(sh, dtype=dtype, device="meta")
-         for sh in PROCESS_SMALL_SHAPES], align=gossip._pack_align(comp))
-    rng = np.random.default_rng(len(str(run)))
-    leaves = lambda sc, dt: packing.pack_leaves(spec, [torch.from_numpy(
-        (sc * rng.standard_normal((N_NODES,) + sh)).astype(np.float32))
-        for sh in PROCESS_SMALL_SHAPES], dtype=dt)
+    spec, leaves, _, draws_on = _small_inputs(run, comp, sdt, PROCESS_SEED,
+                                              packed)
     R = proc.schedule.n_rounds
     tau = run[7] if kind == "staleness" else 0
     x = leaves(1.0, torch.float32)
@@ -3100,27 +3241,9 @@ def _process_case(run, device):
              if kind == "staleness" else leaves(0.5, dtype))
     s = ([leaves(0.5, dtype) for _ in range(R)]
          + [leaves(0.05, dtype) for _ in range(R * tau)])
-    to = lambda obj: (obj.to(device) if torch.is_tensor(obj)
-                      else [to(o) for o in obj])
-    units = gossip._units(spec, packed)
-    cache = {}
-
-    def draws(t, u):
-        if (t, u) not in cache:
-            seed = packing.fold_seed(PROCESS_SEED, t * 1000 + u)
-            if packed:
-                b = spec.buckets[u]
-                cache[t, u] = packing.draw(comp, b, spec.bucket_slots(u),
-                                           torch.empty((N_NODES, b.size)),
-                                           seed)
-            else:
-                unit = [un for un in units if un.index == u][0]
-                cache[t, u] = packing.leaf_draw(
-                    comp, torch.empty((N_NODES * unit.rows, unit.width)),
-                    unit.rows, seed)
-        return cache[t, u].to(device)
-    return (proc, comp, spec, (to(x), to(x_hat), to(s)),
-            draws if comp.stochastic else None)
+    return (proc, comp, spec,
+            tuple(_to_device(b, device) for b in (x, x_hat, s)),
+            draws_on(device))
 
 
 def _flat_bufs(obj):
@@ -3201,7 +3324,8 @@ def _process_dist_rank(rank, store, out_dir):
         before = group.bytes_sent
         dispatch.reset_launch_counts()
         if run[0] == "staleness":
-            _, shipped = _stale_calls(ex, mine, draws, slice(rank, rank + 1))
+            _, shipped = _small_calls(ex, mine, draws, STALE_SMALL_CALLS,
+                                      STALE_SEED, slice(rank, rank + 1))
         else:
             ex(*mine, seed=PROCESS_SEED)
             shipped = ex.sent_rounds(ex.last_samples)
@@ -3535,20 +3659,23 @@ def stale_full_width(dev, state_bf16, process_runs):
     return runs
 
 
-def _stale_calls(ex, bufs, draws, rows=None):
-    """STALE_SMALL_CALLS calls of a stale exchange on ``bufs``, seeds
-    STALE_SEED + call, the draws of ``rows`` (all rows if None; call c's
-    round t draws ``draws(10 c + t, u)``).  Returns the delays of every
-    call's gossip rounds and the rounds it shipped (per rank)."""
+def _small_calls(ex, bufs, draws, calls, seed, rows=None):
+    """``calls`` calls of a small exchange (stale or push-sum) on
+    ``bufs``, seeds ``seed`` + call, the draws of ``rows`` (all rows if
+    None; call c's round t draws ``draws(10 c + t, u)``).  Returns the
+    delays of every call's gossip rounds (a stale exchange's) and the
+    rounds it shipped (per rank)."""
     delays, shipped = [], 0
-    for call in range(STALE_SMALL_CALLS):
+    for call in range(calls):
         cut = (lambda d: d) if rows is None else (lambda d: d[rows])
-        ex(*bufs, seed=STALE_SEED + call,
+        ex(*bufs, seed=seed + call,
            draws=None if draws is None else
            (lambda t, u, c=call: cut(draws(10 * c + t, u))))
-        delays.append([d.tolist() for d in ex.last_samples])
+        samples = getattr(ex, "last_samples", None)
+        if samples is not None:
+            delays.append([d.tolist() for d in samples])
         if hasattr(ex, "sent_rounds"):
-            shipped += ex.sent_rounds(ex.last_samples)
+            shipped += ex.sent_rounds(samples)
     return delays, shipped
 
 
@@ -3574,7 +3701,8 @@ def stale_small(dev):
                                               compressor=comp, gamma=0.3,
                                               gossip_steps=k, packed=packed)
             dispatch.reset_launch_counts()
-            delays, _ = _stale_calls(ex, bufs, draws)
+            delays, _ = _small_calls(ex, bufs, draws, STALE_SMALL_CALLS,
+                                        STALE_SEED)
             got[device.type] = (bufs, delays, dispatch.launch_counts())
         (cb, cs, cc), (hb, hs, hc) = got[dev.type], got["cpu"]
         check(cs == hs, f"[stale] small {run}: delays {cs} on the card, {hs}"
@@ -3621,7 +3749,7 @@ def stale_dist_small(dev, ranks):
         ex = gossip.make_process_exchange(spec=spec, process=proc,
                                           compressor=comp, gamma=0.3,
                                           gossip_steps=run[6], packed=run[4])
-        _stale_calls(ex, bufs, draws)
+        _small_calls(ex, bufs, draws, STALE_SMALL_CALLS, STALE_SEED)
         stacked = [b.cpu() for b in _flat_bufs(bufs)]
         sent = []
         for r, res in enumerate(ranks):
@@ -3708,6 +3836,371 @@ def sim_stale(dev):
                          "final_error_card": finals["card"][1],
                          "final_error_cpu": finals["cpu"][1],
                          "round_max_rel": worst, "moved_max": moved_max}
+    return report
+
+
+#: [pushsum]: the full-width push-sum runs, (topology, compressor); f32
+#: EF state, bf16 where f32 runs out of memory
+PUSHSUM_RUNS = (("directed_ring", "top_k"), ("directed_ring", "qsgd"),
+                ("random_digraph", "top_k"))
+#: the reckoned peaks (GiB): the static engine's (PERF.md: 63.049 f32,
+#: 52.276 bf16 state) plus one f32 copy of x, z = x / w (10.78 GiB)
+PUSHSUM_PREDICTED_GIB = {"float32": 73.8, "bfloat16": 63.1}
+#: [pushsum] small: (topology, compressor, comp_kwargs, state dtype,
+#: gossip_steps) of the exchange alone, card against CPU
+PUSHSUM_SMALL_RUNS = (
+    ("directed_ring", "qsgd", (("s", 16),), "float32", 1),
+    ("directed_ring", "sign", (), "bfloat16", 1),
+    ("directed_ring", "top_k", (("fraction", 0.05),), "bfloat16", 2),
+    ("random_digraph", "top_k", (("fraction", 0.05),), "float32", 1),
+    ("random_digraph", "qsgd", (("s", 16),), "bfloat16", 2),
+    ("random_digraph", "sign", (), "float32", 1),
+    ("random_digraph", "top_k", (("fraction", 0.05),), "bfloat16", 1))
+#: [pushsum] small per rank: the runs of PUSHSUM_SMALL_RUNS the ranks hold
+PUSHSUM_DIST_RUNS = (PUSHSUM_SMALL_RUNS[0], PUSHSUM_SMALL_RUNS[4],
+                     PUSHSUM_SMALL_RUNS[5])
+PUSHSUM_CALLS = 3
+PUSHSUM_SEED = 6262
+#: [pushsum] small, QSGD and sign: card against CPU, f32 state within this
+#: bound (absolute plus relative) and, on bf16 state, at most one element
+#: in this many one bf16 step apart (the norms' summation order)
+PUSHSUM_F32_TOL = 1e-6
+PUSHSUM_BF16_FLIPS = 100_000
+#: the push-sum launcher run (stacked, on the card)
+PUSHSUM_LAUNCHER = ["--mode", "pushsum", "--topology", "random_digraph",
+                    "--compressor", "qsgd", "--qsgd-s", "16"]
+#: [sim] push-sum: (label, compressor, gamma, rounds) on the directed ring
+#: of SIM_GOSSIP_N nodes at d = SIM_GOSSIP_D
+SIM_PUSHSUM_RUNS = (("pushsum_exact", None, 1.0, 300),
+                    ("pushsum_qsgd127", ("qsgd", 127), 0.5, 300))
+
+
+def pushsum_full_width(dev, by_path, state_bf16):
+    """[pushsum]: the training cell (2 layers, 4 nodes) in push-sum mode,
+    PUSHSUM_RUNS, f32 EF state (bf16 state if f32 runs out of memory),
+    each printed beside the static ring run of the same compressor and
+    state dtype in this call: ms per step over steps 2-3, the peak beside
+    PUSHSUM_PREDICTED_GIB and what is live at it (``memory_at_peak``),
+    the device's idle share of the profiled step, launches per step
+    (asserted: the codes and dequantize kernels under QSGD and the EF
+    update, once per bucket), the wire bytes per node per step beside the
+    static run's (asserted on the directed ring: half of it, one round
+    against two, plus 4 bytes of w), and the weight column: 1^T w = n
+    within 1e-3 relative, max w / min w."""
+    import torch
+    from repro_torch.comm.pushsum import W_BYTES
+    runs = {}
+    for topo, comp in PUSHSUM_RUNS:
+        sdt = "float32"
+        try:
+            counts, rec = train_full_width(comp, dev, topology=topo,
+                                           mode="pushsum", memory_trace=True)
+        except torch.OutOfMemoryError as err:
+            torch.cuda.empty_cache()
+            sdt = "bfloat16"
+            print(f"[pushsum] {topo} {comp}: f32 state ran out of memory "
+                  f"({err}); the reckoning was "
+                  f"{PUSHSUM_PREDICTED_GIB['float32']} GiB; running bf16 "
+                  f"state", flush=True)
+            counts, rec = train_full_width(comp, dev, topology=topo,
+                                           mode="pushsum", state_dtype=sdt,
+                                           memory_trace=True)
+        base = (by_path if sdt == "float32" else state_bf16)[comp][1]
+        prof, base_prof = rec["profile"] or {}, base["profile"] or {}
+        per_step = {k: v // STEPS for k, v in counts.items() if v}
+        ef = "ef_update" if sdt == "float32" else "ef_update_bf16"
+        want = {ef: rec["units"]}
+        if comp == "qsgd":
+            want.update(qsgd_codes=rec["units"], dequantize=rec["units"])
+        check(per_step == want, f"[pushsum] {topo} {comp}: launches per step "
+              f"{per_step}, expected {want}")
+        wire, base_wire = (rec["wire_bytes_per_node_step"],
+                           base["wire_bytes_per_node_step"])
+        if topo == "directed_ring":
+            check(wire == base_wire // 2 + W_BYTES,
+                  f"[pushsum] {comp}: wire bytes {wire}, not half the static "
+                  f"ring's {base_wire} plus {W_BYTES}")
+        mass_gap = abs(rec["psw_mass"] - N_NODES) / N_NODES
+        check(mass_gap <= 1e-3, f"[pushsum] {topo} {comp}: 1^T w = "
+              f"{rec['psw_mass']}, not {N_NODES}")
+        rec.update(predicted_peak_gib=PUSHSUM_PREDICTED_GIB[sdt],
+                   mass_rel_gap=mass_gap)
+        print(f"[pushsum] {topo} ({rec['rounds']} rounds) {comp} ({sdt} "
+              f"state): ms/step over steps 2-3 {rec['ms_per_step'][1:]} "
+              f"against the static ring's {base['ms_per_step'][1:]}; peak "
+              f"{rec['peak_gib']:.3f} GiB against {base['peak_gib']:.3f} GiB,"
+              f" reckoned {PUSHSUM_PREDICTED_GIB[sdt]} GiB; device idle share "
+              f"{prof.get('device_idle_share', float('nan')):.4f} against "
+              f"{base_prof.get('device_idle_share', float('nan')):.4f}; "
+              f"launches per step {per_step}; wire bytes per node per step "
+              f"{wire} against the static ring's {base_wire} (computed from "
+              f"the spec); 1^T w = {rec['psw_mass']:.9f} (n = {N_NODES}, "
+              f"relative gap {mass_gap:.3e}), max w / min w = "
+              f"{rec['psw_spread']:.9f}", flush=True)
+        runs[f"pushsum_{topo}_{comp}"] = (counts, rec)
+    return runs
+
+
+def _pushsum_case(run, device):
+    """(schedule, compressor, spec, [x, x_hat, s, w] on ``device``,
+    draws(t, u) of the CPU's making, moved to ``device``) of one
+    PUSHSUM_SMALL_RUNS entry; w starts off its ones, so its path counts."""
+    import numpy as np
+    import torch
+    from repro_torch.comm.schedule import compile_directed_schedule
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.core.topology import make_topology
+    topo, comp_name, kw, sdt = run[:4]
+    sched = compile_directed_schedule(make_topology(topo, N_NODES))
+    comp = make_compressor(comp_name, **dict(kw))
+    spec, leaves, rng, draws_on = _small_inputs(run, comp, sdt,
+                                                PUSHSUM_SEED)
+    dtype = getattr(torch, sdt)
+    state = [leaves(1.0, torch.float32), leaves(0.5, dtype),
+             leaves(0.5, dtype),
+             torch.from_numpy(rng.uniform(0.5, 1.5, (N_NODES, 1)).astype(
+                 np.float32))]
+    return sched, comp, spec, _to_device(state, device), draws_on(device)
+
+
+def _pushsum_launches(run, spec, counts, per_rank=False, recv=0):
+    """The launches a push-sum run must make: per call and gossip round,
+    per bucket, the codes kernel (QSGD, sign), the dequantize kernel (the
+    stacked engine: once, its decode serving every receiver; per rank:
+    the node's own and each of the ``recv`` payloads it receives) and one
+    EF update; no other kernel."""
+    _, comp, _, sdt, k = run
+    per = PUSHSUM_CALLS * k * spec.n_buckets
+    want = {name: 0 for name in counts}
+    want["ef_update" if sdt == "float32" else "ef_update_bf16"] = per
+    if comp in ("qsgd", "sign"):
+        want["qsgd_codes" if comp == "qsgd" else "sign_codes"] = per
+        want["dequantize"] = per * (1 + recv) if per_rank else per
+    return want
+
+
+def pushsum_small(dev):
+    """[pushsum] small: the push-sum exchange alone on the card against
+    the CPU, PUSHSUM_SMALL_RUNS over PUSHSUM_CALLS calls each (directed
+    ring: one round; random digraph: 3 rounds and per-node weights; the
+    EF kernel weighing q by a_jj and the rounds' sum nb by 1), the
+    CPU's draws on both: x, x_hat, s and w bit-equal (QSGD and sign: w,
+    and x, x_hat and s to PUSHSUM_F32_TOL / PUSHSUM_BF16_FLIPS), the
+    launches as ``_pushsum_launches`` says.  Returns the card's
+    launches."""
+    import torch
+    from repro_torch.comm import pushsum
+    from repro_torch.kernels import dispatch
+    launches = {k: 0 for k in kernel_names()}
+    for run in PUSHSUM_SMALL_RUNS:
+        got = {}
+        for device in (dev, torch.device("cpu")):
+            sched, comp, spec, state, draws = _pushsum_case(run, device)
+            ex = pushsum.make_pushsum_exchange(spec=spec, schedule=sched,
+                                               compressor=comp, gamma=0.3,
+                                               gossip_steps=run[4])
+            dispatch.reset_launch_counts()
+            _small_calls(ex, state, draws, PUSHSUM_CALLS, PUSHSUM_SEED)
+            got[device.type] = (state, dispatch.launch_counts())
+        (cs, cc), (hs, hc) = got[dev.type], got["cpu"]
+        # QSGD's and sign's scales sum each row's norm in the device's own
+        # order (1e-6 relative): f32 state carries that within
+        # PUSHSUM_F32_TOL; on bf16 state it may flip a bf16 rounding, at
+        # most one element in PUSHSUM_BF16_FLIPS, by one bf16 step; w and
+        # every other run bit-equal
+        scaled = run[1] in ("qsgd", "sign")
+        check(torch.equal(cs[3].cpu(), hs[3]), f"[pushsum] small {run}: w "
+              f"differs card and CPU")
+        flips, worst = 0, 0.0
+        for g, w in zip(_flat_bufs(cs[:3]), _flat_bufs(hs[:3])):
+            g, w = g.cpu().float(), w.float()
+            d = (g - w).abs()
+            worst = max(worst, float(d.max()))
+            if not scaled:
+                check(torch.equal(g, w), f"[pushsum] small {run}: the card "
+                      f"and the CPU differ")
+            elif run[3] == "float32":
+                check(bool((d <= PUSHSUM_F32_TOL * (1 + w.abs())).all()),
+                      f"[pushsum] small {run}: card and CPU differ by "
+                      f"{float(d.max())}")
+            else:
+                bad = d > 0
+                flips += int(bad.sum())
+                check(bool((d[bad] <= 2.0 ** -7 * w.abs()[bad] + 1e-30).all()),
+                      f"[pushsum] small {run}: a bf16 difference above one "
+                      f"step")
+        total = sum(b.numel() for b in _flat_bufs(hs[:3]))
+        check(flips * PUSHSUM_BF16_FLIPS <= total, f"[pushsum] small {run}: "
+              f"{flips} bf16 elements differ of {total}")
+        mass = float(cs[3].double().sum())
+        want = _pushsum_launches(run, spec, cc)
+        check(cc == want and sum(hc.values()) == 0,
+              f"[pushsum] small {run}: launches {cc}, expected {want}")
+        for name, v in cc.items():
+            launches[name] += v
+        held = ("bit-equal" if not scaled else
+                f"w bit-equal, x, x_hat and s within {worst:.3e} "
+                f"({flips} bf16 elements differ)")
+        print(f"[pushsum] small {run[0]} ({sched.n_rounds} rounds) {run[1]} "
+              f"{run[3]} x{run[4]}: card against CPU over {PUSHSUM_CALLS} "
+              f"calls: {held}; 1^T w = {mass:.7f}; launches "
+              f"{ {k: v for k, v in cc.items() if v} }", flush=True)
+    return launches
+
+
+def _pushsum_dist_rank(rank, store, out_dir):
+    import torch
+    from repro_torch.comm import pushsum
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import mesh
+    group = _dist_group(rank, store)
+    dev = group.device
+    results = {}
+    for i, run in enumerate(PUSHSUM_DIST_RUNS):
+        sched, comp, spec, state, draws = _pushsum_case(run, dev)
+        ex = pushsum.make_dist_pushsum_exchange(
+            spec=spec, schedule=sched, compressor=comp, gamma=0.3,
+            gossip_steps=run[4], group=group)
+        mine = [t[rank:rank + 1].clone() if torch.is_tensor(t)
+                else [b[rank:rank + 1].clone() for b in t] for t in state]
+        before = group.bytes_sent
+        dispatch.reset_launch_counts()
+        _small_calls(ex, mine, draws, PUSHSUM_CALLS, PUSHSUM_SEED,
+                     slice(rank, rank + 1))
+        results[i] = ([b.cpu() for b in _flat_bufs(mine)],
+                      group.bytes_sent - before,
+                      PUSHSUM_CALLS * (ex.sends[0] * sum(ex.payload_bytes)
+                                       + ex.w_bytes),
+                      dispatch.launch_counts())
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    mesh.close_node_group()
+
+
+def pushsum_dist_small(dev):
+    """[pushsum] small per rank: 4 ranks on the card run PUSHSUM_DIST_RUNS,
+    each rank's x, x_hat, s and w bit-equal to its row of the stacked
+    exchange on the card, its bytes sent its payload bytes plus 4 for w
+    per round it sends in, per gossip round and call, its launches as
+    ``_pushsum_launches`` says (a payload decoded where it lands).
+    Returns the ranks' launches, summed."""
+    import tempfile
+    import torch
+    from repro_torch.comm import pushsum
+    from repro_torch.comm.packing import bucket_wire_nbytes
+    with tempfile.TemporaryDirectory(prefix="chip_pushsum_") as tmp:
+        spawn_ranks_of(_pushsum_dist_rank, tmp, DIST_TIMEOUT_S)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(N_NODES)]
+    launches = {k: 0 for k in kernel_names()}
+    for i, run in enumerate(PUSHSUM_DIST_RUNS):
+        sched, comp, spec, state, draws = _pushsum_case(run, dev)
+        _small_calls(pushsum.make_pushsum_exchange(
+            spec=spec, schedule=sched, compressor=comp, gamma=0.3,
+            gossip_steps=run[4]), state, draws, PUSHSUM_CALLS, PUSHSUM_SEED)
+        stacked = [b.cpu() for b in _flat_bufs(state)]
+        sent = []
+        for r, res in enumerate(ranks):
+            mine, nbytes, want, counts = res[i]
+            for g, w in zip(mine, stacked):
+                check(torch.equal(g, w[r:r + 1]), f"[pushsum] dist {run}: "
+                      f"rank {r} differs from the stacked exchange")
+            sends = sum(rnd.peers(r)[0] is not None for rnd in sched.rounds)
+            recv = sum(rnd.peers(r)[1] is not None for rnd in sched.rounds)
+            check(nbytes == want == PUSHSUM_CALLS * run[4] * sends * (
+                sum(bucket_wire_nbytes(spec, comp)) + pushsum.W_BYTES),
+                f"[pushsum] dist {run}: rank {r} sent {nbytes} bytes, "
+                f"expected {want}")
+            expected = _pushsum_launches(run, spec, counts, per_rank=True,
+                                         recv=recv)
+            check(counts == expected, f"[pushsum] dist {run}: rank {r} "
+                  f"launches {counts}, expected {expected}")
+            sent.append(nbytes)
+            for name, v in counts.items():
+                launches[name] += v
+        print(f"[pushsum] small per rank {run[0]} {run[1]} {run[3]} "
+              f"x{run[4]}: {N_NODES} ranks bit-equal to the stacked exchange "
+              f"on the card over {PUSHSUM_CALLS} calls, w included; bytes "
+              f"sent per rank {sent} (payload bytes + 4 for w, per round "
+              f"sent in, per gossip round and call)", flush=True)
+    return launches
+
+
+def sim_pushsum(dev):
+    """[sim] push-sum: the push-sum simulator
+    (``core/choco_gossip.py:run_pushsum_gossip``) on the directed ring of
+    SIM_GOSSIP_N nodes at d = SIM_GOSSIP_D, SIM_PUSHSUM_RUNS, on the card
+    and on the CPU from the same x0 and QSGD dither: the exact free runs'
+    de-biased error curves within SIM_RTOL (QSGD's printed: a moved level
+    moves the rest of its curve), each round held by ``_hold_rounds`` (x,
+    x_hat, s and w), 1^T w = n, and the de-biased consensus error
+    printed."""
+    import numpy as np
+    import torch
+    from repro_torch.core.choco_gossip import (init_pushsum_state, mixing,
+                                               pushsum_gossip_round,
+                                               run_pushsum_gossip)
+    from repro_torch.core.compression import Identity
+    from repro_torch.core.topology import directed_ring
+    n, d = SIM_GOSSIP_N, SIM_GOSSIP_D
+    A = directed_ring(n).A
+    x0 = torch.randn((n, d), generator=torch.Generator().manual_seed(8))
+    As = {"cpu": mixing(A, x0), dev.type: mixing(A, x0.to(dev))}
+    report = {}
+    for label, spec, gamma, rounds in SIM_PUSHSUM_RUNS:
+        comp = _sim_compressor(spec) or Identity()
+        rand = None
+        if comp.stochastic:
+            gen = torch.Generator().manual_seed(2)
+            rand = [comp.draw(x0, gen) for _ in range(rounds)]
+        curves, masses, timing = {}, {}, None
+        for which, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            draws = (None if rand is None else
+                     (lambda t, r=[a.to(device) for a in rand]: r[t]))
+            (st, err), ms, counts = _timed(
+                lambda: run_pushsum_gossip(x0.to(device), A, gamma, comp,
+                                           rounds, draws=draws), device)
+            curves[which] = err.cpu().numpy()
+            masses[which] = float(st.w.double().sum())
+            if which == "card":
+                timing = (ms / rounds, counts)
+        card, cpu = curves["card"], curves["cpu"]
+        rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+
+        def step(st, t, grad=None, comp=comp, gamma=gamma):
+            r = None if rand is None else rand[t].to(st.x.device)
+            return pushsum_gossip_round(st, As[st.x.device.type], gamma,
+                                        comp, r), None
+        moved, worst = _hold_rounds(label, init_pushsum_state(x0.to(dev)),
+                                    step, rounds, levels=comp.name == "qsgd")
+        print(f"[sim] push-sum directed ring n={n} d={d} {label}, {rounds} "
+              f"rounds, gamma {gamma}: de-biased consensus error "
+              f"{card[0]:.4e} -> {card[-1]:.4e} on the card, {cpu[0]:.4e} "
+              f"-> {cpu[-1]:.4e} on the CPU (free runs: max relative "
+              f"difference {rel:.3e}{'' if spec is None else ', not held'});"
+              f" 1^T w {masses['card']:.6f}; round by "
+              f"round: {moved} coordinates moved, largest relative "
+              f"differences {_fmt(worst)}; {timing[0]:.4f} ms/round on the "
+              f"card; launches { {k: v for k, v in timing[1].items() if v} }",
+              flush=True)
+        check(np.all(np.isfinite(card)) and card[-1] < card[0],
+              f"[sim] {label}: de-biased error {card[0]} -> {card[-1]}")
+        # a QSGD level that moves (round by round: at most one a round)
+        # moves the free run's later curve: measured 1.4e-4 over 300
+        # rounds, so that curve is printed, the rounds held
+        if spec is None:
+            check(rel <= SIM_RTOL, f"[sim] {label}: card and CPU error "
+                  f"curves differ by {rel}")
+        check(abs(masses["card"] - n) <= 1e-3 * n,
+              f"[sim] {label}: 1^T w = {masses['card']}, not {n}")
+        _hold_sim_launches(label, None if spec is None else comp, rounds,
+                           timing[1])
+        report[label] = {"rounds": rounds, "gamma": gamma,
+                         "err_first": float(card[0]),
+                         "err_last": float(card[-1]),
+                         "err_last_cpu": float(cpu[-1]),
+                         "max_rel_diff": rel, "w_mass": masses["card"],
+                         "rounds_moved": moved, "rounds_max_rel": worst,
+                         "ms_per_round": timing[0], "launches": timing[1]}
     return report
 
 
@@ -4368,6 +4861,8 @@ def main():
         process_runs = process_full_width(dev, state_bf16)
     with phase("stale"):
         stale_runs = stale_full_width(dev, state_bf16, process_runs)
+    with phase("pushsum"):
+        pushsum_runs = pushsum_full_width(dev, by_path, state_bf16)
     with phase("modes"):
         modes = modes_full_width(dev)
     with phase("checkpoint"):
@@ -4393,6 +4888,10 @@ def main():
     with phase("small-stale"):
         stale_small_counts = stale_small(dev)
         torch.cuda.empty_cache()
+    with phase("small-pushsum"):
+        pushsum_small_counts = pushsum_small(dev)
+        launcher_counts["launcher_pushsum"] = run_launcher(PUSHSUM_LAUNCHER)
+        torch.cuda.empty_cache()
     with phase("dist"):
         dist_small_report = dist_small(dev)
         torch.cuda.empty_cache()
@@ -4401,6 +4900,9 @@ def main():
         torch.cuda.empty_cache()
     with phase("dist-stale"):
         stale_dist_counts = stale_dist_small(dev, process_ranks)
+        torch.cuda.empty_cache()
+    with phase("dist-pushsum"):
+        pushsum_dist_counts = pushsum_dist_small(dev)
         torch.cuda.empty_cache()
     with phase("dist-full-width"):
         dist_full = dist_full_width(by_path[DIST_FULL[0]][1])
@@ -4422,6 +4924,8 @@ def main():
         sim_proc = sim_process(dev)
     with phase("sim-stale"):
         sim_stale_report = sim_stale(dev)
+    with phase("sim-pushsum"):
+        sim_pushsum_report = sim_pushsum(dev)
 
     with phase("flash"):
         flash_record, flash_err = check_flash(dev)
@@ -4449,12 +4953,18 @@ def main():
         **{label: counts for label, (counts, _) in engines.items()},
         **{label: counts for label, (counts, _) in process_runs.items()},
         **{label: counts for label, (counts, _) in stale_runs.items()},
+        **{label: counts for label, (counts, _) in pushsum_runs.items()},
         **launcher_counts,
         **per_rank_launcher_counts,
         "process_small": process_small_counts,
         "process_dist_small": process_dist_counts,
         "stale_small": stale_small_counts,
         "stale_dist_small": stale_dist_counts,
+        "pushsum_small": pushsum_small_counts,
+        "pushsum_dist_small": pushsum_dist_counts,
+        "sim_pushsum": {k: sum(r["launches"][k]
+                               for r in sim_pushsum_report.values())
+                        for k in kernel_names()},
         "small": small["launches"],
         "leaf_small": {k: sum(r["launches"][k] for r in leaf_small.values())
                        for k in kernel_names()},
@@ -4473,12 +4983,19 @@ def main():
     by_kernel = lambda name: {p: c[name] for p, c in paths.items()}
     # the training paths whose launches count as the gossip kernels' main
     # path: the four compressors, star, the bf16-state runs, the [modes]
-    # runs, the [checkpoint] runs and its elastic warmups
+    # runs, the [pushsum] runs, the [checkpoint] runs and its elastic
+    # warmups
     train_paths = (list(by_path) + ["topology_star"]
                    + [f"state_bf16_{c}" for c in state_bf16]
                    + list(engines)
                    + [f"modes_{label}" for label in modes]
+                   + list(pushsum_runs)
                    + ["checkpoint_full_width", "checkpoint_warmup"])
+    check(all(paths[p]["ef_update"] + paths[p]["ef_update_bf16"] > 0
+              for p in list(pushsum_runs) + ["pushsum_small",
+                                             "pushsum_dist_small",
+                                             "launcher_pushsum"]),
+          "a push-sum path launched no EF update")
     # the per-leaf and pipelined variants' paths also take in the small
     # phases, where the bf16-state pipelined EF update runs
     engine_paths = train_paths + ["small", "leaf_small",
@@ -4586,6 +5103,8 @@ def main():
                       "engines": {k: r for k, (_, r) in engines.items()},
                       "process": {k: r for k, (_, r) in process_runs.items()},
                       "stale": {k: r for k, (_, r) in stale_runs.items()},
+                      "pushsum": {k: r for k, (_, r) in pushsum_runs.items()},
+                      "sim_pushsum": sim_pushsum_report,
                       "sim_process": sim_proc, "sim_stale": sim_stale_report,
                       "phases_s": PHASES,
                       "leaf_small": leaf_small,

@@ -79,9 +79,8 @@ x_hat and s lists of bucket lists, one replica-update launch per bucket
 (or leaf) per gossip round; the plain mode averages with the sampled
 matrix (:func:`make_plain_exchange` with ``process=``).  Bounded
 staleness (JAX ``comm/async_gossip.py:make_async_choco_fn``) is the
-replica engine's third form, with depth-tau rings of increments.
-
-Not ported: the push-sum mode.
+replica engine's third form, with depth-tau rings of increments.  The
+push-sum mode's engine, on directed graphs, is ``comm/pushsum.py``.
 """
 from __future__ import annotations
 

@@ -22,8 +22,12 @@ Decompositions, as in the JAX package (``src/repro/comm/schedule.py``):
 * anything else   -- greedy edge coloring of the support of W: each color
   class is a matching, shipped as one symmetric-swap round (star: n - 1
   rounds, chain: 2)
+* a directed A    -- greedy bipartite edge coloring of its support
+  (:func:`compile_directed_schedule`): each color class is a partial
+  permutation, one round of the push-sum engine (``comm/pushsum.py``;
+  the directed ring: 1 round)
 
-Every decomposition is validated against W.  A time-varying sequence is
+Every decomposition is validated against W (or A).  A time-varying sequence is
 one schedule per graph (:func:`compile_schedules`), cycled round by
 round.  Pure Python + numpy: compiled once per trainer, never on the hot
 path.
@@ -35,7 +39,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.topology import Topology, _square_factors
+from repro_torch.core.topology import (DirectedTopology, Topology,
+                                       _square_factors)
 
 #: entries of W below this are structural zeros (no edge)
 _EDGE_TOL = 1e-12
@@ -210,6 +215,50 @@ def _edge_coloring_rounds(W: np.ndarray) -> list:
     return rounds
 
 
+def _directed_coloring_rounds(A: np.ndarray) -> list:
+    """Greedy bipartite edge coloring of a directed support: each edge
+    (src -> dst) gets the first color unused by src as a sender and by
+    dst as a receiver, so every color class is a partial permutation
+    (distinct sources, distinct destinations), one round.  Greedy needs
+    at most out_deg + in_deg - 1 colors."""
+    n = A.shape[0]
+    edges = [(j, i) for j in range(n) for i in range(n)
+             if i != j and abs(A[i, j]) > _EDGE_TOL]
+    colors: list = []
+    used_src = [set() for _ in range(n)]
+    used_dst = [set() for _ in range(n)]
+    for src, dst in edges:
+        c = 0
+        while c in used_src[src] or c in used_dst[dst]:
+            c += 1
+        while len(colors) <= c:
+            colors.append([])
+        colors[c].append((src, dst))
+        used_src[src].add(c)
+        used_dst[dst].add(c)
+    return [_make_round(tuple(cls), {dst: A[dst, src] for src, dst in cls},
+                        n) for cls in colors]
+
+
+def compile_directed_schedule(topo: DirectedTopology) -> GossipSchedule:
+    """Compile a column-stochastic directed A into partial-permutation
+    rounds by bipartite edge coloring, with the symmetric compiler's
+    contract, A = diag(self_weights) + sum_r weight_r P_r, for the
+    push-sum engine (never the symmetric ones: their row-stochastic
+    averaging is biased on a column-stochastic A)."""
+    A = np.asarray(topo.A, dtype=np.float64)
+    n = A.shape[0]
+    diag = tuple(float(A[i, i]) for i in range(n))
+    sched = GossipSchedule(name=topo.name, n=n,
+                           rounds=tuple(_directed_coloring_rounds(A)),
+                           self_weights=diag, self_weight=_uniform(diag))
+    err = float(np.max(np.abs(sched.mixing_matrix() - A))) if n else 0.0
+    if err > 1e-9:
+        raise ValueError(f"directed schedule compilation failed for "
+                         f"{topo.name!r} (n={n}): reconstruction error {err}")
+    return sched
+
+
 def compile_schedule(topo: Topology) -> GossipSchedule:
     """Compile one symmetric Topology into permutation rounds.
 
@@ -222,8 +271,8 @@ def compile_schedule(topo: Topology) -> GossipSchedule:
     n = W.shape[0]
     if not np.allclose(W, W.T, atol=1e-10):
         raise ValueError("the schedule compiler needs a symmetric W; "
-                         "directed mixing needs the push-sum engine, which "
-                         "is not ported")
+                         "directed mixing runs on the push-sum engine "
+                         "(compile_directed_schedule, mode='pushsum')")
     structured = {
         "ring": lambda: _ring_rounds(W),
         "torus2d": lambda: _torus_rounds(W, _square_factors(n)),

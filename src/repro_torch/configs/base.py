@@ -9,11 +9,11 @@ sliding windows, local / global layer patterns and ``remat`` are not
 ported.  ``INPUT_SHAPES`` keeps the one JAX input shape the port serves,
 ``prefill_32k``.  ``ChocoConfig``
 keeps the settings of the static engines (the packed and the per-leaf
-engine, serial or pipelined; the choco, plain and all-reduce modes), the
-EF-state dtype (f32 or bf16), the data skew and the stochastic topology
-processes (matching, link failures and bounded staleness with its
-straggler links), with the JAX package's defaults: push-sum and the
-kernel-backend switch are not ported.  ``parse_straggler_edges`` and
+engine, serial or pipelined; the choco, plain, all-reduce and push-sum
+modes), the EF-state dtype (f32 or bf16), the data skew and the
+stochastic topology processes (matching, link failures and bounded
+staleness with its straggler links), with the JAX package's defaults:
+the kernel-backend switch is not ported.  ``parse_straggler_edges`` and
 ``parse_delay_probs`` are the port's own copies of the JAX parsers
 (torch-free, so the launcher checks its flags before torch is imported).
 """
@@ -136,7 +136,8 @@ class ChocoConfig:
     comp_kwargs: tuple = (("fraction", 0.01),)
     # a symmetric registry name (ring, torus, fully_connected, chain, star,
     # hypercube) or a comma-separated time-varying sequence of them
-    # ("ring,hypercube"); the directed graphs need push-sum (not ported)
+    # ("ring,hypercube"); or a directed one (directed_ring, random_digraph),
+    # which runs under the push-sum mode only
     topology: str = "ring"
     gossip_steps: int = 1
     # leaves of at most 8192 elements gossip uncompressed, in exact

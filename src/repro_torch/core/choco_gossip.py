@@ -18,9 +18,10 @@ port's kernels on the card (``Compressor.apply``).  A stochastic
 compressor's draw per round comes from ``draws(t)`` when the caller
 injects it, else from an explicit ``torch.Generator``.  The pipelined
 recursion (the matrix twin of the pipelined engine, ``comm/pipelined.py``)
-and the bounded-staleness simulator (the matrix twin of the stale replica
-engine, JAX ``core/choco_gossip.py:194-262``) are here too.  Not ported:
-the push-sum simulator (it comes with its engine).
+the bounded-staleness simulator (the matrix twin of the stale replica
+engine, JAX ``core/choco_gossip.py:194-262``) and the push-sum simulator
+(the matrix twin of the push-sum engine, ``comm/pushsum.py``; JAX
+``core/choco_gossip.py:339-394``) are here too.
 """
 from __future__ import annotations
 
@@ -301,4 +302,68 @@ def run_choco_stale_gossip(x0: torch.Tensor, process, gamma: float,
             st, process, gamma, compressor, fold_seed(seed, step), t=0,
             rand=rand, sample=None if samples is None else samples(step))
         errs.append(consensus_error(st.x, xbar))
+    return st, torch.stack(errs) if errs else x0.new_zeros((0,))
+
+
+# ---------------------------------------------------------------------------
+# Directed push-sum (column-stochastic A): the matrix twin of
+# comm/pushsum.py.  Neither x nor the weight w converges alone; the
+# de-biased ratio z = x / w does, because 1^T A = 1^T conserves both sums
+# (JAX ``core/choco_gossip.py:339-394``).
+# ---------------------------------------------------------------------------
+
+class PushSumState(NamedTuple):
+    x: torch.Tensor        # (n, d) biased iterates
+    x_hat: torch.Tensor    # (n, d) public copies (error feedback)
+    s: torch.Tensor        # (n, d) A-weighted aggregate of the q's
+    w: torch.Tensor        # (n, 1) push-sum weights, init 1
+
+
+def init_pushsum_state(x0: torch.Tensor) -> PushSumState:
+    """Push-sum state at t=0: x0, zero EF state, a unit weight column."""
+    return PushSumState(x=x0, x_hat=torch.zeros_like(x0),
+                        s=torch.zeros_like(x0),
+                        w=torch.ones((x0.shape[0], 1), dtype=x0.dtype,
+                                     device=x0.device))
+
+
+def pushsum_gossip_round(state: PushSumState, A: torch.Tensor, gamma: float,
+                         compressor: Compressor, rand=None) -> PushSumState:
+    """One compressed push-sum round:
+
+        q = Q(x - x_hat);  x_hat += q;  s += A q;  x += gamma (s - x_hat)
+        w += gamma (A w - w)                     (exact: the scalars ship raw)
+
+    With Q the identity it is lazy push-sum, x' = ((1-gamma) I + gamma A)
+    x.  ``A @ q`` stands in for the directed rounds of the engine;
+    ``rand`` is a stochastic compressor's draw."""
+    q = compressor.apply(state.x - state.x_hat, rand)
+    x_hat = state.x_hat + q
+    s = state.s + A @ q
+    x = state.x + gamma * (s - x_hat)
+    w = state.w + gamma * (A @ state.w - state.w)
+    return PushSumState(x=x, x_hat=x_hat, s=s, w=w)
+
+
+def pushsum_debias(state: PushSumState) -> torch.Tensor:
+    """z = x / w, the quantity that converges to the initial average."""
+    return state.x / state.w
+
+
+def run_pushsum_gossip(x0: torch.Tensor, A, gamma: float,
+                       compressor: Compressor, steps: int, *,
+                       generator: Optional[torch.Generator] = None,
+                       draws: Optional[Callable[[int], object]] = None):
+    """Run ``steps`` push-sum rounds from x0 (n, d); returns (final state,
+    per-round consensus errors of the de-biased estimate x / w against
+    the initial average)."""
+    A = mixing(A, x0)
+    xbar = torch.mean(x0, dim=0, keepdim=True)
+    st = init_pushsum_state(x0)
+    errs = []
+    for t in range(steps):
+        st = pushsum_gossip_round(
+            st, A, gamma, compressor,
+            round_draw(compressor, st.x, t, generator, draws))
+        errs.append(consensus_error(pushsum_debias(st), xbar))
     return st, torch.stack(errs) if errs else x0.new_zeros((0,))

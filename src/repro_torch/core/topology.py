@@ -5,10 +5,12 @@ delta = 1 - |lambda_2(W)| in (0, 1].  The port builds the ring with the
 paper's uniform weights (w_ij = 1/(deg+1), Metropolis-Hastings in
 general) and exposes delta, rho = 1 - delta and beta = ||I - W||_2.
 
-Every symmetric graph of the JAX package's registry is ported: ring,
-torus, fully_connected, chain, star and hypercube.  The directed graphs
-(``directed_ring``, ``random_digraph``) need the push-sum engine, which
-is not ported; ``make_topology`` refuses them.
+Every graph of the JAX package's registry is ported: the symmetric
+ring, torus, fully_connected, chain, star and hypercube, and the directed
+``directed_ring`` and ``random_digraph``.  A :class:`DirectedTopology`
+carries a *column*-stochastic A (1^T A = 1^T, so the node sum is
+conserved); it runs only through the push-sum engine
+(``comm/pushsum.py``), which de-biases x / w.
 """
 from __future__ import annotations
 
@@ -64,6 +66,84 @@ def beta_norm(W: np.ndarray) -> float:
     """beta = ||I - W||_2 (Theorem 2's second spectral quantity)."""
     n = W.shape[0]
     return float(np.linalg.norm(np.eye(n) - np.asarray(W, np.float64), ord=2))
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectedTopology:
+    """Column-stochastic mixing over a directed graph.
+
+    ``A[i, j]`` is the weight node j pushes to node i: column j splits j's
+    mass over its out-neighbours and itself, so columns sum to 1 and the
+    total mass 1^T x is conserved, while rows in general do not sum to 1
+    (the reason the symmetric engines cannot run it)."""
+    name: str
+    A: np.ndarray                               # (n, n) column-stochastic
+    out_neighbors: Tuple[Tuple[int, ...], ...]  # per column, incl. self
+
+    @property
+    def n(self) -> int:
+        return self.A.shape[0]
+
+    @property
+    def directed(self) -> bool:
+        return True
+
+    @property
+    def delta(self) -> float:
+        """1 - |lambda_2(A)|: the push-sum consensus rate."""
+        return spectral_gap(self.A)
+
+    @property
+    def beta(self) -> float:
+        return beta_norm(self.A)
+
+    def validate(self, atol=1e-10):
+        A = self.A
+        if not np.allclose(A.sum(0), 1.0, atol=atol):
+            raise ValueError("A not column-stochastic")
+        if not np.all(A >= -atol):
+            raise ValueError("A has negative entries")
+        if not np.all(np.diag(A) > atol):
+            raise ValueError("push-sum needs self-loops (A_jj > 0)")
+        return self
+
+
+def directed_ring(n: int) -> DirectedTopology:
+    """Directed cycle: every node pushes half its mass to its successor,
+    A = (I + P) / 2 with P the cyclic shift (column- and row-stochastic,
+    not symmetric)."""
+    if n == 1:
+        return DirectedTopology("directed_ring", np.ones((1, 1)), ((0,),))
+    A = 0.5 * np.eye(n)
+    for j in range(n):
+        A[(j + 1) % n, j] = 0.5
+    nbrs = tuple((j, (j + 1) % n) for j in range(n))
+    return DirectedTopology("directed_ring", A, nbrs).validate()
+
+
+def random_digraph(n: int, extra_edge_prob: float = 0.3,
+                   seed: int = 0) -> DirectedTopology:
+    """Strongly connected random digraph: the directed ring's j -> j+1
+    edges plus i.i.d. extra directed edges, drawn from
+    ``np.random.default_rng(seed)`` in the JAX package's loop order.
+    Column j splits j's unit mass uniformly over {j} and its
+    out-neighbours, so A is column- but not row-stochastic."""
+    if n == 1:
+        return DirectedTopology("random_digraph", np.ones((1, 1)), ((0,),))
+    rng = np.random.default_rng(seed)
+    out = [{(j + 1) % n} for j in range(n)]
+    for j in range(n):
+        for i in range(n):
+            if i != j and i != (j + 1) % n and rng.random() < extra_edge_prob:
+                out[j].add(i)
+    A = np.zeros((n, n))
+    for j in range(n):
+        share = 1.0 / (1 + len(out[j]))
+        A[j, j] = share
+        for i in out[j]:
+            A[i, j] = share
+    nbrs = tuple(tuple(sorted(out[j] | {j})) for j in range(n))
+    return DirectedTopology("random_digraph", A, nbrs).validate()
 
 
 def _from_adjacency(name: str, adj: np.ndarray) -> Topology:
@@ -183,19 +263,26 @@ _TOPOLOGIES = {
     "hypercube": hypercube,
 }
 
-#: the registry's names (the launcher's ``--topology`` choices)
+#: the registry's symmetric graphs
 SYMMETRIC_TOPOLOGIES = tuple(_TOPOLOGIES)
-#: the JAX registry's directed (column-stochastic) graphs: they need the
-#: push-sum engine, which the port does not have
+_TOPOLOGIES.update({"directed_ring": directed_ring,
+                    "random_digraph": lambda n: random_digraph(n)})
+#: the registry's directed (column-stochastic) graphs: they need the
+#: push-sum engine; the symmetric choco and plain engines refuse them
 DIRECTED_TOPOLOGIES = ("directed_ring", "random_digraph")
+#: every registry name (the launcher's ``--topology`` choices)
+TOPOLOGIES = SYMMETRIC_TOPOLOGIES + DIRECTED_TOPOLOGIES
 
 
-def make_topology(name: str, n: int) -> Topology:
-    """Build a registered symmetric topology by name at n nodes (the JAX
-    registry's names: ``torus`` builds ``torus2d``)."""
-    if name in DIRECTED_TOPOLOGIES:
-        raise ValueError(f"topology {name!r} is directed and needs the "
-                         f"push-sum engine, which is not ported")
+def is_directed(name: str) -> bool:
+    """True for the column-stochastic (push-sum-only) topology names."""
+    return name in DIRECTED_TOPOLOGIES
+
+
+def make_topology(name: str, n: int):
+    """Build a registered topology by name at n nodes (the JAX registry's
+    names: ``torus`` builds ``torus2d``; a directed name a
+    :class:`DirectedTopology`)."""
     if name not in _TOPOLOGIES:
         raise ValueError(f"unknown topology {name!r}; have "
                          f"{sorted(_TOPOLOGIES)}")

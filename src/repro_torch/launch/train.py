@@ -25,6 +25,9 @@ Spawned ranks on ``--device cpu`` run on one thread each
 (``CPU_RANK_ENV``), as the stacked run's bit-equal twin.
 ``--optimizer sgd|momentum|adamw`` picks the local step and
 ``--data-skew-alpha`` Dirichlet(alpha) non-IID token shards.
+``--mode pushsum`` runs directed push-sum gossip (``--topology
+directed_ring|random_digraph``, or a symmetric graph; the packed engine
+only).
 ``--gossip-engine per-leaf`` runs the per-leaf gossip engine (one payload
 per leaf) instead of the packed one, and ``--pipeline-gossip`` the
 pipelined engine (the exchange on the pre-gradient iterate, on a side
@@ -58,7 +61,7 @@ import time
 # torch-free: argument validation runs before torch is imported
 from repro_torch.configs.base import (STATE_DTYPES, parse_delay_probs,
                                       parse_straggler_edges, parse_topology)
-from repro_torch.core.topology import DIRECTED_TOPOLOGIES, SYMMETRIC_TOPOLOGIES
+from repro_torch.core.topology import DIRECTED_TOPOLOGIES, TOPOLOGIES
 from repro_torch.checkpoint.manifest import read_manifest
 from repro_torch.launch.env import file_rendezvous, torchrun_rendezvous
 
@@ -200,9 +203,6 @@ def _validate(ap, args) -> int:
     if args.state_dtype not in STATE_DTYPES:
         ap.error(f"--state-dtype {args.state_dtype} is not supported by the "
                  f"port: the EF state is {' or '.join(STATE_DTYPES)}")
-    if args.mode == "pushsum":
-        ap.error("--mode pushsum is not ported; the port runs --mode choco, "
-                 "plain or allreduce")
     if args.gossip_engine not in ENGINE_CHOICES:
         ap.error(f"--gossip-engine {args.gossip_engine!r}: choose from "
                  f"{', '.join(ENGINE_CHOICES)}")
@@ -216,13 +216,30 @@ def _validate(ap, args) -> int:
     if not names:
         ap.error("--topology: name at least one graph")
     for name in names:
-        if name in DIRECTED_TOPOLOGIES:
-            ap.error(f"--topology {name} is directed and needs --mode "
-                     f"pushsum, which is not ported")
-        if name not in SYMMETRIC_TOPOLOGIES:
+        if name not in TOPOLOGIES:
             ap.error(f"--topology {name!r}: choose from "
-                     f"{', '.join(SYMMETRIC_TOPOLOGIES)}, or a comma-separated "
+                     f"{', '.join(TOPOLOGIES)}, or a comma-separated "
                      f"sequence of them")
+    # directed graphs and push-sum: the JAX launcher's rules and wording
+    # (src/repro/launch/train.py:217-236)
+    if any(name in DIRECTED_TOPOLOGIES for name in names) \
+            and args.mode != "pushsum":
+        ap.error(f"--topology {args.topology!r} is directed "
+                 f"(column-stochastic); --mode {args.mode} assumes a "
+                 f"symmetric W. Directed graphs need the push-sum engine: "
+                 f"--mode pushsum (de-biased x/w, comm/pushsum.py)")
+    if args.mode == "pushsum":
+        if len(names) > 1:
+            ap.error("--mode pushsum runs one directed schedule; "
+                     f"time-varying sequences are unsupported "
+                     f"(got --topology {args.topology!r})")
+        if args.topology_process != "none":
+            ap.error("--mode pushsum owns its directed schedule; combining "
+                     "it with --topology-process is unsupported")
+        if args.gossip_engine != "packed":
+            ap.error("--mode pushsum is packed-only (the weight scalar "
+                     "rides in-band with the bucket payloads); drop "
+                     "--gossip-engine per-leaf")
     if args.topology_process != "none":
         # the JAX launcher's combination rules
         # (src/repro/launch/train.py:237-258)
@@ -500,7 +517,8 @@ def _train(args, n_nodes: int, group) -> int:
                                   skew_alpha=trainer.choco.data_skew_alpha,
                                   node=None if group is None else group.rank)
     engine = "stacked" if group is None else "per-rank"
-    compressor = args.compressor if args.mode == "choco" else "none"
+    compressor = (args.compressor if args.mode in ("choco", "pushsum")
+                  else "none")
     skew = ("" if args.data_skew_alpha is None else
             f" data_skew_alpha={args.data_skew_alpha} "
             f"skew_tv={next_batch.skew_tv:.4f}")
@@ -532,7 +550,7 @@ def _train(args, n_nodes: int, group) -> int:
     else:
         say(f"[train] engine per-rank state_dtype={args.state_dtype}: one "
             f"process per node; transport {group.describe()}", flush=True)
-        if args.mode == "choco":
+        if args.mode in ("choco", "pushsum"):
             say(f"[train] probe {trainer.exchange.probe}", flush=True)
 
     state, resumed = _initial_state(args, trainer, n_nodes, say)

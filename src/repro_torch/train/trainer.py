@@ -74,8 +74,20 @@ and its depth-tau ring of own increments in x_hat (1 + tau) and the R
 replicas, then the R receive rings, in s (R (1 + tau)); the plain mode
 averages with the sampled matrix and keeps none (staleness refuses it).
 Gamma is then the scalar Theorem-2 value at the expected matrix's
-(delta, beta) and the process's effective omega.  The push-sum mode with
-the directed topologies and a fixed gamma are not ported.
+(delta, beta) and the process's effective omega.  A fixed gamma is not
+ported.
+
+The push-sum mode (``mode="pushsum"``, JAX ``comm/pushsum.py``) runs the
+directed graphs (``directed_ring``, ``random_digraph``; a symmetric graph
+too, through its symmetric schedule) on the packed engine only, with one
+schedule, no topology process and no pipelining, as the JAX trainer:
+the state adds the weight column ``TrainState.psw`` ((n, 1) f32, ones);
+the gradient is taken at the de-biased z = x / w (a copy of x for the
+length of the gradient) but is the gradient with respect to z, not
+through the division; the optimizer's half-step updates x, and the
+push-sum exchange (``make_pushsum_exchange``) takes (x, x_hat, s, w).
+Gamma is the scalar Theorem-2 value at A's (delta, beta) and the worst
+bucket's omega.
 
 Gamma follows the JAX trainer: the packed engine takes per-bucket
 Theorem-2 values (``GammaSpec``), the per-leaf engine one scalar at
@@ -85,7 +97,8 @@ and omega / 2 of its delay-1 surrogate, a ``StalenessProcess`` with
 
 Checkpoints hold the JAX ``TrainState``'s leaves under its flat keys
 (``params__embed__tok``, ``x_hat__...``, ``s__...``, ``opt__mu__...``,
-``opt__nu__...``, ``opt__count``, ``step``, ``key``), node-stacked with
+``opt__nu__...``, ``opt__count``, ``step``, ``key``, and under push-sum
+``psw``), node-stacked with
 the JAX shapes and dtypes, so each package restores the other's: a save
 unpacks each leaf from the buckets and streams it to disk node row by
 node row; a restore packs the leaves into zeroed buckets, so the padding
@@ -117,28 +130,33 @@ from repro_torch.comm.packing import (bucket_omega_worst, fold_seed,
                                       leaf_route, make_bucket_spec,
                                       pack_leaves, unpack_leaves)
 from repro_torch.comm.pipelined import pipeline_delay_process
+from repro_torch.comm.pushsum import (debias, make_dist_pushsum_exchange,
+                                      make_pushsum_exchange)
 from repro_torch.checkpoint.checkpointing import (LegacyStore, Leaf, Part,
                                                   ShardStore, flat_key,
                                                   save_sharded, storage_tensor)
 from repro_torch.checkpoint.elastic import (consensus_warmup_rounds,
                                             elastic_ratio, mean_rows,
                                             source_rows)
-from repro_torch.checkpoint.manifest import (LeafSpec, Manifest,
-                                             read_manifest, storage_dtype,
-                                             validate_tree)
-from repro_torch.comm.schedule import compile_schedules
+from repro_torch.checkpoint.manifest import (ElasticRestoreError, LeafSpec,
+                                             Manifest, read_manifest,
+                                             storage_dtype, validate_tree)
+from repro_torch.comm.schedule import (compile_directed_schedule,
+                                       compile_schedules)
 from repro_torch.comm.stochastic import PROCESS_KINDS, make_topology_process
 from repro_torch.configs.base import (STATE_DTYPES, ChocoConfig,
                                       parse_delay_probs,
                                       parse_straggler_edges, parse_topology)
 from repro_torch.core.choco_gossip import GammaSpec, theorem2_stepsize
 from repro_torch.core.compression import make_compressor
-from repro_torch.core.topology import make_topology
+from repro_torch.core.topology import is_directed, make_topology
 from repro_torch.models.transformer import Model, param_shapes
 from repro_torch.optim.sgd import OptState
 
-#: the exchange modes of the JAX trainer that the port runs
-MODES = ("choco", "plain", "allreduce")
+#: the exchange modes of the JAX trainer, all of which the port runs
+MODES = ("choco", "plain", "allreduce", "pushsum")
+#: the modes that compress (and keep the EF state x_hat and s)
+_COMPRESSED = ("choco", "pushsum")
 
 #: fingerprint entries of JAX ``ChocoConfig`` settings the port does not
 #: have, at the JAX defaults a port run stands for
@@ -195,6 +213,8 @@ class TrainState:
     step: int = 0
     seed: int = 0                # salts the compressors' draws every step;
                                  #   the checkpoint's JAX key (key_words)
+    psw: Optional[torch.Tensor] = None    # push-sum's (n, 1) f32 weight
+                                          #   column; None off push-sum
 
 
 @dataclasses.dataclass
@@ -207,12 +227,12 @@ class DecentralizedTrainer:
     device: object = "cuda"
     #: this process's rank in the per-rank engine; None: all nodes here
     group: Optional[object] = None
-    mode: str = "choco"          # choco | plain | allreduce
+    mode: str = "choco"          # choco | plain | allreduce | pushsum
 
     def __post_init__(self):
         if self.mode not in MODES:
-            raise ValueError(f"mode={self.mode!r} is not ported; choose from "
-                             f"{', '.join(MODES)} (push-sum is not ported)")
+            raise ValueError(f"mode={self.mode!r} is not a mode; choose "
+                             f"from {', '.join(MODES)}")
         if self.model.cfg.attn_impl != "naive":
             raise ValueError(
                 f"attn_impl={self.model.cfg.attn_impl!r} cannot train: the "
@@ -224,14 +244,18 @@ class DecentralizedTrainer:
             self.device = self.group.device
             self.nodes = (self.group.rank,)
         names = parse_topology(self.choco.topology)
-        # as in the JAX trainer: only choco compresses
+        self._check_pushsum(names)
+        # as in the JAX trainer: choco and push-sum compress
         self.compressor = (make_compressor(self.choco.compressor,
                                            **self.choco.comp_dict())
-                           if self.mode == "choco" else None)
+                           if self.mode in _COMPRESSED else None)
         # as on a JAX mesh without a pod axis (the port's is always Nx1)
         self.topologies = tuple(make_topology(name, self.n_nodes)
                                 for name in names)
-        self.schedules = compile_schedules(self.topologies)
+        self.schedules = (
+            (compile_directed_schedule(self.topologies[0]),)
+            if any(map(is_directed, names))
+            else compile_schedules(self.topologies))
         if (len(self.schedules) > 1
                 and self.choco.gossip_steps % len(self.schedules) != 0):
             raise ValueError(
@@ -257,10 +281,10 @@ class DecentralizedTrainer:
         if self.choco.state_dtype not in STATE_DTYPES:
             raise ValueError(f"state_dtype={self.choco.state_dtype!r} is not "
                              f"ported; choose from {', '.join(STATE_DTYPES)}")
-        # the EF state's dtype under choco; the exact modes allocate no EF
-        # state and pack the parameters' own dtype
+        # the EF state's dtype under choco and push-sum; the exact modes
+        # allocate no EF state and pack the parameters' own dtype
         self.state_dtype = (getattr(torch, self.choco.state_dtype)
-                            if self.mode == "choco"
+                            if self.mode in _COMPRESSED
                             else self.model.param_dtype)
         self.paths = [p for p, _ in param_shapes(self.model.cfg)]
         shapes = dict(param_shapes(self.model.cfg))
@@ -269,10 +293,12 @@ class DecentralizedTrainer:
              for p in self.paths],
             align=_pack_align(self.compressor), exact_small_leaves=exact,
             routes=[leaf_route(p) for p in self.paths])
-        # the JAX process engine packs without exact buckets (its gamma
-        # still takes the omega of the trainer's spec, exact buckets and all)
-        replicas = self.process is not None and self.mode == "choco"
-        self.spec = spec_of(self.choco.exact_small_leaves and not replicas)
+        # the JAX process and push-sum engines pack without exact buckets
+        # (their gamma still takes the omega of the trainer's spec, exact
+        # buckets and all)
+        unexact = ((self.process is not None and self.mode == "choco")
+                   or self.mode == "pushsum")
+        self.spec = spec_of(self.choco.exact_small_leaves and not unexact)
         dist = self.group is not None
         kw = dict(spec=self.spec, schedules=self.schedules,
                   gossip_steps=self.choco.gossip_steps)
@@ -288,6 +314,20 @@ class DecentralizedTrainer:
             kw["process"] = self.process
             self.exchange = (make_dist_plain_exchange(**kw, group=self.group)
                              if dist else make_plain_exchange(**kw))
+        elif self.mode == "pushsum":
+            # the JAX trainer's scalar at A's (delta, beta) and the worst
+            # omega of its own spec (exact buckets and all), no GammaSpec
+            omega = bucket_omega_worst(
+                spec_of(self.choco.exact_small_leaves), self.compressor)
+            self.gamma = theorem2_stepsize(
+                min(t.delta for t in self.topologies),
+                max(t.beta for t in self.topologies), omega)
+            pkw = dict(spec=self.spec, schedule=self.schedules[0],
+                       compressor=self.compressor, gamma=self.gamma,
+                       gossip_steps=self.choco.gossip_steps)
+            self.exchange = (make_dist_pushsum_exchange(**pkw,
+                                                        group=self.group)
+                             if dist else make_pushsum_exchange(**pkw))
         elif self.process is not None:
             # the JAX trainer's: the scalar at the expected (delta, beta),
             # omega the worst bucket's of its own spec (no GammaSpec)
@@ -330,6 +370,31 @@ class DecentralizedTrainer:
                              if packed else self.gamma))
             self.exchange = (make_dist_choco_exchange(**kw, group=self.group)
                              if dist else make_choco_exchange(**kw))
+
+    def _check_pushsum(self, names) -> None:
+        """The JAX trainer's and exchange's rules for directed graphs and
+        the push-sum mode (``src/repro/train/trainer.py:85-98``,
+        ``src/repro/comm/gossip.py:961-969``)."""
+        directed = [n for n in names if is_directed(n)]
+        if directed and self.mode != "pushsum":
+            raise ValueError(
+                f"topology={self.choco.topology!r} is directed "
+                f"(column-stochastic): the symmetric {self.mode!r} engine "
+                f"would average with a non-row-stochastic matrix and "
+                f"converge to a Perron-biased point, not the mean.  Directed "
+                f"graphs require the push-sum engine: mode='pushsum' "
+                f"(comm/pushsum.py, de-biased x/w).")
+        if self.mode != "pushsum":
+            return
+        if len(names) != 1:
+            raise ValueError(
+                f"push-sum runs one directed schedule; time-varying "
+                f"sequences are not supported (got topology="
+                f"{self.choco.topology!r})")
+        if not self.choco.packed_gossip:
+            raise ValueError("the push-sum engine is packed-only (the weight "
+                             "scalar rides in-band with the bucket payloads); "
+                             "per-leaf push-sum is not implemented")
 
     def _make_process(self):
         """The topology process over the compiled schedule, with the JAX
@@ -392,8 +457,8 @@ class DecentralizedTrainer:
         engine), a count for a list of that many (the replica engine:
         matching (R, R), link failures (None, R), bounded staleness
         (1 + tau, R (1 + tau)): the public copy and the own ring, then the
-        R replicas and the R receive rings); (None, None) too in the exact
-        modes, which allocate none."""
+        R replicas and the R receive rings); (None, None) too under
+        push-sum and in the exact modes, which allocate none."""
         if self.process is None or self.mode != "choco":
             return None, None
         R = self.process.schedule.n_rounds
@@ -416,7 +481,8 @@ class DecentralizedTrainer:
         of the nodes this trainer holds (e.g.
         ``repro_torch.convert.params_from_jax``; one rank holds one row):
         x packed into buckets, the optimizer's moments zero, and under
-        choco x_hat and s zero (None in the exact modes)."""
+        choco and push-sum x_hat and s zero (None in the exact modes);
+        under push-sum the weight column w ones."""
         leaves = [params[p].to(self.device) for p in self.paths]
         if leaves[0].shape[0] != len(self.nodes):
             raise ValueError(f"params hold {leaves[0].shape[0]} nodes, the "
@@ -424,12 +490,15 @@ class DecentralizedTrainer:
         x = pack_leaves(self.spec, leaves, dtype=self.model.param_dtype)
         del leaves
         zeros = lambda: ([torch.zeros_like(b, dtype=self.state_dtype)
-                          for b in x] if self.mode == "choco" else None)
+                          for b in x] if self.mode in _COMPRESSED else None)
         listed = lambda count: (zeros() if count is None
                                 else [zeros() for _ in range(count)])
         n_hat, n_s = self.ef_layout()
+        psw = (torch.ones((len(self.nodes), 1), dtype=torch.float32,
+                          device=self.device)
+               if self.mode == "pushsum" else None)
         return TrainState(x=x, x_hat=listed(n_hat), s=listed(n_s),
-                          opt=self.optimizer.init(x), seed=seed)
+                          opt=self.optimizer.init(x), seed=seed, psw=psw)
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh state from the model's random init under ``seed``."""
@@ -472,9 +541,13 @@ class DecentralizedTrainer:
                 state.opt = self.optimizer.update(state.x, grads, state.opt,
                                                   lr)
                 del grads          # frees a state-sized copy for the exchange
-                self.exchange(state.x, state.x_hat, state.s,
-                              seed=fold_seed(state.seed, state.step),
-                              draws=draws, **self._sampled(samples))
+                seed = fold_seed(state.seed, state.step)
+                if self.mode == "pushsum":
+                    self.exchange(state.x, state.x_hat, state.s, state.psw,
+                                  seed=seed, draws=draws)
+                else:
+                    self.exchange(state.x, state.x_hat, state.s, seed=seed,
+                                  draws=draws, **self._sampled(samples))
         state.step += 1
         losses = losses.detach()
         if self.group is None:
@@ -497,14 +570,24 @@ class DecentralizedTrainer:
         return {} if self.process is None else {"samples": samples}
 
     def _gradient(self, state: TrainState, batch):
-        """(per-node losses, gradients in bucket layout) at state.x."""
-        for b in state.x:
+        """(per-node losses, gradients in bucket layout) at state.x, or
+        under push-sum at z = x / w: the gradient with respect to z (the
+        JAX trainer's, not through the division, which would scale node
+        i's step by 1/w_i), z a copy of x freed on return."""
+        at = state.x
+        if self.mode == "pushsum":
+            with torch.no_grad():
+                at = [debias(b, state.psw) for b in state.x]
+        for b in at:
             b.requires_grad_(True)
-        losses = self.model.loss(self.params(state), batch)     # (n,)
-        grads = list(torch.autograd.grad(losses.sum(), state.x))
-        for b in state.x:
+        losses = self.model.loss(
+            dict(zip(self.paths, unpack_leaves(self.spec, at))), batch)
+        grads = list(torch.autograd.grad(losses.sum(), at))     # (n,) losses
+        for b in at:
             b.requires_grad_(False)
-        return losses, grads
+        # detached: the graph behind losses holds its leaves (z under
+        # push-sum, a state-sized copy) as long as losses lives
+        return losses.detach(), grads
 
     def _side_stream(self):
         """The stacked engine's side CUDA stream for the pipelined
@@ -626,6 +709,8 @@ class DecentralizedTrainer:
                                                  dtype)
         specs.update({"opt__count": ((), "int32"), "step": ((), "int32"),
                       "key": ((2,), "uint32")})
+        if self.mode == "pushsum":
+            specs["psw"] = ((self.n_nodes, 1), "float32")
         return specs
 
     def _leaves(self, state: TrainState) -> Iterator[Leaf]:
@@ -655,6 +740,11 @@ class DecentralizedTrainer:
             yield Leaf(key, arr.shape, dtype,
                        [Part([0] * arr.ndim, list(arr.shape), arr)]
                        if first else [])
+        if state.psw is not None:
+            # node-sharded like the parameters (JAX P(gossip, None))
+            yield Leaf("psw", (self.n_nodes, 1), "float32",
+                       [Part([node, 0], [node + 1, 1], state.psw[r:r + 1])
+                        for r, node in enumerate(self.nodes)])
 
     def save_checkpoint(self, path: str, state: TrainState,
                         metadata: Optional[dict] = None,
@@ -680,8 +770,10 @@ class DecentralizedTrainer:
         reading only the node rows this trainer holds.  Returns (state,
         manifest, warmup rounds), deciding as the JAX trainer does:
 
-        * same node count, and under choco the same graph and compression
-          fingerprint: resume-exact, 0 rounds;
+        * same node count, and under choco and push-sum the same graph and
+          compression fingerprint: resume-exact, 0 rounds;
+        * under push-sum anything else raises ``ElasticRestoreError``, as
+          in JAX: the weight column holds conserved mass, 1^T w = n;
         * another node count: rows remapped by the elastic policy (a
           resize it cannot map fails first), x_hat and s zero, and the
           warmup rounds of the new graph's spectral gap;
@@ -697,6 +789,13 @@ class DecentralizedTrainer:
                 and fp.get("max_staleness", 0) == self.effective_staleness()
                 and all(fp.get(k, mine[k]) == mine[k]
                         for k in _COMPRESSION_KEYS))
+        if self.mode == "pushsum" and not (same_nodes and same):
+            raise ElasticRestoreError(
+                f"elastic restore is not supported for push-sum: the weight "
+                f"column w encodes conserved mass (1^T w = n) that a node-"
+                f"count or graph change would corrupt (checkpoint "
+                f"n_nodes={n_old}, topology={fp.get('topology')!r} -> "
+                f"n_nodes={self.n_nodes}, topology={self.choco.topology!r})")
         exact = same_nodes and (self.mode != "choco" or same)
         remap = None
         if not same_nodes:
@@ -767,7 +866,7 @@ class DecentralizedTrainer:
 
         has_mu, has_nu = self._moments()
         f32 = self.model.param_dtype
-        choco = self.mode == "choco"
+        choco = self.mode in _COMPRESSED
         state_dt = getattr(torch, self.choco.state_dtype)
 
         def ef(name, count):
@@ -783,7 +882,11 @@ class DecentralizedTrainer:
             opt=OptState(mu=read("opt__mu", f32) if has_mu else None,
                          nu=read("opt__nu", f32) if has_nu else None,
                          count=int(scalar("opt__count"))),
-            step=int(scalar("step")), seed=seed_of_key(scalar("key")))
+            step=int(scalar("step")), seed=seed_of_key(scalar("key")),
+            psw=None if self.mode != "pushsum" else torch.from_numpy(
+                np.concatenate([store.read_region("psw", [node, 0],
+                                                  [node + 1, 1], "float32")
+                                for node in self.nodes])).to(self.device))
 
     def consensus_warmup(self, state: TrainState, rounds: int,
                          draws: Optional[Callable[[int, int, int],

@@ -351,8 +351,12 @@ def test_exact_mode_matches_jax_trainer(refs, case):
 
 
 def test_trainer_refuses_pushsum():
-    with pytest.raises(ValueError, match="push-sum is not ported"):
-        port_trainer(trainer_case("x", "pushsum"))
+    """Push-sum runs one schedule: a time-varying sequence is refused, as
+    the JAX trainer refuses it."""
+    with pytest.raises(ValueError, match="push-sum runs one directed "
+                                         "schedule"):
+        port_trainer(trainer_case("x", "pushsum", topology="ring,star",
+                                  k=2))
 
 
 # -- the per-rank engine on gloo ------------------------------------------------
@@ -490,7 +494,8 @@ def test_launcher_skew_tv_is_the_streams():
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--mode", "pushsum"], "--mode pushsum is not ported"),
+    (["--mode", "pushsum", "--gossip-engine", "per-leaf"],
+     "--mode pushsum is packed-only"),
     (["--data-skew-alpha", "0"], "--data-skew-alpha must be > 0"),
     (["--data-skew-alpha", "-1"], "--data-skew-alpha must be > 0"),
     (["--gossip-engine", "per_leaf"], "--gossip-engine 'per_leaf'"),

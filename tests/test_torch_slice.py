@@ -88,7 +88,7 @@ _JAX_REFERENCE = textwrap.dedent("""
     from repro.train.trainer import DecentralizedTrainer
 
     (comp, arg, k, exact, steps, seq, bpn, out, topology, sdt, engine,
-     process, drop, tau, stragglers) = sys.argv[1:]
+     process, drop, tau, stragglers, mode) = sys.argv[1:]
     process = None if process == "none" else process
     packed = not engine.startswith("per-leaf")
     k, steps, seq, bpn = int(k), int(steps), int(seq), int(bpn)
@@ -118,11 +118,11 @@ _JAX_REFERENCE = textwrap.dedent("""
                              if process == "staleness" else {})),
         mesh=mesh, n_nodes=4, optimizer=make_optimizer("momentum"),
         lr_fn=cosine_schedule(0.1, warmup=steps // 10 + 1, total=steps),
-        mode="choco")
+        mode=mode)
     from repro.comm.gossip import _resolve_bucket_gammas
     res = {"gamma": np.array([tr.gamma] + (_resolve_bucket_gammas(
         tr.gamma_spec, tr._bucket_spec(), tr.compressor)
-        if packed and process is None else []))}
+        if packed and process is None and mode == "choco" else []))}
 
     def save(tag, tree):
         # bf16 state is saved as the f32 values it holds (exact)
@@ -156,6 +156,8 @@ _JAX_REFERENCE = textwrap.dedent("""
     save("x", state.params)
     save("x_hat", state.x_hat)
     save("s", state.s)
+    if state.psw is not None:
+        res["psw"] = np.asarray(state.psw)
     if comp == "qsgd" and not packed:
         # the per-leaf engine's dither: node i of step j, gossip round t,
         # leaf l (tree order) draws uniform(split(fold_in(round_key, 0),
@@ -197,7 +199,7 @@ _JAX_REFERENCE = textwrap.dedent("""
 
 def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
                        topology="ring", state_dtype="float32",
-                       engine="packed", process=None):
+                       engine="packed", process=None, mode="choco"):
     """The path of the JAX reference run of one case (on the ring unless
     ``topology`` names another graph or a comma-separated sequence; f32
     EF state unless ``state_dtype`` says "bfloat16"; the packed engine
@@ -205,7 +207,8 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
     "per-leaf-pipelined"; the static graph unless ``process`` names a
     topology process, "matching", "linkfail" at PROCESS_DROP, or
     "staleness" at PROCESS_TAU with the PROCESS_STRAGGLERS link, whose
-    samples the run saves as ``sample:<step>:<round>``), made
+    samples the run saves as ``sample:<step>:<round>``; the choco mode
+    unless ``mode`` says "pushsum", whose run saves ``psw``), made
     once per pytest run: tests that need the same case share it, across
     xdist workers too (they meet in the run's common temporary directory
     and take turns under a file lock)."""
@@ -221,6 +224,8 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
         tag += "_" + engine
     if process is not None:
         tag += "_" + process
+    if mode != "choco":
+        tag += "_" + mode
     out = root / f"jax_{comp}_{arg}_{k}_{'exact' if exact else '-'}{tag}.npz"
     with open(str(out) + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -234,7 +239,7 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
                  "exact" if exact else "-", str(STEPS), str(SEQ), str(BPN),
                  str(part), topology, state_dtype, engine,
                  process or "none", str(PROCESS_DROP), str(PROCESS_TAU),
-                 PROCESS_STRAGGLERS],
+                 PROCESS_STRAGGLERS, mode],
                 env=env, capture_output=True, text=True, timeout=600)
             assert r.returncode == 0, \
                 f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
@@ -255,7 +260,8 @@ def _tree(ref, tag):
 
 
 def _port_trainer(comp, arg, k, exact, topology="ring",
-                  state_dtype="float32", engine="packed", process=None):
+                  state_dtype="float32", engine="packed", process=None,
+                  mode="choco"):
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
                               dtype="float32")
     if comp == "qsgd":
@@ -285,7 +291,7 @@ def _port_trainer(comp, arg, k, exact, topology="ring",
                                                else {})),
         n_nodes=N, optimizer=momentum_sgd(),
         lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
-        device="cpu")
+        device="cpu", mode=mode)
 
 
 @pytest.mark.slow
@@ -424,7 +430,8 @@ def test_launcher_runs_each_compressor_on_cpu(extra, capsys):
     (["--compressor", "power_sgd"], "--compressor power_sgd is not ported"),
     (["--compressor", "sign", "--gossip-steps", "0"],
      "--gossip-steps must be >= 1"),
-    (["--compressor", "sign", "--mode", "pushsum"], "--mode pushsum"),
+    (["--compressor", "sign", "--mode", "pushsum", "--topology-process",
+      "matching"], "--mode pushsum owns its directed schedule"),
     (["--compressor", "sign", "--pipeline-gossip", "--topology", "ring,star",
       "--gossip-steps", "2"], "--pipeline-gossip needs one static schedule"),
     (["--compressor", "sign", "--topology-process", "staleness",
@@ -435,7 +442,9 @@ def test_launcher_runs_each_compressor_on_cpu(extra, capsys):
     (["--compressor", "sign", "--state-dtype", "float16"], "--state-dtype"),
     (["--compressor", "sign", "--kernel-backend", "pallas"],
      "--kernel-backend"),
-    (["--compressor", "sign", "--topology", "directed_ring"], "--topology"),
+    (["--compressor", "sign", "--topology", "directed_ring"],
+     "--topology 'directed_ring' is directed (column-stochastic); --mode "
+     "choco assumes a symmetric W"),
     (["--compressor", "sign", "--mesh", "4x2"], "model extent 2"),
     (["--compressor", "sign", "--keep-checkpoints", "2"],
      "--keep-checkpoints requires --checkpoint-dir"),

@@ -9,7 +9,8 @@ schedule ``t % 2`` in gossip round t.
 * gossip_steps must be a multiple of the sequence's length, and gamma
   takes the worst (delta, beta) over the sequence, as in the JAX trainer;
 * the launcher trains on --topology star, chain, torus and "ring,star",
-  and refuses the directed graphs before torch is imported.
+  and refuses the directed graphs outside --mode pushsum before torch is
+  imported.
 
 The torus and star runs are in ``test_torch_topology.py``; each file
 makes its own JAX reference runs, so pytest-xdist can run them apart.
@@ -66,9 +67,10 @@ def test_launcher_trains_on_the_topology(extra, capsys):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--topology", "directed_ring"], "needs --mode pushsum"),
+    (["--topology", "directed_ring"], "need the push-sum engine: --mode "
+                                      "pushsum"),
     (["--topology", "ring,random_digraph", "--gossip-steps", "2"],
-     "--topology random_digraph is directed"),
+     "--topology 'ring,random_digraph' is directed"),
     (["--topology", "moebius"], "choose from ring, torus"),
     (["--topology", "ring,star"], "--gossip-steps must be a multiple of 2"),
 ])

@@ -116,9 +116,15 @@ def test_compile_schedules_refuses_mixed_n():
 
 
 def test_directed_topologies_are_refused():
+    """The symmetric engines refuse the directed graphs: the symmetric
+    compiler a non-symmetric W, the choco trainer a directed name (both
+    name the push-sum engine)."""
     for name in ("directed_ring", "random_digraph"):
+        A = topology.make_topology(name, 4).A
         with pytest.raises(ValueError, match="push-sum"):
-            topology.make_topology(name, 4)
+            schedule.compile_schedule(topology.Topology(name, A, ()))
+        with pytest.raises(ValueError, match="push-sum engine"):
+            _port_trainer("top_k", 0.05, 1, False, topology=name)
     W = np.array([[0.5, 0.5, 0.0], [0.0, 0.5, 0.5], [0.5, 0.0, 0.5]])
     with pytest.raises(ValueError, match="symmetric"):
         schedule.compile_schedule(topology.Topology("directed", W, ()))
