@@ -181,18 +181,26 @@ from the root of a checkout, on a machine with one CUDA device.  It
    printed;
 7. holds the flash-attention kernels against their plain version: the
    bf16 tensor-core kernel (``csrc/flash_attention_sm90.cu``; the build
-   phase checks that its SASS holds wgmma and TMA loads) at the
+   phase checks that the SASS of all six instances, Dh 64, 128 and 256
+   with and without a window, holds wgmma and TMA loads) at the
    full-width prefill layer shape (32768 tokens, 16/8 heads, causal), at
    an odd length (1000), at 2048, at Dh 64 with a softcap and non-causal,
-   each to contract (a) (``FLASH_BF16_RTOL``, ``FLASH_BF16_ULP_SHARE``)
-   and its plain version to contract (b) against the f32-P result; the
-   f32 3xTF32 tensor-core kernel (``csrc/flash_attention.cu``; the build
-   phase checks that its SASS holds wgmma) within 1e-5 of max|out| at Dh
-   64 with a softcap (non-causal and causal), at 2048 and at an odd
-   length (1000); and times the bf16 kernel at the prefill layer, its
-   plain version, ``scaled_dot_product_attention`` (the library
-   yardstick, which the port never calls) and the bounds, and the f32
-   kernel at the same shape, held within 1e-5 there too, beside SDPA on
+   at gemma2-9b's global layer (Dh 256, softcap 50) and local layer (the
+   same with the 4096-token window), gemma-7b's layer (16/16 heads), Dh
+   256 at an odd length with a window of 300 and non-causal, and with a
+   window at Dh 64 and 128, causal and not, each to contract (a)
+   (``FLASH_BF16_RTOL``, ``FLASH_BF16_ULP_SHARE``) and its plain version
+   to contract (b) against the f32-P result; the f32 3xTF32 tensor-core
+   kernel (``csrc/flash_attention.cu``; the build phase checks that its
+   four instances' SASS holds wgmma) within 1e-5 of max|out| at Dh 64
+   with a softcap (non-causal and causal), at 2048, at an odd length
+   (1000) and with a window at Dh 64 and 128 (causal with a softcap,
+   non-causal); and times the bf16 kernel at the qwen3 prefill layer and
+   the three 32768-token Dh 256 layers, its plain version,
+   ``scaled_dot_product_attention`` (the library yardstick, which the
+   port never calls; at the local layer with the window as a boolean
+   mask, where a backend takes it) and the bounds, and the f32 kernel at
+   the qwen3 layer's shape, held within 1e-5 there too, beside SDPA on
    the same f32 inputs and SDPA's own distance to the plain version;
 8. prefills qwen3-1.7b at full width and full depth (28 layers) through
    ``Model.prefill`` with ``attn_impl="chunked"``: one prompt of 32768
@@ -213,7 +221,22 @@ from the root of a checkout, on a machine with one CUDA device.  It
    (``prefill_budget``: the flash kernel against its plain version,
    chunked and naive attention on the card against the CPU), holding the
    test's bounds;
-11. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+11. serves gemma2-9b at full width and depth (42 layers, local layers of
+   a 4096-token window alternating with global ones, head dim 256, bf16,
+   weights from seed 0 drawn in f32, cast, the draw freed): its
+   ``prefill_32k`` prefill (batch 1) twice, 42 flash launches a call, 21
+   of them windowed, none of the f32 kernel, the global caches (1, 21, 1,
+   32768, 8, 256) and the local rings (1, 21, 1, 4096, 8, 256), the peak
+   device memory and a profiled call split into flash / matmul / other;
+   then caches of 32768 + 8 slots filled through ``Model.hidden`` and 8
+   decode steps past position 32768 (finite logits, the global caches'
+   new slots written, the local rings written over: they wrap);
+   ``[consistency]`` at its full width (prompt 256, batch 2); the serve
+   launcher at ``--arch gemma2-9b``; and ``[dense small]``: the gemma2-9b
+   and gemma-7b smoke models in f32, chunked and naive, and yi-9b naive
+   (its head dim 32 is not the kernel's), prefill of 24 plus 40 decode
+   steps (the smoke window of 16 wraps), card against CPU;
+12. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints ``[phase] <name> <seconds> s`` as it ends (the host's
@@ -285,20 +308,53 @@ PIPELINED_STATE = "bfloat16"
 #: one node's embedding leaf as the per-leaf engine compresses it: 75 rows
 #: of BLOCK_COMPRESS_SIZE (311,164,928 elements, zero-padded)
 EMBED_LEAF_ROWS = 75
-#: (label, N, S, H, KV, Dh, dtype, causal, softcap); the first is the
-#: full-width prefill layer, and the one that is timed.  Drawn in this
-#: order from one generator, so each case keeps its inputs from run to run.
+#: (label, N, S, H, KV, Dh, dtype, causal, softcap, window); the first is
+#: qwen3-1.7b's full-width prefill layer, and the first one that is timed.
+#: Drawn in this order from one generator, so each case keeps its inputs
+#: from run to run.
 FLASH_CASES = (
-    ("prefill layer", 1, 32768, 16, 8, 128, "bfloat16", True, None),
-    ("odd length", 2, 1000, 16, 8, 128, "bfloat16", True, None),
-    ("f32 softcap", 2, 512, 8, 8, 64, "float32", False, 50.0),
-    ("S 2048", 1, 2048, 16, 8, 128, "bfloat16", True, None),
-    ("Dh 64 softcap", 2, 512, 8, 8, 64, "bfloat16", False, 50.0),
-    ("non-causal", 2, 1000, 16, 8, 128, "bfloat16", False, None),
-    ("f32 S 2048", 1, 2048, 16, 8, 128, "float32", True, None),
-    ("f32 odd length", 2, 1000, 16, 8, 128, "float32", True, None),
-    ("f32 Dh 64 softcap causal", 2, 512, 8, 8, 64, "float32", True, 50.0),
+    ("prefill layer", 1, 32768, 16, 8, 128, "bfloat16", True, None, None),
+    ("odd length", 2, 1000, 16, 8, 128, "bfloat16", True, None, None),
+    ("f32 softcap", 2, 512, 8, 8, 64, "float32", False, 50.0, None),
+    ("S 2048", 1, 2048, 16, 8, 128, "bfloat16", True, None, None),
+    ("Dh 64 softcap", 2, 512, 8, 8, 64, "bfloat16", False, 50.0, None),
+    ("non-causal", 2, 1000, 16, 8, 128, "bfloat16", False, None, None),
+    ("f32 S 2048", 1, 2048, 16, 8, 128, "float32", True, None, None),
+    ("f32 odd length", 2, 1000, 16, 8, 128, "float32", True, None, None),
+    ("f32 Dh 64 softcap causal", 2, 512, 8, 8, 64, "float32", True, 50.0,
+     None),
+    # gemma2-9b's global and local (window 4096) layers, gemma-7b's (MHA)
+    ("gemma2 global layer", 1, 32768, 16, 8, 256, "bfloat16", True, 50.0,
+     None),
+    ("gemma2 local layer", 1, 32768, 16, 8, 256, "bfloat16", True, 50.0,
+     4096),
+    ("gemma-7b layer", 1, 32768, 16, 16, 256, "bfloat16", True, None, None),
+    ("Dh 256 odd length window", 2, 1000, 16, 8, 256, "bfloat16", True, None,
+     300),
+    ("Dh 256 non-causal", 2, 1000, 16, 8, 256, "bfloat16", False, 50.0, None),
+    ("non-causal window", 2, 1000, 16, 8, 128, "bfloat16", False, None, 300),
+    ("Dh 256 non-causal window", 2, 1000, 16, 8, 256, "bfloat16", False,
+     None, 300),
+    ("Dh 64 window softcap", 2, 1000, 8, 4, 64, "bfloat16", True, 50.0, 100),
+    ("f32 Dh 64 window softcap", 2, 1000, 8, 8, 64, "float32", True, 50.0,
+     300),
+    ("f32 Dh 128 window softcap", 2, 1000, 16, 8, 128, "float32", True, 50.0,
+     300),
+    ("f32 non-causal window", 2, 1000, 8, 4, 64, "float32", False, None, 100),
 )
+#: the FLASH_CASES timed beside the plain version, SDPA and the bound, each
+#: a record of its own: the first stands for the qwen3-1.7b layer (the
+#: ``flash_attention`` entry), the gemma2 layers for the Dh 256 variants
+FLASH_TIMED = ("prefill layer", "gemma2 global layer", "gemma2 local layer",
+               "gemma-7b layer")
+#: [decode-32k]: decode steps that continue gemma2-9b's 32768-token
+#: prefill, past its global caches' prompt slots and around its local rings
+DECODE_PAST_STEPS = 8
+#: [dense small]: (arch, attn_impl) of the smoke models held card against
+#: CPU (yi-9b's head dim 32 is refused by the flash kernel: naive only)
+DENSE_SMALL = (("gemma2-9b", "chunked"), ("gemma2-9b", "naive"),
+               ("gemma-7b", "chunked"), ("gemma-7b", "naive"),
+               ("yi-9b", "naive"))
 PREFILL_CALLS = 2
 #: the f32 prefill test's cache tolerance, atol (rtol 1e-5), from
 #: ``prefill_budget``'s measurements
@@ -4341,7 +4397,8 @@ def prefill_budget(dev):
             attn = model._sub(layer0, "attn/")
             h, _ = L.attention(attn, xn, cfg, pos)
             logits, cache = model.prefill(p, t)
-            got[where] = dict(h=h, logits=logits, k=cache["k"], v=cache["v"])
+            got[where] = dict(h=h, logits=logits, k=cache["stack/c0/k"],
+                              v=cache["stack/c0/v"])
             if where == "card" and impl == "chunked":
                 q, k, v = L._qkv(attn, xn, cfg, pos)
                 qkv = (q.reshape(2, 200, cfg.n_heads, -1),
@@ -4371,19 +4428,28 @@ def prefill_budget(dev):
     return row
 
 
-def flash_bounds(tensors_in, out, causal):
+def attention_pairs(s, causal, window=None):
+    """(query, key) pairs per head that the mask keeps: S (S + 1) / 2
+    causal, S^2 not, and under a window only keys k > q - window."""
+    import torch
+    q = torch.arange(s, dtype=torch.int64)
+    hi = q if causal else torch.full_like(q, s - 1)
+    lo = torch.clamp_min(q - window + 1, 0) if window else torch.zeros_like(q)
+    return int((hi - lo + 1).sum())
+
+
+def flash_bounds(tensors_in, out, causal, window=None):
     """(bound ms, bound_by, f32 CUDA-core bound ms, flops) of one attention
     call: q, k, v read once and out written once at the HBM rate, against
-    4 * Dh flops per (query, key) pair that the mask keeps (S (S + 1) / 2
-    pairs per head when causal, S^2 otherwise) at the card's peak rate for
-    the work: bf16 inputs at the bf16 tensor cores' rate; f32 inputs, whose
-    f32-accurate products take three TF32 products each (3xTF32), at a
-    third of the TF32 tensor cores' rate.  The f32 CUDA-core bound (the
-    same flops at 67 TFLOP/s, the bound of earlier rows) stands beside it."""
+    4 * Dh flops per (query, key) pair that the mask keeps
+    (:func:`attention_pairs`) at the card's peak rate for the work: bf16
+    inputs at the bf16 tensor cores' rate; f32 inputs, whose f32-accurate
+    products take three TF32 products each (3xTF32), at a third of the
+    TF32 tensor cores' rate.  The f32 CUDA-core bound (the same flops at
+    67 TFLOP/s, the bound of earlier rows) stands beside it."""
     import torch
     n, s, h, dh = out.shape
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4 * dh * n * h * pairs
+    flops = 4 * dh * n * h * attention_pairs(s, causal, window)
     rate = (BF16_TC_FLOPS_PER_S if out.dtype == torch.bfloat16
             else TF32_TC_FLOPS_PER_S / TF32_TERMS)
     bms, by = bound_ms(list(tensors_in), [out], flops, rate)
@@ -4395,12 +4461,77 @@ def flash_cases(dev):
     draws from one generator seeded 3."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(3)
-    for label, n, s, h, kv, dh, dtype, causal, cap in FLASH_CASES:
+    for label, n, s, h, kv, dh, dtype, causal, cap, window in FLASH_CASES:
         dt = getattr(torch, dtype)
         q = torch.randn((n, s, h, dh), generator=gen, device=dev).to(dt)
         k = torch.randn((n, s, kv, dh), generator=gen, device=dev).to(dt)
         v = torch.randn((n, s, kv, dh), generator=gen, device=dev).to(dt)
-        yield label, q, k, v, dict(causal=causal, softcap=cap)
+        yield label, q, k, v, dict(causal=causal, softcap=cap, window=window)
+
+
+def sdpa_call(q, k, v, causal, window):
+    """The one PyTorch call for the same attention, as a timing yardstick
+    (the port never calls it), or (None, why) where it has none: SDPA
+    takes no window, so a windowed case gets it with the window as an
+    explicit boolean (S, S) mask, through the memory-efficient backend
+    with k and v repeated to q's heads (no backend takes grouped heads
+    beside a mask); if that does not run either, there is no call."""
+    import torch
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None:
+        return (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)), None
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rep = q.shape[2] // k.shape[2]
+    kt, vt = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = pos[None, :] > pos[:, None] - window
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+
+    def call():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        torch.cuda.empty_cache()
+        return None, (f"none: SDPA has no window, and with the window as a "
+                      f"boolean mask it did not run ({str(err)[:120]})")
+    return call, "SDPA memory-efficient backend, the window as a boolean mask"
+
+
+def time_flash_case(label, q, k, v, kw, got):
+    """One FLASH_TIMED case: the kernel (10 launches), its plain version
+    (one call), the library yardstick (:func:`sdpa_call`, 10 calls) and the
+    bounds."""
+    import torch
+    from repro_torch.kernels import dispatch, ref
+    bms, by, f32_ms, flops = flash_bounds((q, k, v), got, kw["causal"],
+                                          kw["window"])
+    lib, lib_note = sdpa_call(q, k, v, kw["causal"], kw["window"])
+    ms = time_ms(lambda: dispatch.flash_attention(q, k, v, **kw), 10)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 1)
+    lib_ms = None if lib is None else time_ms(lib, 10)
+    torch.cuda.empty_cache()
+    record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                  library_note=lib_note, bound_ms=bms, bound_by=by,
+                  bound_f32_cuda_core_ms=f32_ms, tflop_per_s=flops / ms / 1e9,
+                  bound_share=bms / ms, flops=flops,
+                  shape=[list(q.shape), list(k.shape)], dtype=str(q.dtype)[6:],
+                  **kw)
+    lib_txt = ("none" if lib_ms is None else
+               f"{lib_ms:.3f} ms ({ms / lib_ms:.2f}x)")
+    print(f"[kernel] flash_attention {label}: {ms:.3f} ms "
+          f"({record['tflop_per_s']:.1f} TFLOP/s, "
+          f"{100 * record['bound_share']:.1f}% of the bound {bms:.3f} ms, "
+          f"{by}, at the bf16 tensor-core peak; {f32_ms:.3f} ms at the 67 "
+          f"TFLOP/s f32 CUDA-core rate), plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention {lib_txt}"
+          + (f" [{lib_note}]" if lib_note else ""), flush=True)
+    return record
 
 
 def check_flash(dev):
@@ -4413,14 +4544,15 @@ def check_flash(dev):
     it): contract (a), max|d| / max|want| <= FLASH_BF16_RTOL and at most
     FLASH_BF16_ULP_SHARE of the elements more than one bf16 ulp apart; and
     contract (b), the plain version within FLASH_BF16_F32P_RTOL of the
-    f32-P result.  Returns the timing record of the first case, with every
-    case's readings, and the max abs error."""
+    f32-P result.  Returns the timing record of each FLASH_TIMED case
+    (the first with every case's readings and the f32 kernel's record) and
+    the max abs error."""
     import torch
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import flash_attention as fa
     check(not torch.backends.cuda.matmul.allow_tf32,
           "the f32 plain version must run full-f32 matmuls (allow_tf32 is on)")
-    record, max_err, readings = None, 0.0, {}
+    records, max_err, readings = {}, 0.0, {}
     for label, q, k, v, kw in flash_cases(dev):
         got = dispatch.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
@@ -4431,7 +4563,7 @@ def check_flash(dev):
         check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite")
         what = f"max abs err {err:.3e}, max |out| {top:.3f}"
         if q.dtype == torch.float32:
-            readings[label] = {"rel": err / top}
+            readings[label] = {"rel": err / top, "max_abs_err": err}
             what += f", max|d| / max|out| {err / top:.4e} (bound 1e-05)"
             check(err <= 1e-5 * top, f"flash {label}: {what} > 1e-5 max|out|")
         else:
@@ -4444,7 +4576,8 @@ def check_flash(dev):
             rel_b, share_b = fa.bf16_gap(want, f32p)
             del f32p
             readings[label] = {"a_rel": rel, "a_ulp_share": share,
-                               "b_rel": rel_b, "b_ulp_share": share_b}
+                               "b_rel": rel_b, "b_ulp_share": share_b,
+                               "max_abs_err": err}
             what += (f"; (a) kernel vs plain max|d|/max|want| {rel:.4e} "
                      f"(bound {fa.FLASH_BF16_RTOL:.0e}), share > 1 ulp "
                      f"{share:.4e} (bound {fa.FLASH_BF16_ULP_SHARE:.0e}); "
@@ -4457,44 +4590,23 @@ def check_flash(dev):
                   f"flash {label}: contract (b) broken: {what}")
         print(f"[kernel] flash_attention {label} q{tuple(q.shape)} "
               f"k{tuple(k.shape)} {str(q.dtype)[6:]} causal={kw['causal']} "
-              f"softcap={kw['softcap']}: {what}", flush=True)
-        if record is None:
-            causal = kw["causal"]
-            bms, by, f32_ms, flops = flash_bounds((q, k, v), got, causal)
-            F = torch.nn.functional
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            plain = ref.flash_attention_ref(q, k, v, **kw)
-            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                 enable_gqa=True)
-            lib_err = float((lib.transpose(1, 2).float() - plain.float()).abs().max())
-            del lib, plain
-            ms = time_ms(lambda: dispatch.flash_attention(q, k, v, **kw), 10)
-            record = dict(
-                ms=ms,
-                plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 1),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True), 10),
-                bound_ms=bms, bound_by=by, bound_f32_cuda_core_ms=f32_ms,
-                tflop_per_s=flops / ms / 1e9, bound_share=bms / ms,
-                shape=[list(q.shape), list(k.shape)], dtype=str(q.dtype)[6:])
-            print(f"[kernel] flash_attention {label}: {ms:.3f} ms "
-                  f"({record['tflop_per_s']:.1f} TFLOP/s, "
-                  f"{100 * record['bound_share']:.1f}% of the bound {bms:.3f} "
-                  f"ms, {by}, at the bf16 tensor-core peak; {f32_ms:.3f} ms at "
-                  f"the 67 TFLOP/s f32 CUDA-core rate), plain "
-                  f"{record['plain_ms']:.3f} ms, scaled_dot_product_attention "
-                  f"{record['library_ms']:.3f} ms ({ms / record['library_ms']:.2f}x"
-                  f"; max abs diff to the plain version {lib_err:.3e})",
-                  flush=True)
-        del q, k, v, got, want
+              f"softcap={kw['softcap']} window={kw['window']}: {what}",
+              flush=True)
+        del want
         torch.cuda.empty_cache()
-    record["f32"] = time_flash_f32(dev)
-    record["contract"] = readings
-    record["contract_bounds"] = {"a_rel": fa.FLASH_BF16_RTOL,
-                                 "a_ulp_share": fa.FLASH_BF16_ULP_SHARE,
-                                 "b_rel": fa.FLASH_BF16_F32P_RTOL,
-                                 "f32_rel": 1e-5}
-    return record, max_err
+        if label in FLASH_TIMED:
+            records[label] = time_flash_case(label, q, k, v, kw, got)
+            records[label]["contract"] = readings[label]
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    first = records[FLASH_TIMED[0]]
+    first["f32"] = time_flash_f32(dev)
+    first["contract"] = readings
+    first["contract_bounds"] = {"a_rel": fa.FLASH_BF16_RTOL,
+                                "a_ulp_share": fa.FLASH_BF16_ULP_SHARE,
+                                "b_rel": fa.FLASH_BF16_F32P_RTOL,
+                                "f32_rel": 1e-5}
+    return records, max_err
 
 
 def time_flash_f32(dev):
@@ -4556,9 +4668,10 @@ def time_flash_f32(dev):
 def check_flash_sass(path, f32_path=None):
     """The flash kernels were compiled to tensor-core code: every
     ``flash_tc_kernel`` instantiation in the bf16 library's SASS
-    (``cuobjdump -sass``) holds wgmma (``HGMMA``) and TMA loads
-    (``UTMALDG``), and, given the f32 library, every
-    ``flash_attention_kernel`` instantiation there holds ``HGMMA``: a
+    (``cuobjdump -sass``; Dh 64, 128 and 256, each with and without a
+    window: 6) holds wgmma (``HGMMA``) and TMA loads (``UTMALDG``), and,
+    given the f32 library, every ``flash_attention_kernel`` instantiation
+    there (Dh 64 and 128, with and without a window: 4) holds ``HGMMA``: a
     CUDA-core kernel cannot pass for either.  A missing ``cuobjdump`` is a
     failure."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -4566,7 +4679,7 @@ def check_flash_sass(path, f32_path=None):
     check(os.path.exists(tool), f"cuobjdump not found ({tool}): the flash "
           f"libraries' SASS cannot be checked")
 
-    def functions(lib, kernel):
+    def functions(lib, kernel, expected):
         sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                               text=True, timeout=300, check=True).stdout
         found = {}
@@ -4574,11 +4687,12 @@ def check_flash_sass(path, f32_path=None):
             name = section.split(None, 1)[0]
             if kernel in name:
                 found[name] = (section.count("HGMMA"), section.count("UTMALDG"))
-        check(len(found) == 2, f"{lib.name} SASS: {len(found)} {kernel} "
-              f"functions, expected 2 (Dh 64 and 128)")
+        check(len(found) == expected, f"{lib.name} SASS: {len(found)} "
+              f"{kernel} functions, expected {expected} (each head dim with "
+              f"and without a window)")
         return found
 
-    found = functions(path, "flash_tc_kernel")
+    found = functions(path, "flash_tc_kernel", 6)
     for name, (hgmma, utmaldg) in found.items():
         check(hgmma > 0 and utmaldg > 0, f"flash_tc SASS: {name} has {hgmma} "
               f"HGMMA and {utmaldg} UTMALDG instructions")
@@ -4586,7 +4700,7 @@ def check_flash_sass(path, f32_path=None):
         f"{name[-60:]}: {h} HGMMA, {u} UTMALDG"
         for name, (h, u) in found.items()), flush=True)
     if f32_path is not None:
-        f32 = functions(f32_path, "flash_attention_kernel")
+        f32 = functions(f32_path, "flash_attention_kernel", 4)
         for name, (hgmma, _) in f32.items():
             check(hgmma > 0, f"flash (f32) SASS: {name} has no HGMMA")
         print("[build] flash (f32) SASS: " + "; ".join(
@@ -4596,26 +4710,58 @@ def check_flash_sass(path, f32_path=None):
     return found
 
 
-def full_width_serving_model(dev):
-    """qwen3-1.7b at full width and depth with the flash kernel, random
-    weights from seed 0 cast once to bf16."""
-    from repro_torch.configs.qwen3_1_7b import CONFIG
+def full_width_serving_model(dev, arch):
+    """``arch`` at full width and depth with the flash kernel, random
+    weights from seed 0 drawn in f32 and cast once to bf16; the f32 draw
+    is freed before this returns.  Returns (model, params, the draw's peak
+    device memory in GiB)."""
+    import torch
+    from repro_torch.configs.base import get_config
     from repro_torch.models.transformer import Model
-    model = Model(dataclasses.replace(CONFIG, attn_impl="chunked"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(dataclasses.replace(get_config(arch), attn_impl="chunked"))
     params = model.compute_params(model.init(1, 0, dev))
-    return model, params
+    torch.cuda.synchronize()
+    draw = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    held = sum(t.numel() * t.element_size() for t in params.values()) / 2 ** 30
+    print(f"[prefill] {arch}: {sum(t.numel() for t in params.values())} "
+          f"parameters, {held:.3f} GiB in bf16; the f32 draw and the cast "
+          f"peaked at {draw:.3f} GiB", flush=True)
+    return model, params, draw
+
+
+def _flash_variants():
+    from repro_torch.kernels import flash_attention as fa
+    return dict(fa.flash_attention.variants)
 
 
 def prefill_full_width(model, params, dev):
-    """Model.prefill at 32768 tokens, PREFILL_CALLS times, then profiled."""
+    """Model.prefill at 32768 tokens, PREFILL_CALLS times, then profiled:
+    one flash launch per layer (the local layers' with the window), no
+    other kernel, the cache of each layer kind at its length (a local
+    layer's ring min(window, 32768) slots), finite logits, the peak
+    device memory, and the profiled call split into flash / matmul /
+    other."""
     import torch
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import block_pattern
     cfg = model.cfg
     shape = INPUT_SHAPES["prefill_32k"]
     seq, batch = shape.seq_len, 1       # global batch 32 cut to 1: one card
     toks = torch.randint(0, cfg.vocab_size, (1, batch, seq), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(4))
+    pattern, repeat, tail = block_pattern(cfg)
+    heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    want_shapes = {f"stack/c{i}/{n}": (1, repeat, batch,
+                                       model.cache_len(kind, seq)) + heads
+                   for i, kind in enumerate(pattern) for n in ("k", "v")}
+    want_shapes.update({f"tail/t{i}/{n}": (1, batch, model.cache_len(kind, seq))
+                        + heads for i, kind in enumerate(tail)
+                        for n in ("k", "v")})
+    n_local = repeat * pattern.count("dense_local") + tail.count("dense_local")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
@@ -4629,26 +4775,32 @@ def prefill_full_width(model, params, dev):
         check(tuple(logits.shape) == (1, batch, 1, cfg.vocab_size),
               f"prefill logits shape {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), "prefill: non-finite logits")
-        want = (1, cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-        for name in ("k", "v"):
-            check(tuple(caches[name].shape) == want and caches[name].dtype
-                  == torch.bfloat16, f"prefill cache {name}: "
-                  f"{tuple(caches[name].shape)} {caches[name].dtype}")
+        got_shapes = {k: tuple(t.shape) for k, t in caches.items()}
+        check(got_shapes == want_shapes and all(
+            t.dtype == torch.bfloat16 for t in caches.values()),
+            f"prefill caches {got_shapes}, expected {want_shapes} in bf16")
         del logits, caches
     counts = dispatch.launch_counts()
+    variants = _flash_variants()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want_launches = PREFILL_CALLS * cfg.n_layers
+    windowed = sum(c for v, c in variants.items() if v.endswith("_window"))
     check(counts["flash_attention"] == want_launches,
           f"prefill: {counts['flash_attention']} flash launches, expected "
           f"{PREFILL_CALLS} calls x {cfg.n_layers} layers = {want_launches}")
     check(sum(counts.values()) == want_launches, f"prefill counts {counts}")
+    check(windowed == PREFILL_CALLS * n_local,
+          f"prefill: {windowed} windowed flash launches ({variants}), "
+          f"expected {PREFILL_CALLS} calls x {n_local} local layers")
     print(f"[prefill] {cfg.name} layers={cfg.n_layers} tokens={seq} "
           f"batch={batch} (prefill_32k, batch {shape.global_batch} cut to "
           f"{batch}): ms per call {ms} (first call first); flash launches "
-          f"{counts['flash_attention']} = {PREFILL_CALLS} x {cfg.n_layers}; "
-          f"peak device memory {peak:.3f} GiB", flush=True)
-    profile = profile_call("one prefill call", lambda: model.prefill(params, toks),
-                           FLASH_KERNELS)
+          f"{counts['flash_attention']} = {PREFILL_CALLS} x {cfg.n_layers} "
+          f"({windowed} with the window: {variants}); caches "
+          f"{sorted(set(want_shapes.values()))}; peak device memory "
+          f"{peak:.3f} GiB", flush=True)
+    profile = profile_call(f"one {cfg.name} prefill call",
+                           lambda: model.prefill(params, toks), FLASH_KERNELS)
     check(profile is not None, "prefill: the profiler recorded no device time")
     tc_ms, tc_launches = profile["by_kernel"]["flash_tc_kernel"]
     check(tc_launches == cfg.n_layers and tc_ms > 0
@@ -4656,20 +4808,90 @@ def prefill_full_width(model, params, dev):
           f"prefill: the profiled call's flash kernels {profile['by_kernel']}; "
           f"expected {cfg.n_layers} launches of flash_tc_kernel and none of "
           f"the f32 kernel")
-    print(f"[prefill] the profiled call: flash_tc_kernel {tc_launches} "
-          f"launches, {tc_ms:.3f} ms of device time "
-          f"({100 * tc_ms / profile['device_busy_ms']:.1f}% of busy)",
+    print(f"[prefill] the profiled {cfg.name} call: flash_tc_kernel "
+          f"{tc_launches} launches, {tc_ms:.3f} ms of device time "
+          f"({100 * tc_ms / profile['device_busy_ms']:.1f}% of busy); matmul "
+          f"{profile['matmul']:.3f} ms, other {profile['other']:.3f} ms",
           flush=True)
-    return counts, {"ms_per_call": ms, "peak_gib": peak, "tokens": seq,
-                    "batch": batch, "profile": profile}
+    return counts, {"arch": cfg.name, "ms_per_call": ms, "peak_gib": peak,
+                    "tokens": seq, "batch": batch, "variants": variants,
+                    "cache_shapes": want_shapes, "profile": profile}
 
 
-def serve_full_width():
+def decode_past_prefill(model, params, dev, steps=DECODE_PAST_STEPS):
+    """Decode steps that continue a 32768-token prompt: caches of 32768 +
+    ``steps`` slots from ``init_cache``, filled through ``Model.hidden`` (as
+    ``Model.prefill`` fills its S slots: a local layer keeps the last
+    ``window`` positions, position p in slot p % window), then ``steps``
+    decode steps from position 32768.  Checks finite logits, that each
+    global cache's slots 32768 on were written, and that each local ring
+    was written over in place from slot 32768 % window on (it wraps).
+    Returns (launch counts, the record with ms per decode step)."""
+    import torch
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import block_pattern
+    cfg = model.cfg
+    seq = INPUT_SHAPES["prefill_32k"].seq_len
+    gen = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, 1, seq + steps), device=dev,
+                         generator=gen)
+    dispatch.reset_launch_counts()
+    caches = model.init_cache(1, seq + steps, dev)
+    model.hidden(params, toks[:, :, :seq], caches)
+    pattern = block_pattern(cfg)[0]
+    local = [f"stack/c{i}/k" for i, kind in enumerate(pattern)
+             if kind == "dense_local"]
+    glob = [f"stack/c{i}/k" for i, kind in enumerate(pattern)
+            if kind == "dense_global"]
+    ring = {k: caches[k].shape[3] for k in local}
+    before = {k: caches[k][:, :, :, seq % ring[k]:][:, :, :, :steps].clone()
+              for k in local}
+    check(all(not caches[k][:, :, :, seq:].any() for k in glob),
+          "decode-32k: a global cache's slots past the prompt are not empty")
+    ms = []
+    for t in range(steps):
+        pos = torch.full((1,), seq + t, dtype=torch.long, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(params, toks[:, :, seq + t:seq + t + 1],
+                                           caches, pos)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(logits).all()),
+              f"decode-32k: non-finite logits at position {seq + t}")
+    counts = dispatch.launch_counts()
+    check(all(bool(caches[k][:, :, :, seq:].abs().amax(dim=(-1, -2)).gt(0).all())
+              for k in glob),
+          "decode-32k: a global cache's new slots were not written")
+    for k in local:
+        after = caches[k][:, :, :, seq % ring[k]:][:, :, :, :steps]
+        check(bool((after != before[k]).any(dim=(-1, -2)).all()),
+              f"decode-32k: the local ring {k} ({ring[k]} slots) was not "
+              f"written over from slot {seq % ring[k]}")
+    check(sum(counts.values()) == cfg.n_layers,
+          f"decode-32k: launches {counts}; the hidden pass launches one "
+          f"flash kernel per layer, decode none")
+    rec = {"arch": cfg.name, "prompt": seq, "steps": steps,
+           "cache_slots": {"global": seq + steps, "local": sorted(set(
+               ring.values()))}, "ms_per_step": ms}
+    print(f"[decode-32k] {cfg.name}: {seq}-token prompt through Model.hidden "
+          f"into caches of {seq + steps} slots (local rings "
+          f"{sorted(set(ring.values()))}), then {steps} decode steps from "
+          f"position {seq}: finite logits, global slots {seq}.. written, the "
+          f"local rings wrapped; ms per step {[round(m, 3) for m in ms]}",
+          flush=True)
+    del caches
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def serve_full_width(arch):
     """The serve launcher at full width: the JAX launcher's defaults with 2
     requests, on the card."""
     from repro_torch.kernels import dispatch
     from repro_torch.launch.serve import main
-    argv = ["--arch", "qwen3-1.7b", "--batch", "8", "--prompt-len", "32",
+    argv = ["--arch", arch, "--batch", "8", "--prompt-len", "32",
             "--gen-len", "32", "--requests", "2", "--device", "cuda"]
     dispatch.reset_launch_counts()
     buf = io.StringIO()
@@ -4689,7 +4911,7 @@ def serve_full_width():
         val = summary.get("serve/" + key)
         check(val is not None and math.isfinite(val) and val > 0,
               f"serve: {key} = {val}")
-    print(f"[serve] launches {counts}", flush=True)
+    print(f"[serve] {arch} launches {counts}", flush=True)
     return counts, summary
 
 
@@ -4742,54 +4964,75 @@ def consistency_full_width(model, params, dev):
     dispatch.reset_launch_counts()
     pre, _ = model.prefill(params, toks)
     counts = dispatch.launch_counts()
+    variants = _flash_variants()
     launches = counts["flash_attention"]
+    t0 = time.perf_counter()
     dec = decode_over(model, params, toks, model.init_cache(b, s, dev))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
     a, w = dec.float(), pre.float()
     rel = float((a - w).abs().max()) / max(float(w.abs().max()), 1.0)
     same = torch.equal(a.argmax(-1), w.argmax(-1))
-    print(f"[consistency] full width, prompt {s} x batch {b}: prefill vs "
-          f"decode max|d| / max(max|logits|, 1) = {rel:.4e} (bound 0.05); "
-          f"argmax equal: {same}; flash launches in the prefill {launches}",
-          flush=True)
+    print(f"[consistency] {model.cfg.name} full width, prompt {s} x batch "
+          f"{b}: prefill vs decode max|d| / max(max|logits|, 1) = {rel:.4e} "
+          f"(bound 0.05); argmax equal: {same}; flash launches in the "
+          f"prefill {launches} ({variants}); {s} decode steps in "
+          f"{decode_s:.1f} s", flush=True)
     check(launches == model.cfg.n_layers, f"consistency: {launches} launches")
     check(rel < 0.05, f"prefill and decode logits differ: {rel}")
     check(same, "prefill and decode pick different greedy tokens")
-    return counts, {"rel": rel, "argmax_equal": same}
+    return counts, {"arch": model.cfg.name, "rel": rel, "argmax_equal": same,
+                    "variants": variants, "decode_s": decode_s}
 
 
-def serve_small_cuda_vs_cpu(dev):
-    """The smoke decoder in float32 with the flash kernel: prefill of 200
-    tokens and 8 decode steps on the card against the same on the CPU
-    (the plain version), within 1e-5 of the largest logit."""
+def serve_small_cuda_vs_cpu(dev, arch="qwen3-1.7b", attn_impl="chunked",
+                            prompt_len=200, steps=8):
+    """A smoke model in float32: the prefill's logits, then a cache of
+    prompt_len + steps slots filled through ``Model.hidden`` and ``steps``
+    decode steps, on the card against the same on the CPU (the plain
+    versions), within 1e-5 of the largest logit.  With ``attn_impl``
+    "chunked" the card's two passes over the prompt launch one flash
+    kernel per layer each.  Returns the card's launch counts."""
     import torch
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model
-    cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
-                              dtype="float32", attn_impl="chunked")
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              dtype="float32", attn_impl=attn_impl)
     model = Model(cfg)
     params = model.init(1, 1, "cpu")
     gen = torch.Generator().manual_seed(6)
-    prompt = torch.randint(0, cfg.vocab_size, (1, 2, 200), generator=gen)
-    follow = torch.randint(0, cfg.vocab_size, (1, 2, 8), generator=gen)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 2, prompt_len), generator=gen)
+    follow = torch.randint(0, cfg.vocab_size, (1, 2, steps), generator=gen)
     runs = {}
     for device in (dev, torch.device("cpu")):
         p = {k: v.to(device) for k, v in params.items()}
-        logits, pre = model.prefill(p, prompt.to(device))
-        cache = model.init_cache(2, 208, device)
-        for name in ("k", "v"):
-            cache[name][:, :, :, :200] = pre[name]
+        dispatch.reset_launch_counts()
+        logits, _ = model.prefill(p, prompt.to(device))
+        cache = model.init_cache(2, prompt_len + steps, device)
+        model.hidden(p, prompt.to(device), cache)
         out = [logits]
-        for t in range(8):
-            pos = torch.full((2,), 200 + t, dtype=torch.long, device=device)
+        for t in range(steps):
+            pos = torch.full((2,), prompt_len + t, dtype=torch.long,
+                             device=device)
             lg, cache = model.decode_step(p, follow[:, :, t:t + 1].to(device),
                                           cache, pos)
             out.append(lg)
         runs[device.type] = torch.cat(out, dim=2).cpu()
+        if device.type == "cuda":
+            counts = dispatch.launch_counts()
     d = float((runs["cuda"] - runs["cpu"]).abs().max())
     top = max(float(runs["cpu"].abs().max()), 1.0)
-    print(f"[small] smoke f32 chunked: prefill 200 + 8 decode steps, CUDA vs "
-          f"CPU max|d| = {d:.3e} (max |logit| {top:.3f})", flush=True)
-    check(d <= 1e-5 * top, f"CUDA and CPU serving logits differ by {d}")
+    want = 2 * cfg.n_layers if attn_impl == "chunked" else 0
+    print(f"[small] {arch} smoke f32 {attn_impl}: prefill {prompt_len} + "
+          f"{steps} decode steps, CUDA vs CPU max|d| = {d:.3e} (max |logit| "
+          f"{top:.3f}); flash launches {counts['flash_attention']}",
+          flush=True)
+    check(d <= 1e-5 * top, f"{arch} {attn_impl}: CUDA and CPU serving logits "
+          f"differ by {d}")
+    check(counts["flash_attention"] == want and sum(counts.values()) == want,
+          f"{arch} {attn_impl}: launches {counts}, expected {want} flash")
+    return counts
 
 
 def main():
@@ -4928,9 +5171,9 @@ def main():
         sim_pushsum_report = sim_pushsum(dev)
 
     with phase("flash"):
-        flash_record, flash_err = check_flash(dev)
+        flash_records, flash_err = check_flash(dev)
     with phase("prefill"):
-        model, params = full_width_serving_model(dev)
+        model, params, _ = full_width_serving_model(dev, "qwen3-1.7b")
         prefill_counts, prefill = prefill_full_width(model, params, dev)
         consistency_counts, consistency = consistency_full_width(
             model, params, dev)
@@ -4938,9 +5181,30 @@ def main():
         del model, params
         torch.cuda.empty_cache()
     with phase("serve"):
-        serve_counts, serve = serve_full_width()
-        serve_small_cuda_vs_cpu(dev)
+        serve_counts, serve = serve_full_width("qwen3-1.7b")
+        small_counts = serve_small_cuda_vs_cpu(dev)
         budget = prefill_budget(dev)
+    # gemma2-9b: local (windowed) and global layers at head dim 256
+    with phase("prefill-gemma2"):
+        model, params, draw_gib = full_width_serving_model(dev, "gemma2-9b")
+        g2_prefill_counts, g2_prefill = prefill_full_width(model, params, dev)
+        g2_prefill["weights_draw_peak_gib"] = draw_gib
+        g2_decode_counts, g2_decode = decode_past_prefill(model, params, dev)
+    with phase("consistency-gemma2"):
+        g2_cons_counts, g2_cons = consistency_full_width(model, params, dev)
+        del model, params
+        torch.cuda.empty_cache()
+    with phase("serve-gemma2"):
+        g2_serve_counts, g2_serve = serve_full_width("gemma2-9b")
+        torch.cuda.empty_cache()
+    with phase("dense-small"):
+        dense_small = {f"{arch}_{impl}": serve_small_cuda_vs_cpu(
+            dev, arch, impl, prompt_len=24, steps=40)
+            for arch, impl in DENSE_SMALL}
+    new_phases = ("prefill-gemma2", "consistency-gemma2", "serve-gemma2",
+                  "dense-small")
+    print(f"[phase] the gemma2-9b and dense-variant phases took "
+          f"{sum(PHASES[p] for p in new_phases):.1f} s together", flush=True)
 
     # launches of each kernel on every path this script drives (the counts
     # set to 0 just before each path and read just after); the per-rank
@@ -4979,7 +5243,11 @@ def main():
                             for k in kernel_names()},
         "sim": sim_counts, "topk_ops": ops_counts, "prefill": prefill_counts,
         "consistency": consistency_counts,
-        "serve": serve_counts}
+        "serve": serve_counts, "serve_small": small_counts,
+        "prefill_gemma2": g2_prefill_counts,
+        "decode_32k_gemma2": g2_decode_counts,
+        "consistency_gemma2": g2_cons_counts, "serve_gemma2": g2_serve_counts,
+        **{f"dense_small_{k}": c for k, c in dense_small.items()}}
     by_kernel = lambda name: {p: c[name] for p, c in paths.items()}
     # the training paths whose launches count as the gossip kernels' main
     # path: the four compressors, star, the bf16-state runs, the [modes]
@@ -5067,13 +5335,36 @@ def main():
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         # the bf16 tensor-core kernel, the main path's; f32 inputs take the
-        # CUDA-core kernel of csrc/flash_attention.cu (its record: "f32")
+        # 3xTF32 kernel of csrc/flash_attention.cu (its record: "f32")
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": prefill_counts["flash_attention"],
         "launches_by_path": by_kernel("flash_attention"),
-        "max_abs_err": flash_err, **flash_record})
+        "max_abs_err": flash_err, **flash_records[FLASH_TIMED[0]]})
     check(kernels[-1]["launches"] > 0, "flash_attention never launched")
+    # its Dh 256 instances, without and with the window, on gemma2-9b's
+    # prefill path (its global and local layers)
+    variant_paths = {"prefill": prefill["variants"],
+                     "prefill_gemma2": g2_prefill["variants"],
+                     "consistency": consistency["variants"],
+                     "consistency_gemma2": g2_cons["variants"]}
+    for name, label, variant in (
+            ("flash_attention_bf16_dh256", "gemma2 global layer", "bf16_dh256"),
+            ("flash_attention_bf16_dh256_window", "gemma2 local layer",
+             "bf16_dh256_window")):
+        rec = flash_records[label]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:77",
+            "launches": g2_prefill["variants"].get(variant, 0),
+            "launches_by_path": {p: v.get(variant, 0)
+                                 for p, v in variant_paths.items()},
+            "max_abs_err": rec["contract"]["max_abs_err"], **rec})
+        if variant == "bf16_dh256":
+            kernels[-1]["gemma_7b_layer"] = flash_records["gemma-7b layer"]
+        check(kernels[-1]["launches"] > 0, f"{name} never launched on the "
+              f"gemma2-9b prefill path")
     # its path is its public op, as in the JAX package; no trainer path
     # reaches it (the engine selects top-k payloads in plain PyTorch)
     kernels.append({
@@ -5113,6 +5404,8 @@ def main():
                       "sim": sim, "small": small,
                       "prefill": prefill, "serve": serve, "decode": decode,
                       "consistency": consistency,
+                      "gemma2": {"prefill": g2_prefill, "decode_32k": g2_decode,
+                                 "consistency": g2_cons, "serve": g2_serve},
                       "dist_small": {k: v for k, v in dist_small_report.items()
                                      if k != "launches"},
                       "dist_full_width": dist_full,

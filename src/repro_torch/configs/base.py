@@ -3,11 +3,13 @@
 ``ModelConfig`` keeps the JAX package's field names and defaults for the
 dense decoder, ``attn_impl`` included (``"chunked"`` is the hand-written
 flash-attention kernel, forward only, which tiles K by 128 as the Pallas
-kernel does; the JAX jnp scan's ``attn_chunk`` has no counterpart); the
-MoE / SSM / hybrid / frontend sub-configs, the other architectures,
-sliding windows, local / global layer patterns and ``remat`` are not
-ported.  ``INPUT_SHAPES`` keeps the one JAX input shape the port serves,
-``prefill_32k``.  ``ChocoConfig``
+kernel does; the JAX jnp scan's ``attn_chunk`` has no counterpart), and
+the local / global layers: ``sliding_window`` (the local layers' window)
+and ``local_global_pattern`` (k > 0: k local layers to 1 global).  The
+dense architectures are qwen3-1.7b, gemma2-9b, gemma-7b and yi-9b; the
+MoE / SSM / hybrid / frontend sub-configs, the other architectures and
+``remat`` are not ported.  ``INPUT_SHAPES`` keeps the one JAX input shape
+the port serves, ``prefill_32k``.  ``ChocoConfig``
 keeps the settings of the static engines (the packed and the per-leaf
 engine, serial or pipelined; the choco, plain, all-reduce and push-sum
 modes), the EF-state dtype (f32 or bf16), the data skew and the
@@ -39,6 +41,8 @@ class ModelConfig:
     qk_norm: bool = False
     attn_logit_softcap: Optional[float] = None
     final_logit_softcap: Optional[float] = None
+    sliding_window: Optional[int] = None    # window for local layers
+    local_global_pattern: int = 0           # k>0: alternate k local : 1 global
     rope_theta: float = 10_000.0
     mlp_type: str = "swiglu"                # swiglu | geglu | gelu
     tie_embeddings: bool = False

@@ -71,17 +71,17 @@ def model_params_from_jax(tree) -> Dict[str, torch.Tensor]:
 
 
 def caches_from_jax(caches) -> Dict[str, torch.Tensor]:
-    """The JAX dense model's cache tree (``{"stack": {"c0": {"k": (L, B, C,
-    KV, Dh), "v": ...}}, "tail": {}}``) -> ``{"k": (1, L, B, C, KV, Dh),
-    "v": ...}``."""
-    c0 = caches["stack"]["c0"]
-    return {name: _tensor(c0[name])[None] for name in ("k", "v")}
+    """The JAX dense model's cache tree (``{"stack": {"c0": {"k": (repeat,
+    B, C, KV, Dh), "v": ...}, "c1": ...}, "tail": {"t0": {"k": (B, C, KV,
+    Dh), ...}}}``, a pattern position's leaves per local or global kind)
+    -> the port's ``{"stack/c0/k": (1, repeat, B, C, KV, Dh), ...}``."""
+    return model_params_from_jax(caches)
 
 
 def caches_to_jax(caches: Dict[str, torch.Tensor]) -> dict:
     """Inverse of :func:`caches_from_jax` for a one-node cache."""
-    if caches["k"].shape[0] != 1:
+    nodes = {t.shape[0] for t in caches.values()}
+    if nodes != {1}:
         raise ValueError("the JAX serving cache has no node dimension: "
-                         f"expected n = 1, got {caches['k'].shape[0]}")
-    return {"stack": {"c0": {name: _array(caches[name][0])
-                             for name in ("k", "v")}}, "tail": {}}
+                         f"expected n = 1, got {sorted(nodes)}")
+    return params_to_jax({k: t[0] for k, t in caches.items()})

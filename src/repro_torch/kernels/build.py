@@ -48,7 +48,8 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _F, _I64, _INT = ctypes.c_void_p, ctypes.c_float, ctypes.c_int64, ctypes.c_int
-_FLASH = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _F, _F, _P)
+_FLASH = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _INT, _F, _F,
+          _P)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,13 +9,20 @@
 //
 //   q' = q * scale (scale = 1/sqrt(Dh)),  l = q' k^T,
 //   l = softcap * tanh(l / softcap)          (when softcap > 0)
-//   l = -1e30 where k_pos > q_pos (causal) or k_pos >= S (the ragged block)
+//   l = -1e30 where k_pos > q_pos (causal), k_pos <= q_pos - window (a
+//       sliding window) or k_pos >= S (the ragged block)
 //   m' = max(m, rowmax l),  p = exp(l - m'),  alpha = exp(m - m')
 //   l_sum = l_sum * alpha + sum(p),  acc = acc * alpha + p v
 //   out = acc / max(l_sum, 1e-30)
 //
 // Layout: q and out are (N, S, H, Dh), k and v (N, S, KV, Dh), contiguous,
 // read in place: head h reads KV head h / (H / KV).  Any S; Dh 64 or 128.
+// A sliding window is a template instance of its own (a call without one
+// runs the code it ran before): a query tile starts at the first key block
+// that reaches its first row's window, as a causal tile stops at its
+// diagonal, and masks the blocks that reach into some of its rows' windows
+// only (masking a block wholly before a row's window equals skipping it, bit
+// for bit: kernels/ref.py).
 //
 // 3xTF32.  The tensor cores take f32 operands only as TF32 (10 mantissa
 // bits).  Each operand a is split as a = big + small, big = tf32(a) and
@@ -296,6 +303,13 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// The first key block of a query tile whose first row is q0, under a
+// window: every block before it lies wholly before that row's window
+// (its last key <= q0 - window), so wholly before every row's of the tile.
+__device__ __forceinline__ int first_block(int q0, int window) {
+  return q0 - window + 1 > 0 ? (q0 - window + 1) / kKeys : 0;
+}
+
 __device__ __forceinline__ float lane_of(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
@@ -393,11 +407,12 @@ struct Producer {
 // so; P's is {d[4j], d[4j + 2], d[4j + 1], d[4j + 3]}, columns 2c and
 // 2c + 1 standing at c and c + 4, as V^T's permuted keys expect.
 
-template <int Dh>
+template <int Dh, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out, int S,
-                       int H, int KV, int causal, float softcap, float scale) {
+                       int H, int KV, int causal, int window, float softcap,
+                       float scale) {
   static_assert(Dh == 64 || Dh == 128, "head dim");
   using L = Layout<Dh>;
   extern __shared__ uint8_t smem_raw[];
@@ -417,6 +432,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = h / (H / KV);
   const int q0 = tile * kRows;
   const int n_k = causal ? (q0 + kRows - 1) / kKeys + 1 : (S + kKeys - 1) / kKeys;
+  const int kb_lo = kWindow ? first_block(q0, window) : 0;
   const int64_t q_row = static_cast<int64_t>(H) * Dh;
   const int64_t kv_row = static_cast<int64_t>(KV) * Dh;
   const int64_t q_base = static_cast<int64_t>(n) * S * q_row + static_cast<int64_t>(h) * Dh;
@@ -432,22 +448,24 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   if (threadIdx.x >= 128) {
-    // producer: K(kb) is item 2 kb, V(kb) item 2 kb + 1; the next block's
-    // loads are in flight while this one is split and stored
+    // producer: K(kb_lo + it) is item 2 it, V(kb_lo + it) item 2 it + 1;
+    // the next block's loads are in flight while this one is split and
+    // stored
     const Producer<Dh> pr{k, v, kv_base, kv_row, S, static_cast<int>(threadIdx.x) - 128};
     float4 kr[Producer<Dh>::kLoads], vr[Producer<Dh>::kLoads];
-    pr.load_k(0, kr);
-    for (int kb = 0; kb < n_k; ++kb) {
+    pr.load_k(kb_lo * kKeys, kr);
+    for (int it = 0; kb_lo + it < n_k; ++it) {
+      const int kb = kb_lo + it;
       pr.load_v(kb * kKeys, vr);
-      mbar_wait(empty(2 * kb), phase(2 * kb) ^ 1u);
-      pr.store_k(slot(2 * kb), kr);
+      mbar_wait(empty(2 * it), phase(2 * it) ^ 1u);
+      pr.store_k(slot(2 * it), kr);
       fence_proxy_async();
-      mbar_arrive(full(2 * kb));
+      mbar_arrive(full(2 * it));
       if (kb + 1 < n_k) pr.load_k((kb + 1) * kKeys, kr);
-      mbar_wait(empty(2 * kb + 1), phase(2 * kb + 1) ^ 1u);
-      pr.store_v(slot(2 * kb + 1), vr);
+      mbar_wait(empty(2 * it + 1), phase(2 * it + 1) ^ 1u);
+      pr.store_v(slot(2 * it + 1), vr);
       fence_proxy_async();
-      mbar_arrive(full(2 * kb + 1));
+      mbar_arrive(full(2 * it + 1));
     }
     return;
   }
@@ -482,14 +500,15 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m[2] = {kNegInf, kNegInf};
   float l_sum[2] = {0.0f, 0.0f};     // this thread's share of each row's sum
 
-  for (int kb = 0; kb < n_k; ++kb) {
+  for (int it = 0; kb_lo + it < n_k; ++it) {
+    const int kb = kb_lo + it;
     // logits: Dh / 8 k-steps; step kk reads 32 B at column 8 (kk % 4) of box kk / 4
-    const uint32_t kslot = slot(2 * kb);
+    const uint32_t kslot = slot(2 * it);
     const uint64_t dqb = desc(qbig), dqs = desc(qsmall);
     const uint64_t dkb = desc(kslot), dks = desc(kslot + L::kPart);
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.0f;
-    mbar_wait(full(2 * kb), phase(2 * kb));
+    mbar_wait(full(2 * it), phase(2 * it));
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < Dh / 8; ++kk) {
@@ -507,7 +526,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
-    mbar_arrive(empty(2 * kb));
+    mbar_arrive(empty(2 * it));
 
     // softcap, masks by index, running max; each a loop of its own, so
     // none branches per element
@@ -517,12 +536,15 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 32; ++i)
         s[i] = __fmul_rn(softcap, tanhf(__fdiv_rn(s[i], softcap)));
     }
-    if (k0 + kKeys > S || (causal && kb == n_k - 1)) {
+    if (k0 + kKeys > S || (causal && kb == n_k - 1) ||
+        (kWindow && k0 < q0 + kRows - window)) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int kpos = k0 + 8 * (i >> 2) + 2 * c + (i & 1);
         const int qpos = q0 + r0 + 8 * ((i >> 1) & 1);
-        if (kpos >= S || (causal && kpos > qpos)) s[i] = kNegInf;
+        if (kpos >= S || (causal && kpos > qpos) ||
+            (kWindow && kpos <= qpos - window))
+          s[i] = kNegInf;
       }
     }
     float mx[2] = {kNegInf, kNegInf};
@@ -553,11 +575,11 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // this block's P V on its own: 8 k-steps of 8 keys; step j reads 32 B
     // at key column 8 (j % 4) of box j / 4
-    const uint32_t vslot = slot(2 * kb + 1);
+    const uint32_t vslot = slot(2 * it + 1);
     const uint64_t dvb = desc(vslot), dvs = desc(vslot + L::kPart);
 #pragma unroll
     for (int i = 0; i < Dh / 2; ++i) pv[i] = 0.0f;
-    mbar_wait(full(2 * kb + 1), phase(2 * kb + 1));
+    mbar_wait(full(2 * it + 1), phase(2 * it + 1));
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kKeys / 8; ++j) {
@@ -580,7 +602,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(pv);
-    mbar_arrive(empty(2 * kb + 1));
+    mbar_arrive(empty(2 * it + 1));
 
     // acc * alpha + P V, rounding each step: the Pallas kernel's association
 #pragma unroll
@@ -603,11 +625,11 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int Dh>
+template <int Dh, bool kWindow>
 int launch(const void* q, const void* k, const void* v, void* out, int64_t n,
-           int64_t s, int64_t h, int64_t kv, int causal, float softcap,
-           float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<Dh>;
+           int64_t s, int64_t h, int64_t kv, int causal, int window,
+           float softcap, float scale, cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<Dh, kWindow>;
   constexpr uint32_t bytes = Layout<Dh>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -617,8 +639,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t n,
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), static_cast<int>(s),
-      static_cast<int>(h), static_cast<int>(kv), causal, softcap, scale);
+      static_cast<int>(h), static_cast<int>(kv), causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int Dh>
+int launch_dh(const void* q, const void* k, const void* v, void* out, int64_t n,
+              int64_t s, int64_t h, int64_t kv, int causal, int window,
+              float softcap, float scale, cudaStream_t stream) {
+  if (window > 0)
+    return launch<Dh, true>(q, k, v, out, n, s, h, kv, causal, window, softcap,
+                            scale, stream);
+  return launch<Dh, false>(q, k, v, out, n, s, h, kv, causal, 0, softcap, scale,
+                           stream);
 }
 
 }  // namespace
@@ -627,14 +660,16 @@ extern "C" {
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
                         int64_t n, int64_t s, int64_t h, int64_t kv, int64_t dh,
-                        int causal, float softcap, float scale,
+                        int causal, int window, float softcap, float scale,
                         cudaStream_t stream) {
-  if (n < 1 || s < 1 || kv < 1 || h % kv != 0 || n * h > 65535)
+  if (n < 1 || s < 1 || kv < 1 || h % kv != 0 || n * h > 65535 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dh == 64)
-    return launch<64>(q, k, v, out, n, s, h, kv, causal, softcap, scale, stream);
+    return launch_dh<64>(q, k, v, out, n, s, h, kv, causal, window, softcap,
+                         scale, stream);
   if (dh == 128)
-    return launch<128>(q, k, v, out, n, s, h, kv, causal, softcap, scale, stream);
+    return launch_dh<128>(q, k, v, out, n, s, h, kv, causal, window, softcap,
+                          scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -12,7 +12,8 @@
 //   l = (q k^T) * scale               f32 accumulation of bf16 operands,
 //                                     scaled after the product (1/sqrt(Dh))
 //   l = softcap * tanh(l / softcap)   (when softcap > 0)
-//   l = -1e30 where k_pos > q_pos (causal) or k_pos >= S (the ragged block)
+//   l = -1e30 where k_pos > q_pos (causal), k_pos <= q_pos - window (a
+//       sliding window) or k_pos >= S (the ragged block)
 //   m' = max(m, rowmax l),  p = exp(l - m'),  alpha = exp(m - m')
 //   l_sum = l_sum * alpha + sum(p)    over the f32 p
 //   acc = acc * alpha + bf16(p) v     P rounded to nearest even, f32 sums
@@ -53,6 +54,33 @@
 //     output, the block's P V and P itself without spilling (at the 168
 //     that ptxas gives every thread of a 384-thread CTA, it spilled).
 //
+// A sliding window (a template instance of its own, so a call without one
+// runs the code it ran before) keeps a key iff k_pos > q_pos - window,
+// the JAX _chunked_attention(local=True) mask.  A query tile starts at the
+// first key block that reaches its first row's window: the blocks before
+// it lie wholly before every row's window, as the blocks after the
+// diagonal lie after every row of a causal tile.  Its later rows may still
+// meet a block wholly before their own window; it is masked, and that is
+// the same bit for bit as skipping it (kernels/ref.py: a row's first kept
+// key makes alpha exactly 0).  A gemma2-9b local layer (window 4096, S
+// 32768, causal) then reads 33 of a causal tile's up to 256 blocks.
+//
+// At Dh = 256 (gemma-7b, gemma2-9b) neither budget above carries over: a
+// 128-row Q tile is 64 KB and one K or V block 64 KB, so not even two K/V
+// stages fit beside Q in 227 KB, and the output (128 registers a thread)
+// beside the block's P V (128 more), the logits (64) and P (32) would
+// exceed the consumers' 240.  So at Dh = 256:
+//
+//   * shared memory holds Q, one K slot and one V slot (192 KB), K and V
+//     each with its own full and empty barriers: the producer loads K(j+1)
+//     as soon as both consumers' Q K^T(j) is done, while they still run
+//     the softmax and P V(j), and V(j+1) while they run Q K^T(j+1);
+//   * the output is rescaled by alpha before P V(j) accumulates into it on
+//     the tensor cores (two m64n128k16 per 16 keys, its two column
+//     halves), so there is no separate P V: f32 roundings apart, the plain
+//     version's acc * alpha + P V;
+//   * four 64-column, 128-byte-swizzled TMA boxes cover a 256-wide row.
+//
 // C interface for ctypes: the entry launches on the caller's stream and
 // returns a cudaError_t (0 on success).  Nothing synchronises and nothing
 // allocates; the Python wrapper allocates the output.  The tensor maps are
@@ -89,6 +117,24 @@ struct Layout {
   static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 static_assert(Layout<128>::kBytes <= 232448, "a CTA has 227 KB of shared memory");
+
+// Dh = 256: Q, one K slot and one V slot of 128 x 256 bf16 each
+struct WideLayout {
+  static constexpr uint32_t kTile = kBlock * 256 * 2;  // 64 KB
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kTile;
+  static constexpr uint32_t kV = 2 * kTile;
+  static constexpr uint32_t kBar = 3 * kTile;
+  // q_full, k_full, k_empty, v_full, v_empty; 1 KB of slack to align the base
+  static constexpr uint32_t kBytes = kBar + 8 * 5 + 1024;
+};
+static_assert(WideLayout::kBytes <= 232448, "a CTA has 227 KB of shared memory");
+
+template <int Dh>
+constexpr uint32_t smem_bytes() {
+  if constexpr (Dh == 256) return WideLayout::kBytes;
+  else return Layout<Dh>::kBytes;
+}
 
 // ---- shared memory, mbarriers and TMA ---------------------------------------
 
@@ -269,14 +315,228 @@ __device__ __forceinline__ float quad_sum(float v) {
 // {d[8j], d[8j+1]}, {d[8j+2], d[8j+3]}, {d[8j+4], d[8j+5]},
 // {d[8j+6], d[8j+7]} of the logits' fragment: the same rows and columns.
 
-template <int Dh>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
-                const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ out, int S, int H, int KV,
-                int causal, float softcap, float scale) {
-  static_assert(Dh == 64 || Dh == 128, "head dim");
+// The first key block of a query tile whose first row is q0, under a
+// window: every block before it lies wholly before that row's window
+// (its last key <= q0 - window), so wholly before every row's of the tile.
+__device__ __forceinline__ int first_block(int q0, int window) {
+  return q0 - window + 1 > 0 ? (q0 - window + 1) / kBlock : 0;
+}
+
+// One key block's softmax on a consumer thread's logits fragment s (rows
+// row0 and row0 + 8, columns k0 + col0 + ...): scale after the product,
+// softcap, the masks by index where `masked`, the running max m; returns
+// each row's alpha, writes the bf16 P fragment into p and updates l_sum.
+// Each step is a loop of its own, so none branches per element.
+template <bool kWindow>
+__device__ __forceinline__ void softmax_block(float (&s)[64], uint32_t (&p)[32],
+                                              float (&m)[2], float (&l_sum)[2],
+                                              float (&alpha)[2], bool masked,
+                                              int k0, int row0, int col0, int S,
+                                              int causal, int window,
+                                              float softcap, float scale) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = __fmul_rn(s[i], scale);
+  if (softcap > 0.0f) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      s[i] = __fmul_rn(softcap, tanhf(__fdiv_rn(s[i], softcap)));
+  }
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int kpos = k0 + 8 * (i >> 2) + col0 + (i & 1);
+      const int qpos = row0 + 8 * ((i >> 1) & 1);
+      if (kpos >= S || (causal && kpos > qpos) ||
+          (kWindow && kpos <= qpos - window))
+        s[i] = kNegInf;
+    }
+  }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    alpha[r] = expf(m[r] - m_new);
+    m[r] = m_new;
+  }
+
+  // p = exp(l - m') in f32 for the row sums; bf16 P for the product
+  float psum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = (i >> 1) & 1;
+    const float e0 = exp_approx(s[i] - m[r]);
+    const float e1 = exp_approx(s[i + 1] - m[r]);
+    psum[r] += e0;
+    psum[r] += e1;
+    p[i / 2] = pack_bf16(e0, e1);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l_sum[r] = __fadd_rn(__fmul_rn(l_sum[r], alpha[r]), psum[r]);
+}
+
+// The Dh = 256 tile: Q, one K slot and one V slot, the output rescaled
+// before P V accumulates into it (the note at the top).
+template <bool kWindow>
+__device__ __forceinline__ void wide_tile(const CUtensorMap& tq,
+                                          const CUtensorMap& tk,
+                                          const CUtensorMap& tv,
+                                          __nv_bfloat16* __restrict__ out, int S,
+                                          int H, int KV, int causal, int window,
+                                          float softcap, float scale) {
+  using L = WideLayout;
+  constexpr int kHalves = 256 / kBoxCols;   // 64-column boxes per tile row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base + L::kQ, sk = base + L::kK, sv = base + L::kV;
+  const uint32_t q_full = base + L::kBar;
+  const uint32_t k_full = q_full + 8, k_empty = q_full + 16;
+  const uint32_t v_full = q_full + 24, v_empty = q_full + 32;
+
+  const int n_tiles = (S + kBlock - 1) / kBlock;
+  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x);
+  const int n = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int g = h / (H / KV);
+  const int q0 = tile * kBlock;
+  const int n_k = causal ? tile + 1 : n_tiles;
+  const int kb_lo = kWindow ? first_block(q0, window) : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    mbar_init(k_empty, 128 * kConsumers);
+    mbar_init(v_empty, 128 * kConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // producer: one thread loads K(j + 1) once both consumers have read
+    // K(j), and V(j + 1) once they have read V(j)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 128 * kConsumers) {
+      mbar_expect_tx(q_full, L::kTile);
+      for (int c = 0; c < kHalves; ++c)
+        tma_load_4d(sq + c * kBoxBytes, &tq, q_full, c * kBoxCols, h, q0, n);
+      for (int j = 0; kb_lo + j < n_k; ++j) {
+        const int k0 = (kb_lo + j) * kBlock;
+        const uint32_t parity = (j & 1) ^ 1;
+        mbar_wait(k_empty, parity);
+        mbar_expect_tx(k_full, L::kTile);
+        for (int c = 0; c < kHalves; ++c)
+          tma_load_4d(sk + c * kBoxBytes, &tk, k_full, c * kBoxCols, g, k0, n);
+        mbar_wait(v_empty, parity);
+        mbar_expect_tx(v_full, L::kTile);
+        for (int c = 0; c < kHalves; ++c)
+          tma_load_4d(sv + c * kBoxBytes, &tv, v_full, c * kBoxCols, g, k0, n);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. q0 + 64 wg + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int row0 = q0 + 64 * wg + 16 * (t / 32) + lane / 4;   // and row0 + 8
+  const int col0 = 2 * (lane % 4);
+  const uint32_t q_rows = sq + 64 * wg * 128;    // 64 rows of 128 B per box
+
+  // the output's columns 0..127 and 128..255, as two m64n128 fragments
+  float o_lo[64], o_hi[64], s_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o_lo[i] = o_hi[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l_sum[2] = {0.0f, 0.0f};     // this thread's share of each row's sum
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; kb_lo + j < n_k; ++j) {
+    const int kb = kb_lo + j;
+    const uint32_t parity = j & 1;
+    mbar_wait(k_full, parity);
+
+    // logits: 16 k-steps; step kk reads 32 B at column 16 (kk % 4) of box kk / 4
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_n128(s_acc, sw128_desc(q_rows + off, 16, 1024),
+                    sw128_desc(sk + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s_acc);
+    mbar_arrive(k_empty);
+
+    const int k0 = kb * kBlock;
+    const bool masked = k0 + kBlock > S || (causal && kb == n_k - 1) ||
+                        (kWindow && k0 < q0 + kBlock - window);
+    uint32_t p[32];
+    float alpha[2];
+    softmax_block<kWindow>(s_acc, p, m, l_sum, alpha, masked, k0, row0, col0,
+                           S, causal, window, softcap, scale);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      o_lo[i] = __fmul_rn(o_lo[i], alpha[(i >> 1) & 1]);
+      o_hi[i] = __fmul_rn(o_hi[i], alpha[(i >> 1) & 1]);
+    }
+
+    // P V onto the rescaled output: 8 k-steps of 16 keys, each two
+    // m64n128k16 (V's columns 0..127 in boxes 0-1, 128..255 in boxes 2-3)
+    mbar_wait(v_full, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int jj = 0; jj < kBlock / 16; ++jj) {
+      wgmma_rs(o_lo, p[4 * jj], p[4 * jj + 1], p[4 * jj + 2], p[4 * jj + 3],
+               sw128_desc(sv + jj * 16 * 128, kBoxBytes, 1024), 1);
+      wgmma_rs(o_hi, p[4 * jj], p[4 * jj + 1], p[4 * jj + 2], p[4 * jj + 3],
+               sw128_desc(sv + 2 * kBoxBytes + jj * 16 * 128, kBoxBytes, 1024),
+               1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o_lo);
+    fence_regs(o_hi);
+    mbar_arrive(v_empty);
+  }
+
+  const int64_t row_pitch = static_cast<int64_t>(H) * 256;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float denom = fmaxf(quad_sum(l_sum[r]), 1e-30f);
+    const int qpos = row0 + 8 * r;
+    if (qpos < S) {
+      __nv_bfloat16* dst = out + (static_cast<int64_t>(n) * S + qpos) * row_pitch +
+                           static_cast<int64_t>(h) * 256 + col0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(__fdiv_rn(o_lo[4 * j + 2 * r], denom),
+                      __fdiv_rn(o_lo[4 * j + 2 * r + 1], denom));
+        *reinterpret_cast<uint32_t*>(dst + 128 + 8 * j) =
+            pack_bf16(__fdiv_rn(o_hi[4 * j + 2 * r], denom),
+                      __fdiv_rn(o_hi[4 * j + 2 * r + 1], denom));
+      }
+    }
+  }
+}
+
+// The Dh = 64 and 128 tile: Q and a ring of kStages K/V stages, each
+// block's P V summed on its own and added to the rescaled output.
+template <int Dh, bool kWindow>
+__device__ __forceinline__ void staged_tile(const CUtensorMap& tq,
+                                            const CUtensorMap& tk,
+                                            const CUtensorMap& tv,
+                                            __nv_bfloat16* __restrict__ out,
+                                            int S, int H, int KV, int causal,
+                                            int window, float softcap,
+                                            float scale) {
   using L = Layout<Dh>;
   constexpr int kHalves = Dh / kBoxCols;    // 64-column boxes per tile row
   extern __shared__ uint8_t smem_raw[];
@@ -295,6 +555,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int g = h / (H / KV);
   const int q0 = tile * kBlock;
   const int n_k = causal ? tile + 1 : n_tiles;
+  const int kb_lo = kWindow ? first_block(q0, window) : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -314,15 +575,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(q_full, L::kTile);
       for (int c = 0; c < kHalves; ++c)
         tma_load_4d(sq + c * kBoxBytes, &tq, q_full, c * kBoxCols, h, q0, n);
-      for (int kb = 0; kb < n_k; ++kb) {
-        const int s = kb % kStages;
-        mbar_wait(empty(s), ((kb / kStages) & 1) ^ 1);
+      for (int it = 0; kb_lo + it < n_k; ++it) {
+        const int s = it % kStages;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * L::kTile);
         for (int c = 0; c < kHalves; ++c) {
           tma_load_4d(sk(s) + c * kBoxBytes, &tk, full(s), c * kBoxCols, g,
-                      kb * kBlock, n);
+                      (kb_lo + it) * kBlock, n);
           tma_load_4d(sv(s) + c * kBoxBytes, &tv, full(s), c * kBoxCols, g,
-                      kb * kBlock, n);
+                      (kb_lo + it) * kBlock, n);
         }
       }
     }
@@ -344,9 +605,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   float l_sum[2] = {0.0f, 0.0f};     // this thread's share of each row's sum
 
   mbar_wait(q_full, 0);
-  for (int kb = 0; kb < n_k; ++kb) {
-    const int s = kb % kStages;
-    mbar_wait(full(s), (kb / kStages) & 1);
+  for (int it = 0; kb_lo + it < n_k; ++it) {
+    const int kb = kb_lo + it;
+    const int s = it % kStages;
+    mbar_wait(full(s), (it / kStages) & 1);
 
     // logits: Dh / 16 k-steps; step kk reads 32 B at column 16 (kk % 4) of box kk / 4
     wgmma_fence();
@@ -360,51 +622,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait_all();
     fence_regs(s_acc);
 
-    // scale after the product, softcap, masks by index, running max; each
-    // step a loop of its own, so none branches per element
     const int k0 = kb * kBlock;
-#pragma unroll
-    for (int i = 0; i < 64; ++i) s_acc[i] = __fmul_rn(s_acc[i], scale);
-    if (softcap > 0.0f) {
-#pragma unroll
-      for (int i = 0; i < 64; ++i)
-        s_acc[i] = __fmul_rn(softcap, tanhf(__fdiv_rn(s_acc[i], softcap)));
-    }
-    if (k0 + kBlock > S || (causal && kb == n_k - 1)) {
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        const int kpos = k0 + 8 * (i >> 2) + col0 + (i & 1);
-        const int qpos = row0 + 8 * ((i >> 1) & 1);
-        if (kpos >= S || (causal && kpos > qpos)) s_acc[i] = kNegInf;
-      }
-    }
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int i = 0; i < 64; ++i)
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s_acc[i]);
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-
-    // p = exp(l - m') in f32 for the row sums; bf16 P for the product
+    const bool masked = k0 + kBlock > S || (causal && kb == n_k - 1) ||
+                        (kWindow && k0 < q0 + kBlock - window);
     uint32_t p[32];
-    float psum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      const int r = (i >> 1) & 1;
-      const float e0 = exp_approx(s_acc[i] - m[r]);
-      const float e1 = exp_approx(s_acc[i + 1] - m[r]);
-      psum[r] += e0;
-      psum[r] += e1;
-      p[i / 2] = pack_bf16(e0, e1);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      l_sum[r] = __fadd_rn(__fmul_rn(l_sum[r], alpha[r]), psum[r]);
+    float alpha[2];
+    softmax_block<kWindow>(s_acc, p, m, l_sum, alpha, masked, k0, row0, col0,
+                           S, causal, window, softcap, scale);
 
     // this block's P V on its own: 8 k-steps of 16 keys, 2 KB of V each
     wgmma_fence();
@@ -438,6 +662,22 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                       __fdiv_rn(o[4 * j + 2 * r + 1], denom));
     }
   }
+}
+
+template <int Dh, bool kWindow>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ out, int S, int H, int KV,
+                int causal, int window, float softcap, float scale) {
+  static_assert(Dh == 64 || Dh == 128 || Dh == 256, "head dim");
+  if constexpr (Dh == 256)
+    wide_tile<kWindow>(tq, tk, tv, out, S, H, KV, causal, window, softcap,
+                       scale);
+  else
+    staged_tile<Dh, kWindow>(tq, tk, tv, out, S, H, KV, causal, window,
+                             softcap, scale);
 }
 
 // ---- host side ----------------------------------------------------------------
@@ -489,16 +729,16 @@ bool make_map(CUtensorMap* map, const void* ptr, int64_t n, int64_t s,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int Dh>
+template <int Dh, bool kWindow>
 int launch(const void* q, const void* k, const void* v, void* out, int64_t n,
-           int64_t s, int64_t h, int64_t kv, int causal, float softcap,
-           float scale, cudaStream_t stream) {
+           int64_t s, int64_t h, int64_t kv, int causal, int window,
+           float softcap, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, n, s, h, Dh) || !make_map(&tk, k, n, s, kv, Dh) ||
       !make_map(&tv, v, n, s, kv, Dh))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_tc_kernel<Dh>;
-  constexpr uint32_t bytes = Layout<Dh>::kBytes;
+  auto kernel = flash_tc_kernel<Dh, kWindow>;
+  constexpr uint32_t bytes = smem_bytes<Dh>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -506,8 +746,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t n,
                   static_cast<unsigned>(n * h));
   kernel<<<grid, kThreads, bytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<int>(s),
-      static_cast<int>(h), static_cast<int>(kv), causal, softcap, scale);
+      static_cast<int>(h), static_cast<int>(kv), causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int Dh>
+int launch_dh(const void* q, const void* k, const void* v, void* out, int64_t n,
+              int64_t s, int64_t h, int64_t kv, int causal, int window,
+              float softcap, float scale, cudaStream_t stream) {
+  if (window > 0)
+    return launch<Dh, true>(q, k, v, out, n, s, h, kv, causal, window, softcap,
+                            scale, stream);
+  return launch<Dh, false>(q, k, v, out, n, s, h, kv, causal, 0, softcap, scale,
+                           stream);
 }
 
 }  // namespace
@@ -516,14 +767,19 @@ extern "C" {
 
 int flash_attention_bf16_tc(const void* q, const void* k, const void* v,
                             void* out, int64_t n, int64_t s, int64_t h,
-                            int64_t kv, int64_t dh, int causal, float softcap,
-                            float scale, cudaStream_t stream) {
-  if (n < 1 || s < 1 || kv < 1 || h % kv != 0 || n * h > 65535)
+                            int64_t kv, int64_t dh, int causal, int window,
+                            float softcap, float scale, cudaStream_t stream) {
+  if (n < 1 || s < 1 || kv < 1 || h % kv != 0 || n * h > 65535 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dh == 64)
-    return launch<64>(q, k, v, out, n, s, h, kv, causal, softcap, scale, stream);
+    return launch_dh<64>(q, k, v, out, n, s, h, kv, causal, window, softcap,
+                         scale, stream);
   if (dh == 128)
-    return launch<128>(q, k, v, out, n, s, h, kv, causal, softcap, scale, stream);
+    return launch_dh<128>(q, k, v, out, n, s, h, kv, causal, window, softcap,
+                          scale, stream);
+  if (dh == 256)
+    return launch_dh<256>(q, k, v, out, n, s, h, kv, causal, window, softcap,
+                          scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -167,13 +167,17 @@ def block_topk_mask(x, k: int):
     return _topk.block_topk_mask(x, k)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, softcap=None):
+def flash_attention(q, k, v, *, causal: bool = True, softcap=None,
+                    window=None):
     """Attention forward, q (N, S, H, Dh), k and v (N, S, KV, Dh) ->
     (N, S, H, Dh) in q's dtype: f32 inputs computed in f32, bf16 inputs
-    with P rounded to bf16 before P V (``ref.flash_attention_ref``)."""
+    with P rounded to bf16 before P V (``ref.flash_attention_ref``);
+    ``window`` keeps a key iff k_pos > q_pos - window."""
     if _on_cpu(q):
-        return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
-    return _flash.flash_attention(q, k, v, causal=causal, softcap=softcap)
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       softcap=softcap, window=window)
+    return _flash.flash_attention(q, k, v, causal=causal, softcap=softcap,
+                                  window=window)
 
 
 def probe_scale(x):
@@ -246,3 +250,4 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _flash.flash_attention.variants.clear()

@@ -4,8 +4,15 @@ Replace the Pallas kernel ``src/repro/kernels/flash_attention.py``:
 ``flash_attention_single`` (:77, body ``_flash_kernel``) and its GQA
 wrapper ``flash_attention`` (:93).  Both kernels read q ``(N, S, H, Dh)``
 and k, v ``(N, S, KV, Dh)`` in place, with no transpose and no repeated
-KV copy, and write the output in q's dtype.  Any S; Dh 64 or 128.  The
-entry follows the dtype, and nothing else:
+KV copy, and write the output in q's dtype.  Any S; the head dims of
+:data:`HEAD_DIMS` (f32 64 or 128, bf16 64, 128 or 256); causal or not,
+with an optional softcap and an optional sliding ``window`` (a key is
+kept iff k_pos > q_pos - window, the JAX ``_chunked_attention``'s local
+mask; a query tile skips the key blocks wholly before its first row's
+window, as a causal tile stops at its diagonal).  Each (Dh, window or
+not) pair is a template instance of its own, so ``window=None`` runs
+the code it ran before windows were added.  The entry follows the
+dtype, and nothing else:
 
 * float32: ``csrc/flash_attention.cu`` (library ``flash``), on the
   tensor cores in 3xTF32 (each operand split into two TF32 parts, three
@@ -22,19 +29,27 @@ entry follows the dtype, and nothing else:
   the tensor cores (wgmma, TMA loads), with P rounded to bf16 before P V,
   held to the plain version (``ref.flash_attention_ref``, which rounds at
   the same points) by :data:`FLASH_BF16_RTOL` and
-  :data:`FLASH_BF16_ULP_SHARE` through :func:`bf16_gap`.
+  :data:`FLASH_BF16_ULP_SHARE` through :func:`bf16_gap`.  At Dh 64 and
+  128: 3 K/V stages, 225 KB of shared memory at Dh 128, the block's P V
+  apart from the output (240 registers a consumer thread).  At Dh 256 a
+  128-row Q tile is 64 KB and one K or V block 64 KB: Q, one K slot and
+  one V slot, each with its own barriers (192 KB), so K(j+1) loads while
+  V(j) is read; the output (128 registers) is rescaled by alpha before
+  P V accumulates into it, with no separate P V.
 
 Neither has a backward: the wrapper refuses inputs that need a gradient.
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
 
 from . import build
 
-HEAD_DIMS = (64, 128)
+#: dtype -> the head dims its kernel takes
+HEAD_DIMS = {torch.float32: (64, 128), torch.bfloat16: (64, 128, 256)}
 #: dtype -> (library, entry)
 _ENTRY = {torch.float32: ("flash", "flash_attention_f32"),
           torch.bfloat16: ("flash_tc", "flash_attention_bf16_tc")}
@@ -72,7 +87,7 @@ def bf16_gap(got, want):
     return rel, float((d > ulp).float().mean())
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, window=None) -> None:
     """Everything the kernels assume that a tensor's metadata shows; raises
     before any library is loaded."""
     if q.dim() != 4 or k.dim() != 4:
@@ -95,8 +110,11 @@ def _check(q, k, v) -> None:
                              f"{LOAD_ALIGN}-byte aligned base address")
     if KV < 1 or H % KV:
         raise ValueError(f"{H} query heads are not a multiple of {KV} KV heads")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {Dh}: the kernel takes {HEAD_DIMS}")
+    if Dh not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head dim {Dh}: the {str(q.dtype)[6:]} kernel "
+                         f"takes {HEAD_DIMS[q.dtype]}")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window}: expected None or >= 1")
     if S < 1 or N * H > 65535:
         raise ValueError(f"S={S}, N*H={N * H}: need S >= 1 and N*H <= 65535 "
                          f"(the kernel grid's y dimension)")
@@ -104,10 +122,20 @@ def _check(q, k, v) -> None:
         raise RuntimeError("the flash-attention kernel has no backward")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, softcap=None):
+def variant(dtype, head_dim: int, window) -> str:
+    """The name a launch is counted under in ``flash_attention.variants``:
+    "bf16_dh256", "f32_dh64_window", ..."""
+    name = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    return f"{name}_dh{head_dim}" + ("" if window is None else "_window")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, softcap=None,
+                    window=None):
     """q: (N, S, H, Dh); k, v: (N, S, KV, Dh) -> (N, S, H, Dh), launched
-    on the current stream."""
-    _check(q, k, v)
+    on the current stream.  ``window`` (None or >= 1) keeps a key iff
+    k_pos > q_pos - window.  Each launch adds one to ``launches`` and to
+    its :func:`variant`'s count in ``variants``."""
+    _check(q, k, v, window)
     library, entry = _ENTRY[q.dtype]
     lib = build.load_library(library)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -118,11 +146,13 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap=None):
     out = torch.empty_like(q)
     code = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), N, S, H,
-        k.shape[2], Dh, int(bool(causal)), float(softcap or 0.0),
-        1.0 / math.sqrt(Dh), build.stream_of(q))
+        k.shape[2], Dh, int(bool(causal)), int(window or 0),
+        float(softcap or 0.0), 1.0 / math.sqrt(Dh), build.stream_of(q))
     build.check_launch(lib, code, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.variants[variant(q.dtype, Dh, window)] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.variants = collections.Counter()

@@ -306,7 +306,8 @@ def replica_stale_ref(x, h, q_self, s_list, q_list, own_ring, rings, w,
     return x_n, h_n.to(sd), new_s, q_own.to(sd), new_rings
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None):
+def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None,
+                        window=None, row_tile: int = FLASH_BLOCK):
     """Online-softmax attention, step for step as the flash kernels.
 
     q: (N, S, H, Dh); k, v: (N, S, KV, Dh), H a multiple of KV: head h
@@ -319,10 +320,25 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None):
     on.  Any S: the last block is ragged.  Returns (N, S, H, Dh) in q's
     dtype.
 
+    ``window`` (the JAX ``_chunked_attention(local=True)``'s mask): a key
+    is kept iff ``k_pos > q_pos - window``, ANDed with the causal mask.
+    A tile of ``row_tile`` query rows skips the key blocks that lie wholly
+    before its first row's window, as the kernels' query tiles do (128
+    rows in the bf16 kernel, 64 in the f32 one), and masks the rest.
+    Skipping or masking a block that lies wholly before a row's window
+    gives the same result bit for bit: while such blocks come first, the
+    row's max stays -1e30 and its p are exp(0) = 1, but its first kept key
+    sets a finite max m and alpha = exp(-1e30 - m) = 0 exactly, which
+    clears the running sum and accumulator (``row_tile=S``, one tile,
+    masks every such block; ``row_tile=1`` skips every one).
+
     bf16 inputs take the tensor-core kernel's rounding points instead:
     the logits are the product of the f32 upcasts, scaled after it,
     ``(q k^T) * (1/sqrt(Dh))``; the row sum runs over the f32 p; and p is
-    rounded to bf16 (nearest even) before ``p @ v``, which sums in f32."""
+    rounded to bf16 (nearest even) before ``p @ v``, which sums in f32.
+    (At Dh 256 the kernel accumulates ``p @ v`` onto ``acc * alpha`` on
+    the tensor cores, where this adds a block's f32 sum to it: f32
+    rounding apart, the same.)"""
     N, S, H, Dh = q.shape
     KV = k.shape[2]
     rep = H // KV
@@ -339,25 +355,36 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None):
     for k0 in range(0, S, FLASH_BLOCK):
         k1 = min(k0 + FLASH_BLOCK, S)
         r0 = k0 if causal else 0
-        logits = qf[..., r0:, :] @ kf[..., k0:k1, :].transpose(-1, -2)
+        r1 = S
+        if window is not None:
+            # the tiles whose first row's window reaches into this block:
+            # first row t0 with t0 - window < k0 + 127
+            r1 = min(S, ((k0 + FLASH_BLOCK - 2 + window) // row_tile + 1)
+                     * row_tile)
+            if r1 <= r0:
+                continue
+        logits = qf[..., r0:r1, :] @ kf[..., k0:k1, :].transpose(-1, -2)
         if bf16:
             logits = logits * (1.0 / math.sqrt(Dh))
         if softcap is not None:
             logits = softcap * torch.tanh(logits / softcap)
+        qpos = torch.arange(r0, r1, device=q.device)[:, None]
+        kpos = torch.arange(k0, k1, device=q.device)[None, :]
         if causal:
-            qpos = torch.arange(r0, S, device=q.device)[:, None]
-            kpos = torch.arange(k0, k1, device=q.device)[None, :]
             logits = torch.where(kpos <= qpos, logits, NEG_INF)
-        m_old = m[..., r0:]
+        if window is not None:
+            logits = torch.where(kpos > qpos - window, logits, NEG_INF)
+        m_old = m[..., r0:r1]
         m_new = torch.maximum(m_old, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
         alpha = torch.exp(m_old - m_new)
-        l_new = l[..., r0:] * alpha + p.sum(dim=-1)
+        l_new = l[..., r0:r1] * alpha + p.sum(dim=-1)
         pv = (p.to(torch.bfloat16).to(f32) if bf16 else p) @ vf[..., k0:k1, :]
-        acc_new = acc[..., r0:, :] * alpha[..., None] + pv
-        # rows before r0 (earlier query tiles) keep their state
-        m = torch.cat([m[..., :r0], m_new], dim=-1)
-        l = torch.cat([l[..., :r0], l_new], dim=-1)
-        acc = torch.cat([acc[..., :r0, :], acc_new], dim=-2)
+        acc_new = acc[..., r0:r1, :] * alpha[..., None] + pv
+        # rows outside [r0, r1) (earlier query tiles; tiles whose window
+        # starts after this block) keep their state
+        m = torch.cat([m[..., :r0], m_new, m[..., r1:]], dim=-1)
+        l = torch.cat([l[..., :r0], l_new, l[..., r1:]], dim=-1)
+        acc = torch.cat([acc[..., :r0, :], acc_new, acc[..., r1:, :]], dim=-2)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(N, S, H, Dh).to(q.dtype)

@@ -18,7 +18,9 @@ raises unless it is given ``--device cpu``.  Refused before torch is
 imported: ``--mesh`` and ``--simulate-devices`` (one device),
 ``--kv-layout seq`` (a sharding choice with nothing to shard on one
 device), ``--metrics-dir`` (the telemetry sinks are not ported) and
-every architecture but the dense qwen3-1.7b.
+every architecture but the dense ones: qwen3-1.7b, gemma2-9b (local and
+global layers, its local caches ring buffers of the 4096-token window),
+gemma-7b and yi-9b.
 """
 import argparse
 import json
@@ -28,7 +30,7 @@ import time
 # torch-free: argument validation runs before torch is imported
 from repro_torch.obs.timers import percentile
 
-ARCH_CHOICES = ("qwen3-1.7b",)
+ARCH_CHOICES = ("qwen3-1.7b", "gemma2-9b", "gemma-7b", "yi-9b")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -55,7 +57,7 @@ def _parser() -> argparse.ArgumentParser:
 def _validate(ap, args) -> None:
     if args.arch not in ARCH_CHOICES:
         ap.error(f"--arch {args.arch!r} is not ported; choose from "
-                 f"{', '.join(ARCH_CHOICES)} (the dense decoder)")
+                 f"{', '.join(ARCH_CHOICES)} (the dense decoders)")
     if args.mesh is not None:
         ap.error("--mesh is not supported by the port: it serves on one "
                  "device")

@@ -5,8 +5,9 @@ and every weight ``(n, *shape)``: the n nodes' models run as one batched
 computation (a batched matmul per projection).  Each function computes in
 the order and dtype of its JAX counterpart in ``src/repro/models/layers.py``.
 ``attn_impl="chunked"`` attention goes through the flash kernel
-(``kernels/dispatch.py``).  Not ported: sliding windows, ring-buffer
-caches and extra attention masks.
+(``kernels/dispatch.py``), with the sliding window on local layers.
+Local layers decode against a ring-buffer cache.  Not ported: extra
+attention masks (``attn_mask``).
 """
 from __future__ import annotations
 
@@ -89,23 +90,26 @@ def _qkv(p, x, cfg, positions):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def attention(p, x, cfg, positions):
-    """Full-sequence causal self-attention (GQA, optional qk-norm), for
-    training and prefill.  x: (n, B, S, D); positions: (B, S), each row
-    0..S-1.  Returns ``(out, (k, v))``, k and v before the KV repeat, so
-    a prefill can fill its cache.
+def attention(p, x, cfg, positions, *, local: bool = False):
+    """Full-sequence self-attention (GQA, optional qk-norm), for training
+    and prefill.  x: (n, B, S, D); positions: (B, S), each row 0..S-1.
+    ``local`` selects the sliding window (``cfg.sliding_window``): a key
+    is kept iff k_pos > q_pos - window, ANDed with the causal mask.
+    Returns ``(out, (k, v))``, k and v before the KV repeat, so a prefill
+    can fill its cache.
 
     ``cfg.attn_impl == "chunked"`` runs the flash kernel, which masks by
     index: the same as the JAX ``_chunked_attention``'s mask by position
     for these positions."""
     n, B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    window = cfg.sliding_window if local else None
     q, k, v = _qkv(p, x, cfg, positions)
     if cfg.attn_impl == "chunked":
         out = dispatch.flash_attention(
             q.reshape(n * B, S, H, Dh), k.reshape(n * B, S, KV, Dh),
             v.reshape(n * B, S, KV, Dh), causal=cfg.causal,
-            softcap=cfg.attn_logit_softcap)
+            softcap=cfg.attn_logit_softcap, window=window)
         return _matmul(out.reshape(n, B, S, H * Dh), p["wo"]), (k, v)
     if cfg.attn_impl != "naive":
         raise ValueError(f"attn_impl {cfg.attn_impl!r} is not ported")
@@ -116,6 +120,8 @@ def attention(p, x, cfg, positions):
         mask = kpos <= qpos                                    # (B, 1, S, S)
     else:
         mask = torch.ones((B, 1, S, S), dtype=torch.bool, device=x.device)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
     logits = torch.einsum("nbqhd,nbkhd->nbhqk", q, kr) * (1.0 / math.sqrt(Dh))
     logits = softcap(logits.to(torch.float32), cfg.attn_logit_softcap)
     logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
@@ -124,20 +130,23 @@ def attention(p, x, cfg, positions):
     return _matmul(out, p["wo"]), (k, v)
 
 
-def decode_attention(p, x, cfg, cache_k, cache_v, pos):
-    """Single-token decode against a full KV cache.
+def decode_attention(p, x, cfg, cache_k, cache_v, pos, *, local: bool = False):
+    """Single-token decode against a KV cache.
 
-    x: (n, B, 1, D); cache_k, cache_v: (n, B, C, KV, Dh), written in place
-    at slot ``pos[0]`` (decode steps are batch-synchronous: every request
-    shares the position); pos: (B,) long tensor of absolute positions.
-    GQA-native: the query is grouped (n, B, 1, KV, rep, Dh) and contracts
-    the cache directly, with no repeated KV copy.  Returns the output
-    (n, B, 1, D)."""
+    x: (n, B, 1, D); cache_k, cache_v: (n, B, C, KV, Dh), C = max_seq
+    (global) or the local layer's ring of min(sliding_window, max_seq)
+    slots, written in place at slot ``pos[0]`` (global) or
+    ``pos[0] % C`` (``local``); decode steps are batch-synchronous: every
+    request shares the position.  pos: (B,) long tensor of absolute
+    positions.  A global layer attends slots <= pos, a local one every
+    filled slot, min(pos + 1, C) of them.  GQA-native: the query is
+    grouped (n, B, 1, KV, rep, Dh) and contracts the cache directly, with
+    no repeated KV copy.  Returns the output (n, B, 1, D)."""
     n, B, _, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     C = cache_k.shape[2]
     q, k, v = _qkv(p, x, cfg, pos[:, None])
-    slot = pos[:1]
+    slot = pos[:1] % C if local else pos[:1]
     cache_k.index_copy_(2, slot, k)
     cache_v.index_copy_(2, slot, v)
 
@@ -146,7 +155,11 @@ def decode_attention(p, x, cfg, cache_k, cache_v, pos):
         1.0 / math.sqrt(Dh))
     logits = softcap(logits.to(torch.float32), cfg.attn_logit_softcap)
     idx = torch.arange(C, device=x.device)[None, :]
-    mask = (idx <= pos[:, None])[None, :, None, None, None, :]  # (1,B,1,1,1,C)
+    if local:
+        mask = idx < torch.clamp_max(pos + 1, C)[:, None]      # filled slots
+    else:
+        mask = idx <= pos[:, None]
+    mask = mask[None, :, None, None, None, :]                  # (1,B,1,1,1,C)
     logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("nbkrqc,nbckd->nbqkrd", w, cache_v).reshape(

@@ -3,20 +3,26 @@ forward, the prefill and the single-token decode step with its KV cache.
 
 Parameters are a flat dict ``path -> (n, *shape)`` tensor (n gossip nodes
 stacked first), with the JAX package's tree paths ("embed/tok",
-"stack/p0/attn/wq", ...) and shapes: the layers of the scanned block
-pattern are stacked on a leading ``n_layers`` dim of every "stack/p0"
-leaf.  :func:`param_shapes` lists them in the JAX ``tree_flatten`` order,
-which is the order the gossip engine packs them in.
+"stack/p0/attn/wq", ...) and shapes.  The stack is the JAX
+``block_pattern``: a pattern of block kinds ("dense_global", and
+"dense_local" with ``local_global_pattern``) scanned ``repeat`` times,
+then a ``tail`` of single blocks.  Pattern position i's leaves
+("stack/p{i}/...") carry a leading ``repeat`` dim, tail block i's
+("tail/t{i}/...") none; layer r * len(pattern) + i is repeat r of
+position i.  :func:`param_shapes` lists them in the JAX ``tree_flatten``
+order, which is the order the gossip engine packs them in.
 
-The KV cache is ``{"k": (n, L, B, C, KV, Dh), "v": ...}`` in the compute
-dtype: the JAX stack's ``caches["stack"]["c0"]`` leaves with the node
-dimension first.  A decode step writes its slot in place.  For serving,
+The KV cache is a flat dict of the JAX cache tree's leaves with the node
+dimension first, in the compute dtype: "stack/c{i}/k" and ".../v" of
+shape (n, repeat, B, C, KV, Dh) and "tail/t{i}/k" of (n, B, C, KV, Dh).
+A global layer's cache has C = max_seq slots, a local layer's
+C = min(sliding_window, max_seq), a ring buffer: position p lives in slot
+p % C.  A decode step writes its slot in place.  For serving,
 :meth:`Model.compute_params` casts the weights to the compute dtype once,
 so no call casts them again (the JAX ``_cast`` rounds the same way).
 
-Not ported: the other families (MoE, SSM, hybrid, VLM, audio), local /
-global layer patterns, sliding-window and ring-buffer caches, and
-``remat`` (the JAX qwen3-1.7b config asks for ``"dots"``): blocks are not
+Not ported: the other families (MoE, SSM, hybrid, VLM, audio) and
+``remat`` (the JAX configs ask for ``"dots"``): blocks are not
 checkpointed, since the training sequence of the slice is short and its
 activations are small next to the CHOCO state.
 """
@@ -39,11 +45,25 @@ def _check(cfg) -> None:
         raise ValueError(f"model family {cfg.family!r} is not ported")
 
 
+def block_pattern(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
+    """(pattern, repeat, tail) of the dense stack, as the JAX
+    ``block_pattern``: ``pattern`` runs ``repeat`` times, then each block
+    of ``tail`` once.  With ``local_global_pattern`` k > 0 the pattern is
+    k local layers and one global one, and the layers that do not fill a
+    last pattern make the tail."""
+    _check(cfg)
+    if cfg.local_global_pattern > 0:
+        unit = ("dense_local",) * cfg.local_global_pattern + ("dense_global",)
+        repeat, rem = divmod(cfg.n_layers, len(unit))
+        return unit, repeat, unit[:rem]
+    return ("dense_global",), cfg.n_layers, ()
+
+
 def param_shapes(cfg) -> List[Tuple[str, Tuple[int, ...]]]:
     """(path, per-node shape) of every parameter, in JAX flatten order."""
-    _check(cfg)
+    pattern, repeat, tail = block_pattern(cfg)
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    H, KV, Dh, Ln = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     shapes = {"embed/tok": (V, D), "embed/final_norm": (D,)}
     if not cfg.tie_embeddings:
         shapes["embed/unembed"] = (D, V)
@@ -59,7 +79,10 @@ def param_shapes(cfg) -> List[Tuple[str, Tuple[int, ...]]]:
         block[f"mlp/{name}"] = (D, F)
     block["mlp/w_down"] = (F, D)
     for name, shape in block.items():
-        shapes[f"stack/p0/{name}"] = (Ln,) + shape
+        for i in range(len(pattern)):
+            shapes[f"stack/p{i}/{name}"] = (repeat,) + shape
+        for i in range(len(tail)):
+            shapes[f"tail/t{i}/{name}"] = shape
     return sorted(shapes.items(), key=lambda kv: kv[0].split("/"))
 
 
@@ -111,36 +134,64 @@ class Model:
         one rounding more than the JAX model, which scales the f32 one.)"""
         return {k: v.to(self.dtype) for k, v in params.items()}
 
+    def cache_len(self, kind: str, max_seq: int) -> int:
+        """Slots of one layer's cache: max_seq, or for a local layer
+        min(sliding_window, max_seq) (the JAX ``init_block_cache``)."""
+        if kind == "dense_local" and self.cfg.sliding_window:
+            return min(self.cfg.sliding_window, max_seq)
+        return max_seq
+
     def init_cache(self, batch: int, max_seq: int, device,
                    n_nodes: int = 1) -> Dict[str, torch.Tensor]:
-        """Zeroed KV cache: "k" and "v" of shape (n, L, B, max_seq, KV, Dh)
-        in the compute dtype."""
+        """Zeroed KV cache in the compute dtype, the JAX cache tree's
+        leaves: "stack/c{i}/k" and "stack/c{i}/v" of shape (n, repeat, B,
+        C, KV, Dh) per pattern position i, "tail/t{i}/k" and ".../v" of
+        (n, B, C, KV, Dh) per tail block, C from :meth:`cache_len`."""
         cfg = self.cfg
-        shape = (n_nodes, cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
-        return {name: torch.zeros(shape, dtype=self.dtype, device=device)
-                for name in ("k", "v")}
+        pattern, repeat, tail = block_pattern(cfg)
+        heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
+        shapes = {}
+        for i, kind in enumerate(pattern):
+            shapes[f"stack/c{i}"] = (n_nodes, repeat, batch,
+                                     self.cache_len(kind, max_seq)) + heads
+        for i, kind in enumerate(tail):
+            shapes[f"tail/t{i}"] = (n_nodes, batch,
+                                    self.cache_len(kind, max_seq)) + heads
+        return {f"{prefix}/{name}": torch.zeros(shape, dtype=self.dtype,
+                                                device=device)
+                for prefix, shape in shapes.items() for name in ("k", "v")}
 
     @staticmethod
     def _sub(p, prefix):
         return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
 
-    def _layers(self, params):
-        """Per layer, its "stack/p0" leaves (views) in the compute dtype."""
-        stack = self._sub(params, "stack/p0/")
-        for layer in range(self.cfg.n_layers):
-            yield layer, {k: v[:, layer].to(self.dtype) for k, v in stack.items()}
+    def _layers(self, params, caches=None):
+        """Per layer in order, (kind, its leaves in the compute dtype, its
+        (k, v) cache views (n, B, C, KV, Dh) or None)."""
+        pattern, repeat, tail = block_pattern(self.cfg)
+        stack = [self._sub(params, f"stack/p{i}/") for i in range(len(pattern))]
+        for r in range(repeat):
+            for i, kind in enumerate(pattern):
+                cache = None if caches is None else tuple(
+                    caches[f"stack/c{i}/{name}"][:, r] for name in ("k", "v"))
+                yield kind, {k: v[:, r].to(self.dtype)
+                             for k, v in stack[i].items()}, cache
+        for i, kind in enumerate(tail):
+            cache = None if caches is None else tuple(
+                caches[f"tail/t{i}/{name}"] for name in ("k", "v"))
+            yield kind, {k: v.to(self.dtype) for k, v in
+                         self._sub(params, f"tail/t{i}/").items()}, cache
 
     def _mlp_residual(self, p, x):
         y = L.rms_norm(x, L.per_node(p["ln2"], x.dim()), self.cfg.norm_eps)
         return x + L.mlp(self._sub(p, "mlp/"), y, self.cfg)
 
-    def _block(self, p, x, positions):
+    def _block(self, kind, p, x, positions):
         """One layer's full-sequence pass: (x, (k, v))."""
         h, kv = L.attention(
             self._sub(p, "attn/"),
             L.rms_norm(x, L.per_node(p["ln1"], x.dim()), self.cfg.norm_eps),
-            self.cfg, positions)
+            self.cfg, positions, local=kind == "dense_local")
         return self._mlp_residual(p, x + h), kv
 
     def _embed_tokens(self, params, tokens):
@@ -149,16 +200,29 @@ class Model:
 
     def hidden(self, params, tokens, caches=None):
         """Final hidden states (n, B, S, D) in the compute dtype.  With
-        ``caches`` (:meth:`init_cache` of length >= S), each layer's k and
-        v fill its first S slots."""
+        ``caches`` (:meth:`init_cache` of max_seq >= S), each layer keeps
+        its k and v of position p in slot p % C: a global layer fills its
+        first S slots, a local one of C < S slots the last C positions
+        (slot p % C, the slot :meth:`decode_step` reads; the JAX prefill
+        keeps ``k[:, -C:]`` in slots 0..C-1, the same when C divides S)."""
         x = self._embed_tokens(params, tokens)
         B, S = tokens.shape[1:]
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-        for layer, p in self._layers(params):
-            x, (k, v) = self._block(p, x, positions)
-            if caches is not None:
-                caches["k"][:, layer, :, :S] = k
-                caches["v"][:, layer, :, :S] = v
+        for kind, p, cache in self._layers(params, caches):
+            x, kv = self._block(kind, p, x, positions)
+            if cache is None:
+                continue
+            C = cache[0].shape[2]
+            if C >= S:
+                for c, t in zip(cache, kv):
+                    c[:, :, :S] = t
+            elif kind == "dense_local":
+                slots = torch.arange(S - C, S, device=tokens.device) % C
+                for c, t in zip(cache, kv):
+                    c.index_copy_(2, slots, t[:, :, S - C:])
+            else:
+                raise ValueError(f"a global layer's cache of {C} slots "
+                                 f"cannot hold {S} positions")
         return x
 
     def _embed(self, params, dtype):
@@ -181,7 +245,7 @@ class Model:
 
     def prefill(self, params, tokens):
         """Full-sequence pass over tokens (n, B, S): last-token logits
-        (n, B, 1, V) and the KV cache of length S."""
+        (n, B, 1, V) and the KV cache of max_seq S."""
         n, B, S = tokens.shape
         caches = self.init_cache(B, S, tokens.device, n_nodes=n)
         h = self.hidden(params, tokens, caches)
@@ -190,13 +254,13 @@ class Model:
     def decode_step(self, params, token, caches, pos):
         """One token per sequence.  token: (n, B, 1); pos: (B,) long
         absolute position, the same for every sequence; caches are
-        written in place at slot pos.  Returns (logits (n, B, 1, V),
-        caches)."""
+        written in place, at slot pos (global layers) or pos % C (local
+        ring buffers).  Returns (logits (n, B, 1, V), caches)."""
         x = self._embed_tokens(params, token)
-        for layer, p in self._layers(params):
+        for kind, p, (ck, cv) in self._layers(params, caches):
             h = L.decode_attention(
                 self._sub(p, "attn/"),
                 L.rms_norm(x, L.per_node(p["ln1"], x.dim()), self.cfg.norm_eps),
-                self.cfg, caches["k"][:, layer], caches["v"][:, layer], pos)
+                self.cfg, ck, cv, pos, local=kind == "dense_local")
             x = self._mlp_residual(p, x + h)
         return self._logits(params, x), caches

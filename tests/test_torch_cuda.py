@@ -639,6 +639,76 @@ def test_flash_attention_kernel_matches_plain(cuda, n, s, h, kv, dh, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,s,h,kv,dh,dtype,causal,softcap,window", [
+    (1, 2048, 16, 8, 256, torch.bfloat16, True, 50.0, None),
+    (2, 1000, 16, 8, 256, torch.bfloat16, True, None, 300),
+    (2, 1000, 16, 16, 256, torch.bfloat16, False, 50.0, None),
+    (2, 1000, 16, 8, 256, torch.bfloat16, False, None, 300),
+    (1, 2048, 16, 8, 256, torch.bfloat16, True, 50.0, 512),
+    (2, 1000, 16, 8, 128, torch.bfloat16, True, None, 300),
+    (2, 1000, 16, 8, 128, torch.bfloat16, False, None, 129),
+    (2, 512, 4, 2, 64, torch.bfloat16, True, 50.0, 16),
+    (2, 1000, 8, 8, 64, torch.float32, True, 50.0, 300),
+    (2, 1000, 16, 8, 128, torch.float32, True, 50.0, 300),
+    (2, 1000, 8, 4, 64, torch.float32, False, None, 100),
+    (1, 700, 4, 2, 128, torch.float32, True, None, 1),
+])
+def test_flash_attention_kernel_dh256_and_window_match_plain(
+        cuda, n, s, h, kv, dh, dtype, causal, softcap, window):
+    """The bf16 kernel at Dh 256 and both kernels with a sliding window,
+    to the contracts of the test above; each launch counted under its
+    variant."""
+    q, k, v = _attn_inputs(s + dh, n, s, h, kv, dh, dtype, cuda)
+    variants = flash_kernel.flash_attention.variants
+    name = flash_kernel.variant(dtype, dh, window)
+    before = variants[name]
+    got = _launched("flash_attention", lambda: dispatch.flash_attention(
+        q, k, v, causal=causal, softcap=softcap, window=window))
+    assert variants[name] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    if dtype == torch.bfloat16:
+        rel, share = flash_kernel.bf16_gap(got, want)
+        assert rel <= flash_kernel.FLASH_BF16_RTOL
+        assert share <= flash_kernel.FLASH_BF16_ULP_SHARE
+    else:
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,attn_impl", [
+    ("gemma2-9b", "chunked"), ("gemma2-9b", "naive"), ("gemma-7b", "chunked"),
+    ("yi-9b", "naive")])
+def test_dense_variant_serving_agrees_with_cpu(cuda, arch, attn_impl):
+    """The f32 smoke model's prefill of 24 tokens and 40 decode steps past
+    it (gemma2's local rings of 16 wrap), on the card against the CPU,
+    within 1e-5 (+ 1e-5 relative) of the logits."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              attn_impl=attn_impl)
+    model = Model(cfg)
+    params = model.init(1, 0, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 2, 64)))
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        p = {k: v.to(device) for k, v in params.items()}
+        t = toks.to(device)
+        cache = model.init_cache(2, 64, device)
+        model.hidden(p, t[:, :, :24], cache)
+        steps = []
+        for i in range(24, 64):
+            lg, cache = model.decode_step(p, t[:, :, i:i + 1], cache,
+                                          torch.full((2,), i, device=device))
+            steps.append(lg.cpu())
+        out[device.type] = torch.cat(steps, dim=2)
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v = _attn_inputs(0, 1, 128, 4, 2, 64, torch.float32, cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -694,7 +764,8 @@ def test_prefill_goes_through_the_flash_kernel_and_agrees_with_cpu(cuda):
                                toks.to(cuda))
     assert dispatch.launch_counts()["flash_attention"] == cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
-    for name in ("k", "v"):
+    assert sorted(cache) == sorted(want_cache)
+    for name in want_cache:
         torch.testing.assert_close(cache[name].cpu(), want_cache[name],
                                    rtol=1e-5, atol=4e-5)
 

@@ -22,6 +22,7 @@ The routing tests show that a tensor off the CPU never reaches a plain
 version.  ``tests/test_torch_cuda.py`` holds each CUDA kernel against its
 plain version on the card.
 """
+import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -271,10 +272,12 @@ def _plain_flash(q, k, v, **kw):
         torch.set_num_threads(threads)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_plain_matches_jax_pallas_kernel(causal):
+@pytest.mark.parametrize("causal,dh", [(True, 64), (False, 64), (True, 256),
+                                       (False, 256)],
+                         ids=["True", "False", "True-256", "False-256"])
+def test_flash_plain_matches_jax_pallas_kernel(causal, dh):
     from repro.kernels.flash_attention import flash_attention as jflash
-    q, k, v = _flash_inputs(0, 2, 256, 4, 2, 64)
+    q, k, v = _flash_inputs(0, 2, 256, 4, 2, dh)
     want = jflash(*map(jnp.asarray, (q, k, v)), causal=causal, interpret=True)
     got = _plain_flash(q, k, v, causal=causal)
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=FLASH_TOL)
@@ -338,7 +341,7 @@ def test_flash_plain_bf16_rounds_p(dh):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 @pytest.mark.parametrize("s", [256, 384])
 def test_flash_plain_bf16_matches_jax_pallas_kernel(s, dh, causal):
     """The bf16 plain version against the JAX Pallas kernel in interpret
@@ -353,6 +356,94 @@ def test_flash_plain_bf16_matches_jax_pallas_kernel(s, dh, causal):
     rel, _ = flash_kernel.bf16_gap(
         got, torch.from_numpy(np.array(want.astype(jnp.float32))))
     assert rel <= flash_kernel.FLASH_BF16_F32P_RTOL
+
+
+# A sliding window (gemma2's local layers): the plain version against the
+# JAX jnp scan ``_chunked_attention(local=True)`` at the same 128-key
+# partition (``attn_chunk=128``), which masks every block where the plain
+# version skips those wholly before a query tile's window.
+
+
+def _jax_local_attention(q, k, v, window, causal, softcap):
+    from repro.configs.base import get_config as jget_config
+    from repro.models.layers import _chunked_attention
+    cfg = dataclasses.replace(jget_config("gemma2-9b", smoke=True),
+                              attn_chunk=128, sliding_window=window,
+                              causal=causal, attn_logit_softcap=softcap)
+    rep = q.shape[2] // k.shape[2]
+    n, s = q.shape[:2]
+    positions = jnp.broadcast_to(jnp.arange(s)[None], (n, s))
+    out = _chunked_attention(
+        jnp.asarray(q), jnp.repeat(jnp.asarray(k), rep, axis=2),
+        jnp.repeat(jnp.asarray(v), rep, axis=2), cfg, positions, local=True)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("softcap", [None, 50.0])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window,dh", [(16, 64), (100, 64), (300, 256)])
+def test_flash_plain_window_matches_jax_chunked_local(window, dh, causal,
+                                                      softcap):
+    """f32 within FLASH_TOL: the same mask and partition, summed in
+    another order."""
+    q, k, v = _flash_inputs(window + dh, 2, 384, 4, 2, dh)
+    want = _jax_local_attention(q, k, v, window, causal, softcap)
+    got = _plain_flash(q, k, v, causal=causal, softcap=softcap, window=window)
+    np.testing.assert_allclose(got, want, rtol=0, atol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 100, 129, 300])
+def test_flash_plain_window_skipping_is_bit_equal_to_masking(window, causal,
+                                                             dtype):
+    """A key block wholly before a row's window, skipped (per row:
+    ``row_tile=1``; per 64- or 128-row tile, as the kernels skip) or
+    masked (``row_tile=S``, one tile): the outputs are bit-equal.  The
+    first kept key's alpha = exp(-1e30 - m) is exactly 0, which clears
+    what the masked blocks summed."""
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype))
+               for a in _flash_inputs(window, 2, 700, 4, 2, 64))
+    run = lambda tile: ref.flash_attention_ref(
+        q, k, v, causal=causal, softcap=50.0, window=window, row_tile=tile)
+    masked = run(700)
+    for tile in (1, 64, 128):
+        assert torch.equal(run(tile), masked), tile
+    assert torch.isfinite(masked.float()).all()
+
+
+def test_flash_plain_window_wider_than_the_sequence_is_no_window():
+    """A window of S or more keeps every causal key: the windowed plain
+    version equals the causal one bit for bit (no block is skipped)."""
+    q, k, v = map(torch.from_numpy, _flash_inputs(11, 1, 300, 4, 2, 64))
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    for window in (300, 4096):
+        got = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        assert torch.equal(got, want)
+
+
+def test_flash_entries_refuse_head_dims_and_windows_they_do_not_take(
+        monkeypatch):
+    """bf16 takes Dh 64, 128 and 256, f32 64 and 128; a window below 1 is
+    refused.  Each before any library is loaded."""
+    def loader(name):
+        raise RuntimeError(f"kernel loader reached: {name}")
+
+    monkeypatch.setattr(build, "load_library", loader)
+    for dtype, dh, match in (
+            (torch.float32, 256, r"the float32 kernel takes \(64, 128\)"),
+            (torch.float32, 32, "head dim 32"),
+            (torch.bfloat16, 32, r"the bfloat16 kernel takes \(64, 128, 256\)"),
+            (torch.bfloat16, 80, "head dim 80")):
+        q, kv = _meta((1, 128, 4, dh), dtype), _meta((1, 128, 2, dh), dtype)
+        with pytest.raises(ValueError, match=match):
+            dispatch.flash_attention(q, kv, kv, causal=True)
+    q, kv = (_meta((1, 128, h, 256), torch.bfloat16) for h in (4, 2))
+    with pytest.raises(RuntimeError, match="loader reached: flash_tc"):
+        dispatch.flash_attention(q, kv, kv, causal=True, window=4096)
+    for window in (0, -3):
+        with pytest.raises(ValueError, match="window"):
+            dispatch.flash_attention(q, kv, kv, causal=True, window=window)
 
 
 def test_flash_off_cpu_tensor_never_reaches_the_plain_version(monkeypatch):

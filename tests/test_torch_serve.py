@@ -88,7 +88,8 @@ def _rel(got, want):
 
 def _assert_caches(got, jcaches, rtol):
     want = caches_from_jax(jax.tree.map(np.asarray, jcaches))
-    for name in ("k", "v"):
+    assert sorted(got) == sorted(want) == ["stack/c0/k", "stack/c0/v"]
+    for name in want:
         assert got[name].dtype == want[name].dtype
         assert _rel(got[name], want[name]) < rtol, name
 
@@ -106,8 +107,8 @@ def test_prefill_matches_jax(dtype, attn_impl):
     assert logits.shape == (1, B, 1, jmodel.cfg.vocab_size)
     assert _rel(logits[0], jlogits) < RTOL[dtype]
     cfg = model.cfg
-    assert caches["k"].shape == (1, cfg.n_layers, B, S, cfg.n_kv_heads,
-                                 cfg.resolved_head_dim)
+    assert caches["stack/c0/k"].shape == (1, cfg.n_layers, B, S,
+                                          cfg.n_kv_heads, cfg.resolved_head_dim)
     _assert_caches(caches, jcaches, RTOL[dtype])
 
 
@@ -118,7 +119,8 @@ def test_decode_steps_match_jax():
     jcache = jmodel.init_cache(B, steps)
     cache = model.init_cache(B, steps, "cpu")
     zeros = caches_from_jax(jax.tree.map(np.asarray, jcache))
-    for name in ("k", "v"):
+    assert sorted(cache) == sorted(zeros)
+    for name in zeros:
         assert cache[name].shape == zeros[name].shape
         assert cache[name].dtype == zeros[name].dtype
         assert not cache[name].any() and not zeros[name].any()
@@ -138,7 +140,7 @@ def test_cache_conversion_round_trips():
     toks = _tokens(2, (B, 16), jmodel.cfg.vocab_size)
     _, jcaches = jax.jit(jmodel.prefill)(jparams, {"tokens": jnp.asarray(toks)})
     caches = caches_from_jax(jax.tree.map(np.asarray, jcaches))
-    assert caches["k"].dtype == torch.bfloat16
+    assert caches["stack/c0/k"].dtype == torch.bfloat16
     back = caches_to_jax(caches)
     for name in ("k", "v"):
         want = np.asarray(jcaches["stack"]["c0"][name], np.float32)
@@ -231,7 +233,8 @@ def test_serve_launcher_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
     (["--simulate-devices", "8"], "--simulate-devices is not supported"),
     (["--kv-layout", "seq"], "--kv-layout seq is not supported"),
     (["--metrics-dir", "m"], "--metrics-dir is not supported"),
-    (["--arch", "gemma2-9b"], "--arch 'gemma2-9b' is not ported"),
+    (["--arch", "qwen3-moe-30b-a3b"], "--arch 'qwen3-moe-30b-a3b' is not "
+                                      "ported"),
     (["--requests", "0"], "--requests must be >= 1"),
 ])
 def test_serve_launcher_refuses_flags_outside_the_slice(extra, message, capsys):

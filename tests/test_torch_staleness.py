@@ -216,6 +216,7 @@ def jax_references(tmp_path_factory):
     future of its result."""
     from concurrent.futures import ThreadPoolExecutor
     from test_torch_slice import jax_reference_path
+    tmp_path_factory.getbasetemp()      # made once, not raced by the threads
     with ThreadPoolExecutor(2) as pool:
         yield {"exchanges": pool.submit(_jax_exchanges, tmp_path_factory),
                "trainer": pool.submit(jax_reference_path, tmp_path_factory,
