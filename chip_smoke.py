@@ -181,8 +181,8 @@ from the root of a checkout, on a machine with one CUDA device.  It
    printed;
 7. holds the flash-attention kernels against their plain version: the
    bf16 tensor-core kernel (``csrc/flash_attention_sm90.cu``; the build
-   phase checks that the SASS of all six instances, Dh 64, 128 and 256
-   with and without a window, holds wgmma and TMA loads) at the
+   phase checks that the SASS of all eight instances, Dh 64, 80, 128 and
+   256 with and without a window, holds wgmma and TMA loads) at the
    full-width prefill layer shape (32768 tokens, 16/8 heads, causal), at
    an odd length (1000), at 2048, at Dh 64 with a softcap and non-causal,
    at gemma2-9b's global layer (Dh 256, softcap 50) and local layer (the
@@ -192,7 +192,7 @@ from the root of a checkout, on a machine with one CUDA device.  It
    (``FLASH_BF16_RTOL``, ``FLASH_BF16_ULP_SHARE``) and its plain version
    to contract (b) against the f32-P result; the f32 3xTF32 tensor-core
    kernel (``csrc/flash_attention.cu``; the build phase checks that its
-   four instances' SASS holds wgmma) within 1e-5 of max|out| at Dh 64
+   six instances' SASS holds wgmma) within 1e-5 of max|out| at Dh 64
    with a softcap (non-causal and causal), at 2048, at an odd length
    (1000) and with a window at Dh 64 and 128 (causal with a softcap,
    non-causal); and times the bf16 kernel at the qwen3 prefill layer and
@@ -236,7 +236,24 @@ from the root of a checkout, on a machine with one CUDA device.  It
    and gemma-7b smoke models in f32, chunked and naive, and yi-9b naive
    (its head dim 32 is not the kernel's), prefill of 24 plus 40 decode
    steps (the smoke window of 16 wraps), card against CPU;
-12. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+12. runs the frontends: ``[flash-dh80]``, both flash kernels at
+   hubert-xlarge's layer (16/16 heads, head dim 80, non-causal) at 32768
+   frames and at 8 x 1500 (30 s of audio at 50 frames a second), each
+   held to its contract and timed beside its plain version, SDPA and the
+   bound; ``[frontend] hubert``, hubert-xlarge at full width and depth (48
+   layers, bf16, weights from seed 0, frames from numpy): ``Model.prefill``
+   of one 32768-frame sequence twice (48 ``bf16_dh80`` launches a call,
+   the caches (1, 48, 1, 32768, 16, 80), wall ms, peak memory, a profiled
+   call's flash ms), then of 8 x 1500 frames, held against the same model
+   through the plain flash version on the card (``FRONTEND_BF16_RTOL``;
+   layer 0's caches bit-equal), and the smoke encoder at head dim 80 in
+   f32 through the f32 kernel, card against CPU; ``[frontend] llava``,
+   llava-next-mistral-7b at full width and depth (32 layers, bf16):
+   ``Model.prefill`` of 2880 patch embeddings and 29888 text tokens twice
+   (32 ``bf16_dh128`` launches a call), then the serve launcher at
+   ``--arch llava-next-mistral-7b`` (batch 1, prompt 32, 16 tokens, 2
+   requests);
+13. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints ``[phase] <name> <seconds> s`` as it ends (the host's
@@ -359,6 +376,37 @@ PREFILL_CALLS = 2
 #: the f32 prefill test's cache tolerance, atol (rtol 1e-5), from
 #: ``prefill_budget``'s measurements
 PREFILL_CACHE_ATOL = 4e-5
+#: [flash-dh80]: hubert-xlarge's attention layer (16/16 heads at Dh 80,
+#: bidirectional) in both dtypes, at a 32768-frame sequence (the
+#: prefill_32k length) and at its 30 s batch, 8 x 1500 frames (50 frames a
+#: second; 1500 leaves a ragged last tile); all timed, drawn from a
+#: generator of their own (seed 8), so FLASH_CASES keep their inputs
+FLASH_DH80_CASES = (
+    ("hubert layer", 1, 32768, 16, 16, 80, "bfloat16", False, None, None),
+    ("hubert 30 s", 8, 1500, 16, 16, 80, "bfloat16", False, None, None),
+    ("f32 hubert layer", 1, 32768, 16, 16, 80, "float32", False, None, None),
+    ("f32 hubert 30 s", 8, 1500, 16, 16, 80, "float32", False, None, None),
+)
+FLASH_DH80_TIMED = tuple(case[0] for case in FLASH_DH80_CASES)
+#: [frontend] hubert: the long sequence and the 30 s batch (batch, frames)
+HUBERT_LONG = (1, 32768)
+HUBERT_BATCH = (8, 1500)
+#: [frontend] llava: 2880 image tokens (5 anyres tiles x 576 patches) and
+#: the text that makes the prefill_32k length
+LLAVA_TEXT = 32768 - 2880
+#: the frontends' full-width bf16 prefill through the kernel against the
+#: same model through the plain flash version on the card: logits and
+#: every cache leaf within this of max|want| (the port's bf16 model
+#: tolerance, tests/test_torch_frontends.py)
+FRONTEND_BF16_RTOL = 3e-2
+#: [frontend] hubert small: the card's f32 caches against the CPU's, atol
+#: (rtol 1e-5): tests/test_torch_cuda.py's frontend test read 5.2e-05 in
+#: the layer-0 k cache at position 261 of 300 (the rotary angle's ulps
+#: grow with the position), above PREFILL_CACHE_ATOL's 200 positions
+HUBERT_SMALL_CACHE_ATOL = 1e-4
+#: the serve launcher at llava-next-mistral-7b: one short request pair
+SERVE_LLAVA_ARGS = ("--batch", "1", "--prompt-len", "32", "--gen-len", "16",
+                    "--requests", "2")
 
 
 def check(cond, msg):
@@ -2661,9 +2709,10 @@ SIM_GOSSIP_RUNS = (("exact", None, 1.0, 300), ("qsgd127", ("qsgd", 127), 1.0,
 #: [sim]: CHOCO-SGD on the epsilon stand-in at the paper's full size
 #: (benchmarks/bench_sgd.py: ring n = 9, sorted data, batch 4, eta_t =
 #: 300 / (t + 300), top 1% at gamma 0.04, qsgd_16 at 0.2); its 1200 steps
-#: cut to SIM_SGD_STEPS to keep the script's time
+#: cut to SIM_SGD_STEPS to keep the script's time (300 until the frontend
+#: phases came)
 SIM_SGD_N, SIM_SGD_M, SIM_SGD_D, SIM_SGD_STEPS, SIM_SGD_BATCH = (
-    9, 400_000, 2_000, 300, 4)
+    9, 400_000, 2_000, 150, 4)
 SIM_SGD_RUNS = (("choco_qsgd16", ("qsgd", 16), 0.2),
                 ("choco_top1pct", ("top_k", 0.01), 0.04),
                 ("dsgd_exact", None, None))
@@ -2875,8 +2924,9 @@ def sim_gossip(dev):
 
 #: [sim]: pipelined CHOCO-Gossip (the pipelined engine's matrix twin) at
 #: the quickstart's sizes: (label, compressor spec, gamma, rounds)
-SIM_PIPELINED_RUNS = (("pipelined_exact", ("identity",), 0.5, 300),
-                      ("pipelined_qsgd127", ("qsgd", 127), 0.5, 300))
+#: 150 rounds, 300 until the frontend phases came (the script's time)
+SIM_PIPELINED_RUNS = (("pipelined_exact", ("identity",), 0.5, 150),
+                      ("pipelined_qsgd127", ("qsgd", 127), 0.5, 150))
 
 
 def sim_pipelined(dev):
@@ -3077,13 +3127,14 @@ PROCESS_DIST_RUNS = (
     ("linkfail", "qsgd", (("s", 16),), "bfloat16", True, "star", 1))
 PROCESS_SEED = 4242
 #: [sim]: (label, process, compressor, gamma, rounds) of CHOCO-Gossip under
-#: the processes at the quickstart's size (ring 25, d 2000)
-SIM_PROCESS_RUNS = (("matching_exact", "matching", None, 1.0, 300),
+#: the processes at the quickstart's size (ring 25, d 2000); 150 rounds,
+#: 300 until the frontend phases came (the script's time)
+SIM_PROCESS_RUNS = (("matching_exact", "matching", None, 1.0, 150),
                     ("matching_top_1pct", "matching", ("top_k", 0.01), 0.046,
-                     300),
-                    ("linkfail_exact", "linkfail", None, 1.0, 300),
+                     150),
+                    ("linkfail_exact", "linkfail", None, 1.0, 150),
                     ("linkfail_top_1pct", "linkfail", ("top_k", 0.01), 0.046,
-                     300))
+                     150))
 #: [sim] under a process: elements of x and the references that may differ
 #: from the CPU's repeat of a round by more than SIM_STEP_RTOL of the
 #: largest magnitude (a top-k selection flipped by an ulp moves 2
@@ -3542,8 +3593,9 @@ STALE_DIST_RUNS = (
 STALE_SEED = 5151
 #: [sim]: (label, compressor, gamma, rounds) of bounded-staleness
 #: CHOCO-Gossip at ring 25, d 2000, tau STALE_SIM_TAU
-SIM_STALE_RUNS = (("stale_exact", None, 1.0, 300),
-                  ("stale_top_1pct", ("top_k", 0.01), 0.046, 300))
+#: 150 rounds, 300 until the frontend phases came (the script's time)
+SIM_STALE_RUNS = (("stale_exact", None, 1.0, 150),
+                  ("stale_top_1pct", ("top_k", 0.01), 0.046, 150))
 STALE_SIM_TAU = 2
 #: [kernel] replica_update stale form: the length of the tau > 1 cases,
 #: and the plain version's column chunk at the full width
@@ -4456,12 +4508,12 @@ def flash_bounds(tensors_in, out, causal, window=None):
     return bms, by, flops / F32_FLOPS_PER_S * 1e3, flops
 
 
-def flash_cases(dev):
-    """(label, q, k, v, kwargs) of each of FLASH_CASES in order, normal
-    draws from one generator seeded 3."""
+def flash_cases(dev, cases=FLASH_CASES, seed=3):
+    """(label, q, k, v, kwargs) of each of ``cases`` in order, normal
+    draws from one generator seeded ``seed``."""
     import torch
-    gen = torch.Generator(device=dev).manual_seed(3)
-    for label, n, s, h, kv, dh, dtype, causal, cap, window in FLASH_CASES:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for label, n, s, h, kv, dh, dtype, causal, cap, window in cases:
         dt = getattr(torch, dtype)
         q = torch.randn((n, s, h, dh), generator=gen, device=dev).to(dt)
         k = torch.randn((n, s, kv, dh), generator=gen, device=dev).to(dt)
@@ -4475,10 +4527,22 @@ def sdpa_call(q, k, v, causal, window):
     takes no window, so a windowed case gets it with the window as an
     explicit boolean (S, S) mask, through the memory-efficient backend
     with k and v repeated to q's heads (no backend takes grouped heads
-    beside a mask); if that does not run either, there is no call."""
+    beside a mask); if that does not run either, there is no call.  f32
+    inputs (no window) take the memory-efficient backend, the one that
+    takes f32, with k and v repeated to q's heads."""
     import torch
     F = torch.nn.functional
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None and q.dtype == torch.float32:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        rep = q.shape[2] // k.shape[2]
+        kt, vt = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
+
+        def call():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal)
+        return call, "SDPA memory-efficient backend, f32"
     if window is None:
         return (lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True)), None
@@ -4524,18 +4588,21 @@ def time_flash_case(label, q, k, v, kw, got):
                   **kw)
     lib_txt = ("none" if lib_ms is None else
                f"{lib_ms:.3f} ms ({ms / lib_ms:.2f}x)")
+    rate = ("the bf16 tensor-core peak" if q.dtype == torch.bfloat16
+            else "the 3xTF32 tensor-core rate")
     print(f"[kernel] flash_attention {label}: {ms:.3f} ms "
           f"({record['tflop_per_s']:.1f} TFLOP/s, "
           f"{100 * record['bound_share']:.1f}% of the bound {bms:.3f} ms, "
-          f"{by}, at the bf16 tensor-core peak; {f32_ms:.3f} ms at the 67 "
+          f"{by}, at {rate}; {f32_ms:.3f} ms at the 67 "
           f"TFLOP/s f32 CUDA-core rate), plain {plain_ms:.3f} ms, "
           f"scaled_dot_product_attention {lib_txt}"
           + (f" [{lib_note}]" if lib_note else ""), flush=True)
     return record
 
 
-def check_flash(dev):
-    """The flash kernels against their plain version in FLASH_CASES.
+def check_flash(dev, cases=FLASH_CASES, timed=FLASH_TIMED, seed=3):
+    """The flash kernels against their plain version in ``cases``; every
+    case is timed in ``timed``.
 
     f32 (the 3xTF32 tensor-core kernel): max abs error <= 1e-5 *
     max|out|; the plain version's matmuls run in full f32
@@ -4544,16 +4611,16 @@ def check_flash(dev):
     it): contract (a), max|d| / max|want| <= FLASH_BF16_RTOL and at most
     FLASH_BF16_ULP_SHARE of the elements more than one bf16 ulp apart; and
     contract (b), the plain version within FLASH_BF16_F32P_RTOL of the
-    f32-P result.  Returns the timing record of each FLASH_TIMED case
-    (the first with every case's readings and the f32 kernel's record) and
-    the max abs error."""
+    f32-P result.  Returns the timing record of each ``timed`` case (the
+    first with every case's readings and, for FLASH_CASES, the f32
+    kernel's record) and the max abs error."""
     import torch
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import flash_attention as fa
     check(not torch.backends.cuda.matmul.allow_tf32,
           "the f32 plain version must run full-f32 matmuls (allow_tf32 is on)")
     records, max_err, readings = {}, 0.0, {}
-    for label, q, k, v, kw in flash_cases(dev):
+    for label, q, k, v, kw in flash_cases(dev, cases, seed):
         got = dispatch.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -4594,18 +4661,19 @@ def check_flash(dev):
               flush=True)
         del want
         torch.cuda.empty_cache()
-        if label in FLASH_TIMED:
+        if label in timed:
             records[label] = time_flash_case(label, q, k, v, kw, got)
             records[label]["contract"] = readings[label]
         del q, k, v, got
         torch.cuda.empty_cache()
-    first = records[FLASH_TIMED[0]]
-    first["f32"] = time_flash_f32(dev)
-    first["contract"] = readings
-    first["contract_bounds"] = {"a_rel": fa.FLASH_BF16_RTOL,
-                                "a_ulp_share": fa.FLASH_BF16_ULP_SHARE,
-                                "b_rel": fa.FLASH_BF16_F32P_RTOL,
-                                "f32_rel": 1e-5}
+    if cases is FLASH_CASES:
+        first = records[timed[0]]
+        first["f32"] = time_flash_f32(dev)
+        first["contract"] = readings
+        first["contract_bounds"] = {"a_rel": fa.FLASH_BF16_RTOL,
+                                    "a_ulp_share": fa.FLASH_BF16_ULP_SHARE,
+                                    "b_rel": fa.FLASH_BF16_F32P_RTOL,
+                                    "f32_rel": 1e-5}
     return records, max_err
 
 
@@ -4668,10 +4736,10 @@ def time_flash_f32(dev):
 def check_flash_sass(path, f32_path=None):
     """The flash kernels were compiled to tensor-core code: every
     ``flash_tc_kernel`` instantiation in the bf16 library's SASS
-    (``cuobjdump -sass``; Dh 64, 128 and 256, each with and without a
-    window: 6) holds wgmma (``HGMMA``) and TMA loads (``UTMALDG``), and,
+    (``cuobjdump -sass``; Dh 64, 80, 128 and 256, each with and without a
+    window: 8) holds wgmma (``HGMMA``) and TMA loads (``UTMALDG``), and,
     given the f32 library, every ``flash_attention_kernel`` instantiation
-    there (Dh 64 and 128, with and without a window: 4) holds ``HGMMA``: a
+    there (Dh 64, 80 and 128, with and without a window: 6) holds ``HGMMA``: a
     CUDA-core kernel cannot pass for either.  A missing ``cuobjdump`` is a
     failure."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -4692,7 +4760,7 @@ def check_flash_sass(path, f32_path=None):
               f"and without a window)")
         return found
 
-    found = functions(path, "flash_tc_kernel", 6)
+    found = functions(path, "flash_tc_kernel", 8)
     for name, (hgmma, utmaldg) in found.items():
         check(hgmma > 0 and utmaldg > 0, f"flash_tc SASS: {name} has {hgmma} "
               f"HGMMA and {utmaldg} UTMALDG instructions")
@@ -4700,7 +4768,7 @@ def check_flash_sass(path, f32_path=None):
         f"{name[-60:]}: {h} HGMMA, {u} UTMALDG"
         for name, (h, u) in found.items()), flush=True)
     if f32_path is not None:
-        f32 = functions(f32_path, "flash_attention_kernel", 4)
+        f32 = functions(f32_path, "flash_attention_kernel", 6)
         for name, (hgmma, _) in f32.items():
             check(hgmma > 0, f"flash (f32) SASS: {name} has no HGMMA")
         print("[build] flash (f32) SASS: " + "; ".join(
@@ -4886,13 +4954,13 @@ def decode_past_prefill(model, params, dev, steps=DECODE_PAST_STEPS):
     return counts, rec
 
 
-def serve_full_width(arch):
-    """The serve launcher at full width: the JAX launcher's defaults with 2
-    requests, on the card."""
+def serve_full_width(arch, args=("--batch", "8", "--prompt-len", "32",
+                                  "--gen-len", "32", "--requests", "2")):
+    """The serve launcher at full width, on the card: by default the JAX
+    launcher's defaults with 2 requests."""
     from repro_torch.kernels import dispatch
     from repro_torch.launch.serve import main
-    argv = ["--arch", arch, "--batch", "8", "--prompt-len", "32",
-            "--gen-len", "32", "--requests", "2", "--device", "cuda"]
+    argv = ["--arch", arch, *args, "--device", "cuda"]
     dispatch.reset_launch_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -5033,6 +5101,219 @@ def serve_small_cuda_vs_cpu(dev, arch="qwen3-1.7b", attn_impl="chunked",
     check(counts["flash_attention"] == want and sum(counts.values()) == want,
           f"{arch} {attn_impl}: launches {counts}, expected {want} flash")
     return counts
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """Every flash call of the model stack runs the plain version
+    (``ref.flash_attention_ref``) on the tensors' own device: the
+    reference run a full-width model is held against."""
+    from repro_torch.kernels import dispatch, ref
+    kernel = dispatch.flash_attention
+    dispatch.flash_attention = ref.flash_attention_ref
+    try:
+        yield
+    finally:
+        dispatch.flash_attention = kernel
+
+
+def frontend_batch(model, batch, seq, seed, dev):
+    """The family's batch from ``make_lm_batch_fn`` (numpy draws, as the
+    JAX package's), one node, on the card: hubert's frame embeddings, or
+    llava's patch embeddings and text tokens (seq counts both)."""
+    import torch
+    from repro_torch.data.synthetic import make_lm_batch_fn
+    keys = {"audio": ("frame_embeds",),
+            "vlm": ("patch_embeds", "tokens")}[model.cfg.family]
+    b = make_lm_batch_fn(model.cfg, seq, batch, 1, seed=seed)()
+    out = {k: torch.from_numpy(b[k]).to(dev) for k in keys}
+    if "tokens" in out:
+        out["tokens"] = out["tokens"].long()
+    return out
+
+
+def frontend_prefill(model, params, batch, calls, label):
+    """``Model.prefill`` of ``batch`` ``calls`` times, then once profiled:
+    one bf16 flash launch per layer per call, all of the arch's variant;
+    finite logits (1, B, 1, V); the caches (1, layers, B, S, KV, Dh) in
+    bf16; the wall ms of each call, the peak device memory and the
+    profiled call's flash, matmul and other device ms.  Returns (the
+    calls' launch counts, the record)."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import flash_attention as fa
+    cfg = model.cfg
+    B = next(iter(batch.values())).shape[1]
+    S = sum(batch[k].shape[2] for k in batch)
+    heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    want_shapes = {f"stack/c0/{n}": (1, cfg.n_layers, B, S) + heads
+                   for n in ("k", "v")}
+    variant = fa.variant(torch.bfloat16, cfg.resolved_head_dim, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    ms = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(tuple(logits.shape) == (1, B, 1, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{label}: logits {tuple(logits.shape)}, finite "
+              f"{bool(torch.isfinite(logits).all())}")
+        got = {k: tuple(t.shape) for k, t in caches.items()}
+        check(got == want_shapes and all(
+            t.dtype == torch.bfloat16 for t in caches.values()),
+            f"{label}: caches {got}, expected {want_shapes} in bf16")
+        del logits, caches
+    counts = dispatch.launch_counts()
+    variants = _flash_variants()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = calls * cfg.n_layers
+    check(counts["flash_attention"] == want and sum(counts.values()) == want
+          and variants == {variant: want},
+          f"{label}: launches {counts}, variants {variants}; expected "
+          f"{calls} calls x {cfg.n_layers} layers of {variant}")
+    # the wrapper's counts above prove the launches; the profiler splits
+    # the device time (it listed 47 of hubert's 48 flash launches in one
+    # H100 run, all 48 counted by the wrapper)
+    profile = profile_call(f"one {label} call",
+                           lambda: model.prefill(params, batch), FLASH_KERNELS)
+    check(profile is not None, f"{label}: the profiler recorded no device time")
+    tc_ms, tc_launches = profile["by_kernel"]["flash_tc_kernel"]
+    check(tc_launches > 0 and tc_ms > 0
+          and profile["by_kernel"]["flash_attention_kernel"][1] == 0,
+          f"{label}: the profiled call's flash kernels {profile['by_kernel']}")
+    print(f"[frontend] {label}: batch {B} x {S} positions, {cfg.n_layers} "
+          f"layers: wall ms per call {[round(m, 1) for m in ms]} (first call "
+          f"first); flash launches {variants} ({cfg.n_layers} a call); the "
+          f"profiled call's flash_tc_kernel {tc_ms:.3f} ms in {tc_launches} "
+          f"launches of "
+          f"{profile['device_busy_ms']:.3f} ms busy, matmul "
+          f"{profile['matmul']:.3f}, other {profile['other']:.3f}; peak device "
+          f"memory {peak:.3f} GiB", flush=True)
+    return counts, {"arch": cfg.name, "batch": B, "positions": S,
+                    "ms_per_call": ms, "variants": variants, "peak_gib": peak,
+                    "flash_ms": tc_ms, "flash_profiled_launches": tc_launches,
+                    "profile": profile}
+
+
+def against_plain_flash(model, params, batch, label):
+    """``Model.prefill`` of ``batch`` through the kernel and again through
+    the plain flash version on the card (:func:`plain_flash`): the logits
+    and every cache leaf within FRONTEND_BF16_RTOL of max|want|, layer 0's
+    k and v (made before any attention) bit-equal.  Returns the record."""
+    import torch
+    got_logits, got = model.prefill(params, batch)
+    with plain_flash():
+        want_logits, want = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()) / max(
+        float(b.float().abs().max()), 1e-30)
+    logits_rel = rel(got_logits, want_logits)
+    layer_rel = [max(rel(got[f"stack/c0/{n}"][:, i], want[f"stack/c0/{n}"][:, i])
+                     for n in ("k", "v"))
+                 for i in range(model.cfg.n_layers)]
+    first = all(torch.equal(got[f"stack/c0/{n}"][:, 0], want[f"stack/c0/{n}"][:, 0])
+                for n in ("k", "v"))
+    print(f"[frontend] {label} through the kernel against the plain flash "
+          f"version on the card: logits max|d|/max|want| {logits_rel:.4e}; "
+          f"caches worst layer {max(layer_rel):.4e} (layer "
+          f"{layer_rel.index(max(layer_rel))}), last layer {layer_rel[-1]:.4e} "
+          f"(bound {FRONTEND_BF16_RTOL:.0e}); layer 0's k and v bit-equal "
+          f"{first}", flush=True)
+    check(first, f"{label}: layer 0's caches differ before any attention")
+    check(logits_rel <= FRONTEND_BF16_RTOL and max(layer_rel)
+          <= FRONTEND_BF16_RTOL, f"{label}: kernel against plain flash "
+          f"logits {logits_rel:.4e}, caches {max(layer_rel):.4e}")
+    del got, want
+    torch.cuda.empty_cache()
+    return {"logits_rel": logits_rel, "cache_rel_by_layer": layer_rel}
+
+
+def hubert_full_width(dev):
+    """[frontend] hubert: hubert-xlarge at full width and depth (48
+    layers, head dim 80, bf16, weights from seed 0): the prefill of one
+    32768-frame sequence, twice, then of 8 x 1500 frames, held against the
+    plain flash version.  Returns (the long prefill's counts, the
+    30 s batch's counts, the record)."""
+    import torch
+    model, params, draw = full_width_serving_model(dev, "hubert-xlarge")
+    long_counts, long_rec = frontend_prefill(
+        model, params, frontend_batch(model, *HUBERT_LONG, 11, dev),
+        PREFILL_CALLS, "hubert-xlarge prefill_32k")
+    batch = frontend_batch(model, *HUBERT_BATCH, 12, dev)
+    batch_counts, batch_rec = frontend_prefill(model, params, batch, 1,
+                                               "hubert-xlarge 8 x 1500")
+    batch_rec["against_plain"] = against_plain_flash(
+        model, params, batch, "hubert-xlarge 8 x 1500")
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return long_counts, batch_counts, {"prefill_32k": long_rec,
+                                       "batch_30s": batch_rec,
+                                       "weights_draw_peak_gib": draw}
+
+
+def hubert_small_cuda_vs_cpu(dev):
+    """The hubert smoke encoder at head dim 80 (the full config's) in f32,
+    through the f32 kernel: 300 frames x 2, prefill logits and caches on
+    the card against the CPU (plain versions), within 1e-5 (+ 1e-5
+    relative) of the logits and HUBERT_SMALL_CACHE_ATOL of the caches; 2
+    f32_dh80 launches.  Returns the card's launch counts and variants."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_config("hubert-xlarge", smoke=True),
+                              head_dim=80, dtype="float32",
+                              attn_impl="chunked")
+    model = Model(cfg)
+    params = model.init(1, 0, "cpu")
+    batch = frontend_batch(model, 2, 300, 13, "cpu")
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        dispatch.reset_launch_counts()
+        logits, caches = model.prefill(
+            {k: v.to(device) for k, v in params.items()},
+            {k: v.to(device) for k, v in batch.items()})
+        runs[device.type] = (logits.cpu(), {k: c.cpu() for k, c in caches.items()})
+        if device.type == "cuda":
+            counts, variants = dispatch.launch_counts(), _flash_variants()
+    d = float((runs["cuda"][0] - runs["cpu"][0]).abs().max())
+    top = max(float(runs["cpu"][0].abs().max()), 1.0)
+    cache_share = max(float(((runs["cuda"][1][k] - c).abs() / (
+        HUBERT_SMALL_CACHE_ATOL + 1e-5 * c.abs())).max())
+        for k, c in runs["cpu"][1].items())
+    print(f"[frontend] hubert smoke at head dim 80, f32: prefill 2 x 300 "
+          f"frames, CUDA vs CPU logits max|d| {d:.3e} (max |logit| "
+          f"{top:.3f}); caches {cache_share:.3f} of their bound; flash "
+          f"launches {variants}", flush=True)
+    check(d <= 1e-5 * top, f"hubert small: CUDA and CPU logits differ by {d}")
+    check(cache_share <= 1.0, f"hubert small: caches {cache_share:.3f} of "
+          f"their bound")
+    check(variants == {"f32_dh80": cfg.n_layers}, f"hubert small: {variants}")
+    return counts, variants
+
+
+def llava_full_width(dev):
+    """[frontend] llava: llava-next-mistral-7b at full width and depth (32
+    layers, bf16, weights from seed 0): the prefill of 2880 patch
+    embeddings and 29888 text tokens (S = 32768, batch 1), twice.  Returns
+    (counts, record)."""
+    import torch
+    model, params, draw = full_width_serving_model(dev, "llava-next-mistral-7b")
+    batch = frontend_batch(model, 1, 2880 + LLAVA_TEXT, 14, dev)
+    check(batch["patch_embeds"].shape[2] == 2880
+          and batch["tokens"].shape[2] == LLAVA_TEXT,
+          f"llava batch {[tuple(t.shape) for t in batch.values()]}")
+    counts, rec = frontend_prefill(model, params, batch, PREFILL_CALLS,
+                                   "llava-next-mistral-7b prefill_32k")
+    rec["weights_draw_peak_gib"] = draw
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return counts, rec
 
 
 def main():
@@ -5201,10 +5482,27 @@ def main():
         dense_small = {f"{arch}_{impl}": serve_small_cuda_vs_cpu(
             dev, arch, impl, prompt_len=24, steps=40)
             for arch, impl in DENSE_SMALL}
-    new_phases = ("prefill-gemma2", "consistency-gemma2", "serve-gemma2",
-                  "dense-small")
+    g2_phases = ("prefill-gemma2", "consistency-gemma2", "serve-gemma2",
+                 "dense-small")
     print(f"[phase] the gemma2-9b and dense-variant phases took "
-          f"{sum(PHASES[p] for p in new_phases):.1f} s together", flush=True)
+          f"{sum(PHASES[p] for p in g2_phases):.1f} s together", flush=True)
+    # the frontends: hubert-xlarge's encoder at head dim 80, llava-next's
+    # image-prefixed prefill and serving
+    with phase("flash-dh80"):
+        dh80_records, _ = check_flash(dev, FLASH_DH80_CASES,
+                                      FLASH_DH80_TIMED, seed=8)
+    with phase("frontend-hubert"):
+        hubert_counts, hubert_batch_counts, hubert = hubert_full_width(dev)
+        hubert_small_counts, hubert_small = hubert_small_cuda_vs_cpu(dev)
+    with phase("frontend-llava"):
+        llava_counts, llava = llava_full_width(dev)
+        llava_serve_counts, llava_serve = serve_full_width(
+            "llava-next-mistral-7b", SERVE_LLAVA_ARGS)
+        torch.cuda.empty_cache()
+    frontend_phases = ("flash-dh80", "frontend-hubert", "frontend-llava")
+    print(f"[phase] the frontend phases took "
+          f"{sum(PHASES[p] for p in frontend_phases):.1f} s together",
+          flush=True)
 
     # launches of each kernel on every path this script drives (the counts
     # set to 0 just before each path and read just after); the per-rank
@@ -5247,7 +5545,11 @@ def main():
         "prefill_gemma2": g2_prefill_counts,
         "decode_32k_gemma2": g2_decode_counts,
         "consistency_gemma2": g2_cons_counts, "serve_gemma2": g2_serve_counts,
-        **{f"dense_small_{k}": c for k, c in dense_small.items()}}
+        **{f"dense_small_{k}": c for k, c in dense_small.items()},
+        "prefill_hubert": hubert_counts,
+        "prefill_hubert_batch": hubert_batch_counts,
+        "hubert_small": hubert_small_counts, "prefill_llava": llava_counts,
+        "serve_llava": llava_serve_counts}
     by_kernel = lambda name: {p: c[name] for p, c in paths.items()}
     # the training paths whose launches count as the gossip kernels' main
     # path: the four compressors, star, the bf16-state runs, the [modes]
@@ -5347,7 +5649,11 @@ def main():
     variant_paths = {"prefill": prefill["variants"],
                      "prefill_gemma2": g2_prefill["variants"],
                      "consistency": consistency["variants"],
-                     "consistency_gemma2": g2_cons["variants"]}
+                     "consistency_gemma2": g2_cons["variants"],
+                     "prefill_hubert": hubert["prefill_32k"]["variants"],
+                     "prefill_hubert_batch": hubert["batch_30s"]["variants"],
+                     "hubert_small": hubert_small,
+                     "prefill_llava": llava["variants"]}
     for name, label, variant in (
             ("flash_attention_bf16_dh256", "gemma2 global layer", "bf16_dh256"),
             ("flash_attention_bf16_dh256_window", "gemma2 local layer",
@@ -5365,6 +5671,29 @@ def main():
             kernels[-1]["gemma_7b_layer"] = flash_records["gemma-7b layer"]
         check(kernels[-1]["launches"] > 0, f"{name} never launched on the "
               f"gemma2-9b prefill path")
+    # its Dh 80 instances: bf16 on hubert-xlarge's full-width prefill, f32
+    # on the hubert smoke encoder at Dh 80 (no full-width path runs f32)
+    for name, label, variant, path in (
+            ("flash_attention_bf16_dh80", "hubert layer", "bf16_dh80",
+             "prefill_hubert"),
+            ("flash_attention_f32_dh80", "f32 hubert layer", "f32_dh80",
+             "hubert_small")):
+        rec = dh80_records[label]
+        batch_rec = dh80_records[label.replace("layer", "30 s")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
+                       if variant.startswith("bf16") else
+                       "src/repro_torch/kernels/csrc/flash_attention.cu"),
+            "replaces": "src/repro/kernels/flash_attention.py:77",
+            "launches": variant_paths[path].get(variant, 0),
+            "launches_by_path": {p: v.get(variant, 0)
+                                 for p, v in variant_paths.items()},
+            "max_abs_err": max(r["contract"]["max_abs_err"]
+                               for r in (rec, batch_rec)),
+            **rec, "batch_30s": batch_rec})
+        check(kernels[-1]["launches"] > 0, f"{name} never launched on the "
+              f"{path} path")
     # its path is its public op, as in the JAX package; no trainer path
     # reaches it (the engine selects top-k payloads in plain PyTorch)
     kernels.append({
@@ -5406,6 +5735,9 @@ def main():
                       "consistency": consistency,
                       "gemma2": {"prefill": g2_prefill, "decode_32k": g2_decode,
                                  "consistency": g2_cons, "serve": g2_serve},
+                      "frontends": {"hubert": hubert,
+                                    "hubert_small": hubert_small,
+                                    "llava": llava, "serve_llava": llava_serve},
                       "dist_small": {k: v for k, v in dist_small_report.items()
                                      if k != "launches"},
                       "dist_full_width": dist_full,

@@ -7,8 +7,11 @@ kernel does; the JAX jnp scan's ``attn_chunk`` has no counterpart), and
 the local / global layers: ``sliding_window`` (the local layers' window)
 and ``local_global_pattern`` (k > 0: k local layers to 1 global).  The
 dense architectures are qwen3-1.7b, gemma2-9b, gemma-7b and yi-9b; the
-MoE / SSM / hybrid / frontend sub-configs, the other architectures and
-``remat`` are not ported.  ``INPUT_SHAPES`` keeps the one JAX input shape
+frontend families ("audio": hubert-xlarge's bidirectional encoder over
+precomputed frame embeddings; "vlm": llava-next-mistral-7b's decoder
+behind a patch projector) carry ``FrontendConfig``.  The MoE / SSM /
+hybrid sub-configs, the other architectures and ``remat`` are not
+ported.  ``INPUT_SHAPES`` keeps the one JAX input shape
 the port serves, ``prefill_32k``.  ``ChocoConfig``
 keeps the settings of the static engines (the packed and the per-leaf
 engine, serial or pipelined; the choco, plain, all-reduce and push-sum
@@ -27,9 +30,18 @@ from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """Stubbed modality frontend: the batch carries precomputed embeddings
+    of this shape (the JAX package's carve-out)."""
+    kind: str                       # "vision" | "audio"
+    n_tokens: int                   # patches / frames per example
+    embed_dim: int                  # frontend output dim
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # only "dense" is ported
+    family: str                     # dense | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -45,6 +57,7 @@ class ModelConfig:
     local_global_pattern: int = 0           # k>0: alternate k local : 1 global
     rope_theta: float = 10_000.0
     mlp_type: str = "swiglu"                # swiglu | geglu | gelu
+    frontend: Optional[FrontendConfig] = None   # vlm and audio only
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"                 # compute dtype

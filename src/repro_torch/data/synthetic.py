@@ -1,11 +1,12 @@
-"""Synthetic data, sharded across gossip nodes: LM token streams and the
-logistic-regression problems of the paper's §5.3.
+"""Synthetic data, sharded across gossip nodes: LM token streams, the
+frontend families' batches (audio frames, image patches before text) and
+the logistic-regression problems of the paper's §5.3.
 
 The generator is numpy's ``default_rng`` with the same draws in the same
-order as the JAX package's ``TokenStream`` and ``make_logreg``, so the two
-give identical batches, features, labels and shards bit for bit, the
-Dirichlet skew (``skew_alpha``, ``data/partition.py``) included.  Not
-ported: the audio / VLM batch makers.
+order as the JAX package's ``TokenStream``, ``make_lm_batch_fn`` and
+``make_logreg``, so the two give identical batches, frames, patches,
+features, labels and shards bit for bit, the Dirichlet skew
+(``skew_alpha``, ``data/partition.py``) included.
 """
 from __future__ import annotations
 
@@ -82,20 +83,62 @@ class TokenStream:
             yield {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
 
 
+def _audio_batches(cfg, seq_len, batch_per_node, n_nodes, seed):
+    """The JAX audio batches: N(0, 1) frame embeddings (n, B, S, E) f32,
+    uniform targets (n, B, S) int32 and a mask (n, B, S) f32 marking 8% of
+    the frames, from one ``default_rng(seed)``; IID, so skew_tv 0."""
+    rng = np.random.default_rng(seed)
+    shape = (n_nodes, batch_per_node, seq_len)
+    while True:
+        emb = rng.standard_normal(
+            shape + (cfg.frontend.embed_dim,)).astype(np.float32)
+        tgt = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+        mask = (rng.random(shape) < 0.08).astype(np.float32)
+        yield {"frame_embeds": emb, "targets": tgt, "mask": mask}
+
+
+def _vlm_batches(cfg, texts, batch_per_node, n_nodes, seed):
+    """The JAX vlm batches: N(0, 1) patch embeddings (n, B, P, E) f32 from
+    ``default_rng(seed)``, then a text of S - P tokens from ``texts`` (S - P
+    - 1 token steps; the last label repeated as the last token and the
+    last label), the labels over the text only."""
+    rng = np.random.default_rng(seed)
+    fe = cfg.frontend
+    for b in texts:
+        emb = rng.standard_normal(
+            (n_nodes, batch_per_node, fe.n_tokens, fe.embed_dim)
+        ).astype(np.float32)
+        yield {"patch_embeds": emb,
+               "tokens": np.concatenate([b["tokens"], b["labels"][..., -1:]],
+                                        -1),
+               "labels": np.concatenate([b["labels"], b["labels"][..., -1:]],
+                                        -1)}
+
+
 def make_lm_batch_fn(cfg, seq_len: int, batch_per_node: int, n_nodes: int,
                      heterogeneity: float = 0.0, seed: int = 0,
                      skew_alpha: Optional[float] = None,
                      node: Optional[int] = None):
-    """Returns next_batch() -> {"tokens", "labels"}: (n, B, S) int32 numpy,
-    with a ``skew_tv`` attribute (``TokenStream.skew_tv``).  With ``node``,
-    only that node's row, (1, B, S): one rank's batch of the per-rank
-    engine.  All n rows are still drawn (token ids are cheap), so the row
-    is bit-equal to the stacked engine's."""
-    if cfg.family != "dense":
-        raise ValueError(f"batches for family {cfg.family!r} are not ported")
-    ts = TokenStream(cfg.vocab_size, seq_len, batch_per_node, n_nodes,
-                     heterogeneity, seed, skew_alpha)
-    stream = iter(ts)
+    """Returns next_batch() -> the family's batch dict of numpy arrays,
+    node dimension first, with a ``skew_tv`` attribute: dense
+    {"tokens", "labels"} (n, B, S) int32 (``TokenStream.skew_tv``); audio
+    {"frame_embeds", "targets", "mask"} (skew_tv 0); vlm {"patch_embeds"
+    (n, B, P, E), "tokens", "labels" (n, B, S - P)}, seq_len counting the
+    P image positions.  With ``node``, only that node's row, (1, ...): one
+    rank's batch of the per-rank engine.  All n rows are still drawn, so
+    the row is bit-equal to the stacked engine's."""
+    if cfg.family == "audio":
+        stream, skew_tv = _audio_batches(cfg, seq_len, batch_per_node,
+                                         n_nodes, seed), 0.0
+    else:
+        vlm = cfg.family == "vlm"
+        # vlm: the text's S - P tokens come from S - P - 1 token steps
+        steps = seq_len - cfg.frontend.n_tokens - 1 if vlm else seq_len
+        ts = TokenStream(cfg.vocab_size, steps, batch_per_node, n_nodes,
+                         heterogeneity, seed, skew_alpha)
+        stream, skew_tv = iter(ts), ts.skew_tv()
+        if vlm:
+            stream = _vlm_batches(cfg, stream, batch_per_node, n_nodes, seed)
     if node is None:
         def next_batch():
             return next(stream)
@@ -104,7 +147,7 @@ def make_lm_batch_fn(cfg, seq_len: int, batch_per_node: int, n_nodes: int,
 
         def next_batch():
             return {k: v[rows] for k, v in next(stream).items()}
-    next_batch.skew_tv = ts.skew_tv()
+    next_batch.skew_tv = skew_tv
     return next_batch
 
 

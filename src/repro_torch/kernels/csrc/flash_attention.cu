@@ -16,7 +16,8 @@
 //   out = acc / max(l_sum, 1e-30)
 //
 // Layout: q and out are (N, S, H, Dh), k and v (N, S, KV, Dh), contiguous,
-// read in place: head h reads KV head h / (H / KV).  Any S; Dh 64 or 128.
+// read in place: head h reads KV head h / (H / KV).  Any S; Dh 64, 80 or
+// 128.
 // A sliding window is a template instance of its own (a call without one
 // runs the code it ran before): a query tile starts at the first key block
 // that reaches its first row's window, as a causal tile stops at its
@@ -88,6 +89,17 @@
 //     tile stops at the diagonal block, and only the diagonal and the
 //     ragged block are masked.
 //
+// At Dh = 80 (hubert-xlarge) a row of Q or K is two and a half 32-column
+// swizzled boxes: their parts take three boxes (64 rows x 96 columns, 24 KB
+// a part), and the k-steps read columns 0..79 only, so the third box's
+// unwritten tail (columns 80..95) is never read and needs no fill.  V^T
+// has 80 rows of 64 keys, two whole boxes, and P V runs m64n80k8.  The
+// producer's V units (4 keys x 4 columns) number 40 groups of 8 threads, 2.5
+// a thread's round of 16: three rounds, the last one's second half idle.
+// Shared memory: Q's parts 48 KB, 3 slots of 48 KB, 193 KB with the slack
+// and the barriers; a consumer thread holds the output 40, the block's P V
+// 40, the logits 32 and P's small part 32 registers.
+//
 // mma.sync is not used: wgmma holds every operand layout this needs.
 //
 // C interface for ctypes: the entry launches on the caller's stream and
@@ -108,18 +120,24 @@ constexpr uint32_t kSmemMax = 232448;       // 227 KB, a CTA's most
 
 template <int Dh>
 struct Layout {
-  static constexpr uint32_t kPart = kKeys * Dh * 4;     // one big or small part
+  // a row of Q or K in whole 32-column boxes (96 at Dh 80); V^T's Dh rows
+  // of 64 keys fit in a part of that size
+  static constexpr int kCols = (Dh + 31) / 32 * 32;
+  static constexpr uint32_t kPart = kKeys * kCols * 4;  // one big or small part
   static constexpr uint32_t kSlot = 2 * kPart;          // big, then small
   static constexpr uint32_t kQ = 0;                     // Q's big, then small part
-  static constexpr uint32_t kQPart = kRows * Dh * 4;
+  static constexpr uint32_t kQPart = kRows * kCols * 4;
   static constexpr uint32_t kSlot0 = 2 * kQPart;
   static constexpr int kSlots = (kSmemMax - 1024 - 256 - kSlot0) / kSlot;
   static constexpr uint32_t kBar = kSlot0 + kSlots * kSlot;
   // full[kSlots], empty[kSlots]; 1 KB of slack to align the base
   static constexpr uint32_t kBytes = kBar + 16 * kSlots + 1024;
 };
-static_assert(Layout<128>::kSlots == 2 && Layout<64>::kSlots == 6, "slots");
-static_assert(Layout<128>::kBytes <= kSmemMax && Layout<64>::kBytes <= kSmemMax,
+static_assert(Layout<128>::kSlots == 2 && Layout<80>::kSlots == 3 &&
+                  Layout<64>::kSlots == 6,
+              "slots");
+static_assert(Layout<128>::kBytes <= kSmemMax && Layout<80>::kBytes <= kSmemMax &&
+                  Layout<64>::kBytes <= kSmemMax,
               "a CTA has 227 KB of shared memory");
 
 // ---- shared memory and mbarriers ---------------------------------------------
@@ -235,11 +253,16 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]),     \
       "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 #define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+#define ACC40 ACC32, ACC8(32)
 #define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
 #define REGS32                                                                \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
   "%30, %31}"
+#define REGS40                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}"
 #define REGS64                                                                \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
@@ -269,6 +292,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// The same at N = 80 (P V at Dh = 80).
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 " REGS40
+      ", {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : ACC40
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
 // The same at N = 128 (P V at Dh = 128).
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
                                          uint64_t b) {
@@ -282,8 +316,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 
 #undef ACC8
 #undef ACC32
+#undef ACC40
 #undef ACC64
 #undef REGS32
+#undef REGS40
 #undef REGS64
 
 // exp(x) as ex2.approx(x log2(e)): one multiply and one MUFU.EX2.
@@ -325,11 +361,15 @@ __device__ __forceinline__ float lane_of(const float4& v, int j) {
 // blocks: keys 8 g + p + {0, 2, 4, 6} x columns 4 cq .. + 3, which are
 // positions 8 g + 4 p + {0..3} of V^T rows 4 cq .. + 3, one 16-byte store
 // each.  (g, p, cq) come from t so that the 8 threads of a store phase
-// write 8 distinct 16-byte bank groups.
+// write 8 distinct 16-byte bank groups.  The block's 4 (Dh / 8) groups of
+// 8 such units take kVRounds rounds of the warpgroup's 16 groups; at
+// Dh 80 the third round's groups 40..47 have no unit.
 
 template <int Dh>
 struct Producer {
-  static constexpr int kLoads = kKeys * Dh / 4 / 128;   // float4 per thread
+  static constexpr int kLoads = kKeys * Dh / 4 / 128;   // K float4 per thread
+  static constexpr int kVGroups = 4 * (Dh / 8);          // V: groups of 8 units
+  static constexpr int kVRounds = (kVGroups + 15) / 16;
   const float* k;
   const float* v;
   int64_t kv_base, kv_row;
@@ -340,11 +380,13 @@ struct Producer {
     return __ldg(reinterpret_cast<const float4*>(src + kv_base + key * kv_row + col));
   }
 
-  __device__ __forceinline__ void v_unit(int blk, int& g, int& p, int& cq) const {
+  // this thread's unit of round blk; false where the round has none
+  __device__ __forceinline__ bool v_unit(int blk, int& g, int& p, int& cq) const {
     const int w = (t >> 3) + 16 * blk;
     p = (t >> 1) & 1;
     cq = 2 * (w % (Dh / 8)) + (t & 1);
     g = ((t >> 2) & 1) + 2 * (w / (Dh / 8));
+    return w < kVGroups;
   }
 
   __device__ __forceinline__ void load_k(int k0, float4 (&r)[kLoads]) const {
@@ -367,22 +409,23 @@ struct Producer {
     }
   }
 
-  __device__ __forceinline__ void load_v(int k0, float4 (&r)[kLoads]) const {
+  __device__ __forceinline__ void load_v(int k0, float4 (&r)[4 * kVRounds]) const {
 #pragma unroll
-    for (int blk = 0; blk < kLoads / 4; ++blk) {
+    for (int blk = 0; blk < kVRounds; ++blk) {
       int g, p, cq;
-      v_unit(blk, g, p, cq);
+      if (!v_unit(blk, g, p, cq)) continue;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         r[4 * blk + i] = load(v, k0 + 8 * g + p + 2 * i, 4 * cq);
     }
   }
 
-  __device__ __forceinline__ void store_v(uint32_t slot, const float4 (&r)[kLoads]) const {
+  __device__ __forceinline__ void store_v(uint32_t slot,
+                                         const float4 (&r)[4 * kVRounds]) const {
 #pragma unroll
-    for (int blk = 0; blk < kLoads / 4; ++blk) {
+    for (int blk = 0; blk < kVRounds; ++blk) {
       int g, p, cq;
-      v_unit(blk, g, p, cq);
+      if (!v_unit(blk, g, p, cq)) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const uint32_t at = swizzled(slot, Dh, 4 * cq + j, 8 * g + 4 * p);
@@ -413,7 +456,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out, int S,
                        int H, int KV, int causal, int window, float softcap,
                        float scale) {
-  static_assert(Dh == 64 || Dh == 128, "head dim");
+  static_assert(Dh == 64 || Dh == 80 || Dh == 128, "head dim");
   using L = Layout<Dh>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -452,7 +495,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // the next block's loads are in flight while this one is split and
     // stored
     const Producer<Dh> pr{k, v, kv_base, kv_row, S, static_cast<int>(threadIdx.x) - 128};
-    float4 kr[Producer<Dh>::kLoads], vr[Producer<Dh>::kLoads];
+    float4 kr[Producer<Dh>::kLoads], vr[4 * Producer<Dh>::kVRounds];
     pr.load_k(kb_lo * kKeys, kr);
     for (int it = 0; kb_lo + it < n_k; ++it) {
       const int kb = kb_lo + it;
@@ -666,6 +709,9 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   if (dh == 64)
     return launch_dh<64>(q, k, v, out, n, s, h, kv, causal, window, softcap,
+                         scale, stream);
+  if (dh == 80)
+    return launch_dh<80>(q, k, v, out, n, s, h, kv, causal, window, softcap,
                          scale, stream);
   if (dh == 128)
     return launch_dh<128>(q, k, v, out, n, s, h, kv, causal, window, softcap,

@@ -81,6 +81,22 @@
 //     version's acc * alpha + P V;
 //   * four 64-column, 128-byte-swizzled TMA boxes cover a 256-wide row.
 //
+// At Dh = 80 (hubert-xlarge) a row is one 64-column box and a quarter of
+// another, and the swizzled layouts the wgmma descriptors read come in
+// whole 64-column boxes.  So a tile takes the Dh = 128 layout: two boxes a
+// row, 32 KB of Q and 3 x 64 KB of K/V, 225 KB of shared memory.  The
+// tensor maps' inner extent is Dh = 80, so TMA writes zeros into columns
+// 80..127 of the second box (an out-of-bounds fill, CU_TENSOR_MAP_FLOAT_
+// OOB_FILL_NONE, which is zero, never NaN) and still counts the whole box
+// against the barrier.  Q K^T runs Dh / 16 = 5 k-steps (the fifth reads
+// columns 64..79, the second box's first 16), so the padding costs it
+// nothing; P V runs at n128 on V's two boxes (the MN-major layout has no
+// n80 in whole swizzle atoms) and drops the output columns 80..127, which
+// only the zero columns feed: 208 of every 160 needed products, so at most
+// 77% of the operations bound.  A consumer thread holds the logits (64
+// registers), P (32), the block's P V (64) and the output's 80 columns
+// (40), against 128 + 64 at Dh 128; the store writes 80 columns.
+//
 // C interface for ctypes: the entry launches on the caller's stream and
 // returns a cudaError_t (0 on success).  Nothing synchronises and nothing
 // allocates; the Python wrapper allocates the output.  The tensor maps are
@@ -130,10 +146,16 @@ struct WideLayout {
 };
 static_assert(WideLayout::kBytes <= 232448, "a CTA has 227 KB of shared memory");
 
+// The columns of a staged tile's rows in shared memory: Dh rounded up to
+// whole 64-column boxes (Dh 80 takes the Dh 128 layout)
+__host__ __device__ constexpr int padded_cols(int dh) {
+  return (dh + kBoxCols - 1) / kBoxCols * kBoxCols;
+}
+
 template <int Dh>
 constexpr uint32_t smem_bytes() {
   if constexpr (Dh == 256) return WideLayout::kBytes;
-  else return Layout<Dh>::kBytes;
+  else return Layout<padded_cols(Dh)>::kBytes;
 }
 
 // ---- shared memory, mbarriers and TMA ---------------------------------------
@@ -527,8 +549,10 @@ __device__ __forceinline__ void wide_tile(const CUtensorMap& tq,
   }
 }
 
-// The Dh = 64 and 128 tile: Q and a ring of kStages K/V stages, each
-// block's P V summed on its own and added to the rescaled output.
+// The Dh = 64, 80 and 128 tile: Q and a ring of kStages K/V stages, each
+// block's P V summed on its own and added to the rescaled output.  Its
+// rows are kCols wide in shared memory, Dh rounded up to whole boxes; TMA
+// fills the columns past Dh with zeros.
 template <int Dh, bool kWindow>
 __device__ __forceinline__ void staged_tile(const CUtensorMap& tq,
                                             const CUtensorMap& tk,
@@ -537,8 +561,9 @@ __device__ __forceinline__ void staged_tile(const CUtensorMap& tq,
                                             int S, int H, int KV, int causal,
                                             int window, float softcap,
                                             float scale) {
-  using L = Layout<Dh>;
-  constexpr int kHalves = Dh / kBoxCols;    // 64-column boxes per tile row
+  constexpr int kCols = padded_cols(Dh);
+  using L = Layout<kCols>;
+  constexpr int kHalves = kCols / kBoxCols;   // 64-column boxes per tile row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base + L::kQ;
@@ -598,7 +623,8 @@ __device__ __forceinline__ void staged_tile(const CUtensorMap& tq,
   const int col0 = 2 * (lane % 4);
   const uint32_t q_rows = sq + 64 * wg * 128;    // 64 rows of 128 B per box
 
-  float o[Dh / 2], pv[Dh / 2], s_acc[64];
+  // the output's Dh columns; the block's P V over all kCols (n = kCols)
+  float o[Dh / 2], pv[kCols / 2], s_acc[64];
 #pragma unroll
   for (int i = 0; i < Dh / 2; ++i) o[i] = 0.0f;
   float m[2] = {kNegInf, kNegInf};
@@ -631,6 +657,7 @@ __device__ __forceinline__ void staged_tile(const CUtensorMap& tq,
                            S, causal, window, softcap, scale);
 
     // this block's P V on its own: 8 k-steps of 16 keys, 2 KB of V each
+    // (at Dh 80 its columns 80..127 read V's zero fill and are dropped)
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kBlock / 16; ++j)
@@ -671,7 +698,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ out, int S, int H, int KV,
                 int causal, int window, float softcap, float scale) {
-  static_assert(Dh == 64 || Dh == 128 || Dh == 256, "head dim");
+  static_assert(Dh == 64 || Dh == 80 || Dh == 128 || Dh == 256, "head dim");
   if constexpr (Dh == 256)
     wide_tile<kWindow>(tq, tk, tv, out, S, H, KV, causal, window, softcap,
                        scale);
@@ -709,7 +736,7 @@ EncodeTiled encode_tiled() {
 
 // A (Dh, heads, S, N) map of a contiguous (N, S, heads, Dh) bf16 tensor,
 // read in boxes of 64 columns x 1 head x 128 rows, 128-byte swizzled;
-// rows past S read as zeros.
+// rows past S, and columns past Dh (Dh 80), read as zeros.
 bool make_map(CUtensorMap* map, const void* ptr, int64_t n, int64_t s,
               int64_t heads, int64_t dh) {
   const EncodeTiled encode = encode_tiled();
@@ -773,6 +800,9 @@ int flash_attention_bf16_tc(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   if (dh == 64)
     return launch_dh<64>(q, k, v, out, n, s, h, kv, causal, window, softcap,
+                         scale, stream);
+  if (dh == 80)
+    return launch_dh<80>(q, k, v, out, n, s, h, kv, causal, window, softcap,
                          scale, stream);
   if (dh == 128)
     return launch_dh<128>(q, k, v, out, n, s, h, kv, causal, window, softcap,

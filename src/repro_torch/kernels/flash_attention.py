@@ -5,7 +5,7 @@ Replace the Pallas kernel ``src/repro/kernels/flash_attention.py``:
 wrapper ``flash_attention`` (:93).  Both kernels read q ``(N, S, H, Dh)``
 and k, v ``(N, S, KV, Dh)`` in place, with no transpose and no repeated
 KV copy, and write the output in q's dtype.  Any S; the head dims of
-:data:`HEAD_DIMS` (f32 64 or 128, bf16 64, 128 or 256); causal or not,
+:data:`HEAD_DIMS` (f32 64, 80 or 128, bf16 64, 80, 128 or 256); causal or not,
 with an optional softcap and an optional sliding ``window`` (a key is
 kept iff k_pos > q_pos - window, the JAX ``_chunked_attention``'s local
 mask; a query tile skips the key blocks wholly before its first row's
@@ -24,7 +24,8 @@ dtype, and nothing else:
   at 700.00 W, ``chip_smoke.py``); one
   consumer and one producer warpgroup per 64 query rows, 193 KB of
   shared memory and up to 255 registers a thread at Dh 128 (the budget
-  is in the source's note);
+  is in the source's note); at Dh 80 (hubert-xlarge) Q's and K's rows take
+  three 32-column boxes and P V runs at n80;
 * bfloat16: ``csrc/flash_attention_sm90.cu`` (library ``flash_tc``), on
   the tensor cores (wgmma, TMA loads), with P rounded to bf16 before P V,
   held to the plain version (``ref.flash_attention_ref``, which rounds at
@@ -35,7 +36,10 @@ dtype, and nothing else:
   128-row Q tile is 64 KB and one K or V block 64 KB: Q, one K slot and
   one V slot, each with its own barriers (192 KB), so K(j+1) loads while
   V(j) is read; the output (128 registers) is rescaled by alpha before
-  P V accumulates into it, with no separate P V.
+  P V accumulates into it, with no separate P V.  At Dh 80 a row takes
+  the Dh 128 layout (two 64-column boxes; TMA fills columns 80..127 with
+  zeros): Q K^T reads the 80 columns, P V runs at n128 and drops the
+  padded columns, so at most 77% of the operations bound.
 
 Neither has a backward: the wrapper refuses inputs that need a gradient.
 """
@@ -49,7 +53,7 @@ import torch
 from . import build
 
 #: dtype -> the head dims its kernel takes
-HEAD_DIMS = {torch.float32: (64, 128), torch.bfloat16: (64, 128, 256)}
+HEAD_DIMS = {torch.float32: (64, 80, 128), torch.bfloat16: (64, 80, 128, 256)}
 #: dtype -> (library, entry)
 _ENTRY = {torch.float32: ("flash", "flash_attention_f32"),
           torch.bfloat16: ("flash_tc", "flash_attention_bf16_tc")}
@@ -124,7 +128,7 @@ def _check(q, k, v, window=None) -> None:
 
 def variant(dtype, head_dim: int, window) -> str:
     """The name a launch is counted under in ``flash_attention.variants``:
-    "bf16_dh256", "f32_dh64_window", ..."""
+    "bf16_dh80", "bf16_dh256", "f32_dh64_window", ..."""
     name = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
     return f"{name}_dh{head_dim}" + ("" if window is None else "_window")
 

@@ -17,10 +17,13 @@ cast once to the compute dtype; ``--seed`` draws the prompts from a
 raises unless it is given ``--device cpu``.  Refused before torch is
 imported: ``--mesh`` and ``--simulate-devices`` (one device),
 ``--kv-layout seq`` (a sharding choice with nothing to shard on one
-device), ``--metrics-dir`` (the telemetry sinks are not ported) and
-every architecture but the dense ones: qwen3-1.7b, gemma2-9b (local and
-global layers, its local caches ring buffers of the 4096-token window),
-gemma-7b and yi-9b.
+device), ``--metrics-dir`` (the telemetry sinks are not ported),
+hubert-xlarge (an encoder: it has no decode step, as the JAX launcher
+says) and every other architecture but the dense decoders, qwen3-1.7b,
+gemma2-9b (local and global layers, its local caches ring buffers of the
+4096-token window), gemma-7b and yi-9b, and llava-next-mistral-7b, whose
+text prompts are served as the JAX launcher serves them (no image: the
+prompt is teacher-forced through ``decode_step``).
 """
 import argparse
 import json
@@ -30,7 +33,10 @@ import time
 # torch-free: argument validation runs before torch is imported
 from repro_torch.obs.timers import percentile
 
-ARCH_CHOICES = ("qwen3-1.7b", "gemma2-9b", "gemma-7b", "yi-9b")
+ARCH_CHOICES = ("qwen3-1.7b", "gemma2-9b", "gemma-7b", "yi-9b",
+                "llava-next-mistral-7b")
+#: the encoder-only archs: ported, but with nothing to decode
+ENCODER_ARCHS = ("hubert-xlarge",)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -55,9 +61,11 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _validate(ap, args) -> None:
+    if args.arch in ENCODER_ARCHS:
+        ap.error(f"--arch {args.arch}: encoder-only arch has no decode step")
     if args.arch not in ARCH_CHOICES:
         ap.error(f"--arch {args.arch!r} is not ported; choose from "
-                 f"{', '.join(ARCH_CHOICES)} (the dense decoders)")
+                 f"{', '.join(ARCH_CHOICES)} (the decoders)")
     if args.mesh is not None:
         ap.error("--mesh is not supported by the port: it serves on one "
                  "device")

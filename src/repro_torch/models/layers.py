@@ -1,4 +1,4 @@
-"""Neural-net layers of the dense decoder, on node-stacked tensors.
+"""Neural-net layers of the dense stack, on node-stacked tensors.
 
 Every activation carries the gossip-node dimension first, ``(n, B, S, ...)``,
 and every weight ``(n, *shape)``: the n nodes' models run as one batched
@@ -59,7 +59,7 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def _matmul(x, w):
+def matmul(x, w):
     """(n, ..., K) @ (n, K, N) -> (n, ..., N), one batched matmul."""
     lead = x.shape[:-1]
     return torch.matmul(x.reshape(x.shape[0], -1, x.shape[-1]), w).reshape(
@@ -80,9 +80,9 @@ def _qkv(p, x, cfg, positions):
     (n, B, S, KV, Dh)."""
     n, B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = _matmul(x, p["wq"]).reshape(n, B, S, H, Dh)
-    k = _matmul(x, p["wk"]).reshape(n, B, S, KV, Dh)
-    v = _matmul(x, p["wv"]).reshape(n, B, S, KV, Dh)
+    q = matmul(x, p["wq"]).reshape(n, B, S, H, Dh)
+    k = matmul(x, p["wk"]).reshape(n, B, S, KV, Dh)
+    v = matmul(x, p["wv"]).reshape(n, B, S, KV, Dh)
     if cfg.qk_norm:
         q = rms_norm(q, per_node(p["q_norm"], 5), cfg.norm_eps)
         k = rms_norm(k, per_node(p["k_norm"], 5), cfg.norm_eps)
@@ -110,7 +110,7 @@ def attention(p, x, cfg, positions, *, local: bool = False):
             q.reshape(n * B, S, H, Dh), k.reshape(n * B, S, KV, Dh),
             v.reshape(n * B, S, KV, Dh), causal=cfg.causal,
             softcap=cfg.attn_logit_softcap, window=window)
-        return _matmul(out.reshape(n, B, S, H * Dh), p["wo"]), (k, v)
+        return matmul(out.reshape(n, B, S, H * Dh), p["wo"]), (k, v)
     if cfg.attn_impl != "naive":
         raise ValueError(f"attn_impl {cfg.attn_impl!r} is not ported")
     kr, vr = _repeat_kv(k, H // KV), _repeat_kv(v, H // KV)
@@ -127,7 +127,7 @@ def attention(p, x, cfg, positions, *, local: bool = False):
     logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("nbhqk,nbkhd->nbqhd", w, vr).reshape(n, B, S, H * Dh)
-    return _matmul(out, p["wo"]), (k, v)
+    return matmul(out, p["wo"]), (k, v)
 
 
 def decode_attention(p, x, cfg, cache_k, cache_v, pos, *, local: bool = False):
@@ -164,19 +164,19 @@ def decode_attention(p, x, cfg, cache_k, cache_v, pos, *, local: bool = False):
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("nbkrqc,nbckd->nbqkrd", w, cache_v).reshape(
         n, B, 1, H * Dh)
-    return _matmul(out, p["wo"])
+    return matmul(out, p["wo"])
 
 
 def mlp(p, x, cfg):
     """Gated MLP (swiglu / geglu) or plain gelu MLP."""
     if cfg.mlp_type == "swiglu":
-        h = F.silu(_matmul(x, p["w_gate"])) * _matmul(x, p["w_up"])
+        h = F.silu(matmul(x, p["w_gate"])) * matmul(x, p["w_up"])
     elif cfg.mlp_type == "geglu":
-        h = (F.gelu(_matmul(x, p["w_gate"]), approximate="tanh")
-             * _matmul(x, p["w_up"]))
+        h = (F.gelu(matmul(x, p["w_gate"]), approximate="tanh")
+             * matmul(x, p["w_up"]))
     else:
-        h = F.gelu(_matmul(x, p["w_up"]), approximate="tanh")
-    return _matmul(h, p["w_down"])
+        h = F.gelu(matmul(x, p["w_up"]), approximate="tanh")
+    return matmul(h, p["w_down"])
 
 
 def embed_tokens(p, tokens, cfg):
@@ -204,7 +204,7 @@ def logits_from_hidden(p, h, cfg):
     """Final norm -> (tied or untied) unembed -> optional logit softcap."""
     h = rms_norm(h, per_node(p["final_norm"], h.dim()), cfg.norm_eps)
     w = p["tok"].transpose(-1, -2) if cfg.tie_embeddings else p["unembed"]
-    return softcap(_matmul(h, w), cfg.final_logit_softcap)
+    return softcap(matmul(h, w), cfg.final_logit_softcap)
 
 
 def _nll(logits, labels):
@@ -212,21 +212,36 @@ def _nll(logits, labels):
     return -torch.gather(logp, -1, labels[..., None].long())[..., 0]
 
 
-def cross_entropy(logits, labels):
-    """Mean CE per node.  logits (n, ..., V), labels (n, ...) -> (n,)."""
-    return _nll(logits, labels).reshape(logits.shape[0], -1).mean(dim=1)
+def cross_entropy(logits, labels, valid=None):
+    """Mean CE per node over the valid positions.  logits (n, ..., V),
+    labels (n, ...), valid None or (n, ...) weights (the audio mask, the
+    image prefix's zeros) -> (n,): sum(nll valid) / max(sum(valid), 1)."""
+    nll = _nll(logits, labels).reshape(logits.shape[0], -1)
+    if valid is None:
+        return nll.mean(dim=1)
+    v = valid.to(torch.float32).reshape(nll.shape)
+    return (nll * v).sum(dim=1) / torch.clamp_min(v.sum(dim=1), 1.0)
 
 
-def chunked_lm_loss(p, h, labels, cfg):
+def chunked_lm_loss(p, h, labels, cfg, valid=None):
     """Per-node cross-entropy over the vocab in sequence chunks, so the
-    full (n, B, S, V) logits are never held at once."""
+    full (n, B, S, V) logits are never held at once; over the positions
+    ``valid`` weights, as :func:`cross_entropy`."""
     if cfg.loss_chunk <= 0 or h.shape[2] % cfg.loss_chunk != 0:
-        return cross_entropy(logits_from_hidden(p, h, cfg), labels)
+        return cross_entropy(logits_from_hidden(p, h, cfg), labels, valid)
     n, c = h.shape[0], cfg.loss_chunk
-    sums, count = [], 0
+    sums, counts = [], []
     for i in range(0, h.shape[2], c):
         nll = _nll(logits_from_hidden(p, h[:, :, i:i + c], cfg),
-                   labels[:, :, i:i + c])
-        sums.append(nll.reshape(n, -1).sum(dim=1))
-        count += nll[0].numel()
-    return torch.stack(sums, dim=1).sum(dim=1) / max(count, 1)
+                   labels[:, :, i:i + c]).reshape(n, -1)
+        if valid is None:
+            sums.append(nll.sum(dim=1))
+            counts.append(nll.shape[1])
+        else:
+            v = valid[:, :, i:i + c].to(torch.float32).reshape(n, -1)
+            sums.append((nll * v).sum(dim=1))
+            counts.append(v.sum(dim=1))
+    total = torch.stack(sums, dim=1).sum(dim=1)
+    if valid is None:
+        return total / max(sum(counts), 1)
+    return total / torch.clamp_min(torch.stack(counts, dim=1).sum(dim=1), 1.0)

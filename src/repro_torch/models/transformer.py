@@ -1,5 +1,24 @@
-"""The dense decoder of the JAX package's model stack: the training
-forward, the prefill and the single-token decode step with its KV cache.
+"""The dense stack of the JAX package's model: the training forward, the
+prefill and the single-token decode step with its KV cache, for the dense
+decoders and the two frontend families, which run the same dense stack
+(the JAX ``block_pattern`` gives them its dense kinds):
+
+* "audio" (hubert-xlarge): an encoder over precomputed frame embeddings,
+  ``frame_embeds @ in_proj``, bidirectional (``causal=False``), then
+  ``final_norm``, ``head`` and the final softcap; its loss is the
+  cross-entropy over the frames the batch's ``mask`` marks.  It has no
+  token embedding and no decode step (:meth:`Model.decode_step` raises),
+  but its prefill returns the caches of every layer, as JAX's does.
+* "vlm" (llava-next-mistral-7b): a decoder whose input is an image prefix,
+  ``gelu(patch_embeds @ w1) @ w2`` (the ``projector``), then the text's
+  token embeddings; positions 0..S-1 run over both.  Its loss is the
+  chunked cross-entropy with the image prefix masked out (labels
+  zero-padded there, ``valid`` 0), and it decodes text tokens as the dense
+  decoders do.
+
+The inputs are the JAX package's batch dicts with the node dimension
+first (``frame_embeds``; ``patch_embeds`` and ``tokens``; ``tokens``), or,
+for the dense family, a token tensor (n, B, S).
 
 Parameters are a flat dict ``path -> (n, *shape)`` tensor (n gossip nodes
 stacked first), with the JAX package's tree paths ("embed/tok",
@@ -21,10 +40,10 @@ p % C.  A decode step writes its slot in place.  For serving,
 :meth:`Model.compute_params` casts the weights to the compute dtype once,
 so no call casts them again (the JAX ``_cast`` rounds the same way).
 
-Not ported: the other families (MoE, SSM, hybrid, VLM, audio) and
-``remat`` (the JAX configs ask for ``"dots"``): blocks are not
-checkpointed, since the training sequence of the slice is short and its
-activations are small next to the CHOCO state.
+Not ported: the other families (MoE, SSM, hybrid) and ``remat`` (the
+JAX configs ask for ``"dots"``): blocks are not checkpointed, since the
+training sequence of the slice is short and its activations are small
+next to the CHOCO state.
 """
 from __future__ import annotations
 
@@ -32,25 +51,29 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.comm.packing import fold_seed
 
 from . import layers as L
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: the families the port runs, each through the dense stack
+FAMILIES = ("dense", "vlm", "audio")
 
 
 def _check(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise ValueError(f"model family {cfg.family!r} is not ported")
 
 
 def block_pattern(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
-    """(pattern, repeat, tail) of the dense stack, as the JAX
-    ``block_pattern``: ``pattern`` runs ``repeat`` times, then each block
-    of ``tail`` once.  With ``local_global_pattern`` k > 0 the pattern is
-    k local layers and one global one, and the layers that do not fill a
-    last pattern make the tail."""
+    """(pattern, repeat, tail) of the dense stack (every family of
+    :data:`FAMILIES`), as the JAX ``block_pattern``: ``pattern`` runs
+    ``repeat`` times, then each block of ``tail`` once.  With
+    ``local_global_pattern`` k > 0 the pattern is k local layers and one
+    global one, and the layers that do not fill a last pattern make the
+    tail."""
     _check(cfg)
     if cfg.local_global_pattern > 0:
         unit = ("dense_local",) * cfg.local_global_pattern + ("dense_global",)
@@ -60,13 +83,23 @@ def block_pattern(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
 
 
 def param_shapes(cfg) -> List[Tuple[str, Tuple[int, ...]]]:
-    """(path, per-node shape) of every parameter, in JAX flatten order."""
+    """(path, per-node shape) of every parameter, in JAX flatten order.
+    The audio family has ``in_proj``, ``final_norm`` and ``head`` where the
+    others have ``embed/``; the vlm family adds ``projector/w1`` and
+    ``projector/w2``."""
     pattern, repeat, tail = block_pattern(cfg)
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    shapes = {"embed/tok": (V, D), "embed/final_norm": (D,)}
-    if not cfg.tie_embeddings:
-        shapes["embed/unembed"] = (D, V)
+    if cfg.family == "audio":
+        shapes = {"in_proj": (cfg.frontend.embed_dim, D), "final_norm": (D,),
+                  "head": (D, V)}
+    else:
+        shapes = {"embed/tok": (V, D), "embed/final_norm": (D,)}
+        if not cfg.tie_embeddings:
+            shapes["embed/unembed"] = (D, V)
+    if cfg.family == "vlm":
+        shapes["projector/w1"] = (cfg.frontend.embed_dim, D)
+        shapes["projector/w2"] = (D, D)
     block = {"ln1": (D,), "ln2": (D,), "attn/wq": (D, H * Dh),
              "attn/wk": (D, KV * Dh), "attn/wv": (D, KV * Dh),
              "attn/wo": (H * Dh, D)}
@@ -92,7 +125,7 @@ def count_params(cfg) -> int:
 
 
 class Model:
-    """Dense decoder over node-stacked parameter dicts."""
+    """The dense stack over node-stacked parameter dicts."""
 
     def __init__(self, cfg):
         _check(cfg)
@@ -102,9 +135,10 @@ class Model:
 
     def init(self, n_nodes: int, seed: int, device,
              nodes: Optional[Sequence[int]] = None) -> Dict[str, torch.Tensor]:
-        """Random node-stacked parameters: fan-in-scaled normal weights,
-        0.02-scaled normal embeddings, zero norm gains (the JAX package's
-        rules, drawn from torch Generators, so not its values).
+        """Random node-stacked parameters: fan-in-scaled normal weights (the
+        frontends' projections too), 0.02-scaled normal embeddings, zero
+        norm gains (the JAX package's rules, drawn from torch Generators,
+        so not its values).
 
         Node i draws from its own generator, seeded ``fold_seed(seed, i)``
         (the JAX trainer folds the node index into its key), so a node's
@@ -198,16 +232,54 @@ class Model:
         return L.embed_tokens({"tok": params["embed/tok"]}, tokens,
                               self.cfg).to(self.dtype)
 
-    def hidden(self, params, tokens, caches=None):
-        """Final hidden states (n, B, S, D) in the compute dtype.  With
+    def embed_inputs(self, params, batch):
+        """The JAX ``_embed_inputs``: (x (n, B, S, D) in the compute dtype,
+        labels, valid) of a batch dict, or of a dense model's token tensor
+        (n, B, S).
+
+        audio: ``frame_embeds @ in_proj``, the labels ``targets`` and
+        ``valid`` the batch's ``mask``.  vlm: ``gelu(patch_embeds @ w1) @
+        w2`` (tanh gelu, JAX's default), then the token embeddings; the
+        labels, when the batch has them, zero-padded over the image
+        prefix, with ``valid`` 0 there and 1 on the text.  dense: the
+        token embeddings, ``labels`` and ``valid``."""
+        cfg, dt = self.cfg, self.dtype
+        if torch.is_tensor(batch):
+            batch = {"tokens": batch}
+        if cfg.family == "audio":
+            x = L.matmul(batch["frame_embeds"].to(dt), params["in_proj"].to(dt))
+            return x, batch.get("targets"), batch.get("mask")
+        x = self._embed_tokens(params, batch["tokens"])
+        labels, valid = batch.get("labels"), batch.get("valid")
+        if cfg.family == "vlm":
+            vis = L.matmul(F.gelu(L.matmul(
+                batch["patch_embeds"].to(dt), params["projector/w1"].to(dt)),
+                approximate="tanh"), params["projector/w2"].to(dt))
+            x = torch.cat([vis, x], dim=2)
+            if labels is not None:
+                prefix = vis.shape[:3]                 # (n, B, patches)
+                valid = torch.cat([
+                    torch.zeros(prefix, dtype=torch.float32, device=x.device),
+                    torch.ones(labels.shape, dtype=torch.float32,
+                               device=x.device)], dim=2)
+                labels = torch.cat([labels.new_zeros(prefix), labels], dim=2)
+        return x, labels, valid
+
+    def hidden(self, params, batch, caches=None):
+        """Final hidden states (n, B, S, D) in the compute dtype, of a
+        batch dict or a token tensor (:meth:`embed_inputs`).  With
         ``caches`` (:meth:`init_cache` of max_seq >= S), each layer keeps
         its k and v of position p in slot p % C: a global layer fills its
         first S slots, a local one of C < S slots the last C positions
         (slot p % C, the slot :meth:`decode_step` reads; the JAX prefill
         keeps ``k[:, -C:]`` in slots 0..C-1, the same when C divides S)."""
-        x = self._embed_tokens(params, tokens)
-        B, S = tokens.shape[1:]
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        return self._stack(params, self.embed_inputs(params, batch)[0],
+                           caches)
+
+    def _stack(self, params, x, caches=None):
+        """The layers over the embedded inputs x (n, B, S, D)."""
+        B, S = x.shape[1:3]
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
         for kind, p, cache in self._layers(params, caches):
             x, kv = self._block(kind, p, x, positions)
             if cache is None:
@@ -217,7 +289,7 @@ class Model:
                 for c, t in zip(cache, kv):
                     c[:, :, :S] = t
             elif kind == "dense_local":
-                slots = torch.arange(S - C, S, device=tokens.device) % C
+                slots = torch.arange(S - C, S, device=x.device) % C
                 for c, t in zip(cache, kv):
                     c.index_copy_(2, slots, t[:, :, S - C:])
             else:
@@ -226,36 +298,56 @@ class Model:
         return x
 
     def _embed(self, params, dtype):
-        """The embed leaves the final projection reads, cast to ``dtype``."""
+        """The leaves the final projection reads, cast to ``dtype``: the
+        audio head's, or the embed leaves."""
+        if self.cfg.family == "audio":
+            return {k: params[k].to(dtype) for k in ("final_norm", "head")}
         proj = "tok" if self.cfg.tie_embeddings else "unembed"
         return {k: params[f"embed/{k}"].to(dtype) for k in ("final_norm", proj)}
 
     def _logits(self, params, h):
-        return L.logits_from_hidden(self._embed(params, h.dtype), h, self.cfg)
+        """The JAX ``_final_logits``: audio's final norm, head and softcap;
+        else the final norm and the (tied or untied) unembedding."""
+        p = self._embed(params, h.dtype)
+        if self.cfg.family == "audio":
+            h = L.rms_norm(h, L.per_node(p["final_norm"], h.dim()),
+                           self.cfg.norm_eps)
+            return L.softcap(L.matmul(h, p["head"]),
+                             self.cfg.final_logit_softcap)
+        return L.logits_from_hidden(p, h, self.cfg)
 
-    def logits(self, params, tokens):
+    def logits(self, params, batch):
         """(n, B, S, V) logits, as the JAX model's final projection."""
-        return self._logits(params, self.hidden(params, tokens))
+        return self._logits(params, self.hidden(params, batch))
 
     def loss(self, params, batch) -> torch.Tensor:
-        """Per-node mean cross-entropy, shape (n,)."""
-        h = self.hidden(params, batch["tokens"])
-        return L.chunked_lm_loss(self._embed(params, h.dtype), h,
-                                 batch["labels"], self.cfg)
+        """Per-node mean cross-entropy over the valid positions, shape (n,):
+        audio over the full logits, the others in ``loss_chunk`` chunks."""
+        x, labels, valid = self.embed_inputs(params, batch)
+        h = self._stack(params, x)
+        if self.cfg.family == "audio":
+            return L.cross_entropy(self._logits(params, h), labels, valid)
+        return L.chunked_lm_loss(self._embed(params, h.dtype), h, labels,
+                                 self.cfg, valid)
 
-    def prefill(self, params, tokens):
-        """Full-sequence pass over tokens (n, B, S): last-token logits
-        (n, B, 1, V) and the KV cache of max_seq S."""
-        n, B, S = tokens.shape
-        caches = self.init_cache(B, S, tokens.device, n_nodes=n)
-        h = self.hidden(params, tokens, caches)
+    def prefill(self, params, batch):
+        """Full-sequence pass over a batch dict or tokens (n, B, S): the
+        last position's logits (n, B, 1, V) and the KV cache of max_seq S
+        (every family; the audio encoder's too, as JAX builds it)."""
+        x = self.embed_inputs(params, batch)[0]
+        n, B, S = x.shape[:3]
+        caches = self.init_cache(B, S, x.device, n_nodes=n)
+        h = self._stack(params, x, caches)
         return self._logits(params, h[:, :, -1:]), caches
 
     def decode_step(self, params, token, caches, pos):
-        """One token per sequence.  token: (n, B, 1); pos: (B,) long
-        absolute position, the same for every sequence; caches are
-        written in place, at slot pos (global layers) or pos % C (local
-        ring buffers).  Returns (logits (n, B, 1, V), caches)."""
+        """One text token per sequence (dense and vlm).  token: (n, B, 1);
+        pos: (B,) long absolute position, the same for every sequence;
+        caches are written in place, at slot pos (global layers) or pos % C
+        (local ring buffers).  Returns (logits (n, B, 1, V), caches)."""
+        if self.cfg.family == "audio":
+            raise ValueError(f"{self.cfg.name} is an encoder: it has no "
+                             f"decode step")
         x = self._embed_tokens(params, token)
         for kind, p, (ck, cv) in self._layers(params, caches):
             h = L.decode_attention(

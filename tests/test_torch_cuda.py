@@ -2,7 +2,7 @@
 the trainer through the gossip kernels (with QSGD, sign and top-k gossip),
 the per-rank exchange (4 ranks sharing the card) against the stacked one,
 the topology-process engine's replica update, and the prefill through
-the flash kernel.
+the flash kernel (the dense decoders' and the frontends').
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so on a machine without JAX it
@@ -677,6 +677,101 @@ def test_flash_attention_kernel_dh256_and_window_match_plain(
     else:
         err = float((got - want).abs().max())
         assert err <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,h,kv,dtype,causal,softcap,window", [
+    (1, 1500, 16, 16, torch.bfloat16, False, None, None),
+    (2, 1000, 16, 16, torch.bfloat16, True, None, None),
+    (2, 1000, 8, 2, torch.bfloat16, False, 50.0, None),
+    (2, 1000, 16, 8, torch.bfloat16, True, None, 300),
+    (1, 200, 4, 4, torch.bfloat16, False, None, 129),
+    (1, 1500, 16, 16, torch.float32, False, None, None),
+    (2, 1000, 16, 16, torch.float32, True, None, None),
+    (2, 1000, 8, 2, torch.float32, False, 50.0, None),
+    (2, 1000, 16, 8, torch.float32, True, None, 300),
+    (1, 200, 4, 4, torch.float32, False, None, 129),
+])
+def test_flash_attention_kernel_dh80_matches_plain(cuda, n, s, h, kv, dtype,
+                                                   causal, softcap, window):
+    """Both kernels at head dim 80 (hubert-xlarge's: bf16 padded to two
+    64-column boxes with TMA's zero fill, f32 in three 32-column boxes
+    with P V at n80), at ragged lengths, causal or not, GQA, a softcap and
+    a window, to the contracts of the tests above; each launch counted
+    under its variant ("bf16_dh80", "f32_dh80_window", ...)."""
+    q, k, v = _attn_inputs(s + 80, n, s, h, kv, 80, dtype, cuda)
+    variants = flash_kernel.flash_attention.variants
+    name = flash_kernel.variant(dtype, 80, window)
+    before = variants[name]
+    got = _launched("flash_attention", lambda: dispatch.flash_attention(
+        q, k, v, causal=causal, softcap=softcap, window=window))
+    assert variants[name] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    if dtype == torch.bfloat16:
+        rel, share = flash_kernel.bf16_gap(got, want)
+        assert rel <= flash_kernel.FLASH_BF16_RTOL
+        assert share <= flash_kernel.FLASH_BF16_ULP_SHARE
+    else:
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "llava-next-mistral-7b"])
+def test_frontend_prefill_agrees_with_cpu(cuda, arch):
+    """The frontends' f32 smoke models through the flash kernel, card
+    against CPU within 1e-5 (+ 1e-5 relative) of the logits: hubert at
+    head dim 80 (its full config's), non-causal, over 300 frames, prefill
+    logits; llava's prefill of 16 patches and 40 text tokens, then 8
+    decode steps past it.  The caches within 1e-4 (+ 1e-5 relative): on an
+    H100 (80GB HBM3, 700 W) hubert's layer-0 k cache, which no attention
+    has touched, differed from the CPU's by 5.2e-05 at position 261 in 3
+    of 384,000 elements, above the qwen3 prefill test's 4e-5 (measured at
+    200 positions): the rotary angle is the position times an inverse
+    frequency, and the devices' frequencies and sines differ by ulps."""
+    from repro_torch.data.synthetic import make_lm_batch_fn
+    kw = dict(dtype="float32", attn_impl="chunked")
+    if arch == "hubert-xlarge":
+        kw["head_dim"] = 80
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **kw)
+    model = Model(cfg)
+    params = model.init(1, 0, "cpu")
+    seq = 300 if arch == "hubert-xlarge" else 56
+    batch = {k: torch.from_numpy(v) for k, v in
+             make_lm_batch_fn(cfg, seq, 2, 1, seed=3)().items()}
+    batch = {k: v.long() if k in ("tokens", "labels", "targets") else v
+             for k, v in batch.items()}
+    follow = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, 2, 8)))
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        p = {k: v.to(device) for k, v in params.items()}
+        dispatch.reset_launch_counts()
+        logits, cache = model.prefill(p, {k: v.to(device)
+                                          for k, v in batch.items()})
+        if device.type == "cuda":
+            assert dispatch.launch_counts()["flash_attention"] == cfg.n_layers
+        steps = [logits.cpu()]
+        if arch != "hubert-xlarge":
+            cache = {k: torch.cat([c, c.new_zeros(c.shape[:3] + (8,)
+                                                  + c.shape[4:])], dim=3)
+                     for k, c in cache.items()}
+            for t in range(8):
+                lg, cache = model.decode_step(
+                    p, follow[:, :, t:t + 1].to(device), cache,
+                    torch.full((2,), seq + t, device=device))
+                steps.append(lg.cpu())
+        out[device.type] = (torch.cat(steps, dim=2),
+                            {k: c.cpu() for k, c in cache.items()})
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    for name, want in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][name], want, rtol=1e-5,
+                                   atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -36,9 +36,9 @@ from test_torch_slice import one_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-5
 
-#: (S, Dh, causal, softcap): both lengths (one odd), both head dims, both
-#: masks, and one softcap case
-CASES = [(s, dh, causal, None) for s in (256, 1000) for dh in (64, 128)
+#: (S, Dh, causal, softcap): both lengths (one odd), the three head dims,
+#: both masks, and one softcap case
+CASES = [(s, dh, causal, None) for s in (256, 1000) for dh in (64, 80, 128)
          for causal in (True, False)] + [(1000, 64, True, 30.0)]
 
 
@@ -193,6 +193,15 @@ def test_the_kernels_accumulation_order_keeps_the_contract():
     one_chain = gap(tensor_core_attention(q, k, v, False), want)
     assert ours <= RTOL / 2, (ours, one_chain)
     assert one_chain >= 3 * ours, (ours, one_chain)
+
+
+def test_the_kernels_accumulation_order_keeps_the_contract_at_dh80():
+    """The same at hubert-xlarge's head dim 80 (10 k-steps a Q K^T
+    product, P V at n80): the kernel's order within half the contract."""
+    q, k, v = (t[0, :, 0] for t in inputs(7, 1000, 80, h=1, kv=1))
+    want = ref.flash_attention_ref(q[None, :, None], k[None, :, None],
+                                   v[None, :, None], causal=False)[0, :, 0]
+    assert gap(tensor_core_attention(q, k, v, True), want) <= RTOL / 2
 
 
 # -- the CPU repair ------------------------------------------------------------

@@ -424,17 +424,18 @@ def test_flash_plain_window_wider_than_the_sequence_is_no_window():
 
 def test_flash_entries_refuse_head_dims_and_windows_they_do_not_take(
         monkeypatch):
-    """bf16 takes Dh 64, 128 and 256, f32 64 and 128; a window below 1 is
-    refused.  Each before any library is loaded."""
+    """bf16 takes Dh 64, 80, 128 and 256, f32 64, 80 and 128; a window
+    below 1 is refused.  Each before any library is loaded."""
     def loader(name):
         raise RuntimeError(f"kernel loader reached: {name}")
 
     monkeypatch.setattr(build, "load_library", loader)
     for dtype, dh, match in (
-            (torch.float32, 256, r"the float32 kernel takes \(64, 128\)"),
+            (torch.float32, 256, r"the float32 kernel takes \(64, 80, 128\)"),
             (torch.float32, 32, "head dim 32"),
-            (torch.bfloat16, 32, r"the bfloat16 kernel takes \(64, 128, 256\)"),
-            (torch.bfloat16, 80, "head dim 80")):
+            (torch.bfloat16, 32,
+             r"the bfloat16 kernel takes \(64, 80, 128, 256\)"),
+            (torch.bfloat16, 96, "head dim 96")):
         q, kv = _meta((1, 128, 4, dh), dtype), _meta((1, 128, 2, dh), dtype)
         with pytest.raises(ValueError, match=match):
             dispatch.flash_attention(q, kv, kv, causal=True)
@@ -444,6 +445,86 @@ def test_flash_entries_refuse_head_dims_and_windows_they_do_not_take(
     for window in (0, -3):
         with pytest.raises(ValueError, match="window"):
             dispatch.flash_attention(q, kv, kv, causal=True, window=window)
+
+
+# Head dim 80 (hubert-xlarge): the plain version against the Pallas kernel
+# in interpret mode (S = 256) and against the JAX oracle at a ragged S.
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_dh80_matches_jax_pallas_kernel(dtype, causal):
+    """f32 within FLASH_TOL; bf16 (P rounded where the Pallas kernel keeps
+    it in f32) within FLASH_BF16_F32P_RTOL of max|want|."""
+    from repro.kernels.flash_attention import flash_attention as jflash
+    q, k, v = _flash_inputs(80, 2, 256, 4, 2, 80)
+    if dtype == "float32":
+        want = jflash(*map(jnp.asarray, (q, k, v)), causal=causal,
+                      interpret=True)
+        got = _plain_flash(q, k, v, causal=causal)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0,
+                                   atol=FLASH_TOL)
+        return
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    want = jflash(*(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                    for t in (qb, kb, vb)), causal=causal, interpret=True)
+    got = ref.flash_attention_ref(qb, kb, vb, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == qb.shape
+    rel, _ = flash_kernel.bf16_gap(
+        got, torch.from_numpy(np.array(want.astype(jnp.float32))))
+    assert rel <= flash_kernel.FLASH_BF16_F32P_RTOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [200, 300])
+def test_flash_plain_dh80_ragged_matches_jax_oracle(s, dtype, causal):
+    """A ragged last key block (S = 200, 300), hubert's 4/4 heads and GQA
+    4/2: f32 within FLASH_TOL of the oracle's plain softmax over the
+    KV-repeated heads; bf16 within FLASH_BF16_F32P_RTOL of the oracle on
+    the same bf16 values in f32."""
+    for kv in (4, 2):
+        q, k, v = _flash_inputs(s + kv, 1, s, 4, kv, 80)
+        if dtype == "bfloat16":
+            q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+                       for a in (q, k, v))
+        rep = lambda a: jnp.repeat(jnp.asarray(a), 4 // kv, axis=2)
+        want = np.array(jref.flash_attention_ref(
+            jnp.asarray(q), rep(k), rep(v), causal=causal))
+        if dtype == "float32":
+            got = _plain_flash(q, k, v, causal=causal)
+            np.testing.assert_allclose(got, want, rtol=0, atol=FLASH_TOL)
+            continue
+        got = ref.flash_attention_ref(
+            *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+            causal=causal)
+        rel, _ = flash_kernel.bf16_gap(got, torch.from_numpy(want))
+        assert rel <= flash_kernel.FLASH_BF16_F32P_RTOL
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_entries_take_head_dim_80(dtype, window, monkeypatch):
+    """Both entries pass Dh 80 (hubert-xlarge's 16/16 heads, non-causal) to
+    their library, with and without a window, from metadata alone: the
+    check raises nothing and the loader is reached; its launch would be
+    counted as "bf16_dh80" / "f32_dh80_window" ...; Dh 96, which no kernel
+    takes, is still refused before any library is loaded."""
+    def loader(name):
+        raise RuntimeError(f"kernel loader reached: {name}")
+
+    monkeypatch.setattr(build, "load_library", loader)
+    assert 80 in flash_kernel.HEAD_DIMS[dtype]
+    q = kv = _meta((1, 1500, 16, 80), dtype)
+    lib = "flash" if dtype == torch.float32 else "flash_tc"
+    with pytest.raises(RuntimeError, match=f"loader reached: {lib}$"):
+        dispatch.flash_attention(q, kv, kv, causal=False, window=window)
+    name = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    assert flash_kernel.variant(dtype, 80, window) == (
+        f"{name}_dh80" + ("" if window is None else "_window"))
+    q = kv = _meta((1, 1500, 16, 96), dtype)
+    with pytest.raises(ValueError, match="head dim 96"):
+        dispatch.flash_attention(q, kv, kv, causal=False, window=window)
 
 
 def test_flash_off_cpu_tensor_never_reaches_the_plain_version(monkeypatch):
