@@ -181,9 +181,10 @@ from the root of a checkout, on a machine with one CUDA device.  It
    printed;
 7. holds the flash-attention kernels against their plain version: the
    bf16 tensor-core kernel (``csrc/flash_attention_sm90.cu``; the build
-   phase checks that the SASS of all eight instances, Dh 64, 80, 128 and
+   phase checks that the SASS of all ten instances, Dh 32, 64, 80, 128 and
    256 with and without a window, holds wgmma and TMA loads) at the
    full-width prefill layer shape (32768 tokens, 16/8 heads, causal), at
+   qwen3-moe-30b-a3b's (32768 tokens, 32/4 heads, causal), at
    an odd length (1000), at 2048, at Dh 64 with a softcap and non-causal,
    at gemma2-9b's global layer (Dh 256, softcap 50) and local layer (the
    same with the 4096-token window), gemma-7b's layer (16/16 heads), Dh
@@ -192,11 +193,11 @@ from the root of a checkout, on a machine with one CUDA device.  It
    (``FLASH_BF16_RTOL``, ``FLASH_BF16_ULP_SHARE``) and its plain version
    to contract (b) against the f32-P result; the f32 3xTF32 tensor-core
    kernel (``csrc/flash_attention.cu``; the build phase checks that its
-   six instances' SASS holds wgmma) within 1e-5 of max|out| at Dh 64
+   eight instances' SASS holds wgmma) within 1e-5 of max|out| at Dh 64
    with a softcap (non-causal and causal), at 2048, at an odd length
    (1000) and with a window at Dh 64 and 128 (causal with a softcap,
-   non-causal); and times the bf16 kernel at the qwen3 prefill layer and
-   the three 32768-token Dh 256 layers, its plain version,
+   non-causal); and times the bf16 kernel at the qwen3 and qwen3-moe
+   prefill layers and the three 32768-token Dh 256 layers, its plain version,
    ``scaled_dot_product_attention`` (the library yardstick, which the
    port never calls; at the local layer with the window as a boolean
    mask, where a backend takes it) and the bounds, and the f32 kernel at
@@ -207,7 +208,9 @@ from the root of a checkout, on a machine with one CUDA device.  It
    tokens (the ``prefill_32k`` shape, its batch of 32 cut to 1 for one
    card), twice, checking 28 flash launches per call, finite logits and
    the cache shapes, then profiles one more call, which must attribute
-   28 launches and their device time to the tensor-core kernel;
+   28 launches and their device time to the tensor-core kernel (a launch
+   the profiler lacks must be one whose kernel record it dropped: a
+   launch call with no kernel event in its trace);
 9. holds the full-width prefill's last-token logits (prompt 256, batch 2)
    against a decode loop over the same tokens (the JAX consistency
    test's bound, and the same argmax), and times and profiles one
@@ -232,10 +235,10 @@ from the root of a checkout, on a machine with one CUDA device.  It
    decode steps past position 32768 (finite logits, the global caches'
    new slots written, the local rings written over: they wrap);
    ``[consistency]`` at its full width (prompt 256, batch 2); the serve
-   launcher at ``--arch gemma2-9b``; and ``[dense small]``: the gemma2-9b
-   and gemma-7b smoke models in f32, chunked and naive, and yi-9b naive
-   (its head dim 32 is not the kernel's), prefill of 24 plus 40 decode
-   steps (the smoke window of 16 wraps), card against CPU;
+   launcher at ``--arch gemma2-9b``; and ``[dense small]``: the gemma2-9b,
+   gemma-7b and yi-9b smoke models in f32, chunked and naive (yi-9b's
+   chunked path at head dim 32), prefill of 24 plus 40 decode steps (the
+   smoke window of 16 wraps), card against CPU;
 12. runs the frontends: ``[flash-dh80]``, both flash kernels at
    hubert-xlarge's layer (16/16 heads, head dim 80, non-causal) at 32768
    frames and at 8 x 1500 (30 s of audio at 50 frames a second), each
@@ -253,7 +256,22 @@ from the root of a checkout, on a machine with one CUDA device.  It
    (32 ``bf16_dh128`` launches a call), then the serve launcher at
    ``--arch llava-next-mistral-7b`` (batch 1, prompt 32, 16 tokens, 2
    requests);
-13. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+13. runs the MoE family: ``[flash-dh32]``, both flash kernels at head dim
+   32 (the MoE and yi-9b smoke models'), causal and not, with and without
+   a window, held to their contracts, and timed at qwen3-moe-30b-a3b's
+   32/4 heads over 32768 tokens beside the plain version, SDPA and the
+   bound; ``[prefill-moe]``, qwen3-moe-30b-a3b at its published widths
+   with 8 of its 48 layers (bf16, weights from seed 0): ``Model.prefill``
+   of 32768 tokens twice (8 ``bf16_dh128`` launches a call), a profiled
+   call split by the stages of ``models/moe.py`` (flash, the experts'
+   matmuls and the rest of their SwiGLU, the router, the gather and
+   scatter, the rest), then 4 decode steps past the prompt; ``[moe-small]``,
+   the qwen3-moe and llama4 smoke models in f32 and bf16, chunked and
+   naive, prefill of 24 plus 40 decode steps card against CPU (bf16 on the
+   CPU's expert picks, the card's own picks differing in at most
+   ``MOE_PICK_MISMATCH_SHARE`` of the tokens), and the serve launcher at
+   its qwen3-moe smoke;
+14. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints ``[phase] <name> <seconds> s`` as it ends (the host's
@@ -262,6 +280,7 @@ clock), and the detail JSON line carries the seconds under ``phases_s``.
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the repository's ``src/`` beside it, it exits non-zero and prints no result.
 """
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -358,20 +377,23 @@ FLASH_CASES = (
     ("f32 Dh 128 window softcap", 2, 1000, 16, 8, 128, "float32", True, 50.0,
      300),
     ("f32 non-causal window", 2, 1000, 8, 4, 64, "float32", False, None, 100),
+    # qwen3-moe-30b-a3b's full-width layer: 32/4 heads (GQA 8) at Dh 128
+    ("qwen3-moe layer", 1, 32768, 32, 4, 128, "bfloat16", True, None, None),
 )
 #: the FLASH_CASES timed beside the plain version, SDPA and the bound, each
 #: a record of its own: the first stands for the qwen3-1.7b layer (the
-#: ``flash_attention`` entry), the gemma2 layers for the Dh 256 variants
+#: ``flash_attention`` entry), the gemma2 layers for the Dh 256 variants,
+#: the qwen3-moe layer for [prefill-moe]'s bf16_dh128 launches
 FLASH_TIMED = ("prefill layer", "gemma2 global layer", "gemma2 local layer",
-               "gemma-7b layer")
+               "gemma-7b layer", "qwen3-moe layer")
 #: [decode-32k]: decode steps that continue gemma2-9b's 32768-token
 #: prefill, past its global caches' prompt slots and around its local rings
 DECODE_PAST_STEPS = 8
 #: [dense small]: (arch, attn_impl) of the smoke models held card against
-#: CPU (yi-9b's head dim 32 is refused by the flash kernel: naive only)
+#: CPU (yi-9b's chunked path runs the f32 kernel at head dim 32)
 DENSE_SMALL = (("gemma2-9b", "chunked"), ("gemma2-9b", "naive"),
                ("gemma-7b", "chunked"), ("gemma-7b", "naive"),
-               ("yi-9b", "naive"))
+               ("yi-9b", "chunked"), ("yi-9b", "naive"))
 PREFILL_CALLS = 2
 #: the f32 prefill test's cache tolerance, atol (rtol 1e-5), from
 #: ``prefill_budget``'s measurements
@@ -388,6 +410,58 @@ FLASH_DH80_CASES = (
     ("f32 hubert 30 s", 8, 1500, 16, 16, 80, "float32", False, None, None),
 )
 FLASH_DH80_TIMED = tuple(case[0] for case in FLASH_DH80_CASES)
+#: [prefill-moe]: qwen3-moe-30b-a3b at its published widths with its depth
+#: cut from 48 to this many layers: each layer holds 623M parameters (128
+#: experts of 3 x 2048 x 768), so 8 layers and the embeddings are 5.6B,
+#: drawn in f32 (22.4 GB) and cast to bf16 (11.2 GB); 48 would be 61 GB in
+#: bf16 and 122 GB as drawn
+MOE_LAYERS = 8
+#: [prefill-moe]: decode steps past its 32768-token prompt
+MOE_DECODE_STEPS = 4
+#: [moe-small]: (arch, dtype, attn_impl) of the MoE smoke models held card
+#: against CPU (chunked: through the head-dim-32 flash kernels)
+MOE_SMALL = tuple((arch, dtype, impl)
+                  for arch in ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b")
+                  for dtype in ("float32", "bfloat16")
+                  for impl in ("chunked", "naive"))
+#: [moe-small] bf16: the card's logits against the CPU's, max|d| within
+#: this of max|logit| (the port's bf16 model tolerance): the devices' bf16
+#: matmuls sum in other orders and round their outputs, and 40 decode
+#: steps carry the differences
+SMALL_BF16_RTOL = 3e-2
+#: [moe-small] bf16: the largest share of tokens whose own expert picks on
+#: the card may differ from the CPU's (the card replays the CPU's): a
+#: bf16 ulp flips near-tied picks in at most 1 of 352 on an H100, where a
+#: routing fault would flip most
+MOE_PICK_MISMATCH_SHARE = 0.02
+#: the serve launcher at the qwen3-moe smoke model: the JAX launcher's
+#: defaults, 2 requests
+SERVE_MOE_ARGS = ("--smoke", "--batch", "8", "--prompt-len", "32",
+                  "--gen-len", "32", "--requests", "2")
+#: [flash-dh32]: both kernels at head dim 32 (the qwen3-moe, llama4 and
+#: yi-9b smoke models'), causal and not, with and without a window, at
+#: ragged lengths; the first two, qwen3-moe-30b-a3b's 32/4 heads at the
+#: smoke head dim over a 32768-token sequence, are timed.  Drawn from a
+#: generator of their own (seed 9)
+FLASH_DH32_CASES = (
+    ("qwen3-moe heads Dh 32", 1, 32768, 32, 4, 32, "bfloat16", True, None,
+     None),
+    ("f32 qwen3-moe heads Dh 32", 1, 32768, 32, 4, 32, "float32", True,
+     None, None),
+    ("Dh 32 odd length", 2, 1000, 4, 2, 32, "bfloat16", True, None, None),
+    ("Dh 32 non-causal softcap", 2, 1000, 8, 2, 32, "bfloat16", False, 50.0,
+     None),
+    ("Dh 32 window", 2, 1000, 4, 2, 32, "bfloat16", True, None, 300),
+    ("Dh 32 non-causal window", 1, 200, 4, 4, 32, "bfloat16", False, None,
+     129),
+    ("f32 Dh 32 odd length", 2, 1000, 4, 2, 32, "float32", True, None, None),
+    ("f32 Dh 32 non-causal softcap", 2, 1000, 8, 2, 32, "float32", False,
+     50.0, None),
+    ("f32 Dh 32 window", 2, 1000, 4, 2, 32, "float32", True, None, 300),
+    ("f32 Dh 32 non-causal window", 1, 200, 4, 4, 32, "float32", False,
+     None, 129),
+)
+FLASH_DH32_TIMED = tuple(case[0] for case in FLASH_DH32_CASES[:2])
 #: [frontend] hubert: the long sequence and the 30 s batch (batch, frames)
 HUBERT_LONG = (1, 32768)
 HUBERT_BATCH = (8, 1500)
@@ -789,13 +863,8 @@ def topk_ops_path(dev):
 def stream_busy(prof):
     """Per CUDA stream of a profiled window: the union of its kernels',
     copies' and fills' intervals, in us, from the profiler's trace."""
-    import tempfile
-    with tempfile.NamedTemporaryFile(suffix=".json") as f:
-        prof.export_chrome_trace(f.name)
-        with open(f.name) as fh:
-            trace = json.load(fh)
     spans = {}
-    for e in trace.get("traceEvents", []):
+    for e in trace_events(prof):
         if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
                                                     "gpu_memset"):
             stream = (e.get("args") or {}).get("stream")
@@ -859,26 +928,129 @@ def overlap_report(prof, wall_ms):
             "device_idle_share": 1.0 - _length(union) / 1e3 / wall_ms}
 
 
-def profile_call(label, fn, ours, show=True, streams=False):
-    """One more call of ``fn`` under torch.profiler: device time by kernel,
-    grouped into the port's kernels (names in ``ours``), matmuls and
-    everything else; printed unless ``show`` is False.  ``streams``: also
-    read the trace for the pipelined step's side stream
-    (:func:`overlap_report`)."""
+def trace_events(prof):
+    """The profiler's chrome trace of a profiled window, as its event
+    list."""
+    import tempfile
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as fh:
+            return json.load(fh).get("traceEvents", [])
+
+
+def launch_audit(prof, ours, wrapper, listed, window_us):
+    """Where the profiler lost launches that the wrappers counted: the
+    kernel events of ``ours`` in the chrome trace (against ``listed``, the
+    count ``key_averages`` gave), by stream; the first and last of them
+    and of all kernels, against the profiled window's start (the trace's
+    first CPU event; ``window_us`` its wall length); and the launch calls
+    (runtime or driver, matched by correlation id) that have no kernel
+    event, with where they fell in the window.  ``explained``: the trace
+    and key_averages agree, and the launches they lack are no more than
+    the launch calls without a kernel event (the profiler dropped those
+    kernels' records).  Printed and returned."""
+    events = trace_events(prof)
+    kernels = sorted((e for e in events if e.get("ph") == "X"
+                      and e.get("cat") == "kernel"),
+                     key=lambda e: float(e["ts"]))
+    mine = [e for e in kernels if any(k in e.get("name", "") for k in ours)]
+    cpu = [float(e["ts"]) for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("cpu_op", "user_annotation", "python_function")]
+    t0 = min(cpu) if cpu else min((float(e["ts"]) for e in kernels), default=0)
+    seen = {(e.get("args") or {}).get("correlation") for e in kernels}
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                      "cuda_driver")
+                and "aunch" in e.get("name", "")]
+    lost = [[e.get("name"), round(float(e["ts"]) - t0, 1)] for e in launches
+            if (e.get("args") or {}).get("correlation") not in seen]
+    by_stream = collections.Counter((e.get("args") or {}).get("stream")
+                                    for e in mine)
+    span = lambda es: ([round(float(es[0]["ts"]) - t0, 1),
+                        round(float(es[-1]["ts"]) + float(es[-1].get("dur", 0))
+                              - t0, 1)] if es else None)
+    audit = {"wrapper": wrapper, "key_averages": listed,
+             "trace": len(mine), "by_stream": {str(k): v for k, v in
+                                              by_stream.items()},
+             "ours_first_last_us": span(mine),
+             "all_first_last_us": span(kernels), "window_us": window_us,
+             "launch_calls": len(launches),
+             "launch_calls_without_kernel": lost[:20],
+             "n_launch_calls_without_kernel": len(lost),
+             "last_without_kernel_us": max((t for _, t in lost), default=None),
+             "explained": len(mine) == listed
+             and 0 <= wrapper - listed <= len(lost)}
+    print(f"[profile] launch audit: the wrappers counted {wrapper} launches "
+          f"of {list(ours)}, key_averages listed {listed}, the trace holds "
+          f"{len(mine)} such kernel events {dict(by_stream)}; ours span "
+          f"{audit['ours_first_last_us']} us and all kernels "
+          f"{audit['all_first_last_us']} us of a {window_us:.1f} us window; "
+          f"{len(lost)} of {len(launches)} launch calls have no kernel event "
+          f"(the last {audit['last_without_kernel_us']} us into the window; "
+          f"the first: {lost[:5]}); explained by those: "
+          f"{audit['explained']}", flush=True)
+    return audit
+
+
+#: tiny launches the profiler's warm-up step makes before the profiled
+#: call: in chip_smoke.py's runs the profiler dropped the kernel records of
+#: up to ~60 launches at the start of a window it opened (launch calls with
+#: no kernel event, all in its first ~3 ms), once one of hubert's flash
+#: launches; the warm-up step takes that loss
+PROFILER_WARMUP_LAUNCHES = 256
+
+
+def profiled(fn):
+    """(the profiler, wall ms) of one call of ``fn`` under torch.profiler
+    (CPU and CUDA), its active step after one warm-up step of
+    PROFILER_WARMUP_LAUNCHES tiny launches, whose records the profiler
+    discards."""
     import torch
-    from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    x = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(PROFILER_WARMUP_LAUNCHES):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    return prof, wall
+
+
+def is_matmul(kernel_name):
+    """Whether a kernel is a library matrix product (cuBLAS, CUTLASS)."""
+    return any(k in kernel_name.lower() for k in ("gemm", "nvjet", "xmma",
+                                                  "cutlass", "matmul"))
+
+
+def profile_call(label, fn, ours, show=True, streams=False, audit=False):
+    """One more call of ``fn`` under torch.profiler: device time by kernel,
+    grouped into the port's kernels (names in ``ours``), matmuls and
+    everything else; printed unless ``show`` is False.  ``streams``: also
+    read the trace for the pipelined step's side stream
+    (:func:`overlap_report`).  The launches of ``ours`` that the profiler
+    lists are held against the wrappers' counts over the same call; where
+    they differ (or with ``audit``), :func:`launch_audit` reads the trace
+    for the missing ones."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.kernels import dispatch
+    before = sum(dispatch.launch_counts().values())
+    prof, wall = profiled(fn)
+    wrapper = sum(dispatch.launch_counts().values()) - before
     dev_us = lambda e: (getattr(e, "self_device_time_total", 0)
                         or getattr(e, "self_cuda_time_total", 0))
-    kernels = [(dev_us(e) / 1e3, e.key) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    # the device's events but the annotations spanning them (the schedule's
+    # "ProfilerStep#1", record_function ranges), whose time is the kernels'
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("ProfilerStep")]
+    kernels = [(dev_us(e) / 1e3, e.key) for e in events if dev_us(e) > 0]
     if not kernels:
         print(f"[profile] {label}: the profiler recorded no device time",
               flush=True)
@@ -886,22 +1058,20 @@ def profile_call(label, fn, ours, show=True, streams=False):
     groups = {"port kernels": 0.0, "matmul": 0.0, "other": 0.0}
     # device ms and launches of each of ours, by the name it is matched on
     by_kernel = {k: [0.0, 0] for k in ours}
-    for e in prof.key_averages():
+    for e in events:
         for k in ours:
-            if e.device_type == DeviceType.CUDA and k in e.key:
+            if k in e.key:
                 by_kernel[k][0] += dev_us(e) / 1e3
                 by_kernel[k][1] += e.count
     for ms, name in kernels:
         if any(k in name for k in ours):
             groups["port kernels"] += ms
-        elif any(k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass",
-                                             "matmul")):
+        elif is_matmul(name):
             groups["matmul"] += ms
         else:
             groups["other"] += ms
     busy = sum(groups.values())
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0)
+    launches = sum(e.count for e in events if dev_us(e) > 0)
     # busy and wall of the same profiled call; the profiler's own host
     # cost is in the wall time, so the share errs towards idle
     idle = 1.0 - busy / wall
@@ -923,7 +1093,11 @@ def profile_call(label, fn, ours, show=True, streams=False):
     out = {"wall_ms": wall, "device_busy_ms": busy, "launches": launches,
            "device_idle_share": idle, "by_kernel": by_kernel,
            "host_top": [[ms, name, count] for ms, name, count in host],
-           **groups}
+           "wrapper_launches": wrapper, **groups}
+    listed = sum(c for _, c in by_kernel.values())
+    if audit or listed != wrapper:
+        out["launch_audit"] = launch_audit(prof, ours, wrapper, listed,
+                                           wall * 1e3)
     if streams:
         ov = overlap_report(prof, wall)
         out["streams"] = ov
@@ -2842,7 +3016,6 @@ def sim_gossip(dev):
     curves within SIM_RTOL (top 1%: printed), and each round held by
     ``_hold_rounds``; first and last error, bits per coordinate and ms
     per round."""
-    import collections
     import numpy as np
     import torch
     from repro_torch.core.baselines import (exact_gossip_round,
@@ -2992,7 +3165,6 @@ def sim_sgd(dev):
     generators); the free runs' f(x_bar) at the start and the end within
     SIM_RTOL (their final x printed), each step held by ``_hold_rounds``;
     wire bits per node, ms per step."""
-    import collections
     import torch
     from repro_torch.core.baselines import plain_dsgd_step
     from repro_torch.core.choco_gossip import mixing
@@ -4736,12 +4908,14 @@ def time_flash_f32(dev):
 def check_flash_sass(path, f32_path=None):
     """The flash kernels were compiled to tensor-core code: every
     ``flash_tc_kernel`` instantiation in the bf16 library's SASS
-    (``cuobjdump -sass``; Dh 64, 80, 128 and 256, each with and without a
-    window: 8) holds wgmma (``HGMMA``) and TMA loads (``UTMALDG``), and,
-    given the f32 library, every ``flash_attention_kernel`` instantiation
-    there (Dh 64, 80 and 128, with and without a window: 6) holds ``HGMMA``: a
-    CUDA-core kernel cannot pass for either.  A missing ``cuobjdump`` is a
-    failure."""
+    (``cuobjdump -sass``; each head dim of ``HEAD_DIMS``, 32, 64, 80, 128
+    and 256, with and without a window: 10) holds wgmma (``HGMMA``) and TMA
+    loads (``UTMALDG``), and, given the f32 library, every
+    ``flash_attention_kernel`` instantiation there (32, 64, 80 and 128,
+    with and without a window: 8) holds ``HGMMA``: a CUDA-core kernel
+    cannot pass for either.  A missing ``cuobjdump`` is a failure."""
+    import torch
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     check(os.path.exists(tool), f"cuobjdump not found ({tool}): the flash "
@@ -4760,7 +4934,8 @@ def check_flash_sass(path, f32_path=None):
               f"and without a window)")
         return found
 
-    found = functions(path, "flash_tc_kernel", 8)
+    found = functions(path, "flash_tc_kernel",
+                      2 * len(HEAD_DIMS[torch.bfloat16]))
     for name, (hgmma, utmaldg) in found.items():
         check(hgmma > 0 and utmaldg > 0, f"flash_tc SASS: {name} has {hgmma} "
               f"HGMMA and {utmaldg} UTMALDG instructions")
@@ -4768,7 +4943,8 @@ def check_flash_sass(path, f32_path=None):
         f"{name[-60:]}: {h} HGMMA, {u} UTMALDG"
         for name, (h, u) in found.items()), flush=True)
     if f32_path is not None:
-        f32 = functions(f32_path, "flash_attention_kernel", 6)
+        f32 = functions(f32_path, "flash_attention_kernel",
+                        2 * len(HEAD_DIMS[torch.float32]))
         for name, (hgmma, _) in f32.items():
             check(hgmma > 0, f"flash (f32) SASS: {name} has no HGMMA")
         print("[build] flash (f32) SASS: " + "; ".join(
@@ -4778,23 +4954,26 @@ def check_flash_sass(path, f32_path=None):
     return found
 
 
-def full_width_serving_model(dev, arch):
-    """``arch`` at full width and depth with the flash kernel, random
-    weights from seed 0 drawn in f32 and cast once to bf16; the f32 draw
-    is freed before this returns.  Returns (model, params, the draw's peak
-    device memory in GiB)."""
+def full_width_serving_model(dev, arch, n_layers=None):
+    """``arch`` at full width and depth (or ``n_layers``) with the flash
+    kernel, random weights from seed 0 drawn in f32 and cast once to bf16;
+    the f32 draw is freed before this returns.  Returns (model, params,
+    the draw's peak device memory in GiB)."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models.transformer import Model
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    model = Model(dataclasses.replace(get_config(arch), attn_impl="chunked"))
+    cfg = get_config(arch)
+    model = Model(dataclasses.replace(
+        cfg, attn_impl="chunked", n_layers=n_layers or cfg.n_layers))
     params = model.compute_params(model.init(1, 0, dev))
     torch.cuda.synchronize()
     draw = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.empty_cache()
     held = sum(t.numel() * t.element_size() for t in params.values()) / 2 ** 30
-    print(f"[prefill] {arch}: {sum(t.numel() for t in params.values())} "
+    print(f"[prefill] {arch}: {model.cfg.n_layers} layers, "
+          f"{sum(t.numel() for t in params.values())} "
           f"parameters, {held:.3f} GiB in bf16; the f32 draw and the cast "
           f"peaked at {draw:.3f} GiB", flush=True)
     return model, params, draw
@@ -4868,14 +5047,17 @@ def prefill_full_width(model, params, dev):
           f"{sorted(set(want_shapes.values()))}; peak device memory "
           f"{peak:.3f} GiB", flush=True)
     profile = profile_call(f"one {cfg.name} prefill call",
-                           lambda: model.prefill(params, toks), FLASH_KERNELS)
+                           lambda: model.prefill(params, toks), FLASH_KERNELS,
+                           audit=True)
     check(profile is not None, "prefill: the profiler recorded no device time")
     tc_ms, tc_launches = profile["by_kernel"]["flash_tc_kernel"]
     check(tc_launches == cfg.n_layers and tc_ms > 0
+          and profile["wrapper_launches"] == cfg.n_layers
           and profile["by_kernel"]["flash_attention_kernel"][1] == 0,
-          f"prefill: the profiled call's flash kernels {profile['by_kernel']}; "
-          f"expected {cfg.n_layers} launches of flash_tc_kernel and none of "
-          f"the f32 kernel")
+          f"prefill: the profiled call's flash kernels {profile['by_kernel']}"
+          f", the wrappers' {profile['wrapper_launches']}; expected "
+          f"{cfg.n_layers} launches of flash_tc_kernel and none of the f32 "
+          f"kernel")
     print(f"[prefill] the profiled {cfg.name} call: flash_tc_kernel "
           f"{tc_launches} launches, {tc_ms:.3f} ms of device time "
           f"({100 * tc_ms / profile['device_busy_ms']:.1f}% of busy); matmul "
@@ -4911,7 +5093,7 @@ def decode_past_prefill(model, params, dev, steps=DECODE_PAST_STEPS):
     local = [f"stack/c{i}/k" for i, kind in enumerate(pattern)
              if kind == "dense_local"]
     glob = [f"stack/c{i}/k" for i, kind in enumerate(pattern)
-            if kind == "dense_global"]
+            if kind in ("dense_global", "moe")]
     ring = {k: caches[k].shape[3] for k in local}
     before = {k: caches[k][:, :, :, seq % ring[k]:][:, :, :, :steps].clone()
               for k in local}
@@ -5053,54 +5235,101 @@ def consistency_full_width(model, params, dev):
                     "variants": variants, "decode_s": decode_s}
 
 
+@contextlib.contextmanager
+def replayed_picks(picks, replay):
+    """``models/moe.py``'s expert picks (``moe.pick``): appended to
+    ``picks`` in call order, or, with ``replay``, taken from it in the same
+    order; ``mismatch`` counts the picks of a replay where this device's
+    own top-k chose otherwise, and ``total`` all of them."""
+    from repro_torch.models import moe
+    pick = moe.pick
+    queue = iter(list(picks))
+    stats = {"mismatch": 0, "total": 0}
+
+    def call(scores, k):
+        own = pick(scores, k)
+        if not replay:
+            picks.append(own.cpu())
+            return own
+        idx = next(queue).to(scores.device)
+        stats["mismatch"] += int((own != idx).any(dim=-1).sum())
+        stats["total"] += own[..., 0].numel()
+        return idx
+    moe.pick = call
+    try:
+        yield stats
+    finally:
+        moe.pick = pick
+
+
 def serve_small_cuda_vs_cpu(dev, arch="qwen3-1.7b", attn_impl="chunked",
-                            prompt_len=200, steps=8):
-    """A smoke model in float32: the prefill's logits, then a cache of
+                            prompt_len=200, steps=8, dtype="float32"):
+    """A smoke model in ``dtype``: the prefill's logits, then a cache of
     prompt_len + steps slots filled through ``Model.hidden`` and ``steps``
     decode steps, on the card against the same on the CPU (the plain
-    versions), within 1e-5 of the largest logit.  With ``attn_impl``
-    "chunked" the card's two passes over the prompt launch one flash
-    kernel per layer each.  Returns the card's launch counts."""
+    versions), within 1e-5 of the largest logit in float32 and
+    SMALL_BF16_RTOL of it in bfloat16.  With ``attn_impl`` "chunked" the
+    card's two passes over the prompt launch one flash kernel per layer
+    each.  An MoE model in bf16 runs on the CPU first and the card then
+    takes the CPU's expert picks (:func:`replayed_picks`): one bf16 ulp of
+    a hidden state flips near-tied picks (with its own picks the card's
+    qwen3-moe smoke logits were 1.38 from the CPU's, a third of the
+    largest), which would hide what the check is for; the card's own picks
+    are counted against the CPU's.  Returns the card's launch counts and
+    flash variants."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model
     cfg = dataclasses.replace(get_config(arch, smoke=True),
-                              dtype="float32", attn_impl=attn_impl)
+                              dtype=dtype, attn_impl=attn_impl)
     model = Model(cfg)
-    params = model.init(1, 1, "cpu")
+    params = model.compute_params(model.init(1, 1, "cpu"))
     gen = torch.Generator().manual_seed(6)
     prompt = torch.randint(0, cfg.vocab_size, (1, 2, prompt_len), generator=gen)
     follow = torch.randint(0, cfg.vocab_size, (1, 2, steps), generator=gen)
-    runs = {}
-    for device in (dev, torch.device("cpu")):
+    replay = cfg.family == "moe" and dtype == "bfloat16"
+    picks, runs = [], {}
+    for device in ((torch.device("cpu"), dev) if replay
+                   else (dev, torch.device("cpu"))):
         p = {k: v.to(device) for k, v in params.items()}
         dispatch.reset_launch_counts()
-        logits, _ = model.prefill(p, prompt.to(device))
-        cache = model.init_cache(2, prompt_len + steps, device)
-        model.hidden(p, prompt.to(device), cache)
-        out = [logits]
-        for t in range(steps):
-            pos = torch.full((2,), prompt_len + t, dtype=torch.long,
-                             device=device)
-            lg, cache = model.decode_step(p, follow[:, :, t:t + 1].to(device),
-                                          cache, pos)
-            out.append(lg)
-        runs[device.type] = torch.cat(out, dim=2).cpu()
+        with replayed_picks(picks, replay and device.type == "cuda") as stats:
+            logits, _ = model.prefill(p, prompt.to(device))
+            cache = model.init_cache(2, prompt_len + steps, device)
+            model.hidden(p, prompt.to(device), cache)
+            out = [logits]
+            for t in range(steps):
+                pos = torch.full((2,), prompt_len + t, dtype=torch.long,
+                                 device=device)
+                lg, cache = model.decode_step(
+                    p, follow[:, :, t:t + 1].to(device), cache, pos)
+                out.append(lg)
+        runs[device.type] = torch.cat(out, dim=2).float().cpu()
         if device.type == "cuda":
-            counts = dispatch.launch_counts()
+            counts, variants = dispatch.launch_counts(), _flash_variants()
+            own = (f"; the CPU's expert picks replayed, the card's own "
+                   f"differed in {stats['mismatch']} of {stats['total']} "
+                   f"tokens' picks (bound {MOE_PICK_MISMATCH_SHARE} of them)"
+                   if replay else "")
     d = float((runs["cuda"] - runs["cpu"]).abs().max())
     top = max(float(runs["cpu"].abs().max()), 1.0)
+    rtol = 1e-5 if dtype == "float32" else SMALL_BF16_RTOL
     want = 2 * cfg.n_layers if attn_impl == "chunked" else 0
-    print(f"[small] {arch} smoke f32 {attn_impl}: prefill {prompt_len} + "
+    print(f"[small] {arch} smoke {dtype} {attn_impl}: prefill {prompt_len} + "
           f"{steps} decode steps, CUDA vs CPU max|d| = {d:.3e} (max |logit| "
-          f"{top:.3f}); flash launches {counts['flash_attention']}",
-          flush=True)
-    check(d <= 1e-5 * top, f"{arch} {attn_impl}: CUDA and CPU serving logits "
-          f"differ by {d}")
+          f"{top:.3f}, bound {rtol:.0e} of it); flash launches "
+          f"{counts['flash_attention']} {variants}{own}", flush=True)
+    check(d <= rtol * top, f"{arch} {dtype} {attn_impl}: CUDA and CPU "
+          f"serving logits differ by {d}")
+    check(not replay or (stats["total"] > 0 and stats["mismatch"]
+                         <= MOE_PICK_MISMATCH_SHARE * stats["total"]),
+          f"{arch} {dtype} {attn_impl}: the card's own expert picks differ "
+          f"from the CPU's in {stats['mismatch']} of {stats['total']} tokens "
+          f"(bound {MOE_PICK_MISMATCH_SHARE} of them)")
     check(counts["flash_attention"] == want and sum(counts.values()) == want,
           f"{arch} {attn_impl}: launches {counts}, expected {want} flash")
-    return counts
+    return counts, variants
 
 
 @contextlib.contextmanager
@@ -5178,9 +5407,11 @@ def frontend_prefill(model, params, batch, calls, label):
           f"{calls} calls x {cfg.n_layers} layers of {variant}")
     # the wrapper's counts above prove the launches; the profiler splits
     # the device time (it listed 47 of hubert's 48 flash launches in one
-    # H100 run, all 48 counted by the wrapper)
+    # H100 run, all 48 counted by the wrapper: it drops a kernel's record
+    # now and then, which the audit shows)
     profile = profile_call(f"one {label} call",
-                           lambda: model.prefill(params, batch), FLASH_KERNELS)
+                           lambda: model.prefill(params, batch), FLASH_KERNELS,
+                           audit=True)
     check(profile is not None, f"{label}: the profiler recorded no device time")
     tc_ms, tc_launches = profile["by_kernel"]["flash_tc_kernel"]
     check(tc_launches > 0 and tc_ms > 0
@@ -5314,6 +5545,93 @@ def llava_full_width(dev):
     del model, params, batch
     torch.cuda.empty_cache()
     return counts, rec
+
+
+def profile_moe_stages(label, fn):
+    """One more call of ``fn`` under the profiler, split by the
+    ``moe.<stage>`` ranges that ``models/moe.py`` opens: the
+    device ms of the flash kernel, of the experts (their matmuls and the
+    rest of their SwiGLU), of the router (its logits, softmax, top-k and
+    slots), of the gather and scatter (dispatch and combine) and of the
+    rest.  A kernel belongs to the stage whose range holds its launch
+    call on the host (the trace's correlation id); "unattributed" counts
+    kernels whose launch call the trace lacks."""
+    prof, wall = profiled(fn)
+    events = trace_events(prof)
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                     e["name"][len("moe."):]) for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith("moe."))
+    launched = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launched[corr] = float(e["ts"])
+    split = dict.fromkeys(("flash", "experts_matmul", "experts_other",
+                           "router", "gather_scatter", "rest",
+                           "unattributed"), 0.0)
+    kernels = collections.Counter()
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        name = e.get("name", "")
+        ts = launched.get((e.get("args") or {}).get("correlation"))
+        stage = None if ts is None else next(
+            (n for a, b, n in ranges if a <= ts <= b), None)
+        if any(k in name for k in FLASH_KERNELS):
+            key = "flash"
+        elif ts is None:
+            key = "unattributed"
+        elif stage == "experts":
+            key = "experts_matmul" if is_matmul(name) else "experts_other"
+        elif stage == "route":
+            key = "router"
+        elif stage in ("dispatch", "combine"):
+            key = "gather_scatter"
+        else:
+            key = "rest"
+        split[key] += float(e.get("dur", 0)) / 1e3
+        kernels[key] += 1
+    busy = sum(split.values())
+    print(f"[profile] {label}, by stage: wall {wall:.3f} ms (profiled), "
+          f"device busy {busy:.3f} ms in {sum(kernels.values())} kernels "
+          f"({len(ranges)} stage ranges); " + ", ".join(
+              f"{k} {v:.3f} ms ({kernels[k]})" for k, v in split.items()),
+          flush=True)
+    check(busy > 0 and ranges, f"{label}: the profiler's trace has no "
+          f"device time or no stage range")
+    return {"wall_ms": wall, "device_busy_ms": busy, "ms": split,
+            "kernels": dict(kernels), "stage_ranges": len(ranges)}
+
+
+def moe_full_width(dev):
+    """[prefill-moe]: qwen3-moe-30b-a3b at its published widths (d_model
+    2048, 32/4 heads at Dh 128, 128 experts top-8 of d_expert 768, groups
+    of 512, capacity 1.25), depth cut to MOE_LAYERS, bf16, weights from
+    seed 0: :func:`prefill_full_width` of 32768 tokens (one bf16_dh128
+    launch per layer a call), the profiled call split by MoE stage, then
+    MOE_DECODE_STEPS decode steps past the prompt
+    (:func:`decode_past_prefill`).  Returns (the prefill's counts, the
+    decode's counts, the record)."""
+    import torch
+    model, params, draw = full_width_serving_model(
+        dev, "qwen3-moe-30b-a3b", n_layers=MOE_LAYERS)
+    counts, rec = prefill_full_width(model, params, dev)
+    check(rec["variants"] == {"bf16_dh128": PREFILL_CALLS * MOE_LAYERS},
+          f"prefill-moe: flash variants {rec['variants']}, expected "
+          f"{PREFILL_CALLS} x {MOE_LAYERS} bf16_dh128")
+    rec["weights_draw_peak_gib"] = draw
+    rec["layers"] = MOE_LAYERS
+    toks = torch.randint(0, model.cfg.vocab_size, (1, 1, 32768), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    rec["stages"] = profile_moe_stages(
+        f"one {model.cfg.name} prefill call ({MOE_LAYERS} layers)",
+        lambda: model.prefill(params, toks))
+    dec_counts, dec = decode_past_prefill(model, params, dev,
+                                          steps=MOE_DECODE_STEPS)
+    del model, params, toks
+    torch.cuda.empty_cache()
+    return counts, dec_counts, rec, dec
 
 
 def main():
@@ -5463,7 +5781,7 @@ def main():
         torch.cuda.empty_cache()
     with phase("serve"):
         serve_counts, serve = serve_full_width("qwen3-1.7b")
-        small_counts = serve_small_cuda_vs_cpu(dev)
+        small_counts, _ = serve_small_cuda_vs_cpu(dev)
         budget = prefill_budget(dev)
     # gemma2-9b: local (windowed) and global layers at head dim 256
     with phase("prefill-gemma2"):
@@ -5503,6 +5821,24 @@ def main():
     print(f"[phase] the frontend phases took "
           f"{sum(PHASES[p] for p in frontend_phases):.1f} s together",
           flush=True)
+    # the MoE family: flash at head dim 32, qwen3-moe-30b-a3b at full width
+    # and cut depth, the qwen3-moe and llama4 smoke models
+    with phase("flash-dh32"):
+        dh32_records, _ = check_flash(dev, FLASH_DH32_CASES,
+                                      FLASH_DH32_TIMED, seed=9)
+    with phase("prefill-moe"):
+        (moe_counts, moe_decode_counts, moe_prefill,
+         moe_decode) = moe_full_width(dev)
+    with phase("moe-small"):
+        moe_small = {f"{arch}_{dtype}_{impl}": serve_small_cuda_vs_cpu(
+            dev, arch, impl, prompt_len=24, steps=40, dtype=dtype)
+            for arch, dtype, impl in MOE_SMALL}
+        moe_serve_counts, moe_serve = serve_full_width("qwen3-moe-30b-a3b",
+                                                       SERVE_MOE_ARGS)
+        torch.cuda.empty_cache()
+    moe_phases = ("flash-dh32", "prefill-moe", "moe-small")
+    print(f"[phase] the MoE phases took "
+          f"{sum(PHASES[p] for p in moe_phases):.1f} s together", flush=True)
 
     # launches of each kernel on every path this script drives (the counts
     # set to 0 just before each path and read just after); the per-rank
@@ -5545,11 +5881,14 @@ def main():
         "prefill_gemma2": g2_prefill_counts,
         "decode_32k_gemma2": g2_decode_counts,
         "consistency_gemma2": g2_cons_counts, "serve_gemma2": g2_serve_counts,
-        **{f"dense_small_{k}": c for k, c in dense_small.items()},
+        **{f"dense_small_{k}": c for k, (c, _) in dense_small.items()},
         "prefill_hubert": hubert_counts,
         "prefill_hubert_batch": hubert_batch_counts,
         "hubert_small": hubert_small_counts, "prefill_llava": llava_counts,
-        "serve_llava": llava_serve_counts}
+        "serve_llava": llava_serve_counts, "prefill_moe": moe_counts,
+        "decode_32k_moe": moe_decode_counts,
+        **{f"moe_small_{k}": c for k, (c, _) in moe_small.items()},
+        "serve_moe": moe_serve_counts}
     by_kernel = lambda name: {p: c[name] for p, c in paths.items()}
     # the training paths whose launches count as the gossip kernels' main
     # path: the four compressors, star, the bf16-state runs, the [modes]
@@ -5642,7 +5981,8 @@ def main():
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": prefill_counts["flash_attention"],
         "launches_by_path": by_kernel("flash_attention"),
-        "max_abs_err": flash_err, **flash_records[FLASH_TIMED[0]]})
+        "max_abs_err": flash_err, **flash_records[FLASH_TIMED[0]],
+        "qwen3_moe_layer": flash_records["qwen3-moe layer"]})
     check(kernels[-1]["launches"] > 0, "flash_attention never launched")
     # its Dh 256 instances, without and with the window, on gemma2-9b's
     # prefill path (its global and local layers)
@@ -5653,7 +5993,12 @@ def main():
                      "prefill_hubert": hubert["prefill_32k"]["variants"],
                      "prefill_hubert_batch": hubert["batch_30s"]["variants"],
                      "hubert_small": hubert_small,
-                     "prefill_llava": llava["variants"]}
+                     "prefill_llava": llava["variants"],
+                     "prefill_moe": moe_prefill["variants"],
+                     **{f"moe_small_{k}": v
+                        for k, (_, v) in moe_small.items()},
+                     "dense_small_yi-9b_chunked":
+                         dense_small["yi-9b_chunked"][1]}
     for name, label, variant in (
             ("flash_attention_bf16_dh256", "gemma2 global layer", "bf16_dh256"),
             ("flash_attention_bf16_dh256_window", "gemma2 local layer",
@@ -5694,6 +6039,28 @@ def main():
             **rec, "batch_30s": batch_rec})
         check(kernels[-1]["launches"] > 0, f"{name} never launched on the "
               f"{path} path")
+    # its Dh 32 instances, both on the MoE smoke models' chunked paths (f32
+    # also on yi-9b's smoke model); no full-width path runs Dh 32
+    dh32_paths = [p for p in variant_paths if p.startswith("moe_small_")
+                  or p == "dense_small_yi-9b_chunked"]
+    for name, label, variant in (
+            ("flash_attention_bf16_dh32", "qwen3-moe heads Dh 32", "bf16_dh32"),
+            ("flash_attention_f32_dh32", "f32 qwen3-moe heads Dh 32",
+             "f32_dh32")):
+        rec = dh32_records[label]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
+                       if variant.startswith("bf16") else
+                       "src/repro_torch/kernels/csrc/flash_attention.cu"),
+            "replaces": "src/repro/kernels/flash_attention.py:77",
+            "launches": sum(variant_paths[p].get(variant, 0)
+                            for p in dh32_paths),
+            "launches_by_path": {p: v.get(variant, 0)
+                                 for p, v in variant_paths.items()},
+            "max_abs_err": rec["contract"]["max_abs_err"], **rec})
+        check(kernels[-1]["launches"] > 0, f"{name} never launched on the "
+              f"MoE smoke paths")
     # its path is its public op, as in the JAX package; no trainer path
     # reaches it (the engine selects top-k payloads in plain PyTorch)
     kernels.append({
@@ -5738,6 +6105,10 @@ def main():
                       "frontends": {"hubert": hubert,
                                     "hubert_small": hubert_small,
                                     "llava": llava, "serve_llava": llava_serve},
+                      "moe": {"prefill": moe_prefill, "decode_32k": moe_decode,
+                              "small": {k: v for k, (_, v) in
+                                        moe_small.items()},
+                              "serve": moe_serve},
                       "dist_small": {k: v for k, v in dist_small_report.items()
                                      if k != "launches"},
                       "dist_full_width": dist_full,

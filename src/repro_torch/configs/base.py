@@ -9,8 +9,9 @@ and ``local_global_pattern`` (k > 0: k local layers to 1 global).  The
 dense architectures are qwen3-1.7b, gemma2-9b, gemma-7b and yi-9b; the
 frontend families ("audio": hubert-xlarge's bidirectional encoder over
 precomputed frame embeddings; "vlm": llava-next-mistral-7b's decoder
-behind a patch projector) carry ``FrontendConfig``.  The MoE / SSM /
-hybrid sub-configs, the other architectures and ``remat`` are not
+behind a patch projector) carry ``FrontendConfig``; the "moe" family
+(qwen3-moe-30b-a3b, llama4-maverick-400b-a17b) carries ``MoEConfig``.  The
+SSM / hybrid sub-configs, the other architectures and ``remat`` are not
 ported.  ``INPUT_SHAPES`` keeps the one JAX input shape
 the port serves, ``prefill_32k``.  ``ChocoConfig``
 keeps the settings of the static engines (the packed and the per-leaf
@@ -30,6 +31,21 @@ from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """The MoE FFN of the "moe" family (qwen3-moe-30b-a3b, llama4-maverick):
+    the JAX package's fields and defaults but ``combine_seq_shard``, a
+    sharding constraint with nothing to constrain on one card."""
+    n_experts: int
+    top_k: int
+    d_expert: int                  # hidden size of each expert FFN
+    capacity_factor: float = 1.25
+    group_size: int = 512          # dispatch group (tokens)
+    moe_every: int = 1             # 1 = every layer is MoE; 2 = alternate dense/MoE
+    n_shared_experts: int = 0      # always-on shared expert(s) (llama4)
+    router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
 class FrontendConfig:
     """Stubbed modality frontend: the batch carries precomputed embeddings
     of this shape (the JAX package's carve-out)."""
@@ -41,7 +57,7 @@ class FrontendConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | vlm | audio
+    family: str                     # dense | moe | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -57,6 +73,7 @@ class ModelConfig:
     local_global_pattern: int = 0           # k>0: alternate k local : 1 global
     rope_theta: float = 10_000.0
     mlp_type: str = "swiglu"                # swiglu | geglu | gelu
+    moe: Optional[MoEConfig] = None         # moe only
     frontend: Optional[FrontendConfig] = None   # vlm and audio only
     tie_embeddings: bool = False
     norm_eps: float = 1e-6

@@ -16,8 +16,8 @@
 //   out = acc / max(l_sum, 1e-30)
 //
 // Layout: q and out are (N, S, H, Dh), k and v (N, S, KV, Dh), contiguous,
-// read in place: head h reads KV head h / (H / KV).  Any S; Dh 64, 80 or
-// 128.
+// read in place: head h reads KV head h / (H / KV).  Any S; Dh 32, 64, 80
+// or 128.
 // A sliding window is a template instance of its own (a call without one
 // runs the code it ran before): a query tile starts at the first key block
 // that reaches its first row's window, as a causal tile stops at its
@@ -100,6 +100,14 @@
 // and the barriers; a consumer thread holds the output 40, the block's P V
 // 40, the logits 32 and P's small part 32 registers.
 //
+// At Dh = 32 (the qwen3-moe, llama4 and yi-9b smoke models) a row of Q or K
+// is one 32-column box, V^T 32 rows of 64 keys (two boxes), and P V runs
+// m64n32k8: no column is padded.  The producer's V units number 16 groups,
+// one round.  Q's parts take 16 KB and a slot 16 KB, so 13 slots fit, 6.5
+// key blocks in flight, 225 KB with the slack and the barriers; a consumer
+// thread holds the output 16, the block's P V 16, the logits 32 and P's
+// small part 32 registers (ptxas: 122-128 registers a thread, no spill).
+//
 // mma.sync is not used: wgmma holds every operand layout this needs.
 //
 // C interface for ctypes: the entry launches on the caller's stream and
@@ -134,10 +142,10 @@ struct Layout {
   static constexpr uint32_t kBytes = kBar + 16 * kSlots + 1024;
 };
 static_assert(Layout<128>::kSlots == 2 && Layout<80>::kSlots == 3 &&
-                  Layout<64>::kSlots == 6,
+                  Layout<64>::kSlots == 6 && Layout<32>::kSlots == 13,
               "slots");
 static_assert(Layout<128>::kBytes <= kSmemMax && Layout<80>::kBytes <= kSmemMax &&
-                  Layout<64>::kBytes <= kSmemMax,
+                  Layout<64>::kBytes <= kSmemMax && Layout<32>::kBytes <= kSmemMax,
               "a CTA has 227 KB of shared memory");
 
 // ---- shared memory and mbarriers ---------------------------------------------
@@ -252,9 +260,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define ACC8(i)                                                               \
   "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]),     \
       "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+#define ACC16 ACC8(0), ACC8(8)
 #define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
 #define ACC40 ACC32, ACC8(32)
 #define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+#define REGS16                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define REGS32                                                                \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
@@ -280,8 +291,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b)
       : "l"(a), "l"(b));
 }
 
-// d (64 x 64, f32) += A (64 x 8, TF32 registers) B (8 x 64, smem, K-major):
-// P V at Dh = 64.
+// d (64 x 32, f32) += A (64 x 8, TF32 registers) B (8 x 32, smem, K-major):
+// P V at Dh = 32.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " REGS16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : ACC16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// The same at N = 64 (P V at Dh = 64).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t b) {
   asm volatile(
@@ -315,9 +337,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 }
 
 #undef ACC8
+#undef ACC16
 #undef ACC32
 #undef ACC40
 #undef ACC64
+#undef REGS16
 #undef REGS32
 #undef REGS40
 #undef REGS64
@@ -456,7 +480,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out, int S,
                        int H, int KV, int causal, int window, float softcap,
                        float scale) {
-  static_assert(Dh == 64 || Dh == 80 || Dh == 128, "head dim");
+  static_assert(Dh == 32 || Dh == 64 || Dh == 80 || Dh == 128, "head dim");
   using L = Layout<Dh>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -707,6 +731,9 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
                         cudaStream_t stream) {
   if (n < 1 || s < 1 || kv < 1 || h % kv != 0 || n * h > 65535 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dh == 32)
+    return launch_dh<32>(q, k, v, out, n, s, h, kv, causal, window, softcap,
+                         scale, stream);
   if (dh == 64)
     return launch_dh<64>(q, k, v, out, n, s, h, kv, causal, window, softcap,
                          scale, stream);

@@ -97,6 +97,17 @@
 // registers), P (32), the block's P V (64) and the output's 80 columns
 // (40), against 128 + 64 at Dh 128; the store writes 80 columns.
 //
+// At Dh = 32 (the qwen3-moe, llama4 and yi-9b smoke models) a row is half
+// a 64-column box, so a tile takes the Dh = 64 layout: one box a row, 16 KB
+// of Q and 3 x 32 KB of K/V.  TMA fills columns 32..63 with zeros (the
+// maps' inner extent is 32) and counts the whole box against the barrier.
+// Q K^T runs 2 k-steps over the 32 real columns; P V runs at n64 on V's one
+// box and drops the output columns 32..63, which only the zero columns
+// feed, so P V does twice the products it needs: at most 67% of the
+// operations bound.  A consumer thread holds the logits (64 registers), P
+// (32), the block's P V (32) and the output's 32 columns (16); the store
+// writes 32 columns.
+//
 // C interface for ctypes: the entry launches on the caller's stream and
 // returns a cudaError_t (0 on success).  Nothing synchronises and nothing
 // allocates; the Python wrapper allocates the output.  The tensor maps are
@@ -147,7 +158,7 @@ struct WideLayout {
 static_assert(WideLayout::kBytes <= 232448, "a CTA has 227 KB of shared memory");
 
 // The columns of a staged tile's rows in shared memory: Dh rounded up to
-// whole 64-column boxes (Dh 80 takes the Dh 128 layout)
+// whole 64-column boxes (Dh 80 takes the Dh 128 layout, Dh 32 the Dh 64 one)
 __host__ __device__ constexpr int padded_cols(int dh) {
   return (dh + kBoxCols - 1) / kBoxCols * kBoxCols;
 }
@@ -549,7 +560,7 @@ __device__ __forceinline__ void wide_tile(const CUtensorMap& tq,
   }
 }
 
-// The Dh = 64, 80 and 128 tile: Q and a ring of kStages K/V stages, each
+// The Dh = 32, 64, 80 and 128 tile: Q and a ring of kStages K/V stages, each
 // block's P V summed on its own and added to the rescaled output.  Its
 // rows are kCols wide in shared memory, Dh rounded up to whole boxes; TMA
 // fills the columns past Dh with zeros.
@@ -657,7 +668,8 @@ __device__ __forceinline__ void staged_tile(const CUtensorMap& tq,
                            S, causal, window, softcap, scale);
 
     // this block's P V on its own: 8 k-steps of 16 keys, 2 KB of V each
-    // (at Dh 80 its columns 80..127 read V's zero fill and are dropped)
+    // (at Dh 80 its columns 80..127, at Dh 32 its columns 32..63, read V's
+    // zero fill and are dropped)
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kBlock / 16; ++j)
@@ -698,7 +710,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ out, int S, int H, int KV,
                 int causal, int window, float softcap, float scale) {
-  static_assert(Dh == 64 || Dh == 80 || Dh == 128 || Dh == 256, "head dim");
+  static_assert(Dh == 32 || Dh == 64 || Dh == 80 || Dh == 128 || Dh == 256,
+                "head dim");
   if constexpr (Dh == 256)
     wide_tile<kWindow>(tq, tk, tv, out, S, H, KV, causal, window, softcap,
                        scale);
@@ -736,7 +749,7 @@ EncodeTiled encode_tiled() {
 
 // A (Dh, heads, S, N) map of a contiguous (N, S, heads, Dh) bf16 tensor,
 // read in boxes of 64 columns x 1 head x 128 rows, 128-byte swizzled;
-// rows past S, and columns past Dh (Dh 80), read as zeros.
+// rows past S, and columns past Dh (Dh 32 and 80), read as zeros.
 bool make_map(CUtensorMap* map, const void* ptr, int64_t n, int64_t s,
               int64_t heads, int64_t dh) {
   const EncodeTiled encode = encode_tiled();
@@ -798,6 +811,9 @@ int flash_attention_bf16_tc(const void* q, const void* k, const void* v,
                             float softcap, float scale, cudaStream_t stream) {
   if (n < 1 || s < 1 || kv < 1 || h % kv != 0 || n * h > 65535 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dh == 32)
+    return launch_dh<32>(q, k, v, out, n, s, h, kv, causal, window, softcap,
+                         scale, stream);
   if (dh == 64)
     return launch_dh<64>(q, k, v, out, n, s, h, kv, causal, window, softcap,
                          scale, stream);

@@ -5,7 +5,8 @@ Replace the Pallas kernel ``src/repro/kernels/flash_attention.py``:
 wrapper ``flash_attention`` (:93).  Both kernels read q ``(N, S, H, Dh)``
 and k, v ``(N, S, KV, Dh)`` in place, with no transpose and no repeated
 KV copy, and write the output in q's dtype.  Any S; the head dims of
-:data:`HEAD_DIMS` (f32 64, 80 or 128, bf16 64, 80, 128 or 256); causal or not,
+:data:`HEAD_DIMS` (f32 32, 64, 80 or 128, bf16 32, 64, 80, 128 or 256);
+causal or not,
 with an optional softcap and an optional sliding ``window`` (a key is
 kept iff k_pos > q_pos - window, the JAX ``_chunked_attention``'s local
 mask; a query tile skips the key blocks wholly before its first row's
@@ -25,7 +26,8 @@ dtype, and nothing else:
   consumer and one producer warpgroup per 64 query rows, 193 KB of
   shared memory and up to 255 registers a thread at Dh 128 (the budget
   is in the source's note); at Dh 80 (hubert-xlarge) Q's and K's rows take
-  three 32-column boxes and P V runs at n80;
+  three 32-column boxes and P V runs at n80; at Dh 32 (the MoE and yi-9b
+  smoke models) one box, P V at n32 and 13 key slots;
 * bfloat16: ``csrc/flash_attention_sm90.cu`` (library ``flash_tc``), on
   the tensor cores (wgmma, TMA loads), with P rounded to bf16 before P V,
   held to the plain version (``ref.flash_attention_ref``, which rounds at
@@ -39,7 +41,9 @@ dtype, and nothing else:
   P V accumulates into it, with no separate P V.  At Dh 80 a row takes
   the Dh 128 layout (two 64-column boxes; TMA fills columns 80..127 with
   zeros): Q K^T reads the 80 columns, P V runs at n128 and drops the
-  padded columns, so at most 77% of the operations bound.
+  padded columns, so at most 77% of the operations bound; at Dh 32 a row
+  takes the Dh 64 layout (one box, columns 32..63 zero-filled), P V runs
+  at n64 and drops them: at most 67%.
 
 Neither has a backward: the wrapper refuses inputs that need a gradient.
 """
@@ -53,7 +57,8 @@ import torch
 from . import build
 
 #: dtype -> the head dims its kernel takes
-HEAD_DIMS = {torch.float32: (64, 80, 128), torch.bfloat16: (64, 80, 128, 256)}
+HEAD_DIMS = {torch.float32: (32, 64, 80, 128),
+             torch.bfloat16: (32, 64, 80, 128, 256)}
 #: dtype -> (library, entry)
 _ENTRY = {torch.float32: ("flash", "flash_attention_f32"),
           torch.bfloat16: ("flash_tc", "flash_attention_bf16_tc")}
@@ -128,7 +133,7 @@ def _check(q, k, v, window=None) -> None:
 
 def variant(dtype, head_dim: int, window) -> str:
     """The name a launch is counted under in ``flash_attention.variants``:
-    "bf16_dh80", "bf16_dh256", "f32_dh64_window", ..."""
+    "bf16_dh32", "bf16_dh80", "bf16_dh256", "f32_dh32_window", ..."""
     name = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
     return f"{name}_dh{head_dim}" + ("" if window is None else "_window")
 

@@ -21,9 +21,11 @@ device), ``--metrics-dir`` (the telemetry sinks are not ported),
 hubert-xlarge (an encoder: it has no decode step, as the JAX launcher
 says) and every other architecture but the dense decoders, qwen3-1.7b,
 gemma2-9b (local and global layers, its local caches ring buffers of the
-4096-token window), gemma-7b and yi-9b, and llava-next-mistral-7b, whose
+4096-token window), gemma-7b and yi-9b, llava-next-mistral-7b, whose
 text prompts are served as the JAX launcher serves them (no image: the
-prompt is teacher-forced through ``decode_step``).
+prompt is teacher-forced through ``decode_step``), and the MoE decoders
+qwen3-moe-30b-a3b and llama4-maverick-400b-a17b (llama4 at full width
+does not fit one card: serve it with ``--smoke``).
 """
 import argparse
 import json
@@ -34,7 +36,8 @@ import time
 from repro_torch.obs.timers import percentile
 
 ARCH_CHOICES = ("qwen3-1.7b", "gemma2-9b", "gemma-7b", "yi-9b",
-                "llava-next-mistral-7b")
+                "llava-next-mistral-7b", "qwen3-moe-30b-a3b",
+                "llama4-maverick-400b-a17b")
 #: the encoder-only archs: ported, but with nothing to decode
 ENCODER_ARCHS = ("hubert-xlarge",)
 

@@ -40,7 +40,12 @@ p % C.  A decode step writes its slot in place.  For serving,
 :meth:`Model.compute_params` casts the weights to the compute dtype once,
 so no call casts them again (the JAX ``_cast`` rounds the same way).
 
-Not ported: the other families (MoE, SSM, hybrid) and ``remat`` (the
+The "moe" family (qwen3-moe-30b-a3b, llama4-maverick) runs the same
+stack with its "moe" layers' MLP replaced by the MoE FFN
+(``models/moe.py``); its caches are the dense ones, and its loss adds the
+layers' router aux loss.
+
+Not ported: the other families (SSM, hybrid) and ``remat`` (the
 JAX configs ask for ``"dots"``): blocks are not checkpointed, since the
 training sequence of the slice is short and its activations are small
 next to the CHOCO state.
@@ -56,10 +61,12 @@ import torch.nn.functional as F
 from repro_torch.comm.packing import fold_seed
 
 from . import layers as L
+from . import moe as MOE
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-#: the families the port runs, each through the dense stack
-FAMILIES = ("dense", "vlm", "audio")
+#: the families the port runs, each through the dense stack ("moe" with
+#: its MoE blocks in place of some or all of the dense ones)
+FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def _check(cfg) -> None:
@@ -68,13 +75,21 @@ def _check(cfg) -> None:
 
 
 def block_pattern(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
-    """(pattern, repeat, tail) of the dense stack (every family of
+    """(pattern, repeat, tail) of the stack (every family of
     :data:`FAMILIES`), as the JAX ``block_pattern``: ``pattern`` runs
     ``repeat`` times, then each block of ``tail`` once.  With
     ``local_global_pattern`` k > 0 the pattern is k local layers and one
     global one, and the layers that do not fill a last pattern make the
-    tail."""
+    tail.  The moe family: ("moe",) with ``moe_every`` 1, else
+    ``moe_every - 1`` global layers and one "moe" layer."""
     _check(cfg)
+    if cfg.family == "moe":
+        ev = cfg.moe.moe_every
+        if ev == 1:
+            return ("moe",), cfg.n_layers, ()
+        unit = ("dense_global",) * (ev - 1) + ("moe",)
+        repeat, rem = divmod(cfg.n_layers, ev)
+        return unit, repeat, unit[:rem]
     if cfg.local_global_pattern > 0:
         unit = ("dense_local",) * cfg.local_global_pattern + ("dense_global",)
         repeat, rem = divmod(cfg.n_layers, len(unit))
@@ -86,7 +101,10 @@ def param_shapes(cfg) -> List[Tuple[str, Tuple[int, ...]]]:
     """(path, per-node shape) of every parameter, in JAX flatten order.
     The audio family has ``in_proj``, ``final_norm`` and ``head`` where the
     others have ``embed/``; the vlm family adds ``projector/w1`` and
-    ``projector/w2``."""
+    ``projector/w2``; a "moe" block has ``moe/router`` (D, E),
+    ``moe/w_gate``, ``moe/w_up`` (E, D, d_expert), ``moe/w_down`` and,
+    with shared experts, ``moe/shared/...`` where a dense block has
+    ``mlp/...``."""
     pattern, repeat, tail = block_pattern(cfg)
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -100,21 +118,36 @@ def param_shapes(cfg) -> List[Tuple[str, Tuple[int, ...]]]:
     if cfg.family == "vlm":
         shapes["projector/w1"] = (cfg.frontend.embed_dim, D)
         shapes["projector/w2"] = (D, D)
-    block = {"ln1": (D,), "ln2": (D,), "attn/wq": (D, H * Dh),
-             "attn/wk": (D, KV * Dh), "attn/wv": (D, KV * Dh),
-             "attn/wo": (H * Dh, D)}
+    attn = {"ln1": (D,), "ln2": (D,), "attn/wq": (D, H * Dh),
+            "attn/wk": (D, KV * Dh), "attn/wv": (D, KV * Dh),
+            "attn/wo": (H * Dh, D)}
     if cfg.qk_norm:
-        block["attn/q_norm"] = (Dh,)
-        block["attn/k_norm"] = (Dh,)
-    mlp = (("w_gate", "w_up") if cfg.mlp_type in ("swiglu", "geglu")
-           else ("w_up",))
-    for name in mlp:
-        block[f"mlp/{name}"] = (D, F)
-    block["mlp/w_down"] = (F, D)
-    for name, shape in block.items():
-        for i in range(len(pattern)):
+        attn["attn/q_norm"] = (Dh,)
+        attn["attn/k_norm"] = (Dh,)
+
+    def mlp(prefix, d_ff):
+        names = (("w_gate", "w_up") if cfg.mlp_type in ("swiglu", "geglu")
+                 else ("w_up",))
+        out = {f"{prefix}/{name}": (D, d_ff) for name in names}
+        out[f"{prefix}/w_down"] = (d_ff, D)
+        return out
+
+    def block(kind):
+        if kind != "moe":
+            return {**attn, **mlp("mlp", F)}
+        m = cfg.moe
+        E, Fe = m.n_experts, m.d_expert
+        out = {**attn, "moe/router": (D, E), "moe/w_gate": (E, D, Fe),
+               "moe/w_up": (E, D, Fe), "moe/w_down": (E, Fe, D)}
+        if m.n_shared_experts:
+            out.update(mlp("moe/shared", m.n_shared_experts * F))
+        return out
+
+    for i, kind in enumerate(pattern):
+        for name, shape in block(kind).items():
             shapes[f"stack/p{i}/{name}"] = (repeat,) + shape
-        for i in range(len(tail)):
+    for i, kind in enumerate(tail):
+        for name, shape in block(kind).items():
             shapes[f"tail/t{i}/{name}"] = shape
     return sorted(shapes.items(), key=lambda kv: kv[0].split("/"))
 
@@ -216,17 +249,23 @@ class Model:
             yield kind, {k: v.to(self.dtype) for k, v in
                          self._sub(params, f"tail/t{i}/").items()}, cache
 
-    def _mlp_residual(self, p, x):
+    def _ffn_residual(self, kind, p, x):
+        """x + the layer's FFN of its second norm: the dense MLP, or the
+        MoE FFN of a "moe" layer.  Returns (x, aux (n,) f32 or None)."""
         y = L.rms_norm(x, L.per_node(p["ln2"], x.dim()), self.cfg.norm_eps)
-        return x + L.mlp(self._sub(p, "mlp/"), y, self.cfg)
+        if kind == "moe":
+            f, aux = MOE.moe_ffn(self._sub(p, "moe/"), y, self.cfg)
+            return x + f, aux
+        return x + L.mlp(self._sub(p, "mlp/"), y, self.cfg), None
 
     def _block(self, kind, p, x, positions):
-        """One layer's full-sequence pass: (x, (k, v))."""
+        """One layer's full-sequence pass: (x, (k, v), aux or None)."""
         h, kv = L.attention(
             self._sub(p, "attn/"),
             L.rms_norm(x, L.per_node(p["ln1"], x.dim()), self.cfg.norm_eps),
             self.cfg, positions, local=kind == "dense_local")
-        return self._mlp_residual(p, x + h), kv
+        x, aux = self._ffn_residual(kind, p, x + h)
+        return x, kv, aux
 
     def _embed_tokens(self, params, tokens):
         return L.embed_tokens({"tok": params["embed/tok"]}, tokens,
@@ -274,14 +313,19 @@ class Model:
         (slot p % C, the slot :meth:`decode_step` reads; the JAX prefill
         keeps ``k[:, -C:]`` in slots 0..C-1, the same when C divides S)."""
         return self._stack(params, self.embed_inputs(params, batch)[0],
-                           caches)
+                           caches)[0]
 
     def _stack(self, params, x, caches=None):
-        """The layers over the embedded inputs x (n, B, S, D)."""
+        """The layers over the embedded inputs x (n, B, S, D): (x, the sum
+        of the MoE layers' aux losses (n,) f32, 0 without MoE layers)."""
         B, S = x.shape[1:3]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        aux_sum = torch.zeros(x.shape[0], dtype=torch.float32,
+                              device=x.device)
         for kind, p, cache in self._layers(params, caches):
-            x, kv = self._block(kind, p, x, positions)
+            x, kv, aux = self._block(kind, p, x, positions)
+            if aux is not None:
+                aux_sum = aux_sum + aux
             if cache is None:
                 continue
             C = cache[0].shape[2]
@@ -295,7 +339,7 @@ class Model:
             else:
                 raise ValueError(f"a global layer's cache of {C} slots "
                                  f"cannot hold {S} positions")
-        return x
+        return x, aux_sum
 
     def _embed(self, params, dtype):
         """The leaves the final projection reads, cast to ``dtype``: the
@@ -322,13 +366,18 @@ class Model:
 
     def loss(self, params, batch) -> torch.Tensor:
         """Per-node mean cross-entropy over the valid positions, shape (n,):
-        audio over the full logits, the others in ``loss_chunk`` chunks."""
+        audio over the full logits, the others in ``loss_chunk`` chunks;
+        with MoE layers plus ``router_aux_weight`` times the sum of their
+        aux losses (the JAX ``ce + aux_w * aux``)."""
         x, labels, valid = self.embed_inputs(params, batch)
-        h = self._stack(params, x)
+        h, aux = self._stack(params, x)
         if self.cfg.family == "audio":
             return L.cross_entropy(self._logits(params, h), labels, valid)
-        return L.chunked_lm_loss(self._embed(params, h.dtype), h, labels,
-                                 self.cfg, valid)
+        ce = L.chunked_lm_loss(self._embed(params, h.dtype), h, labels,
+                               self.cfg, valid)
+        if self.cfg.moe is None:
+            return ce
+        return ce + self.cfg.moe.router_aux_weight * aux
 
     def prefill(self, params, batch):
         """Full-sequence pass over a batch dict or tokens (n, B, S): the
@@ -337,7 +386,7 @@ class Model:
         x = self.embed_inputs(params, batch)[0]
         n, B, S = x.shape[:3]
         caches = self.init_cache(B, S, x.device, n_nodes=n)
-        h = self._stack(params, x, caches)
+        h = self._stack(params, x, caches)[0]
         return self._logits(params, h[:, :, -1:]), caches
 
     def decode_step(self, params, token, caches, pos):
@@ -354,5 +403,5 @@ class Model:
                 self._sub(p, "attn/"),
                 L.rms_norm(x, L.per_node(p["ln1"], x.dim()), self.cfg.norm_eps),
                 self.cfg, ck, cv, pos, local=kind == "dense_local")
-            x = self._mlp_residual(p, x + h)
+            x = self._ffn_residual(kind, p, x + h)[0]
         return self._logits(params, x), caches

@@ -2,7 +2,8 @@
 the trainer through the gossip kernels (with QSGD, sign and top-k gossip),
 the per-rank exchange (4 ranks sharing the card) against the stacked one,
 the topology-process engine's replica update, and the prefill through
-the flash kernel (the dense decoders' and the frontends').
+the flash kernel (the dense decoders', the MoE decoders' and the
+frontends').
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so on a machine without JAX it
@@ -721,6 +722,48 @@ def test_flash_attention_kernel_dh80_matches_plain(cuda, n, s, h, kv, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,s,h,kv,dtype,causal,softcap,window", [
+    (1, 2048, 32, 4, torch.bfloat16, True, None, None),
+    (2, 1000, 4, 2, torch.bfloat16, True, None, None),
+    (2, 1000, 8, 2, torch.bfloat16, False, 50.0, None),
+    (2, 1000, 4, 2, torch.bfloat16, True, None, 300),
+    (1, 200, 4, 4, torch.bfloat16, False, None, 129),
+    (1, 2048, 32, 4, torch.float32, True, None, None),
+    (2, 1000, 4, 2, torch.float32, True, None, None),
+    (2, 1000, 8, 2, torch.float32, False, 50.0, None),
+    (2, 1000, 4, 2, torch.float32, True, None, 300),
+    (1, 200, 4, 4, torch.float32, False, None, 129),
+])
+def test_flash_attention_kernel_dh32_matches_plain(cuda, n, s, h, kv, dtype,
+                                                   causal, softcap, window):
+    """Both kernels at head dim 32 (the qwen3-moe, llama4 and yi-9b smoke
+    models': bf16 in one 64-column box with TMA's zero fill and P V at
+    n64, f32 in one 32-column box with P V at n32), at ragged lengths,
+    causal or not, GQA, a softcap and a window, to the contracts of the
+    tests above; each launch counted under its variant ("bf16_dh32",
+    "f32_dh32_window", ...)."""
+    q, k, v = _attn_inputs(s + 32, n, s, h, kv, 32, dtype, cuda)
+    variants = flash_kernel.flash_attention.variants
+    name = flash_kernel.variant(dtype, 32, window)
+    before = variants[name]
+    got = _launched("flash_attention", lambda: dispatch.flash_attention(
+        q, k, v, causal=causal, softcap=softcap, window=window))
+    assert variants[name] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    if dtype == torch.bfloat16:
+        rel, share = flash_kernel.bf16_gap(got, want)
+        assert rel <= flash_kernel.FLASH_BF16_RTOL
+        assert share <= flash_kernel.FLASH_BF16_ULP_SHARE
+    else:
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["hubert-xlarge", "llava-next-mistral-7b"])
 def test_frontend_prefill_agrees_with_cpu(cuda, arch):
     """The frontends' f32 smoke models through the flash kernel, card
@@ -777,11 +820,16 @@ def test_frontend_prefill_agrees_with_cpu(cuda, arch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,attn_impl", [
     ("gemma2-9b", "chunked"), ("gemma2-9b", "naive"), ("gemma-7b", "chunked"),
-    ("yi-9b", "naive")])
+    ("yi-9b", "naive"), ("yi-9b", "chunked"),
+    ("qwen3-moe-30b-a3b", "chunked"), ("qwen3-moe-30b-a3b", "naive"),
+    ("llama4-maverick-400b-a17b", "chunked"),
+    ("llama4-maverick-400b-a17b", "naive")])
 def test_dense_variant_serving_agrees_with_cpu(cuda, arch, attn_impl):
     """The f32 smoke model's prefill of 24 tokens and 40 decode steps past
     it (gemma2's local rings of 16 wrap), on the card against the CPU,
-    within 1e-5 (+ 1e-5 relative) of the logits."""
+    within 1e-5 (+ 1e-5 relative) of the logits; the MoE smoke models
+    (their experts routed on each device; head dim 32, as yi-9b's, through
+    the f32 kernel when chunked) too."""
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
                               attn_impl=attn_impl)
     model = Model(cfg)
@@ -807,9 +855,9 @@ def test_dense_variant_serving_agrees_with_cpu(cuda, arch, attn_impl):
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v = _attn_inputs(0, 1, 128, 4, 2, 64, torch.float32, cuda)
     with pytest.raises(ValueError, match="head dim"):
-        dispatch.flash_attention(q[..., :32].contiguous(),
-                                 k[..., :32].contiguous(),
-                                 v[..., :32].contiguous())
+        dispatch.flash_attention(q[..., :48].contiguous(),
+                                 k[..., :48].contiguous(),
+                                 v[..., :48].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         # the right shape, laid out (N, KV, S, Dh) underneath
         dispatch.flash_attention(q, k.transpose(1, 2).contiguous()

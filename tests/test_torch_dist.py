@@ -51,6 +51,7 @@ from repro_torch.data.synthetic import make_lm_batch_fn
 from repro_torch.kernels import dispatch, ref
 from repro_torch.launch import env, mesh
 from repro_torch.models.transformer import Model
+from test_torch_slice import tmp_path  # noqa: F401  (fixture)
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 N = 4
@@ -287,9 +288,10 @@ def test_node_draws_do_not_depend_on_the_other_rows(name, kw):
 
 def _trainer_rank(rank, store, out_dir, ref_path):
     from repro_torch.convert import params_from_jax
-    from test_torch_slice import BPN, SEQ, STEPS, _port_trainer, _tree
+    from test_torch_slice import (BPN, SEQ, STEPS, _port_trainer, _tree,
+                                  Reference)
     group = _join(rank, store)
-    ref = np.load(ref_path)
+    ref = Reference(ref_path)
     tr = dataclasses.replace(_port_trainer("qsgd", 16, 2, False), group=group)
     state = tr.state_from_params(params_from_jax(_tree(ref, "x0"), node=rank))
     batches = make_lm_batch_fn(tr.model.cfg, SEQ, BPN, N, 1.0, node=rank)
@@ -313,9 +315,10 @@ def test_dist_trainer_matches_stacked_and_jax(tmp_path, tmp_path_factory):
     against the stacked trainer (losses 1e-6 relative, x 1e-6)."""
     from repro_torch.convert import params_from_jax
     from test_torch_slice import (BPN, SEQ, STEPS, _port_trainer, _tree,
-                                  check_against_jax, jax_reference_path)
+                                  check_against_jax, jax_reference_path,
+                                  Reference)
     ref_path = str(jax_reference_path(tmp_path_factory, "qsgd", 16, 2, False))
-    ref = np.load(ref_path)
+    ref = Reference(ref_path)
     ranks = _spawn(_trainer_rank, tmp_path, str(tmp_path), ref_path)
     tr = _port_trainer("qsgd", 16, 2, False)
     cat = lambda tag: [torch.cat([r[tag][b] for r in ranks])

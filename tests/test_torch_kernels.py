@@ -273,8 +273,9 @@ def _plain_flash(q, k, v, **kw):
 
 
 @pytest.mark.parametrize("causal,dh", [(True, 64), (False, 64), (True, 256),
-                                       (False, 256)],
-                         ids=["True", "False", "True-256", "False-256"])
+                                       (False, 256), (True, 32), (False, 32)],
+                         ids=["True", "False", "True-256", "False-256",
+                              "True-32", "False-32"])
 def test_flash_plain_matches_jax_pallas_kernel(causal, dh):
     from repro.kernels.flash_attention import flash_attention as jflash
     q, k, v = _flash_inputs(0, 2, 256, 4, 2, dh)
@@ -341,7 +342,7 @@ def test_flash_plain_bf16_rounds_p(dh):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [64, 128, 256, 32])
 @pytest.mark.parametrize("s", [256, 384])
 def test_flash_plain_bf16_matches_jax_pallas_kernel(s, dh, causal):
     """The bf16 plain version against the JAX Pallas kernel in interpret
@@ -424,17 +425,18 @@ def test_flash_plain_window_wider_than_the_sequence_is_no_window():
 
 def test_flash_entries_refuse_head_dims_and_windows_they_do_not_take(
         monkeypatch):
-    """bf16 takes Dh 64, 80, 128 and 256, f32 64, 80 and 128; a window
-    below 1 is refused.  Each before any library is loaded."""
+    """bf16 takes Dh 32, 64, 80, 128 and 256, f32 32, 64, 80 and 128; a
+    window below 1 is refused.  Each before any library is loaded."""
     def loader(name):
         raise RuntimeError(f"kernel loader reached: {name}")
 
     monkeypatch.setattr(build, "load_library", loader)
     for dtype, dh, match in (
-            (torch.float32, 256, r"the float32 kernel takes \(64, 80, 128\)"),
-            (torch.float32, 32, "head dim 32"),
-            (torch.bfloat16, 32,
-             r"the bfloat16 kernel takes \(64, 80, 128, 256\)"),
+            (torch.float32, 256,
+             r"the float32 kernel takes \(32, 64, 80, 128\)"),
+            (torch.float32, 48, "head dim 48"),
+            (torch.bfloat16, 48,
+             r"the bfloat16 kernel takes \(32, 64, 80, 128, 256\)"),
             (torch.bfloat16, 96, "head dim 96")):
         q, kv = _meta((1, 128, 4, dh), dtype), _meta((1, 128, 2, dh), dtype)
         with pytest.raises(ValueError, match=match):

@@ -30,7 +30,6 @@ Tolerances:
   bytes (the ring all-reduce).
 """
 import dataclasses
-import fcntl
 import json
 import os
 import subprocess
@@ -53,9 +52,9 @@ from repro_torch.models.transformer import Model
 from repro_torch.optim.sgd import cosine_schedule, make_optimizer
 from repro_torch.train.trainer import DecentralizedTrainer
 from test_torch_dist import THREADS, _join, _spawn
-from test_torch_slice import (BPN, N, ROOT, SEQ, STEPS, _tree,
-                              check_against_jax)
-from test_torch_slice import one_thread  # noqa: F401  (autouse)
+from test_torch_slice import (BPN, N, ROOT, SEQ, STEPS, Reference, _tree,
+                              check_against_jax, make_reference)
+from test_torch_slice import one_thread, tmp_path  # noqa: F401  (fixtures)
 
 _JAX_CASES = textwrap.dedent("""
     import json, os, sys
@@ -159,7 +158,7 @@ _JAX_CASES = textwrap.dedent("""
 
     for c in cases:
         run = trainer_case if c["kind"] == "trainer" else exchange_case
-        np.savez(os.path.join(out_dir, c["tag"] + ".npz"), **run(c))
+        savez(os.path.join(out_dir, c["tag"] + ".npz"), **run(c))
 """)
 
 
@@ -172,29 +171,11 @@ def trainer_case(tag, mode, comp="top_k", arg=0.05, k=1, topology="ring",
 
 def jax_cases(tmp_path_factory, name, cases):
     """``tag -> path`` of the npz files of the JAX reference run of
-    ``cases``, made once per pytest run in one subprocess: tests that need it share it, across
-    xdist workers too (they take turns under a file lock)."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    root = root / "jax_reference"
-    root.mkdir(exist_ok=True)
-    out = root / f"jax_cases_{name}"
-    with open(str(out) + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
-            part = root / f"jax_cases_{name}.part"
-            part.mkdir(exist_ok=True)
-            env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-                       JAX_PLATFORMS="cpu")
-            env.pop("XLA_FLAGS", None)
-            r = subprocess.run(
-                [sys.executable, "-c", _JAX_CASES, json.dumps(cases),
-                 str(part), str(STEPS), str(SEQ), str(BPN)],
-                env=env, capture_output=True, text=True, timeout=900)
-            assert r.returncode == 0, \
-                f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
-            os.replace(part, out)
+    ``cases``, made once per pytest run in one subprocess
+    (``make_reference``)."""
+    out = make_reference(
+        tmp_path_factory, f"jax_cases_{name}", _JAX_CASES,
+        lambda part: [json.dumps(cases), part, STEPS, SEQ, BPN])
     return {c["tag"]: str(out / (c["tag"] + ".npz")) for c in cases}
 
 
@@ -280,7 +261,7 @@ def ref_paths(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def refs(ref_paths):
-    return {tag: np.load(path) for tag, path in ref_paths.items()}
+    return {tag: Reference(path) for tag, path in ref_paths.items()}
 
 
 def _spec():
@@ -363,7 +344,7 @@ def test_trainer_refuses_pushsum():
 
 def _modes_rank(rank, store, out_dir, paths):
     group = _join(rank, store)
-    refs = {tag: np.load(p) for tag, p in paths.items()}
+    refs = {tag: Reference(p) for tag, p in paths.items()}
     out = {}
     for case in EXCHANGE_CASES:
         spec = _spec()

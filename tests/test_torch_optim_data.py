@@ -48,7 +48,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.data import partition, synthetic
 from test_torch_modes import jax_cases, run_port_case, trainer_case
-from test_torch_slice import N, _tree, check_against_jax
+from test_torch_slice import N, Reference, _tree, check_against_jax
 from test_torch_slice import one_thread  # noqa: F401  (autouse)
 
 ADAMW_ATOL = 1e-5
@@ -63,7 +63,7 @@ OPTIM_CASES = [
 
 @pytest.fixture(scope="module")
 def refs(tmp_path_factory):
-    return {tag: np.load(path) for tag, path in
+    return {tag: Reference(path) for tag, path in
             jax_cases(tmp_path_factory, "optim_data", OPTIM_CASES).items()}
 
 

@@ -43,11 +43,8 @@ round 0 (``_compress_leaf`` vmapped over the nodes, jitted).  Tolerances:
   5.8M s elements, two in the zero-initialised final norm, where the
   leaf's initial magnitude gives no bound).
 """
-import fcntl
 import json
 import os
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
@@ -62,8 +59,8 @@ from repro_torch.core import topology
 from repro_torch.core.compression import make_compressor
 from repro_torch.launch import mesh
 from test_torch_dist import LEAF_SHAPES, N, _join, _spawn
-from test_torch_slice import ROOT
-from test_torch_slice import one_thread  # noqa: F401  (autouse)
+from test_torch_slice import Reference, make_reference
+from test_torch_slice import one_thread, tmp_path  # noqa: F401  (fixtures)
 
 BF16 = torch.bfloat16
 SMALL_LEAF_THRESHOLD = 4224
@@ -240,7 +237,7 @@ _JAX_EXCHANGES = textwrap.dedent("""
                             rows.append(jax.random.bernoulli(bk, comp.p))
                     res[f"draw:{t}:{b.index}"] = np.stack(
                         [np.asarray(r) for r in rows])
-        np.savez(os.path.join(out_dir, c["tag"] + ".npz"), **res)
+        savez(os.path.join(out_dir, c["tag"] + ".npz"), **res)
 """)
 
 
@@ -254,30 +251,13 @@ def _case_dict(case, index):
 
 def jax_exchanges(tmp_path_factory, cases, name):
     """``tag -> path`` of the JAX engines' runs of ``cases`` (a part of
-    CASES), made once per pytest run in one subprocess under ``name``,
-    shared across xdist workers under a file lock."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    root = root / "jax_reference"
-    root.mkdir(exist_ok=True)
-    out = root / name
-    with open(str(out) + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
-            part = root / (name + ".part")
-            part.mkdir(exist_ok=True)
-            env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-                       JAX_PLATFORMS="cpu")
-            env.pop("XLA_FLAGS", None)
-            r = subprocess.run(
-                [sys.executable, "-c", _JAX_EXCHANGES,
-                 json.dumps([_case_dict(c, CASES.index(c)) for c in cases]),
-                 str(SMALL_LEAF_THRESHOLD), str(GAMMA), str(part)],
-                env=env, capture_output=True, text=True, timeout=900)
-            assert r.returncode == 0, \
-                f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
-            os.replace(part, out)
+    CASES), made once per pytest run in one subprocess under ``name``
+    (``make_reference``)."""
+    out = make_reference(
+        tmp_path_factory, name, _JAX_EXCHANGES,
+        lambda part: [json.dumps([_case_dict(c, CASES.index(c))
+                                  for c in cases]),
+                      SMALL_LEAF_THRESHOLD, GAMMA, part])
     return {tag(c): str(out / (tag(c) + ".npz")) for c in cases}
 
 
@@ -298,7 +278,7 @@ def setup_case(case, path):
         [torch.empty(sh, dtype=dtype, device="meta") for sh in shapes],
         align=gossip._pack_align(comp), exact_small_leaves=exact,
         small_leaf_threshold=SMALL_LEAF_THRESHOLD)
-    res = np.load(path)
+    res = Reference(path)
     leaves = lambda tg: [_tensor(res[f"{tg}:l{j}"]) for j in range(len(shapes))]
     bufs = (pack_leaves(spec, leaves("in_x"), dtype=torch.float32),
             pack_leaves(spec, leaves("in_x_hat")),
@@ -506,8 +486,9 @@ def run_against_jax_trainer(tmp_path_factory, comp, arg, k, state_dtype,
     from repro_torch.data.synthetic import make_lm_batch_fn
     from test_torch_slice import (BPN, SEQ, STEPS, _port_trainer, _tree,
                                   check_against_jax, jax_reference_path)
-    ref = np.load(jax_reference_path(tmp_path_factory, comp, arg, k, False,
-                                     state_dtype=state_dtype, engine=engine))
+    ref = Reference(jax_reference_path(
+        tmp_path_factory, comp, arg, k, False, state_dtype=state_dtype,
+        engine=engine))
     tr = _port_trainer(comp, arg, k, False, state_dtype=state_dtype,
                        engine=engine)
     packed = not engine.startswith("per-leaf")

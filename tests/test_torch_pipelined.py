@@ -45,7 +45,7 @@ from test_torch_per_leaf import (CASES, check_dist_against_stacked,
                                  check_state, jax_exchanges, leaf_draws,
                                  run_against_jax_trainer, setup_case,
                                  stacked_run, tag)
-from test_torch_slice import one_thread  # noqa: F401  (autouse)
+from test_torch_slice import one_thread, tmp_path  # noqa: F401  (fixtures)
 
 BF16 = torch.bfloat16
 PIPE_CASES = [c for c in CASES if c[6]]
@@ -211,9 +211,10 @@ def test_pipelined_trainer_matches_jax(tmp_path_factory, comp, arg, k, sdt,
 def _trainer_rank(rank, store, out_dir, ref_path):
     from repro_torch.convert import params_from_jax
     from repro_torch.data.synthetic import make_lm_batch_fn
-    from test_torch_slice import BPN, SEQ, STEPS, _port_trainer, _tree
+    from test_torch_slice import (BPN, SEQ, STEPS, _port_trainer, _tree,
+                                  Reference)
     group = _join(rank, store)
-    ref_ = np.load(ref_path)
+    ref_ = Reference(ref_path)
     tr = dataclasses.replace(_port_trainer(
         "qsgd", 16, 2, False, state_dtype="bfloat16",
         engine="per-leaf-pipelined"), group=group)
@@ -240,8 +241,8 @@ def test_dist_pipelined_trainer_matches_stacked_and_jax(tmp_path,
     tolerances and against the stacked trainer (losses 1e-6 relative, x
     1e-6), each rank sending 2 rounds x 2 neighbours x its leaves'
     payload bytes per step."""
-    from test_torch_slice import _port_trainer, check_against_jax
-    from test_torch_slice import jax_reference_path
+    from test_torch_slice import (_port_trainer, check_against_jax,
+                                  jax_reference_path, Reference)
     ref_path = str(jax_reference_path(tmp_path_factory, "qsgd", 16, 2, False,
                                       state_dtype="bfloat16",
                                       engine="per-leaf-pipelined"))
@@ -254,8 +255,8 @@ def test_dist_pipelined_trainer_matches_stacked_and_jax(tmp_path,
     mets = ranks[0]["mets"]
     for r in ranks[1:]:
         assert r["mets"] == mets
-    check_against_jax(tr, state, [m[:3] for m in mets], np.load(ref_path),
-                      "qsgd", bf16_ulp=True)
+    check_against_jax(tr, state, [m[:3] for m in mets],
+                      Reference(ref_path), "qsgd", bf16_ulp=True)
     assert all(m[3] == 2 * 2 * sum(ranks[0]["sent"]) for m in mets)
     _, stacked = run_against_jax_trainer(tmp_path_factory, "qsgd", 16, 2,
                                          "bfloat16", "per-leaf-pipelined")

@@ -54,7 +54,6 @@ Tolerances:
   (``A @ q`` sums in another order than XLA's).
 """
 import dataclasses
-import fcntl
 import json
 import os
 import subprocess
@@ -71,8 +70,8 @@ from repro_torch.comm.packing import (bucket_wire_nbytes, compress_bufs,
                                       unpack_leaves)
 from repro_torch.core import choco_gossip, topology
 from repro_torch.core.compression import make_compressor
-from test_torch_slice import ROOT
-from test_torch_slice import one_thread  # noqa: F401  (autouse)
+from test_torch_slice import ROOT, Reference, make_reference
+from test_torch_slice import one_thread, tmp_path  # noqa: F401  (fixtures)
 
 BF16 = torch.bfloat16
 N = 4
@@ -208,7 +207,7 @@ _JAX_EXCHANGES = textwrap.dedent("""
         for tg, t in zip(("out_x", "out_x_hat", "out_s"), state[:3]):
             save(tg, t)
         res["out_w"] = np.asarray(state[3])
-        np.savez(os.path.join(out_dir, c["tag"] + ".npz"), **res)
+        savez(os.path.join(out_dir, c["tag"] + ".npz"), **res)
 """)
 
 
@@ -218,36 +217,14 @@ def _case_dict(case, index):
                 sdt=sdt, k=k, shapes=SHAPES, seed=700 + index)
 
 
-def _reference_root(tmp_path_factory):
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    root = root / "jax_reference"
-    root.mkdir(exist_ok=True)
-    return root
-
-
 def _jax_exchanges(tmp_path_factory):
     """``tag -> npz path`` of the JAX engine's runs of CASES, made once
-    per pytest run in one subprocess, shared across xdist workers."""
-    root = _reference_root(tmp_path_factory)
-    out = root / "jax_pushsum_exchanges"
-    with open(str(out) + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
-            part = root / "jax_pushsum_exchanges.part"
-            part.mkdir(exist_ok=True)
-            env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-                       JAX_PLATFORMS="cpu")
-            env.pop("XLA_FLAGS", None)
-            r = subprocess.run(
-                [sys.executable, "-c", _JAX_EXCHANGES,
-                 json.dumps([_case_dict(c, i) for i, c in enumerate(CASES)]),
-                 str(GAMMA), str(CALLS), str(part)],
-                env=env, capture_output=True, text=True, timeout=900)
-            assert r.returncode == 0, \
-                f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
-            os.replace(part, out)
+    per pytest run in one subprocess (``make_reference``)."""
+    out = make_reference(
+        tmp_path_factory, "jax_pushsum_exchanges", _JAX_EXCHANGES,
+        lambda part: [json.dumps([_case_dict(c, i)
+                                  for i, c in enumerate(CASES)]),
+                      GAMMA, CALLS, part])
     return {tag(c): str(out / (tag(c) + ".npz")) for c in CASES}
 
 
@@ -304,7 +281,7 @@ def setup_case(case, path):
     spec = make_bucket_spec([torch.empty(sh, dtype=getattr(torch, sdt),
                                          device="meta") for sh in SHAPES],
                             align=gossip._pack_align(comp))
-    res = np.load(path)
+    res = Reference(path)
     leaves = lambda tg: [_tensor(res[f"{tg}:l{j}"])
                          for j in range(len(SHAPES))]
     ins = (pack_leaves(spec, leaves("in_x"), dtype=torch.float32),
@@ -652,7 +629,7 @@ def test_trainer_matches_jax_trainer(comp, arg, topo, sdt, jax_references):
     from repro_torch.convert import params_from_jax
     from repro_torch.data.synthetic import make_lm_batch_fn
     from test_torch_slice import BPN, SEQ, STEPS, _tree, check_against_jax
-    ref = np.load(jax_references[(comp, topo)].result())
+    ref = Reference(jax_references[(comp, topo)].result())
     tr = _trainer(comp, arg, topo, sdt)
     assert [tr.gamma] == list(ref["gamma"])
     assert not any(b.exact for b in tr.spec.buckets)

@@ -233,8 +233,7 @@ def test_serve_launcher_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
     (["--simulate-devices", "8"], "--simulate-devices is not supported"),
     (["--kv-layout", "seq"], "--kv-layout seq is not supported"),
     (["--metrics-dir", "m"], "--metrics-dir is not supported"),
-    (["--arch", "qwen3-moe-30b-a3b"], "--arch 'qwen3-moe-30b-a3b' is not "
-                                      "ported"),
+    (["--arch", "zamba2-1.2b"], "--arch 'zamba2-1.2b' is not ported"),
     (["--requests", "0"], "--requests must be >= 1"),
 ])
 def test_serve_launcher_refuses_flags_outside_the_slice(extra, message, capsys):

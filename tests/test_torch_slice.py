@@ -31,9 +31,11 @@ Tolerances:
   0.05 on the ring, 2 x_hat and 6 s elements (at most 9.8e-4) and 2 x
   elements (1.07e-6); on star, 1 and 3 (x within 1e-6); QSGD, none.
 """
+import collections.abc
 import dataclasses
 import fcntl
 import os
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -73,6 +75,158 @@ def one_thread():
         yield
     finally:
         torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed when the test ends (the files that
+    import this fixture use it too): their tests write checkpoints and
+    launcher runs of up to a gigabyte, and pytest keeps the temporary
+    directories of the last three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+# -- the JAX reference runs --------------------------------------------------------
+#
+# Each reference run is a JAX script run once per pytest run in a
+# subprocess (:func:`make_reference`), its npz files written by ``savez``
+# (:data:`REFERENCE_SAVEZ`) and read through :class:`Reference`.  They
+# share one directory, ``jax_reference`` beside the xdist workers' base
+# temporary directories.  ``savez`` keeps what it writes small without
+# dropping an array: an array with a tenth or more of zeros (the EF states
+# x_hat and s), or of any type but float, is deflated; a large float array
+# (the weights, the dither) is stored once under its content hash in
+# ``jax_reference/blobs`` and the npz holds its name (every trainer run
+# starts from the same weights, and the QSGD runs share their first
+# rounds' dither).
+
+#: the npz entry of an array stored in ``blobs``: this prefix and its path
+BLOB = "@jax-reference-blob:"
+#: the float arrays of at least this many bytes go to ``blobs``
+BLOB_BYTES = 1 << 20
+
+REFERENCE_SAVEZ = textwrap.dedent(f"""
+    def savez(path, **arrays):
+        import hashlib, io, os, zipfile
+        import numpy as np
+
+        def npy(a):
+            buf = io.BytesIO()
+            np.lib.format.write_array(buf, a, allow_pickle=False)
+            return buf.getvalue()
+
+        with zipfile.ZipFile(path, "w", allowZip64=True) as zf:
+            for name, a in arrays.items():
+                a = np.asarray(a)
+                data = npy(a)
+                if a.dtype.kind not in "fc" or (
+                        a.size and np.count_nonzero(a) <= 0.9 * a.size):
+                    zf.writestr(name + ".npy", data, zipfile.ZIP_DEFLATED, 1)
+                    continue
+                if a.nbytes >= {BLOB_BYTES}:
+                    blob = os.path.join(os.environ["JAX_REFERENCE_BLOBS"],
+                                        hashlib.sha1(data).hexdigest()
+                                        + ".npy")
+                    if not os.path.exists(blob):
+                        part = f"{{blob}}.{{os.getpid()}}.part"
+                        with open(part, "wb") as f:
+                            f.write(data)
+                        os.replace(part, blob)
+                    data = npy(np.array({BLOB!r} + blob))
+                zf.writestr(name + ".npy", data, zipfile.ZIP_STORED)
+""")
+
+
+def reference_root(tmp_path_factory):
+    """The run's shared ``jax_reference`` directory (and its ``blobs``)."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    root = root / "jax_reference"
+    (root / "blobs").mkdir(parents=True, exist_ok=True)
+    return root
+
+
+def _remove(path):
+    if path.is_dir():
+        shutil.rmtree(path, ignore_errors=True)
+    elif path.exists():
+        path.unlink()
+
+
+def _remove_parts(root, part, pid):
+    """What a failed reference run leaves: its ``part`` and the blobs that
+    its process ``pid`` had not finished (``savez`` names them by pid)."""
+    _remove(part)
+    for blob in (root / "blobs").glob(f"*.{pid}.part"):
+        blob.unlink()
+
+
+def make_reference(tmp_path_factory, name, script, argv, timeout=900):
+    """The path of the reference ``name`` in :func:`reference_root`, made
+    once per pytest run: tests that need it share it, across xdist workers
+    too (they take turns under a file lock).  ``script`` runs in a
+    subprocess on the JAX package (``savez`` defined before it) with the
+    arguments ``argv(part)``, and writes ``part``: a directory when
+    ``name`` has no ``.npz`` suffix, else one npz file.  ``part`` becomes
+    the reference only when the script exits 0; otherwise it and the
+    blobs the script left half written are removed, and the run fails
+    with the script's output and the disk's free space."""
+    root = reference_root(tmp_path_factory)
+    out = root / name
+    part = root / (name + ".part")
+    with open(str(out) + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        _remove(part)                     # left by a run that was killed
+        if out.suffix != ".npz":
+            part.mkdir()
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   JAX_PLATFORMS="cpu", JAX_REFERENCE_BLOBS=str(root / "blobs"))
+        env.pop("XLA_FLAGS", None)
+        proc = subprocess.Popen(
+            [sys.executable, "-c", REFERENCE_SAVEZ + script,
+             *map(str, argv(part))], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except BaseException:
+            proc.kill()
+            proc.wait()
+            _remove_parts(root, part, proc.pid)
+            raise
+        if proc.returncode != 0:
+            _remove_parts(root, part, proc.pid)
+            free = shutil.disk_usage(root).free / 2 ** 30
+            raise RuntimeError(
+                f"the JAX reference run {name} exited {proc.returncode}, "
+                f"with {free:.2f} GiB free on {root}\nSTDOUT:\n{stdout}\n"
+                f"STDERR:\n{stderr}")
+        os.replace(part, out)
+    return out
+
+
+class Reference(collections.abc.Mapping):
+    """A reference npz written by ``savez``, as ``np.load`` reads it, with
+    the arrays stored in ``blobs`` read from there."""
+
+    def __init__(self, path):
+        self._npz = np.load(path)
+        self.files = self._npz.files
+
+    def __getitem__(self, key):
+        a = self._npz[key]
+        if a.dtype.kind == "U" and a.ndim == 0 and str(a).startswith(BLOB):
+            return np.load(str(a)[len(BLOB):])
+        return a
+
+    def __iter__(self):
+        return iter(self.files)
+
+    def __len__(self):
+        return len(self.files)
 
 
 _JAX_REFERENCE = textwrap.dedent("""
@@ -193,7 +347,7 @@ _JAX_REFERENCE = textwrap.dedent("""
                         rows.append(np.asarray(jax.random.uniform(
                             fold(rk, b.index), (b.size,))))
                     res[f"xi:{j}:{t}:{b.index}"] = np.stack(rows)
-    np.savez(out, **res)
+    savez(out, **res)
 """)
 
 
@@ -212,11 +366,6 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
     once per pytest run: tests that need the same case share it, across
     xdist workers too (they meet in the run's common temporary directory
     and take turns under a file lock)."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    root = root / "jax_reference"
-    root.mkdir(exist_ok=True)
     tag = "" if topology == "ring" else "_" + topology.replace(",", "+")
     if state_dtype != "float32":
         tag += "_" + state_dtype
@@ -226,25 +375,15 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
         tag += "_" + process
     if mode != "choco":
         tag += "_" + mode
-    out = root / f"jax_{comp}_{arg}_{k}_{'exact' if exact else '-'}{tag}.npz"
-    with open(str(out) + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
-            part = out.with_suffix(".part.npz")
-            env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-                       JAX_PLATFORMS="cpu")
-            env.pop("XLA_FLAGS", None)
-            r = subprocess.run(
-                [sys.executable, "-c", _JAX_REFERENCE, comp, str(arg), str(k),
-                 "exact" if exact else "-", str(STEPS), str(SEQ), str(BPN),
-                 str(part), topology, state_dtype, engine,
-                 process or "none", str(PROCESS_DROP), str(PROCESS_TAU),
-                 PROCESS_STRAGGLERS, mode],
-                env=env, capture_output=True, text=True, timeout=600)
-            assert r.returncode == 0, \
-                f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
-            os.replace(part, out)
-    return out
+    return make_reference(
+        tmp_path_factory,
+        f"jax_{comp}_{arg}_{k}_{'exact' if exact else '-'}{tag}.npz",
+        _JAX_REFERENCE,
+        lambda part: [comp, arg, k, "exact" if exact else "-", STEPS, SEQ,
+                      BPN, part, topology, state_dtype, engine,
+                      process or "none", PROCESS_DROP, PROCESS_TAU,
+                      PROCESS_STRAGGLERS, mode],
+        timeout=600)
 
 
 def _tree(ref, tag):
@@ -305,7 +444,8 @@ def _port_trainer(comp, arg, k, exact, topology="ring",
     pytest.param("identity", 0, 1, True, id="identity-exact-1"),
 ])
 def test_slice_matches_jax_trainer(tmp_path_factory, comp, arg, k, exact):
-    ref = np.load(jax_reference_path(tmp_path_factory, comp, arg, k, exact))
+    ref = Reference(jax_reference_path(tmp_path_factory, comp, arg, k,
+                                            exact))
     tr = _port_trainer(comp, arg, k, exact)
     assert any(b.exact for b in tr.spec.buckets) == exact
     assert [tr.gamma] + tr.exchange.bucket_gammas == list(ref["gamma"])
@@ -368,6 +508,65 @@ def check_against_jax(tr, state, mets, ref, comp, x_atol=1e-6,
             if bad.any():
                 assert np.all(diff[bad] <= bound), (tag, path, diff.max())
         assert outliers <= total // 100_000, (tag, outliers)
+
+
+# -- the reference store ---------------------------------------------------------
+
+_STORE_SCRIPT = textwrap.dedent("""
+    import sys
+    import numpy as np
+    rng = np.random.default_rng(0)
+    big = rng.standard_normal(300_000).astype(np.float32)
+    sparse = np.where(rng.random(300_000) < 0.5, big, 0).astype(np.float32)
+    savez(sys.argv[1], big=big, again=big.copy(), sparse=sparse,
+          codes=(big > 0).astype(np.int8), small=big[:10],
+          name=np.array("QuantPayload"))
+""")
+
+
+def test_reference_store_round_trips_and_shares_equal_arrays(
+        tmp_path_factory):
+    """``savez`` and ``Reference``: every array comes back as it was
+    written; two equal large float arrays take one blob; the sparse and
+    integer ones are deflated in the npz, the small one stored there."""
+    path = make_reference(tmp_path_factory, "store_round_trip.npz",
+                          _STORE_SCRIPT, lambda part: [part])
+    ref = Reference(path)
+    big = np.random.default_rng(0).standard_normal(300_000).astype(np.float32)
+    np.testing.assert_array_equal(ref["big"], big)
+    np.testing.assert_array_equal(ref["again"], big)
+    assert sorted(ref) == ["again", "big", "codes", "name", "small", "sparse"]
+    assert str(ref["name"]) == "QuantPayload"
+    np.testing.assert_array_equal(ref["codes"], (big > 0).astype(np.int8))
+    raw = np.load(path)
+    assert str(raw["big"]) == str(raw["again"])       # one blob, by content
+    assert str(raw["big"]).startswith(BLOB)
+    assert raw["sparse"].shape == (300_000,) and raw["small"].shape == (10,)
+    import zipfile
+    with zipfile.ZipFile(path) as zf:
+        kinds = {i.filename: i.compress_type for i in zf.infolist()}
+    assert kinds["sparse.npy"] == kinds["codes.npy"] == zipfile.ZIP_DEFLATED
+    assert kinds["small.npy"] == kinds["big.npy"] == zipfile.ZIP_STORED
+
+
+def test_failed_reference_run_leaves_no_part(tmp_path_factory):
+    """A reference script that writes its part and half a blob and fails:
+    the run raises with the script's stderr and the free space, and leaves
+    neither the part, the blob's part nor the reference; the next attempt
+    runs the script again."""
+    script = ("import os, sys\nopen(sys.argv[1], 'w').write('half')\n"
+              "open(os.path.join(os.environ['JAX_REFERENCE_BLOBS'], "
+              "f'failing.npy.{os.getpid()}.part'), 'w').write('half')\n"
+              "sys.exit('no space for the reference')\n")
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=r"(?s)exited 1, with "
+                           r"[0-9.]+ GiB free.*no space for the reference"):
+            make_reference(tmp_path_factory, "failing.npz", script,
+                           lambda part: [part])
+        root = reference_root(tmp_path_factory)
+        assert not (root / "failing.npz").exists()
+        assert not (root / "failing.npz.part").exists()
+        assert not list((root / "blobs").glob("failing.npy.*"))
 
 
 # -- launcher -------------------------------------------------------------------

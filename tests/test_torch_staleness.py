@@ -40,7 +40,6 @@ Tolerances:
   difference, within 1e-6 absolute plus 1e-6 relative;
 * the simulator: f32 iterates within 1e-5 of their largest magnitude.
 """
-import fcntl
 import json
 import os
 import subprocess
@@ -55,8 +54,8 @@ from repro_torch.comm import gossip, schedule, stochastic
 from repro_torch.comm.packing import make_bucket_spec, pack_leaves, unpack_leaves
 from repro_torch.core import topology
 from repro_torch.core.compression import make_compressor
-from test_torch_slice import ROOT
-from test_torch_slice import one_thread  # noqa: F401  (autouse)
+from test_torch_slice import ROOT, Reference, make_reference
+from test_torch_slice import one_thread, tmp_path  # noqa: F401  (fixtures)
 
 BF16 = torch.bfloat16
 N = 4
@@ -196,7 +195,7 @@ _JAX_EXCHANGES = textwrap.dedent("""
                         res[f"draw:{call}:{t}:{u}:{i}"] = np.asarray(d)
         for tg, t in zip(("out_x", "out_x_hat", "out_s"), state):
             save(tg, t)
-        np.savez(os.path.join(out_dir, c["tag"] + ".npz"), **res)
+        savez(os.path.join(out_dir, c["tag"] + ".npz"), **res)
 """)
 
 
@@ -231,29 +230,12 @@ def jax_runs(jax_references):
 
 def _jax_exchanges(tmp_path_factory):
     """``tag -> npz path`` of the JAX engine's runs of CASES, made once
-    per pytest run in one subprocess, shared across xdist workers."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    root = root / "jax_reference"
-    root.mkdir(exist_ok=True)
-    out = root / "jax_stale_exchanges"
-    with open(str(out) + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
-            part = root / "jax_stale_exchanges.part"
-            part.mkdir(exist_ok=True)
-            env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-                       JAX_PLATFORMS="cpu")
-            env.pop("XLA_FLAGS", None)
-            r = subprocess.run(
-                [sys.executable, "-c", _JAX_EXCHANGES,
-                 json.dumps([_case_dict(c, i) for i, c in enumerate(CASES)]),
-                 str(GAMMA), str(CALLS), str(part)],
-                env=env, capture_output=True, text=True, timeout=900)
-            assert r.returncode == 0, \
-                f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
-            os.replace(part, out)
+    per pytest run in one subprocess (``make_reference``)."""
+    out = make_reference(
+        tmp_path_factory, "jax_stale_exchanges", _JAX_EXCHANGES,
+        lambda part: [json.dumps([_case_dict(c, i)
+                                  for i, c in enumerate(CASES)]),
+                      GAMMA, CALLS, part])
     return {tag(c): str(out / (tag(c) + ".npz")) for c in CASES}
 
 
@@ -288,7 +270,7 @@ def setup_case(case, path):
     spec = make_bucket_spec([torch.empty(sh, dtype=dtype, device="meta")
                              for sh in SHAPES],
                             align=gossip._pack_align(comp))
-    res = np.load(path)
+    res = Reference(path)
     L = len(SHAPES)
 
     def leaves(tg, idx=None):
@@ -363,7 +345,7 @@ def test_stale_exchange_matches_jax_engine(case, jax_runs):
     StalenessProcess)``; the exchange keeps the delays it used."""
     proc, comp, spec, got, want, ex = run_stacked(case, jax_runs[tag(case)])
     check_state(case, comp, spec, got, want)
-    res = np.load(jax_runs[tag(case)])
+    res = Reference(jax_runs[tag(case)])
     assert len(ex.last_samples) == case[4]
     for t, d in enumerate(ex.last_samples):
         np.testing.assert_array_equal(d, res[f"delays:{CALLS - 1}:{t}"])
@@ -738,7 +720,7 @@ def test_trainer_matches_jax_trainer(jax_references):
     from repro_torch.data.synthetic import make_lm_batch_fn
     from test_torch_slice import (BPN, PROCESS_TAU, SEQ, STEPS, _port_trainer,
                                   _tree, check_against_jax)
-    ref = np.load(jax_references["trainer"].result())
+    ref = Reference(jax_references["trainer"].result())
     tr = _port_trainer("top_k", 0.05, 1, False, process="staleness")
     assert [tr.gamma] == list(ref["gamma"])
     state = tr.state_from_params(params_from_jax(_tree(ref, "x0")))

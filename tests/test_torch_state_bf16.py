@@ -38,7 +38,6 @@ Tolerances (all measured on this CPU with the cases below):
   stacked and per rank, and refuses a dtype the port does not run.
 """
 import dataclasses
-import fcntl
 import json
 import os
 import subprocess
@@ -58,8 +57,8 @@ from repro_torch.kernels import dispatch, ref
 from repro_torch.launch import mesh
 from test_torch_dist import (EXCHANGE_CASES, GOSSIP_STEPS, LEAF_SHAPES, N,
                              THREADS, _join, _spawn)
-from test_torch_slice import ROOT
-from test_torch_slice import one_thread  # noqa: F401  (autouse)
+from test_torch_slice import ROOT, Reference, make_reference
+from test_torch_slice import one_thread, tmp_path  # noqa: F401  (fixtures)
 
 BF16 = torch.bfloat16
 
@@ -148,7 +147,7 @@ _JAX_EXCHANGES = textwrap.dedent("""
                             rows.append(jax.random.bernoulli(bk, comp.p))
                     res[f"draw:{t}:{b.index}"] = np.stack(
                         [np.asarray(r) for r in rows])
-        np.savez(os.path.join(out_dir, c["tag"] + ".npz"), **res)
+        savez(os.path.join(out_dir, c["tag"] + ".npz"), **res)
 """)
 
 
@@ -161,31 +160,11 @@ def _case_dict(case):
 
 def jax_exchanges(tmp_path_factory):
     """``tag -> path`` of the JAX engine's runs of every case, made once per
-    pytest run in one subprocess, shared across xdist workers under a file
-    lock."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    root = root / "jax_reference"
-    root.mkdir(exist_ok=True)
-    out = root / "jax_bf16_exchanges"
-    with open(str(out) + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
-            part = root / "jax_bf16_exchanges.part"
-            part.mkdir(exist_ok=True)
-            env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-                       JAX_PLATFORMS="cpu")
-            env.pop("XLA_FLAGS", None)
-            r = subprocess.run(
-                [sys.executable, "-c", _JAX_EXCHANGES,
-                 json.dumps([_case_dict(c) for c in CASES]),
-                 json.dumps(LEAF_SHAPES), str(SMALL_LEAF_THRESHOLD),
-                 str(part)],
-                env=env, capture_output=True, text=True, timeout=900)
-            assert r.returncode == 0, \
-                f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
-            os.replace(part, out)
+    pytest run in one subprocess (``make_reference``)."""
+    out = make_reference(
+        tmp_path_factory, "jax_bf16_exchanges", _JAX_EXCHANGES,
+        lambda part: [json.dumps([_case_dict(c) for c in CASES]),
+                      json.dumps(LEAF_SHAPES), SMALL_LEAF_THRESHOLD, part])
     return {_tag(c): str(out / (_tag(c) + ".npz")) for c in CASES}
 
 
@@ -205,7 +184,7 @@ def _setup(case, path):
         [torch.empty(s, dtype=BF16, device="meta") for s in LEAF_SHAPES],
         align=gossip._pack_align(comp), exact_small_leaves=exact,
         small_leaf_threshold=SMALL_LEAF_THRESHOLD)
-    res = np.load(path)
+    res = Reference(path)
     leaves = lambda tag: [_tensor(res[f"{tag}:l{j}"])
                           for j in range(len(LEAF_SHAPES))]
     bufs = (pack_leaves(spec, leaves("in_x"), dtype=torch.float32),
@@ -560,8 +539,9 @@ def test_trainer_with_bf16_state_matches_jax(tmp_path_factory, comp, arg, k,
     from repro_torch.data.synthetic import make_lm_batch_fn
     from test_torch_slice import (BPN, SEQ, STEPS, _port_trainer, _tree,
                                   check_against_jax, jax_reference_path)
-    ref_ = np.load(jax_reference_path(tmp_path_factory, comp, arg, k, False,
-                                      topology=topo, state_dtype="bfloat16"))
+    ref_ = Reference(jax_reference_path(
+        tmp_path_factory, comp, arg, k, False, topology=topo,
+        state_dtype="bfloat16"))
     tr = _port_trainer(comp, arg, k, False, topology=topo,
                        state_dtype="bfloat16")
     assert [tr.gamma] + tr.exchange.bucket_gammas == list(ref_["gamma"])

@@ -38,7 +38,6 @@ Tolerances:
 * the plain mode bit for bit;
 * the simulator: f32 iterates within 1e-5 of their largest magnitude.
 """
-import fcntl
 import json
 import os
 import subprocess
@@ -53,8 +52,8 @@ from repro_torch.comm import gossip, schedule, stochastic
 from repro_torch.comm.packing import make_bucket_spec, pack_leaves, unpack_leaves
 from repro_torch.core import topology
 from repro_torch.core.compression import make_compressor
-from test_torch_slice import ROOT
-from test_torch_slice import one_thread  # noqa: F401  (autouse)
+from test_torch_slice import ROOT, Reference, make_reference
+from test_torch_slice import one_thread, tmp_path  # noqa: F401  (fixtures)
 
 BF16 = torch.bfloat16
 N = 4
@@ -197,7 +196,7 @@ _JAX_EXCHANGES = textwrap.dedent("""
                                 c["kw"]["fraction"] * size))))
                             d = jax.random.permutation(uk, size)[:kk]
                         res[f"draw:{t}:{u}:{i}"] = np.asarray(d)
-        np.savez(os.path.join(out_dir, c["tag"] + ".npz"), **res)
+        savez(os.path.join(out_dir, c["tag"] + ".npz"), **res)
 """)
 
 
@@ -211,29 +210,12 @@ def _case_dict(case, index):
 @pytest.fixture(scope="module")
 def jax_runs(tmp_path_factory):
     """``tag -> npz path`` of the JAX engines' runs of CASES, made once
-    per pytest run in one subprocess, shared across xdist workers."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    root = root / "jax_reference"
-    root.mkdir(exist_ok=True)
-    out = root / "jax_process_exchanges"
-    with open(str(out) + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
-            part = root / "jax_process_exchanges.part"
-            part.mkdir(exist_ok=True)
-            env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-                       JAX_PLATFORMS="cpu")
-            env.pop("XLA_FLAGS", None)
-            r = subprocess.run(
-                [sys.executable, "-c", _JAX_EXCHANGES,
-                 json.dumps([_case_dict(c, i) for i, c in enumerate(CASES)]),
-                 str(GAMMA), str(DROP), str(part)],
-                env=env, capture_output=True, text=True, timeout=900)
-            assert r.returncode == 0, \
-                f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
-            os.replace(part, out)
+    per pytest run in one subprocess (``make_reference``)."""
+    out = make_reference(
+        tmp_path_factory, "jax_process_exchanges", _JAX_EXCHANGES,
+        lambda part: [json.dumps([_case_dict(c, i)
+                                  for i, c in enumerate(CASES)]),
+                      GAMMA, DROP, part])
     return {tag(c): str(out / (tag(c) + ".npz")) for c in CASES}
 
 
@@ -268,7 +250,7 @@ def setup_case(case, path):
         [torch.empty(sh, dtype=dtype if mode == "choco" else torch.float32,
                      device="meta") for sh in SHAPES],
         align=gossip._pack_align(comp))
-    res = np.load(path)
+    res = Reference(path)
     L = len(SHAPES)
 
     def leaves(tg, idx=None):
@@ -706,9 +688,9 @@ def test_trainer_matches_jax_trainer(tmp_path_factory, kind, sdt, engine):
     from repro_torch.data.synthetic import make_lm_batch_fn
     from test_torch_slice import (BPN, SEQ, STEPS, _port_trainer, _tree,
                                   check_against_jax, jax_reference_path)
-    ref = np.load(jax_reference_path(tmp_path_factory, "top_k", 0.05, 1,
-                                     False, state_dtype=sdt, engine=engine,
-                                     process=kind))
+    ref = Reference(jax_reference_path(
+        tmp_path_factory, "top_k", 0.05, 1, False, state_dtype=sdt,
+        engine=engine, process=kind))
     tr = _port_trainer("top_k", 0.05, 1, False, state_dtype=sdt,
                        engine=engine, process=kind)
     assert [tr.gamma] == list(ref["gamma"])

@@ -30,7 +30,8 @@ from repro_torch.core.compression import make_compressor
 from repro_torch.data.synthetic import make_lm_batch_fn
 from repro_torch.convert import params_from_jax
 from test_torch_slice import (BPN, N, SEQ, STEPS, _port_trainer, _tree,
-                              check_against_jax, jax_reference_path)
+                              check_against_jax, jax_reference_path,
+                              Reference)
 from test_torch_slice import one_thread  # noqa: F401  (autouse)
 
 SYMMETRIC = ("ring", "torus", "fully_connected", "chain", "star",
@@ -194,8 +195,8 @@ def test_trainer_matches_jax_on_topology(tmp_path_factory, topo, k, comp,
 
 
 def run_against_jax(tmp_path_factory, topo, k, comp, arg):
-    ref = np.load(jax_reference_path(tmp_path_factory, comp, arg, k, False,
-                                     topology=topo))
+    ref = Reference(jax_reference_path(tmp_path_factory, comp, arg, k,
+                                            False, topology=topo))
     tr = _port_trainer(comp, arg, k, False, topology=topo)
     assert [tr.gamma] + tr.exchange.bucket_gammas == list(ref["gamma"])
     state = tr.state_from_params(params_from_jax(_tree(ref, "x0")))
