@@ -32,10 +32,12 @@ and makes the plain version once with a fault, for contract (b):
 The cases are ``chip_smoke.py``'s flash cases on the inputs it draws
 (``FLASH_CASES``, ``FLASH_DH80_CASES``, ``FLASH_DH32_CASES``) and two of
 its own (Dh 80 with a window): every instance of both kernels, each head
-dim (bf16 32, 64, 80, 128, 256; f32 32, 64, 80, 128) with and without a
-window.  On each bf16 case it prints contract (a)'s readings of every
-kernel against the sound plain version (max|d| / max|want|, share of
-elements more than one bf16 ulp apart) and contract (b)'s reading of both
+dim (32, 64, 80, 128, 256 in both dtypes; f32 Dh 256 is a kernel of its
+own, whose Q K^T lines the f32 faults share and whose P V and rescale
+lines they edit too) with and without a window.  On each bf16 case it
+prints contract (a)'s readings of every kernel against the sound plain
+version (max|d| / max|want|, share of elements more than one bf16 ulp
+apart) and contract (b)'s reading of both
 plain versions against the f32-P result, with the bounds of
 ``kernels/flash_attention.py``; on each f32 case, max|d| / max|out| of
 every f32 kernel against the plain version (bound 1e-5).  Then, per
@@ -89,15 +91,22 @@ KERNEL_FAULTS = {
 KERNEL_FAULT_DIMS = {"trunc_p": (32, 64, 80, 128, 256),
                      "skip_alpha": (32, 64, 80, 128, 256),
                      "stale_last": (32, 64, 80, 128)}
-#: the same for the f32 kernel
-F32_BIG_SMALL = ("      wgmma_ss(s, dqb + qo, dks + ko);          // big . small\n",
-                 "      wgmma_rs(pv, pb, dvs + vo);               // big . small\n")
-F32_SMALL_BIG = ("      wgmma_ss(s, dqs + qo, dkb + ko);          // small . big\n",
-                 "      wgmma_rs(pv, pl, dvb + vo);               // small . big\n")
+#: the same for the f32 kernel, (text, times it stands in the source): the
+#: Q K^T lines are the same in the Dh 32-128 kernel and the Dh 256 one, the
+#: P V lines differ (P from registers; P from shared memory at Dh 256)
+F32_BIG_SMALL = (
+    ("      wgmma_ss(s, dqb + qo, dks + ko);          // big . small\n", 2),
+    ("      wgmma_rs(pv, pb, dvs + vo);               // big . small\n", 1),
+    ("      wgmma_ss(pv, dpb + 2 * j, dvs + 2 * j);   // big . small\n", 1))
+F32_SMALL_BIG = (
+    ("      wgmma_ss(s, dqs + qo, dkb + ko);          // small . big\n", 2),
+    ("      wgmma_rs(pv, pl, dvb + vo);               // small . big\n", 1),
+    ("      wgmma_ss(pv, dps + 2 * j, dvb + 2 * j);   // small . big\n", 1))
 F32_FAULTS = {
-    "one_term": [(line, "") for line in F32_BIG_SMALL + F32_SMALL_BIG],
-    "two_term": [(line, "") for line in F32_SMALL_BIG],
-    "f32_skip_alpha": [SKIP_ALPHA_STAGED],
+    "one_term": [(line, "", n) for line, n in F32_BIG_SMALL + F32_SMALL_BIG],
+    "two_term": [(line, "", n) for line, n in F32_SMALL_BIG],
+    # both f32 kernels rescale the output in the same line
+    "f32_skip_alpha": [SKIP_ALPHA_STAGED + (2,)],
 }
 #: the f32 contract: max|d| / max|out| against the plain version
 F32_RTOL = 1e-5
@@ -108,11 +117,15 @@ PLAIN_FAULT = (
 
 
 def edited(text, pairs, what="the source"):
-    for i, (old, new) in enumerate(pairs):
-        if text.count(old) != 1:
+    """``text`` with each (old, new) or (old, new, times) of ``pairs``
+    replaced; raises unless ``old`` stands in it that many times (once by
+    default)."""
+    for i, (old, new, *times) in enumerate(pairs):
+        want = times[0] if times else 1
+        if text.count(old) != want:
             raise RuntimeError(
                 f"{what}: anchor {i} of {len(pairs)} is in the source "
-                f"{text.count(old)} times, not once: {old!r}")
+                f"{text.count(old)} times, not {want}: {old!r}")
         text = text.replace(old, new)
     return text
 

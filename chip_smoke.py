@@ -14,7 +14,9 @@ from the root of a checkout, on a machine with one CUDA device.  It
    per-node weight vectors) within 0 ulp (kernel and plain
    version round every operation separately), the bf16-state EF update
    (x f32, x_hat, s and the payloads bf16; the ring's uniform weights
-   and chain's per-node ones) bit-equal too, and times kernel, plain
+   and chain's per-node ones) bit-equal too, also at gemma-7b's
+   tied-embedding bucket, (4, 786,432,000), the largest bucket a path
+   gives it (``[train-archs]``), and times kernel, plain
    version, the bytes bound and,
    for dequantize, the one PyTorch call that computes the same function.
    QSGD is checked twice at each length: with inv_norm = 1/||x|| per node
@@ -193,11 +195,14 @@ from the root of a checkout, on a machine with one CUDA device.  It
    (``FLASH_BF16_RTOL``, ``FLASH_BF16_ULP_SHARE``) and its plain version
    to contract (b) against the f32-P result; the f32 3xTF32 tensor-core
    kernel (``csrc/flash_attention.cu``; the build phase checks that its
-   eight instances' SASS holds wgmma) within 1e-5 of max|out| at Dh 64
+   ten instances' SASS holds wgmma) within 1e-5 of max|out| at Dh 64
    with a softcap (non-causal and causal), at 2048, at an odd length
-   (1000) and with a window at Dh 64 and 128 (causal with a softcap,
-   non-causal); and times the bf16 kernel at the qwen3 and qwen3-moe
-   prefill layers and the three 32768-token Dh 256 layers, its plain version,
+   (1000), with a window at Dh 64 and 128 (causal with a softcap,
+   non-causal), and at Dh 256: gemma2-9b's global and local layers and
+   gemma-7b's with dtype float32 (S 32768), an odd length with a window
+   and non-causal; and times the bf16 kernel at the qwen3 and qwen3-moe
+   prefill layers and the three 32768-token Dh 256 layers, the f32 one at
+   the three f32 Dh 256 layers, its plain version,
    ``scaled_dot_product_attention`` (the library yardstick, which the
    port never calls; at the local layer with the window as a boolean
    mask, where a backend takes it) and the bounds, and the f32 kernel at
@@ -237,8 +242,10 @@ from the root of a checkout, on a machine with one CUDA device.  It
    ``[consistency]`` at its full width (prompt 256, batch 2); the serve
    launcher at ``--arch gemma2-9b``; and ``[dense small]``: the gemma2-9b,
    gemma-7b and yi-9b smoke models in f32, chunked and naive (yi-9b's
-   chunked path at head dim 32), prefill of 24 plus 40 decode steps (the
-   smoke window of 16 wraps), card against CPU;
+   chunked path at head dim 32), and gemma2-9b's and gemma-7b's chunked at
+   the full configs' head dim 256 (the f32 kernel's Dh 256 instances),
+   prefill of 24 plus 40 decode steps (the smoke window of 16 wraps),
+   card against CPU;
 12. runs the frontends: ``[flash-dh80]``, both flash kernels at
    hubert-xlarge's layer (16/16 heads, head dim 80, non-causal) at 32768
    frames and at 8 x 1500 (30 s of audio at 50 frames a second), each
@@ -271,7 +278,28 @@ from the root of a checkout, on a machine with one CUDA device.  It
    CPU's expert picks, the card's own picks differing in at most
    ``MOE_PICK_MISMATCH_SHARE`` of the tokens), and the serve launcher at
    its qwen3-moe smoke;
-14. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+14. ``[prefill-gemma2-f32]``: gemma2-9b at its published widths with
+   ``dtype="float32"``, 8 of its 42 layers (4 local, 4 global; weights
+   from seed 0): ``Model.prefill`` of 32768 tokens twice (4 ``f32_dh256``
+   and 4 ``f32_dh256_window`` launches a call, counted by the wrappers and
+   by the profiler, the call split into flash, matmul and other, the
+   peak), the same prefill against the plain flash version on the card
+   (logits and every cache leaf within 1e-5 of max|want|), then 4 decode
+   steps past the prompt;
+15. ``[train-archs]``: gemma-7b at its published widths with 1 of its 28
+   layers, 4 nodes on the ring, top_k 0.01, bf16 EF state, plain SGD,
+   sequence 512 x batch 4 per node, 3 steps through
+   ``DecentralizedTrainer`` (ms a step, the peak, wire bytes per node per
+   step, one EF launch per bucket a step); the gemma2-9b, gemma-7b, yi-9b,
+   hubert-xlarge and llava-next-mistral-7b smoke models, f32 and bf16
+   compute, top_k and QSGD, 2 steps each card against CPU; the training
+   launcher at ``--arch gemma2-9b`` and ``hubert-xlarge``;
+16. ``[flash-instances]``: every instance of both flash kernels (each
+   dtype, head dim and window) at one common causal case, (1, 8192,
+   16/8), window 1024, through the FLASH_CASES check (``[kernel]
+   flash_attention instance <variant>`` lines): held to its contract and
+   timed beside its plain version, SDPA in its dtype and the bound;
+17. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints ``[phase] <name> <seconds> s`` as it ends (the host's
@@ -318,6 +346,10 @@ STATE_BF16_COMPRESSORS = ("top_k", "qsgd")
 #: columns of the bf16 EF update's plain version per call, when it is held
 #: and timed over a whole buffer (its exact FMA runs in f64)
 EF_BF16_PLAIN_CHUNK = 1 << 25
+#: one node's tied-embedding bucket of gemma-7b (256000 x 3072), the
+#: largest the bf16 EF update gets ([train-archs]): at 4 nodes its last
+#: rows start past 2^31 elements
+EF_BF16_WIDE = 786_432_000
 #: the bf16 tensor-core flash kernel (the prefill's) and the f32 one
 FLASH_KERNELS = ("flash_tc_kernel", "flash_attention_kernel")
 #: one node's embedding bucket, 311,164,928 elements, as (R, 128) tiles
@@ -379,21 +411,38 @@ FLASH_CASES = (
     ("f32 non-causal window", 2, 1000, 8, 4, 64, "float32", False, None, 100),
     # qwen3-moe-30b-a3b's full-width layer: 32/4 heads (GQA 8) at Dh 128
     ("qwen3-moe layer", 1, 32768, 32, 4, 128, "bfloat16", True, None, None),
+    # the f32 kernel at Dh 256: gemma2-9b's global and local layers and
+    # gemma-7b's with dtype float32, an odd length with a window, non-causal
+    ("f32 gemma2 global layer", 1, 32768, 16, 8, 256, "float32", True, 50.0,
+     None),
+    ("f32 gemma2 local layer", 1, 32768, 16, 8, 256, "float32", True, 50.0,
+     4096),
+    ("f32 gemma-7b layer", 1, 32768, 16, 16, 256, "float32", True, None,
+     None),
+    ("f32 Dh 256 odd length window", 2, 1000, 16, 8, 256, "float32", True,
+     None, 300),
+    ("f32 Dh 256 non-causal", 2, 1000, 16, 8, 256, "float32", False, 50.0,
+     None),
 )
 #: the FLASH_CASES timed beside the plain version, SDPA and the bound, each
 #: a record of its own: the first stands for the qwen3-1.7b layer (the
-#: ``flash_attention`` entry), the gemma2 layers for the Dh 256 variants,
-#: the qwen3-moe layer for [prefill-moe]'s bf16_dh128 launches
+#: ``flash_attention`` entry), the gemma2 layers for the Dh 256 variants
+#: (bf16 and f32), the qwen3-moe layer for [prefill-moe]'s bf16_dh128
+#: launches
 FLASH_TIMED = ("prefill layer", "gemma2 global layer", "gemma2 local layer",
-               "gemma-7b layer", "qwen3-moe layer")
+               "gemma-7b layer", "qwen3-moe layer", "f32 gemma2 global layer",
+               "f32 gemma2 local layer", "f32 gemma-7b layer")
 #: [decode-32k]: decode steps that continue gemma2-9b's 32768-token
 #: prefill, past its global caches' prompt slots and around its local rings
 DECODE_PAST_STEPS = 8
-#: [dense small]: (arch, attn_impl) of the smoke models held card against
-#: CPU (yi-9b's chunked path runs the f32 kernel at head dim 32)
+#: [dense small]: (arch, attn_impl[, head_dim]) of the smoke models held
+#: card against CPU (yi-9b's chunked path runs the f32 kernel at head dim
+#: 32; gemma2's and gemma-7b's at the full configs' head dim 256, the f32
+#: kernel's Dh 256 instances)
 DENSE_SMALL = (("gemma2-9b", "chunked"), ("gemma2-9b", "naive"),
                ("gemma-7b", "chunked"), ("gemma-7b", "naive"),
-               ("yi-9b", "chunked"), ("yi-9b", "naive"))
+               ("yi-9b", "chunked"), ("yi-9b", "naive"),
+               ("gemma2-9b", "chunked", 256), ("gemma-7b", "chunked", 256))
 PREFILL_CALLS = 2
 #: the f32 prefill test's cache tolerance, atol (rtol 1e-5), from
 #: ``prefill_budget``'s measurements
@@ -481,6 +530,35 @@ HUBERT_SMALL_CACHE_ATOL = 1e-4
 #: the serve launcher at llava-next-mistral-7b: one short request pair
 SERVE_LLAVA_ARGS = ("--batch", "1", "--prompt-len", "32", "--gen-len", "16",
                     "--requests", "2")
+#: [prefill-gemma2-f32]: gemma2-9b at its published widths in f32 with its
+#: depth cut from 42 to this many layers, 4 local and 4 global: 2.50B
+#: parameters, 10.0 GB in f32; the global caches at 32768 tokens 4 x 537
+#: MB, the local rings 4 x 67 MB.  42 layers would be 37 GB of weights and
+#: 12.7 GB of caches: they fit, but a call would take about 20 s
+GEMMA2_F32_LAYERS = 8
+#: [prefill-gemma2-f32]: decode steps past its 32768-token prompt
+GEMMA2_F32_DECODE_STEPS = 4
+#: [prefill-gemma2-f32]: the prefill through the f32 kernel against the
+#: same model through the plain flash version on the card, logits and
+#: every cache leaf within this of max|want| (the f32 kernel's contract)
+PREFILL_F32_RTOL = 1e-5
+#: [train-archs]: the full-width run, gemma-7b at its published widths
+#: (arXiv:2403.08295) with depth 28 cut to 1, 4 nodes on the ring, top_k
+#: 0.01, bf16 EF state, plain SGD, sequence 512 x batch 4 per node.  Per
+#: node its leaves are 786.4M (the tied embedding) + 276.8M = 1.063B
+#: parameters; at 12 B an element over 4 nodes (f32 x and gradient, bf16
+#: x_hat and s) 51 GB, and 8.5 GB of bf16 compute copy
+TRAIN_ARCH_FULL = ("gemma-7b", 1)
+#: [train-archs]: the archs the launcher trains beside qwen3-1.7b, each
+#: smoke model TRAIN_ARCHS_STEPS steps card against CPU per compute dtype
+#: and compressor (TRAIN_ARCHS_COMPRESSORS)
+TRAIN_ARCHS = ("gemma2-9b", "gemma-7b", "yi-9b", "hubert-xlarge",
+               "llava-next-mistral-7b")
+TRAIN_ARCHS_STEPS = 2
+TRAIN_ARCHS_COMPRESSORS = (("top_k", (("fraction", 0.05),)),
+                           ("qsgd", (("s", 16),)))
+#: [train-archs]: the archs the launcher runs on the card (--smoke)
+TRAIN_ARCHS_LAUNCHER = ("gemma2-9b", "hubert-xlarge")
 
 
 def check(cond, msg):
@@ -584,8 +662,9 @@ def check_kernels(lengths, dev):
               f"{ms:.3f} ms (bound {bms:.3f} ms, {by}), plain {plain_ms:.3f} ms"
               + (f", library {lib_ms:.3f} ms" if lib_ms is not None else ""),
               flush=True)
-        if length == max(lengths):
-            records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        if length in (max(lengths), EF_BF16_WIDE):
+            key = name if length == max(lengths) else f"{name}_len{length}"
+            records[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                  bound_ms=bms, bound_by=by,
                                  shape=[N_NODES, length])
 
@@ -669,16 +748,27 @@ def check_kernels(lengths, dev):
                plain_ms, None, bound_ms(ins + list(w_star), inplace,
                                         8 * x.numel()))
         del inplace
-        check_ef_bf16(ins, gamma, length, reps, compare, report)
+        check_ef_bf16(x, [t.to(torch.bfloat16) for t in ins[1:]], gamma,
+                      length, reps, compare, report)
         del ins, x
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    # the bf16-state EF update at the largest bucket a path gives it:
+    # gemma-7b's tied embedding ([train-archs]), its last rows starting
+    # past 2^31 elements in
+    shape = (N_NODES, EF_BF16_WIDE)
+    x = torch.randn(shape, generator=gen, device=dev)
+    check_ef_bf16(x, [torch.randn(shape, generator=gen, device=dev,
+                                  dtype=torch.bfloat16) for _ in range(4)],
+                  1.956e-05, EF_BF16_WIDE, 3, compare, report)
+    del x
+    torch.cuda.empty_cache()
     return records, max_err
 
 
-def check_ef_bf16(ins, gamma, length, reps, compare, report):
+def check_ef_bf16(x, rest, gamma, length, reps, compare, report):
     """The bf16-state EF update (``ef_update_bf16``) at one length: x f32
-    and x_hat, s, q_self, q_nbr made bf16 from ``ins``; the ring's uniform
+    and ``rest``, x_hat, s, q_self, q_nbr, bf16; the ring's uniform
     weights (bf16-valued, the weighted sum in bf16) and chain's per-node
     self weights (2/3 and 1/3: the sum in f32, and its FMA recomputation
     for x differs from s' in some elements), in place, bit for bit against
@@ -687,10 +777,8 @@ def check_ef_bf16(ins, gamma, length, reps, compare, report):
     timed over the whole buffers in column chunks of EF_BF16_PLAIN_CHUNK."""
     import torch
     from repro_torch.kernels import dispatch, ref
-    dev = ins[0].device
+    dev = x.device
     bf = torch.bfloat16
-    x = ins[0]
-    rest = [t.to(bf) for t in ins[1:]]
     node = lambda w: torch.tensor(w, dtype=torch.float32, device=dev)
     third = node((1 / 3,) * N_NODES).to(bf).float()
     w_ring = (third, third, True)
@@ -1092,6 +1180,8 @@ def profile_call(label, fn, ours, show=True, streams=False, audit=False):
                   flush=True)
     out = {"wall_ms": wall, "device_busy_ms": busy, "launches": launches,
            "device_idle_share": idle, "by_kernel": by_kernel,
+           "kernel_names": {e.key: [dev_us(e) / 1e3, e.count] for e in events
+                            if dev_us(e) > 0},
            "host_top": [[ms, name, count] for ms, name, count in host],
            "wrapper_launches": wrapper, **groups}
     listed = sum(c for _, c in by_kernel.values())
@@ -1171,8 +1261,8 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
                      optimizer="momentum", lr=0.1, skew=None,
                      state_dtype="float32", packed=True, pipelined=False,
                      process=None, drop=0.1, tau=1, n_nodes=N_NODES,
-                     memory_trace=False):
-    """Full-width qwen3-1.7b (2 layers), ``n_nodes`` nodes, on
+                     memory_trace=False, arch="qwen3-1.7b", layers=2):
+    """Full-width ``arch`` (qwen3-1.7b, 2 layers), ``n_nodes`` nodes, on
     ``topology`` (1 gossip round per step), in ``mode`` with the
     ``optimizer`` local step at ``lr``, on Dirichlet(``skew``) token
     shards where given, with the EF state x_hat and s in ``state_dtype``,
@@ -1183,15 +1273,15 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
     side stream's overlap with the main stream's work), and with
     ``memory_trace`` one more under :func:`memory_at_peak`."""
     import torch
-    from repro_torch.configs.base import ChocoConfig
-    from repro_torch.configs.qwen3_1_7b import CONFIG
+    from repro_torch.configs.base import ChocoConfig, get_config
     from repro_torch.data.synthetic import make_lm_batch_fn
     from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model, count_params
     from repro_torch.optim.sgd import cosine_schedule, make_optimizer
     from repro_torch.train.trainer import DecentralizedTrainer
 
-    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
     kw = {"qsgd": (("s", 16),), "sign": ()}.get(compressor,
                                                  (("fraction", 0.01),))
     torch.cuda.reset_peak_memory_stats()
@@ -1222,8 +1312,8 @@ def train_full_width(compressor, dev, topology="ring", mode="choco",
               f"[train] the EF state is not {state_dtype}")
     init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
-    # the launcher's default sequence for the uncut 28-layer model
-    seq = min(CONFIG.n_layers * 64, 512)
+    # the launcher's default sequence for the uncut model
+    seq = min(full.n_layers * 64, 512)
     batches = make_lm_batch_fn(cfg, seq, 4, n_nodes, 1.0,
                                skew_alpha=tr.choco.data_skew_alpha)
     label = compressor if compressed else "none"
@@ -1689,15 +1779,16 @@ STALE_LAUNCHER_RUNS = (("launcher_staleness", STALE_LAUNCHER_FLAGS + [
                         STALE_LAUNCHER_FLAGS, True))
 
 
-def run_launcher(extra):
-    """The user's entry point, --smoke, on the card, with ``extra`` flags:
+def run_launcher(extra, arch="qwen3-1.7b"):
+    """The user's entry point, --smoke, on the card, at ``arch`` (qwen3-1.7b)
+    with ``extra`` flags:
     finite losses, and under choco per bucket (per leaf with
     --gossip-engine per-leaf) per step the EF update (its pipelined order
     with --pipeline-gossip) and, with QSGD, the codes and dequantize
     kernels; no kernel in the exact modes."""
     from repro_torch.kernels import dispatch
     from repro_torch.launch.train import main
-    argv = ["--arch", "qwen3-1.7b", "--smoke", "--mesh", f"{N_NODES}x1",
+    argv = ["--arch", arch, "--smoke", "--mesh", f"{N_NODES}x1",
             "--steps", str(STEPS), "--device", "cuda", *extra]
     dispatch.reset_launch_counts()
     buf = io.StringIO()
@@ -4740,17 +4831,20 @@ def sdpa_call(q, k, v, causal, window):
 
 
 def time_flash_case(label, q, k, v, kw, got):
-    """One FLASH_TIMED case: the kernel (10 launches), its plain version
-    (one call), the library yardstick (:func:`sdpa_call`, 10 calls) and the
-    bounds."""
+    """One FLASH_TIMED case: the kernel (10 launches, 3 where one takes
+    100 ms or more), its plain version (one call), the library yardstick
+    (:func:`sdpa_call`, as many calls as the kernel's) and the bounds."""
     import torch
     from repro_torch.kernels import dispatch, ref
     bms, by, f32_ms, flops = flash_bounds((q, k, v), got, kw["causal"],
                                           kw["window"])
     lib, lib_note = sdpa_call(q, k, v, kw["causal"], kw["window"])
-    ms = time_ms(lambda: dispatch.flash_attention(q, k, v, **kw), 10)
+    kernel = lambda: dispatch.flash_attention(q, k, v, **kw)
+    # 10 launches, 3 where one takes 100 ms or more (the f32 Dh 256 layers)
+    reps = 10 if time_ms(kernel, 1) < 100 else 3
+    ms = time_ms(kernel, reps)
     plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 1)
-    lib_ms = None if lib is None else time_ms(lib, 10)
+    lib_ms = None if lib is None else time_ms(lib, reps)
     torch.cuda.empty_cache()
     record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                   library_note=lib_note, bound_ms=bms, bound_by=by,
@@ -4905,15 +4999,38 @@ def time_flash_f32(dev):
     return rec
 
 
+#: [flash-instances]: one common case for every instance of both kernels,
+#: (N, S, H, KV), causal, no softcap, and the window of the windowed ones:
+#: their times side by side beside SDPA in the same dtype, the bound and
+#: the share of it, so the instances can be ranked against each other
+FLASH_INSTANCE_CASE = (1, 8192, 16, 8)
+FLASH_INSTANCE_WINDOW = 1024
+
+
+def flash_instance_cases():
+    """[flash-instances]: a :func:`check_flash` case for every instance of
+    both flash kernels (each dtype, head dim of ``HEAD_DIMS`` and window)
+    at FLASH_INSTANCE_CASE, labelled "instance <variant name>"."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    n, s, h, kv = FLASH_INSTANCE_CASE
+    return tuple((f"instance {fa.variant(dtype, dh, window)}", n, s, h, kv, dh,
+                  str(dtype)[6:], True, None, window)
+                 for dtype in (torch.bfloat16, torch.float32)
+                 for dh in fa.HEAD_DIMS[dtype]
+                 for window in (None, FLASH_INSTANCE_WINDOW))
+
+
 def check_flash_sass(path, f32_path=None):
     """The flash kernels were compiled to tensor-core code: every
     ``flash_tc_kernel`` instantiation in the bf16 library's SASS
     (``cuobjdump -sass``; each head dim of ``HEAD_DIMS``, 32, 64, 80, 128
     and 256, with and without a window: 10) holds wgmma (``HGMMA``) and TMA
     loads (``UTMALDG``), and, given the f32 library, every
-    ``flash_attention_kernel`` instantiation there (32, 64, 80 and 128,
-    with and without a window: 8) holds ``HGMMA``: a CUDA-core kernel
-    cannot pass for either.  A missing ``cuobjdump`` is a failure."""
+    ``flash_attention_kernel`` instantiation there (the same head dims,
+    Dh 256's named ``flash_attention_kernel_dh256``, with and without a
+    window: 10) holds ``HGMMA``: a CUDA-core kernel cannot pass for
+    either.  A missing ``cuobjdump`` is a failure."""
     import torch
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -4954,11 +5071,12 @@ def check_flash_sass(path, f32_path=None):
     return found
 
 
-def full_width_serving_model(dev, arch, n_layers=None):
+def full_width_serving_model(dev, arch, n_layers=None, dtype=None):
     """``arch`` at full width and depth (or ``n_layers``) with the flash
-    kernel, random weights from seed 0 drawn in f32 and cast once to bf16;
-    the f32 draw is freed before this returns.  Returns (model, params,
-    the draw's peak device memory in GiB)."""
+    kernel, random weights from seed 0 drawn in f32 and cast once to its
+    compute dtype (bf16, or ``dtype``); the f32 draw is freed before this
+    returns (in f32 it is the weights).  Returns (model, params, the
+    draw's peak device memory in GiB)."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models.transformer import Model
@@ -4966,7 +5084,8 @@ def full_width_serving_model(dev, arch, n_layers=None):
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config(arch)
     model = Model(dataclasses.replace(
-        cfg, attn_impl="chunked", n_layers=n_layers or cfg.n_layers))
+        cfg, attn_impl="chunked", n_layers=n_layers or cfg.n_layers,
+        dtype=dtype or cfg.dtype))
     params = model.compute_params(model.init(1, 0, dev))
     torch.cuda.synchronize()
     draw = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4974,8 +5093,8 @@ def full_width_serving_model(dev, arch, n_layers=None):
     held = sum(t.numel() * t.element_size() for t in params.values()) / 2 ** 30
     print(f"[prefill] {arch}: {model.cfg.n_layers} layers, "
           f"{sum(t.numel() for t in params.values())} "
-          f"parameters, {held:.3f} GiB in bf16; the f32 draw and the cast "
-          f"peaked at {draw:.3f} GiB", flush=True)
+          f"parameters, {held:.3f} GiB in {model.cfg.dtype}; the f32 draw "
+          f"and the cast peaked at {draw:.3f} GiB", flush=True)
     return model, params, draw
 
 
@@ -4984,13 +5103,14 @@ def _flash_variants():
     return dict(fa.flash_attention.variants)
 
 
-def prefill_full_width(model, params, dev):
+def prefill_full_width(model, params, dev, kernel="flash_tc_kernel"):
     """Model.prefill at 32768 tokens, PREFILL_CALLS times, then profiled:
     one flash launch per layer (the local layers' with the window), no
     other kernel, the cache of each layer kind at its length (a local
-    layer's ring min(window, 32768) slots), finite logits, the peak
-    device memory, and the profiled call split into flash / matmul /
-    other."""
+    layer's ring min(window, 32768) slots) in the model's dtype, finite
+    logits, the peak device memory, and the profiled call split into flash
+    / matmul / other, its flash launches all of ``kernel`` (the bf16
+    tensor-core kernel; "flash_attention_kernel", the f32 one)."""
     import torch
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.kernels import dispatch
@@ -5024,8 +5144,9 @@ def prefill_full_width(model, params, dev):
         check(bool(torch.isfinite(logits).all()), "prefill: non-finite logits")
         got_shapes = {k: tuple(t.shape) for k, t in caches.items()}
         check(got_shapes == want_shapes and all(
-            t.dtype == torch.bfloat16 for t in caches.values()),
-            f"prefill caches {got_shapes}, expected {want_shapes} in bf16")
+            t.dtype == model.dtype for t in caches.values()),
+            f"prefill caches {got_shapes}, expected {want_shapes} in "
+            f"{model.dtype}")
         del logits, caches
     counts = dispatch.launch_counts()
     variants = _flash_variants()
@@ -5050,15 +5171,15 @@ def prefill_full_width(model, params, dev):
                            lambda: model.prefill(params, toks), FLASH_KERNELS,
                            audit=True)
     check(profile is not None, "prefill: the profiler recorded no device time")
-    tc_ms, tc_launches = profile["by_kernel"]["flash_tc_kernel"]
+    tc_ms, tc_launches = profile["by_kernel"][kernel]
     check(tc_launches == cfg.n_layers and tc_ms > 0
           and profile["wrapper_launches"] == cfg.n_layers
-          and profile["by_kernel"]["flash_attention_kernel"][1] == 0,
+          and all(c == 0 for k, (_, c) in profile["by_kernel"].items()
+                  if k != kernel),
           f"prefill: the profiled call's flash kernels {profile['by_kernel']}"
           f", the wrappers' {profile['wrapper_launches']}; expected "
-          f"{cfg.n_layers} launches of flash_tc_kernel and none of the f32 "
-          f"kernel")
-    print(f"[prefill] the profiled {cfg.name} call: flash_tc_kernel "
+          f"{cfg.n_layers} launches of {kernel} and none of the other")
+    print(f"[prefill] the profiled {cfg.name} call: {kernel} "
           f"{tc_launches} launches, {tc_ms:.3f} ms of device time "
           f"({100 * tc_ms / profile['device_busy_ms']:.1f}% of busy); matmul "
           f"{profile['matmul']:.3f} ms, other {profile['other']:.3f} ms",
@@ -5263,8 +5384,10 @@ def replayed_picks(picks, replay):
 
 
 def serve_small_cuda_vs_cpu(dev, arch="qwen3-1.7b", attn_impl="chunked",
-                            prompt_len=200, steps=8, dtype="float32"):
-    """A smoke model in ``dtype``: the prefill's logits, then a cache of
+                            prompt_len=200, steps=8, dtype="float32",
+                            head_dim=None):
+    """A smoke model in ``dtype`` (at ``head_dim`` where given): the
+    prefill's logits, then a cache of
     prompt_len + steps slots filled through ``Model.hidden`` and ``steps``
     decode steps, on the card against the same on the CPU (the plain
     versions), within 1e-5 of the largest logit in float32 and
@@ -5281,8 +5404,9 @@ def serve_small_cuda_vs_cpu(dev, arch="qwen3-1.7b", attn_impl="chunked",
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model
-    cfg = dataclasses.replace(get_config(arch, smoke=True),
-                              dtype=dtype, attn_impl=attn_impl)
+    cfg = get_config(arch, smoke=True)
+    cfg = dataclasses.replace(cfg, dtype=dtype, attn_impl=attn_impl,
+                              head_dim=head_dim or cfg.head_dim)
     model = Model(cfg)
     params = model.compute_params(model.init(1, 1, "cpu"))
     gen = torch.Generator().manual_seed(6)
@@ -5316,7 +5440,8 @@ def serve_small_cuda_vs_cpu(dev, arch="qwen3-1.7b", attn_impl="chunked",
     top = max(float(runs["cpu"].abs().max()), 1.0)
     rtol = 1e-5 if dtype == "float32" else SMALL_BF16_RTOL
     want = 2 * cfg.n_layers if attn_impl == "chunked" else 0
-    print(f"[small] {arch} smoke {dtype} {attn_impl}: prefill {prompt_len} + "
+    print(f"[small] {arch} smoke {dtype} {attn_impl} head dim "
+          f"{cfg.resolved_head_dim}: prefill {prompt_len} + "
           f"{steps} decode steps, CUDA vs CPU max|d| = {d:.3e} (max |logit| "
           f"{top:.3f}, bound {rtol:.0e} of it); flash launches "
           f"{counts['flash_attention']} {variants}{own}", flush=True)
@@ -5431,12 +5556,14 @@ def frontend_prefill(model, params, batch, calls, label):
                     "profile": profile}
 
 
-def against_plain_flash(model, params, batch, label):
+def against_plain_flash(model, params, batch, label, rtol=FRONTEND_BF16_RTOL):
     """``Model.prefill`` of ``batch`` through the kernel and again through
     the plain flash version on the card (:func:`plain_flash`): the logits
-    and every cache leaf within FRONTEND_BF16_RTOL of max|want|, layer 0's
-    k and v (made before any attention) bit-equal.  Returns the record."""
+    and every cache leaf within ``rtol`` of max|want|, layer 0's k and v
+    (made before any attention) bit-equal.  Returns the record (the
+    caches' readings in layer order)."""
     import torch
+    from repro_torch.models.transformer import block_pattern
     got_logits, got = model.prefill(params, batch)
     with plain_flash():
         want_logits, want = model.prefill(params, batch)
@@ -5444,21 +5571,24 @@ def against_plain_flash(model, params, batch, label):
     rel = lambda a, b: float((a.float() - b.float()).abs().max()) / max(
         float(b.float().abs().max()), 1e-30)
     logits_rel = rel(got_logits, want_logits)
-    layer_rel = [max(rel(got[f"stack/c0/{n}"][:, i], want[f"stack/c0/{n}"][:, i])
-                     for n in ("k", "v"))
-                 for i in range(model.cfg.n_layers)]
+    pattern, repeat, tail = block_pattern(model.cfg)
+    leaves = ([(f"stack/c{c}/", (slice(None), r)) for r in range(repeat)
+               for c in range(len(pattern))]
+              + [(f"tail/t{i}/", (slice(None),)) for i in range(len(tail))])
+    layer_rel = [max(rel(got[key + n][at], want[key + n][at])
+                     for n in ("k", "v")) for key, at in leaves]
     first = all(torch.equal(got[f"stack/c0/{n}"][:, 0], want[f"stack/c0/{n}"][:, 0])
                 for n in ("k", "v"))
     print(f"[frontend] {label} through the kernel against the plain flash "
           f"version on the card: logits max|d|/max|want| {logits_rel:.4e}; "
           f"caches worst layer {max(layer_rel):.4e} (layer "
           f"{layer_rel.index(max(layer_rel))}), last layer {layer_rel[-1]:.4e} "
-          f"(bound {FRONTEND_BF16_RTOL:.0e}); layer 0's k and v bit-equal "
+          f"(bound {rtol:.0e}); layer 0's k and v bit-equal "
           f"{first}", flush=True)
     check(first, f"{label}: layer 0's caches differ before any attention")
-    check(logits_rel <= FRONTEND_BF16_RTOL and max(layer_rel)
-          <= FRONTEND_BF16_RTOL, f"{label}: kernel against plain flash "
-          f"logits {logits_rel:.4e}, caches {max(layer_rel):.4e}")
+    check(logits_rel <= rtol and max(layer_rel) <= rtol,
+          f"{label}: kernel against plain flash logits {logits_rel:.4e}, "
+          f"caches {max(layer_rel):.4e}")
     del got, want
     torch.cuda.empty_cache()
     return {"logits_rel": logits_rel, "cache_rel_by_layer": layer_rel}
@@ -5634,6 +5764,182 @@ def moe_full_width(dev):
     return counts, dec_counts, rec, dec
 
 
+def f32_dh256_profiled(profile):
+    """{variant: launches} of the f32 Dh 256 kernel in a profiled call,
+    read from its kernels' names (the instance's template argument: with
+    the window or without)."""
+    out = {"f32_dh256": 0, "f32_dh256_window": 0}
+    for name, (_, count) in profile["kernel_names"].items():
+        if "flash_attention_kernel_dh256" not in name:
+            continue
+        windowed = "<true>" in name or "ILb1E" in name
+        check(windowed or "<false>" in name or "ILb0E" in name,
+              f"the f32 Dh 256 kernel's name {name!r} shows no instance")
+        out["f32_dh256_window" if windowed else "f32_dh256"] += count
+    return out
+
+
+def gemma2_f32_full_width(dev):
+    """[prefill-gemma2-f32]: gemma2-9b at its published widths with
+    ``dtype="float32"``, depth cut to GEMMA2_F32_LAYERS (4 local, 4
+    global), weights from seed 0: :func:`prefill_full_width` of 32768
+    tokens through the f32 kernel (one launch per layer a call: 4
+    ``f32_dh256`` on the global layers, 4 ``f32_dh256_window`` on the local
+    ones, counted by the wrappers and, in the profiled call, by the
+    profiler), the same prefill against the plain flash version on the
+    card within PREFILL_F32_RTOL, then GEMMA2_F32_DECODE_STEPS decode steps
+    past the prompt.  Returns (the prefill's counts, the decode's counts,
+    the prefill record, the decode record)."""
+    import torch
+    model, params, draw = full_width_serving_model(
+        dev, "gemma2-9b", n_layers=GEMMA2_F32_LAYERS, dtype="float32")
+    half = GEMMA2_F32_LAYERS // 2
+    counts, rec = prefill_full_width(model, params, dev,
+                                     kernel="flash_attention_kernel")
+    want = {"f32_dh256": PREFILL_CALLS * half,
+            "f32_dh256_window": PREFILL_CALLS * half}
+    check(rec["variants"] == want, f"prefill-gemma2-f32: flash variants "
+          f"{rec['variants']}, expected {want}")
+    profiled_variants = f32_dh256_profiled(rec["profile"])
+    check(profiled_variants == {"f32_dh256": half, "f32_dh256_window": half},
+          f"prefill-gemma2-f32: the profiled call's f32 Dh 256 launches "
+          f"{profiled_variants}, expected {half} of each")
+    flash_ms, _ = rec["profile"]["by_kernel"]["flash_attention_kernel"]
+    print(f"[prefill-gemma2-f32] the profiled call's f32 Dh 256 launches by "
+          f"instance {profiled_variants}; flash {flash_ms:.3f} ms, matmul "
+          f"{rec['profile']['matmul']:.3f} ms, other "
+          f"{rec['profile']['other']:.3f} ms of "
+          f"{rec['profile']['device_busy_ms']:.3f} ms busy", flush=True)
+    rec.update(weights_draw_peak_gib=draw, layers=GEMMA2_F32_LAYERS,
+               profiled_variants=profiled_variants)
+    toks = torch.randint(0, model.cfg.vocab_size, (1, 1, 32768), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    rec["against_plain"] = against_plain_flash(
+        model, params, toks, f"gemma2-9b f32 ({GEMMA2_F32_LAYERS} layers)",
+        rtol=PREFILL_F32_RTOL)
+    dec_counts, dec = decode_past_prefill(model, params, dev,
+                                          steps=GEMMA2_F32_DECODE_STEPS)
+    del model, params, toks
+    torch.cuda.empty_cache()
+    return counts, dec_counts, rec, dec
+
+
+def train_archs_small(dev):
+    """[train-archs] small: each of TRAIN_ARCHS' smoke models (f32 and
+    bf16 compute), TRAIN_ARCHS_STEPS steps of each TRAIN_ARCHS_COMPRESSORS
+    on the ring, on the card and on the CPU from the same weights with the
+    same draws.  f32: the ``[small]`` rules (:func:`hold_small`: losses
+    within 1e-5 relative, x within 1e-5 + 1e-5 max|x|, no moved
+    selection).  bf16: the devices' bf16 matmuls sum in other orders, so
+    the losses and each bucket's update x - x0 are held within
+    SMALL_BF16_RTOL of their largest magnitude (a moved top-k selection
+    moves x by gamma times a delta, far below that).  Launches on the
+    card: per step and bucket the EF update, and with QSGD its codes and
+    dequantize.  Returns (the card's launch counts summed, the record)."""
+    import torch
+    from repro_torch.configs.base import ChocoConfig, get_config
+    from repro_torch.data.synthetic import make_lm_batch_fn
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.sgd import cosine_schedule, make_optimizer
+    from repro_torch.train.trainer import DecentralizedTrainer
+    steps = TRAIN_ARCHS_STEPS
+    report, launches = {}, {k: 0 for k in kernel_names()}
+    for arch in TRAIN_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                      dtype=dtype)
+            params = Model(cfg).init(N_NODES, 1, "cpu")
+            for comp, kw in TRAIN_ARCHS_COMPRESSORS:
+                runs = {}
+                for device in (dev, torch.device("cpu")):
+                    tr = DecentralizedTrainer(
+                        model=Model(cfg), choco=ChocoConfig(
+                            compressor=comp, comp_kwargs=kw),
+                        n_nodes=N_NODES, optimizer=make_optimizer("momentum"),
+                        lr_fn=cosine_schedule(0.1, 1, steps), device=device)
+                    state = tr.state_from_params(params)
+                    batches = make_lm_batch_fn(cfg, 128, 4, N_NODES, 1.0)
+                    dispatch.reset_launch_counts()
+                    losses = [tr.step(state, tr.batch_to_device(batches()),
+                                      draws=small_draws(tr, j))["loss"]
+                              for j in range(steps)]
+                    runs[device.type] = (losses, [b.cpu() for b in state.x],
+                                         [b.cpu() for b in state.x_hat],
+                                         dispatch.launch_counts())
+                (lc, xc, hc, counts), (lp, xp, hp, _) = runs["cuda"], runs["cpu"]
+                per = steps * tr.spec.n_buckets
+                want = {k: 0 for k in counts}
+                want["ef_update"] = per
+                if comp == "qsgd":
+                    want["qsgd_codes"] = want["dequantize"] = per
+                label = f"{arch} {dtype} {comp}"
+                check(counts == want, f"[train-archs] {label}: launches "
+                      f"{counts}, expected {want}")
+                for k, v in counts.items():
+                    launches[k] += v
+                if dtype == "float32":
+                    gammas = tr.exchange.bucket_gammas
+                    moved, dx, _, total = hold_small(
+                        f"[train-archs] {arch}", comp, gammas, (lc, xc, hc),
+                        (lp, xp, hp))
+                    what = (f"max |x_cuda - x_cpu| {dx:.3e}, moved selections "
+                            f"{moved} of {total}")
+                else:
+                    x0 = [b.cpu() for b in tr.state_from_params(params).x]
+                    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+                    upd = max(float(((a - z) - (b - z)).abs().max())
+                              / max(float((b - z).abs().max()), 1e-30)
+                              for a, b, z in zip(xc, xp, x0))
+                    what = (f"losses max rel {loss_rel:.3e}, updates x - x0 "
+                            f"max|d| / max|want| {upd:.3e} (bound "
+                            f"{SMALL_BF16_RTOL:.0e})")
+                    check(loss_rel <= SMALL_BF16_RTOL and upd
+                          <= SMALL_BF16_RTOL, f"[train-archs] {label}: {what}")
+                print(f"[train-archs] small {label}, {steps} steps, card "
+                      f"against CPU: losses {lc} vs {lp}; {what}; launches "
+                      f"{ {k: v for k, v in counts.items() if v} }",
+                      flush=True)
+                report[label] = {"losses_cuda": lc, "losses_cpu": lp,
+                                 "detail": what}
+                del tr, state
+            torch.cuda.empty_cache()
+    return launches, report
+
+
+def train_archs(dev):
+    """[train-archs]: the full-width run (TRAIN_ARCH_FULL: gemma-7b, 1
+    layer, top_k 0.01, bf16 EF state, plain SGD, through
+    :func:`train_full_width`) with its ms a step, peak, wire bytes per node
+    per step and gossip launches per step; the smoke archs card against
+    CPU (:func:`train_archs_small`); the launcher at TRAIN_ARCHS_LAUNCHER.
+    Returns ({path: launch counts}, the record)."""
+    import torch
+    arch, layers = TRAIN_ARCH_FULL
+    full_counts, full = train_full_width("top_k", dev, arch=arch,
+                                         layers=layers,
+                                         state_dtype="bfloat16",
+                                         optimizer="sgd")
+    per_step = {k: v / STEPS for k, v in full_counts.items() if v}
+    print(f"[train-archs] {arch} at full width, {layers} layer, "
+          f"{N_NODES} nodes, ring, top_k 0.01, bf16 EF state, sgd: ms/step "
+          f"{[round(m, 1) for m in full['ms_per_step']]} (first step "
+          f"included); peak {full['peak_gib']:.3f} GiB ({full['init_peak_gib']:.3f} "
+          f"GiB at init); wire bytes per node per step "
+          f"{full['wire_bytes_per_node_step']}; gossip launches per step "
+          f"{per_step} over {full['units']} buckets", flush=True)
+    torch.cuda.empty_cache()
+    small_counts, small = train_archs_small(dev)
+    paths = {f"train_archs_{arch}": full_counts,
+             "train_archs_small": small_counts}
+    for name in TRAIN_ARCHS_LAUNCHER:
+        paths[f"launcher_{name}"] = run_launcher(
+            ["--compressor", "top_k", "--fraction", "0.05"], arch=name)
+    return paths, {"full_width": dict(full, arch=arch, layers=layers,
+                                      launches_per_step=per_step),
+                   "small": small}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5797,9 +6103,11 @@ def main():
         g2_serve_counts, g2_serve = serve_full_width("gemma2-9b")
         torch.cuda.empty_cache()
     with phase("dense-small"):
-        dense_small = {f"{arch}_{impl}": serve_small_cuda_vs_cpu(
-            dev, arch, impl, prompt_len=24, steps=40)
-            for arch, impl in DENSE_SMALL}
+        dense_small = {"_".join([arch, impl] + [f"dh{d}" for d in dh]):
+                       serve_small_cuda_vs_cpu(dev, arch, impl, prompt_len=24,
+                                               steps=40,
+                                               head_dim=dh[0] if dh else None)
+                       for arch, impl, *dh in DENSE_SMALL}
     g2_phases = ("prefill-gemma2", "consistency-gemma2", "serve-gemma2",
                  "dense-small")
     print(f"[phase] the gemma2-9b and dense-variant phases took "
@@ -5839,6 +6147,24 @@ def main():
     moe_phases = ("flash-dh32", "prefill-moe", "moe-small")
     print(f"[phase] the MoE phases took "
           f"{sum(PHASES[p] for p in moe_phases):.1f} s together", flush=True)
+    # the f32 flash at Dh 256 on gemma2-9b's prefill; training the served
+    # dense variants and frontends
+    with phase("prefill-gemma2-f32"):
+        (g2f32_counts, g2f32_decode_counts, g2f32,
+         g2f32_decode) = gemma2_f32_full_width(dev)
+    with phase("train-archs"):
+        train_arch_paths, train_arch_rec = train_archs(dev)
+        torch.cuda.empty_cache()
+    with phase("flash-instances"):
+        cases = flash_instance_cases()
+        instance_records, _ = check_flash(
+            dev, cases, tuple(c[0] for c in cases), seed=12)
+        flash_instances = {k.split()[1]: v
+                           for k, v in instance_records.items()}
+    new_phases = ("prefill-gemma2-f32", "train-archs", "flash-instances")
+    print(f"[phase] the f32 gemma2 prefill, training and flash instance "
+          f"phases took "
+          f"{sum(PHASES[p] for p in new_phases):.1f} s together", flush=True)
 
     # launches of each kernel on every path this script drives (the counts
     # set to 0 just before each path and read just after); the per-rank
@@ -5888,13 +6214,17 @@ def main():
         "serve_llava": llava_serve_counts, "prefill_moe": moe_counts,
         "decode_32k_moe": moe_decode_counts,
         **{f"moe_small_{k}": c for k, (c, _) in moe_small.items()},
-        "serve_moe": moe_serve_counts}
+        "serve_moe": moe_serve_counts,
+        "prefill_gemma2_f32": g2f32_counts,
+        "decode_32k_gemma2_f32": g2f32_decode_counts,
+        **train_arch_paths}
     by_kernel = lambda name: {p: c[name] for p, c in paths.items()}
     # the training paths whose launches count as the gossip kernels' main
     # path: the four compressors, star, the bf16-state runs, the [modes]
     # runs, the [pushsum] runs, the [checkpoint] runs and its elastic
     # warmups
     train_paths = (list(by_path) + ["topology_star"]
+                   + [f"train_archs_{TRAIN_ARCH_FULL[0]}"]
                    + [f"state_bf16_{c}" for c in state_bf16]
                    + list(engines)
                    + [f"modes_{label}" for label in modes]
@@ -5941,6 +6271,9 @@ def main():
             "library_ms": rec["library_ms"], "shape": rec["shape"]})
         if name == "qsgd_leaf_codes":
             kernels[-1]["bf16_input"] = records["qsgd_leaf_codes_bf16"]
+        if name == "ef_update_bf16":
+            kernels[-1]["gemma_7b_embedding_bucket"] = records[
+                f"ef_update_bf16_len{EF_BF16_WIDE}"]
         check(kernels[-1]["launches"] > 0, f"{name} never launched")
     # the replica update has no pallas_call counterpart: it replaces the
     # process engine's update, which JAX runs as jnp; its main path is the
@@ -5998,7 +6331,11 @@ def main():
                      **{f"moe_small_{k}": v
                         for k, (_, v) in moe_small.items()},
                      "dense_small_yi-9b_chunked":
-                         dense_small["yi-9b_chunked"][1]}
+                         dense_small["yi-9b_chunked"][1],
+                     "prefill_gemma2_f32": g2f32["variants"],
+                     **{f"dense_small_{arch}_chunked_dh256":
+                        dense_small[f"{arch}_chunked_dh256"][1]
+                        for arch in ("gemma2-9b", "gemma-7b")}}
     for name, label, variant in (
             ("flash_attention_bf16_dh256", "gemma2 global layer", "bf16_dh256"),
             ("flash_attention_bf16_dh256_window", "gemma2 local layer",
@@ -6061,6 +6398,26 @@ def main():
             "max_abs_err": rec["contract"]["max_abs_err"], **rec})
         check(kernels[-1]["launches"] > 0, f"{name} never launched on the "
               f"MoE smoke paths")
+    # its f32 Dh 256 instances, without and with the window, on the f32
+    # gemma2-9b prefill path (its global and local layers)
+    for name, label, variant in (
+            ("flash_attention_f32_dh256", "f32 gemma2 global layer",
+             "f32_dh256"),
+            ("flash_attention_f32_dh256_window", "f32 gemma2 local layer",
+             "f32_dh256_window")):
+        rec = flash_records[label]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:77",
+            "launches": g2f32["variants"].get(variant, 0),
+            "launches_by_path": {p: v.get(variant, 0)
+                                 for p, v in variant_paths.items()},
+            "max_abs_err": rec["contract"]["max_abs_err"], **rec})
+        if variant == "f32_dh256":
+            kernels[-1]["gemma_7b_layer"] = flash_records["f32 gemma-7b layer"]
+        check(kernels[-1]["launches"] > 0, f"{name} never launched on the "
+              f"f32 gemma2-9b prefill path")
     # its path is its public op, as in the JAX package; no trainer path
     # reaches it (the engine selects top-k payloads in plain PyTorch)
     kernels.append({
@@ -6109,6 +6466,10 @@ def main():
                               "small": {k: v for k, (_, v) in
                                         moe_small.items()},
                               "serve": moe_serve},
+                      "gemma2_f32": {"prefill": g2f32,
+                                     "decode_32k": g2f32_decode},
+                      "train_archs": train_arch_rec,
+                      "flash_instances": flash_instances,
                       "dist_small": {k: v for k, v in dist_small_report.items()
                                      if k != "launches"},
                       "dist_full_width": dist_full,

@@ -44,9 +44,12 @@ BLOCK_COMPRESS_SIZE = 1 << 22
 _MASK64 = (1 << 64) - 1
 
 #: leaf names the JAX sharding rules split over the model axis
-#: (``launch/sharding.py``: column, row and vocab-sharded weights)
+#: (``launch/sharding.py``: column, row and vocab-sharded weights), of the
+#: archs the port trains: the decoders' and hubert's ``in_proj`` and
+#: llava's projector ``w1`` and ``w2`` (hubert's class ``head`` is
+#: replicated)
 _MODEL_SHARDED = frozenset({"wq", "wk", "wv", "w_gate", "w_up", "unembed",
-                            "wo", "w_down", "tok"})
+                            "wo", "w_down", "tok", "in_proj", "w1", "w2"})
 
 
 @dataclasses.dataclass(frozen=True)

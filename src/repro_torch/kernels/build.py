@@ -13,9 +13,8 @@ never load a half-written file.
   ``--fmad=false``: the QSGD codes must be bit-equal to their plain
   versions, and an FMA contraction moves a code by a whole level.
 * ``flash`` (``csrc/flash_attention.cu``): the f32 flash-attention
-  forward on the CUDA cores, held to a tolerance, so FMA contraction
-  stays on: its inner loops are dot products, and ``--fmad=false`` would
-  split every one of them into a multiply and an add.
+  forward on the tensor cores in 3xTF32, held to a tolerance, so FMA
+  contraction stays on.
 * ``flash_tc`` (``csrc/flash_attention_sm90.cu``): the bf16
   flash-attention forward on the tensor cores (wgmma, TMA), held to a
   tolerance, FMA contraction on like ``flash``; the steps whose rounding

@@ -16,8 +16,9 @@
 //   out = acc / max(l_sum, 1e-30)
 //
 // Layout: q and out are (N, S, H, Dh), k and v (N, S, KV, Dh), contiguous,
-// read in place: head h reads KV head h / (H / KV).  Any S; Dh 32, 64, 80
-// or 128.
+// read in place: head h reads KV head h / (H / KV).  Any S; Dh 32, 64, 80,
+// 128 or 256 (Dh 256 has a plan of its own: 32-key blocks, two consumer
+// warpgroups, "Dh = 256" below).
 // A sliding window is a template instance of its own (a call without one
 // runs the code it ran before): a query tile starts at the first key block
 // that reaches its first row's window, as a causal tile stops at its
@@ -336,6 +337,28 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// d (64 x 16, f32) += A (64 x 8, smem) B (8 x 16, smem), both K-major:
+// one consumer warpgroup's half of a 32-key block's Q K^T at Dh = 256.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : ACC8(0)
+      : "l"(a), "l"(b));
+}
+
+// d (64 x 128, f32) += A (64 x 8, smem) B (8 x 128, smem), both K-major:
+// one consumer warpgroup's 128 output columns of P V at Dh = 256.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " REGS64
+      ", %64, %65, p, 1, 1;\n}\n"
+      : ACC64
+      : "l"(a), "l"(b));
+}
+
 #undef ACC8
 #undef ACC16
 #undef ACC32
@@ -366,8 +389,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 // The first key block of a query tile whose first row is q0, under a
 // window: every block before it lies wholly before that row's window
 // (its last key <= q0 - window), so wholly before every row's of the tile.
-__device__ __forceinline__ int first_block(int q0, int window) {
-  return q0 - window + 1 > 0 ? (q0 - window + 1) / kKeys : 0;
+__device__ __forceinline__ int first_block(int q0, int window, int keys = kKeys) {
+  return q0 - window + 1 > 0 ? (q0 - window + 1) / keys : 0;
 }
 
 __device__ __forceinline__ float lane_of(const float4& v, int j) {
@@ -389,10 +412,10 @@ __device__ __forceinline__ float lane_of(const float4& v, int j) {
 // 8 such units take kVRounds rounds of the warpgroup's 16 groups; at
 // Dh 80 the third round's groups 40..47 have no unit.
 
-template <int Dh>
+template <int Dh, int Keys = kKeys, uint32_t Part = Layout<Dh>::kPart>
 struct Producer {
-  static constexpr int kLoads = kKeys * Dh / 4 / 128;   // K float4 per thread
-  static constexpr int kVGroups = 4 * (Dh / 8);          // V: groups of 8 units
+  static constexpr int kLoads = Keys * Dh / 4 / 128;    // K float4 per thread
+  static constexpr int kVGroups = (Keys / 16) * (Dh / 8);  // V: groups of 8 units
   static constexpr int kVRounds = (kVGroups + 15) / 16;
   const float* k;
   const float* v;
@@ -425,11 +448,11 @@ struct Producer {
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int i = t + 128 * u;
-      const uint32_t at = swizzled(slot, kKeys, i / (Dh / 4), 4 * (i % (Dh / 4)));
+      const uint32_t at = swizzled(slot, Keys, i / (Dh / 4), 4 * (i % (Dh / 4)));
       const Split a = split(r[u].x), b = split(r[u].y), c = split(r[u].z),
                   d = split(r[u].w);
       st_shared_v4(at, a.big, b.big, c.big, d.big);
-      st_shared_v4(at + Layout<Dh>::kPart, a.small, b.small, c.small, d.small);
+      st_shared_v4(at + Part, a.small, b.small, c.small, d.small);
     }
   }
 
@@ -458,7 +481,7 @@ struct Producer {
                     c = split(lane_of(r[4 * blk + 2], j)),
                     d = split(lane_of(r[4 * blk + 3], j));
         st_shared_v4(at, a.big, b.big, c.big, d.big);
-        st_shared_v4(at + Layout<Dh>::kPart, a.small, b.small, c.small, d.small);
+        st_shared_v4(at + Part, a.small, b.small, c.small, d.small);
       }
     }
   }
@@ -692,6 +715,289 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- Dh = 256 ----------------------------------------------------------------
+//
+// At Dh = 256 the plan above does not fit: Q's parts take 128 KB and one
+// 64-key slot another 128 KB, and a consumer thread would hold the output
+// and the block's P V at 128 registers each.  So this instance takes
+// 32-key blocks and two consumer warpgroups over the same 64 query rows
+// (384 threads with the producer, at most 168 registers a thread):
+//
+//   * Q K^T is split by keys: warpgroup w computes the logits of keys
+//     16 w .. 16 w + 15 of the block (m64n16k8, Q's and K's parts in shared
+//     memory, the same three terms in the same order as above, Dh / 8 = 32
+//     k-steps a term);
+//   * the row max is the larger of the two halves', exchanged through
+//     shared memory (a named barrier over the 256 consumer threads), so both
+//     warpgroups hold the same m and alpha; each keeps its own share of the
+//     row sums, added once at the end;
+//   * each writes its half of P, split into TF32 big and small parts, into
+//     shared memory (64 rows x 32 keys, 128-byte swizzled, keys permuted as
+//     V^T's are), and after a second named barrier warpgroup w computes P V
+//     for output columns 128 w .. 128 w + 127 over all 32 keys (m64n128k8,
+//     A = P from shared memory, B = V^T rows 128 w .. from the slot), summed
+//     from zero and added as acc * alpha + P V, as above;
+//   * shared memory: Q's parts 128 KB, one slot of 64 KB that holds K, then
+//     V^T, of one block at a time (the producer loads the next block into
+//     registers while the slot is read), P's parts 16 KB, the row maxima and
+//     sums 1 KB: 210 KB with the slack and the barriers;
+//   * registers: a consumer thread holds the output 64, the block's P V 64
+//     and its logits 8; the producer 16 float4 of K and 16 of V.
+namespace wide {
+constexpr int kDh = 256;
+constexpr int kKeys = 32;                       // keys per block
+constexpr int kThreads = 384;                   // 2 consumer + producer warpgroup
+constexpr uint32_t kQPart = kRows * kDh * 4;    // 64 KB: Q's big or small part
+constexpr uint32_t kPart = kKeys * kDh * 4;     // 32 KB: K's (or V^T's) part
+constexpr uint32_t kSlot = 0 + 2 * kQPart;      // K or V^T, big then small
+constexpr uint32_t kP = kSlot + 2 * kPart;      // P's big, then small part
+constexpr uint32_t kPPart = kRows * kKeys * 4;  // 8 KB
+constexpr uint32_t kRed = kP + 2 * kPPart;      // row max [2][64], row sum [2][64]
+constexpr uint32_t kBar = kRed + 4 * kRows * 4;
+constexpr uint32_t kBytes = kBar + 16 + 1024;   // full, empty; the alignment slack
+static_assert(kBytes <= kSmemMax, "a CTA has 227 KB of shared memory");
+}  // namespace wide
+
+template <bool kWindow>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+flash_attention_kernel_dh256(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, float* __restrict__ out,
+                             int S, int H, int KV, int causal, int window,
+                             float softcap, float scale) {
+  // this instance's plan (the names shadow the 64-key plan's)
+  constexpr int kDh = wide::kDh, kKeys = wide::kKeys;
+  constexpr uint32_t kQPart = wide::kQPart, kPart = wide::kPart;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t qbig = base, qsmall = qbig + kQPart;
+  const uint32_t slot = base + wide::kSlot;
+  const uint32_t pbig = base + wide::kP, psmall = pbig + wide::kPPart;
+  float* red_max = reinterpret_cast<float*>(smem_raw + (base - raw) + wide::kRed);
+  float* red_sum = red_max + 2 * kRows;
+  const uint32_t full = base + wide::kBar, empty = full + 8;
+  // K(it) is item 2 it and V(it) item 2 it + 1, both in the one slot
+  auto phase = [](int item) { return static_cast<uint32_t>(item) & 1u; };
+
+  const int n_tiles = (S + kRows - 1) / kRows;
+  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x);
+  const int n = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int g = h / (H / KV);
+  const int q0 = tile * kRows;
+  const int n_k = causal ? (q0 + kRows - 1) / kKeys + 1 : (S + kKeys - 1) / kKeys;
+  const int kb_lo = kWindow ? first_block(q0, window, kKeys) : 0;
+  const int64_t q_row = static_cast<int64_t>(H) * kDh;
+  const int64_t kv_row = static_cast<int64_t>(KV) * kDh;
+  const int64_t q_base = static_cast<int64_t>(n) * S * q_row + static_cast<int64_t>(h) * kDh;
+  const int64_t kv_base = static_cast<int64_t>(n) * S * kv_row + static_cast<int64_t>(g) * kDh;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full, 128);
+    mbar_init(empty, 256);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer: the next block's K is in flight while V is read
+    using Pr = Producer<kDh, kKeys, kPart>;
+    const Pr pr{k, v, kv_base, kv_row, S, static_cast<int>(threadIdx.x) - 256};
+    float4 kr[Pr::kLoads], vr[4 * Pr::kVRounds];
+    pr.load_k(kb_lo * kKeys, kr);
+    for (int it = 0; kb_lo + it < n_k; ++it) {
+      const int kb = kb_lo + it;
+      pr.load_v(kb * kKeys, vr);
+      mbar_wait(empty, phase(2 * it) ^ 1u);
+      pr.store_k(slot, kr);
+      fence_proxy_async();
+      mbar_arrive(full);
+      if (kb + 1 < n_k) pr.load_k((kb + 1) * kKeys, kr);
+      mbar_wait(empty, phase(2 * it + 1) ^ 1u);
+      pr.store_v(slot, vr);
+      fence_proxy_async();
+      mbar_arrive(full);
+    }
+    return;
+  }
+
+  // consumers: warpgroup w, the 64 query rows q0 .. q0 + 63
+  const int t = threadIdx.x;
+  const int w = t >> 7;
+  const int lane = t % 32;
+  const int r0 = 16 * ((t & 127) / 32) + lane / 4;   // and r0 + 8
+  const int c = lane % 4;
+
+  for (int i = t; i < kRows * kDh; i += 256) {
+    const int row = i / kDh, col = i % kDh;
+    const float x = q0 + row < S
+                        ? __fmul_rn(q[q_base + (q0 + row) * q_row + col], scale)
+                        : 0.0f;
+    const Split sp = split(x);
+    st_shared(swizzled(qbig, kRows, row, col), sp.big);
+    st_shared(swizzled(qsmall, kRows, row, col), sp.small);
+  }
+  fence_proxy_async();
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+
+  float o[64], pv[64], s[8];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l_sum[2] = {0.0f, 0.0f};     // this thread's share of its half's row sums
+
+  for (int it = 0; kb_lo + it < n_k; ++it) {
+    const int kb = kb_lo + it;
+    const int k0 = kb * kKeys;
+    // logits of keys 16 w .. 16 w + 15: 32 k-steps a term; step kk reads
+    // 32 B at column 8 (kk % 4) of box kk / 4, rows 16 w on of K's
+    const uint64_t dqb = desc(qbig), dqs = desc(qsmall);
+    const uint64_t dkb = desc(slot + w * 16 * kRowBytes),
+                   dks = desc(slot + kPart + w * 16 * kRowBytes);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = 0.0f;
+    mbar_wait(full, phase(2 * it));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDh / 8; ++kk) {
+      const uint32_t qo = ((kk / 4) * kRows * kRowBytes + (kk % 4) * 32) >> 4;
+      const uint32_t ko = ((kk / 4) * kKeys * kRowBytes + (kk % 4) * 32) >> 4;
+      wgmma_ss(s, dqb + qo, dks + ko);          // big . small
+      wgmma_ss(s, dqs + qo, dkb + ko);          // small . big
+    }
+#pragma unroll
+    for (int kk = 0; kk < kDh / 8; ++kk) {
+      const uint32_t qo = ((kk / 4) * kRows * kRowBytes + (kk % 4) * 32) >> 4;
+      const uint32_t ko = ((kk / 4) * kKeys * kRowBytes + (kk % 4) * 32) >> 4;
+      wgmma_ss(s, dqb + qo, dkb + ko);          // big . big
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    mbar_arrive(empty);
+
+    const int kw = k0 + 16 * w;                 // this half's first key
+    if (softcap > 0.0f) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        s[i] = __fmul_rn(softcap, tanhf(__fdiv_rn(s[i], softcap)));
+    }
+    if (k0 + kKeys > S || (causal && k0 + kKeys - 1 > q0) ||
+        (kWindow && k0 < q0 + kRows - window)) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int kpos = kw + 8 * (i >> 2) + 2 * c + (i & 1);
+        const int qpos = q0 + r0 + 8 * ((i >> 1) & 1);
+        if (kpos >= S || (causal && kpos > qpos) ||
+            (kWindow && kpos <= qpos - window))
+          s[i] = kNegInf;
+      }
+    }
+    // the block's row max over both halves
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      if (c == 0) red_max[w * kRows + r0 + 8 * r] = mx[r];
+    }
+    asm volatile("bar.sync 2, 256;" ::: "memory");
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], fmaxf(mx[r], red_max[(1 - w) * kRows + r0 + 8 * r]));
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+
+    // p = exp(l - m') in f32 for the row sums, split into P's parts in
+    // shared memory, key k of the block at its permuted position
+    float psum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float e = exp_approx(s[i] - m[(i >> 1) & 1]);
+      psum[(i >> 1) & 1] += e;
+      const Split sp = split(e);
+      const int key = 16 * w + 8 * (i >> 2) + 2 * c + (i & 1);
+      const int pos = 8 * (key >> 3) + 4 * (key & 1) + ((key & 7) >> 1);
+      const int row = r0 + 8 * ((i >> 1) & 1);
+      st_shared(swizzled(pbig, kRows, row, pos), sp.big);
+      st_shared(swizzled(psmall, kRows, row, pos), sp.small);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      l_sum[r] = __fadd_rn(__fmul_rn(l_sum[r], alpha[r]), psum[r]);
+    fence_proxy_async();
+    asm volatile("bar.sync 3, 256;" ::: "memory");
+
+    // this block's P V for columns 128 w ..: 4 k-steps of 8 keys; step j
+    // reads 32 B at key column 8 j of P's and V^T's rows
+    const uint64_t dpb = desc(pbig), dps = desc(psmall);
+    const uint64_t dvb = desc(slot + w * 128 * kRowBytes),
+                   dvs = desc(slot + kPart + w * 128 * kRowBytes);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) pv[i] = 0.0f;
+    mbar_wait(full, phase(2 * it + 1));
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      wgmma_ss(pv, dpb + 2 * j, dvs + 2 * j);   // big . small
+      wgmma_ss(pv, dps + 2 * j, dvb + 2 * j);   // small . big
+    }
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) wgmma_ss(pv, dpb + 2 * j, dvb + 2 * j);  // big . big
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(pv);
+    mbar_arrive(empty);
+
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      o[i] = __fadd_rn(__fmul_rn(o[i], alpha[(i >> 1) & 1]), pv[i]);
+  }
+
+  // the row sums: this warpgroup's share, then both halves'
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float part = quad_sum(l_sum[r]);
+    if (c == 0) red_sum[w * kRows + r0 + 8 * r] = part;
+  }
+  asm volatile("bar.sync 2, 256;" ::: "memory");
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const float denom = fmaxf(__fadd_rn(red_sum[row], red_sum[kRows + row]), 1e-30f);
+    const int qpos = q0 + row;
+    if (qpos < S) {
+      float* dst = out + q_base + qpos * q_row + 128 * w + 2 * c;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(__fdiv_rn(o[4 * j + 2 * r], denom),
+                        __fdiv_rn(o[4 * j + 2 * r + 1], denom));
+    }
+  }
+}
+
+template <bool kWindow>
+int launch_dh256(const void* q, const void* k, const void* v, void* out, int64_t n,
+                 int64_t s, int64_t h, int64_t kv, int causal, int window,
+                 float softcap, float scale, cudaStream_t stream) {
+  auto kernel = flash_attention_kernel_dh256<kWindow>;
+  constexpr uint32_t bytes = wide::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((s + kRows - 1) / kRows),
+                  static_cast<unsigned>(n * h));
+  kernel<<<grid, wide::kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), static_cast<int>(s),
+      static_cast<int>(h), static_cast<int>(kv), causal, window, softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int Dh, bool kWindow>
 int launch(const void* q, const void* k, const void* v, void* out, int64_t n,
            int64_t s, int64_t h, int64_t kv, int causal, int window,
@@ -743,6 +1049,11 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
   if (dh == 128)
     return launch_dh<128>(q, k, v, out, n, s, h, kv, causal, window, softcap,
                           scale, stream);
+  if (dh == 256)
+    return window > 0 ? launch_dh256<true>(q, k, v, out, n, s, h, kv, causal,
+                                           window, softcap, scale, stream)
+                      : launch_dh256<false>(q, k, v, out, n, s, h, kv, causal, 0,
+                                            softcap, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

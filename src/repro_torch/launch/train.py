@@ -59,13 +59,19 @@ import tempfile
 import time
 
 # torch-free: argument validation runs before torch is imported
-from repro_torch.configs.base import (STATE_DTYPES, parse_delay_probs,
+from repro_torch.configs.base import (STATE_DTYPES, get_config,
+                                      parse_delay_probs,
                                       parse_straggler_edges, parse_topology)
 from repro_torch.core.topology import DIRECTED_TOPOLOGIES, TOPOLOGIES
 from repro_torch.checkpoint.manifest import read_manifest
 from repro_torch.launch.env import file_rendezvous, torchrun_rendezvous
 
-ARCH_CHOICES = ("qwen3-1.7b",)
+#: the archs the launcher trains: the dense decoders and the frontends the
+#: port serves (the MoE family's FFN has no training path yet)
+ARCH_CHOICES = ("qwen3-1.7b", "gemma2-9b", "gemma-7b", "yi-9b",
+                "hubert-xlarge", "llava-next-mistral-7b")
+#: the MoE family, served but not trained
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b")
 #: the compressors the JAX launcher can run (randomized_gossip takes p, not
 #: --fraction: the JAX launcher fails on it, and this one refuses it)
 COMPRESSOR_CHOICES = ("identity", "rand_k", "top_k", "block_top_k", "qsgd",
@@ -98,6 +104,12 @@ _REFUSED = {
     "profile_dir": (None, "the profiler session"),
     "profile_steps": (None, "the profiler session"),
 }
+
+
+def default_seq_len(cfg) -> int:
+    """The sequence without ``--seq-len``: the JAX launcher's, 64 a layer
+    up to 512."""
+    return min(cfg.n_layers * 64, 512)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -192,9 +204,22 @@ def _parser() -> argparse.ArgumentParser:
 
 def _validate(ap, args) -> int:
     """Fail fast on anything outside the slice; returns the node count."""
+    if args.arch in MOE_ARCHS:
+        ap.error(f"--arch {args.arch!r}: training the MoE family is not "
+                 f"ported (ROADMAP §1.4); it is served only "
+                 f"(repro_torch.launch.serve)")
     if args.arch not in ARCH_CHOICES:
         ap.error(f"--arch {args.arch!r} is not ported; choose from "
                  f"{', '.join(ARCH_CHOICES)}")
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "vlm":
+        image = cfg.frontend.n_tokens
+        seq = args.seq_len or default_seq_len(cfg)
+        if seq - image - 1 < 1:
+            ap.error(f"--seq-len {seq} leaves no text after {cfg.name}'s "
+                     f"{image} image tokens (the batch's text takes S - "
+                     f"{image} positions, S - {image} - 1 token steps); pass "
+                     f"--seq-len {image + 2} or more")
     for dest, (default, what) in _REFUSED.items():
         if getattr(args, dest) != default:
             flag = "--" + dest.replace("_", "-")
@@ -469,7 +494,7 @@ def _train(args, n_nodes: int, group) -> int:
     """Train ``args.steps`` steps: all nodes here (``group`` None) or this
     rank's node.  Only the stacked run or rank 0 prints."""
     import torch
-    from repro_torch.configs.base import ChocoConfig, get_config
+    from repro_torch.configs.base import ChocoConfig
     from repro_torch.data.synthetic import make_lm_batch_fn
     from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model, count_params
@@ -511,7 +536,7 @@ def _train(args, n_nodes: int, group) -> int:
         lr_fn=cosine_schedule(args.lr, warmup=min(100, args.steps // 10 + 1),
                               total=args.steps),
         device=device, group=group, mode=args.mode)
-    seq = args.seq_len or min(cfg.n_layers * 64, 512)
+    seq = args.seq_len or default_seq_len(cfg)
     bpn = args.batch_per_node or 4
     next_batch = make_lm_batch_fn(cfg, seq, bpn, n_nodes, args.heterogeneity,
                                   skew_alpha=trainer.choco.data_skew_alpha,

@@ -653,6 +653,12 @@ def test_flash_attention_kernel_matches_plain(cuda, n, s, h, kv, dh, dtype,
     (2, 1000, 16, 8, 128, torch.float32, True, 50.0, 300),
     (2, 1000, 8, 4, 64, torch.float32, False, None, 100),
     (1, 700, 4, 2, 128, torch.float32, True, None, 1),
+    (1, 2048, 16, 8, 256, torch.float32, True, 50.0, None),
+    (2, 1000, 16, 8, 256, torch.float32, True, None, 300),
+    (2, 1000, 16, 16, 256, torch.float32, False, 50.0, None),
+    (2, 1000, 16, 8, 256, torch.float32, False, None, 300),
+    (1, 2048, 16, 8, 256, torch.float32, True, 50.0, 512),
+    (1, 700, 4, 2, 256, torch.float32, True, None, 1),
 ])
 def test_flash_attention_kernel_dh256_and_window_match_plain(
         cuda, n, s, h, kv, dh, dtype, causal, softcap, window):

@@ -140,6 +140,29 @@ def _decode_against_jax(jmodel, jparams, model, params, steps, seed):
         _assert_caches(cache, jcache, RTOL["float32"])
 
 
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma-7b"])
+def test_head_dim_256_f32_chunked_prefill_and_decode_match_jax(arch):
+    """The smoke model at the full configs' head dim 256 in f32 with
+    ``attn_impl="chunked"`` (the f32 flash path at Dh 256: gemma2's local
+    layers with the window of 16 and a softcap of 50, its global layers
+    and gemma-7b's MHA layers without one): prefill of 64 tokens, then 8
+    decode steps, logits and every cache leaf within 1e-5 of JAX's."""
+    kw = dict(dtype="float32", attn_impl="chunked", head_dim=256)
+    jcfg = dataclasses.replace(jget_config(arch, smoke=True), **kw)
+    jmodel = JModel(jcfg)
+    model = Model(dataclasses.replace(get_config(arch, smoke=True), **kw))
+    assert model.cfg.resolved_head_dim == 256
+    jparams = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    params = model.compute_params(model_params_from_jax(jparams))
+    toks = _tokens(7, (B, S), jcfg.vocab_size)
+    jlogits, jcaches = jax.jit(jmodel.prefill)(jparams,
+                                               {"tokens": jnp.asarray(toks)})
+    logits, caches = model.prefill(params, torch.from_numpy(toks)[None].long())
+    assert _rel(logits[0], jlogits) < RTOL["float32"]
+    _assert_caches(caches, jcaches, RTOL["float32"])
+    _decode_against_jax(jmodel, jparams, model, params, 8, seed=8)
+
+
 def test_gemma2_decode_steps_wrap_the_ring_as_jax():
     jmodel, jparams, model, params = _models("gemma2-9b")
     cache = model.init_cache(B, 40, "cpu")

@@ -36,10 +36,12 @@ from test_torch_slice import one_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-5
 
-#: (S, Dh, causal, softcap): both lengths (one odd), the three head dims,
-#: both masks, and one softcap case
-CASES = [(s, dh, causal, None) for s in (256, 1000) for dh in (64, 80, 128)
-         for causal in (True, False)] + [(1000, 64, True, 30.0)]
+#: (S, Dh, causal, softcap): both lengths (one odd), the four head dims,
+#: both masks, and a softcap case at Dh 64 and at 256
+CASES = [(s, dh, causal, None) for s in (256, 1000)
+         for dh in (64, 80, 128, 256)
+         for causal in (True, False)] + [(1000, 64, True, 30.0),
+                                         (1000, 256, True, 50.0)]
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -150,18 +152,19 @@ def chain(acc, terms, depth):
     return acc
 
 
-def tensor_core_attention(q, k, v, kernel_order):
-    """One head, non-causal, 64-key blocks, 3xTF32 on emulated tensor
-    cores.  ``kernel_order``: the kernel's (corrections first, the block's
-    P V summed from zero and added with round-to-nearest); else one chain
-    per product (terms interleaved per step, P V into the running output)."""
+def tensor_core_attention(q, k, v, kernel_order, keys=64):
+    """One head, non-causal, ``keys``-key blocks (64; 32 at Dh 256),
+    3xTF32 on emulated tensor cores.  ``kernel_order``: the kernel's
+    (corrections first, the block's P V summed from zero and added with
+    round-to-nearest); else one chain per product (terms interleaved per
+    step, P V into the running output)."""
     S, Dh = q.shape
     qb, ql = split(q * (1.0 / math.sqrt(Dh)))
     m = torch.full((S,), NEG_INF)
     l = torch.zeros(S)
     o = torch.zeros((S, Dh))
-    for k0 in range(0, S, 64):
-        (kb, kl), (vb, vl) = split(k[k0:k0 + 64]), split(v[k0:k0 + 64])
+    for k0 in range(0, S, keys):
+        (kb, kl), (vb, vl) = split(k[k0:k0 + keys]), split(v[k0:k0 + keys])
         keys = kb.shape[0]
         if kernel_order:
             s = chain(chain(None, [(qb, kl.T), (ql, kb.T)], Dh),
@@ -202,6 +205,21 @@ def test_the_kernels_accumulation_order_keeps_the_contract_at_dh80():
     want = ref.flash_attention_ref(q[None, :, None], k[None, :, None],
                                    v[None, :, None], causal=False)[0, :, 0]
     assert gap(tensor_core_attention(q, k, v, True), want) <= RTOL / 2
+
+
+def test_the_kernels_accumulation_order_keeps_the_contract_at_dh256():
+    """The same at gemma's head dim 256, in the order of the Dh 256
+    instance: 32-key blocks, 32 k-steps a Q K^T term (each logit's chain
+    is the same whichever warpgroup computes it), each block's P V at 4
+    k-steps a term: within half the contract, where one chain per product
+    is several times further off."""
+    q, k, v = (t[0, :, 0] for t in inputs(7, 1000, 256, h=1, kv=1))
+    want = ref.flash_attention_ref(q[None, :, None], k[None, :, None],
+                                   v[None, :, None], causal=False)[0, :, 0]
+    ours = gap(tensor_core_attention(q, k, v, True, keys=32), want)
+    one_chain = gap(tensor_core_attention(q, k, v, False, keys=32), want)
+    assert ours <= RTOL / 2, (ours, one_chain)
+    assert one_chain >= 3 * ours, (ours, one_chain)
 
 
 # -- the CPU repair ------------------------------------------------------------

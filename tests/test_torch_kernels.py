@@ -425,15 +425,15 @@ def test_flash_plain_window_wider_than_the_sequence_is_no_window():
 
 def test_flash_entries_refuse_head_dims_and_windows_they_do_not_take(
         monkeypatch):
-    """bf16 takes Dh 32, 64, 80, 128 and 256, f32 32, 64, 80 and 128; a
-    window below 1 is refused.  Each before any library is loaded."""
+    """Both dtypes take Dh 32, 64, 80, 128 and 256; a window below 1 is
+    refused.  Each before any library is loaded."""
     def loader(name):
         raise RuntimeError(f"kernel loader reached: {name}")
 
     monkeypatch.setattr(build, "load_library", loader)
     for dtype, dh, match in (
-            (torch.float32, 256,
-             r"the float32 kernel takes \(32, 64, 80, 128\)"),
+            (torch.float32, 96,
+             r"the float32 kernel takes \(32, 64, 80, 128, 256\)"),
             (torch.float32, 48, "head dim 48"),
             (torch.bfloat16, 48,
              r"the bfloat16 kernel takes \(32, 64, 80, 128, 256\)"),
@@ -447,6 +447,41 @@ def test_flash_entries_refuse_head_dims_and_windows_they_do_not_take(
     for window in (0, -3):
         with pytest.raises(ValueError, match="window"):
             dispatch.flash_attention(q, kv, kv, causal=True, window=window)
+
+
+# Head dim 256 in f32 (gemma2-9b's and gemma-7b's layers with dtype
+# float32): the plain version against the Pallas kernel in interpret mode
+# (S 256), the JAX oracle (a ragged S) and the jnp scan
+# ``_chunked_attention(local=True)`` (a window), GQA 16/8 and MHA 16/16,
+# within 1e-5 of max|out|, the f32 kernel's contract.
+
+F32_DH256_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("s,h,kv,causal,softcap,window", [
+    (256, 16, 8, True, None, None),
+    (256, 16, 8, False, None, None),
+    (256, 16, 16, True, 50.0, None),
+    (300, 16, 8, True, 50.0, None),
+    (300, 16, 16, False, None, None),
+    (384, 16, 8, True, 50.0, 300),
+    (384, 16, 16, False, None, 300),
+])
+def test_flash_plain_f32_dh256_matches_jax(s, h, kv, causal, softcap, window):
+    from repro.kernels.flash_attention import flash_attention as jflash
+    q, k, v = _flash_inputs(s + h + kv, 1, s, h, kv, 256)
+    if window is not None:
+        want = _jax_local_attention(q, k, v, window, causal, softcap)
+    elif s % 128 == 0:
+        want = np.asarray(jflash(*map(jnp.asarray, (q, k, v)), causal=causal,
+                                 softcap=softcap, interpret=True))
+    else:
+        rep = lambda a: jnp.repeat(jnp.asarray(a), h // kv, axis=2)
+        want = np.asarray(jref.flash_attention_ref(
+            jnp.asarray(q), rep(k), rep(v), causal=causal, softcap=softcap))
+    got = _plain_flash(q, k, v, causal=causal, softcap=softcap, window=window)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= F32_DH256_RTOL * np.abs(want).max()
 
 
 # Head dim 80 (hubert-xlarge): the plain version against the Pallas kernel

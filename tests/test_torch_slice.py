@@ -242,12 +242,11 @@ _JAX_REFERENCE = textwrap.dedent("""
     from repro.train.trainer import DecentralizedTrainer
 
     (comp, arg, k, exact, steps, seq, bpn, out, topology, sdt, engine,
-     process, drop, tau, stragglers, mode) = sys.argv[1:]
+     process, drop, tau, stragglers, mode, arch, dtype) = sys.argv[1:]
     process = None if process == "none" else process
     packed = not engine.startswith("per-leaf")
     k, steps, seq, bpn = int(k), int(steps), int(seq), int(bpn)
-    cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
     mesh = jax.make_mesh((4, 1), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
     if comp == "qsgd":
@@ -277,6 +276,13 @@ _JAX_REFERENCE = textwrap.dedent("""
     res = {"gamma": np.array([tr.gamma] + (_resolve_bucket_gammas(
         tr.gamma_spec, tr._bucket_spec(), tr.compressor)
         if packed and process is None and mode == "choco" else []))}
+
+    if packed and mode == "choco":
+        spec = tr._bucket_spec()
+        res["spec_buckets"] = np.array([[b.size, b.logical, int(b.exact)]
+                                        for b in spec.buckets])
+        res["spec_slots"] = np.array([[sl.bucket, sl.offset, sl.size]
+                                      for sl in spec.slots])
 
     def save(tag, tree):
         # bf16 state is saved as the f32 values it holds (exact)
@@ -353,7 +359,8 @@ _JAX_REFERENCE = textwrap.dedent("""
 
 def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
                        topology="ring", state_dtype="float32",
-                       engine="packed", process=None, mode="choco"):
+                       engine="packed", process=None, mode="choco",
+                       arch="qwen3-1.7b", dtype="float32", steps=STEPS):
     """The path of the JAX reference run of one case (on the ring unless
     ``topology`` names another graph or a comma-separated sequence; f32
     EF state unless ``state_dtype`` says "bfloat16"; the packed engine
@@ -362,10 +369,12 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
     topology process, "matching", "linkfail" at PROCESS_DROP, or
     "staleness" at PROCESS_TAU with the PROCESS_STRAGGLERS link, whose
     samples the run saves as ``sample:<step>:<round>``; the choco mode
-    unless ``mode`` says "pushsum", whose run saves ``psw``), made
-    once per pytest run: tests that need the same case share it, across
-    xdist workers too (they meet in the run's common temporary directory
-    and take turns under a file lock)."""
+    unless ``mode`` says "pushsum", whose run saves ``psw``; the smoke
+    qwen3 decoder in f32 for STEPS steps unless ``arch``, ``dtype`` (the
+    compute dtype) or ``steps`` say otherwise; the packed choco runs save
+    their bucket spec), made once per pytest run: tests that need the
+    same case share it, across xdist workers too (they meet in the run's
+    common temporary directory and take turns under a file lock)."""
     tag = "" if topology == "ring" else "_" + topology.replace(",", "+")
     if state_dtype != "float32":
         tag += "_" + state_dtype
@@ -375,14 +384,20 @@ def jax_reference_path(tmp_path_factory, comp, arg, k, exact,
         tag += "_" + process
     if mode != "choco":
         tag += "_" + mode
+    if arch != "qwen3-1.7b":
+        tag += "_" + arch
+    if dtype != "float32":
+        tag += "_compute-" + dtype
+    if steps != STEPS:
+        tag += f"_steps{steps}"
     return make_reference(
         tmp_path_factory,
         f"jax_{comp}_{arg}_{k}_{'exact' if exact else '-'}{tag}.npz",
         _JAX_REFERENCE,
-        lambda part: [comp, arg, k, "exact" if exact else "-", STEPS, SEQ,
+        lambda part: [comp, arg, k, "exact" if exact else "-", steps, SEQ,
                       BPN, part, topology, state_dtype, engine,
                       process or "none", PROCESS_DROP, PROCESS_TAU,
-                      PROCESS_STRAGGLERS, mode],
+                      PROCESS_STRAGGLERS, mode, arch, dtype],
         timeout=600)
 
 
@@ -400,9 +415,9 @@ def _tree(ref, tag):
 
 def _port_trainer(comp, arg, k, exact, topology="ring",
                   state_dtype="float32", engine="packed", process=None,
-                  mode="choco"):
-    cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
-                              dtype="float32")
+                  mode="choco", arch="qwen3-1.7b", dtype="float32",
+                  steps=STEPS):
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
     if comp == "qsgd":
         kw = (("s", arg),)
     elif comp in ("sign", "identity"):
@@ -429,7 +444,7 @@ def _port_trainer(comp, arg, k, exact, topology="ring",
                                                if process == "staleness"
                                                else {})),
         n_nodes=N, optimizer=momentum_sgd(),
-        lr_fn=cosine_schedule(0.1, warmup=STEPS // 10 + 1, total=STEPS),
+        lr_fn=cosine_schedule(0.1, warmup=steps // 10 + 1, total=steps),
         device="cpu", mode=mode)
 
 
