@@ -10,9 +10,12 @@ dense architectures are qwen3-1.7b, gemma2-9b, gemma-7b and yi-9b; the
 frontend families ("audio": hubert-xlarge's bidirectional encoder over
 precomputed frame embeddings; "vlm": llava-next-mistral-7b's decoder
 behind a patch projector) carry ``FrontendConfig``; the "moe" family
-(qwen3-moe-30b-a3b, llama4-maverick-400b-a17b) carries ``MoEConfig``.  The
-SSM / hybrid sub-configs, the other architectures and ``remat`` are not
-ported.  ``INPUT_SHAPES`` keeps the one JAX input shape
+(qwen3-moe-30b-a3b, llama4-maverick-400b-a17b) carries ``MoEConfig``; the
+"ssm" family (rwkv6-3b, ``SSMConfig`` of kind "rwkv6") and the "hybrid"
+one (zamba2-1.2b: a Mamba2 stack, ``SSMConfig`` of kind "mamba2", with
+one weight-shared attention block, ``HybridConfig``).  ``n_params`` is
+the JAX package's analytic count.  ``remat`` is not ported.
+``INPUT_SHAPES`` keeps the one JAX input shape
 the port serves, ``prefill_32k``.  ``ChocoConfig``
 keeps the settings of the static engines (the packed and the per-leaf
 engine, serial or pipelined; the choco, plain, all-reduce and push-sum
@@ -46,6 +49,24 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """The recurrent mixer of the "ssm" and "hybrid" families."""
+    kind: str = "mamba2"           # mamba2 | rwkv6
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64             # SSM head dim (mamba2 P / rwkv head size)
+    chunk: int = 128               # SSD chunk length (mamba2)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """zamba2-style: mamba backbone + one weight-shared attention block
+    applied every `shared_every` positions."""
+    shared_every: int = 6
+
+
+@dataclasses.dataclass(frozen=True)
 class FrontendConfig:
     """Stubbed modality frontend: the batch carries precomputed embeddings
     of this shape (the JAX package's carve-out)."""
@@ -57,7 +78,7 @@ class FrontendConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | vlm | audio
+    family: str                     # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -74,6 +95,8 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     mlp_type: str = "swiglu"                # swiglu | geglu | gelu
     moe: Optional[MoEConfig] = None         # moe only
+    ssm: Optional[SSMConfig] = None         # ssm and hybrid only
+    hybrid: Optional[HybridConfig] = None   # hybrid only
     frontend: Optional[FrontendConfig] = None   # vlm and audio only
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
@@ -87,6 +110,44 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    def n_params(self) -> int:
+        """The JAX package's analytic parameter count (embeddings, blocks,
+        head), an estimate beside ``transformer.count_params``'s exact
+        one: the same formula, branch for branch."""
+        D, F, V, Hd = self.d_model, self.d_ff, self.vocab_size, self.resolved_head_dim
+        H, KV, L = self.n_heads, self.n_kv_heads, self.n_layers
+        emb = V * D * (1 if self.tie_embeddings else 2)
+        attn = D * H * Hd + 2 * D * KV * Hd + H * Hd * D
+        mlp = 3 * D * F if self.mlp_type in ("swiglu", "geglu") else 2 * D * F
+        per_layer = attn + mlp + 2 * D
+        if self.family == "moe":
+            m = self.moe
+            expert = 3 * D * m.d_expert
+            moe_layer = attn + m.n_experts * expert + D * m.n_experts + 2 * D \
+                + m.n_shared_experts * 3 * D * self.d_ff
+            n_moe = L // m.moe_every
+            total_blocks = (L - n_moe) * per_layer + n_moe * moe_layer
+        elif self.family == "ssm" and self.ssm.kind == "rwkv6":
+            # timemix (r, k, v, g, o: ~5 D^2) + channelmix (~2 D F)
+            total_blocks = L * (5 * D * D + 2 * D * F + 2 * D)
+        elif self.family in ("ssm", "hybrid"):
+            di = self.ssm.expand * D
+            mamba = D * (2 * di + 2 * self.ssm.d_state * (di // self.ssm.head_dim)) \
+                + di * D + di * self.ssm.d_conv
+            if self.family == "hybrid":
+                n_shared = L // (self.hybrid.shared_every + 1) if self.hybrid else 0
+                total_blocks = (L - n_shared) * (mamba + 2 * D) + (attn + mlp + 2 * D)
+            else:
+                total_blocks = L * (mamba + 2 * D)
+        else:
+            total_blocks = L * per_layer
+        proj = 0
+        if self.frontend is not None and self.frontend.kind == "vision":
+            proj = self.frontend.embed_dim * D + D * D
+        if self.family == "audio":
+            emb = self.frontend.embed_dim * D + V * D   # in-proj + class head
+        return emb + total_blocks + proj + D
 
 
 @dataclasses.dataclass(frozen=True)

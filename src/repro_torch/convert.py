@@ -71,10 +71,12 @@ def model_params_from_jax(tree) -> Dict[str, torch.Tensor]:
 
 
 def caches_from_jax(caches) -> Dict[str, torch.Tensor]:
-    """The JAX dense model's cache tree (``{"stack": {"c0": {"k": (repeat,
-    B, C, KV, Dh), "v": ...}, "c1": ...}, "tail": {"t0": {"k": (B, C, KV,
-    Dh), ...}}}``, a pattern position's leaves per local or global kind)
-    -> the port's ``{"stack/c0/k": (1, repeat, B, C, KV, Dh), ...}``."""
+    """The JAX model's cache tree (``{"stack": {"c0": {"k": (repeat, B, C,
+    KV, Dh), "v": ...}, "c1": ...}, "tail": {"t0": {"k": (B, C, KV, Dh),
+    ...}}}``, a pattern position's leaves per block kind: a mamba block's
+    "ssm" and conv tails, an rwkv block's f32 "wkv" and shift tails, each
+    in its own dtype) -> the port's ``{"stack/c0/k": (1, repeat, B, C, KV,
+    Dh), ...}``."""
     return model_params_from_jax(caches)
 
 

@@ -25,6 +25,8 @@ never load a half-written file.
   to the plain version.
 * ``probe`` (``csrc/probe.cu``): the collective-layer probe's ``x * 2``,
   built with ``--fmad=false`` like the other bit-equal kernels.
+* ``wkv6`` (``csrc/wkv6.cu``): RWKV-6's WKV recurrence, held to its plain
+  version within a tolerance, so FMA contraction stays on.
 
 Nothing here runs at import time, and nothing falls back: no ``nvcc``, a
 failed build or a failed launch raises.
@@ -49,6 +51,7 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _F, _I64, _INT = ctypes.c_void_p, ctypes.c_float, ctypes.c_int64, ctypes.c_int
 _FLASH = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _INT, _F, _F,
           _P)
+_WKV6 = (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _P)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +94,11 @@ LIBRARIES = {
     "probe": Library(
         CSRC / "probe.cu", _COMMON_FLAGS + ("--fmad=false",), {
             "probe_scale": (_P, _P, _I64, _P),
+        }),
+    "wkv6": Library(
+        CSRC / "wkv6.cu", _COMMON_FLAGS, {
+            "wkv6_f32": _WKV6,
+            "wkv6_bf16": _WKV6,
         }),
 }
 

@@ -3,7 +3,7 @@ gossip exchanges (QSGD codes in the packed and the per-leaf form, sign
 codes, dequantize, the EF update on f32 and on bf16 state, each in
 serial and in pipelined order, and the topology-process engine's replica
 update in its matching, link-failure and bounded-staleness forms), the top-k selection mask, flash
-attention, and the collective-layer probe.
+attention, RWKV-6's WKV recurrence, and the collective-layer probe.
 
 The route follows the tensor's device and nothing else:
 
@@ -33,6 +33,7 @@ from . import probe as _probe
 from . import qsgd as _qsgd
 from . import ref
 from . import topk as _topk
+from . import wkv6 as _wkv6
 
 #: entry name -> kernel wrapper carrying the ``launches`` count
 KERNELS = {
@@ -48,6 +49,7 @@ KERNELS = {
     "flash_attention": _flash.flash_attention,
     "block_topk_mask": _topk.block_topk_mask,
     "probe_scale": _probe.probe_scale,
+    "wkv6": _wkv6.wkv6,
 }
 
 
@@ -180,6 +182,15 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap=None,
                                   window=window)
 
 
+def wkv6(r, k, v, w, u, state=None):
+    """RWKV-6's WKV recurrence (``ref.wkv6_ref``): r, k, v (N, S, H, 64) in
+    the compute dtype, w (N, S, H, 64) f32, u (N, H, 64) f32, state (N, H,
+    64, 64) f32 or None -> (out (N, S, H, 64) f32, final state)."""
+    if _on_cpu(r):
+        return ref.wkv6_ref(r, k, v, w, u, state)
+    return _wkv6.wkv6(r, k, v, w, u, state)
+
+
 def probe_scale(x):
     """The collective-layer probe's body: x * 2 (f32)."""
     if _on_cpu(x):
@@ -251,3 +262,4 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     _flash.flash_attention.variants.clear()
+    _wkv6.wkv6.variants.clear()

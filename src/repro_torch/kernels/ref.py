@@ -5,7 +5,8 @@ what their CUDA kernels compute, one PyTorch operation per arithmetic step (so n
 into an FMA), on node-stacked buffers: row i of an ``(n, L)`` tensor is
 gossip node i's bucket buffer, and per-node scalars are ``(n,)`` tensors.
 :func:`flash_attention_ref` repeats the flash kernel's online softmax
-tile by tile; it is held to the kernel within a tolerance.
+tile by tile; it is held to the kernel within a tolerance, as is
+:func:`wkv6_ref`, RWKV-6's WKV recurrence token by token.
 
 ``dispatch.py`` routes CPU tensors here; on the card these are the
 versions ``chip_smoke.py`` holds the kernels against.
@@ -388,3 +389,29 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, softcap=None,
         acc = torch.cat([acc[..., :r0, :], acc_new, acc[..., r1:, :]], dim=-2)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(N, S, H, Dh).to(q.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, state=None):
+    """RWKV-6's WKV recurrence, token by token in f32, as the JAX
+    ``_wkv_scan`` (``src/repro/models/rwkv6.py:72``).  Per head, with k, v
+    in R^P and the state S in R^{P x P}:
+
+        out_t = r_t^T (S_t + diag(u) k_t v_t^T)
+        S_{t+1} = diag(w_t) S_t + k_t v_t^T
+
+    r, k, v: (N, S, H, P) in any float dtype, upcast to f32; w: (N, S, H,
+    P) f32 decays in (0, 1); u: (H, P) or (N, H, P) f32 bonus; state:
+    (N, H, P, P) f32 carried in, or None for zeros.  Returns (out (N, S,
+    H, P) f32, final state (N, H, P, P) f32)."""
+    N, S, H, P = r.shape
+    f32 = torch.float32
+    u = u.to(f32).expand(N, H, P)[..., None]                   # (N, H, P, 1)
+    st = (torch.zeros((N, H, P, P), dtype=f32, device=r.device)
+          if state is None else state.to(f32))
+    rf, kf, vf, wf = (t.to(f32) for t in (r, k, v, w))
+    out = torch.empty((N, S, H, P), dtype=f32, device=r.device)
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]       # (N, H, P, P)
+        out[:, t] = torch.einsum("nhp,nhpq->nhq", rf[:, t], st + u * kv)
+        st = wf[:, t, :, :, None] * st + kv
+    return out, st

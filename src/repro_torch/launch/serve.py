@@ -19,13 +19,17 @@ imported: ``--mesh`` and ``--simulate-devices`` (one device),
 ``--kv-layout seq`` (a sharding choice with nothing to shard on one
 device), ``--metrics-dir`` (the telemetry sinks are not ported),
 hubert-xlarge (an encoder: it has no decode step, as the JAX launcher
-says) and every other architecture but the dense decoders, qwen3-1.7b,
-gemma2-9b (local and global layers, its local caches ring buffers of the
-4096-token window), gemma-7b and yi-9b, llava-next-mistral-7b, whose
+says) and any architecture the port does not have.  It serves every
+decoder of the JAX package: the dense ones, qwen3-1.7b, gemma2-9b (local
+and global layers, its local caches ring buffers of the 4096-token
+window), gemma-7b and yi-9b, llava-next-mistral-7b, whose
 text prompts are served as the JAX launcher serves them (no image: the
-prompt is teacher-forced through ``decode_step``), and the MoE decoders
+prompt is teacher-forced through ``decode_step``), the MoE decoders
 qwen3-moe-30b-a3b and llama4-maverick-400b-a17b (llama4 at full width
-does not fit one card: serve it with ``--smoke``).
+does not fit one card: serve it with ``--smoke``), and the recurrent
+decoders zamba2-1.2b (a Mamba2 stack with one weight-shared attention
+block) and rwkv6-3b, whose decode steps carry their recurrent states in
+the cache (an rwkv6 step is one WKV6 kernel launch a layer).
 """
 import argparse
 import json
@@ -37,7 +41,7 @@ from repro_torch.obs.timers import percentile
 
 ARCH_CHOICES = ("qwen3-1.7b", "gemma2-9b", "gemma-7b", "yi-9b",
                 "llava-next-mistral-7b", "qwen3-moe-30b-a3b",
-                "llama4-maverick-400b-a17b")
+                "llama4-maverick-400b-a17b", "zamba2-1.2b", "rwkv6-3b")
 #: the encoder-only archs: ported, but with nothing to decode
 ENCODER_ARCHS = ("hubert-xlarge",)
 

@@ -72,6 +72,8 @@ ARCH_CHOICES = ("qwen3-1.7b", "gemma2-9b", "gemma-7b", "yi-9b",
                 "hubert-xlarge", "llava-next-mistral-7b")
 #: the MoE family, served but not trained
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b")
+#: the recurrent families (ssm, hybrid), served but not trained
+SSM_ARCHS = ("zamba2-1.2b", "rwkv6-3b")
 #: the compressors the JAX launcher can run (randomized_gossip takes p, not
 #: --fraction: the JAX launcher fails on it, and this one refuses it)
 COMPRESSOR_CHOICES = ("identity", "rand_k", "top_k", "block_top_k", "qsgd",
@@ -207,6 +209,11 @@ def _validate(ap, args) -> int:
     if args.arch in MOE_ARCHS:
         ap.error(f"--arch {args.arch!r}: training the MoE family is not "
                  f"ported (ROADMAP §1.4); it is served only "
+                 f"(repro_torch.launch.serve)")
+    if args.arch in SSM_ARCHS:
+        ap.error(f"--arch {args.arch!r}: training the SSM and hybrid "
+                 f"families is not ported (ROADMAP §1.5: the WKV6 kernel "
+                 f"has no backward); it is served only "
                  f"(repro_torch.launch.serve)")
     if args.arch not in ARCH_CHOICES:
         ap.error(f"--arch {args.arch!r} is not ported; choose from "

@@ -34,6 +34,7 @@ from torch.profiler import record_function
 from repro_torch.kernels import ops
 
 from . import layers as L
+from .layers import silu
 
 
 def capacity(group: int, top_k: int, n_experts: int, factor: float) -> int:
@@ -86,14 +87,6 @@ def dispatch(xt, rows, n_rows: int):
     src.scatter_(0, rows.reshape(-1), torch.arange(
         n * G * g, device=xt.device).repeat_interleave(K))
     return tokens.index_select(0, src[:n_rows])
-
-
-def silu(a):
-    """a * sigmoid(a) as XLA expands ``jax.nn.silu``: a * (1 / (1 +
-    exp(-a))), each operation rounded to a's dtype.  In bf16 this is JAX's
-    value bit for bit, where ``F.silu`` (one rounding) puts 3% of a smoke
-    expert layer's SwiGLU outputs more than one bf16 ulp from it."""
-    return a * torch.reciprocal(1.0 + torch.exp(-a))
 
 
 def experts(p, xe):
@@ -153,7 +146,7 @@ def moe_ffn(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = E * (density * router_prob).sum(dim=1)
     if m.n_shared_experts:
         # the shared expert: the JAX ``mlp`` of the block's SwiGLU, with
-        # its silu expanded as above
+        # its silu expanded as XLA expands it (layers.silu)
         h = silu(L.matmul(x, p["shared/w_gate"])) * L.matmul(
             x, p["shared/w_up"])
         y = y + L.matmul(h, p["shared/w_down"])

@@ -45,10 +45,22 @@ stack with its "moe" layers' MLP replaced by the MoE FFN
 (``models/moe.py``); its caches are the dense ones, and its loss adds the
 layers' router aux loss.
 
-Not ported: the other families (SSM, hybrid) and ``remat`` (the
-JAX configs ask for ``"dots"``): blocks are not checkpointed, since the
-training sequence of the slice is short and its activations are small
-next to the CHOCO state.
+The recurrent families: "ssm" (rwkv6-3b) is a stack of "rwkv" blocks
+(``models/rwkv6.py``: ln1, the time-mix ``tm/...``, ln2, the
+channel-mix ``cm/...``); "hybrid" (zamba2-1.2b) a pattern of
+``shared_every - 1`` "mamba" blocks (``models/mamba2.py``: ln, the mixer
+``mixer/...``) and one "shared" block, repeated, then a tail of mamba
+blocks.  The shared block is a dense attention block whose leaves
+("shared/...") have no repeat dimension: every application reads the same
+weights, but each has its own KV cache ("stack/c{i}/k" per repeat).  A
+mamba block's cache is "ssm" (its state, in the compute dtype) and the
+conv tails "conv_x", "conv_B", "conv_C"; an rwkv block's "wkv" (f32) and
+the shift tails "shift_tm", "shift_cm".  A decode step writes them in
+place, as it writes a KV slot.
+
+Not ported: ``remat`` (the JAX configs ask for ``"dots"``): blocks are
+not checkpointed, since the training sequence of the slice is short and
+its activations are small next to the CHOCO state.
 """
 from __future__ import annotations
 
@@ -61,12 +73,14 @@ import torch.nn.functional as F
 from repro_torch.comm.packing import fold_seed
 
 from . import layers as L
+from . import mamba2 as M2
 from . import moe as MOE
+from . import rwkv6 as R6
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-#: the families the port runs, each through the dense stack ("moe" with
-#: its MoE blocks in place of some or all of the dense ones)
-FAMILIES = ("dense", "moe", "vlm", "audio")
+#: the families the port runs: the dense stack ("moe" with its MoE blocks
+#: in place of some or all of the dense ones), and the recurrent stacks
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _check(cfg) -> None:
@@ -81,8 +95,17 @@ def block_pattern(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
     ``local_global_pattern`` k > 0 the pattern is k local layers and one
     global one, and the layers that do not fill a last pattern make the
     tail.  The moe family: ("moe",) with ``moe_every`` 1, else
-    ``moe_every - 1`` global layers and one "moe" layer."""
+    ``moe_every - 1`` global layers and one "moe" layer.  ssm: ("rwkv",)
+    (or ("mamba",)) per layer; hybrid: ``shared_every - 1`` "mamba" blocks
+    and one "shared", the remainder a tail of "mamba" blocks (zamba2-1.2b:
+    5 + 1, 6 times, then 2)."""
     _check(cfg)
+    if cfg.family == "ssm":
+        return ("rwkv" if cfg.ssm.kind == "rwkv6" else "mamba",), cfg.n_layers, ()
+    if cfg.family == "hybrid":
+        se = cfg.hybrid.shared_every
+        repeat, rem = divmod(cfg.n_layers, se)
+        return ("mamba",) * (se - 1) + ("shared",), repeat, ("mamba",) * rem
     if cfg.family == "moe":
         ev = cfg.moe.moe_every
         if ev == 1:
@@ -104,7 +127,9 @@ def param_shapes(cfg) -> List[Tuple[str, Tuple[int, ...]]]:
     ``projector/w2``; a "moe" block has ``moe/router`` (D, E),
     ``moe/w_gate``, ``moe/w_up`` (E, D, d_expert), ``moe/w_down`` and,
     with shared experts, ``moe/shared/...`` where a dense block has
-    ``mlp/...``."""
+    ``mlp/...``; a "mamba" block ``ln`` and ``mixer/...``, an "rwkv" block
+    ``ln1``, ``ln2``, ``tm/...`` and ``cm/...``; the "shared" block's
+    leaves (a dense block's) lie under ``shared/``, without repeat dim."""
     pattern, repeat, tail = block_pattern(cfg)
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -133,6 +158,11 @@ def param_shapes(cfg) -> List[Tuple[str, Tuple[int, ...]]]:
         return out
 
     def block(kind):
+        if kind == "mamba":
+            return {"ln": (D,), **{f"mixer/{k}": v
+                                   for k, v in M2.param_shapes(cfg).items()}}
+        if kind == "rwkv":
+            return {"ln1": (D,), "ln2": (D,), **R6.param_shapes(cfg)}
         if kind != "moe":
             return {**attn, **mlp("mlp", F)}
         m = cfg.moe
@@ -144,11 +174,16 @@ def param_shapes(cfg) -> List[Tuple[str, Tuple[int, ...]]]:
         return out
 
     for i, kind in enumerate(pattern):
-        for name, shape in block(kind).items():
-            shapes[f"stack/p{i}/{name}"] = (repeat,) + shape
+        if kind != "shared":
+            for name, shape in block(kind).items():
+                shapes[f"stack/p{i}/{name}"] = (repeat,) + shape
     for i, kind in enumerate(tail):
-        for name, shape in block(kind).items():
-            shapes[f"tail/t{i}/{name}"] = shape
+        if kind != "shared":
+            for name, shape in block(kind).items():
+                shapes[f"tail/t{i}/{name}"] = shape
+    if "shared" in pattern + tail:
+        for name, shape in block("shared").items():
+            shapes[f"shared/{name}"] = shape
     return sorted(shapes.items(), key=lambda kv: kv[0].split("/"))
 
 
@@ -170,8 +205,9 @@ class Model:
              nodes: Optional[Sequence[int]] = None) -> Dict[str, torch.Tensor]:
         """Random node-stacked parameters: fan-in-scaled normal weights (the
         frontends' projections too), 0.02-scaled normal embeddings, zero
-        norm gains (the JAX package's rules, drawn from torch Generators,
-        so not its values).
+        norm gains, and the mamba mixers' and rwkv mixes' own rules
+        (``M2.init_leaf``, ``R6.init_leaf``): the JAX package's rules,
+        drawn from torch Generators, so not its values.
 
         Node i draws from its own generator, seeded ``fold_seed(seed, i)``
         (the JAX trainer folds the node index into its key), so a node's
@@ -185,7 +221,12 @@ class Model:
             name = path.rsplit("/", 1)[-1]
             p = torch.zeros((len(gens),) + shape, dtype=self.param_dtype,
                             device=device)
-            if name == "tok" or len(shape) >= 2:
+            own = (M2 if "/mixer/" in path else
+                   R6 if "/tm/" in path or "/cm/" in path else None)
+            if own is not None:
+                for row, gen in zip(p, gens):
+                    row.copy_(own.init_leaf(name, shape, gen, device))
+            elif name == "tok" or len(shape) >= 2:
                 scale = 0.02 if name == "tok" else 1.0 / math.sqrt(shape[-2])
                 for row, gen in zip(p, gens):
                     row.copy_(torch.randn(shape, generator=gen,
@@ -208,25 +249,38 @@ class Model:
             return min(self.cfg.sliding_window, max_seq)
         return max_seq
 
+    def cache_leaves(self, kind: str, batch: int, max_seq: int):
+        """One block's cache leaves: name -> (per-node shape, dtype).  An
+        attending block's "k" and "v" (B, C, KV, Dh), C from
+        :meth:`cache_len`; a mamba or rwkv block's state and tails (the
+        rwkv state "wkv" in f32); the others in the compute dtype."""
+        cfg = self.cfg
+        if kind == "mamba":
+            shapes = M2.cache_shapes(cfg, batch)
+        elif kind == "rwkv":
+            shapes = R6.cache_shapes(cfg, batch)
+        else:
+            kv = ((batch, self.cache_len(kind, max_seq), cfg.n_kv_heads,
+                   cfg.resolved_head_dim), False)
+            shapes = {"k": kv, "v": kv}
+        return {name: (shape, torch.float32 if f32 else self.dtype)
+                for name, (shape, f32) in shapes.items()}
+
     def init_cache(self, batch: int, max_seq: int, device,
                    n_nodes: int = 1) -> Dict[str, torch.Tensor]:
-        """Zeroed KV cache in the compute dtype, the JAX cache tree's
-        leaves: "stack/c{i}/k" and "stack/c{i}/v" of shape (n, repeat, B,
-        C, KV, Dh) per pattern position i, "tail/t{i}/k" and ".../v" of
-        (n, B, C, KV, Dh) per tail block, C from :meth:`cache_len`."""
-        cfg = self.cfg
-        pattern, repeat, tail = block_pattern(cfg)
-        heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
-        shapes = {}
-        for i, kind in enumerate(pattern):
-            shapes[f"stack/c{i}"] = (n_nodes, repeat, batch,
-                                     self.cache_len(kind, max_seq)) + heads
-        for i, kind in enumerate(tail):
-            shapes[f"tail/t{i}"] = (n_nodes, batch,
-                                    self.cache_len(kind, max_seq)) + heads
-        return {f"{prefix}/{name}": torch.zeros(shape, dtype=self.dtype,
+        """Zeroed cache, the JAX cache tree's leaves (:meth:`cache_leaves`):
+        "stack/c{i}/<leaf>" of shape (n, repeat, *shape) per pattern
+        position i, "tail/t{i}/<leaf>" of (n, *shape) per tail block."""
+        pattern, repeat, tail = block_pattern(self.cfg)
+        blocks = [(f"stack/c{i}", (n_nodes, repeat), kind)
+                  for i, kind in enumerate(pattern)]
+        blocks += [(f"tail/t{i}", (n_nodes,), kind)
+                   for i, kind in enumerate(tail)]
+        return {f"{prefix}/{name}": torch.zeros(lead + shape, dtype=dtype,
                                                 device=device)
-                for prefix, shape in shapes.items() for name in ("k", "v")}
+                for prefix, lead, kind in blocks
+                for name, (shape, dtype) in self.cache_leaves(
+                    kind, batch, max_seq).items()}
 
     @staticmethod
     def _sub(p, prefix):
@@ -234,20 +288,26 @@ class Model:
 
     def _layers(self, params, caches=None):
         """Per layer in order, (kind, its leaves in the compute dtype, its
-        (k, v) cache views (n, B, C, KV, Dh) or None)."""
+        cache views {leaf: (n, *shape)} or None).  Every application of
+        the shared block reads the "shared/" leaves."""
         pattern, repeat, tail = block_pattern(self.cfg)
         stack = [self._sub(params, f"stack/p{i}/") for i in range(len(pattern))]
+        shared = {k: v.to(self.dtype)
+                  for k, v in self._sub(params, "shared/").items()}
         for r in range(repeat):
             for i, kind in enumerate(pattern):
-                cache = None if caches is None else tuple(
-                    caches[f"stack/c{i}/{name}"][:, r] for name in ("k", "v"))
-                yield kind, {k: v[:, r].to(self.dtype)
-                             for k, v in stack[i].items()}, cache
+                cache = None if caches is None else {
+                    k: v[:, r] for k, v in
+                    self._sub(caches, f"stack/c{i}/").items()}
+                yield kind, shared if kind == "shared" else {
+                    k: v[:, r].to(self.dtype)
+                    for k, v in stack[i].items()}, cache
         for i, kind in enumerate(tail):
-            cache = None if caches is None else tuple(
-                caches[f"tail/t{i}/{name}"] for name in ("k", "v"))
-            yield kind, {k: v.to(self.dtype) for k, v in
-                         self._sub(params, f"tail/t{i}/").items()}, cache
+            cache = None if caches is None else self._sub(
+                caches, f"tail/t{i}/")
+            yield kind, shared if kind == "shared" else {
+                k: v.to(self.dtype) for k, v in
+                self._sub(params, f"tail/t{i}/").items()}, cache
 
     def _ffn_residual(self, kind, p, x):
         """x + the layer's FFN of its second norm: the dense MLP, or the
@@ -258,8 +318,41 @@ class Model:
             return x + f, aux
         return x + L.mlp(self._sub(p, "mlp/"), y, self.cfg), None
 
+    def _rwkv(self, p, x, cache=None):
+        """An rwkv block over x (n, B, S, D): (x, its cache leaves).  With
+        ``cache`` (a decode step), the shift tails and the WKV state are
+        carried in from it."""
+        cfg = self.cfg
+        get = (lambda name: None) if cache is None else cache.get
+        h, (last_tm, wkv) = R6.timemix_forward(
+            self._sub(p, "tm/"),
+            L.rms_norm(x, L.per_node(p["ln1"], x.dim()), cfg.norm_eps), cfg,
+            x_prev_last=get("shift_tm"), state=get("wkv"))
+        x = x + h
+        y, last_cm = R6.channelmix_forward(
+            self._sub(p, "cm/"),
+            L.rms_norm(x, L.per_node(p["ln2"], x.dim()), cfg.norm_eps),
+            x_prev_last=get("shift_cm"))
+        return x + y, {"wkv": wkv, "shift_tm": last_tm, "shift_cm": last_cm}
+
+    def _mamba_in(self, p, x):
+        return (self._sub(p, "mixer/"),
+                L.rms_norm(x, L.per_node(p["ln"], x.dim()), self.cfg.norm_eps))
+
+    @staticmethod
+    def _write(cache, new) -> None:
+        """Copy a recurrent block's new cache leaves into its cache views;
+        a conv tail shorter than its slots (a prompt of fewer tokens)
+        fills the last ones, the zeros before it being the conv's padding."""
+        for name, t in new.items():
+            c = cache[name]
+            if name.startswith("conv_"):
+                c = c[..., c.shape[-2] - t.shape[-2]:, :]
+            c.copy_(t)
+
     def _block(self, kind, p, x, positions):
-        """One layer's full-sequence pass: (x, (k, v), aux or None)."""
+        """One attending layer's full-sequence pass: (x, (k, v), aux or
+        None)."""
         h, kv = L.attention(
             self._sub(p, "attn/"),
             L.rms_norm(x, L.per_node(p["ln1"], x.dim()), self.cfg.norm_eps),
@@ -323,18 +416,34 @@ class Model:
         aux_sum = torch.zeros(x.shape[0], dtype=torch.float32,
                               device=x.device)
         for kind, p, cache in self._layers(params, caches):
+            if kind == "mamba":
+                mixer, xin = self._mamba_in(p, x)
+                if cache is None:
+                    x = x + M2.mamba_forward(mixer, xin, self.cfg)
+                else:
+                    h, new = M2.mamba_forward(mixer, xin, self.cfg,
+                                              want_cache=True)
+                    x = x + h
+                    self._write(cache, new)
+                continue
+            if kind == "rwkv":
+                x, new = self._rwkv(p, x)
+                if cache is not None:
+                    self._write(cache, new)
+                continue
             x, kv, aux = self._block(kind, p, x, positions)
             if aux is not None:
                 aux_sum = aux_sum + aux
             if cache is None:
                 continue
-            C = cache[0].shape[2]
+            kv_cache = (cache["k"], cache["v"])
+            C = kv_cache[0].shape[2]
             if C >= S:
-                for c, t in zip(cache, kv):
+                for c, t in zip(kv_cache, kv):
                     c[:, :, :S] = t
             elif kind == "dense_local":
                 slots = torch.arange(S - C, S, device=x.device) % C
-                for c, t in zip(cache, kv):
+                for c, t in zip(kv_cache, kv):
                     c.index_copy_(2, slots, t[:, :, S - C:])
             else:
                 raise ValueError(f"a global layer's cache of {C} slots "
@@ -390,18 +499,30 @@ class Model:
         return self._logits(params, h[:, :, -1:]), caches
 
     def decode_step(self, params, token, caches, pos):
-        """One text token per sequence (dense and vlm).  token: (n, B, 1);
-        pos: (B,) long absolute position, the same for every sequence;
-        caches are written in place, at slot pos (global layers) or pos % C
-        (local ring buffers).  Returns (logits (n, B, 1, V), caches)."""
+        """One text token per sequence (every family but audio).  token:
+        (n, B, 1); pos: (B,) long absolute position, the same for every
+        sequence; caches are written in place, at slot pos (global layers)
+        or pos % C (local ring buffers); a recurrent block's state and
+        tails are replaced.  Returns (logits (n, B, 1, V), caches)."""
         if self.cfg.family == "audio":
             raise ValueError(f"{self.cfg.name} is an encoder: it has no "
                              f"decode step")
         x = self._embed_tokens(params, token)
-        for kind, p, (ck, cv) in self._layers(params, caches):
+        for kind, p, cache in self._layers(params, caches):
+            if kind == "mamba":
+                h, new = M2.mamba_decode_step(*self._mamba_in(p, x), cache,
+                                              self.cfg)
+                x = x + h
+                self._write(cache, new)
+                continue
+            if kind == "rwkv":
+                x, new = self._rwkv(p, x, cache)
+                self._write(cache, new)
+                continue
             h = L.decode_attention(
                 self._sub(p, "attn/"),
                 L.rms_norm(x, L.per_node(p["ln1"], x.dim()), self.cfg.norm_eps),
-                self.cfg, ck, cv, pos, local=kind == "dense_local")
+                self.cfg, cache["k"], cache["v"], pos,
+                local=kind == "dense_local")
             x = self._ffn_residual(kind, p, x + h)[0]
         return self._logits(params, x), caches

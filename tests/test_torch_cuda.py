@@ -1,9 +1,9 @@
 """The PyTorch port on the card: each CUDA kernel against its plain version,
 the trainer through the gossip kernels (with QSGD, sign and top-k gossip),
 the per-rank exchange (4 ranks sharing the card) against the stacked one,
-the topology-process engine's replica update, and the prefill through
+the topology-process engine's replica update, the prefill through
 the flash kernel (the dense decoders', the MoE decoders' and the
-frontends').
+frontends'), and the WKV6 kernel with the recurrent families' serving.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so on a machine without JAX it
@@ -1140,3 +1140,52 @@ def test_process_trainer_launches_per_unit_per_round(cuda, process,
                             packed=packed, process=process)
     assert all(np.isfinite(losses))
     np.testing.assert_allclose(losses, cpu_losses, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("s", [1, 63, 257])
+def test_wkv6_kernel_matches_plain(cuda, s, carried, dtype):
+    """Out and the final state within 1e-5 of their largest value (FMA
+    contraction on in the kernel, none in the plain version)."""
+    rng = np.random.default_rng(s)
+    shape = (2, s, 4, 64)
+    r, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                * 0.5).to(cuda, dtype) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.3, 0.999, shape).astype(np.float32)).to(cuda)
+    u = _normal(s + 1, (2, 4, 64), cuda) * 0.1
+    state = _normal(s + 2, (2, 4, 64, 64), cuda) if carried else None
+    out, final = _launched("wkv6", lambda: dispatch.wkv6(r, k, v, w, u, state))
+    torch.cuda.synchronize()
+    want, want_final = ref.wkv6_ref(r, k, v, w, u, state)
+    for got, exp in ((out, want), (final, want_final)):
+        assert got.dtype == torch.float32
+        assert float((got - exp).abs().max()) <= 1e-5 * float(exp.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-3b"])
+def test_recurrent_serving_agrees_with_cpu(cuda, arch):
+    """The f32 smoke model (zamba2's shared block through the f32 flash
+    kernel at Dh 64) over a 32-token prompt and 16 decode steps past it,
+    on the card against the CPU, within 1e-5 (+ 1e-5 relative)."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              attn_impl="chunked")
+    model = Model(cfg)
+    params = model.init(1, 0, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 2, 48)))
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        p = {k: v.to(device) for k, v in params.items()}
+        t = toks.to(device)
+        cache = model.init_cache(2, 48, device)
+        model.hidden(p, t[:, :, :32], cache)
+        steps = []
+        for i in range(32, 48):
+            lg, cache = model.decode_step(p, t[:, :, i:i + 1], cache,
+                                          torch.full((2,), i, device=device))
+            steps.append(lg.cpu())
+        out[device.type] = torch.cat(steps, dim=2)
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-5)

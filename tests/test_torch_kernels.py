@@ -621,10 +621,10 @@ def test_flash_f32_entry_refuses_a_misaligned_base(monkeypatch):
 
 def test_flash_has_its_own_library_and_build_flags():
     """The gossip, top-k and probe libraries keep --fmad=false (bit-equal
-    outputs); both flash kernels, held to a tolerance, are built without
-    it: the f32 one (``flash``) with the common flags alone, the bf16
-    tensor-core one (``flash_tc``) in its own library with the same flags
-    and no CUTLASS include.  Each library's name hashes its own source and
+    outputs); both flash kernels and the WKV6 kernel, held to a
+    tolerance, are built without it: the f32 one (``flash``) with the
+    common flags alone, the bf16 tensor-core one (``flash_tc``) in its own
+    library with the same flags and no CUTLASS include, ``wkv6`` alike.  Each library's name hashes its own source and
     flags, and each entry sits in the library its dtype picks."""
     libs = build.LIBRARIES
     assert "--fmad=false" in libs["gossip"].flags
@@ -641,14 +641,17 @@ def test_flash_has_its_own_library_and_build_flags():
         torch.bfloat16: ("flash_tc", "flash_attention_bf16_tc")}
     assert libs["topk"].source.name == "block_topk.cu"
     assert libs["probe"].source.name == "probe.cu"
+    assert libs["wkv6"].source.name == "wkv6.cu"
+    assert libs["wkv6"].flags == build._COMMON_FLAGS
+    assert set(libs["wkv6"].signatures) == {"wkv6_f32", "wkv6_bf16"}
     assert all(lib.source.exists() for lib in libs.values())
     paths = {build.library_path(name) for name in libs}
-    assert len(paths) == 5
+    assert len(paths) == 6
     assert set(dispatch.launch_counts()) == {
         "qsgd_codes", "qsgd_leaf_codes", "sign_codes", "dequantize",
         "ef_update", "ef_update_pipelined", "ef_update_bf16",
         "ef_update_bf16_pipelined", "replica_update", "flash_attention",
-        "block_topk_mask", "probe_scale"}
+        "block_topk_mask", "probe_scale", "wkv6"}
     assert set(libs["gossip"].signatures) >= {"ef_update", "ef_update_bf16",
                                               "qsgd_leaf_codes",
                                               "replica_update"}

@@ -233,7 +233,7 @@ def test_serve_launcher_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
     (["--simulate-devices", "8"], "--simulate-devices is not supported"),
     (["--kv-layout", "seq"], "--kv-layout seq is not supported"),
     (["--metrics-dir", "m"], "--metrics-dir is not supported"),
-    (["--arch", "zamba2-1.2b"], "--arch 'zamba2-1.2b' is not ported"),
+    (["--arch", "mamba-2.8b"], "--arch 'mamba-2.8b' is not ported"),
     (["--requests", "0"], "--requests must be >= 1"),
 ])
 def test_serve_launcher_refuses_flags_outside_the_slice(extra, message, capsys):
@@ -241,6 +241,38 @@ def test_serve_launcher_refuses_flags_outside_the_slice(extra, message, capsys):
         serve.main(_SMOKE + extra + ["--device", "cpu"])
     assert exc.value.code == 2
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-3b"])
+def test_serve_launcher_serves_the_recurrent_families_on_cpu(arch, capsys):
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "4",
+            "--gen-len", "3"]
+    assert serve.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"arch={arch}-smoke " in out and "decoded 3x2 tokens" in out
+    summary = json.loads([l for l in out.splitlines()
+                          if l.startswith("[serve] summary ")][0][16:])
+    assert summary["serve/throughput_tok_s"] > 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-3b"])
+def test_recurrent_serving_raises_without_cuda_unless_cpu_is_asked(
+        arch, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", arch, "--smoke"])
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-3b"])
+def test_train_launcher_refuses_the_recurrent_families(arch, capsys):
+    from repro_torch.launch import train as train_launcher
+    with pytest.raises(SystemExit) as exc:
+        train_launcher.main(["--arch", arch, "--smoke", "--mesh", "4x1",
+                             "--device", "cpu"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "training the SSM and hybrid families is not ported" in err
+    assert "ROADMAP §1.5" in err and "it is served only" in err
 
 
 def test_serve_launcher_refuses_before_importing_torch():
